@@ -1,0 +1,89 @@
+"""Config/flag system (counterpart of quantumattention_tpu/config.py).
+
+A tree of plain namespaces whose defaults come from ``QUANTUM_ATTN_*``
+environment variables, plus dotted ``get``/``set`` and a ``patch()``
+context manager with the JAX package's semantics (config.py:185-223).
+
+Only the flags this package reads are here.  The TPU-only knobs
+(``vmem_limit_mb``, ``softmax_bf16``, ``interpret``, ``fp8_dot`` and the
+``enable_int8_*`` MXU gates) have no meaning on the GPU, and the weight,
+fused-layer, paging and autotune knobs arrive with their ROADMAP slices.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Iterator
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val not in ("0", "", "false", "False", "OFF", "off")
+
+
+class _Namespace:
+    """A mutable attribute namespace (one level of the config tree)."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        for key, value in kwargs.items():
+            setattr(self, key, value)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"_Namespace({vars(self)})"
+
+
+#: Kernel tuning knobs.  The slice-1 kernels use fixed tiles; the block-size
+#: knobs come back with the autotune slice (ROADMAP queue 1, item 10).
+kernel = _Namespace()
+
+attention = _Namespace(
+    # Skip the capability check in the dispatcher.
+    skip_supported_check=_env_bool("QUANTUM_ATTN_SKIP_SUPPORTED_CHECK", False),
+    # Route everything through the PyTorch SDPA reference path.
+    force_fallback=_env_bool("QUANTUM_ATTN_FORCE_FALLBACK", False),
+    # Enable the fused flash-forward kernel (ops/flash.py).
+    enable_cuda_kernel=_env_bool("QUANTUM_ATTN_ENABLE_CUDA_KERNEL", True),
+)
+
+
+_MODULE = __import__(__name__, fromlist=["_"])
+
+
+def _resolve(dotted: str):
+    """Resolve "a.b" to (namespace_object, leaf_name)."""
+    parts = dotted.split(".")
+    obj: Any = _MODULE
+    for part in parts[:-1]:
+        obj = getattr(obj, part)
+    leaf = parts[-1]
+    if not hasattr(obj, leaf):
+        raise AttributeError(f"unknown config key: {dotted!r}")
+    return obj, leaf
+
+
+def get(dotted: str) -> Any:
+    obj, leaf = _resolve(dotted)
+    return getattr(obj, leaf)
+
+
+def set(dotted: str, value: Any) -> None:  # noqa: A001 - mirrors config API
+    obj, leaf = _resolve(dotted)
+    setattr(obj, leaf, value)
+
+
+@contextlib.contextmanager
+def patch(changes: Dict[str, Any] | None = None, **kw: Any) -> Iterator[None]:
+    """Temporarily override config values by dotted key."""
+    merged: Dict[str, Any] = dict(changes or {})
+    merged.update(kw)
+    saved = {key: get(key) for key in merged}
+    try:
+        for key, value in merged.items():
+            set(key, value)
+        yield
+    finally:
+        for key, value in saved.items():
+            set(key, value)

@@ -1,0 +1,6 @@
+// C interface shared by every kernel of the library.
+#include <cuda_runtime.h>
+
+extern "C" const char* qa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

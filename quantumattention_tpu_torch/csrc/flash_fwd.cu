@@ -1,0 +1,327 @@
+// K1: fused attention forward for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel quantumattention_tpu/ops/flash.py::_flash_kernel
+// (flash.py:123; host entry flash_attention, flash.py:701). Same math:
+// S = Q.K^T with scale_q * scale_k * sm_scale * log2(e) folded into the
+// scores, an exp2-domain online softmax with fp32 running max / sum /
+// accumulator, P rounded to bf16 for P.V with fp32 accumulation, top-left
+// causal and ragged-KV-tail masks with MASK_VALUE (not -inf), GQA by
+// KV-head index (q head hq reads KV head hq / G).
+//
+// What bounds it on the H100: the two products, 4*S^2*D flops per head
+// (half of it under the causal mask), which the tensor cores run at up to
+// 989 TFLOP/s in bf16, and only through wgmma fed by TMA. This version is
+// the simple FlashAttention-2 structure on mma.sync: one CTA of 4 warps per
+// (b, q head, 64-row Q block), each warp owning 16 Q rows whose Q fragments,
+// scores, probabilities and output accumulator all stay in registers (the
+// m16n8k16 accumulator layout of S is the A-operand layout of P, so P never
+// leaves them). Each 64-row K/V tile is loaded once per CTA into shared
+// memory with 8-element vector loads and converted to bf16 on the way:
+// e4m3 and int8 are exact in bf16, which is what _compute_cast
+// (flash.py:109) does on the TPU. KV tiles wholly above the causal
+// diagonal are never loaded. TMA, wgmma, fp8 operands, cp.async
+// pipelining and warp specialisation are later work (ROADMAP queue 2).
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBM = 64;       // Q rows per CTA
+constexpr int kBN = 64;       // KV rows per tile
+constexpr int kWarps = 4;     // each warp owns 16 Q rows
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * (kBM + 2 * kBN) * (D + kPad) + sizeof(float) * kBN;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&hi)) << 16);
+}
+
+// D = A(16x16 bf16, row) * B(16x8 bf16, col) + C, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight consecutive elements (any input code) -> eight bf16 in a uint4.
+__device__ __forceinline__ uint4 load8_bf16(const void* p, int code, size_t i) {
+  float f[8];
+  if (code == qa::kBF16) {
+    return *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p) + i);
+  } else if (code == qa::kF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __half*>(p) + i);
+    const __half* h = reinterpret_cast<const __half*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __half2float(h[e]);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const unsigned char*>(p) + i);
+    const unsigned char* c = reinterpret_cast<const unsigned char*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (code == qa::kE4M3) {
+        __nv_fp8_e4m3 x;
+        x.__x = c[e];
+        f[e] = static_cast<float>(x);
+      } else {
+        f[e] = static_cast<float>(static_cast<signed char>(c[e]));
+      }
+    }
+  }
+  uint4 out;
+  out.x = pack_bf16(f[0], f[1]);
+  out.y = pack_bf16(f[2], f[3]);
+  out.z = pack_bf16(f[4], f[5]);
+  out.w = pack_bf16(f[6], f[7]);
+  return out;
+}
+
+// rows x D tile of a (.., S, D) tensor starting at row0 -> smem (row stride
+// D + kPad), zero rows past `valid`.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, int code,
+                                          size_t base, int row0, int valid) {
+  constexpr int kGroups = kBN * D / 8;
+  for (int i = threadIdx.x; i < kGroups; i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < valid) v = load8_bf16(src, code, base + static_cast<size_t>(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = v;
+  }
+}
+
+// scaling: 0 none, 1 head-wise (B, H), 2 token-wise (B, H, S).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                 const void* __restrict__ v, const float* __restrict__ scale_q,
+                 const float* __restrict__ scale_k, void* __restrict__ out,
+                 int Hq, int Hkv, int Sq, int Skv, int q_code, int k_code,
+                 int v_code, int out_code, int scaling, int causal,
+                 float score_scale) {
+  static_assert(kBM == kBN, "the Q tile reuses the tile loader");
+  constexpr int kStride = D + kPad;
+  constexpr int kNT = kBN / 8;   // 8-column score tiles per KV tile
+  constexpr int kDT = D / 8;     // 8-column output tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + kBM * kStride;
+  __nv_bfloat16* Vs = Ks + kBN * kStride;
+  float* col_scale = reinterpret_cast<float*>(Vs + kBN * kStride);
+
+  const int mb = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (Hq / Hkv);
+  const int q0 = mb * kBM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
+  const size_t q_base = static_cast<size_t>(b * Hq + hq) * Sq * D;
+  const size_t kv_base = static_cast<size_t>(b * Hkv + hk) * Skv * D;
+
+  // This thread's two Q rows and their folded score scales.
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  float rs0 = score_scale, rs1 = score_scale;
+  if (scaling == 1) {
+    const float s = scale_q[b * Hq + hq];
+    rs0 *= s;
+    rs1 *= s;
+  } else if (scaling == 2) {
+    const size_t sb = static_cast<size_t>(b * Hq + hq) * Sq;
+    rs0 *= row0 < Sq ? scale_q[sb + row0] : 0.f;
+    rs1 *= row1 < Sq ? scale_q[sb + row1] : 0.f;
+  }
+  const float head_k_scale = scaling == 1 ? scale_k[b * Hkv + hk] : 1.f;
+
+  load_tile<D>(Qs, q, q_code, q_base, q0, Sq);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  {
+    const __nv_bfloat16* qw = Qs + (warp * 16) * kStride;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + t * 2;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qw + g * kStride + c);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * kStride + c);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qw + g * kStride + c + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * kStride + c + 8);
+    }
+  }
+
+  float o[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
+
+  // Top-left causal: rows q0..q0+63 see columns < q0 + 64 at most.
+  const int kv_end = causal ? min(Skv, q0 + kBM) : Skv;
+  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
+    __syncthreads();  // the previous tile is no longer read
+    load_tile<D>(Ks, k, k_code, kv_base, n0, Skv);
+    load_tile<D>(Vs, v, v_code, kv_base, n0, Skv);
+    for (int c = threadIdx.x; c < kBN; c += kThreads) {
+      const int col = n0 + c;
+      col_scale[c] = scaling == 2
+          ? (col < Skv ? scale_k[static_cast<size_t>(b * Hkv + hk) * Skv + col] : 0.f)
+          : head_k_scale;
+    }
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 columns per warp.
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* kr = Ks + (j * 8 + g) * kStride + t * 2;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        mma_bf16(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
+                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
+      }
+    }
+
+    // Scale, mask, online softmax (rows row0 and row1 of this thread).
+    float mx0 = qa::kMaskValue, mx1 = qa::kMaskValue;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = j * 8 + t * 2 + e;
+        const int col = n0 + cl;
+        const float cs = col_scale[cl];
+        const bool in = col < Skv;
+        s[j][e] = in && (!causal || col <= row0) ? s[j][e] * rs0 * cs : qa::kMaskValue;
+        s[j][2 + e] = in && (!causal || col <= row1) ? s[j][2 + e] * rs1 * cs : qa::kMaskValue;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    l0 = a0 * l0 + sum0;
+    l1 = a1 * l1 + sum1;
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+
+    // O += P V. The score accumulators of tiles 2kk, 2kk+1 are P's A operand.
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const __nv_bfloat16* vr = Vs + (kk * 16 + t * 2) * kStride + g;
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        const __nv_bfloat16* vc = vr + j * 8;
+        const uint32_t b0 = pack_raw(vc[0], vc[kStride]);
+        const uint32_t b1 = pack_raw(vc[8 * kStride], vc[9 * kStride]);
+        mma_bf16(o[j], pa, b0, b1);
+      }
+    }
+  }
+
+  // Epilogue: full row sums, normalise, store; padded Q rows are never stored.
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int c = j * 8 + t * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row1 : row0;
+      if (row >= Sq) continue;
+      const float inv = half ? inv1 : inv0;
+      const float x0 = o[j][2 * half] * inv, x1 = o[j][2 * half + 1] * inv;
+      const size_t idx = q_base + static_cast<size_t>(row) * D + c;
+      if (out_code == qa::kF16) {
+        *reinterpret_cast<__half2*>(static_cast<__half*>(out) + idx) = __floats2half2_rn(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const float* sq,
+           const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
+           int q_code, int k_code, int v_code, int out_code, int scaling,
+           int causal, float score_scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kBM - 1) / kBM, Hq, B);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, sq, sk, out, Hq, Hkv, Sq, Skv, q_code, k_code, v_code,
+      out_code, scaling, causal, score_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// score_scale = sm_scale * log2(e). Tensors are contiguous (B, H, S, D) and
+// 16-byte aligned.
+extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
+                            const void* scale_q, const void* scale_k, void* out,
+                            int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                            int q_code, int k_code, int v_code, int out_code,
+                            int scaling, int causal, float score_scale,
+                            void* stream) {
+  const float* sq = static_cast<const float*>(scale_q);
+  const float* sk = static_cast<const float*>(scale_k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq == 0 || B == 0) return 0;
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
+                        k_code, v_code, out_code, scaling, causal, score_scale, s);
+    case 128:
+      return launch<128>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
+                         k_code, v_code, out_code, scaling, causal, score_scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

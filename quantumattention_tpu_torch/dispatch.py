@@ -1,0 +1,262 @@
+"""Dispatch, validation and in-graph quantization (counterpart of
+quantumattention_tpu/dispatch.py).
+
+Validation returns ``(ok, reason)`` with the JAX package's reason strings
+(dispatch.py:52-196); ``can_use_attention`` brackets them by backend
+(``[cuda: ...]``).  Float inputs to ``fp8_attention`` are quantized here,
+then run through the flash kernel.  The 8-bit container is always e4m3:
+the int8 choice of the JAX package (dispatch.py:474-478) is a TPU MXU gate.
+
+Forward only: the straight-through gradient and the backward kernels are
+slice 2 (ROADMAP queue 1, item 11).  ``"per-block"`` and ``"auto"``
+scaling raise ``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from . import config
+from .ops import quant
+from .ops.flash import KERNEL_HEAD_DIMS, flash_attention
+from .ops.sdpa import sdpa_reference
+from .utils import checks
+
+#: Head dims the fused kernel accepts (the CUDA build's).
+SUPPORTED_HEAD_DIMS = KERNEL_HEAD_DIMS
+
+_FLOAT_QK_DTYPES = (torch.bfloat16, torch.float16)
+_FP8_QK_DTYPES = (torch.float8_e4m3fn,)
+
+
+def _dtype_ok_qk(dtype) -> bool:
+    return dtype in _FLOAT_QK_DTYPES or dtype in _FP8_QK_DTYPES or dtype == torch.int8
+
+
+def _refuse_window(window) -> None:
+    if window is not None:
+        raise NotImplementedError(
+            "sliding windows are not ported yet (ROADMAP queue 1, item 6b)"
+        )
+
+
+def validate_flash_input(
+    query: Any,
+    key: Any,
+    value: Any,
+    attn_mask: Any = None,
+    dropout_p: float = 0.0,
+    is_causal: bool = False,
+    *,
+    scale: Optional[float] = None,
+    scale_q: Any = None,
+    scale_k: Any = None,
+    scaling_method: Optional[str] = None,
+) -> Tuple[bool, str]:
+    """Shape/dtype/feature validation for the fused kernel; ``(ok, reason)``.
+
+    Differs from the JAX package where the kernels differ: float32 Q/K/V and
+    head dims other than 64/128 are refused (the CUDA build takes
+    bf16/fp16/e4m3/int8 tiles of those widths), so the fallback serves them.
+    """
+    if attn_mask is not None:
+        return False, "attn_mask is not supported by the fused kernel"
+    if dropout_p != 0.0:
+        return False, "dropout is not supported by the fused kernel"
+    for name, t in (("query", query), ("key", key), ("value", value)):
+        if t.ndim != 4:
+            return False, f"{name} must be 4-D (B, H, S, D), got {t.ndim}-D"
+    b_q, h_q, s_q, d_q = query.shape
+    b_k, h_k, s_k, d_k = key.shape
+    b_v, h_v, s_v, d_v = value.shape
+    if not (b_q == b_k == b_v):
+        return False, f"batch mismatch: {b_q}, {b_k}, {b_v}"
+    if h_k != h_v:
+        return False, f"key/value head mismatch: {h_k} vs {h_v}"
+    if h_q % h_k != 0:
+        return False, (
+            f"num query heads ({h_q}) must be a multiple of kv heads ({h_k})"
+        )
+    if s_k != s_v:
+        return False, f"key/value length mismatch: {s_k} vs {s_v}"
+    if d_q != d_k:
+        return False, f"query/key head_dim mismatch: {d_q} vs {d_k}"
+    if d_q != d_v:
+        return False, f"query/value head_dim mismatch: {d_q} vs {d_v}"
+    if d_q not in SUPPORTED_HEAD_DIMS:
+        return False, (
+            f"head_dim {d_q} unsupported (want one of {SUPPORTED_HEAD_DIMS})"
+        )
+    if not _dtype_ok_qk(query.dtype):
+        return False, f"query dtype {query.dtype} unsupported"
+    if not _dtype_ok_qk(key.dtype):
+        return False, f"key dtype {key.dtype} unsupported"
+    if not (value.dtype in _FLOAT_QK_DTYPES or value.dtype in _FP8_QK_DTYPES):
+        return False, f"value dtype {value.dtype} unsupported"
+
+    has_scales = scale_q is not None or scale_k is not None
+    if (scale_q is None) != (scale_k is None):
+        return False, "scale_q and scale_k must be provided together"
+    if checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
+        if query.dtype == torch.int8 and not has_scales:
+            return False, "int8 query/key require scale_q/scale_k"
+    if has_scales:
+        if scale_q.ndim not in (2, 3):
+            return False, (
+                "scales must be head-wise (B, H) or token-wise (B, H, S), "
+                f"got rank {scale_q.ndim}"
+            )
+        if scale_q.ndim != scale_k.ndim:
+            return False, "scale_q/scale_k rank mismatch"
+        expected = {"head-wise": 2, "token-wise": 3}.get(scaling_method)
+        if expected is not None and scale_q.ndim != expected:
+            return False, (
+                f"scaling_method={scaling_method!r} expects rank-{expected} "
+                f"scales, got rank {scale_q.ndim}"
+            )
+        if tuple(scale_q.shape[:2]) != (b_q, h_q):
+            return False, (
+                f"scale_q leading dims {tuple(scale_q.shape[:2])} != (B, Hq) "
+                f"({b_q}, {h_q})"
+            )
+        if tuple(scale_k.shape[:2]) != (b_k, h_k):
+            return False, (
+                f"scale_k leading dims {tuple(scale_k.shape[:2])} != (B, Hkv) "
+                f"({b_k}, {h_k})"
+            )
+        if scale_q.ndim == 3 and (
+            scale_q.shape[2] != s_q or scale_k.shape[2] != s_k
+        ):
+            return False, "token-wise scale length mismatch"
+    return True, ""
+
+
+def can_use_attention(
+    query: Any,
+    key: Any,
+    value: Any,
+    attn_mask: Any = None,
+    dropout_p: float = 0.0,
+    is_causal: bool = False,
+    *,
+    scale: Optional[float] = None,
+    scale_q: Any = None,
+    scale_k: Any = None,
+    scaling_method: Optional[str] = None,
+    window=None,
+) -> Tuple[bool, str]:
+    """Aggregate capability check with self-explaining reason strings."""
+    _refuse_window(window)
+    if config.attention.skip_supported_check:
+        return True, ""
+    if config.attention.force_fallback:
+        return False, "[cuda: disabled by config.attention.force_fallback]"
+    if not config.attention.enable_cuda_kernel:
+        return False, "[cuda: disabled by config.attention.enable_cuda_kernel]"
+    ok, reason = validate_flash_input(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method=scaling_method,
+    )
+    return (True, "") if ok else (False, f"[cuda: {reason}]")
+
+
+def attention(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None, window=None,
+):
+    """bf16/fp16 fused attention dispatch; raises ``ValueError`` with the
+    aggregated reason when the fused kernel cannot serve the inputs."""
+    _refuse_window(window)
+    supported, reason = can_use_attention(
+        query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+    )
+    if not supported:
+        raise ValueError(f"attention is not supported for the input: {reason}")
+    return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale)
+
+
+def _quantize_for(t, scaling_method: str):
+    """Dynamic e4m3 quantization at the requested granularity."""
+    if scaling_method == "head-wise":
+        return quant.quantize_head_wise(t, torch.float8_e4m3fn)
+    if scaling_method == "token-wise":
+        return quant.quantize_token_wise(t, torch.float8_e4m3fn)
+    raise ValueError(f"unknown scaling_method: {scaling_method!r}")
+
+
+def fp8_attention(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q=None, scale_k=None, scaling_method: Optional[str] = None,
+    window=None,
+):
+    """FP8 fused attention dispatch.
+
+    Float Q/K are quantized here to e4m3 at ``scaling_method`` granularity
+    (default head-wise); pre-quantized inputs come with their scales.
+    """
+    _refuse_window(window)
+    if scaling_method is None:
+        scaling_method = "head-wise"
+    if scaling_method in ("per-block", "auto"):
+        raise NotImplementedError(
+            f"scaling_method={scaling_method!r} is not ported yet "
+            "(ROADMAP queue 1, items 6c and 10)"
+        )
+    if scaling_method not in ("head-wise", "token-wise"):
+        raise ValueError(f"unknown scaling_method: {scaling_method!r}")
+    if (scale_q is None) != (scale_k is None):
+        raise ValueError("scale_q and scale_k must be provided together")
+
+    if scale_q is None and not checks.is_8bit_dtype(query.dtype):
+        supported, reason = can_use_attention(
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+        )
+        if not supported:
+            raise ValueError(
+                f"fp8_attention is not supported for the input: {reason}"
+            )
+        q8, scale_q = _quantize_for(query, scaling_method)
+        k8, scale_k = _quantize_for(key, scaling_method)
+        return flash_attention(
+            q8, k8, value, scale_q=scale_q, scale_k=scale_k,
+            is_causal=is_causal, sm_scale=scale,
+        )
+
+    supported, reason = can_use_attention(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method=scaling_method,
+    )
+    if not supported:
+        raise ValueError(f"fp8_attention is not supported for the input: {reason}")
+    return flash_attention(
+        query, key, value, scale_q=scale_q, scale_k=scale_k,
+        is_causal=is_causal, sm_scale=scale,
+    )
+
+
+def sdpa_fallback(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q=None, scale_k=None, window=None,
+    generator: Optional[torch.Generator] = None,
+):
+    """The always-correct PyTorch path.  ``sdpa_fallback.calls`` counts
+    its uses, so a run can show that its attention took the kernel."""
+    _refuse_window(window)
+    sdpa_fallback.calls += 1
+    out_dtype = value.dtype
+    if checks.is_8bit_dtype(out_dtype):
+        out_dtype = torch.bfloat16
+    return sdpa_reference(
+        query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
+        is_causal=is_causal, scale=scale, scale_q=scale_q, scale_k=scale_k,
+        generator=generator, out_dtype=out_dtype,
+    )
+
+
+sdpa_fallback.calls = 0

@@ -1,0 +1,145 @@
+"""Public functional API (counterpart of quantumattention_tpu/interface.py).
+
+  attn_func / attn_func_with_fallback
+  fp8_attn_func / fp8_attn_func_with_fallback
+  fp8_token_wise_attn_func / fp8_token_wise_attn_func_with_fallback
+
+The ``*_with_fallback`` variants run the fused kernel when
+``can_use_attention`` accepts the inputs and the PyTorch SDPA reference
+otherwise.  ``window`` is accepted for signature parity and raises
+``NotImplementedError`` until sliding windows are ported (ROADMAP queue 1,
+item 6b); the segment-id and block-mask arguments of ``attn_func`` likewise
+(item 6d).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from . import dispatch
+
+__all__ = [
+    "attn_func",
+    "attn_func_with_fallback",
+    "fp8_attn_func",
+    "fp8_attn_func_with_fallback",
+    "fp8_token_wise_attn_func",
+    "fp8_token_wise_attn_func_with_fallback",
+]
+
+
+def attn_func(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    window=None, q_segment_ids=None, kv_segment_ids=None, block_mask=None,
+):
+    """Fused bf16/fp16 attention; raises ``ValueError`` when the fused
+    kernel cannot serve the inputs."""
+    if q_segment_ids is not None or kv_segment_ids is not None or block_mask is not None:
+        raise NotImplementedError(
+            "segment ids and block masks are not ported yet "
+            "(ROADMAP queue 1, item 6d)"
+        )
+    return dispatch.attention(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, window=window,
+    )
+
+
+def attn_func_with_fallback(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    window=None, generator: Optional[torch.Generator] = None,
+):
+    """``attn_func`` that degrades to the SDPA reference path."""
+    supported, _ = dispatch.can_use_attention(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, window=window,
+    )
+    if supported:
+        return attn_func(
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+        )
+    return dispatch.sdpa_fallback(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, generator=generator,
+    )
+
+
+def fp8_attn_func(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q: Any = None, scale_k: Any = None,
+    scaling_method: Optional[str] = None, window=None,
+):
+    """FP8 fused attention, head-wise scales by default; ``scaling_method``
+    "head-wise" or "token-wise"."""
+    return dispatch.fp8_attention(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method=scaling_method, window=window,
+    )
+
+
+def fp8_attn_func_with_fallback(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q: Any = None, scale_k: Any = None,
+    scaling_method: Optional[str] = None, window=None,
+    generator: Optional[torch.Generator] = None,
+):
+    """``fp8_attn_func`` with graceful degradation.  The fallback
+    dequantizes pre-quantized inputs, so it is correct for any scales."""
+    if scaling_method is None:
+        scaling_method = "head-wise"
+    supported, _ = dispatch.can_use_attention(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method=scaling_method, window=window,
+    )
+    # Float inputs are quantized in dispatch.fp8_attention, which always gives
+    # kernel-compatible scales: the float shapes are what must pass.
+    if supported or (
+        scale_q is None
+        and dispatch.can_use_attention(
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+        )[0]
+    ):
+        return fp8_attn_func(
+            query, key, value, attn_mask, dropout_p, is_causal,
+            scale=scale, scale_q=scale_q, scale_k=scale_k,
+            scaling_method=scaling_method,
+        )
+    return dispatch.sdpa_fallback(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k, generator=generator,
+    )
+
+
+def fp8_token_wise_attn_func(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q: Any = None, scale_k: Any = None, window=None,
+):
+    """FP8 attention pinned to token-wise scaling."""
+    return fp8_attn_func(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method="token-wise", window=window,
+    )
+
+
+def fp8_token_wise_attn_func_with_fallback(
+    query, key, value, attn_mask=None, dropout_p: float = 0.0,
+    is_causal: bool = False, *, scale: Optional[float] = None,
+    scale_q: Any = None, scale_k: Any = None, window=None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Token-wise FP8 attention with graceful degradation."""
+    return fp8_attn_func_with_fallback(
+        query, key, value, attn_mask, dropout_p, is_causal,
+        scale=scale, scale_q=scale_q, scale_k=scale_k,
+        scaling_method="token-wise", window=window, generator=generator,
+    )

@@ -1,0 +1,319 @@
+"""Llama-family decoder on the fused attention engine (counterpart of
+quantumattention_tpu/models/llama.py).
+
+RMSNorm -> GQA attention with RoPE -> SwiGLU MLP, with attention served by
+``fp8_attn_func_with_fallback`` (the default ``attention_impl="fp8"``),
+``attn_func_with_fallback`` ("bf16") or the SDPA reference ("sdpa").
+Parameters are a plain dict with the JAX package's names and layouts:
+every weight is stored (in, out), "transposed-for-einsum", so
+``models/convert.params_from_numpy`` maps a JAX tree onto it one to one.
+
+Forward only.  Not yet: sliding windows (ROADMAP queue 1, item 6b), MoE
+FFNs (item 18), quantized or fused-projection weight trees and the lean
+decode path they enable (item 13), loss and training (item 14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import interface
+from . import quantized
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_q_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    #: "fp8" routes attention through fp8_attn_func_with_fallback (dynamic
+    #: quantization at ``scaling_method``), "bf16" through
+    #: attn_func_with_fallback, "sdpa" forces the reference path.
+    attention_impl: str = "fp8"
+    scaling_method: str = "head-wise"
+    #: Sliding-window extent: not ported yet, must stay None.
+    window: Optional[int] = None
+    tie_embeddings: bool = False
+    qkv_bias: bool = False
+    #: Mixture-of-Experts FFN: not ported yet, must stay 0.
+    num_experts: int = 0
+
+    def __post_init__(self):
+        if self.window is not None:
+            raise NotImplementedError(
+                "sliding-window models are not ported yet (ROADMAP queue 1, item 6b)"
+            )
+        if self.num_experts:
+            raise NotImplementedError(
+                "MoE models are not ported yet (ROADMAP queue 1, item 18)"
+            )
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_q_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+def llama3_8b(**overrides) -> LlamaConfig:
+    """Llama-3-8B's published shapes."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=128256,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_q_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=500000.0,
+        ),
+        **overrides,
+    )
+
+
+def tiny(**overrides) -> LlamaConfig:
+    """Small config for tests (the JAX package's ``tiny``)."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=256,
+            hidden_size=128,
+            intermediate_size=256,
+            num_layers=2,
+            num_q_heads=8,
+            num_kv_heads=4,
+            head_dim=64,
+            rope_theta=10000.0,
+        ),
+        **overrides,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(
+    generator: torch.Generator, cfg: LlamaConfig, device=None
+) -> Params:
+    """Truncated-normal init in [-3, 3], scaled 1/sqrt(fan_in), stored in
+    cfg.dtype, drawn from ``generator`` on ``device`` (the generator's
+    device by default).  One fp32 matrix is live at a time."""
+    device = torch.device(device if device is not None else generator.device)
+
+    def dense(shape):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
+        return w.div_(math.sqrt(shape[0])).to(cfg.dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    params: Params = {
+        "embed": dense((cfg.vocab_size, cfg.hidden_size)),
+        "final_norm": ones(cfg.hidden_size),
+        "layers": [],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((cfg.hidden_size, cfg.vocab_size))
+    for _ in range(cfg.num_layers):
+        layer: Params = {}
+        if cfg.qkv_bias:
+            layer.update(
+                bq=torch.zeros((cfg.q_dim,), dtype=cfg.dtype, device=device),
+                bk=torch.zeros((cfg.kv_dim,), dtype=cfg.dtype, device=device),
+                bv=torch.zeros((cfg.kv_dim,), dtype=cfg.dtype, device=device),
+            )
+        layer.update(
+            attn_norm=ones(cfg.hidden_size),
+            wq=dense((cfg.hidden_size, cfg.q_dim)),
+            wk=dense((cfg.hidden_size, cfg.kv_dim)),
+            wv=dense((cfg.hidden_size, cfg.kv_dim)),
+            wo=dense((cfg.q_dim, cfg.hidden_size)),
+            mlp_norm=ones(cfg.hidden_size),
+            w_gate=dense((cfg.hidden_size, cfg.intermediate_size)),
+            w_up=dense((cfg.hidden_size, cfg.intermediate_size)),
+            w_down=dense((cfg.intermediate_size, cfg.hidden_size)),
+        )
+        params["layers"].append(layer)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_table(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., S) int positions -> cos/sin tables of shape (..., S, head_dim//2)."""
+    exponent = torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=positions.device
+    ) / head_dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, H, S, D) by per-position cos/sin ((B, S, D/2) or (S, D/2)),
+    split-halves convention (rotate_half), as HF Llama."""
+    if cos.ndim == 2:
+        cos_b, sin_b = cos[None, None], sin[None, None]
+    else:
+        cos_b, sin_b = cos[:, None], sin[:, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat((x1 * cos_b - x2 * sin_b, x2 * cos_b + x1 * sin_b), dim=-1)
+    return out.to(x.dtype)
+
+
+def _attend(cfg: LlamaConfig, q, k, v, *, is_causal: bool):
+    if cfg.attention_impl == "fp8":
+        return interface.fp8_attn_func_with_fallback(
+            q, k, v, is_causal=is_causal, scaling_method=cfg.scaling_method
+        )
+    if cfg.attention_impl == "bf16":
+        return interface.attn_func_with_fallback(q, k, v, is_causal=is_causal)
+    if cfg.attention_impl == "sdpa":
+        from ..dispatch import sdpa_fallback
+
+        return sdpa_fallback(q, k, v, is_causal=is_causal)
+    raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
+
+
+def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn):
+    """norm -> QKV -> RoPE -> ``attend_fn(idx, q, k, v)`` on (B, H, T, D).
+    Returns (attn_out (B, T, q_dim) before wo, post-RoPE k, v)."""
+    batch, t, _ = x.shape
+    h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    q = quantized.matmul(h, layer["wq"])
+    k = quantized.matmul(h, layer["wk"])
+    v = quantized.matmul(h, layer["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    q = q.reshape(batch, t, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = attend_fn(idx, q, k, v)
+    out = out.to(x.dtype).transpose(1, 2).reshape(batch, t, cfg.q_dim)
+    return out, k, v
+
+
+def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    gate = quantized.matmul(h, layer["w_gate"])
+    up = quantized.matmul(h, layer["w_up"])
+    act = F.silu(gate.float()).to(x.dtype) * up
+    return x + quantized.matmul(act, layer["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_pos=None):
+    """embed -> [attention, MLP] x L -> norm -> head.  With ``last_pos``
+    ((B,) int) the head runs only at that position of each row."""
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
+    kv = []
+    for idx, layer in enumerate(params["layers"]):
+        attn_out, k, v = _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn)
+        if collect_kv:
+            kv.append((k, v))
+        x = x + quantized.matmul(attn_out, layer["wo"])
+        x = mlp_block(cfg, layer, x)
+    if last_pos is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x = x[rows, last_pos.to(x.device)][:, None, :]
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if cfg.tie_embeddings:
+        logits = quantized.tied_head_matmul(x, params["embed"])
+    else:
+        logits = quantized.matmul(x, params["lm_head"])
+    logits = logits.float()
+    return (logits, kv) if collect_kv else logits
+
+
+def _fused_attend(cfg: LlamaConfig):
+    return lambda _i, q, k, v: _attend(cfg, q, k, v, is_causal=True)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+
+
+@torch.no_grad()
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, positions=None):
+    """(B, S) int tokens -> (B, S, vocab) fp32 logits."""
+    if positions is None:
+        positions = _positions(tokens)
+    return _decoder(params, tokens, positions, cfg, _fused_attend(cfg))
+
+
+@torch.no_grad()
+def forward_prefill(
+    params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+    positions=None, last_pos: Optional[torch.Tensor] = None,
+):
+    """Prefill forward that also returns per-layer post-RoPE K/V.
+
+    Returns (logits, kv): kv is a list of (k, v), each (B, Hkv, S, D) in
+    cfg.dtype.  With ``last_pos`` logits are (B, vocab)."""
+    if positions is None:
+        positions = _positions(tokens)
+    logits, kv = _decoder(
+        params, tokens, positions, cfg, _fused_attend(cfg),
+        collect_kv=True, last_pos=last_pos,
+    )
+    if last_pos is not None:
+        logits = logits[:, 0, :]
+    return logits, kv
+
+
+@torch.no_grad()
+def forward_decode(
+    params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+    cfg: LlamaConfig, attend_fn: Callable,
+):
+    """One-token decode forward.
+
+    tokens (B,) current tokens; positions (B,) their positions (== the
+    pre-append cache lengths); ``attend_fn(layer_idx, q, k_new, v_new)``
+    takes (B, H, D) post-RoPE tensors and returns (B, Hq, D).
+    Returns (B, vocab) fp32 logits.
+    """
+
+    def attend_t1(idx, q, k, v):
+        out = attend_fn(idx, q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :])
+        return out[:, :, None, :]
+
+    logits = _decoder(params, tokens[:, None], positions[:, None], cfg, attend_t1)
+    return logits[:, 0, :]

@@ -1,0 +1,145 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, into ``build/kernels/<hash>/`` beside the package (a
+directory ``.gitignore`` lists), keyed by a hash of the sources and flags,
+so a fresh checkout builds everything on its first kernel call.  A build
+failure raises; nothing falls back.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises when that is not 0 (a launch refused for its
+resources never runs, and a later synchronize does not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: argtypes of every C entry point (pointers and the stream as c_void_p).
+_SIGNATURES = {
+    # q, k, v, scale_q, scale_k, out, B, Hq, Hkv, Sq, Skv, D,
+    # q_code, k_code, v_code, out_code, scaling, causal, score_scale, stream
+    "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
+    # B, Hq, Hkv, Smax, D, kv_code, score_scale, stream
+    "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _F, _P],
+    # Smax -> number of split-KV chunks of qa_decode
+    "qa_decode_num_splits": [_I],
+}
+
+
+class _State:
+    lib = None
+    build_seconds = None
+    build_log = ""
+
+
+def _find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils import cpp_extension
+
+    if cpp_extension.CUDA_HOME:
+        cand = Path(cpp_extension.CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _build() -> Path:
+    cus, headers = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cus + headers:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib_path = out_dir / "libqa_torch_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"tmp-{os.getpid()}.so"
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _State.build_seconds = time.perf_counter() - t0
+    _State.build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{_State.build_log}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    if _State.lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.qa_error_string.argtypes = [ctypes.c_int]
+        lib.qa_error_string.restype = ctypes.c_char_p
+        _State.lib = lib
+    return _State.lib
+
+
+def build_info() -> dict:
+    """Seconds the last build in this process took (None when the library
+    was already built) and the compiler's output (registers, spills)."""
+    return {"seconds": _State.build_seconds, "log": _State.build_log}
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().qa_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+#: Element-type codes shared with the C sources (csrc/common.cuh).
+DTYPE_CODES = {
+    torch.bfloat16: 0,
+    torch.float16: 1,
+    torch.float8_e4m3fn: 2,
+    torch.int8: 3,
+}
+
+
+def dtype_code(dtype) -> int:
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"no kernel element type for {dtype}")
+    return DTYPE_CODES[dtype]

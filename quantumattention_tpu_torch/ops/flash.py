@@ -1,0 +1,176 @@
+"""Fused flash-attention forward (counterpart of quantumattention_tpu/ops/flash.py).
+
+``flash_attention`` is the wrapper of kernel K1 (``csrc/flash_fwd.cu``,
+the port of the Pallas ``_flash_kernel``, flash.py:123).  A CPU tensor runs
+the kernel's plain version, :func:`flash_attention_plain`; a CUDA tensor
+runs the kernel or raises.  ``flash_attention.launches`` counts launches.
+
+Covered: no scaling (bf16/fp16), head-wise (B, H) and token-wise (B, H, S)
+scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal masking,
+D in {64, 128}.  Not yet (ROADMAP queue 1, item 6 b-e): ``window``, position
+offsets, ``return_residuals``, segment ids, ``block_mask``,
+``fused_block_quant`` and int8 V with ``scale_v``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..utils import checks
+from . import _native
+from .sdpa import sdpa_reference
+
+LOG2E = math.log2(math.e)
+
+#: Head dims the CUDA kernel is built for.
+KERNEL_HEAD_DIMS = (64, 128)
+
+_NOT_YET = {
+    "window": "sliding windows",
+    "q_offset": "position offsets",
+    "kv_offset": "position offsets",
+    "return_residuals": "residual (m, l) outputs",
+    "q_segment_ids": "segment ids",
+    "kv_segment_ids": "segment ids",
+    "block_mask": "block-sparse masks",
+    "fused_block_quant": "per-block in-kernel quantization",
+    "scale_v": "int8 V with per-channel scale_v",
+}
+
+
+def _scaling(scale_q, scale_k) -> str:
+    if (scale_q is None) != (scale_k is None):
+        raise ValueError("scale_q and scale_k must be given together")
+    if scale_q is None:
+        return "none"
+    if scale_q.ndim == 2:
+        return "head"
+    if scale_q.ndim == 3:
+        return "token"
+    raise ValueError(f"bad scale rank: {scale_q.ndim}")
+
+
+def out_dtype_for(v_dtype) -> torch.dtype:
+    """v's float dtype; an 8-bit v gives bf16 (flash.py:1100-1102)."""
+    return torch.bfloat16 if checks.is_8bit_dtype(v_dtype) else v_dtype
+
+
+def flash_attention_plain(
+    q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None
+) -> torch.Tensor:
+    """K1's plain version: dequantize, then the fp32 oracle."""
+    return sdpa_reference(
+        q, k, v, is_causal=is_causal, scale=sm_scale, scale_q=scale_q,
+        scale_k=scale_k, out_dtype=out_dtype_for(v.dtype),
+    )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale_q: Optional[torch.Tensor] = None,
+    scale_k: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    **not_yet,
+) -> torch.Tensor:
+    """Fused attention forward over (B, H, S, D) tensors.
+
+    q (B, Hq, Sq, D) bf16/fp16, or e4m3/int8 with scales; k (B, Hkv, Skv, D)
+    of q's family, Hq % Hkv == 0; v (B, Hkv, Skv, D) bf16/fp16/e4m3.
+    ``scale_q``/``scale_k``: (B, H) head-wise or (B, H, S) token-wise fp32
+    dequantization scales, both or neither.  ``sm_scale`` defaults to
+    1/sqrt(D).  Returns (B, Hq, Sq, D) in v's float dtype.
+    """
+    for name, val in not_yet.items():
+        if name not in _NOT_YET:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        if val is not None and val is not False:
+            raise NotImplementedError(
+                f"flash_attention: {_NOT_YET[name]} ({name}) are not ported "
+                "yet (ROADMAP queue 1, item 6)"
+            )
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S, D)")
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError("num_q_heads must be divisible by num_kv_heads")
+    scaling = _scaling(scale_q, scale_k)
+    if q.dtype == torch.int8 and scaling == "none":
+        raise ValueError("int8 q/k require scales")
+    if v.dtype == torch.int8:
+        raise NotImplementedError(
+            "flash_attention: int8 V (scale_v) is not ported yet "
+            "(ROADMAP queue 1, item 6e)"
+        )
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale_q, scale_k, is_causal, sm_scale)
+    return _flash_fwd_cuda(
+        _dense(q), _dense(k), _dense(v),
+        None if scale_q is None else scale_q.float().contiguous(),
+        None if scale_k is None else scale_k.float().contiguous(),
+        scaling, is_causal, sm_scale,
+    )
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernel's vector loads need."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+flash_attention.launches = 0
+
+_SCALING_CODES = {"none": 0, "head": 1, "token": 2}
+
+
+def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale):
+    """Check what the kernel takes, launch it on the current stream."""
+    checks.require_hopper(q.device)
+    tensors = [q, k, v] + [t for t in (scale_q, scale_k) if t is not None]
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError("all K1 operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("K1 operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("K1's q, k, v must be 16-byte aligned")
+    batch, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != batch or k.shape[3] != d:
+        raise ValueError(f"bad K/V shapes {tuple(k.shape)}, {tuple(v.shape)}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K1 is built for head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    if scaling == "head" and (
+        scale_q.shape != (batch, hq) or scale_k.shape != (batch, hkv)
+    ):
+        raise ValueError("head-wise scales must be (B, Hq) and (B, Hkv)")
+    if scaling == "token" and (
+        scale_q.shape != (batch, hq, sq) or scale_k.shape != (batch, hkv, skv)
+    ):
+        raise ValueError("token-wise scales must be (B, Hq, Sq) and (B, Hkv, Skv)")
+    if v.dtype == torch.int8:
+        raise ValueError("K1 takes a float or e4m3 V")
+    out_dtype = out_dtype_for(v.dtype)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    lib = _native.library()
+    err = lib.qa_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if scale_q is None else scale_q.data_ptr(),
+        None if scale_k is None else scale_k.data_ptr(),
+        out.data_ptr(), batch, hq, hkv, sq, skv, d,
+        _native.dtype_code(q.dtype), _native.dtype_code(k.dtype),
+        _native.dtype_code(v.dtype), _native.dtype_code(out_dtype),
+        _SCALING_CODES[scaling], int(bool(is_causal)),
+        float(sm_scale * LOG2E),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _native.check(err, "qa_flash_fwd")
+    flash_attention.launches += 1
+    return out

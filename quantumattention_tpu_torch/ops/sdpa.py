@@ -1,0 +1,89 @@
+"""Reference scaled-dot-product attention (counterpart of
+quantumattention_tpu/ops/sdpa.py).
+
+Plain PyTorch in fp32.  It is at once the numerical definition of every
+fused attention op (an fp8 op is dequantize-then-SDPA), the accuracy oracle
+of the tests and of ``chip_smoke.py``, the plain version of the flash
+kernel K1 (ops/flash.py), and the fallback of the ``*_with_fallback``
+entry points.  It calls no fused PyTorch operator.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+#: Large-negative logit used instead of -inf so fully-masked rows do not
+#: produce NaNs through exp(-inf - (-inf)).
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _dequantize(t: torch.Tensor, scale: Optional[torch.Tensor], dtype):
+    t = t.to(dtype)
+    if scale is not None:
+        scale = scale.to(dtype)
+        while scale.ndim < t.ndim:
+            scale = scale[..., None]
+        t = t * scale
+    return t
+
+
+def sdpa_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    attn_mask: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    is_causal: bool = False,
+    *,
+    scale: Optional[float] = None,
+    scale_q: Optional[torch.Tensor] = None,
+    scale_k: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    compute_dtype=torch.float32,
+    out_dtype=None,
+) -> torch.Tensor:
+    """Unfused attention over (B, H, S, D) tensors.
+
+    GQA when ``num_q_heads % num_kv_heads == 0`` (K/V heads repeated).
+    Causal masking is top-left aligned: query i sees key j iff j <= i.
+    ``scale_q``/``scale_k`` dequantize pre-quantized inputs first.
+    ``dropout_p > 0`` draws its keep mask from ``generator``.
+    """
+    if out_dtype is None:
+        out_dtype = value.dtype
+    _, num_q_heads, q_len, head_dim = query.shape
+    num_kv_heads, kv_len = key.shape[1], key.shape[2]
+    if num_q_heads % num_kv_heads != 0:
+        raise ValueError(
+            f"num_q_heads ({num_q_heads}) must be divisible by num_kv_heads "
+            f"({num_kv_heads})"
+        )
+    q = _dequantize(query, scale_q, compute_dtype)
+    k = _dequantize(key, scale_k, compute_dtype)
+    v = value.to(compute_dtype)
+    if num_kv_heads != num_q_heads:
+        rep = num_q_heads // num_kv_heads
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+
+    sm_scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
+    logits = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+    if is_causal:
+        q_pos = torch.arange(q_len, device=q.device)[:, None]
+        kv_pos = torch.arange(kv_len, device=q.device)[None, :]
+        logits = logits.masked_fill(kv_pos > q_pos, DEFAULT_MASK_VALUE)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, DEFAULT_MASK_VALUE)
+        else:
+            logits = logits + attn_mask.to(compute_dtype)
+    weights = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = torch.rand(
+            weights.shape, generator=generator, device=weights.device
+        ) < (1.0 - dropout_p)
+        weights = torch.where(keep, weights / (1.0 - dropout_p), 0.0)
+    return torch.matmul(weights, v).to(out_dtype)

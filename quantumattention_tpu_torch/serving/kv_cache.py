@@ -1,0 +1,108 @@
+"""Quantized ragged KV cache for decode serving (counterpart of
+quantumattention_tpu/serving/kv_cache.py).
+
+  k / v:            (num_slots, Hkv, Smax, D)   int8 (default) or bf16
+  k_scale/v_scale:  (num_slots, Hkv, Smax)      fp32 (int8 caches only)
+  lengths:          (num_slots,)                int32 valid lengths
+
+Token-wise quantization (reduction over D).  Unlike the JAX package, whose
+arrays are immutable, :func:`append` and :func:`free_slots` write the
+cache's tensors IN PLACE (indexed assignment / slice copies) and return the
+same object: a cache holds gigabytes at serving sizes, and a copy per
+token would dominate the decode step.
+
+Not yet: packed int4 caches, ``append_quantized_token`` and ``flush_side``
+(the fused decode-layer slice, ROADMAP queue 1, item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import quant
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(
+    num_slots: int, num_kv_heads: int, max_len: int, head_dim: int,
+    dtype=torch.int8, device=None,
+) -> KVCache:
+    """An empty cache; 8-bit scales start at ones (kv_cache.py:76-78)."""
+    if dtype not in (torch.int8, torch.bfloat16):
+        raise NotImplementedError(f"{dtype} KV caches are not ported yet")
+    shape = (num_slots, num_kv_heads, max_len, head_dim)
+    cache = KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
+    )
+    if dtype == torch.int8:
+        cache.k_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+        cache.v_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+    return cache
+
+
+def _quantize_tokens(t: torch.Tensor, dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(..., D) float -> (values, (...) scales) in the cache container."""
+    if dtype != torch.int8:
+        return t.to(dtype), None
+    return quant.dynamically_quantize_int8(t, reduction_dim=-1)
+
+
+def append(
+    cache: KVCache,
+    slot_ids: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    offsets: torch.Tensor,
+    n_valid: torch.Tensor,
+) -> KVCache:
+    """Write n_valid[i] new tokens for each slot and bump its length, in place.
+
+    slot_ids (N,) cache slots; k_new/v_new (N, Hkv, T, D) float tokens
+    (T = 1 for decode, a padded prompt width for prefill); offsets (N,)
+    write positions; n_valid (N,) how many of the T tokens are real.  All
+    T rows are written (rows past n_valid hold garbage that the lengths
+    mask); a write is clipped at max_len.
+    """
+    kq, ks = _quantize_tokens(k_new, cache.k.dtype)
+    vq, vs = _quantize_tokens(v_new, cache.v.dtype)
+    t = k_new.shape[2]
+    if t == 1:
+        # One indexed write per tensor for all slots (distinct rows).
+        cache.k[slot_ids, :, offsets] = kq[:, :, 0]
+        cache.v[slot_ids, :, offsets] = vq[:, :, 0]
+        if ks is not None:
+            cache.k_scale[slot_ids, :, offsets] = ks[:, :, 0]
+            cache.v_scale[slot_ids, :, offsets] = vs[:, :, 0]
+    else:
+        for i, (slot, off) in enumerate(zip(slot_ids.tolist(), offsets.tolist())):
+            n = min(t, cache.max_len - off)
+            cache.k[slot, :, off : off + n] = kq[i, :, :n]
+            cache.v[slot, :, off : off + n] = vq[i, :, :n]
+            if ks is not None:
+                cache.k_scale[slot, :, off : off + n] = ks[i, :, :n]
+                cache.v_scale[slot, :, off : off + n] = vs[i, :, :n]
+    cache.lengths[slot_ids] = (offsets + n_valid).to(torch.int32)
+    return cache
+
+
+def free_slots(cache: KVCache, slot_ids: torch.Tensor) -> KVCache:
+    """Mark slots empty (lengths 0), in place; data is overwritten later."""
+    cache.lengths[slot_ids] = 0
+    return cache

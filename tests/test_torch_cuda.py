@@ -1,0 +1,187 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (inside the ``cuda`` fixture) where no
+CUDA device is present, so on a CPU-only machine they count as skipped.
+On a machine with the card and without JAX, run them alone, without the
+JAX test bootstrap:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: kernel and plain version both round P and the output to bf16
+(or fp16) and sum in other orders, so they may differ by a couple of
+half-precision ulps of values below 2 (ATOL = 1/32); the RMSE against the
+fp32 oracle on the same (dequantized) inputs must stay under the
+repository's 1e-2 bar.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quantumattention_tpu_torch.models import llama
+from quantumattention_tpu_torch.ops import quant
+from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
+from quantumattention_tpu_torch.serving.engine import Engine
+from quantumattention_tpu_torch.utils import checks
+
+pytestmark = pytest.mark.cuda
+ATOL = 1.0 / 32
+RMSE_BAR = 1e-2
+
+
+@pytest.fixture
+def cuda():
+    if not checks.cuda_available():
+        pytest.skip("needs a CUDA device")
+    if not checks.is_hopper(0):
+        pytest.skip("the kernels are built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, seed, dtype, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Skv, D, causal)
+    (2, 4, 4, 1, 1, 64, True),
+    (1, 8, 2, 65, 65, 128, True),
+    (1, 4, 1, 100, 37, 64, False),
+    (1, 4, 2, 37, 100, 128, True),
+    (3, 6, 3, 129, 130, 64, True),
+    (1, 2, 2, 300, 300, 128, False),
+]
+FLASH_MODES = ["bf16", "fp16", "e4m3-head", "e4m3-token", "int8-head", "int8-token", "e4m3-v"]
+
+
+@pytest.mark.parametrize("mode", FLASH_MODES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernel_matches_plain(cuda, shape, mode):
+    b, hq, hkv, sq, skv, d, causal = shape
+    fdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    q = _randn((b, hq, sq, d), 1, fdt, cuda)
+    k = _randn((b, hkv, skv, d), 2, fdt, cuda)
+    v = _randn((b, hkv, skv, d), 3, fdt, cuda)
+    scales = {}
+    if mode in ("e4m3-v",):
+        v = v.to(torch.float8_e4m3fn)
+    elif mode not in ("bf16", "fp16"):
+        qdt = torch.float8_e4m3fn if mode.startswith("e4m3") else torch.int8
+        fn = quant.quantize_head_wise if mode.endswith("head") else quant.quantize_token_wise
+        q, sq_ = fn(q, qdt)
+        k, sk_ = fn(k, qdt)
+        scales = {"scale_q": sq_, "scale_k": sk_}
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, is_causal=causal, **scales)
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v, is_causal=causal, **scales)
+    oracle = sdpa_reference(q, k, v, is_causal=causal, out_dtype=torch.float32, **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+    assert float(torch.sqrt(torch.mean((out.float() - oracle) ** 2))) < RMSE_BAR
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 64)])
+def test_decode_kernel_matches_plain(cuda, cache, group, d):
+    b, hkv, s_max = 8, 2, 600
+    lens = torch.tensor([0, 1, 63, 64, 65, 256, 257, 600], dtype=torch.int32, device=cuda)
+    q = _randn((b, hkv * group, d), 4, torch.bfloat16, cuda)
+    kf = _randn((b, hkv, s_max, d), 5, torch.float32, cuda)
+    vf = _randn((b, hkv, s_max, d), 6, torch.float32, cuda)
+    if cache == "int8":
+        kc, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
+        vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+    else:
+        kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs)
+    assert decode_attention.launches == before + 1
+    plain = decode_attention_plain(q, kc, vc, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all())
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    q = _randn((1, 2, 8, 64), 7, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous())
+    lens = torch.tensor([3], dtype=torch.int64, device=cuda)
+    cache = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q[:, :, 0], cache, cache, lens)
+
+
+def _params_on(params, dev):
+    p = {k: v.to(dev) for k, v in params.items() if k != "layers"}
+    p["layers"] = [{k: v.to(dev) for k, v in layer.items()} for layer in params["layers"]]
+    return p
+
+
+@pytest.mark.parametrize("impl", ["fp8", "bf16"])
+def test_model_step_on_card_matches_cpu(cuda, impl):
+    """Prefill and three decode steps of the tiny model through the slots
+    backend, on the card (K1, K4) and on the CPU (plain versions): logits
+    within 3% of their largest magnitude, as tests/test_torch_llama.py
+    holds the port to the JAX package."""
+    import functools
+
+    from quantumattention_tpu_torch.serving.backends import SlotsBackend
+
+    cfg = llama.tiny(attention_impl=impl)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    last = [127, 68]
+    steps = rng.integers(0, cfg.vocab_size, (3, 2))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        backend = SlotsBackend(cfg, num_slots=2, max_len=256, cache_dtype=torch.int8, device=dev)
+        out = [backend.prefill_and_write(
+            functools.partial(llama.forward_prefill, cfg=cfg), _params_on(params, dev),
+            tokens.to(dev), last, [0, 1], [128, 69], 128,
+        )]
+        for cur in steps:
+            out.append(backend.decode(_params_on(params, dev), cur, np.array([True, True])))
+        logits[dev] = [t.cpu() for t in out]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert bool(torch.isfinite(b).all())
+        assert float((a - b).abs().max()) <= 0.03 * float(a.abs().max())
+
+
+def test_engine_on_card(cuda):
+    """Serving on the card: every request completes through K1 and K4 and
+    the first tokens equal the CPU engine's (later tokens of an untrained
+    model may flip on near-ties, which the logits test above bounds)."""
+    cfg = llama.tiny()
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    prompts = [[3, 17, 42, 99, 7], [5, 9, 23, 51], list(range(1, 70))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(_params_on(params, dev), cfg, num_slots=2, max_len=256, cache_dtype=torch.int8)
+        k1, k4 = flash_attention.launches, decode_attention.launches
+        reqs = [eng.submit(pr, max_new_tokens=6) for pr in prompts]
+        eng.run_to_completion()
+        assert all(r.done and len(r.output) == 6 for r in reqs)
+        if dev == "cuda":
+            assert flash_attention.launches - k1 == cfg.num_layers * eng.stats["prefill_forwards"]
+            assert decode_attention.launches - k4 == cfg.num_layers * eng.stats["decode_steps"]
+        outs[dev] = [r.output[0] for r in reqs]
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_quantizers_match_on_card(cuda):
+    x = _randn((2, 3, 50, 64), 8, torch.float32, cuda)
+    for fn in (quant.quantize_head_wise, quant.quantize_token_wise):
+        for qdt in (torch.float8_e4m3fn, torch.int8):
+            gv, gs = fn(x, qdt)
+            cv, cs = fn(x.cpu(), qdt)
+            np.testing.assert_array_equal(gv.cpu().float().numpy(), cv.float().numpy())
+            # amax / qmax may round one float32 ulp apart on the two devices.
+            np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=2.4e-7, atol=0)

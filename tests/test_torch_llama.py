@@ -1,0 +1,141 @@
+"""Port Llama model against the JAX package on identical weights.
+
+``llama.tiny()`` params come from the JAX ``init_params(PRNGKey(0))`` and
+are converted with ``models/convert.params_from_numpy``.  Prefill logits
+and K/V come from ``forward_prefill``; decode logits from each package's
+slots backend (cache writes + decode attention + ``forward_decode``).
+
+Tolerance: the layers run in bf16 in both frameworks, which round at
+different places (XLA fuses, PyTorch does not; the JAX flash kernel rounds
+P to bf16).  First-layer K/V are computed before any attention and must be
+bit-equal; later values may differ by a few bf16 ulps, so activations are
+held to 2% of their largest magnitude and logits to 3% (measured: 1.5%).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantumattention_tpu.models import llama as jl
+from quantumattention_tpu.serving.backends import SlotsBackend as JSlots
+from quantumattention_tpu_torch.models import convert
+from quantumattention_tpu_torch.models import llama as tl
+from quantumattention_tpu_torch.serving.backends import SlotsBackend as TSlots
+
+LOGIT_REL = 0.03
+KV_REL = 0.02
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jl.init_params(jax.random.PRNGKey(0), jl.tiny())
+
+
+def _torch_params(jax_params, cfg):
+    return convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), cfg)
+
+
+def _f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x.astype(jnp.float32))
+
+
+def _close(t, j, rel):
+    a, b = _f32(j), _f32(t)
+    assert a.shape == b.shape and np.isfinite(b).all()
+    np.testing.assert_allclose(b, a, atol=rel * np.abs(a).max(), rtol=0)
+
+
+def _tokens():
+    rng = np.random.default_rng(0)
+    return rng.integers(0, 256, (2, 40)).astype(np.int32), np.array([39, 20], np.int32)
+
+
+def test_params_convert_bit_exact(jax_params):
+    tp = _torch_params(jax_params, tl.tiny())
+    assert tp["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(tp["layers"][1]["w_down"]), _f32(jax_params["layers"][1]["w_down"]))
+    np.testing.assert_array_equal(tp["final_norm"].numpy(), np.asarray(jax_params["final_norm"]))
+
+
+@pytest.mark.parametrize("impl", ["fp8", "bf16"])
+def test_forward_prefill_matches_jax(jax_params, impl):
+    tcfg, jcfg = tl.tiny(attention_impl=impl), jl.tiny(attention_impl=impl)
+    tp = _torch_params(jax_params, tcfg)
+    toks, last = _tokens()
+    jlog, jkv = jl.forward_prefill(jax_params, jnp.asarray(toks), jcfg, last_pos=jnp.asarray(last))
+    tlog, tkv = tl.forward_prefill(
+        tp, torch.from_numpy(toks).long(), tcfg, last_pos=torch.from_numpy(last).long()
+    )
+    assert tlog.shape == (2, 256) and tlog.dtype == torch.float32
+    _close(tlog, jlog, LOGIT_REL)
+    np.testing.assert_array_equal(_f32(tkv[0][0]), _f32(jkv[0][0]))
+    np.testing.assert_array_equal(_f32(tkv[0][1]), _f32(jkv[0][1]))
+    for (tk, tv), (jk, jv) in zip(tkv[1:], jkv[1:]):
+        _close(tk, jk, KV_REL)
+        _close(tv, jv, KV_REL)
+
+
+def test_forward_full_sequence_matches_jax(jax_params):
+    tcfg, jcfg = tl.tiny(), jl.tiny()
+    tp = _torch_params(jax_params, tcfg)
+    toks, _ = _tokens()
+    _close(
+        tl.forward(tp, torch.from_numpy(toks[:, :24]).long(), tcfg),
+        jl.forward(jax_params, jnp.asarray(toks[:, :24]), jcfg),
+        LOGIT_REL,
+    )
+
+
+@pytest.mark.parametrize("impl", ["fp8", "bf16"])
+def test_forward_decode_matches_jax(jax_params, impl):
+    """Prefill two slots through each backend, then two decode steps."""
+    tcfg, jcfg = tl.tiny(attention_impl=impl), jl.tiny(attention_impl=impl)
+    tp = _torch_params(jax_params, tcfg)
+    toks, last = _tokens()
+    lens = [int(p) + 1 for p in last]
+    jb = JSlots(jcfg, num_slots=2, max_len=64, cache_dtype=jnp.int8)
+    tb = TSlots(tcfg, num_slots=2, max_len=64, cache_dtype=torch.int8)
+    jb.prefill_and_write(
+        functools.partial(jl.forward_prefill, cfg=jcfg), jax_params,
+        jnp.asarray(toks), list(last), [0, 1], lens, 40,
+    )
+    tb.prefill_and_write(
+        functools.partial(tl.forward_prefill, cfg=tcfg), tp,
+        torch.from_numpy(toks).long(), list(last), [0, 1], lens, 40,
+    )
+    np.testing.assert_array_equal(tb.host_lengths(), jb.host_lengths())
+    step_tokens = np.array([[7, 200], [31, 5]], np.int32)
+    active = np.array([True, True])
+    for cur in step_tokens:
+        jlog = jb.decode(jax_params, cur, active, [0, 1])
+        tlog = tb.decode(tp, cur, active, [0, 1])
+        assert tlog.shape == (2, 256)
+        _close(tlog, jlog, LOGIT_REL)
+    np.testing.assert_array_equal(tb.host_lengths(), [42, 23])
+
+
+def test_not_ported_configs_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.tiny(window=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.tiny(num_experts=4)
+    tp = tl.init_params(torch.Generator().manual_seed(0), tl.tiny())
+    tp["layers"][0]["wq"] = {"q": tp["layers"][0]["wq"], "s": None}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.forward(tp, torch.zeros((1, 4), dtype=torch.long), tl.tiny())
+
+
+def test_init_params_shapes_and_seed():
+    cfg = tl.tiny(tie_embeddings=True, qkv_bias=True)
+    a = tl.init_params(torch.Generator().manual_seed(3), cfg)
+    b = tl.init_params(torch.Generator().manual_seed(3), cfg)
+    assert "lm_head" not in a and a["layers"][0]["bq"].shape == (cfg.q_dim,)
+    assert a["layers"][0]["wk"].shape == (cfg.hidden_size, cfg.kv_dim)
+    torch.testing.assert_close(a["embed"], b["embed"], atol=0, rtol=0)
+    assert float(a["embed"].float().abs().max()) <= 3.0 / np.sqrt(cfg.vocab_size) + 1e-3
+    logits = tl.forward(a, torch.zeros((1, 5), dtype=torch.long), cfg)
+    assert logits.shape == (1, 5, cfg.vocab_size) and bool(torch.isfinite(logits).all())
