@@ -9,19 +9,28 @@ Phases, each printing its numbers on lines of their own:
 2. K1 (flash forward) against its plain version and the fp32 SDPA oracle
    at the serving shapes, with CUDA-event times of kernel and plain version;
 3. K4 (decode) likewise, over a ragged int8 and a bf16 slot cache;
-4. the engine: Llama-3-8B at full width and depth with seeded random bf16
+4. K1's residuals (m, l) against their plain version;
+5. K2 (dQ) and K3 (dK, dV) against their plain version and against
+   autograd of the fp32 oracle, with CUDA-event times of both kernels,
+   their plain versions and the fp8 path's whole backward;
+6. the engine: Llama-3-8B at full width and depth with seeded random bf16
    weights serves 6 greedy requests on 4 slots through K1 and K4; the
    launch counts prove the path went through the kernels, and each
-   request's prefill logits are held against a plain-attention run.
+   request's prefill logits are held against a plain-attention run;
+7. training: the same weights take 3 SGD steps over 1024 positions through
+   the fp8 path (K1 forward, K1 recompute, K2 and K3 backward); the launch
+   counts prove it, the first loss is held against the plain path's, and
+   the gradients of a 4-layer cut against plain attention's.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the script exits non-zero.  It needs one CUDA card and refuses to run
-without one.
+The last three lines are a JSON object with one entry per kernel, the
+card's name and power limit (``nvidia-smi``), and ``{"ok": true,
+"device": {...}}``.  Any failed check raises and the script exits
+non-zero.  It needs one CUDA card and refuses to run without one.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -30,11 +39,21 @@ import time
 import numpy as np
 import torch
 
-from quantumattention_tpu_torch import dispatch
+from quantumattention_tpu_torch import config, dispatch
 from quantumattention_tpu_torch.models import llama
 from quantumattention_tpu_torch.ops import _native, quant
+from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from quantumattention_tpu_torch.ops.flash_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
+    row_delta,
+)
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
 from quantumattention_tpu_torch.serving.engine import Engine
 from quantumattention_tpu_torch.utils import checks
@@ -55,11 +74,30 @@ KERNEL_VS_PLAIN_ATOL = 1.0 / 32
 #: mantissa bits, and the error of 32 random-weight layers adds up; a
 #: broken kernel gives an error of order 1.
 PREFILL_REL_BOUND = 0.1
+#: K1's residuals against their plain version on the same inputs: the same
+#: fp32 scores summed in another order (m absolute, l relative).
+RESIDUAL_M_ATOL = 1e-3
+RESIDUAL_L_RTOL = 1e-3
+#: K2/K3 against their plain version and the fp32 oracle's autograd:
+#: max|a - b| / max|b|, the JAX suite's bar (tests/test_autodiff.py:27-30).
+GRAD_BAR = 2e-2
+#: Training: the first step's loss against the plain path's on the same
+#: weights (relative), and the 4-layer gradients against plain attention's
+#: (relative Frobenius norm): bf16 rounds P and dS where the plain path
+#: keeps fp32; fp8 adds its straight-through estimate.
+LOSS_REL_BOUND = 0.05
+TRAIN_GRAD_BOUND = {"bf16": 5e-2, "fp8": 1e-1}
+TRAIN_POSITIONS = 1024
+TRAIN_STEPS = 3
+GRAD_CHECK_LAYERS = 4
 
 K1_SOURCE = "quantumattention_tpu_torch/csrc/flash_fwd.cu"
 K4_SOURCE = "quantumattention_tpu_torch/csrc/decode.cu"
+K23_SOURCE = "quantumattention_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "quantumattention_tpu/ops/flash.py:123"
 K4_REPLACES = "quantumattention_tpu/ops/decode.py:56"
+K2_REPLACES = "quantumattention_tpu/ops/flash_bwd.py:112"
+K3_REPLACES = "quantumattention_tpu/ops/flash_bwd.py:150"
 
 
 def log(msg: str) -> None:
@@ -87,6 +125,16 @@ def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|."""
+    return max_abs(a, b) / float(b.float().abs().max())
+
+
+def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
 
 
 def nvidia_smi_line() -> str:
@@ -226,7 +274,109 @@ def phase_k4(gen) -> dict:
     return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
 
 
-def phase_engine() -> dict:
+def phase_k1_residuals(gen) -> dict:
+    """K1's (m, l) against their plain version; the output is unchanged."""
+    cases = [(1, 57, "bf16", True, 128), (4, 1536, "bf16", True, 128),
+             (1, 512, "bf16", False, 128), (1, 512, "head", True, 128),
+             (1, 512, "bf16", True, 64)]
+    worst = {"m_abs": 0.0, "l_rel": 0.0}
+    for b, s, mode, causal, d in cases:
+        q = _randn((b, 32, s, d), gen)
+        k = _randn((b, 8, s, d), gen)
+        v = _randn((b, 8, s, d), gen)
+        args, scales = (q, k, v), {}
+        if mode == "head":
+            q8, sq = quant.quantize_head_wise(q, torch.float8_e4m3fn)
+            k8, sk = quant.quantize_head_wise(k, torch.float8_e4m3fn)
+            args, scales = (q8, k8, v), {"scale_q": sq, "scale_k": sk}
+        out, (m, l) = flash_attention(*args, is_causal=causal, return_residuals=True, **scales)
+        bare = flash_attention(*args, is_causal=causal, **scales)
+        _, (pm, pl) = flash_attention_plain(*args, is_causal=causal, return_residuals=True, **scales)
+        torch.cuda.synchronize()
+        rec = {"B": b, "S": s, "D": d, "mode": mode, "causal": causal,
+               "m_max_abs_vs_plain": max_abs(m, pm),
+               "l_max_rel_vs_plain": float(((l - pl).abs() / pl).max()),
+               "out_equal_without_residuals": bool(torch.equal(out, bare))}
+        log("k1_residuals " + json.dumps(rec))
+        if (not bool(torch.isfinite(m).all() and torch.isfinite(l).all())
+                or not rec["m_max_abs_vs_plain"] <= RESIDUAL_M_ATOL
+                or not rec["l_max_rel_vs_plain"] <= RESIDUAL_L_RTOL
+                or not rec["out_equal_without_residuals"]):
+            raise RuntimeError(f"K1 residuals disagree: {rec}")
+        worst["m_abs"] = max(worst["m_abs"], rec["m_max_abs_vs_plain"])
+        worst["l_rel"] = max(worst["l_rel"], rec["l_max_rel_vs_plain"])
+        del q, k, v, args, out, bare, m, l, pm, pl
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _oracle_grads(q, k, v, do, causal):
+    """(dq, dk, dv) by autograd of the fp32 oracle."""
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = sdpa_reference(*leaves, is_causal=causal, out_dtype=torch.float32)
+    return torch.autograd.grad(out, leaves, do.float())
+
+
+def phase_k23(gen) -> dict:
+    """K2 and K3 against their plain version and the fp32 oracle's autograd."""
+    cases = [(b, s, causal, 128) for b in (1, 4) for s in (57, 512, 1536)
+             for causal in (True, False)]
+    cases.append((1, 512, True, 64))
+    worst = {"dq": 0.0, "dkv": 0.0}
+    timing = None
+    for b, s, causal, d in cases:
+        q = _randn((b, 32, s, d), gen)
+        k = _randn((b, 8, s, d), gen)
+        v = _randn((b, 8, s, d), gen)
+        do = _randn((b, 32, s, d), gen)
+        out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
+        grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+        plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
+        oracle = _oracle_grads(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        rec = {"B": b, "S": s, "D": d, "causal": causal}
+        for name, g, p, o in zip(("dq", "dk", "dv"), grads, plain, oracle):
+            rec[f"{name}_rel_vs_plain"] = max_rel(g, p)
+            rec[f"{name}_rel_vs_oracle"] = max_rel(g, o)
+            rec[f"{name}_max_abs_vs_plain"] = max_abs(g, p)
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"K2/K3 gave non-finite {name}: {rec}")
+        if (b, s, causal, d) in ((1, 1536, True, 128), (4, 1536, True, 128)):
+            delta = row_delta(out, do)
+            args = (q, k, v, do, m, l, delta)
+            rec["dq_ms"] = time_ms(lambda: flash_bwd_dq(*args, is_causal=causal))
+            rec["dkv_ms"] = time_ms(lambda: flash_bwd_dkv(*args, is_causal=causal))
+            rec["dq_plain_ms"] = time_ms(lambda: flash_bwd_dq_plain(*args, is_causal=causal), iters=5)
+            rec["dkv_plain_ms"] = time_ms(lambda: flash_bwd_dkv_plain(*args, is_causal=causal), iters=5)
+            # The fp8 path's whole backward (bf16 K1 recompute, then K2/K3)
+            # against its plain counterpart, the oracle recompute VJP.
+            rec["fp8_bwd_ms"] = time_ms(lambda: exact_attention_bwd(q, k, v, do, causal, None))
+            with config.patch({"kernel.cuda_bwd": False}):
+                rec["fp8_bwd_plain_ms"] = time_ms(
+                    lambda: exact_attention_bwd(q, k, v, do, causal, None), iters=5)
+            # Products per q head: K2 three (S, dP, dS.K), K3 four
+            # (S^T, dP^T, P^T.dO, dS^T.Q), each 2*S*S*D flops; half under the mask.
+            unit = 2 * b * 32 * s * s * d / (2 if causal else 1)
+            rec["dq_tflops"] = 3 * unit / rec["dq_ms"] / 1e9
+            rec["dkv_tflops"] = 4 * unit / rec["dkv_ms"] / 1e9
+            if b == 1:
+                timing = rec
+        log("k23 " + json.dumps(rec))
+        bad = [key for key, val in rec.items() if "_rel_vs_" in key and not val < GRAD_BAR]
+        if bad:
+            raise RuntimeError(f"K2/K3 disagree ({bad}): {rec}")
+        worst["dq"] = max(worst["dq"], rec["dq_max_abs_vs_plain"])
+        worst["dkv"] = max(worst["dkv"], rec["dk_max_abs_vs_plain"], rec["dv_max_abs_vs_plain"])
+        del q, k, v, do, out, m, l, grads, plain, oracle
+    torch.cuda.empty_cache()
+    return {
+        "dq": {"max_abs_err": worst["dq"], "ms": timing["dq_ms"], "plain_ms": timing["dq_plain_ms"]},
+        "dkv": {"max_abs_err": worst["dkv"], "ms": timing["dkv_ms"],
+                "plain_ms": timing["dkv_plain_ms"]},
+    }
+
+
+def phase_engine():
     """Llama-3-8B, full width and depth, random bf16 weights, 6 requests."""
     cfg = llama.llama3_8b()
     torch.cuda.reset_peak_memory_stats()
@@ -322,6 +472,82 @@ def phase_engine() -> dict:
     log(f"engine prefill worst_rel_err={worst} bound={PREFILL_REL_BOUND}")
     if not worst < PREFILL_REL_BOUND:
         raise RuntimeError(f"prefill logits off by {worst} relative")
+    return launches, params
+
+
+def _checked_grads(params, tokens, impl):
+    """Gradients of the leaves the training phase compares, at
+    GRAD_CHECK_LAYERS layers."""
+    cut = {**params, "layers": params["layers"][:GRAD_CHECK_LAYERS]}
+    cfg = llama.llama3_8b(num_layers=GRAD_CHECK_LAYERS, attention_impl=impl)
+    _, grads = llama.loss_and_grads(cut, tokens, cfg)
+    first, last = grads["layers"][0], grads["layers"][-1]
+    return {"embed": grads["embed"], "layers.0.wq": first["wq"], "layers.0.wk": first["wk"],
+            "layers.0.wv": first["wv"], f"layers.{GRAD_CHECK_LAYERS - 1}.w_down": last["w_down"]}
+
+
+def phase_train(params) -> dict:
+    """Llama-3-8B, full width and depth, 3 SGD steps over 1024 positions
+    through the fp8 path (K1, K2, K3)."""
+    gc.collect()  # the engine and its cache
+    torch.cuda.empty_cache()
+    cfg = llama.llama3_8b()
+    L = cfg.num_layers
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, TRAIN_POSITIONS + 1))).to("cuda")
+
+    with torch.no_grad():
+        plain_loss = float(llama.loss_fn(params, tokens, llama.llama3_8b(attention_impl="sdpa")))
+    ref = _checked_grads(params, tokens, "sdpa")
+    grad_err = {}
+    for impl in ("bf16", "fp8"):
+        grads = _checked_grads(params, tokens, impl)
+        grad_err[impl] = {name: rel_fro(g, ref[name]) for name, g in grads.items()}
+        del grads
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train grads layers={GRAD_CHECK_LAYERS} rel_fro_vs_plain={json.dumps(grad_err)} "
+        f"bounds={json.dumps(TRAIN_GRAD_BOUND)}")
+    for impl, errs in grad_err.items():
+        if not all(e < TRAIN_GRAD_BOUND[impl] for e in errs.values()):
+            raise RuntimeError(f"{impl} gradients off: {errs}")
+
+    flash_attention.launches = 0
+    flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = 0
+    dispatch.sdpa_fallback.calls = 0
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = llama.train_step(params, tokens, cfg)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        steps.append({"step": i, "loss": loss, "ms": 1e3 * sec,
+                      "tok_s": TRAIN_POSITIONS / sec,
+                      "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+        log("train step " + json.dumps(steps[-1]))
+    launches = {"k1": flash_attention.launches, "k2": flash_bwd_dq.launches,
+                "k3": flash_bwd_dkv.launches, "sdpa_fallback": dispatch.sdpa_fallback.calls}
+    first_rel = abs(steps[0]["loss"] - plain_loss) / abs(plain_loss)
+    rec = {"layers": L, "positions": TRAIN_POSITIONS, "launches": launches,
+           "plain_loss": plain_loss, "first_loss_rel_err": first_rel,
+           "bound": LOSS_REL_BOUND}
+    log("train " + json.dumps(rec))
+    if not all(np.isfinite(st["loss"]) for st in steps):
+        raise RuntimeError(f"non-finite training loss: {steps}")
+    if launches["k1"] < 2 * L * TRAIN_STEPS:
+        raise RuntimeError(f"K1 ran {launches['k1']} times in {TRAIN_STEPS} steps")
+    if launches["k2"] < L * TRAIN_STEPS or launches["k3"] < L * TRAIN_STEPS:
+        raise RuntimeError(f"K2/K3 ran {launches['k2']}/{launches['k3']} times in {TRAIN_STEPS} steps")
+    if launches["sdpa_fallback"] != 0:
+        raise RuntimeError("the training path fell back to SDPA")
+    if not first_rel < LOSS_REL_BOUND:
+        raise RuntimeError(f"first loss {steps[0]['loss']} vs plain {plain_loss}")
     return launches
 
 
@@ -337,12 +563,19 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
-    launches = phase_engine()
+    phase_k1_residuals(gen)
+    k23 = phase_k23(gen)
+    launches, params = phase_engine()
+    train = phase_train(params)
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], **k1},
         {"name": "decode", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches["k4"], **k4},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": K23_SOURCE,
+         "replaces": K2_REPLACES, "launches": train["k2"], **k23["dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
+         "replaces": K3_REPLACES, "launches": train["k3"], **k23["dkv"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

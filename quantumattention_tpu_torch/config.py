@@ -35,9 +35,13 @@ class _Namespace:
         return f"_Namespace({vars(self)})"
 
 
-#: Kernel tuning knobs.  The slice-1 kernels use fixed tiles; the block-size
-#: knobs come back with the autotune slice (ROADMAP queue 1, item 10).
-kernel = _Namespace()
+#: Kernel tuning knobs.  The kernels use fixed tiles; the block-size knobs
+#: come back with the autotune slice (ROADMAP queue 1, item 10).
+kernel = _Namespace(
+    # Use the blockwise backward kernels K2/K3 (ops/flash_bwd.py); False
+    # falls back to the O(S^2) oracle-recompute VJP (JAX kernel.pallas_bwd).
+    cuda_bwd=_env_bool("QUANTUM_ATTN_CUDA_BWD", True),
+)
 
 attention = _Namespace(
     # Skip the capability check in the dispatcher.

@@ -1,6 +1,9 @@
 // Shared helpers of the hand-written kernels: element loads and stores for
-// the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8).
+// the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8), and
+// the mma.sync fragment helpers of the attention kernels.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -41,6 +44,110 @@ __device__ __forceinline__ void store_elem(void* p, int code, size_t i, float x)
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync helpers of the attention kernels (K1, K2, K3).
+//
+// m16n8k16 fragments, lane = 4 * g + t: an accumulator tile C (16 x 8)
+// holds c[0..1] at row g, columns 2t, 2t+1 and c[2..3] at row g + 8. The
+// A operand (16 x 16, row-major) holds a[0] = A[g][2t..2t+1],
+// a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]; so the
+// accumulators of two neighbouring 8-column tiles are, packed to bf16, the
+// A operand of the next product (no trip through shared memory).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&hi)) << 16);
+}
+
+// D = A(16x16 bf16, row) * B(16x8 bf16, col) + C, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight consecutive elements (any input code) -> eight bf16 in a uint4.
+__device__ __forceinline__ uint4 load8_bf16(const void* p, int code, size_t i) {
+  float f[8];
+  if (code == kBF16) {
+    return *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p) + i);
+  } else if (code == kF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __half*>(p) + i);
+    const __half* h = reinterpret_cast<const __half*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __half2float(h[e]);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const unsigned char*>(p) + i);
+    const unsigned char* c = reinterpret_cast<const unsigned char*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (code == kE4M3) {
+        __nv_fp8_e4m3 x;
+        x.__x = c[e];
+        f[e] = static_cast<float>(x);
+      } else {
+        f[e] = static_cast<float>(static_cast<signed char>(c[e]));
+      }
+    }
+  }
+  uint4 out;
+  out.x = pack_bf16(f[0], f[1]);
+  out.y = pack_bf16(f[2], f[3]);
+  out.z = pack_bf16(f[4], f[5]);
+  out.w = pack_bf16(f[6], f[7]);
+  return out;
+}
+
+// ROWS x D tile of a (.., S, D) tensor starting at row0 -> smem (row stride
+// D + PAD), zero rows past `valid`; THREADS threads share the copy.
+template <int ROWS, int D, int THREADS, int PAD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, int code,
+                                          size_t base, int row0, int valid) {
+  constexpr int kGroups = ROWS * D / 8;
+  for (int i = threadIdx.x; i < kGroups; i += THREADS) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < valid) v = load8_bf16(src, code, base + static_cast<size_t>(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = v;
+  }
+}
+
+// A operand of rows 0..15 of a bf16 smem tile (row stride `stride`),
+// columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void load_a_frag(uint32_t* a, const __nv_bfloat16* tile, int stride,
+                                            int kk, int g, int t) {
+  const int c = kk * 16 + t * 2;
+  a[0] = *reinterpret_cast<const uint32_t*>(tile + g * stride + c);
+  a[1] = *reinterpret_cast<const uint32_t*>(tile + (g + 8) * stride + c);
+  a[2] = *reinterpret_cast<const uint32_t*>(tile + g * stride + c + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(tile + (g + 8) * stride + c + 8);
+}
+
+// B operand for X . Y^T: Y rows 8j..8j+7 of a bf16 smem tile, depth
+// columns 16 kk .. 16 kk + 15 (Y row-major is B column-major).
+__device__ __forceinline__ void load_b_nt(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
+                                          int stride, int j, int kk, int g, int t) {
+  const __nv_bfloat16* r = tile + (j * 8 + g) * stride + kk * 16 + t * 2;
+  b0 = *reinterpret_cast<const uint32_t*>(r);
+  b1 = *reinterpret_cast<const uint32_t*>(r + 8);
+}
+
+// B operand for X . Y: Y rows 16kk..16kk+15 (the depth), columns 8j..8j+7.
+__device__ __forceinline__ void load_b_nn(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
+                                          int stride, int j, int kk, int g, int t) {
+  const __nv_bfloat16* c = tile + (kk * 16 + t * 2) * stride + j * 8 + g;
+  b0 = pack_raw(c[0], c[stride]);
+  b1 = pack_raw(c[8 * stride], c[9 * stride]);
 }
 
 }  // namespace qa

@@ -21,11 +21,15 @@
 // (flash.py:109) does on the TPU. KV tiles wholly above the causal
 // diagonal are never loaded. TMA, wgmma, fp8 operands, cp.async
 // pipelining and warp specialisation are later work (ROADMAP queue 2).
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
+
+using qa::load_a_frag;
+using qa::load_b_nn;
+using qa::load_b_nt;
+using qa::mma_bf16;
+using qa::pack_bf16;
 
 constexpr int kBM = 64;       // Q rows per CTA
 constexpr int kBN = 64;       // KV rows per tile
@@ -38,72 +42,16 @@ constexpr size_t smem_bytes() {
   return sizeof(__nv_bfloat16) * (kBM + 2 * kBN) * (D + kPad) + sizeof(float) * kBN;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&hi)) << 16);
-}
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + C, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Eight consecutive elements (any input code) -> eight bf16 in a uint4.
-__device__ __forceinline__ uint4 load8_bf16(const void* p, int code, size_t i) {
-  float f[8];
-  if (code == qa::kBF16) {
-    return *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p) + i);
-  } else if (code == qa::kF16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __half*>(p) + i);
-    const __half* h = reinterpret_cast<const __half*>(&u);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = __half2float(h[e]);
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const unsigned char*>(p) + i);
-    const unsigned char* c = reinterpret_cast<const unsigned char*>(&u);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (code == qa::kE4M3) {
-        __nv_fp8_e4m3 x;
-        x.__x = c[e];
-        f[e] = static_cast<float>(x);
-      } else {
-        f[e] = static_cast<float>(static_cast<signed char>(c[e]));
-      }
-    }
-  }
-  uint4 out;
-  out.x = pack_bf16(f[0], f[1]);
-  out.y = pack_bf16(f[2], f[3]);
-  out.z = pack_bf16(f[4], f[5]);
-  out.w = pack_bf16(f[6], f[7]);
-  return out;
-}
-
-// rows x D tile of a (.., S, D) tensor starting at row0 -> smem (row stride
-// D + kPad), zero rows past `valid`.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, int code,
                                           size_t base, int row0, int valid) {
-  constexpr int kGroups = kBN * D / 8;
-  for (int i = threadIdx.x; i < kGroups; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid) v = load8_bf16(src, code, base + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = v;
-  }
+  qa::load_tile<kBN, D, kThreads, kPad>(dst, src, code, base, row0, valid);
 }
 
 // scaling: 0 none, 1 head-wise (B, H), 2 token-wise (B, H, S).
+// m_out / l_out (B, Hq, Sq) fp32, both or neither: the residuals of the
+// backward (K2/K3), i.e. each row's final running max and softmax sum in
+// the exp2 domain of the folded scores (flash.py:586-588).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
@@ -111,7 +59,8 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  const float* __restrict__ scale_k, void* __restrict__ out,
                  int Hq, int Hkv, int Sq, int Skv, int q_code, int k_code,
                  int v_code, int out_code, int scaling, int causal,
-                 float score_scale) {
+                 float score_scale, float* __restrict__ m_out,
+                 float* __restrict__ l_out) {
   static_assert(kBM == kBN, "the Q tile reuses the tile loader");
   constexpr int kStride = D + kPad;
   constexpr int kNT = kBN / 8;   // 8-column score tiles per KV tile
@@ -147,17 +96,8 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   load_tile<D>(Qs, q, q_code, q_base, q0, Sq);
   __syncthreads();
   uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* qw = Qs + (warp * 16) * kStride;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qw + g * kStride + c);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * kStride + c);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qw + g * kStride + c + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * kStride + c + 8);
-    }
-  }
+  for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], Qs + warp * 16 * kStride, kStride, kk, g, t);
 
   float o[kDT][4];
 #pragma unroll
@@ -183,11 +123,11 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * kStride + t * 2;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
+        uint32_t b0, b1;
+        load_b_nt(b0, b1, Ks, kStride, j, kk, g, t);
+        mma_bf16(s[j], qf[kk], b0, b1);
       }
     }
 
@@ -244,12 +184,10 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = Vs + (kk * 16 + t * 2) * kStride + g;
 #pragma unroll
       for (int j = 0; j < kDT; ++j) {
-        const __nv_bfloat16* vc = vr + j * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[kStride]);
-        const uint32_t b1 = pack_raw(vc[8 * kStride], vc[9 * kStride]);
+        uint32_t b0, b1;
+        load_b_nn(b0, b1, Vs, kStride, j, kk, g, t);
         mma_bf16(o[j], pa, b0, b1);
       }
     }
@@ -263,6 +201,17 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  if (m_out != nullptr && t == 0) {  // the four lanes of a row hold equal m, l
+    const size_t rb = static_cast<size_t>(b * Hq + hq) * Sq;
+    if (row0 < Sq) {
+      m_out[rb + row0] = m0;
+      l_out[rb + row0] = l0;
+    }
+    if (row1 < Sq) {
+      m_out[rb + row1] = m1;
+      l_out[rb + row1] = l1;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < kDT; ++j) {
     const int c = j * 8 + t * 2;
@@ -287,7 +236,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const float* sq,
            const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
            int q_code, int k_code, int v_code, int out_code, int scaling,
-           int causal, float score_scale, cudaStream_t stream) {
+           int causal, float score_scale, float* m_out, float* l_out,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -296,31 +246,35 @@ int launch(const void* q, const void* k, const void* v, const float* sq,
   dim3 grid((Sq + kBM - 1) / kBM, Hq, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, sq, sk, out, Hq, Hkv, Sq, Skv, q_code, k_code, v_code,
-      out_code, scaling, causal, score_scale);
+      out_code, scaling, causal, score_scale, m_out, l_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // score_scale = sm_scale * log2(e). Tensors are contiguous (B, H, S, D) and
-// 16-byte aligned.
+// 16-byte aligned. m_out / l_out: (B, Hq, Sq) fp32 residuals, or both null.
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* scale_q, const void* scale_k, void* out,
                             int B, int Hq, int Hkv, int Sq, int Skv, int D,
                             int q_code, int k_code, int v_code, int out_code,
                             int scaling, int causal, float score_scale,
-                            void* stream) {
+                            void* m_out, void* l_out, void* stream) {
   const float* sq = static_cast<const float*>(scale_q);
   const float* sk = static_cast<const float*>(scale_k);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0 || B == 0) return 0;
   switch (D) {
     case 64:
       return launch<64>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
-                        k_code, v_code, out_code, scaling, causal, score_scale, s);
+                        k_code, v_code, out_code, scaling, causal, score_scale,
+                        mo, lo, s);
     case 128:
       return launch<128>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
-                         k_code, v_code, out_code, scaling, causal, score_scale, s);
+                         k_code, v_code, out_code, scaling, causal, score_scale,
+                         mo, lo, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

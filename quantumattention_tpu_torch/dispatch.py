@@ -7,9 +7,13 @@ Validation returns ``(ok, reason)`` with the JAX package's reason strings
 then run through the flash kernel.  The 8-bit container is always e4m3:
 the int8 choice of the JAX package (dispatch.py:474-478) is a TPU MXU gate.
 
-Forward only: the straight-through gradient and the backward kernels are
-slice 2 (ROADMAP queue 1, item 11).  ``"per-block"`` and ``"auto"``
-scaling raise ``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
+Gradients: float inputs to ``attention`` go through
+``ops/autodiff.attention_with_vjp`` (K1 forward, K2/K3 backward), and the
+float path of ``fp8_attention`` through a straight-through Function
+(``_Fp8Attention``, dispatch.py:501-548): its backward is the gradient of
+exact bf16 attention at the float inputs.  Pre-quantized inputs are
+forward-only, as in JAX.  ``"per-block"`` and ``"auto"`` scaling raise
+``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from . import config
 from .ops import quant
+from .ops.autodiff import attention_with_vjp, exact_attention_bwd, needs_grad
 from .ops.flash import KERNEL_HEAD_DIMS, flash_attention
 from .ops.sdpa import sdpa_reference
 from .utils import checks
@@ -175,7 +180,10 @@ def attention(
     )
     if not supported:
         raise ValueError(f"attention is not supported for the input: {reason}")
-    return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale)
+    if checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
+        # Pre-quantized operands are not differentiable: the raw kernel.
+        return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale)
+    return attention_with_vjp(query, key, value, is_causal=is_causal, sm_scale=scale)
 
 
 def _quantize_for(t, scaling_method: str):
@@ -187,6 +195,35 @@ def _quantize_for(t, scaling_method: str):
     raise ValueError(f"unknown scaling_method: {scaling_method!r}")
 
 
+class _Fp8Attention(torch.autograd.Function):
+    """Quantize-in-graph fp8 forward with a straight-through backward.
+
+    The forward quantizes q and k to e4m3 and runs K1, saving only the
+    float (q, k, v).  The backward recomputes the bf16 forward with its
+    residuals (K1) and runs K2/K3: the gradient of exact attention at the
+    float inputs, the standard STE treatment of the quantization casts."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, scaling_method, is_causal, scale):
+        ctx.is_causal, ctx.scale = is_causal, scale
+        ctx.save_for_backward(query, key, value)
+        return _fp8_forward(query, key, value, scaling_method, is_causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = exact_attention_bwd(*ctx.saved_tensors, grad_out, ctx.is_causal, ctx.scale)
+        return (*grads, None, None, None)
+
+
+def _fp8_forward(query, key, value, scaling_method, is_causal, scale):
+    q8, scale_q = _quantize_for(query, scaling_method)
+    k8, scale_k = _quantize_for(key, scaling_method)
+    return flash_attention(
+        q8, k8, value, scale_q=scale_q, scale_k=scale_k,
+        is_causal=is_causal, sm_scale=scale,
+    )
+
+
 def fp8_attention(
     query, key, value, attn_mask=None, dropout_p: float = 0.0,
     is_causal: bool = False, *, scale: Optional[float] = None,
@@ -196,7 +233,8 @@ def fp8_attention(
     """FP8 fused attention dispatch.
 
     Float Q/K are quantized here to e4m3 at ``scaling_method`` granularity
-    (default head-wise); pre-quantized inputs come with their scales.
+    (default head-wise), with straight-through gradients; pre-quantized
+    inputs come with their scales and are forward-only.
     """
     _refuse_window(window)
     if scaling_method is None:
@@ -219,12 +257,9 @@ def fp8_attention(
             raise ValueError(
                 f"fp8_attention is not supported for the input: {reason}"
             )
-        q8, scale_q = _quantize_for(query, scaling_method)
-        k8, scale_k = _quantize_for(key, scaling_method)
-        return flash_attention(
-            q8, k8, value, scale_q=scale_q, scale_k=scale_k,
-            is_causal=is_causal, sm_scale=scale,
-        )
+        if not needs_grad(query, key, value):
+            return _fp8_forward(query, key, value, scaling_method, is_causal, scale)
+        return _Fp8Attention.apply(query, key, value, scaling_method, is_causal, scale)
 
     supported, reason = can_use_attention(
         query, key, value, attn_mask, dropout_p, is_causal,

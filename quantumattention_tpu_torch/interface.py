@@ -6,7 +6,9 @@
 
 The ``*_with_fallback`` variants run the fused kernel when
 ``can_use_attention`` accepts the inputs and the PyTorch SDPA reference
-otherwise.  ``window`` is accepted for signature parity and raises
+otherwise.  Float inputs are differentiable (dispatch.py: the backward
+kernels K2/K3, straight-through for the fp8 quantization); pre-quantized
+inputs are forward-only.  ``window`` is accepted for signature parity and raises
 ``NotImplementedError`` until sliding windows are ported (ROADMAP queue 1,
 item 6b); the segment-id and block-mask arguments of ``attn_func`` likewise
 (item 6d).

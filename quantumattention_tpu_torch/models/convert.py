@@ -1,4 +1,4 @@
-"""JAX parameter trees -> this package's parameters.
+"""JAX parameter trees <-> this package's parameters.
 
 ``params_from_numpy`` takes the tree that ``quantumattention_tpu.models.
 llama.init_params`` (or ``models/hf.load_hf_checkpoint``) builds, with every
@@ -12,7 +12,9 @@ and the projections ``wq`` (E, Hq*D), ``wk``/``wv`` (E, Hkv*D),
 ``wo`` (Hq*D, E), ``w_gate``/``w_up`` (E, F), ``w_down`` (F, E), optional
 ``bq``/``bk``/``bv``.  Both packages store weights (in, out), so no
 transposes happen; bfloat16 arrays (ml_dtypes) are reinterpreted bit for
-bit.  Quantized or fused trees are refused.
+bit.  Quantized or fused trees are refused.  ``params_to_numpy`` is the
+inverse, so a test can hold this package's gradients and updated
+parameters against the JAX tree.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .llama import LlamaConfig, Params
+from .llama import LlamaConfig, Params, tree_like, leaves
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -53,3 +55,18 @@ def params_from_numpy(tree: Any, cfg: LlamaConfig, device="cpu") -> Params:
         {k: _tensor(v, device) for k, v in layer.items()} for layer in tree["layers"]
     ]
     return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as JAX uses it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Params) -> Any:
+    """This package's tree (parameters or gradients) -> numpy leaves of the
+    same structure, bfloat16 bit for bit; None leaves stay None."""
+    return tree_like(params, [None if t is None else _array(t) for t in leaves(params)])

@@ -8,16 +8,19 @@ Parameters are a plain dict with the JAX package's names and layouts:
 every weight is stored (in, out), "transposed-for-einsum", so
 ``models/convert.params_from_numpy`` maps a JAX tree onto it one to one.
 
-Forward only.  Not yet: sliding windows (ROADMAP queue 1, item 6b), MoE
-FFNs (item 18), quantized or fused-projection weight trees and the lean
-decode path they enable (item 13), loss and training (item 14).
+``forward`` is differentiable: ``loss_fn`` and ``train_step`` (plain SGD)
+train through it, with attention gradients from the backward kernels K2/K3
+(ops/flash_bwd.py).  ``forward_prefill`` and ``forward_decode`` serve and
+run without autograd.  Not yet: sliding windows (ROADMAP queue 1, item 6b),
+MoE FFNs (item 18), quantized or fused-projection weight trees and the
+lean decode path they enable (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -270,9 +273,8 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
 
 
-@torch.no_grad()
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, positions=None):
-    """(B, S) int tokens -> (B, S, vocab) fp32 logits."""
+    """(B, S) int tokens -> (B, S, vocab) fp32 logits (differentiable)."""
     if positions is None:
         positions = _positions(tokens)
     return _decoder(params, tokens, positions, cfg, _fused_attend(cfg))
@@ -317,3 +319,61 @@ def forward_decode(
 
     logits = _decoder(params, tokens[:, None], positions[:, None], cfg, attend_t1)
     return logits[:, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy over (B, S) tokens, on fp32 logits."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:].long()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+
+def leaves(tree: Params) -> List[torch.Tensor]:
+    """The tensors of a parameter tree, in a fixed order (top-level keys,
+    then each layer's)."""
+    out = [v for k, v in tree.items() if k != "layers"]
+    for layer in tree["layers"]:
+        out.extend(layer.values())
+    return out
+
+
+def tree_like(tree: Params, values: List[Any]) -> Params:
+    """A tree of ``tree``'s structure holding ``values`` in ``leaves`` order."""
+    it = iter(values)
+    out = {k: next(it) for k in tree if k != "layers"}
+    out["layers"] = [{k: next(it) for k in layer} for layer in tree["layers"]]
+    return out
+
+
+def loss_and_grads(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
+    """(loss, grads): ``jax.value_and_grad(loss_fn)``; grads is a tree of
+    params' structure (None for a leaf the loss does not reach)."""
+    flat = leaves(params)
+    flags = [p.requires_grad for p in flat]
+    try:
+        for p in flat:
+            p.requires_grad_(True)
+        loss = loss_fn(params, tokens, cfg)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    finally:
+        for p, flag in zip(flat, flags):
+            p.requires_grad_(flag)
+    return loss.detach(), tree_like(params, list(grads))
+
+
+def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, lr: float = 1e-3):
+    """One SGD step; returns (new_params, loss).  The update is computed in
+    fp32 and cast back to each parameter's dtype, as in the JAX package
+    (llama.py:681-693), but written into ``params`` in place, so the new
+    parameters are ``params`` itself and an 8B model needs no second copy."""
+    loss, grads = loss_and_grads(params, tokens, cfg)
+    with torch.no_grad():
+        for p, g in zip(leaves(params), leaves(grads)):
+            if g is not None:
+                p.copy_(p.float() - lr * g.float())
+    return params, loss

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, into ``build/kernels/<hash>/`` beside the package (a
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use, into ``build/kernels/<hash>/`` beside the package (a
 directory ``.gitignore`` lists), keyed by a hash of the sources and flags,
 so a fresh checkout builds everything on its first kernel call.  A build
 failure raises; nothing falls back.
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -39,9 +40,18 @@ _F = ctypes.c_float
 #: argtypes of every C entry point (pointers and the stream as c_void_p).
 _SIGNATURES = {
     # q, k, v, scale_q, scale_k, out, B, Hq, Hkv, Sq, Skv, D,
-    # q_code, k_code, v_code, out_code, scaling, causal, score_scale, stream
+    # q_code, k_code, v_code, out_code, scaling, causal, score_scale,
+    # m_out, l_out, stream
     "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _F, _P],
+                     _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # q, k, v, dout, m, l, delta, dq, B, Hq, Hkv, Sq, Skv, D, code, causal,
+    # score_scale, sm_scale, stream
+    "qa_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _F, _P],
+    # q, k, v, dout, m, l, delta, dk, dv, B, Hq, Hkv, Sq, Skv, D, code,
+    # causal, score_scale, sm_scale, stream
+    "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _F, _F, _P],
     # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
     # B, Hq, Hkv, Smax, D, kv_code, score_scale, stream
     "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -88,18 +98,33 @@ def _build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"tmp-{os.getpid()}.so"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    nvcc = _find_nvcc()
+    tag = f"tmp-{os.getpid()}"
+    objs = [out_dir / f"{cu.stem}.{tag}.o" for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _State.build_seconds = time.perf_counter() - t0
-    _State.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{_State.build_log}"
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)]
+            for cu, obj in zip(cus, objs)
         )
+    ]
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    tmp = out_dir / f"{tag}.so"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append((link, proc.stdout, proc.returncode))
+    _State.build_seconds = time.perf_counter() - t0
+    _State.build_log = "".join(out for _, out, _ in logs)
+    failed = [(cmd, out, rc) for cmd, out, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, out, rc in failed
+        ))
     os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()
     return lib_path
 
 

@@ -7,9 +7,10 @@ runs the kernel or raises.  ``flash_attention.launches`` counts launches.
 
 Covered: no scaling (bf16/fp16), head-wise (B, H) and token-wise (B, H, S)
 scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal masking,
-D in {64, 128}.  Not yet (ROADMAP queue 1, item 6 b-e): ``window``, position
-offsets, ``return_residuals``, segment ids, ``block_mask``,
-``fused_block_quant`` and int8 V with ``scale_v``.
+D in {64, 128}, and ``return_residuals`` (the backward's (m, l), as
+(B, Hq, Sq) fp32 rather than the TPU's 128-lane replication).  Not yet
+(ROADMAP queue 1, item 6 b-e): ``window``, position offsets, segment ids,
+``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from typing import Optional
 import torch
 
 from ..utils import checks
-from . import _native
-from .sdpa import sdpa_reference
+from . import _native, quant
+from .sdpa import DEFAULT_MASK_VALUE, sdpa_reference
 
 LOG2E = math.log2(math.e)
 
@@ -32,7 +33,6 @@ _NOT_YET = {
     "window": "sliding windows",
     "q_offset": "position offsets",
     "kv_offset": "position offsets",
-    "return_residuals": "residual (m, l) outputs",
     "q_segment_ids": "segment ids",
     "kv_segment_ids": "segment ids",
     "block_mask": "block-sparse masks",
@@ -59,13 +59,42 @@ def out_dtype_for(v_dtype) -> torch.dtype:
 
 
 def flash_attention_plain(
-    q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None
-) -> torch.Tensor:
-    """K1's plain version: dequantize, then the fp32 oracle."""
-    return sdpa_reference(
+    q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None,
+    return_residuals=False,
+):
+    """K1's plain version: dequantize, then the fp32 oracle.  With
+    ``return_residuals`` also (m, l) from the fp32 logits."""
+    out = sdpa_reference(
         q, k, v, is_causal=is_causal, scale=sm_scale, scale_q=scale_q,
         scale_k=scale_k, out_dtype=out_dtype_for(v.dtype),
     )
+    if not return_residuals:
+        return out
+    return out, residuals_plain(q, k, scale_q, scale_k, is_causal, sm_scale)
+
+
+def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None):
+    """(B, Hq, Sq, Skv) fp32 scores in K1's exp2 domain (times
+    sm_scale * log2 e), masked entries at MASK_VALUE."""
+    qf = q.float() if scale_q is None else quant.dequantize(q, scale_q)
+    kf = k.float() if scale_k is None else quant.dequantize(k, scale_k)
+    kf = kf.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (sm_scale * LOG2E)
+    if is_causal:
+        sq, skv = q.shape[2], k.shape[2]
+        above = torch.ones((sq, skv), dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, DEFAULT_MASK_VALUE)
+    return s
+
+
+def residuals_plain(q, k, scale_q=None, scale_k=None, is_causal=False, sm_scale=None):
+    """Row max m and row sum l = sum(exp2(s - m)) of the exp2-domain
+    scores, each (B, Hq, Sq) fp32, as K1 saves them."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = masked_scores(q, k, is_causal, sm_scale, scale_q, scale_k)
+    m = s.amax(dim=-1)
+    return m, torch.exp2(s - m[..., None]).sum(dim=-1)
 
 
 def flash_attention(
@@ -77,15 +106,19 @@ def flash_attention(
     scale_k: Optional[torch.Tensor] = None,
     is_causal: bool = False,
     sm_scale: Optional[float] = None,
+    return_residuals: bool = False,
     **not_yet,
-) -> torch.Tensor:
+):
     """Fused attention forward over (B, H, S, D) tensors.
 
     q (B, Hq, Sq, D) bf16/fp16, or e4m3/int8 with scales; k (B, Hkv, Skv, D)
     of q's family, Hq % Hkv == 0; v (B, Hkv, Skv, D) bf16/fp16/e4m3.
     ``scale_q``/``scale_k``: (B, H) head-wise or (B, H, S) token-wise fp32
     dequantization scales, both or neither.  ``sm_scale`` defaults to
-    1/sqrt(D).  Returns (B, Hq, Sq, D) in v's float dtype.
+    1/sqrt(D).  Returns (B, Hq, Sq, D) in v's float dtype; with
+    ``return_residuals`` ``(out, (m, l))``, the row max and row sum of the
+    online softmax in the exp2 domain of the scores times
+    ``sm_scale * log2 e`` (and the scales), each (B, Hq, Sq) fp32.
     """
     for name, val in not_yet.items():
         if name not in _NOT_YET:
@@ -110,16 +143,18 @@ def flash_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale_q, scale_k, is_causal, sm_scale)
+        return flash_attention_plain(
+            q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals
+        )
     return _flash_fwd_cuda(
-        _dense(q), _dense(k), _dense(v),
+        dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
-        scaling, is_causal, sm_scale,
+        scaling, is_causal, sm_scale, return_residuals,
     )
 
 
-def _dense(t: torch.Tensor) -> torch.Tensor:
+def dense(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernel's vector loads need."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
@@ -130,7 +165,7 @@ flash_attention.launches = 0
 _SCALING_CODES = {"none": 0, "head": 1, "token": 2}
 
 
-def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale):
+def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     tensors = [q, k, v] + [t for t in (scale_q, scale_k) if t is not None]
@@ -159,6 +194,10 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale):
         raise ValueError("K1 takes a float or e4m3 V")
     out_dtype = out_dtype_for(v.dtype)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    m = l = None
+    if return_residuals:
+        m = torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     lib = _native.library()
     err = lib.qa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -169,8 +208,9 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale):
         _native.dtype_code(v.dtype), _native.dtype_code(out_dtype),
         _SCALING_CODES[scaling], int(bool(is_causal)),
         float(sm_scale * LOG2E),
+        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_flash_fwd")
     flash_attention.launches += 1
-    return out
+    return (out, (m, l)) if return_residuals else out

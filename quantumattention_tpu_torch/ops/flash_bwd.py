@@ -1,0 +1,202 @@
+"""Blockwise flash-attention backward (counterpart of
+quantumattention_tpu/ops/flash_bwd.py).
+
+:func:`flash_attention_bwd` runs kernels K2 (``flash_bwd_dq``, the port of
+the Pallas ``_dq_kernel``, flash_bwd.py:112) and K3 (``flash_bwd_dkv``, the
+port of ``_dkv_kernel``, flash_bwd.py:150), both in
+``csrc/flash_bwd.cu``.  The math is flash_bwd.py:9-15, with P recomputed
+from the forward's saved (m, l)::
+
+    D  = rowsum(dO o O)                  (a torch reduction, as in JAX)
+    P  = exp2(Q.K^T * sm_scale * log2 e - m) / l      (l == 0 -> P = 0)
+    dP = dO.V^T,  dS = P o (dP - D)
+    dQ = sm_scale dS.K,  dK = sm_scale dS^T.Q,  dV = P^T.dO
+
+m and l are (B, Hq, Sq) fp32, as ``flash_attention(...,
+return_residuals=True)`` returns them.  K3 sums the GQA group in the kernel,
+so dK/dV come out (B, Hkv, Skv, D) with no per-q-head buffers.
+
+A CPU tensor runs each kernel's plain version (the same formulas on whole
+(Sq, Skv) fp32 matrices); a CUDA tensor runs the kernel or raises.
+``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` count launches.
+Covered: bf16/fp16, GQA, ragged Sq/Skv, top-left causal, D in {64, 128}.
+The window mode waits for K1's (ROADMAP queue 1, item 6b) and raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..utils import checks
+from . import _native
+from .flash import KERNEL_HEAD_DIMS, LOG2E, dense, masked_scores
+
+_FLOAT_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _probs(q, k, m, l, is_causal, sm_scale) -> torch.Tensor:
+    """P (B, Hq, Sq, Skv) fp32 from the saved (m, l); masked entries 0."""
+    s = masked_scores(q, k, is_causal, sm_scale)
+    l_inv = torch.where(l == 0, 0.0, 1.0 / l)
+    return torch.exp2(s - m[..., None]) * l_inv[..., None]
+
+
+def _group_sum(t: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
+    """(B, Hq, S, D) -> (B, Hkv, S, D): sum over each KV head's q heads."""
+    b, hq, s, d = t.shape
+    return t.reshape(b, num_kv_heads, hq // num_kv_heads, s, d).sum(dim=2)
+
+
+def _ds(q, k, v, do, m, l, delta, is_causal, sm_scale):
+    """(P, dS) of the whole problem, fp32."""
+    p = _probs(q, k, m, l, is_causal, sm_scale)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    dp = torch.matmul(do.float(), vf.transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None):
+    """K2's plain version: dQ = sm_scale * dS.K, in q's dtype."""
+    sm_scale = _default_scale(q, sm_scale)
+    _, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    kf = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None):
+    """K3's plain version: dK = sm_scale * dS^T.Q and dV = P^T.dO, summed
+    over each GQA group, in k's and v's dtypes."""
+    sm_scale = _default_scale(q, sm_scale)
+    p, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), k.shape[1])
+    dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), k.shape[1])
+    return (dk * sm_scale).to(k.dtype), dv.to(v.dtype)
+
+
+def _default_scale(q, sm_scale) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+
+
+def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO o O), (B, Hq, Sq) fp32."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, m, l, is_causal=False, sm_scale=None):
+    """The plain version of the whole backward: (dq, dk, dv)."""
+    delta = row_delta(o, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    *,
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    window=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blockwise backward; returns (dq, dk, dv) in the input dtypes.
+
+    q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), bf16 or fp16, one dtype;
+    m, l the forward's (B, Hq, Sq) fp32 residuals.
+    """
+    if window is not None:
+        raise NotImplementedError(
+            "flash_attention_bwd: sliding windows are not ported yet "
+            "(ROADMAP queue 1, item 6b)"
+        )
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S, D)")
+    batch, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if hq % hkv != 0:
+        raise ValueError("num_q_heads must be divisible by num_kv_heads")
+    if k.shape != v.shape or k.shape[0] != batch or k.shape[3] != d:
+        raise ValueError(f"bad K/V shapes {tuple(k.shape)}, {tuple(v.shape)}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("o and do must have q's shape")
+    if m.shape != (batch, hq, sq) or l.shape != (batch, hq, sq):
+        raise ValueError(f"m and l must be (B, Hq, Sq) = {(batch, hq, sq)}")
+    sm_scale = _default_scale(q, sm_scale)
+    args = [q, k, v, do, m, l, row_delta(o, do)]
+    if q.device.type != "cpu":
+        args = [dense(t) for t in args[:4]] + [t.float().contiguous() for t in args[4:]]
+    dq = flash_bwd_dq(*args, is_causal=is_causal, sm_scale=sm_scale)
+    dk, dv = flash_bwd_dkv(*args, is_causal=is_causal, sm_scale=sm_scale)
+    return dq, dk, dv
+
+
+def _check_cuda(name, q, k, v, do, m, l, delta) -> None:
+    checks.require_hopper(q.device)
+    for t in (q, k, v, do, m, l, delta):
+        if t.device != q.device:
+            raise ValueError(f"all {name} operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError(f"{name}'s q, k, v, do must be 16-byte aligned")
+    if len({t.dtype for t in (q, k, v, do)}) != 1 or q.dtype not in _FLOAT_DTYPES:
+        raise ValueError(f"{name} takes q, k, v, do of one dtype, bf16 or fp16")
+    if any(t.dtype != torch.float32 for t in (m, l, delta)):
+        raise ValueError(f"{name} takes fp32 m, l, delta")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} is built for head_dim {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+
+
+def _dims(q, k):
+    batch, hq, sq, d = q.shape
+    return batch, hq, k.shape[1], sq, k.shape[2], d
+
+
+def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None):
+    """Kernel K2 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    _check_cuda("K2", q, k, v, do, m, l, delta)
+    sm_scale = _default_scale(q, sm_scale)
+    dq = torch.empty_like(q)
+    err = _native.library().qa_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_dims(q, k), _native.dtype_code(q.dtype), int(bool(is_causal)),
+        float(sm_scale * LOG2E), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _native.check(err, "qa_flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None):
+    """Kernel K3 on CUDA tensors: (dK, dV), each (B, Hkv, Skv, D)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    _check_cuda("K3", q, k, v, do, m, l, delta)
+    sm_scale = _default_scale(q, sm_scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = _native.library().qa_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_dims(q, k), _native.dtype_code(q.dtype), int(bool(is_causal)),
+        float(sm_scale * LOG2E), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _native.check(err, "qa_flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -11,17 +11,33 @@ Tolerance: kernel and plain version both round P and the output to bf16
 (or fp16) and sum in other orders, so they may differ by a couple of
 half-precision ulps of values below 2 (ATOL = 1/32); the RMSE against the
 fp32 oracle on the same (dequantized) inputs must stay under the
-repository's 1e-2 bar.
+repository's 1e-2 bar.  The backward kernels round P and dS to bf16 where
+their plain version keeps fp32: gradients are held to max|a - b| / max|b|
+< 2e-2, the JAX suite's bar (tests/test_autodiff.py:27-30).  Their shapes
+replace the one-key problem (Sq = Skv = 1), whose dQ and dK vanish exactly
+and leave only rounding to compare, by Sq = Skv = 3.  K1's residuals are the same fp32 scores summed in
+another order: m to 1e-3 and l to 1e-3 relative for bf16 inputs; fp16
+inputs enter the products rounded to bf16 (K1's design, flash_fwd.cu), a
+relative error of ~2^-8 per score of magnitude up to ~8, so m to 3e-2 and
+l to 3e-2 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import quantumattention_tpu_torch as qt
+
 from quantumattention_tpu_torch.models import llama
 from quantumattention_tpu_torch.ops import quant
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from quantumattention_tpu_torch.ops.flash_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+)
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
 from quantumattention_tpu_torch.serving.engine import Engine
 from quantumattention_tpu_torch.utils import checks
@@ -29,6 +45,7 @@ from quantumattention_tpu_torch.utils import checks
 pytestmark = pytest.mark.cuda
 ATOL = 1.0 / 32
 RMSE_BAR = 1e-2
+GRAD_BAR = 2e-2
 
 
 @pytest.fixture
@@ -185,3 +202,80 @@ def test_quantizers_match_on_card(cuda):
             np.testing.assert_array_equal(gv.cpu().float().numpy(), cv.float().numpy())
             # amax / qmax may round one float32 ulp apart on the two devices.
             np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=2.4e-7, atol=0)
+
+
+def _max_rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+BWD_SHAPES = [(2, 4, 4, 3, 3, 64, True)] + FLASH_SHAPES[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_bwd_kernels_match_plain(cuda, shape, dtype):
+    """K1's residuals, then K2 and K3, against their plain versions."""
+    b, hq, hkv, sq, skv, d, causal = shape
+    q = _randn((b, hq, sq, d), 11, dtype, cuda)
+    k = _randn((b, hkv, skv, d), 12, dtype, cuda)
+    v = _randn((b, hkv, skv, d), 13, dtype, cuda)
+    do = _randn((b, hq, sq, d), 14, dtype, cuda)
+    out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
+    _, (pm, pl) = flash_attention_plain(q, k, v, is_causal=causal, return_residuals=True)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
+    torch.cuda.synchronize()
+    assert m.shape == l.shape == (b, hq, sq)
+    tol = 1e-3 if dtype == torch.bfloat16 else 3e-2
+    assert float((m - pm).abs().max()) <= tol
+    assert float(((l - pl).abs() / pl).max()) <= tol
+    for g, p, t in zip(grads, plain, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert bool(torch.isfinite(g).all())
+        assert _max_rel(g, p) < GRAD_BAR
+
+
+@pytest.mark.parametrize("entry", ["attn_func", "fp8_attn_func", "fp8_token_wise_attn_func"])
+def test_entry_points_differentiable_on_card(cuda, entry):
+    """Gradients reach q, k and v through the kernels on CUDA tensors, and
+    equal the CPU's (plain versions) within the gradient bar."""
+    fn = getattr(qt, entry)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        qkv = [_randn((1, h, 200, 128), 20 + i, torch.bfloat16, "cpu").to(dev).requires_grad_()
+               for i, h in enumerate((8, 2, 2))]
+        out = fn(*qkv, is_causal=True)
+        assert out.grad_fn is not None
+        grads[dev] = torch.autograd.grad((out.float() ** 2).sum(), qkv)
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert bool(torch.isfinite(g).all()) and float(g.float().abs().max()) > 0
+        assert _max_rel(g.cpu(), c) < GRAD_BAR
+
+
+@pytest.mark.parametrize("impl", ["fp8", "bf16"])
+def test_train_step_on_card_matches_cpu(cuda, impl):
+    """Loss and gradients of the tiny model on the card (K1, K2, K3) and on
+    the CPU, then one SGD step on the card; tests/test_torch_train.py holds
+    the CPU path to the JAX package with the same bounds."""
+    cfg = llama.tiny(attention_impl=impl)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 65)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        counts = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        out[dev] = llama.loss_and_grads(_params_on(params, dev), tokens.to(dev), cfg)
+        if dev == "cuda":
+            ran = (flash_attention.launches - counts[0], flash_bwd_dq.launches - counts[1],
+                   flash_bwd_dkv.launches - counts[2])
+            assert ran == (2 * cfg.num_layers if impl == "fp8" else cfg.num_layers,
+                           cfg.num_layers, cfg.num_layers)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-2 * abs(float(lc))
+    for a, b in zip(llama.leaves(gg), llama.leaves(gc)):
+        rel = torch.linalg.vector_norm(a.cpu().float() - b.float()) / torch.linalg.vector_norm(b.float())
+        assert float(rel) < 5e-2
+    new, loss = llama.train_step(_params_on(params, "cuda"), tokens.cuda(), cfg)
+    assert abs(float(loss) - float(lg)) <= 1e-3 * abs(float(lg))
+    assert all(bool(torch.isfinite(p.float()).all()) for p in llama.leaves(new))
