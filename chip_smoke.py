@@ -13,14 +13,33 @@ Phases, each printing its numbers on lines of their own:
 5. K2 (dQ) and K3 (dK, dV) against their plain version and against
    autograd of the fp32 oracle, with CUDA-event times of both kernels,
    their plain versions and the fp8 path's whole backward;
-6. the engine: Llama-3-8B at full width and depth with seeded random bf16
+6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16) against
+   their plain versions at Llama-3-8B's projection shapes (w_qkv, wo,
+   w_gate_up, w_down, lm_head) and M = 4 and 1536, with device times of
+   kernel and plain version (CUDA graph replays; ``call_ms`` adds the
+   host's per-call work), weight GB/s at M = 4, and K5 unsplit against
+   the split-K schedule;
+7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
+   layer, int8 and int4, with and without the next layer's QKV, at M = 4
+   and 256, with times as in 6 and the kernels launched per tail;
+8. the engine: Llama-3-8B at full width and depth with seeded random bf16
    weights serves 6 greedy requests on 4 slots through K1 and K4; the
    launch counts prove the path went through the kernels, and each
    request's prefill logits are held against a plain-attention run;
-7. training: the same weights take 3 SGD steps over 1024 positions through
-   the fp8 path (K1 forward, K1 recompute, K2 and K3 backward); the launch
-   counts prove it, the first loss is held against the plain path's, and
-   the gradients of a 4-layer cut against plain attention's.
+9. quantized serving: the same weights, quantized to int8 and fused
+   (``fuse_projections(quantize_params(...))``), serve the 6 requests
+   through K1, K4, K5/K6 and K8 (one K8 call per layer a decode step);
+   then the int4 tree (``quantize_params_int4``) serves 3 through K7 and
+   K8.  Prefill logits are held against the same tree run with plain
+   attention and ``kernel.qmm = kernel.qmlp = False``, and one decode step
+   through K8 against the unfused step on the same cache state;
+10. training: the bf16 weights take 3 SGD steps over 1024 positions
+   through the fp8 path (K1 forward, K1 recompute, K2 and K3 backward);
+   the launch counts prove it, the first loss is held against the plain
+   path's, and the gradients of a 4-layer cut against plain attention's.
+
+Each model path resets the launch counts just before it runs and reads
+them just after; the kernel phases' own launches do not count.
 
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit (``nvidia-smi``), and ``{"ok": true,
@@ -32,6 +51,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,8 +60,8 @@ import numpy as np
 import torch
 
 from quantumattention_tpu_torch import config, dispatch
-from quantumattention_tpu_torch.models import llama
-from quantumattention_tpu_torch.ops import _native, quant
+from quantumattention_tpu_torch.models import llama, quantized
+from quantumattention_tpu_torch.ops import _native, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
@@ -87,6 +107,26 @@ GRAD_BAR = 2e-2
 #: keeps fp32; fp8 adds its straight-through estimate.
 LOSS_REL_BOUND = 0.05
 TRAIN_GRAD_BOUND = {"bf16": 5e-2, "fp8": 1e-1}
+#: K5/K6/K7/K8 against their plain version (bf16 outputs): both sum in
+#: fp32 and round once to bf16 (K8 at the same bf16 rounding points), in
+#: other orders: max|a - b| / max|b| within 2^-6, a couple of bf16 ulps at
+#: the largest magnitude.
+QUANT_KERNEL_REL = 2.0 ** -6
+#: One decode step through K8 against the unfused step (``kernel.qmlp =
+#: False``: K5/K6 products, PyTorch norms and SwiGLU) on the same cache
+#: state and weights, ||a - b|| / ||b|| per slot.  The rounding points are
+#: the same; fp32 sums in other orders flip single bf16 ulps, and 32
+#: random-weight layers carry them to the logits.  A wrong tail is off by
+#: order 1.
+DECODE_K8_REL_BOUND = 0.05
+QMM_ROWS = (4, 1536)
+#: At decode rows each weight is read once a step, from device memory: the
+#: timed calls cycle through copies of a weight that together exceed this
+#: (2.5x the H100's 50 MB L2 cache), so no call finds its weight cached.
+COLD_BYTES = 128e6
+TAIL_ROWS = (4, 256)
+SERVE_PROMPTS = [57, 128, 300, 300, 900, 1500]
+SERVE_PROMPTS_INT4 = [57, 300, 900]
 TRAIN_POSITIONS = 1024
 TRAIN_STEPS = 3
 GRAD_CHECK_LAYERS = 4
@@ -94,10 +134,16 @@ GRAD_CHECK_LAYERS = 4
 K1_SOURCE = "quantumattention_tpu_torch/csrc/flash_fwd.cu"
 K4_SOURCE = "quantumattention_tpu_torch/csrc/decode.cu"
 K23_SOURCE = "quantumattention_tpu_torch/csrc/flash_bwd.cu"
+QMM_SOURCE = "quantumattention_tpu_torch/csrc/qmm.cu"
+K8_SOURCE = "quantumattention_tpu_torch/csrc/qmlp.cu"
 K1_REPLACES = "quantumattention_tpu/ops/flash.py:123"
 K4_REPLACES = "quantumattention_tpu/ops/decode.py:56"
 K2_REPLACES = "quantumattention_tpu/ops/flash_bwd.py:112"
 K3_REPLACES = "quantumattention_tpu/ops/flash_bwd.py:150"
+K5_REPLACES = "quantumattention_tpu/ops/qmm.py:49"
+K6_REPLACES = "quantumattention_tpu/ops/qmm.py:70"
+K7_REPLACES = "quantumattention_tpu/ops/qmm.py:118"
+K8_REPLACES = "quantumattention_tpu/ops/qmlp.py:93"
 
 
 def log(msg: str) -> None:
@@ -117,6 +163,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, reps: int = 10, iters: int = 20) -> float:
+    """Mean device time of one call in ms: ``reps`` calls, cycling through
+    ``fns`` (one callable or a list), captured in one CUDA graph and
+    replayed ``iters`` times between CUDA events, so the host's per-call
+    work (Python checks, ctypes, allocation) is left out.  At decode shapes
+    that work takes longer than the kernels themselves."""
+    fns = fns if isinstance(fns, list) else [fns]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
 
 
 def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -376,19 +453,43 @@ def phase_k23(gen) -> dict:
     }
 
 
-def phase_engine():
-    """Llama-3-8B, full width and depth, random bf16 weights, 6 requests."""
+def _reset_counts() -> None:
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    qmm.quantized_matmul.launches = 0
+    qmm.quantized_matmul.splitk_launches = 0
+    qmm.quantized_matmul4.launches = 0
+    qmlp.fused_layer_tail.launches = 0
+    dispatch.sdpa_fallback.calls = 0
+
+
+def _counts() -> dict:
+    return {"k1": flash_attention.launches, "k4": decode_attention.launches,
+            "k5": qmm.quantized_matmul.launches, "k6": qmm.quantized_matmul.splitk_launches,
+            "k7": qmm.quantized_matmul4.launches, "k8": qmlp.fused_layer_tail.launches,
+            "sdpa_fallback": dispatch.sdpa_fallback.calls}
+
+
+def _weight_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_weight_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_weight_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve(label: str, params, prompt_lens, seed: int, plain_flags=None):
+    """Llama-3-8B serves greedy requests on 4 slots (max_len 2048, int8
+    cache) through the Engine, with the launch counts reset just before and
+    read just after.  Checks completion, K1 and K4 on every layer, no SDPA
+    fallback, and each prefill's last-position logits against the same
+    tree run with plain attention (and ``plain_flags``).  Returns (engine,
+    launches, stats)."""
     cfg = llama.llama3_8b()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda")
-    torch.cuda.synchronize()
-    log(f"engine init_params_s={time.perf_counter() - t0:.3f} "
-        f"weights_GB={torch.cuda.memory_allocated() / 1e9:.3f}")
     eng = Engine(params, cfg, num_slots=4, max_len=2048, cache_dtype=torch.int8,
                  device="cuda")
-    rng = np.random.default_rng(0)
-    prompt_lens = [57, 128, 300, 300, 900, 1500]
+    rng = np.random.default_rng(seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
                    max_new_tokens=int(rng.integers(16, 33)))
@@ -420,15 +521,13 @@ def phase_engine():
     backend.prefill_and_write = timed_prefill
     backend.decode = timed_decode
 
-    flash_attention.launches = 0
-    decode_attention.launches = 0
-    dispatch.sdpa_fallback.calls = 0
+    _reset_counts()
     t0 = time.perf_counter()
     eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"k1": flash_attention.launches, "k4": decode_attention.launches,
-                "sdpa_fallback": dispatch.sdpa_fallback.calls}
+    launches = _counts()
+    backend.prefill_and_write, backend.decode = orig_prefill, orig_decode
     stats = dict(eng.stats)
     decode_tokens = stats["generated_tokens"] - len(reqs)
     rec = {
@@ -438,41 +537,249 @@ def phase_engine():
         "decode_ms_per_step": 1e3 * timers["decode_s"] / stats["decode_steps"],
         "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log("engine " + json.dumps(rec))
+    log(f"{label} " + json.dumps(rec))
 
     for r in reqs:
         if not r.done or len(r.output) != r.max_new_tokens:
-            raise RuntimeError(f"request {r.id} ended with {len(r.output)} of {r.max_new_tokens} tokens")
+            raise RuntimeError(f"{label}: request {r.id} ended with {len(r.output)} of {r.max_new_tokens} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise RuntimeError(f"request {r.id} produced out-of-vocabulary tokens")
+            raise RuntimeError(f"{label}: request {r.id} produced out-of-vocabulary tokens")
     L = cfg.num_layers
     if launches["k1"] < L * stats["prefill_forwards"]:
-        raise RuntimeError(f"K1 ran {launches['k1']} times for {stats['prefill_forwards']} prefills")
+        raise RuntimeError(f"{label}: K1 ran {launches['k1']} times for {stats['prefill_forwards']} prefills")
     if launches["k4"] < L * stats["decode_steps"]:
-        raise RuntimeError(f"K4 ran {launches['k4']} times for {stats['decode_steps']} decode steps")
+        raise RuntimeError(f"{label}: K4 ran {launches['k4']} times for {stats['decode_steps']} decode steps")
     if launches["sdpa_fallback"] != 0:
-        raise RuntimeError("the main path fell back to SDPA")
+        raise RuntimeError(f"{label}: the main path fell back to SDPA")
 
     # Each prefill's last-position logits against a plain-attention run.
     plain_cfg = llama.llama3_8b(attention_impl="sdpa")
     worst = 0.0
     for tokens, last_pos, logits in prefills:
-        ref, _ = llama.forward_prefill(
-            params, tokens, plain_cfg,
-            last_pos=torch.tensor(last_pos, device="cuda"),
-        )
+        with config.patch(plain_flags or {}):
+            ref, _ = llama.forward_prefill(
+                params, tokens, plain_cfg,
+                last_pos=torch.tensor(last_pos, device="cuda"),
+            )
         if not bool(torch.isfinite(logits).all()) or logits.shape != ref.shape:
-            raise RuntimeError("prefill logits are not finite or have the wrong shape")
+            raise RuntimeError(f"{label}: prefill logits are not finite or have the wrong shape")
         rel = (torch.linalg.vector_norm(logits - ref, dim=-1)
                / torch.linalg.vector_norm(ref, dim=-1))
         agree = (logits.argmax(-1) == ref.argmax(-1)).tolist()
-        log(f"engine prefill width={tokens.shape[1]} rows={tokens.shape[0]} "
+        log(f"{label} prefill width={tokens.shape[1]} rows={tokens.shape[0]} "
             f"rel_err={rel.tolist()} argmax_agree={agree}")
         worst = max(worst, float(rel.max()))
-    log(f"engine prefill worst_rel_err={worst} bound={PREFILL_REL_BOUND}")
+    log(f"{label} prefill worst_rel_err={worst} bound={PREFILL_REL_BOUND}")
     if not worst < PREFILL_REL_BOUND:
-        raise RuntimeError(f"prefill logits off by {worst} relative")
+        raise RuntimeError(f"{label}: prefill logits off by {worst} relative")
+    return eng, launches, stats
+
+
+def phase_engine():
+    """Llama-3-8B, full width and depth, random bf16 weights, 6 requests."""
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"engine init_params_s={time.perf_counter() - t0:.3f} "
+        f"weights_GB={torch.cuda.memory_allocated() / 1e9:.3f}")
+    _, launches, _ = serve("engine", params, SERVE_PROMPTS, seed=0)
     return launches, params
+
+
+def _decode_vs_unfused(label: str, eng, tree, seed: int) -> float:
+    """One decode step of all 4 slots through K8 against the unfused step
+    (``kernel.qmlp = False``) on the same cache state: prefill 4 prompts,
+    run the unfused step, restore the lengths (its K/V writes are
+    rewritten by the next step), run the K8 step.  Returns the worst
+    relative error."""
+    cfg = llama.llama3_8b()
+    backend = eng._backend
+    rng = np.random.default_rng(seed)
+    lens = [100, 37, 128, 64]
+    tokens = torch.zeros((4, 128), dtype=torch.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+    slots = [0, 1, 2, 3]
+    backend.prefill_and_write(eng._prefill_fn, tree, tokens.cuda(), [n - 1 for n in lens],
+                              slots, lens, 128)
+    saved = [cache.lengths.clone() for cache in backend.caches]
+    cur = rng.integers(0, cfg.vocab_size, 4)
+    mask = np.ones(4, bool)
+    with config.patch({"kernel.qmlp": False}):
+        before = qmlp.fused_layer_tail.launches
+        ref = backend.decode(tree, cur, mask, slots)
+        if qmlp.fused_layer_tail.launches != before:
+            raise RuntimeError(f"{label}: the unfused step ran K8")
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    before = qmlp.fused_layer_tail.launches
+    got = backend.decode(tree, cur, mask, slots)
+    torch.cuda.synchronize()
+    tails = qmlp.fused_layer_tail.launches - before
+    rel = (torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1))
+    agree = (got.argmax(-1) == ref.argmax(-1)).tolist()
+    log(f"{label} decode_vs_unfused k8_calls={tails} rel_err={rel.tolist()} "
+        f"argmax_agree={agree} bound={DECODE_K8_REL_BOUND}")
+    for slot in slots:
+        backend.release(slot)
+    if tails != cfg.num_layers:
+        raise RuntimeError(f"{label}: the decode step ran K8 {tails} times for {cfg.num_layers} layers")
+    if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"{label}: decode logits through K8 off by {rel.tolist()}")
+    return float(rel.max())
+
+
+def phase_quant_serving(params, int4: bool) -> dict:
+    """The bf16 weights quantized (int8 or int4) and fused, served through
+    K1, K4, K5/K6 (or K7) and K8; launches checked, prefill logits against
+    the plain run of the same tree, one decode step against the unfused
+    step.  The tree is freed before returning."""
+    label = "serve_int4" if int4 else "serve_int8"
+    cfg = llama.llama3_8b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quant_fn = quantized.quantize_params_int4 if int4 else quantized.quantize_params
+    tree = quantized.fuse_projections(quant_fn(params))
+    torch.cuda.synchronize()
+    log(f"{label} quantize_s={time.perf_counter() - t0:.3f} "
+        f"weights_GB={_weight_bytes(tree) / 1e9:.3f}")
+    eng, launches, stats = serve(
+        label, tree, SERVE_PROMPTS_INT4 if int4 else SERVE_PROMPTS, seed=2 if int4 else 1,
+        plain_flags={"kernel.qmm": False, "kernel.qmlp": False},
+    )
+    L = cfg.num_layers
+    if launches["k8"] < L * stats["decode_steps"]:
+        raise RuntimeError(f"{label}: K8 ran {launches['k8']} times for {stats['decode_steps']} decode steps")
+    # int8: K5 and K6 (the split-K rule picks per product); int4: K7, and
+    # the int8 LM head through K5 or K6.
+    ran = [launches["k7"], launches["k5"] + launches["k6"]] if int4 else [launches["k5"], launches["k6"]]
+    if not all(ran):
+        raise RuntimeError(f"{label}: a quantized-product kernel never ran: {launches}")
+    _decode_vs_unfused(label, eng, tree, seed=3)
+    del eng, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _qmat_random(k: int, n: int, gen, int4: bool):
+    w = _randn((k, n), gen, torch.float32) / math.sqrt(k)
+    return quantized.quantize_matrix_int4(w) if int4 else quantized.quantize_matrix(w)
+
+
+def _cold_copies(w: dict, m: int) -> list:
+    """``w`` and clones of it, enough to exceed COLD_BYTES at decode rows."""
+    n = max(1, math.ceil(COLD_BYTES / _weight_bytes(w))) if m == QMM_ROWS[0] else 1
+    return [w] + [{k: t.clone() for k, t in w.items()} for _ in range(n - 1)]
+
+
+def phase_qmm(gen) -> dict:
+    """K5, K6 and K7 against their plain versions at Llama-3-8B's shapes."""
+    cfg = llama.llama3_8b()
+    e, inter = cfg.hidden_size, cfg.intermediate_size
+    shapes = [("w_qkv", e, cfg.q_dim + 2 * cfg.kv_dim), ("wo", cfg.q_dim, e),
+              ("w_gate_up", e, 2 * inter), ("w_down", inter, e), ("lm_head", e, cfg.vocab_size)]
+    lib = _native.library()
+    worst = {"k5": 0.0, "k6": 0.0, "k7": 0.0}
+    timing = {}
+    for name, k, n in shapes:
+        w8 = _qmat_random(k, n, gen, int4=False)
+        w4 = _qmat_random(k, n, gen, int4=True)
+        for m in QMM_ROWS:
+            x = _randn((m, k), gen)
+            auto = lib.qa_qmm_splits(m, n, k, 0)
+            split = auto if auto > 1 else 4  # K6 at every shape, the rule's count where it splits
+            c8, c4 = _cold_copies(w8, m), _cold_copies(w4, m)
+            runs = {
+                "k5": ([lambda w=w: qmm.quantized_matmul(x, w["q"], w["s"], n_streams=1) for w in c8],
+                       lambda: qmm.quantized_matmul_plain(x, w8["q"], w8["s"]), w8),
+                "k6": ([lambda w=w: qmm.quantized_matmul(x, w["q"], w["s"], n_streams=split) for w in c8],
+                       lambda: qmm.quantized_matmul_plain(x, w8["q"], w8["s"], split), w8),
+                "k7": ([lambda w=w: qmm.quantized_matmul4(x, w["q4"], w["s"]) for w in c4],
+                       lambda: qmm.quantized_matmul4_plain(x, w4["q4"], w4["s"]), w4),
+            }
+            rec = {"W": name, "M": m, "K": k, "N": n, "auto_splits": auto, "k6_splits": split,
+                   "weight_copies": [len(c8), len(c4)]}
+            for key, (kerns, plain, w) in runs.items():
+                kern = kerns[0]
+                out, ref = kern(), plain()
+                torch.cuda.synchronize()
+                rec[f"{key}_max_abs_vs_plain"] = max_abs(out, ref)
+                rec[f"{key}_rel_vs_plain"] = max_rel(out, ref)
+                if not bool(torch.isfinite(out).all()) or not rec[f"{key}_rel_vs_plain"] <= QUANT_KERNEL_REL:
+                    raise RuntimeError(f"{key} disagrees with its plain version: {rec}")
+                del out, ref
+                rec[f"{key}_ms"] = graph_ms(kerns)
+                rec[f"{key}_plain_ms"] = graph_ms(plain, reps=1, iters=3)
+                rec[f"{key}_call_ms"] = time_ms(kern)
+                if m == QMM_ROWS[0]:
+                    rec[f"{key}_weight_GBps"] = _weight_bytes(w) / rec[f"{key}_ms"] / 1e6
+                else:
+                    rec[f"{key}_tflops"] = 2 * m * k * n / rec[f"{key}_ms"] / 1e9
+                worst[key] = max(worst[key], rec[f"{key}_max_abs_vs_plain"])
+            timing[name, m] = rec
+            log("qmm " + json.dumps(rec))
+            del x, c8, c4, runs
+        del w8, w4
+    torch.cuda.empty_cache()
+    # The JSON line's times: the decode regime; K6 at wo, where the rule splits.
+    pick = {"k5": ("w_gate_up", "k5"), "k6": ("wo", "k6"), "k7": ("w_gate_up", "k7")}
+    return {key: {"max_abs_err": worst[key], "ms": timing[name, QMM_ROWS[0]][f"{k}_ms"],
+                  "plain_ms": timing[name, QMM_ROWS[0]][f"{k}_plain_ms"]}
+            for key, (name, k) in pick.items()}
+
+
+def phase_k8(gen) -> dict:
+    """K8 against its plain version at Llama-3-8B's layer."""
+    cfg = llama.llama3_8b()
+    e, q_dim, inter = cfg.hidden_size, cfg.q_dim, cfg.intermediate_size
+    f = cfg.q_dim + 2 * cfg.kv_dim
+    worst = 0.0
+    timing = None
+    for fmt in ("int8", "int4"):
+        int4 = fmt == "int4"
+        wo = _qmat_random(q_dim, e, gen, int4)
+        w_gu = _qmat_random(e, 2 * inter, gen, int4)  # [gate | up]: per-column scales
+        w_down = _qmat_random(inter, e, gen, int4)
+        w_qkv = _qmat_random(e, f, gen, int4)
+        norm = _randn((e,), gen, torch.float32).abs() + 0.5
+        next_norm = _randn((e,), gen, torch.float32).abs() + 0.5
+        for m in TAIL_ROWS:
+            x = _randn((m, e), gen)
+            attn = _randn((m, q_dim), gen)
+            for fold in (False, True):
+                kw = dict(eps=cfg.rms_norm_eps, attn_out=attn, wo=wo)
+                mats = [wo, w_gu, w_down]
+                if fold:
+                    kw.update(next_attn_norm=next_norm, next_w_qkv=w_qkv)
+                    mats.append(w_qkv)
+                kern = lambda: qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)  # noqa: E731
+                plain = lambda: qmlp.fused_layer_tail_plain(x, norm, w_gu, w_down, **kw)  # noqa: E731
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                got, ref = (got, ref) if fold else ((got,), (ref,))
+                rec = {"fmt": fmt, "M": m, "fold": fold,
+                       "kernels_per_tail": qmlp.fused_layer_tail.last_kernels,
+                       "max_abs_vs_plain": max(max_abs(a, b) for a, b in zip(got, ref)),
+                       "rel_vs_plain": max(max_rel(a, b) for a, b in zip(got, ref))}
+                if (not all(bool(torch.isfinite(a).all()) for a in got)
+                        or not rec["rel_vs_plain"] <= QUANT_KERNEL_REL):
+                    raise RuntimeError(f"K8 disagrees with its plain version: {rec}")
+                del got, ref
+                rec["ms"] = graph_ms(kern)
+                rec["plain_ms"] = graph_ms(plain, reps=1, iters=3)
+                rec["call_ms"] = time_ms(kern)
+                if m == TAIL_ROWS[0]:
+                    rec["weight_GBps"] = _weight_bytes(mats) / rec["ms"] / 1e6
+                log("k8 " + json.dumps(rec))
+                worst = max(worst, rec["max_abs_vs_plain"])
+                if (fmt, m, fold) == ("int8", TAIL_ROWS[0], True):
+                    timing = rec
+        del wo, w_gu, w_down, w_qkv
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
 
 
 def _checked_grads(params, tokens, impl):
@@ -565,7 +872,11 @@ def main() -> int:
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
     k23 = phase_k23(gen)
+    k567 = phase_qmm(gen)
+    k8 = phase_k8(gen)
     launches, params = phase_engine()
+    q8 = phase_quant_serving(params, int4=False)
+    q4 = phase_quant_serving(params, int4=True)
     train = phase_train(params)
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -576,7 +887,18 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": train["k2"], **k23["dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
          "replaces": K3_REPLACES, "launches": train["k3"], **k23["dkv"]},
+        {"name": "qmm", "route": "cuda", "source": QMM_SOURCE, "replaces": K5_REPLACES,
+         "launches": q8["k5"] + q4["k5"], **k567["k5"]},
+        {"name": "qmm_splitk", "route": "cuda", "source": QMM_SOURCE, "replaces": K6_REPLACES,
+         "launches": q8["k6"] + q4["k6"], **k567["k6"]},
+        {"name": "qmm4", "route": "cuda", "source": QMM_SOURCE, "replaces": K7_REPLACES,
+         "launches": q4["k7"], **k567["k7"]},
+        {"name": "layer_tail", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
+         "launches": q8["k8"] + q4["k8"], **k8},
     ]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ context manager with the JAX package's semantics (config.py:185-223).
 
 Only the flags this package reads are here.  The TPU-only knobs
 (``vmem_limit_mb``, ``softmax_bf16``, ``interpret``, ``fp8_dot`` and the
-``enable_int8_*`` MXU gates) have no meaning on the GPU, and the weight,
-fused-layer, paging and autotune knobs arrive with their ROADMAP slices.
+``enable_int8_*`` MXU gates) have no meaning on the GPU, and the
+mega-kernel, paging and autotune knobs arrive with their ROADMAP slices.
 """
 
 from __future__ import annotations
@@ -41,6 +41,18 @@ kernel = _Namespace(
     # Use the blockwise backward kernels K2/K3 (ops/flash_bwd.py); False
     # falls back to the O(S^2) oracle-recompute VJP (JAX kernel.pallas_bwd).
     cuda_bwd=_env_bool("QUANTUM_ATTN_CUDA_BWD", True),
+    # Route quantized weight products (models/quantized.matmul) through the
+    # w8a16/w4a16 kernels K5/K6/K7 (ops/qmm.py).  True: CUDA tensors take
+    # the kernels, CPU tensors the plain composition; "force": CPU tensors
+    # also go through the kernel wrappers (their plain versions), the JAX
+    # package's interpret-mode test seam; False: the plain composition
+    # everywhere (an explicit choice, never a fallback).
+    qmm=_env_bool("QUANTUM_ATTN_QMM", True),
+    # Run each decoder-layer tail (wo + residual + RMSNorm + SwiGLU MLP +
+    # residual, optionally the next layer's QKV) as kernel K8
+    # (ops/qmlp.py) on fused quantized trees at <= 256 rows; the same
+    # True / "force" / False semantics as ``qmm``.
+    qmlp=_env_bool("QUANTUM_ATTN_QMLP", True),
 )
 
 attention = _Namespace(

@@ -1,6 +1,7 @@
 // Shared helpers of the hand-written kernels: element loads and stores for
-// the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8), and
-// the mma.sync fragment helpers of the attention kernels.
+// the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8), the
+// mma.sync fragment helpers of the attention kernels, and the quantized
+// weight helpers and product launcher of K5-K8.
 #pragma once
 
 #include <cstdint>
@@ -149,5 +150,57 @@ __device__ __forceinline__ void load_b_nn(uint32_t& b0, uint32_t& b1, const __nv
   b0 = pack_raw(c[0], c[stride]);
   b1 = pack_raw(c[8 * stride], c[9 * stride]);
 }
+
+// ---------------------------------------------------------------------------
+// Quantized weights (K5-K8). int8 codes convert to bf16 exactly. A packed
+// int4 byte of row r in 256-row block g holds original row 256g + r in its
+// low nibble and 256g + 128 + r in its high nibble
+// (models/quantized.pack_int4_rows); the nibble times its fp32 group scale
+// is rounded to bf16 (ops/qmm.py:99-115 of the JAX package).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float int4_lo(unsigned char b) {
+  return static_cast<float>(static_cast<signed char>(b << 4) >> 4);
+}
+
+__device__ __forceinline__ float int4_hi(unsigned char b) {
+  return static_cast<float>(static_cast<signed char>(b) >> 4);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; zeros
+// when !valid (the source is then not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// A quantized (K, N) matrix: int8 codes with N fp32 column scales, or
+// packed int4 codes (K/2, N) with (K/128, N) fp32 group scales.
+struct QMat {
+  const void* q;
+  const float* s;
+  int int4;
+};
+
+// Host side of the quantized product (csrc/qmm.cu), shared with K8.
+// x (M, K) bf16 row-major. K ranges of the split-K schedule: `requested`
+// 0 applies the card's rule (split when the output tiles are fewer than
+// the SMs); the result never leaves a range empty.
+int qgemm_splits(int M, int N, int K, int requested);
+// fp32 partial sums partial[z][M][N] of the `splits` K ranges, unscaled.
+cudaError_t qgemm_partial(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
+                          float* partial, cudaStream_t stream);
+// out (M, N) bf16 = the product, scaled per column for int8 and cast once;
+// with splits > 1 through `partial` and a fixed-order reduction.
+cudaError_t qgemm_out(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
+                      float* partial, __nv_bfloat16* out, cudaStream_t stream);
 
 }  // namespace qa

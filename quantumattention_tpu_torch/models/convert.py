@@ -1,30 +1,33 @@
 """JAX parameter trees <-> this package's parameters.
 
 ``params_from_numpy`` takes the tree that ``quantumattention_tpu.models.
-llama.init_params`` (or ``models/hf.load_hf_checkpoint``) builds, with every
-leaf turned into a numpy array (``jax.tree_util.tree_map(np.asarray, ...)``),
-and returns the same tree of torch tensors on ``device``.
+llama.init_params`` (or ``models/quantized.init_quantized_params``,
+``quantize_params``, ``quantize_params_int4``, ``fuse_projections``, or
+``models/hf.load_hf_checkpoint``) builds, with every leaf turned into a
+numpy array (``jax.tree_util.tree_map(np.asarray, ...)``), and returns the
+same tree of torch tensors on ``device``.
 
-Layout assumed: the unquantized Llama tree of the JAX package —
-``embed`` (V, E), ``final_norm`` (E,) fp32, optional ``lm_head`` (E, V),
-and a ``layers`` list whose dicts hold ``attn_norm``/``mlp_norm`` (E,) fp32
-and the projections ``wq`` (E, Hq*D), ``wk``/``wv`` (E, Hkv*D),
-``wo`` (Hq*D, E), ``w_gate``/``w_up`` (E, F), ``w_down`` (F, E), optional
-``bq``/``bk``/``bv``.  Both packages store weights (in, out), so no
-transposes happen; bfloat16 arrays (ml_dtypes) are reinterpreted bit for
-bit.  Quantized or fused trees are refused.  ``params_to_numpy`` is the
-inverse, so a test can hold this package's gradients and updated
+Layout assumed: the Llama tree of the JAX package — ``embed`` (V, E),
+``final_norm`` (E,) fp32, optional ``lm_head`` (E, V), and a ``layers``
+list whose dicts hold ``attn_norm``/``mlp_norm`` (E,) fp32, the
+projections ``wq``/``wk``/``wv``/``wo``/``w_gate``/``w_up``/``w_down`` or
+their fused ``w_qkv``/``w_gate_up``, and optional ``bq``/``bk``/``bv``.
+Any projection (and the embedding) may be a quantized dict, int8
+``{"q", "s"}`` or int4 ``{"q4", "s"}``.  Both packages store weights (in,
+out), so no transposes happen; bfloat16 arrays (ml_dtypes) are
+reinterpreted bit for bit.  MoE trees are refused.  ``params_to_numpy`` is
+the inverse, so a test can hold this package's gradients and updated
 parameters against the JAX tree.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from .llama import LlamaConfig, Params, tree_like, leaves
+from .llama import LlamaConfig, Params
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -36,25 +39,24 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _map(tree: Any, fn: Callable) -> Any:
+    """``fn`` over every leaf of nested dicts and lists; None stays None."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return None if tree is None else fn(tree)
+
+
 def params_from_numpy(tree: Any, cfg: LlamaConfig, device="cpu") -> Params:
     """Numpy leaves of a JAX Llama tree -> torch tensors on ``device``."""
-    if any(isinstance(w, dict) for layer in tree["layers"] for w in layer.values()):
-        raise NotImplementedError(
-            "quantized weight trees are not ported yet (ROADMAP queue 1, item 13)"
-        )
-    if any("w_qkv" in layer or "moe" in layer for layer in tree["layers"]):
-        raise NotImplementedError("fused-projection and MoE trees are not ported yet")
+    if any("moe" in layer for layer in tree["layers"]):
+        raise NotImplementedError("MoE trees are not ported yet (ROADMAP queue 1, item 18)")
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(
             f"tree has {len(tree['layers'])} layers, config {cfg.num_layers}"
         )
-    out: Params = {
-        k: _tensor(v, device) for k, v in tree.items() if k != "layers"
-    }
-    out["layers"] = [
-        {k: _tensor(v, device) for k, v in layer.items()} for layer in tree["layers"]
-    ]
-    return out
+    return _map(tree, lambda a: _tensor(a, device))
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -67,6 +69,7 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def params_to_numpy(params: Params) -> Any:
-    """This package's tree (parameters or gradients) -> numpy leaves of the
-    same structure, bfloat16 bit for bit; None leaves stay None."""
-    return tree_like(params, [None if t is None else _array(t) for t in leaves(params)])
+    """This package's tree (parameters, quantized or not, or gradients) ->
+    numpy leaves of the same structure, bfloat16 bit for bit; None leaves
+    stay None."""
+    return _map(params, _array)

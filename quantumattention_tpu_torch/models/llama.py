@@ -11,9 +11,15 @@ every weight is stored (in, out), "transposed-for-einsum", so
 ``forward`` is differentiable: ``loss_fn`` and ``train_step`` (plain SGD)
 train through it, with attention gradients from the backward kernels K2/K3
 (ops/flash_bwd.py).  ``forward_prefill`` and ``forward_decode`` serve and
-run without autograd.  Not yet: sliding windows (ROADMAP queue 1, item 6b),
-MoE FFNs (item 18), quantized or fused-projection weight trees and the
-lean decode path they enable (item 13).
+run without autograd.
+
+Quantized trees (``models/quantized``: w8a16/w4a16 leaves, optionally
+fused into ``w_qkv``/``w_gate_up``) serve through the weight kernels
+K5/K6/K7 (ops/qmm.py); on a fused quantized tree each layer tail of at
+most 256 rows is kernel K8 (ops/qmlp.py), which also emits the next
+layer's QKV, and ``forward_decode`` takes the lean T=1 decode path
+(llama.py:573-637 of the JAX package).  Not yet: sliding windows (ROADMAP
+queue 1, item 6b) and MoE FFNs (item 18).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import interface
+from ..ops import qmlp
 from . import quantized
 
 Params = Dict[str, Any]
@@ -114,28 +121,32 @@ def tiny(**overrides) -> LlamaConfig:
 
 
 def init_params(
-    generator: torch.Generator, cfg: LlamaConfig, device=None
+    generator: torch.Generator, cfg: LlamaConfig, device=None, *,
+    transform: Optional[Callable[[str, torch.Tensor], Any]] = None,
 ) -> Params:
     """Truncated-normal init in [-3, 3], scaled 1/sqrt(fan_in), stored in
     cfg.dtype, drawn from ``generator`` on ``device`` (the generator's
-    device by default).  One fp32 matrix is live at a time."""
+    device by default).  One fp32 matrix is live at a time.
+    ``transform(name, w)`` replaces each matrix as soon as it is drawn
+    (``quantized.init_quantized_params`` quantizes it there)."""
     device = torch.device(device if device is not None else generator.device)
 
-    def dense(shape):
+    def dense(shape, name):
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-        return w.div_(math.sqrt(shape[0])).to(cfg.dtype)
+        w = w.div_(math.sqrt(shape[0])).to(cfg.dtype)
+        return transform(name, w) if transform is not None else w
 
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=device)
 
     params: Params = {
-        "embed": dense((cfg.vocab_size, cfg.hidden_size)),
+        "embed": dense((cfg.vocab_size, cfg.hidden_size), "embed"),
         "final_norm": ones(cfg.hidden_size),
         "layers": [],
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((cfg.hidden_size, cfg.vocab_size))
+        params["lm_head"] = dense((cfg.hidden_size, cfg.vocab_size), "lm_head")
     for _ in range(cfg.num_layers):
         layer: Params = {}
         if cfg.qkv_bias:
@@ -146,14 +157,14 @@ def init_params(
             )
         layer.update(
             attn_norm=ones(cfg.hidden_size),
-            wq=dense((cfg.hidden_size, cfg.q_dim)),
-            wk=dense((cfg.hidden_size, cfg.kv_dim)),
-            wv=dense((cfg.hidden_size, cfg.kv_dim)),
-            wo=dense((cfg.q_dim, cfg.hidden_size)),
+            wq=dense((cfg.hidden_size, cfg.q_dim), "wq"),
+            wk=dense((cfg.hidden_size, cfg.kv_dim), "wk"),
+            wv=dense((cfg.hidden_size, cfg.kv_dim), "wv"),
+            wo=dense((cfg.q_dim, cfg.hidden_size), "wo"),
             mlp_norm=ones(cfg.hidden_size),
-            w_gate=dense((cfg.hidden_size, cfg.intermediate_size)),
-            w_up=dense((cfg.hidden_size, cfg.intermediate_size)),
-            w_down=dense((cfg.intermediate_size, cfg.hidden_size)),
+            w_gate=dense((cfg.hidden_size, cfg.intermediate_size), "w_gate"),
+            w_up=dense((cfg.hidden_size, cfg.intermediate_size), "w_up"),
+            w_down=dense((cfg.intermediate_size, cfg.hidden_size), "w_down"),
         )
         params["layers"].append(layer)
     return params
@@ -208,16 +219,37 @@ def _attend(cfg: LlamaConfig, q, k, v, *, is_causal: bool):
     raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
 
 
-def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn):
-    """norm -> QKV -> RoPE -> ``attend_fn(idx, q, k, v)`` on (B, H, T, D).
-    Returns (attn_out (B, T, q_dim) before wo, post-RoPE k, v)."""
-    batch, t, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+def _split_qkv(cfg: LlamaConfig, layer: Params, qkv: torch.Tensor):
+    """Split a fused [q|k|v] projection and add the biases."""
+    q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    if cfg.qkv_bias:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    return q, k, v
+
+
+def _qkv_proj(cfg: LlamaConfig, layer: Params, h: torch.Tensor):
+    """Q/K/V projections with optional biases; a tree fused by
+    ``quantized.fuse_projections`` takes one ``w_qkv`` product."""
+    if "w_qkv" in layer:
+        return _split_qkv(cfg, layer, quantized.matmul(h, layer["w_qkv"]))
     q = quantized.matmul(h, layer["wq"])
     k = quantized.matmul(h, layer["wk"])
     v = quantized.matmul(h, layer["wv"])
     if cfg.qkv_bias:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    return q, k, v
+
+
+def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=None):
+    """norm -> QKV -> RoPE -> ``attend_fn(idx, q, k, v)`` on (B, H, T, D).
+    Returns (attn_out (B, T, q_dim) before wo, post-RoPE k, v).  ``qkv``:
+    this layer's bias-free fused QKV projection, already computed by the
+    previous layer's tail kernel (norm and product are skipped)."""
+    batch, t, _ = x.shape
+    if qkv is not None:
+        q, k, v = _split_qkv(cfg, layer, qkv)
+    else:
+        q, k, v = _qkv_proj(cfg, layer, rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps))
     q = q.reshape(batch, t, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
@@ -228,10 +260,37 @@ def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn):
     return out, k, v
 
 
+def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None):
+    """Output projection + residual + MLP.  Returns (new x, the next
+    layer's bias-free QKV or None).
+
+    On a fused quantized tree at <= 256 rows this is one call of kernel
+    K8 (ops/qmlp.fused_layer_tail), which also emits ``next_layer``'s
+    attn-norm + QKV product when that layer has a fused ``w_qkv``;
+    elsewhere (bf16 or unfused trees, larger prefill groups,
+    ``kernel.qmlp`` off) the unfused path runs."""
+    if qmlp.tail_supported(cfg, layer, x):
+        lead = x.shape[:-1]
+        fold = qmlp.qkv_fold_supported(cfg, layer, next_layer, x)
+        kw = dict(next_attn_norm=next_layer["attn_norm"], next_w_qkv=next_layer["w_qkv"]) if fold else {}
+        res = qmlp.fused_layer_tail(
+            x.reshape(-1, x.shape[-1]), layer["mlp_norm"], layer["w_gate_up"], layer["w_down"],
+            eps=cfg.rms_norm_eps, attn_out=attn_out.reshape(-1, attn_out.shape[-1]),
+            wo=layer["wo"], **kw,
+        )
+        y, qkv = res if fold else (res, None)
+        return y.reshape(*lead, -1), None if qkv is None else qkv.reshape(*lead, -1)
+    x = x + quantized.matmul(attn_out, layer["wo"])
+    return mlp_block(cfg, layer, x), None
+
+
 def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    gate = quantized.matmul(h, layer["w_gate"])
-    up = quantized.matmul(h, layer["w_up"])
+    if "w_gate_up" in layer:
+        gate, up = quantized.matmul(h, layer["w_gate_up"]).chunk(2, dim=-1)
+    else:
+        gate = quantized.matmul(h, layer["w_gate"])
+        up = quantized.matmul(h, layer["w_up"])
     act = F.silu(gate.float()).to(x.dtype) * up
     return x + quantized.matmul(act, layer["w_down"])
 
@@ -247,12 +306,14 @@ def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_p
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
     kv = []
-    for idx, layer in enumerate(params["layers"]):
-        attn_out, k, v = _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn)
+    layers = params["layers"]
+    qkv_pre = None
+    for idx, layer in enumerate(layers):
+        attn_out, k, v = _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre)
         if collect_kv:
             kv.append((k, v))
-        x = x + quantized.matmul(attn_out, layer["wo"])
-        x = mlp_block(cfg, layer, x)
+        nxt = layers[idx + 1] if idx + 1 < len(layers) else None
+        x, qkv_pre = _layer_tail(cfg, layer, x, attn_out, next_layer=nxt)
     if last_pos is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_pos.to(x.device)][:, None, :]
@@ -300,6 +361,45 @@ def forward_prefill(
     return logits, kv
 
 
+def _lean_decode_supported(cfg: LlamaConfig, params: Params) -> bool:
+    """May the decode step take the lean 2-D decode path?  Needs the fused
+    ``w_qkv`` in every layer, no QKV biases and a dense FFN; the gate is
+    structural only (llama.py:573-583 of the JAX package)."""
+    if cfg.qkv_bias or cfg.num_experts > 0:
+        return False
+    return all("w_qkv" in layer for layer in params["layers"])
+
+
+def _forward_decode_lean(params, tokens, positions, cfg: LlamaConfig, attend_fn):
+    """Decode forward specialized to T == 1: activations stay (B, E), RoPE
+    runs once over the packed [q|k] block (the same formula and order as
+    ``apply_rope``), and each layer tail hands the next layer its QKV."""
+    batch = tokens.shape[0]
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    cos, sin = rope_table(positions, d, cfg.rope_theta)
+    cos, sin = cos[:, None, :], sin[:, None, :]  # (B, 1, D/2): over q and k heads
+    x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
+    layers = params["layers"]
+    qkv = None
+    for idx, layer in enumerate(layers):
+        if qkv is None:
+            h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+            qkv = quantized.matmul(h, layer["w_qkv"])
+        qk = qkv[:, : (hq + hkv) * d].reshape(batch, hq + hkv, 2, d // 2).float()
+        x1, x2 = qk[:, :, 0], qk[:, :, 1]
+        qk = torch.stack((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=2)
+        qk = qk.reshape(batch, hq + hkv, d).to(cfg.dtype)
+        v = qkv[:, (hq + hkv) * d :].reshape(batch, hkv, d)
+        attn = attend_fn(idx, qk[:, :hq], qk[:, hq:], v)
+        attn = attn.to(x.dtype).reshape(batch, hq * d)
+        nxt = layers[idx + 1] if idx + 1 < len(layers) else None
+        x, qkv = _layer_tail(cfg, layer, x, attn, next_layer=nxt)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if cfg.tie_embeddings:
+        return quantized.tied_head_matmul(x, params["embed"]).float()
+    return quantized.matmul(x, params["lm_head"]).float()
+
+
 @torch.no_grad()
 def forward_decode(
     params: Params, tokens: torch.Tensor, positions: torch.Tensor,
@@ -310,8 +410,11 @@ def forward_decode(
     tokens (B,) current tokens; positions (B,) their positions (== the
     pre-append cache lengths); ``attend_fn(layer_idx, q, k_new, v_new)``
     takes (B, H, D) post-RoPE tensors and returns (B, Hq, D).
-    Returns (B, vocab) fp32 logits.
+    Returns (B, vocab) fp32 logits.  A fused-projection tree takes the
+    lean decode path, as in JAX (llama.py:659-660).
     """
+    if _lean_decode_supported(cfg, params):
+        return _forward_decode_lean(params, tokens, positions, cfg, attend_fn)
 
     def attend_t1(idx, q, k, v):
         out = attend_fn(idx, q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :])
@@ -352,8 +455,15 @@ def tree_like(tree: Params, values: List[Any]) -> Params:
 
 def loss_and_grads(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
     """(loss, grads): ``jax.value_and_grad(loss_fn)``; grads is a tree of
-    params' structure (None for a leaf the loss does not reach)."""
+    params' structure (None for a leaf the loss does not reach).  A
+    quantized tree raises: its int8/int4 leaves are not differentiable
+    (quantized.py:17-19 of the JAX package)."""
     flat = leaves(params)
+    if any(quantized.is_quantized(p) or quantized.is_quantized4(p) for p in flat):
+        raise TypeError(
+            "loss_and_grads: int8/int4 weight leaves are not differentiable; "
+            "train the full-precision tree (models/quantized is inference only)"
+        )
     flags = [p.requires_grad for p in flat]
     try:
         for p in flat:

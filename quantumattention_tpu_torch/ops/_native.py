@@ -58,6 +58,18 @@ _SIGNATURES = {
                   _I, _F, _P],
     # Smax -> number of split-KV chunks of qa_decode
     "qa_decode_num_splits": [_I],
+    # x, w, scale, out, partial, M, N, K, int4, splits, stream
+    "qa_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # M, N, K, requested (0 = the card's rule) -> K ranges of qa_qmm
+    "qa_qmm_splits": [_I, _I, _I, _I],
+    # x, attn, wo (q, s, int4), norm, w_gate_up (q, s, int4),
+    # w_down (q, s, int4), next_norm, w_qkv (q, s, int4), out, qkv_out,
+    # x1, h, act, partial, M, E, Q, I, F, eps, n_launches (int*), stream
+    "qa_layer_tail": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
+                      _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _F, _P, _P],
+    # M, E, Q, I, F -> fp32 partial-sum entries qa_layer_tail needs
+    "qa_layer_tail_workspace": [_I, _I, _I, _I, _I],
 }
 
 

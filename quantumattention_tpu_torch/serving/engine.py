@@ -99,7 +99,9 @@ class Engine:
             if value not in (None, False, _DEFAULTS.get(name)):
                 raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not ported yet")
         if device is None:
-            device = params["embed"].device
+            # The first tensor leaf: a quantized embedding is a dict.
+            embed = params["embed"]
+            device = (embed["q"] if isinstance(embed, dict) else embed).device
         self.device = torch.device(device)
         self.params = params
         self.cfg = cfg

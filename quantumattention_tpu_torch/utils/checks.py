@@ -49,6 +49,14 @@ def require_hopper(device) -> None:
         )
 
 
+def kernel_route(flag, device) -> bool:
+    """Whether a ``config.kernel`` routing flag (True / "force" / False)
+    sends a product on ``device`` to its kernel wrapper: True routes CUDA
+    tensors, "force" also CPU tensors (where the wrapper runs the kernel's
+    plain version), False none."""
+    return bool(flag) and (flag == "force" or torch.device(device).type == "cuda")
+
+
 def is_fp8_dtype(dtype) -> bool:
     """Predicate over FP8 dtypes (checks.py:100-102)."""
     return dtype in _FP8_DTYPES

@@ -279,3 +279,179 @@ def test_train_step_on_card_matches_cpu(cuda, impl):
     new, loss = llama.train_step(_params_on(params, "cuda"), tokens.cuda(), cfg)
     assert abs(float(loss) - float(lg)) <= 1e-3 * abs(float(lg))
     assert all(bool(torch.isfinite(p.float()).all()) for p in llama.leaves(new))
+
+
+# ---------------------------------------------------------------------------
+# K5/K6/K7 (quantized products) and K8 (fused layer tail).  Kernel and
+# plain version both sum in fp32 and round once to bf16 (K8 at the same
+# bf16 rounding points); they sum in other orders, so outputs may differ by
+# a couple of bf16 ulps: max|a - b| <= 2^-6 max|b| (2 to 4 ulps at the
+# largest magnitude).
+# ---------------------------------------------------------------------------
+
+QREL = 2.0 ** -6
+QMM_SHAPES = [(1, 256, 128), (4, 512, 384), (16, 1024, 256), (33, 256, 384),
+              (100, 512, 1024), (4, 4096, 4096)]
+
+
+def _qmat(k, n, seed, int4, device):
+    from quantumattention_tpu_torch.models import quantized
+
+    w = _randn((k, n), seed, torch.float32, device) / k ** 0.5
+    return quantized.quantize_matrix_int4(w) if int4 else quantized.quantize_matrix(w)
+
+
+def _close_rel(a, b, bound=QREL):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert bool(torch.isfinite(a).all())
+    assert float((a.float() - b.float()).abs().max()) <= bound * float(b.float().abs().max())
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3], ids=["auto", "s1", "s3"])
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_qmm_kernels_match_plain(cuda, shape, int4, splits):
+    from quantumattention_tpu_torch.ops import qmm
+
+    m, k, n = shape
+    x = _randn((m, k), 30, torch.bfloat16, cuda)
+    w = _qmat(k, n, 31, int4, cuda)
+    counts = (qmm.quantized_matmul.launches, qmm.quantized_matmul.splitk_launches,
+              qmm.quantized_matmul4.launches)
+    if int4:
+        out = qmm.quantized_matmul4(x, w["q4"], w["s"], n_streams=splits)
+        plain = qmm.quantized_matmul4_plain(x, w["q4"], w["s"])
+    else:
+        out = qmm.quantized_matmul(x, w["q"], w["s"], n_streams=splits)
+        plain = qmm.quantized_matmul_plain(x, w["q"], w["s"])
+    torch.cuda.synchronize()
+    _close_rel(out, plain)
+    ran = (qmm.quantized_matmul.launches - counts[0], qmm.quantized_matmul.splitk_launches - counts[1],
+           qmm.quantized_matmul4.launches - counts[2])
+    assert sum(ran) == 1 and (ran[2] == 1) == int4
+    if not int4 and splits is not None:
+        assert ran[1] == (splits > 1)
+
+
+def test_qmm_wrappers_refuse_what_they_do_not_take(cuda):
+    from quantumattention_tpu_torch.ops import qmm
+
+    w = _qmat(256, 128, 32, False, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        qmm.quantized_matmul(_randn((4, 256), 33, torch.float32, cuda), w["q"], w["s"])
+    w100 = _qmat(256, 100, 32, False, cuda)
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.quantized_matmul(_randn((4, 256), 33, torch.bfloat16, cuda), w100["q"], w100["s"])
+    x = _randn((4, 512), 33, torch.bfloat16, cuda)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.quantized_matmul(x, w["q"], w["s"])
+
+
+TAIL_SHAPES = [(4, 256, 512, 256, 384), (9, 256, 512, 512, 512), (256, 512, 1024, 512, 768)]
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["tail", "fold"])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "mixed", "no-wo"])
+@pytest.mark.parametrize("shape", TAIL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_layer_tail_kernel_matches_plain(cuda, shape, fmt, fold):
+    from quantumattention_tpu_torch.ops import qmlp
+
+    m, e, inter, q_dim, f = shape
+    int4 = fmt in ("int4", "mixed")
+    wo = None if fmt == "no-wo" else _qmat(q_dim, e, 40, fmt == "int4", cuda)
+    gate, up = _qmat(e, inter, 41, int4, cuda), _qmat(e, inter, 42, int4, cuda)
+    key = "q4" if int4 else "q"
+    w_gu = {key: torch.cat([gate[key], up[key]], -1), "s": torch.cat([gate["s"], up["s"]], -1)}
+    w_down = _qmat(inter, e, 43, int4, cuda)
+    norm = _randn((e,), 44, torch.float32, cuda).abs() + 0.5
+    x = _randn((m, e), 45, torch.bfloat16, cuda)
+    kw = dict(eps=1e-5)
+    if wo is not None:
+        kw.update(attn_out=_randn((m, q_dim), 46, torch.bfloat16, cuda), wo=wo)
+    if fold:
+        kw.update(next_attn_norm=norm.flip(0).contiguous(), next_w_qkv=_qmat(e, f, 47, int4, cuda))
+    before = qmlp.fused_layer_tail.launches
+    got = qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
+    want = qmlp.fused_layer_tail_plain(x, norm, w_gu, w_down, **kw)
+    torch.cuda.synchronize()
+    assert qmlp.fused_layer_tail.launches == before + 1
+    for a, b in zip(got if fold else [got], want if fold else [want]):
+        _close_rel(a, b)
+
+
+def _quant_tiny():
+    return llama.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                      head_dim=64)
+
+
+#: Engine prefill logits, card (K1 fp8, K5-K8) against the CPU engine
+#: running the same fused path through the plain versions: ||a - b|| / ||b||
+#: per request.  The rounding points agree; e4m3 attention and bf16 sums
+#: taken in other orders do not (chip_smoke.py's PREFILL_REL_BOUND).
+ENGINE_LOGIT_REL = 0.1
+
+
+def _record_prefills(eng):
+    """Collect the engine's prefill logits, one (B, vocab) tensor a forward."""
+    backend, seen = eng._backend, []
+    orig = backend.prefill_and_write
+
+    def recording(*args):
+        logits = orig(*args)
+        seen.append(logits.float().cpu())
+        return logits
+
+    backend.prefill_and_write = recording
+    return seen
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_quantized_engine_on_card(cuda, int4):
+    """A fused quantized tree serves on the card through K5 (or K7), K8 on
+    every decode layer tail, K1 and K4.  Its prefill logits agree with the
+    CPU engine's (the same fused path, forced through the plain versions),
+    and so do its first tokens wherever the CPU's top two logits are more
+    than twice the logits' difference apart (an untrained model has
+    near-ties that either side may break)."""
+    from quantumattention_tpu_torch.models import quantized
+    from quantumattention_tpu_torch.ops import qmlp, qmm
+
+    cfg = _quant_tiny()
+    quant = quantized.quantize_params_int4 if int4 else quantized.quantize_params
+    params = quantized.fuse_projections(quant(llama.init_params(torch.Generator().manual_seed(0), cfg)))
+    prompts = [[3, 17, 42, 99, 7], [5, 9, 23, 51], list(range(1, 70))]
+    outs, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        flags = {"kernel.qmm": "force", "kernel.qmlp": "force"} if dev == "cpu" else {}
+        with qt.config.patch(flags):
+            eng = Engine(_tree_on(params, dev), cfg, num_slots=2, max_len=256, cache_dtype=torch.int8)
+            logits[dev] = _record_prefills(eng)
+            k8 = qmlp.fused_layer_tail.launches
+            k567 = (qmm.quantized_matmul.launches + qmm.quantized_matmul.splitk_launches,
+                    qmm.quantized_matmul4.launches)
+            reqs = [eng.submit(pr, max_new_tokens=6) for pr in prompts]
+            eng.run_to_completion()
+        assert all(r.done and len(r.output) == 6 for r in reqs)
+        if dev == "cuda":
+            assert qmlp.fused_layer_tail.launches - k8 >= cfg.num_layers * eng.stats["decode_steps"]
+            # The int8 LM head runs K5/K6 in both trees; int4 projections K7.
+            assert qmm.quantized_matmul.launches + qmm.quantized_matmul.splitk_launches > k567[0]
+            assert (qmm.quantized_matmul4.launches > k567[1]) == int4
+        outs[dev] = [r.output[0] for r in reqs]
+    firsts = []
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max()) < ENGINE_LOGIT_REL
+        top2 = b.topk(2, dim=-1).values
+        firsts += (top2[:, 0] - top2[:, 1] > 2 * (a - b).abs().amax(dim=-1)).tolist()
+    # Prefill groups run in submission order here (two slots, FIFO).
+    for clear, x, y in zip(firsts, outs["cuda"], outs["cpu"]):
+        assert x == y or not clear
+
+
+def _tree_on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_on(v, dev) for v in tree]
+    return tree.to(dev)

@@ -24,6 +24,7 @@ from quantumattention_tpu.models import llama as jl
 from quantumattention_tpu.serving.backends import SlotsBackend as JSlots
 from quantumattention_tpu_torch.models import convert
 from quantumattention_tpu_torch.models import llama as tl
+from quantumattention_tpu_torch.models import quantized
 from quantumattention_tpu_torch.serving.backends import SlotsBackend as TSlots
 
 LOGIT_REL = 0.03
@@ -123,10 +124,16 @@ def test_not_ported_configs_raise():
         tl.tiny(window=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.tiny(num_experts=4)
+    # Quantized trees serve; what the JAX package still refuses is training
+    # one: int8 leaves are not differentiable (models/quantized.py:17-19).
     tp = tl.init_params(torch.Generator().manual_seed(0), tl.tiny())
-    tp["layers"][0]["wq"] = {"q": tp["layers"][0]["wq"], "s": None}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(tp, torch.zeros((1, 4), dtype=torch.long), tl.tiny())
+    tp["layers"][0]["wq"] = quantized.quantize_matrix(tp["layers"][0]["wq"])
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    assert tl.forward(tp, tokens, tl.tiny()).shape == (1, 4, 256)
+    with pytest.raises(TypeError, match="not differentiable"):
+        tl.loss_and_grads(tp, tokens, tl.tiny())
+    with pytest.raises(TypeError, match="not differentiable"):
+        tl.train_step(tp, tokens, tl.tiny())
 
 
 def test_init_params_shapes_and_seed():
