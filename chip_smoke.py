@@ -7,12 +7,13 @@ Phases, each printing its numbers on lines of their own:
 1. environment: torch, CUDA, nvcc, the card, and the kernels' build time
    (every kernel is built here from ``quantumattention_tpu_torch/csrc``);
 2. K1 (flash forward) against its plain version and the fp32 SDPA oracle
-   at the serving shapes, with CUDA-event times of kernel and plain version;
+   at the serving shapes, with CUDA-event times of kernel and plain version
+   and of bf16 SDPA (flash and cuDNN back ends) at the timed shape;
 3. K4 (decode) likewise, over a ragged int8 and a bf16 slot cache;
 4. K1's residuals (m, l) against their plain version;
 5. K2 (dQ) and K3 (dK, dV) against their plain version and against
    autograd of the fp32 oracle, with CUDA-event times of both kernels,
-   their plain versions and the fp8 path's whole backward;
+   their plain versions, the fp8 path's whole backward and SDPA's;
 6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16) against
    their plain versions at Llama-3-8B's projection shapes (w_qkv, wo,
    w_gate_up, w_down, lm_head) and M = 4 and 1536, with device times of
@@ -22,18 +23,33 @@ Phases, each printing its numbers on lines of their own:
 7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
    layer, int8 and int4, with and without the next layer's QKV, at M = 4
    and 256, with times as in 6 and the kernels launched per tail;
-8. the engine: Llama-3-8B at full width and depth with seeded random bf16
+8. K9 (the fused decode layer) against its plain version at Llama-3-8B's
+   layer, 16 slots / max_len 1024 and 64 / 512, ragged lengths with an
+   empty slot: error, device time by graph replay (weights and cache cold
+   in L2), the plain version's time, kernels a call, GB/s, the time of K8's
+   stages alone, and each cluster size of its attention kernel (all must
+   give the same bits);
+9. the engine: Llama-3-8B at full width and depth with seeded random bf16
    weights serves 6 greedy requests on 4 slots through K1 and K4; the
    launch counts prove the path went through the kernels, and each
    request's prefill logits are held against a plain-attention run;
-9. quantized serving: the same weights, quantized to int8 and fused
+10. quantized serving: the same weights, quantized to int8 and fused
    (``fuse_projections(quantize_params(...))``), serve the 6 requests
    through K1, K4, K5/K6 and K8 (one K8 call per layer a decode step);
    then the int4 tree (``quantize_params_int4``) serves 3 through K7 and
    K8.  Prefill logits are held against the same tree run with plain
    attention and ``kernel.qmm = kernel.qmlp = False``, and one decode step
    through K8 against the unfused step on the same cache state;
-10. training: the bf16 weights take 3 SGD steps over 1024 positions
+11. ``serve_int8_64``, the JAX package's flagship serving point: the int8
+   fused tree on 64 slots, max_len 512, 64 prompts of 128 tokens, 257 new
+   tokens each, ``run_to_completion(decode_burst=64)``: prefill through K1
+   and K5/K6, every decode step 32 K9 calls in CUDA-graph bursts with one
+   host fetch each.  Checks: every request ends with 257 tokens, K9 ran 32
+   times a decode step and K4/K8 never in them, one fetch a burst, prefill
+   logits against the plain run, one K9 step of all 64 slots against the
+   lean + K8 step, and a graph-captured burst of 8 steps against 8 eager
+   steps, token for token;
+12. training: the bf16 weights take 3 SGD steps over 1024 positions
    through the fp8 path (K1 forward, K1 recompute, K2 and K3 backward);
    the launch counts prove it, the first loss is held against the plain
    path's, and the gradients of a 4-layer cut against plain attention's.
@@ -41,7 +57,10 @@ Phases, each printing its numbers on lines of their own:
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
 
-The last three lines are a JSON object with one entry per kernel, the
+The last three lines are a JSON object with one entry per kernel (its
+launches on the main path, error against its plain version, ms, plain ms,
+``bound_ms``/``bound_by`` from the card's peaks and ``library_ms``, the
+time of one PyTorch call computing the same function, or null), the
 card's name and power limit (``nvidia-smi``), and ``{"ok": true,
 "device": {...}}``.  Any failed check raises and the script exits
 non-zero.  It needs one CUDA card and refuses to run without one.
@@ -49,6 +68,7 @@ non-zero.  It needs one CUDA card and refuses to run without one.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -61,7 +81,7 @@ import torch
 
 from quantumattention_tpu_torch import config, dispatch
 from quantumattention_tpu_torch.models import llama, quantized
-from quantumattention_tpu_torch.ops import _native, qmlp, qmm, quant
+from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
@@ -119,6 +139,20 @@ QUANT_KERNEL_REL = 2.0 ** -6
 #: random-weight layers carry them to the logits.  A wrong tail is off by
 #: order 1.
 DECODE_K8_REL_BOUND = 0.05
+#: K9 at Llama-3-8B's layer: (slots, max_len) of the JAX package's two
+#: serving points (bench.py:174-228).
+K9_SHAPES = ((16, 1024), (64, 512))
+#: The flagship serving point (bench.py:174-241, ``serve_point(64, 512,
+#: 128)``): 64 slots, max_len 512, 64 prompts of 128 tokens in buckets of
+#: 128, 257 new tokens each, bursts of 64.
+SERVE64 = {"slots": 64, "max_len": 512, "prompt": 128, "new": 257, "burst": 64,
+           "bucket": 128}
+#: Eager per-step mega calls the graph-captured burst is held against.
+BURST_CHECK_STEPS = 8
+#: The card's peaks for ``bound_ms`` (NVIDIA's H100 SXM data sheet,
+#: dense): device memory bytes/s and tensor-core operations/s by operand type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "fp8": 1979e12}
 QMM_ROWS = (4, 1536)
 #: At decode rows each weight is read once a step, from device memory: the
 #: timed calls cycle through copies of a weight that together exceed this
@@ -144,6 +178,8 @@ K5_REPLACES = "quantumattention_tpu/ops/qmm.py:49"
 K6_REPLACES = "quantumattention_tpu/ops/qmm.py:70"
 K7_REPLACES = "quantumattention_tpu/ops/qmm.py:118"
 K8_REPLACES = "quantumattention_tpu/ops/qmlp.py:93"
+K9_SOURCE = "quantumattention_tpu_torch/csrc/megastep.cu"
+K9_REPLACES = "quantumattention_tpu/ops/megastep.py:72"
 
 
 def log(msg: str) -> None:
@@ -194,6 +230,33 @@ def graph_ms(fns, reps: int = 10, iters: int = 20) -> float:
     ms = start.elapsed_time(end) / (iters * reps)
     del graph
     return ms
+
+
+def bound(nbytes: float, ops=None) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` at the
+    memory rate and the operations (``{"bf16": n, "fp8": n}``) at their
+    types' peaks."""
+    byte_ms = 1e3 * nbytes / HBM_BYTES_S
+    op_ms = 1e3 * sum(n / PEAK_OPS_S[kind] for kind, n in (ops or {}).items())
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def sdpa_library_ms(gen, b: int, s: int, d: int, causal: bool, backward: bool = False) -> float:
+    """bf16 ``scaled_dot_product_attention`` with the flash and cuDNN back
+    ends at (b, 32 q heads, s, d) over 8 KV heads (its forward, or with
+    ``backward`` its backward, dQ dK dV in one call): the yardstick of K1,
+    K2 and K3, used nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = _randn((b, 32, s, d), gen), _randn((b, 8, s, d), gen), _randn((b, 8, s, d), gen)
+    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]):
+        if not backward:
+            return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        do = torch.randn_like(out)
+        return time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
 
 
 def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -301,7 +364,16 @@ def phase_k1(gen) -> dict:
         worst = max(worst, err)
         del q, k, v, args, out, plain, oracle, oracle_float
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
+    # Bound at the timed shape (1, 1536, head-wise e4m3 q and k, bf16 v,
+    # causal): q, k (1 byte), v and out (2 bytes); Q.K^T at the fp8 peak,
+    # P.V at bf16's, each 2 * Hq * S^2 * D / 2 under the causal mask.
+    s, d = 1536, 128
+    nbytes = 32 * s * d * (1 + 2) + 8 * s * d * (1 + 2)
+    half = 2 * 32 * s * s * d / 2
+    lib = sdpa_library_ms(gen, 1, s, d, True)
+    log(f"k1 library sdpa_bf16_ms={lib}")
+    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            **bound(nbytes, {"fp8": half, "bf16": half}), "library_ms": lib}
 
 
 def phase_k4(gen) -> dict:
@@ -348,7 +420,12 @@ def phase_k4(gen) -> dict:
         worst = max(worst, err)
         if cache_dtype == torch.int8:
             timing = rec
-    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
+    # Bound at the timed int8 cache: the valid K/V rows (1 byte an element,
+    # a 4-byte scale a row) and q and out; its few flops a byte bind nothing.
+    # No PyTorch call reads an int8 cache with token-wise scales.
+    nbytes = sum(lens) * hkv * 2 * (d + 4) + 2 * b * hq * d * 2
+    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            **bound(nbytes), "library_ms": None}
 
 
 def phase_k1_residuals(gen) -> dict:
@@ -446,10 +523,21 @@ def phase_k23(gen) -> dict:
         worst["dkv"] = max(worst["dkv"], rec["dk_max_abs_vs_plain"], rec["dv_max_abs_vs_plain"])
         del q, k, v, do, out, m, l, grads, plain, oracle
     torch.cuda.empty_cache()
+    # Bounds at the timed shape (1, 1536, bf16, causal): each kernel reads q,
+    # k, v, dO and the fp32 rows m, l, delta once and writes its gradients;
+    # K2 does three products and K3 four, 2 * Hq * S^2 * D / 2 each. The
+    # library call is SDPA's whole backward (dQ, dK and dV in one call).
+    s, d = 1536, 128
+    reads = (32 + 8 + 8 + 32) * s * d * 2 + 3 * 32 * s * 4
+    unit = 2 * 32 * s * s * d / 2
+    lib = sdpa_library_ms(gen, 1, s, d, True, backward=True)
+    log(f"k23 library sdpa_bf16_backward_ms={lib}")
     return {
-        "dq": {"max_abs_err": worst["dq"], "ms": timing["dq_ms"], "plain_ms": timing["dq_plain_ms"]},
+        "dq": {"max_abs_err": worst["dq"], "ms": timing["dq_ms"], "plain_ms": timing["dq_plain_ms"],
+               **bound(reads + 32 * s * d * 2, {"bf16": 3 * unit}), "library_ms": lib},
         "dkv": {"max_abs_err": worst["dkv"], "ms": timing["dkv_ms"],
-                "plain_ms": timing["dkv_plain_ms"]},
+                "plain_ms": timing["dkv_plain_ms"],
+                **bound(reads + 2 * 8 * s * d * 2, {"bf16": 4 * unit}), "library_ms": lib},
     }
 
 
@@ -460,6 +548,7 @@ def _reset_counts() -> None:
     qmm.quantized_matmul.splitk_launches = 0
     qmm.quantized_matmul4.launches = 0
     qmlp.fused_layer_tail.launches = 0
+    megastep.fused_decode_layer.launches = 0
     dispatch.sdpa_fallback.calls = 0
 
 
@@ -467,6 +556,7 @@ def _counts() -> dict:
     return {"k1": flash_attention.launches, "k4": decode_attention.launches,
             "k5": qmm.quantized_matmul.launches, "k6": qmm.quantized_matmul.splitk_launches,
             "k7": qmm.quantized_matmul4.launches, "k8": qmlp.fused_layer_tail.launches,
+            "k9": megastep.fused_decode_layer.launches,
             "sdpa_fallback": dispatch.sdpa_fallback.calls}
 
 
@@ -725,10 +815,21 @@ def phase_qmm(gen) -> dict:
         del w8, w4
     torch.cuda.empty_cache()
     # The JSON line's times: the decode regime; K6 at wo, where the rule splits.
+    # Bounds: the weight codes and scales, x and out at M = 4, with 2*M*K*N
+    # bf16 operations. No PyTorch call multiplies int8 or packed int4
+    # weights with per-channel or group scales by bf16 activations on CUDA.
     pick = {"k5": ("w_gate_up", "k5"), "k6": ("wo", "k6"), "k7": ("w_gate_up", "k7")}
-    return {key: {"max_abs_err": worst[key], "ms": timing[name, QMM_ROWS[0]][f"{k}_ms"],
-                  "plain_ms": timing[name, QMM_ROWS[0]][f"{k}_plain_ms"]}
-            for key, (name, k) in pick.items()}
+    dims = {name: (k, n) for name, k, n in shapes}
+    out = {}
+    for key, (name, k) in pick.items():
+        kk, n = dims[name]
+        m = QMM_ROWS[0]
+        wbytes = kk * n // 2 + (kk // 128) * n * 4 if key == "k7" else kk * n + n * 4
+        out[key] = {"max_abs_err": worst[key], "ms": timing[name, m][f"{k}_ms"],
+                    "plain_ms": timing[name, m][f"{k}_plain_ms"],
+                    **bound(wbytes + (m * kk + m * n) * 2, {"bf16": 2 * m * kk * n}),
+                    "library_ms": None}
+    return out
 
 
 def phase_k8(gen) -> dict:
@@ -779,7 +880,289 @@ def phase_k8(gen) -> dict:
                     timing = rec
         del wo, w_gu, w_down, w_qkv
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
+    # Bound at int8, M = 4, with the fold: the four matrices' codes and
+    # scales, x, attn, out and qkv; 2*M*(Q*E + 3*E*I + E*F) bf16 operations.
+    # No single PyTorch call computes the layer tail.
+    m = TAIL_ROWS[0]
+    macs = q_dim * e + 3 * e * inter + e * f
+    nbytes = macs + 4 * (3 * e + 2 * inter + f) + m * (2 * e + q_dim + f) * 2
+    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            **bound(nbytes, {"bf16": 2 * m * macs}), "library_ms": None}
+
+
+def _k9_bytes(lens, hkv: int, d: int, mats, e: int, f: int) -> int:
+    """Bytes one K9 call must move: the int8 weights and their scales, the
+    valid cache rows (K and V codes, a 4-byte scale each), x, q, out, qkv."""
+    b = len(lens)
+    return (_weight_bytes(mats) + sum(lens) * hkv * 2 * (d + 4)
+            + b * (2 * e + 4 * hkv * d + f) * 2)
+
+
+def phase_k9(gen) -> dict:
+    """K9 against its plain version at Llama-3-8B's layer, 16 slots / 1024
+    and 64 slots / 512, ragged lengths with empty slots: error, device time
+    (CUDA graph replays, weights and cache cold in L2), the plain version's
+    time, kernels a call, GB/s, the split between the attention + wo kernel
+    and K8's stages (the same tail without wo), and the time at each
+    cluster size of the attention kernel."""
+    cfg = llama.llama3_8b()
+    e, inter, hq, hkv, d = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
+                            cfg.num_kv_heads, cfg.head_dim)
+    f = cfg.q_dim + 2 * cfg.kv_dim
+    layer = {"wo": _qmat_random(cfg.q_dim, e, gen, False),
+             "mlp_norm": _randn((e,), gen, torch.float32).abs() + 0.5,
+             "w_gate_up": _qmat_random(e, 2 * inter, gen, False),
+             "w_down": _qmat_random(inter, e, gen, False)}
+    nxt = {"attn_norm": _randn((e,), gen, torch.float32).abs() + 0.5,
+           "w_qkv": _qmat_random(e, f, gen, False)}
+    mats = [layer["wo"], layer["w_gate_up"], layer["w_down"], nxt["w_qkv"]]
+    rng = np.random.default_rng(9)
+    worst, recs = 0.0, {}
+    for b, s_max in K9_SHAPES:
+        lens = rng.integers(1, s_max + 1, b)
+        lens[:3] = [0, 1, s_max]
+        kc, ks = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), gen, torch.float32), reduction_dim=-1)
+        vc, vs = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), gen, torch.float32), reduction_dim=-1)
+        x, q = _randn((b, e), gen), _randn((b, hq, d), gen)
+        # The post-append lengths are ``lens`` (slot 0 empty).
+        ctx = megastep.build_decode_ctx(torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                                        torch.zeros(b, dtype=torch.bool, device="cuda"), s_max)
+        args = (x, q, kc, vc, ks, vs, ctx, layer)
+        kw = dict(next_attn_norm=nxt["attn_norm"], next_w_qkv=nxt["w_qkv"], eps=cfg.rms_norm_eps)
+        rec = {"B": b, "S": s_max, "mean_len": float(lens.mean())}
+        for fold in (False, True):
+            fkw = kw if fold else {"eps": cfg.rms_norm_eps}
+            got = megastep.fused_decode_layer(*args, **fkw)
+            ref = megastep.fused_decode_layer_plain(*args, **fkw)
+            torch.cuda.synchronize()
+            ref = ref if fold else (ref, None)
+            err = max(max_rel(a, r) for a, r in zip(got, ref) if r is not None)
+            if (not all(bool(torch.isfinite(a.float()).all()) for a in got if a is not None)
+                    or not err <= QUANT_KERNEL_REL):
+                raise RuntimeError(f"K9 disagrees with its plain version: {rec} fold={fold} rel={err}")
+            rec[f"rel_vs_plain_fold{int(fold)}"] = err
+            worst = max(worst, max(max_abs(a, r) for a, r in zip(got, ref) if r is not None))
+        rec["kernels_per_call"] = megastep.fused_decode_layer.last_kernels
+        # One layer's weights (218 MB) exceed COLD_BYTES: every replay finds
+        # them, and the cache, cold in L2.
+        rec["ms"] = graph_ms(lambda: megastep.fused_decode_layer(*args, **kw))
+        rec["plain_ms"] = graph_ms(lambda: megastep.fused_decode_layer_plain(*args, **kw), reps=1, iters=3)
+        rec["tail_only_ms"] = graph_ms(lambda: qmlp.fused_layer_tail(
+            x, layer["mlp_norm"], layer["w_gate_up"], layer["w_down"], eps=cfg.rms_norm_eps,
+            next_attn_norm=nxt["attn_norm"], next_w_qkv=nxt["w_qkv"]))
+        # The attention kernel's cluster size (the card's rule picks one):
+        # each slot's rows are computed by one CTA in one order whatever the
+        # size, so every size must give the same bits.
+        want = megastep.fused_decode_layer(*args, **kw)
+        rec["ms_by_cluster"] = {}
+        for n in (1, 2, 4, 8):
+            megastep._CLUSTER = n
+            try:
+                got = megastep.fused_decode_layer(*args, **kw)
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise RuntimeError(f"K9 at cluster size {n} differs from the rule's choice: {rec}")
+                rec["ms_by_cluster"][n] = graph_ms(lambda: megastep.fused_decode_layer(*args, **kw))
+            finally:
+                megastep._CLUSTER = 0
+        nbytes = _k9_bytes(lens.tolist(), hkv, d, mats, e, f)
+        macs = cfg.q_dim * e + 3 * e * inter + e * f
+        ops = 2 * b * macs + 4 * hq * d * int(lens.sum())
+        rec.update(bound(nbytes, {"bf16": ops}), GB_moved=nbytes / 1e9,
+                   GBps=nbytes / rec["ms"] / 1e6, library_ms=None)
+        log("k9 " + json.dumps(rec))
+        recs[b, s_max] = rec
+        del kc, vc, ks, vs, args
+    del layer, nxt, mats
+    torch.cuda.empty_cache()
+    # The JSON line: the flagship shape. No PyTorch call reads an int8 cache
+    # with token-wise scales, let alone with the layer's products fused.
+    pick = recs[K9_SHAPES[1]]
+    return {"max_abs_err": worst, "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
+
+
+def _mega_vs_unfused(backend, tree, cfg, seed: int) -> float:
+    """One decode step of every slot through K9 against the unfused step
+    (lean decode + K8, ``kernel.megastep = False``) on the same cache state:
+    prefill every slot, run the unfused step, restore the lengths (its K/V
+    writes are rewritten by the next step), run the K9 step, restore them
+    again.  Returns the worst per-slot ||a - b|| / ||b|| of the logits."""
+    rng = np.random.default_rng(seed)
+    slots = list(range(backend.num_slots))
+    lens = rng.integers(1, SERVE64["prompt"] + 1, len(slots))
+    width = SERVE64["prompt"]
+    for g in range(0, len(slots), 16):
+        tokens = torch.zeros((16, width), dtype=torch.int64)
+        for i, n in enumerate(lens[g: g + 16]):
+            tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+        backend.prefill_and_write(functools.partial(llama.forward_prefill, cfg=cfg), tree,
+                                  tokens.cuda(), [int(n) - 1 for n in lens[g: g + 16]],
+                                  slots[g: g + 16], [int(n) for n in lens[g: g + 16]], width)
+    saved = [cache.lengths.clone() for cache in backend.caches]
+    cur = rng.integers(0, cfg.vocab_size, len(slots))
+    mask = np.ones(len(slots), bool)
+    with config.patch({"kernel.megastep": False}):
+        before = (megastep.fused_decode_layer.launches, qmlp.fused_layer_tail.launches)
+        ref = backend.decode(tree, cur, mask)
+        if megastep.fused_decode_layer.launches != before[0] or qmlp.fused_layer_tail.launches == before[1]:
+            raise RuntimeError("serve_int8_64: the unfused step ran K9, or not K8")
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    before = megastep.fused_decode_layer.launches
+    got = backend.decode(tree, cur, mask)
+    torch.cuda.synchronize()
+    k9 = megastep.fused_decode_layer.launches - before
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"serve_int8_64 k9_vs_unfused k9_calls={k9} worst_rel_err={float(rel.max())} "
+        f"mean_rel_err={float(rel.mean())} argmax_agree={agree} bound={DECODE_K8_REL_BOUND}")
+    if k9 != cfg.num_layers:
+        raise RuntimeError(f"serve_int8_64: the K9 step ran K9 {k9} times for {cfg.num_layers} layers")
+    if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"serve_int8_64: the K9 step is off the unfused step by {float(rel.max())}")
+    return float(rel.max())
+
+
+def _burst_vs_eager(backend, tree, seed: int) -> None:
+    """From one cache state, a graph-captured burst of BURST_CHECK_STEPS
+    greedy steps and as many eager per-step K9 calls give equal tokens
+    (the kernels are deterministic)."""
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    slots = backend.num_slots
+    saved = [cache.lengths.clone() for cache in backend.caches]
+    cur = np.random.default_rng(seed).integers(0, backend.cfg.vocab_size, slots)
+    ones = np.ones(slots, bool)
+    replays = backend.stats["graph_replays"]
+    packed = backend.burst(tree, cur, ones, np.full(slots, 1000, np.int32),
+                           np.full(slots, -1, np.int32), None, BURST_CHECK_STEPS,
+                           SamplingParams(), False)
+    if backend.stats["graph_replays"] - replays != BURST_CHECK_STEPS:
+        raise RuntimeError("serve_int8_64: the checked burst did not run from its captured graph")
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    steps = []
+    for _ in range(BURST_CHECK_STEPS):
+        cur = backend.decode(tree, cur, ones).argmax(-1).cpu().numpy()
+        steps.append(cur)
+    equal = bool((packed[0] == np.stack(steps)).all())
+    log(f"serve_int8_64 graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={slots} tokens_equal={equal}")
+    if not equal:
+        raise RuntimeError("serve_int8_64: the graph-captured burst's tokens differ from eager steps")
+
+
+def phase_serve_int8_64(params) -> dict:
+    """The JAX package's flagship serving point on Llama-3-8B at full width
+    and depth: the bf16 weights quantized to int8 and fused, 64 slots,
+    max_len 512, 64 prompts of 128 tokens, 257 new tokens each, decode in
+    bursts of 64 through K9 (one call a layer a step), CUDA graphs and one
+    host fetch a burst."""
+    cfg = llama.llama3_8b()
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree = quantized.fuse_projections(quantized.quantize_params(params))
+    torch.cuda.synchronize()
+    log(f"serve_int8_64 quantize_s={time.perf_counter() - t0:.3f} "
+        f"weights_GB={_weight_bytes(tree) / 1e9:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(tree, cfg, num_slots=SERVE64["slots"], max_len=SERVE64["max_len"],
+                 cache_dtype=torch.int8, prefill_bucket=SERVE64["bucket"], device="cuda")
+    backend = eng._backend
+    if backend.route(tree) != "mega":
+        raise RuntimeError("serve_int8_64: the 64-slot int8 step does not route to K9")
+    rng = np.random.default_rng(64)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, SERVE64["prompt"]).tolist(),
+                       max_new_tokens=SERVE64["new"]) for _ in range(SERVE64["slots"])]
+    timers = {"prefill_s": 0.0, "decode_s": 0.0}
+    dec = {k: 0 for k in _counts()}
+    prefills = []
+    orig = {name: getattr(backend, name) for name in ("prefill_and_write", "decode", "burst")}
+
+    def timed_prefill(prefill_fn, params_, tokens, last_pos, *rest):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = orig["prefill_and_write"](prefill_fn, params_, tokens, last_pos, *rest)
+        torch.cuda.synchronize()
+        timers["prefill_s"] += time.perf_counter() - t
+        prefills.append((tokens.clone(), list(last_pos), logits.clone()))
+        return logits
+
+    def timed(name):
+        def run(*args):
+            torch.cuda.synchronize()
+            before = _counts()
+            t = time.perf_counter()
+            out = orig[name](*args)
+            torch.cuda.synchronize()
+            timers["decode_s"] += time.perf_counter() - t
+            for k, v in _counts().items():
+                dec[k] += v - before[k]
+            return out
+        return run
+
+    backend.prefill_and_write = timed_prefill
+    backend.decode, backend.burst = timed("decode"), timed("burst")
+    _reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion(decode_burst=SERVE64["burst"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    for name, fn in orig.items():
+        setattr(backend, name, fn)
+    stats = dict(eng.stats)
+    decode_tokens = stats["generated_tokens"] - len(reqs)
+    rec = {
+        "stats": stats, "backend": dict(backend.stats), "launches": launches,
+        "decode_launches": dec, "wall_s": wall,
+        "prefill_tok_s": stats["prefill_tokens"] / timers["prefill_s"],
+        "decode_tok_s": decode_tokens / timers["decode_s"],
+        "decode_ms_per_step": 1e3 * timers["decode_s"] / stats["decode_steps"],
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log("serve_int8_64 " + json.dumps(rec))
+
+    for r in reqs:
+        if not r.done or len(r.output) != SERVE64["new"]:
+            raise RuntimeError(f"serve_int8_64: request {r.id} ended with {len(r.output)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise RuntimeError(f"serve_int8_64: request {r.id} produced out-of-vocabulary tokens")
+    if dec["k9"] != L * stats["decode_steps"]:
+        raise RuntimeError(f"serve_int8_64: K9 ran {dec['k9']} times in {stats['decode_steps']} decode steps")
+    if dec["k4"] or dec["k8"]:
+        raise RuntimeError(f"serve_int8_64: K4/K8 ran in the decode steps: {dec}")
+    if launches["k1"] < L * stats["prefill_forwards"] or not (launches["k5"] + launches["k6"]):
+        raise RuntimeError(f"serve_int8_64: the prefill missed K1 or K5/K6: {launches}")
+    if launches["sdpa_fallback"]:
+        raise RuntimeError("serve_int8_64: the main path fell back to SDPA")
+    bs = backend.stats
+    if bs["bursts"] < 1 or bs["host_fetches"] != bs["bursts"]:
+        raise RuntimeError(f"serve_int8_64: not one host fetch a burst: {bs}")
+
+    plain_cfg = llama.llama3_8b(attention_impl="sdpa")
+    worst = 0.0
+    for tokens, last_pos, logits in prefills:
+        with config.patch({"kernel.qmm": False, "kernel.qmlp": False}):
+            ref, _ = llama.forward_prefill(tree, tokens, plain_cfg,
+                                           last_pos=torch.tensor(last_pos, device="cuda"))
+        if not bool(torch.isfinite(logits).all()) or logits.shape != ref.shape:
+            raise RuntimeError("serve_int8_64: prefill logits are not finite or have the wrong shape")
+        rel = torch.linalg.vector_norm(logits - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+        worst = max(worst, float(rel.max()))
+    log(f"serve_int8_64 prefill groups={len(prefills)} worst_rel_err={worst} bound={PREFILL_REL_BOUND}")
+    if not worst < PREFILL_REL_BOUND:
+        raise RuntimeError(f"serve_int8_64: prefill logits off by {worst} relative")
+
+    _mega_vs_unfused(backend, tree, cfg, seed=65)
+    _burst_vs_eager(backend, tree, seed=66)
+    del eng, backend, tree, prefills
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _checked_grads(params, tokens, impl):
@@ -874,9 +1257,11 @@ def main() -> int:
     k23 = phase_k23(gen)
     k567 = phase_qmm(gen)
     k8 = phase_k8(gen)
+    k9 = phase_k9(gen)
     launches, params = phase_engine()
     q8 = phase_quant_serving(params, int4=False)
     q4 = phase_quant_serving(params, int4=True)
+    s64 = phase_serve_int8_64(params)
     train = phase_train(params)
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -895,6 +1280,8 @@ def main() -> int:
          "launches": q4["k7"], **k567["k7"]},
         {"name": "layer_tail", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
          "launches": q8["k8"] + q4["k8"], **k8},
+        {"name": "fused_decode_layer", "route": "cuda", "source": K9_SOURCE,
+         "replaces": K9_REPLACES, "launches": s64["k9"], **k9},
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

@@ -6,8 +6,8 @@ context manager with the JAX package's semantics (config.py:185-223).
 
 Only the flags this package reads are here.  The TPU-only knobs
 (``vmem_limit_mb``, ``softmax_bf16``, ``interpret``, ``fp8_dot`` and the
-``enable_int8_*`` MXU gates) have no meaning on the GPU, and the
-mega-kernel, paging and autotune knobs arrive with their ROADMAP slices.
+``enable_int8_*`` MXU gates) have no meaning on the GPU, and the paging
+and autotune knobs arrive with their ROADMAP slices.
 """
 
 from __future__ import annotations
@@ -53,6 +53,12 @@ kernel = _Namespace(
     # (ops/qmlp.py) on fused quantized trees at <= 256 rows; the same
     # True / "force" / False semantics as ``qmm``.
     qmlp=_env_bool("QUANTUM_ATTN_QMLP", True),
+    # Run each decode layer of a fused int8 tree over an int8 slot cache as
+    # kernel K9 (ops/megastep.py: attention with wo folded in, the MLP and
+    # the next layer's QKV in one call) when ``megastep_supported`` holds;
+    # the same True / "force" / False semantics as ``qmm`` (False: the
+    # unfused step, lean decode + K8).
+    megastep=_env_bool("QUANTUM_ATTN_MEGASTEP", True),
 )
 
 attention = _Namespace(

@@ -1,7 +1,8 @@
 // Shared helpers of the hand-written kernels: element loads and stores for
 // the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8), the
 // mma.sync fragment helpers of the attention kernels, and the quantized
-// weight helpers and product launcher of K5-K8.
+// weight helpers and product launcher of K5-K8, and K8's tail stages that
+// K9 reuses.
 #pragma once
 
 #include <cstdint>
@@ -202,5 +203,23 @@ cudaError_t qgemm_partial(const __nv_bfloat16* x, QMat w, int M, int N, int K, i
 // with splits > 1 through `partial` and a fixed-order reduction.
 cudaError_t qgemm_out(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
                       float* partial, __nv_bfloat16* out, cudaStream_t stream);
+
+// K8's stages after the wo product (csrc/qmlp.cu), shared with K9
+// (csrc/megastep.cu): the row kernel adds the wo product's `wo_splits`
+// fp32 partial sums (wo_partial[z][M][E], in order z = 0, 1, ...), times
+// wo_scale (nullable), casts, adds x -> x1 and applies RMSNorm -> h (with
+// wo_partial null: x1 = x); then SwiGLU, the down product and its residual
+// -> out, and with w_qkv the next layer's RMSNorm and QKV -> qkv_out.
+// `partial` (layer_tail_workspace entries) may alias wo_partial. Adds the
+// kernels it launched to *launched.
+cudaError_t layer_tail_stages(const float* wo_partial, int wo_splits, const float* wo_scale,
+                              const __nv_bfloat16* x, const float* norm, QMat gu, QMat wd,
+                              const float* next_norm, QMat wqkv, __nv_bfloat16* out,
+                              __nv_bfloat16* qkv_out, __nv_bfloat16* x1, __nv_bfloat16* h,
+                              __nv_bfloat16* act, float* partial, int M, int E, int I, int F,
+                              float eps, int* launched, cudaStream_t stream);
+// fp32 entries of `partial` that layer_tail_stages (and K8's wo product,
+// Q > 0) need.
+size_t layer_tail_workspace(int M, int E, int Q, int I, int F);
 
 }  // namespace qa

@@ -29,6 +29,8 @@
 //       sums them in order, adds x1 -> out, and, with a fold, applies the
 //       next layer's RMSNorm -> h';
 //   (d) optionally h' @ w_qkv -> qkv.
+// Stages (a)'s row kernel through (d) are qa::layer_tail_stages, which K9
+// (csrc/megastep.cu) also runs after its attention + wo kernel.
 // Five to eight launches a tail (qa_layer_tail reports the count); every
 // product streams its weights through the shared quantized tile kernel
 // (K5/K7's), split over K where the output tiles are fewer than the SMs. A
@@ -110,18 +112,72 @@ int grid_for(size_t n, int threads) {
   return static_cast<int>(std::min<size_t>((n + threads - 1) / threads, 132 * 16));
 }
 
-size_t tail_workspace(int M, int E, int Q, int I, int F) {
-  size_t need = static_cast<size_t>(qa::qgemm_splits(M, 2 * I, E, 0)) * M * 2 * I;
-  need = std::max(need, static_cast<size_t>(qa::qgemm_splits(M, E, I, 0)) * M * E);
-  if (Q > 0) need = std::max(need, static_cast<size_t>(qa::qgemm_splits(M, E, Q, 0)) * M * E);
-  if (F > 0) need = std::max(need, static_cast<size_t>(qa::qgemm_splits(M, F, E, 0)) * M * F);
+}  // namespace
+
+namespace qa {
+
+size_t layer_tail_workspace(int M, int E, int Q, int I, int F) {
+  size_t need = static_cast<size_t>(qgemm_splits(M, 2 * I, E, 0)) * M * 2 * I;
+  need = std::max(need, static_cast<size_t>(qgemm_splits(M, E, I, 0)) * M * E);
+  if (Q > 0) need = std::max(need, static_cast<size_t>(qgemm_splits(M, E, Q, 0)) * M * E);
+  if (F > 0) need = std::max(need, static_cast<size_t>(qgemm_splits(M, F, E, 0)) * M * F);
   return need;
 }
 
-}  // namespace
+cudaError_t layer_tail_stages(const float* wo_partial, int wo_splits, const float* wo_scale,
+                              const __nv_bfloat16* x, const float* norm, QMat gu, QMat wd,
+                              const float* next_norm, QMat wqkv, __nv_bfloat16* out,
+                              __nv_bfloat16* qkv_out, __nv_bfloat16* x1_buf, __nv_bfloat16* h,
+                              __nv_bfloat16* act, float* partial, int M, int E, int I, int F,
+                              float eps, int* launched, cudaStream_t stream) {
+  const auto int8_scale = [](const QMat& w) { return w.int4 ? nullptr : w.s; };
+  cudaError_t err;
+
+  // (a) x1 = x + cast(sum of the wo partials); h = rmsnorm(x1).
+  const __nv_bfloat16* x1 = x;
+  if (wo_partial != nullptr) {
+    x1 = x1_buf;
+    residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(wo_partial, wo_splits, wo_scale, x, x1_buf,
+                                                        norm, eps, h, M, E);
+  } else {
+    residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(nullptr, 0, nullptr, x, nullptr, norm, eps,
+                                                        h, M, E);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launched;
+
+  // (b) act = silu(cast(h @ w_gate)) * cast(h @ w_up).
+  int splits = qgemm_splits(M, 2 * I, E, 0);
+  err = qgemm_partial(h, gu, M, 2 * I, E, splits, partial, stream);
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  swiglu_kernel<<<grid_for(static_cast<size_t>(M) * I, kActThreads), kActThreads, 0, stream>>>(
+      partial, splits, int8_scale(gu), act, M, I);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launched;
+
+  // (c) out = x1 + cast(act @ w_down); with a fold, h' = rmsnorm(out).
+  splits = qgemm_splits(M, E, I, 0);
+  err = qgemm_partial(act, wd, M, E, I, splits, partial, stream);
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(partial, splits, int8_scale(wd), x1, out,
+                                                      next_norm, eps, h, M, E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launched;
+
+  // (d) qkv = cast(h' @ w_qkv): one launch, two with a split-K reduction.
+  if (qkv_out == nullptr) return cudaSuccess;
+  splits = qgemm_splits(M, F, E, 0);
+  err = qgemm_out(h, wqkv, M, F, E, splits, partial, qkv_out, stream);
+  if (err == cudaSuccess) *launched += splits > 1 ? 2 : 1;
+  return err;
+}
+
+}  // namespace qa
 
 extern "C" int qa_layer_tail_workspace(int M, int E, int Q, int I, int F) {
-  return static_cast<int>(tail_workspace(M, E, Q, I, F));
+  return static_cast<int>(qa::layer_tail_workspace(M, E, Q, I, F));
 }
 
 // x (M, E) bf16; attn (M, Q) bf16 with wo (Q, E), or both null (Q = 0);
@@ -146,62 +202,26 @@ extern "C" int qa_layer_tail(const void* x, const void* attn, const void* wo_q, 
   if (M == 0) return done(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* h = static_cast<__nv_bfloat16*>(h_buf);
-  auto* act = static_cast<__nv_bfloat16*>(act_buf);
-  auto* outb = static_cast<__nv_bfloat16*>(out);
   auto* partial = static_cast<float*>(partial_buf);
   const qa::QMat wo{wo_q, static_cast<const float*>(wo_s), wo4};
   const qa::QMat gu{gu_q, static_cast<const float*>(gu_s), gu4};
   const qa::QMat wd{d_q, static_cast<const float*>(d_s), d4};
   const qa::QMat wqkv{qkv_q, static_cast<const float*>(qkv_s), qkv4};
-  const auto int8_scale = [](const qa::QMat& w) { return w.int4 ? nullptr : w.s; };
-  cudaError_t err;
 
-  // (a) x1 = x + cast(attn @ wo); h = rmsnorm(x1).
-  const __nv_bfloat16* x1 = xb;
+  // The wo product's split-K partial sums; the row kernel of the shared
+  // stages adds them in order, scales, casts and adds x.
+  int splits = 0;
   if (attn != nullptr) {
-    const int splits = qa::qgemm_splits(M, E, Q, 0);
-    err = qa::qgemm_partial(static_cast<const __nv_bfloat16*>(attn), wo, M, E, Q, splits, partial,
-                            stream);
+    splits = qa::qgemm_splits(M, E, Q, 0);
+    const cudaError_t err = qa::qgemm_partial(static_cast<const __nv_bfloat16*>(attn), wo, M, E, Q,
+                                              splits, partial, stream);
     if (err != cudaSuccess) return done(err);
     ++launched;
-    x1 = static_cast<__nv_bfloat16*>(x1_buf);
-    residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(
-        partial, splits, int8_scale(wo), xb, static_cast<__nv_bfloat16*>(x1_buf),
-        static_cast<const float*>(norm), eps, h, M, E);
-  } else {
-    residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(
-        nullptr, 0, nullptr, xb, nullptr, static_cast<const float*>(norm), eps, h, M, E);
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return done(err);
-  ++launched;
-
-  // (b) act = silu(cast(h @ w_gate)) * cast(h @ w_up).
-  int splits = qa::qgemm_splits(M, 2 * I, E, 0);
-  err = qa::qgemm_partial(h, gu, M, 2 * I, E, splits, partial, stream);
-  if (err != cudaSuccess) return done(err);
-  ++launched;
-  swiglu_kernel<<<grid_for(static_cast<size_t>(M) * I, kActThreads), kActThreads, 0, stream>>>(
-      partial, splits, int8_scale(gu), act, M, I);
-  if ((err = cudaGetLastError()) != cudaSuccess) return done(err);
-  ++launched;
-
-  // (c) out = x1 + cast(act @ w_down); with a fold, h' = rmsnorm(out).
-  splits = qa::qgemm_splits(M, E, I, 0);
-  err = qa::qgemm_partial(act, wd, M, E, I, splits, partial, stream);
-  if (err != cudaSuccess) return done(err);
-  ++launched;
-  residual_norm_kernel<<<M, kRowThreads, 0, stream>>>(
-      partial, splits, int8_scale(wd), x1, outb, static_cast<const float*>(next_norm), eps, h, M,
-      E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return done(err);
-  ++launched;
-
-  // (d) qkv = cast(h' @ w_qkv): one launch, two with a split-K reduction.
-  if (qkv_out == nullptr) return done(cudaSuccess);
-  splits = qa::qgemm_splits(M, F, E, 0);
-  err = qa::qgemm_out(h, wqkv, M, F, E, splits, partial, static_cast<__nv_bfloat16*>(qkv_out),
-                      stream);
-  if (err == cudaSuccess) launched += splits > 1 ? 2 : 1;
-  return done(err);
+  return done(qa::layer_tail_stages(
+      attn != nullptr ? partial : nullptr, splits, wo.int4 ? nullptr : wo.s, xb,
+      static_cast<const float*>(norm), gu, wd, static_cast<const float*>(next_norm), wqkv,
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(qkv_out),
+      static_cast<__nv_bfloat16*>(x1_buf), static_cast<__nv_bfloat16*>(h_buf),
+      static_cast<__nv_bfloat16*>(act_buf), partial, M, E, I, F, eps, &launched, stream));
 }

@@ -370,14 +370,41 @@ def _lean_decode_supported(cfg: LlamaConfig, params: Params) -> bool:
     return all("w_qkv" in layer for layer in params["layers"])
 
 
+def decode_rope_tables(positions: torch.Tensor, cfg: LlamaConfig):
+    """(B,) positions -> cos/sin of shape (B, 1, D/2), broadcast over the
+    q and k heads of :func:`decode_qkv`."""
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    return cos[:, None, :], sin[:, None, :]
+
+
+def decode_qkv(cfg: LlamaConfig, qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """A (B, F) fused bias-free QKV projection -> rotated q (B, Hq, D), k
+    (B, Hkv, D) and v (B, Hkv, D): RoPE runs once over the packed [q|k]
+    block, with the same formula and order as ``apply_rope``."""
+    batch = qkv.shape[0]
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    qk = qkv[:, : (hq + hkv) * d].reshape(batch, hq + hkv, 2, d // 2).float()
+    x1, x2 = qk[:, :, 0], qk[:, :, 1]
+    qk = torch.stack((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=2)
+    qk = qk.reshape(batch, hq + hkv, d).to(cfg.dtype)
+    v = qkv[:, (hq + hkv) * d :].reshape(batch, hkv, d)
+    return qk[:, :hq], qk[:, hq:], v
+
+
+def decode_head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final RMSNorm and LM head of a (B, E) decode activation -> fp32 logits."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if cfg.tie_embeddings:
+        return quantized.tied_head_matmul(x, params["embed"]).float()
+    return quantized.matmul(x, params["lm_head"]).float()
+
+
 def _forward_decode_lean(params, tokens, positions, cfg: LlamaConfig, attend_fn):
     """Decode forward specialized to T == 1: activations stay (B, E), RoPE
-    runs once over the packed [q|k] block (the same formula and order as
-    ``apply_rope``), and each layer tail hands the next layer its QKV."""
+    runs once over the packed [q|k] block (:func:`decode_qkv`), and each
+    layer tail hands the next layer its QKV."""
     batch = tokens.shape[0]
-    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
-    cos, sin = rope_table(positions, d, cfg.rope_theta)
-    cos, sin = cos[:, None, :], sin[:, None, :]  # (B, 1, D/2): over q and k heads
+    cos, sin = decode_rope_tables(positions, cfg)
     x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
     layers = params["layers"]
     qkv = None
@@ -385,19 +412,12 @@ def _forward_decode_lean(params, tokens, positions, cfg: LlamaConfig, attend_fn)
         if qkv is None:
             h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
             qkv = quantized.matmul(h, layer["w_qkv"])
-        qk = qkv[:, : (hq + hkv) * d].reshape(batch, hq + hkv, 2, d // 2).float()
-        x1, x2 = qk[:, :, 0], qk[:, :, 1]
-        qk = torch.stack((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=2)
-        qk = qk.reshape(batch, hq + hkv, d).to(cfg.dtype)
-        v = qkv[:, (hq + hkv) * d :].reshape(batch, hkv, d)
-        attn = attend_fn(idx, qk[:, :hq], qk[:, hq:], v)
-        attn = attn.to(x.dtype).reshape(batch, hq * d)
+        q, k, v = decode_qkv(cfg, qkv, cos, sin)
+        attn = attend_fn(idx, q, k, v)
+        attn = attn.to(x.dtype).reshape(batch, cfg.q_dim)
         nxt = layers[idx + 1] if idx + 1 < len(layers) else None
         x, qkv = _layer_tail(cfg, layer, x, attn, next_layer=nxt)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if cfg.tie_embeddings:
-        return quantized.tied_head_matmul(x, params["embed"]).float()
-    return quantized.matmul(x, params["lm_head"]).float()
+    return decode_head(params, x, cfg)
 
 
 @torch.no_grad()

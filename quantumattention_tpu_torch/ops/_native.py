@@ -70,6 +70,16 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _F, _P, _P],
     # M, E, Q, I, F -> fp32 partial-sum entries qa_layer_tail needs
     "qa_layer_tail_workspace": [_I, _I, _I, _I, _I],
+    # x, q, k, v, k_scale, v_scale, lengths, window_left, wo (q, s), norm,
+    # w_gate_up (q, s), w_down (q, s), next_norm, w_qkv (q, s), out,
+    # qkv_out, x1, h, act, partial, B, Hq, Hkv, S, D, E, I, F, score_scale,
+    # eps, CTAs per attention cluster (0 = the card's rule), n_launches (int*),
+    # stream
+    "qa_decode_layer": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P],
+    # B, Hkv, E, I, F -> fp32 scratch entries qa_decode_layer needs
+    "qa_decode_layer_workspace": [_I, _I, _I, _I, _I],
 }
 
 

@@ -31,8 +31,9 @@ def decode_attention_plain(
     q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, sm_scale=None
 ) -> torch.Tensor:
     """K4's plain version in fp32: dequantize, mask rows >= lengths[b],
-    softmax, P (times the V scale) rounded to bf16 as the kernel does,
-    zeros for empty slots."""
+    exp2 softmax with sm_scale * log2(e) folded into the scores, the
+    unnormalized P (times the V scale) rounded to bf16 as the kernel does,
+    P.V divided by the softmax sum, zeros for empty slots."""
     batch, hq, d = q.shape
     hkv, s_max = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -41,16 +42,17 @@ def decode_attention_plain(
     qg = q.float().reshape(batch, hkv, group, d)
     k = k_cache.float()
     v = v_cache.float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * sm_scale
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * (sm_scale * LOG2E)
     if k_scale is not None:
         s = s * k_scale.float()[:, :, None, :]
     valid = torch.arange(s_max, device=q.device)[None, :] < lengths.to(q.device)[:, None]
     s = s.masked_fill(~valid[:, None, None, :], DEFAULT_MASK_VALUE)
-    p = torch.softmax(s, dim=-1)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
     if v_scale is not None:
         p = p * v_scale.float()[:, :, None, :]
     p = p.to(torch.bfloat16).float()
-    o = torch.einsum("bhgs,bhsd->bhgd", p, v)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, v) / l
     o = torch.where((lengths.to(q.device) > 0)[:, None, None, None], o, 0.0)
     return o.reshape(batch, hq, d).to(torch.bfloat16)
 

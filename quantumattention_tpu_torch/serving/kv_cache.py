@@ -11,8 +11,11 @@ cache's tensors IN PLACE (indexed assignment / slice copies) and return the
 same object: a cache holds gigabytes at serving sizes, and a copy per
 token would dominate the decode step.
 
-Not yet: packed int4 caches, ``append_quantized_token`` and ``flush_side``
-(the fused decode-layer slice, ROADMAP queue 1, item 16).
+Not yet: packed int4 caches (ROADMAP queue 1, item 12).  ``flush_side``
+is not ported: it persists the TPU burst's side buffer, a workaround for
+XLA copying a scatter that feeds a Pallas call (ROADMAP, "Do not port these
+TPU workarounds"); the port's burst appends to the cache in place every
+step.
 """
 
 from __future__ import annotations
@@ -99,6 +102,35 @@ def append(
                 cache.k_scale[slot, :, off : off + n] = ks[i, :, :n]
                 cache.v_scale[slot, :, off : off + n] = vs[i, :, :n]
     cache.lengths[slot_ids] = (offsets + n_valid).to(torch.int32)
+    return cache
+
+
+def append_quantized_token(
+    cache: KVCache,
+    kq: torch.Tensor,
+    ks: Optional[torch.Tensor],
+    vq: torch.Tensor,
+    vs: Optional[torch.Tensor],
+    offsets: torch.Tensor,
+    n_valid: torch.Tensor,
+) -> KVCache:
+    """Decode write of ONE already-quantized token per slot, in place: the
+    T = 1 branch of :func:`append` for values the caller has quantized
+    (the fused decode layer's step quantizes k and v once).
+
+    kq/vq (B, Hkv, D) values in the cache container, ks/vs (B, Hkv) fp32
+    token scales (None for a bf16 cache), offsets (B,) write rows, n_valid
+    (B,) 0/1 length bumps.  A row must lie below max_len: the JAX package
+    drops such a write, the indexed write here faults, and the engine's
+    burst clamp keeps every slot's row in range."""
+    slots = torch.arange(cache.k.shape[0], device=cache.k.device)
+    rows = offsets.to(torch.int64)
+    cache.k[slots, :, rows] = kq
+    cache.v[slots, :, rows] = vq
+    if ks is not None:
+        cache.k_scale[slots, :, rows] = ks
+        cache.v_scale[slots, :, rows] = vs
+    cache.lengths.copy_(offsets + n_valid)
     return cache
 
 

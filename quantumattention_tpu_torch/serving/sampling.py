@@ -54,7 +54,12 @@ def sample(
     if generator is None:
         raise ValueError("stochastic sampling requires a torch.Generator")
     probs = torch.softmax(filtered_logits(logits, params), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    # One categorical draw per row as argmax(p / E), E ~ Exp(1): the draw
+    # torch.multinomial makes for one sample, without its host-side check
+    # of the probabilities, so a decode step that samples can be captured
+    # in a CUDA graph.
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def sample_with_logprob(

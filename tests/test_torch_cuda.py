@@ -455,3 +455,164 @@ def _tree_on(tree, dev):
     if isinstance(tree, list):
         return [_tree_on(v, dev) for v in tree]
     return tree.to(dev)
+
+
+#: K9 against its plain version: both round P, the head output and the
+#: tail at the same points and sum in fp32 in other orders; max|a - b| /
+#: max|b| within 2^-6, chip_smoke.py's QUANT_KERNEL_REL.
+K9_REL = 2.0 ** -6
+
+
+def _qmat8(k, n, seed, dev):
+    from quantumattention_tpu_torch.models import quantized
+
+    return quantized.quantize_matrix(_randn((k, n), seed, torch.float32, dev) / np.sqrt(k))
+
+
+@pytest.mark.parametrize("window", [None, 40], ids=["full", "window40"])
+@pytest.mark.parametrize("b,s_max,group", [(16, 128, 4), (32, 200, 1), (20, 64, 8)])
+def test_fused_decode_layer_matches_plain(cuda, b, s_max, group, window):
+    """K9 (attention with wo in each head's epilogue, then K8's stages) on
+    ragged lengths with empty slots, a slot count that is not a multiple of
+    16, a max_len that is not a multiple of 64, and a window."""
+    from quantumattention_tpu_torch.ops import megastep
+
+    e, inter, hkv, d = 256, 384, 2, 128
+    hq = hkv * group
+    layer = {"wo": _qmat8(hq * d, e, 40, cuda), "mlp_norm": _randn((e,), 41, torch.float32, cuda).abs() + 0.5,
+             "w_gate_up": _qmat8(e, 2 * inter, 42, cuda), "w_down": _qmat8(inter, e, 43, cuda)}
+    nxt = {"attn_norm": _randn((e,), 44, torch.float32, cuda).abs() + 0.5,
+           "w_qkv": _qmat8(e, (hq + 2 * hkv) * d, 45, cuda)}
+    kc, ks = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), 46, torch.float32, cuda), reduction_dim=-1)
+    vc, vs = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), 47, torch.float32, cuda), reduction_dim=-1)
+    lens = np.random.default_rng(b).integers(0, s_max + 1, b)
+    lens[:3] = [0, 1, s_max]
+    ctx = {"lengths": torch.tensor(lens, dtype=torch.int32, device=cuda), "s_max": s_max,
+           "window_left": None if window is None else window - 1}
+    x = _randn((b, e), 48, torch.bfloat16, cuda)
+    q = _randn((b, hq, d), 49, torch.bfloat16, cuda)
+    for kw in ({}, {"next_attn_norm": nxt["attn_norm"], "next_w_qkv": nxt["w_qkv"]}):
+        before = megastep.fused_decode_layer.launches
+        got = megastep.fused_decode_layer(x, q, kc, vc, ks, vs, ctx, layer, eps=1e-5, **kw)
+        ref = megastep.fused_decode_layer_plain(x, q, kc, vc, ks, vs, ctx, layer, eps=1e-5, **kw)
+        torch.cuda.synchronize()
+        assert megastep.fused_decode_layer.launches == before + 1
+        ref = ref if kw else (ref, None)
+        for a, r in zip(got, ref):
+            if r is None:
+                assert a is None
+                continue
+            assert bool(torch.isfinite(a.float()).all())
+            assert float((a.float() - r.float()).abs().max() / r.float().abs().max()) <= K9_REL
+
+
+def test_fused_decode_layer_refuses_on_card(cuda):
+    from quantumattention_tpu_torch.ops import megastep
+
+    e, hkv, d, b = 256, 1, 128, 16
+    layer = {"wo": _qmat8(16 * d, e, 50, cuda), "mlp_norm": torch.ones(e, device=cuda),
+             "w_gate_up": _qmat8(e, 256, 51, cuda), "w_down": _qmat8(128, e, 52, cuda)}
+    cache = torch.zeros((b, hkv, 64, d), dtype=torch.int8, device=cuda)
+    sc = torch.ones((b, hkv, 64), device=cuda)
+    ctx = {"lengths": torch.ones(b, dtype=torch.int32, device=cuda), "s_max": 64, "window_left": None}
+    q = torch.zeros((b, 16, d), dtype=torch.bfloat16, device=cuda)  # a group of 16
+    with pytest.raises(ValueError, match="query heads"):
+        megastep.fused_decode_layer(torch.zeros((b, e), dtype=torch.bfloat16, device=cuda), q,
+                                    cache, cache, sc, sc, ctx, layer, eps=1e-5)
+    layer["wo"] = _qmat8(2 * d, e, 53, cuda)
+    q = q[:, :2].contiguous()
+    bad = {**ctx, "lengths": ctx["lengths"].long()}
+    with pytest.raises(ValueError, match="lengths"):
+        megastep.fused_decode_layer(torch.zeros((b, e), dtype=torch.bfloat16, device=cuda), q,
+                                    cache, cache, sc, sc, bad, layer, eps=1e-5)
+
+
+def _burst_model(dev):
+    from quantumattention_tpu_torch.models import quantized
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                            num_q_heads=8, num_kv_heads=2, head_dim=128)
+    tree = quantized.fuse_projections(
+        quantized.init_quantized_params(torch.Generator().manual_seed(1), cfg))
+    return cfg, _tree_on(tree, dev)
+
+
+def _filled_backend(cfg, dev, lengths):
+    from quantumattention_tpu_torch.serving.backends import SlotsBackend
+
+    be = SlotsBackend(cfg, num_slots=16, max_len=64, device=dev)
+    rng = np.random.default_rng(0)
+    for c in be.caches:
+        c.k.copy_(torch.from_numpy(rng.integers(-127, 128, tuple(c.k.shape)).astype(np.int8)))
+        c.v.copy_(torch.from_numpy(rng.integers(-127, 128, tuple(c.v.shape)).astype(np.int8)))
+        c.k_scale.fill_(0.01)
+        c.v_scale.fill_(0.01)
+        c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    return be
+
+
+@pytest.mark.parametrize("megastep_flag", [True, False], ids=["k9", "lean_k8"])
+def test_graph_burst_equals_eager_steps(cuda, megastep_flag):
+    """A burst captured as a CUDA graph (one eager step, then replays of the
+    captured step; a second burst replays only) gives the tokens of eager
+    per-step decode calls from the same state: the kernels are
+    deterministic.  Each replay credits the kernels it launches."""
+    from quantumattention_tpu_torch.ops import megastep, qmlp
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    cfg, params = _burst_model(cuda)
+    lengths = [3, 0, 17, 40] + [9] * 12
+    toks = np.arange(16) * 5 % cfg.vocab_size
+    ones = np.ones(16, bool)
+    with qt.config.patch({"kernel.megastep": megastep_flag}):
+        be = _filled_backend(cfg, cuda, lengths)
+        assert be.route(params) == ("mega" if megastep_flag else "unfused")
+        counter = megastep.fused_decode_layer if megastep_flag else qmlp.fused_layer_tail
+        before = counter.launches
+        a = be.burst(params, toks, ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
+                     None, 6, SamplingParams(), False)
+        b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
+                     None, 4, SamplingParams(), False)
+        assert counter.launches - before == cfg.num_layers * 10
+        assert be.stats == {"bursts": 2, "host_fetches": 2, "graph_captures": 1, "graph_replays": 9}
+        ref = _filled_backend(cfg, cuda, lengths)
+        cur, steps = toks, []
+        for _ in range(10):
+            cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
+            steps.append(cur)
+    np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), np.stack(steps))
+    for x, y in zip(be.caches, ref.caches):
+        assert torch.equal(x.lengths, y.lengths) and torch.equal(x.k, y.k)
+
+
+def test_sampled_graph_burst_on_card(cuda):
+    """A sampled burst registers the engine's generator with the graph; the
+    engine serves through it with finite logprobs."""
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    cfg, params = _burst_model(cuda)
+    eng = Engine(params, cfg, num_slots=16, max_len=64, seed=3)
+    sp = SamplingParams(temperature=0.8, top_k=20)
+    reqs = [eng.submit([1, 2, 3], max_new_tokens=9, sampling=sp, logprobs=True) for _ in range(3)]
+    eng.run_to_completion(decode_burst=8)
+    assert eng._backend.stats["graph_captures"] == 1 and eng._backend.stats["graph_replays"] > 0
+    for r in reqs:
+        assert len(r.output) == len(r.logprob_output) == 9
+        assert all(np.isfinite(v) and v <= 1e-6 for v in r.logprob_output)
+
+
+def test_engine_burst_on_card_matches_cpu(cuda):
+    """The engine with bursts on the card (K9, graphs) against the CPU
+    engine (K9's plain version, loops): first tokens equal; counters equal."""
+    cfg, params = _burst_model("cpu")
+    prompts = [[3, 17, 42, 99, 7], [5, 9, 23, 51], list(range(1, 40))]
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        flags = {"kernel.megastep": "force", "kernel.qmlp": "force", "kernel.qmm": "force"} if dev == "cpu" else {}
+        with qt.config.patch(flags):
+            eng = Engine(_tree_on(params, dev), cfg, num_slots=16, max_len=64)
+            reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            eng.run_to_completion(decode_burst=4)
+        assert all(r.done and len(r.output) == 8 for r in reqs)
+        outs[dev], stats[dev] = [r.output[0] for r in reqs], dict(eng.stats)
+    assert outs["cpu"] == outs["cuda"] and stats["cpu"] == stats["cuda"]

@@ -2,9 +2,10 @@
 
 On the CPU the port's ``decode_attention`` runs its plain version and the
 JAX side runs its Pallas kernel in interpret mode.  Tolerance: both return
-bf16 and round P (times the V scale) to bf16 before P.V; they normalise at
-different points, so they may differ by two bf16 ulps of values below 1
-(ATOL = 1/64).  Empty slots must be exact zeros on both sides.
+bf16 and round the unnormalized P (times the V scale) to bf16 before P.V;
+the JAX kernel's running maximum moves block by block where the plain
+version takes one maximum, so they may differ by two bf16 ulps of values
+below 1 (ATOL = 1/64).  Empty slots must be exact zeros on both sides.
 """
 
 import jax.numpy as jnp

@@ -143,12 +143,17 @@ def test_engine_rejects_what_is_not_ported(params):
         Engine(params, CFG, cache_backend="paged")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(params, CFG, prefill_chunk=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(params, CFG, prefix_cache=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(params, CFG, draft=params)
     eng = Engine(params, CFG, num_slots=1, max_len=64)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit([1] * 60, max_new_tokens=8)
-    eng.submit([1, 2], max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_to_completion(decode_burst=8)
+    # Decode bursts are ported: the call that used to be refused now runs.
+    req = eng.submit([1, 2], max_new_tokens=2)
+    eng.run_to_completion(decode_burst=8)
+    assert req.done and len(req.output) == 2
 
 
 def test_sampling():
