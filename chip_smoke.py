@@ -49,7 +49,24 @@ Phases, each printing its numbers on lines of their own:
    logits against the plain run, one K9 step of all 64 slots against the
    lean + K8 step, and a graph-captured burst of 8 steps against 8 eager
    steps, token for token;
-12. training: the bf16 weights take 3 SGD steps over 1024 positions
+12. K10 (paged decode) against its plain version and the fp32 oracle at
+   Llama-3-8B's attention shapes: 16 slots over a shuffled page pool,
+   ragged lengths up to 1024 with an empty slot, page sizes 128 and 256,
+   int8 and bf16 pages; device time by graph replay with the pool cold in
+   L2, the plain version's time, GB/s, and K4 on the same rows laid out
+   contiguously (what the gather costs);
+13. ``serve_paged_prefix_16``, the JAX package's prefix-caching point: the
+   int8 fused tree on the paged backend (16 slots, max_len 1024, pages of
+   128, chunks of 256, prefix cache, a pool of 192 pages), 16 prompts of
+   512 tokens sharing a 384-token prefix, 129 new tokens each, bursts of
+   64, served cold and then hot.  Checks: 129 tokens a request, prefix hits
+   0 cold and 16 hot (6,144 tokens reused), K10 32 times a decode step and
+   K4/K9 never in them, K1 in every chunk forward (q_offset > 0 in the
+   second chunk cold and every hot chunk), one fetch a burst, hot logits
+   against cold and cold against a plain whole-prompt run, one K10 step of
+   16 slots against the same step through K10's plain version, and a graph
+   burst of 8 steps against 8 eager steps;
+14. training: the bf16 weights take 3 SGD steps over 1024 positions
    through the fp8 path (K1 forward, K1 recompute, K2 and K3 backward);
    the launch counts prove it, the first loss is held against the plain
    path's, and the gradients of a 4-layer cut against plain attention's.
@@ -85,6 +102,7 @@ from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from quantumattention_tpu_torch.ops.paged import paged_decode_attention, paged_decode_attention_plain
 from quantumattention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -95,6 +113,7 @@ from quantumattention_tpu_torch.ops.flash_bwd import (
     row_delta,
 )
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
+from quantumattention_tpu_torch.serving import backends
 from quantumattention_tpu_torch.serving.engine import Engine
 from quantumattention_tpu_torch.utils import checks
 
@@ -149,6 +168,13 @@ SERVE64 = {"slots": 64, "max_len": 512, "prompt": 128, "new": 257, "burst": 64,
            "bucket": 128}
 #: Eager per-step mega calls the graph-captured burst is held against.
 BURST_CHECK_STEPS = 8
+#: K10 at Llama-3-8B's attention: slots, max_len, page sizes, spare pages.
+K10_SLOTS, K10_MAX_LEN, K10_PAGE_SIZES, K10_SPARE_PAGES = 16, 1024, (128, 256), 64
+#: The JAX package's prefix-caching point (benchmarks/prefix_cache_bench.py:
+#: 28-47): 16 slots, max_len 1024, pages of 128, chunks of 256, a pool of
+#: 16 * 8 + 64 pages, 16 prompts of 512 tokens sharing 384, 129 new tokens.
+PAGED16 = {"slots": 16, "max_len": 1024, "page_size": 128, "chunk": 256, "num_pages": 192,
+           "prompt": 512, "shared": 384, "new": 129, "burst": 64}
 #: The card's peaks for ``bound_ms`` (NVIDIA's H100 SXM data sheet,
 #: dense): device memory bytes/s and tensor-core operations/s by operand type.
 HBM_BYTES_S = 3.35e12
@@ -180,6 +206,8 @@ K7_REPLACES = "quantumattention_tpu/ops/qmm.py:118"
 K8_REPLACES = "quantumattention_tpu/ops/qmlp.py:93"
 K9_SOURCE = "quantumattention_tpu_torch/csrc/megastep.cu"
 K9_REPLACES = "quantumattention_tpu/ops/megastep.py:72"
+K10_SOURCE = "quantumattention_tpu_torch/csrc/paged.cu"
+K10_REPLACES = "quantumattention_tpu/ops/paged.py:77"
 
 
 def log(msg: str) -> None:
@@ -549,6 +577,7 @@ def _reset_counts() -> None:
     qmm.quantized_matmul4.launches = 0
     qmlp.fused_layer_tail.launches = 0
     megastep.fused_decode_layer.launches = 0
+    paged_decode_attention.launches = 0
     dispatch.sdpa_fallback.calls = 0
 
 
@@ -556,7 +585,7 @@ def _counts() -> dict:
     return {"k1": flash_attention.launches, "k4": decode_attention.launches,
             "k5": qmm.quantized_matmul.launches, "k6": qmm.quantized_matmul.splitk_launches,
             "k7": qmm.quantized_matmul4.launches, "k8": qmlp.fused_layer_tail.launches,
-            "k9": megastep.fused_decode_layer.launches,
+            "k9": megastep.fused_decode_layer.launches, "k10": paged_decode_attention.launches,
             "sdpa_fallback": dispatch.sdpa_fallback.calls}
 
 
@@ -1165,6 +1194,329 @@ def phase_serve_int8_64(params) -> dict:
     return launches
 
 
+def _paged_pool(gen, kind: str, ps: int, pool: int, hkv: int, d: int):
+    """K and V pages of a pool (int8 with token scales, or bf16)."""
+    kf = _randn((hkv, pool, ps, d), gen, torch.float32)
+    vf = _randn((hkv, pool, ps, d), gen, torch.float32)
+    if kind == "bf16":
+        return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
+    v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+    return k, v, ks, vs
+
+
+def _gathered_rows(pages, scales, table):
+    """Each slot's pages in table order as contiguous (B, Hkv, S, D) rows
+    (codes or bf16) and (B, Hkv, S) scales: K4's slot-cache layout."""
+    b, pps = table.shape
+    hkv, _, ps, d = pages.shape
+    rows = pages[:, table.long()].permute(1, 0, 2, 3, 4).reshape(b, hkv, pps * ps, d).contiguous()
+    sc = None
+    if scales is not None:
+        sc = scales[:, table.long()].permute(1, 0, 2, 3).reshape(b, hkv, pps * ps).contiguous()
+    return rows, sc
+
+
+def phase_k10(gen) -> dict:
+    """K10 against its plain version and the fp32 oracle at Llama-3-8B's
+    attention shapes over a shuffled page pool; device time by graph replay
+    with the pool cold in L2 (copies of the pool cycled past COLD_BYTES),
+    the plain version's time, GB/s, and K4 over the same rows laid out
+    contiguously."""
+    cfg = llama.llama3_8b()
+    b, hq, hkv, d = K10_SLOTS, cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(10)
+    lens_np = rng.integers(1, K10_MAX_LEN + 1, b)
+    lens_np[0], lens_np[1] = 0, K10_MAX_LEN
+    lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
+    q = _randn((b, hq, d), gen)
+    worst, recs = 0.0, {}
+    for ps in K10_PAGE_SIZES:
+        pps = K10_MAX_LEN // ps
+        pool = b * pps + K10_SPARE_PAGES
+        table = torch.from_numpy(rng.permutation(pool)[: b * pps].reshape(b, pps).astype(np.int32)).cuda()
+        for kind in ("int8", "bf16"):
+            k, v, ks, vs = _paged_pool(gen, kind, ps, pool, hkv, d)
+            args = (q, k, v, lens, table)
+            kw = {"k_scale_pages": ks, "v_scale_pages": vs}
+            out = paged_decode_attention(*args, **kw)
+            plain = paged_decode_attention_plain(*args, ks, vs)
+            kd, ksd = _gathered_rows(k, ks, table)
+            vd, vsd = _gathered_rows(v, vs, table)
+            kdq = kd.float() if ksd is None else kd.float() * ksd[..., None]
+            vdq = vd.float() if vsd is None else vd.float() * vsd[..., None]
+            oracle = torch.zeros((b, hq, d), device="cuda")
+            for i, n in enumerate(lens_np.tolist()):
+                if n:
+                    oracle[i] = sdpa_reference(q[i : i + 1, :, None], kdq[i : i + 1, :, :n],
+                                               vdq[i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0]
+            torch.cuda.synchronize()
+            page_bytes = int(lens_np.sum()) * hkv * 2 * (d * k.element_size() + (4 if ks is not None else 0))
+            rec = {"page_size": ps, "pages": kind, "B": b, "lengths_sum": int(lens_np.sum()),
+                   "max_abs_vs_plain": max_abs(out, plain), "rmse_vs_oracle": rmse(out, oracle),
+                   "zero_row_exact": bool((out[0] == 0).all())}
+            if (not bool(torch.isfinite(out.float()).all()) or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL
+                    or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]):
+                raise RuntimeError(f"K10 disagrees: {rec}")
+            worst = max(worst, rec["max_abs_vs_plain"])
+            del kdq, vdq, oracle, out, plain
+            # The pool cold in L2: copies of it cycled past COLD_BYTES.
+            pool_bytes = sum(t.numel() * t.element_size() for t in (k, v, ks, vs) if t is not None)
+            n = max(1, math.ceil(COLD_BYTES / pool_bytes))
+            pools = [(k, v, ks, vs)] + [tuple(None if t is None else t.clone() for t in (k, v, ks, vs))
+                                         for _ in range(n - 1)]
+            rec["pool_copies"] = n
+            rec["ms"] = graph_ms([lambda p=p: paged_decode_attention(
+                q, p[0], p[1], lens, table, k_scale_pages=p[2], v_scale_pages=p[3]) for p in pools])
+            rec["plain_ms"] = graph_ms(lambda: paged_decode_attention_plain(*args, ks, vs),
+                                       reps=1, iters=3)
+            rec["call_ms"] = time_ms(lambda: paged_decode_attention(*args, **kw))
+            rec["GBps"] = page_bytes / rec["ms"] / 1e6
+            del pools
+            # K4 over the same rows, contiguous, cold likewise.
+            n4 = max(1, math.ceil(COLD_BYTES / (kd.numel() * kd.element_size() * 2)))
+            caches = [(kd, vd, ksd, vsd)] + [tuple(None if t is None else t.clone() for t in (kd, vd, ksd, vsd))
+                                               for _ in range(n4 - 1)]
+            rec["k4_same_rows_ms"] = graph_ms([lambda c=c: decode_attention(
+                q, c[0], c[1], lens, k_scale=c[2], v_scale=c[3]) for c in caches])
+            # Bound: the valid page rows (codes and fp32 scales), q, out, the
+            # table and the lengths, at the memory rate; the flops bind nothing.
+            nbytes = page_bytes + 2 * b * hq * d * 2 + table.numel() * 4 + b * 4
+            rec.update(bound(nbytes), library_ms=None)
+            log("k10 " + json.dumps(rec))
+            recs[ps, kind] = rec
+            del caches, kd, vd, ksd, vsd, k, v, ks, vs, args
+        torch.cuda.empty_cache()
+    # The JSON line: the serving point's pages (int8, 128 tokens). No
+    # PyTorch call reads an int8 page pool through a table.
+    pick = recs[PAGED16["page_size"], "int8"]
+    return {"max_abs_err": worst, "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
+
+
+def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
+    """Fill every slot by whole-prompt prefill, then one decode step of all
+    slots through K10 against the same step with K10's plain version on the
+    same pages (the lengths restored between: the step rewrites the same
+    rows), then a graph-captured burst of BURST_CHECK_STEPS against as many
+    eager steps, token for token.  Releases the slots after."""
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    slots = list(range(backend.num_slots))
+    width = PAGED16["prompt"]
+    lens = rng.integers(width // 2, width + 1, len(slots))
+    for g in range(0, len(slots), 8):
+        tokens = torch.zeros((len(slots[g: g + 8]), width), dtype=torch.int64)
+        for i, n in enumerate(lens[g: g + 8]):
+            tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+        for s in slots[g: g + 8]:
+            backend.alloc.allocate(s, width + 2 * BURST_CHECK_STEPS, backend.page_size)
+        backend.prefill_and_write(functools.partial(llama.forward_prefill, cfg=cfg), tree,
+                                  tokens.cuda(), [int(n) - 1 for n in lens[g: g + 8]],
+                                  slots[g: g + 8], [int(n) for n in lens[g: g + 8]], width)
+    saved = backend.alloc.lengths.copy()
+    cur = rng.integers(0, cfg.vocab_size, len(slots))
+    mask = np.ones(len(slots), bool)
+
+    def plain_k10(q, k, v, lengths, table, *, k_scale_pages, v_scale_pages, pages_per_block):
+        return paged_decode_attention_plain(q, k, v, lengths, table, k_scale_pages, v_scale_pages)
+
+    kernel = backends.paged_decode_attention
+    backends.paged_decode_attention = plain_k10
+    try:
+        before = paged_decode_attention.launches
+        ref = backend.decode(tree, cur, mask)
+        if paged_decode_attention.launches != before:
+            raise RuntimeError("serve_paged_prefix_16: the plain step launched K10")
+    finally:
+        backends.paged_decode_attention = kernel
+    backend.alloc.lengths[:] = saved
+    before = paged_decode_attention.launches
+    got = backend.decode(tree, cur, mask)
+    torch.cuda.synchronize()
+    k10 = paged_decode_attention.launches - before
+    rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"serve_paged_prefix_16 k10_vs_plain k10_calls={k10} worst_rel_err={float(rel.max())} "
+        f"mean_rel_err={float(rel.mean())} argmax_agree={agree} bound={DECODE_K8_REL_BOUND}")
+    if k10 != cfg.num_layers:
+        raise RuntimeError(f"serve_paged_prefix_16: the step ran K10 {k10} times for {cfg.num_layers} layers")
+    if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"serve_paged_prefix_16: the K10 step is off its plain step by {float(rel.max())}")
+
+    backend.alloc.lengths[:] = saved
+    replays = backend.stats["graph_replays"]
+    packed = backend.burst(tree, cur, mask, np.full(len(slots), 1000, np.int32),
+                           np.full(len(slots), -1, np.int32), None, BURST_CHECK_STEPS,
+                           SamplingParams(), False)
+    if backend.stats["graph_replays"] - replays != BURST_CHECK_STEPS:
+        raise RuntimeError("serve_paged_prefix_16: the checked burst did not run from its captured graph")
+    backend.alloc.lengths[:] = saved
+    steps = []
+    for _ in range(BURST_CHECK_STEPS):
+        cur = backend.decode(tree, cur, mask).argmax(-1).cpu().numpy()
+        steps.append(cur)
+    equal = bool((packed[0] == np.stack(steps)).all())
+    log(f"serve_paged_prefix_16 graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={len(slots)} "
+        f"tokens_equal={equal}")
+    if not equal:
+        raise RuntimeError("serve_paged_prefix_16: the graph-captured burst's tokens differ from eager steps")
+    for s in slots:
+        backend.release(s)
+
+
+def phase_serve_paged_prefix_16(params) -> dict:
+    """The JAX package's prefix-caching point on Llama-3-8B at full width
+    and depth: the int8 fused tree on the paged backend, 16 prompts of 512
+    tokens sharing a 384-token prefix, served cold and then hot, decode in
+    bursts of 64 through K10 (one call a layer a step)."""
+    cfg = llama.llama3_8b()
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree = quantized.fuse_projections(quantized.quantize_params(params))
+    torch.cuda.synchronize()
+    log(f"serve_paged_prefix_16 quantize_s={time.perf_counter() - t0:.3f} "
+        f"weights_GB={_weight_bytes(tree) / 1e9:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(tree, cfg, num_slots=PAGED16["slots"], max_len=PAGED16["max_len"],
+                 cache_dtype=torch.int8, cache_backend="paged", page_size=PAGED16["page_size"],
+                 num_pages=PAGED16["num_pages"], prefill_chunk=PAGED16["chunk"], prefix_cache=True,
+                 device="cuda")
+    backend = eng._backend
+    rng = np.random.default_rng(16)
+    shared = rng.integers(0, cfg.vocab_size, PAGED16["shared"]).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, PAGED16["prompt"] - PAGED16["shared"]).tolist()
+               for _ in range(PAGED16["slots"])]
+    orig = {name: getattr(backend, name) for name in ("prefill_chunk", "decode", "burst")}
+    total = {k: 0 for k in _counts()}
+    last_logits = {}
+    for rnd in ("cold", "hot"):
+        timers = {"prefill_s": 0.0, "decode_s": 0.0, "burst_s": 0.0, "burst_steps": 0,
+                  "step_s": 0.0, "steps": 0}
+        dec = {k: 0 for k in _counts()}
+        chunks = []
+        peak_pages = [0]
+        pool = backend.alloc
+
+        def in_use():
+            peak_pages[0] = max(peak_pages[0], pool.num_pages - pool.free_pages - pool.evictable_pages)
+
+        def timed_chunk(params_, tokens, req, off, tc):
+            torch.cuda.synchronize()
+            before = flash_attention.launches
+            t = time.perf_counter()
+            logits = orig["prefill_chunk"](params_, tokens, req, off, tc)
+            torch.cuda.synchronize()
+            timers["prefill_s"] += time.perf_counter() - t
+            chunks.append((off, tc, flash_attention.launches - before))
+            if off + tc == len(req.prompt):
+                last_logits[rnd, req.id % PAGED16["slots"]] = logits[0, tc - 1].clone()
+            in_use()
+            return logits
+
+        def timed(name):
+            def run(*args):
+                torch.cuda.synchronize()
+                before = _counts()
+                t = time.perf_counter()
+                out = orig[name](*args)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t
+                timers["decode_s"] += sec
+                # A burst's n_steps is its 7th argument; decode is one step.
+                kind, n = ("burst", args[6]) if name == "burst" else ("step", 1)
+                timers[f"{kind}_s"] += sec
+                timers[f"{kind}_steps" if kind == "burst" else "steps"] += n
+                for k, v in _counts().items():
+                    dec[k] += v - before[k]
+                in_use()
+                return out
+            return run
+
+        backend.prefill_chunk = timed_chunk
+        backend.decode, backend.burst = timed("decode"), timed("burst")
+        stats0, bstats0 = dict(eng.stats), dict(backend.stats)
+        _reset_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=PAGED16["new"]) for p in prompts]
+        eng.run_to_completion(decode_burst=PAGED16["burst"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        for name, fn in orig.items():
+            setattr(backend, name, fn)
+        for k, v in launches.items():
+            total[k] += v
+        stats = {k: eng.stats[k] - stats0[k] for k in eng.stats}
+        bstats = {k: backend.stats[k] - bstats0[k] for k in backend.stats}
+        decode_tokens = stats["generated_tokens"] - len(reqs)
+        rec = {
+            "round": rnd, "stats": stats, "backend": bstats, "launches": launches,
+            "decode_launches": dec, "wall_s": wall,
+            "prefill_tok_s": stats["prefill_tokens"] / timers["prefill_s"],
+            "prefill_s": timers["prefill_s"],
+            "decode_tok_s": decode_tokens / timers["decode_s"],
+            "decode_ms_per_step": 1e3 * timers["decode_s"] / stats["decode_steps"],
+            "burst_ms_per_step": 1e3 * timers["burst_s"] / max(1, timers["burst_steps"]),
+            "single_step_ms": 1e3 * timers["step_s"] / max(1, timers["steps"]),
+            "steps_in_bursts": timers["burst_steps"], "single_steps": timers["steps"],
+            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_pages_in_use": peak_pages[0], "pool_pages": pool.num_pages,
+            "chunk_offsets": sorted({off for off, _, _ in chunks}),
+        }
+        log("serve_paged_prefix_16 " + json.dumps(rec))
+
+        for r in reqs:
+            if not r.done or len(r.output) != PAGED16["new"]:
+                raise RuntimeError(f"serve_paged_prefix_16 {rnd}: request {r.id} ended with {len(r.output)} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r.output):
+                raise RuntimeError(f"serve_paged_prefix_16 {rnd}: out-of-vocabulary tokens")
+        hits = 0 if rnd == "cold" else PAGED16["slots"]
+        if stats["prefix_hits"] != hits or stats["prefix_tokens_reused"] != hits * PAGED16["shared"]:
+            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: prefix hits {stats}")
+        if dec["k10"] != L * stats["decode_steps"] or dec["k4"] or dec["k9"]:
+            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: decode launches {dec} for "
+                               f"{stats['decode_steps']} steps")
+        if any(k1 != L for _, _, k1 in chunks) or len(chunks) != stats["prefill_forwards"]:
+            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: K1 missed a chunk forward: {chunks}")
+        want_offs = [0, PAGED16["chunk"]] if rnd == "cold" else [PAGED16["shared"]]
+        if rec["chunk_offsets"] != want_offs:
+            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: chunk offsets {rec['chunk_offsets']}")
+        if launches["sdpa_fallback"]:
+            raise RuntimeError("serve_paged_prefix_16: the main path fell back to SDPA")
+        if bstats["bursts"] < 1 or bstats["host_fetches"] != bstats["bursts"]:
+            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: not one host fetch a burst: {bstats}")
+
+    # Hot logits against cold, cold against a plain whole-prompt run of the
+    # same tree (SDPA attention, the plain weight products).
+    plain_cfg = llama.llama3_8b(attention_impl="sdpa")
+    worst = {"hot_vs_cold": 0.0, "cold_vs_plain": 0.0}
+    for g in range(0, PAGED16["slots"], 8):
+        tokens = torch.tensor(prompts[g: g + 8], device="cuda")
+        last = torch.full((tokens.shape[0],), PAGED16["prompt"] - 1, device="cuda")
+        with config.patch({"kernel.qmm": False, "kernel.qmlp": False}):
+            ref, _ = llama.forward_prefill(tree, tokens, plain_cfg, last_pos=last)
+        for i in range(tokens.shape[0]):
+            cold, hot = last_logits["cold", g + i], last_logits["hot", g + i]
+            if not bool(torch.isfinite(hot).all() and torch.isfinite(cold).all()):
+                raise RuntimeError("serve_paged_prefix_16: final-chunk logits are not finite")
+            worst["hot_vs_cold"] = max(worst["hot_vs_cold"], rel_fro(hot, cold))
+            worst["cold_vs_plain"] = max(worst["cold_vs_plain"], rel_fro(cold, ref[i]))
+        del ref
+    log(f"serve_paged_prefix_16 logits worst_rel_err={json.dumps(worst)} bound={PREFILL_REL_BOUND}")
+    if not max(worst.values()) < PREFILL_REL_BOUND:
+        raise RuntimeError(f"serve_paged_prefix_16: final-chunk logits off: {worst}")
+
+    _paged_k10_vs_plain(backend, tree, cfg, seed=17)
+    del eng, backend, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def _checked_grads(params, tokens, impl):
     """Gradients of the leaves the training phase compares, at
     GRAD_CHECK_LAYERS layers."""
@@ -1258,10 +1610,12 @@ def main() -> int:
     k567 = phase_qmm(gen)
     k8 = phase_k8(gen)
     k9 = phase_k9(gen)
+    k10 = phase_k10(gen)
     launches, params = phase_engine()
     q8 = phase_quant_serving(params, int4=False)
     q4 = phase_quant_serving(params, int4=True)
     s64 = phase_serve_int8_64(params)
+    paged = phase_serve_paged_prefix_16(params)
     train = phase_train(params)
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -1282,6 +1636,8 @@ def main() -> int:
          "launches": q8["k8"] + q4["k8"], **k8},
         {"name": "fused_decode_layer", "route": "cuda", "source": K9_SOURCE,
          "replaces": K9_REPLACES, "launches": s64["k9"], **k9},
+        {"name": "paged_decode", "route": "cuda", "source": K10_SOURCE,
+         "replaces": K10_REPLACES, "launches": paged["k10"], **k10},
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

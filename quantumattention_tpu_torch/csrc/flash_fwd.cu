@@ -6,7 +6,9 @@
 // scores, an exp2-domain online softmax with fp32 running max / sum /
 // accumulator, P rounded to bf16 for P.V with fp32 accumulation, top-left
 // causal and ragged-KV-tail masks with MASK_VALUE (not -inf), GQA by
-// KV-head index (q head hq reads KV head hq / G).
+// KV-head index (q head hq reads KV head hq / G). With a position offset
+// (chunked prefill: q's row 0 sits at global position q_offset over a
+// longer K/V) the causal mask is q_offset + i >= j (flash.py:862-870).
 //
 // What bounds it on the H100: the two products, 4*S^2*D flops per head
 // (half of it under the causal mask), which the tensor cores run at up to
@@ -19,8 +21,9 @@
 // memory with 8-element vector loads and converted to bf16 on the way:
 // e4m3 and int8 are exact in bf16, which is what _compute_cast
 // (flash.py:109) does on the TPU. KV tiles wholly above the causal
-// diagonal are never loaded. TMA, wgmma, fp8 operands, cp.async
-// pipelining and warp specialisation are later work (ROADMAP queue 2).
+// diagonal (shifted by q_offset) are never loaded. TMA, wgmma, fp8
+// operands, cp.async pipelining and warp specialisation are later work
+// (ROADMAP queue 2).
 #include "common.cuh"
 
 namespace {
@@ -52,15 +55,20 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, i
 // m_out / l_out (B, Hq, Sq) fp32, both or neither: the residuals of the
 // backward (K2/K3), i.e. each row's final running max and softmax sum in
 // the exp2 domain of the folded scores (flash.py:586-588).
-template <int D>
+// kOffset: a q_offset may be nonzero. The q_offset = 0 instantiation is the
+// kernel without offsets: the offset's arithmetic cost two registers a
+// thread, past the 168 at which three CTAs fit on an SM (~17% slower at
+// B = 1, S = 1536, measured in chip_smoke's k1 phase).
+template <int D, bool kOffset>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  const void* __restrict__ v, const float* __restrict__ scale_q,
                  const float* __restrict__ scale_k, void* __restrict__ out,
                  int Hq, int Hkv, int Sq, int Skv, int q_code, int k_code,
                  int v_code, int out_code, int scaling, int causal,
-                 float score_scale, float* __restrict__ m_out,
+                 float score_scale, int q_offset_arg, float* __restrict__ m_out,
                  float* __restrict__ l_out) {
+  const int q_offset = kOffset ? q_offset_arg : 0;
   static_assert(kBM == kBN, "the Q tile reuses the tile loader");
   constexpr int kStride = D + kPad;
   constexpr int kNT = kBN / 8;   // 8-column score tiles per KV tile
@@ -104,8 +112,8 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
 
-  // Top-left causal: rows q0..q0+63 see columns < q0 + 64 at most.
-  const int kv_end = causal ? min(Skv, q0 + kBM) : Skv;
+  // Causal: rows q0..q0+63 see columns < q_offset + q0 + 64 at most.
+  const int kv_end = causal ? min(Skv, q_offset + q0 + kBM) : Skv;
   for (int n0 = 0; n0 < kv_end; n0 += kBN) {
     __syncthreads();  // the previous tile is no longer read
     load_tile<D>(Ks, k, k_code, kv_base, n0, Skv);
@@ -131,7 +139,10 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
       }
     }
 
-    // Scale, mask, online softmax (rows row0 and row1 of this thread).
+    // Scale, mask, online softmax (rows row0 and row1 of this thread). The
+    // causal test q_offset + row >= col runs as row >= col - q_offset, so
+    // the offset stays in the warp-uniform column term.
+    const int c0 = n0 - q_offset;
     float mx0 = qa::kMaskValue, mx1 = qa::kMaskValue;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -141,8 +152,8 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
         const int col = n0 + cl;
         const float cs = col_scale[cl];
         const bool in = col < Skv;
-        s[j][e] = in && (!causal || col <= row0) ? s[j][e] * rs0 * cs : qa::kMaskValue;
-        s[j][2 + e] = in && (!causal || col <= row1) ? s[j][2 + e] * rs1 * cs : qa::kMaskValue;
+        s[j][e] = in && (!causal || c0 + cl <= row0) ? s[j][e] * rs0 * cs : qa::kMaskValue;
+        s[j][2 + e] = in && (!causal || c0 + cl <= row1) ? s[j][2 + e] * rs1 * cs : qa::kMaskValue;
         mx0 = fmaxf(mx0, s[j][e]);
         mx1 = fmaxf(mx1, s[j][2 + e]);
       }
@@ -232,49 +243,53 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kOffset>
 int launch(const void* q, const void* k, const void* v, const float* sq,
            const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
            int q_code, int k_code, int v_code, int out_code, int scaling,
-           int causal, float score_scale, float* m_out, float* l_out,
+           int causal, float score_scale, int q_offset, float* m_out, float* l_out,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, kOffset>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBM - 1) / kBM, Hq, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, kOffset><<<grid, kThreads, smem, stream>>>(
       q, k, v, sq, sk, out, Hq, Hkv, Sq, Skv, q_code, k_code, v_code,
-      out_code, scaling, causal, score_scale, m_out, l_out);
+      out_code, scaling, causal, score_scale, q_offset, m_out, l_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // score_scale = sm_scale * log2(e). Tensors are contiguous (B, H, S, D) and
-// 16-byte aligned. m_out / l_out: (B, Hq, Sq) fp32 residuals, or both null.
+// 16-byte aligned. q_offset >= 0: the global position of q's row 0 (the
+// causal mask is q_offset + i >= j). m_out / l_out: (B, Hq, Sq) fp32
+// residuals, or both null.
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* scale_q, const void* scale_k, void* out,
                             int B, int Hq, int Hkv, int Sq, int Skv, int D,
                             int q_code, int k_code, int v_code, int out_code,
                             int scaling, int causal, float score_scale,
-                            void* m_out, void* l_out, void* stream) {
+                            int q_offset, void* m_out, void* l_out, void* stream) {
   const float* sq = static_cast<const float*>(scale_q);
   const float* sk = static_cast<const float*>(scale_k);
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0 || B == 0) return 0;
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool offset = causal && q_offset != 0;
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
-                        k_code, v_code, out_code, scaling, causal, score_scale,
-                        mo, lo, s);
+      return (offset ? launch<64, true> : launch<64, false>)(
+          q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code, k_code, v_code, out_code,
+          scaling, causal, score_scale, q_offset, mo, lo, s);
     case 128:
-      return launch<128>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code,
-                         k_code, v_code, out_code, scaling, causal, score_scale,
-                         mo, lo, s);
+      return (offset ? launch<128, true> : launch<128, false>)(
+          q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code, k_code, v_code, out_code,
+          scaling, causal, score_scale, q_offset, mo, lo, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -27,6 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..utils import checks
 from .llama import LlamaConfig, Params
 
 
@@ -48,8 +49,10 @@ def _map(tree: Any, fn: Callable) -> Any:
     return None if tree is None else fn(tree)
 
 
-def params_from_numpy(tree: Any, cfg: LlamaConfig, device="cpu") -> Params:
-    """Numpy leaves of a JAX Llama tree -> torch tensors on ``device``."""
+def params_from_numpy(tree: Any, cfg: LlamaConfig, device=None) -> Params:
+    """Numpy leaves of a JAX Llama tree -> torch tensors on ``device`` (the
+    CUDA card unless it says otherwise)."""
+    device = checks.default_device(device)
     if any("moe" in layer for layer in tree["layers"]):
         raise NotImplementedError("MoE trees are not ported yet (ROADMAP queue 1, item 18)")
     if len(tree["layers"]) != cfg.num_layers:

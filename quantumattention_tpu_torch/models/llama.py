@@ -10,8 +10,8 @@ every weight is stored (in, out), "transposed-for-einsum", so
 
 ``forward`` is differentiable: ``loss_fn`` and ``train_step`` (plain SGD)
 train through it, with attention gradients from the backward kernels K2/K3
-(ops/flash_bwd.py).  ``forward_prefill`` and ``forward_decode`` serve and
-run without autograd.
+(ops/flash_bwd.py).  ``forward_prefill``, ``forward_chunk`` (chunked
+prefill) and ``forward_decode`` serve and run without autograd.
 
 Quantized trees (``models/quantized``: w8a16/w4a16 leaves, optionally
 fused into ``w_qkv``/``w_gate_up``) serve through the weight kernels
@@ -359,6 +359,19 @@ def forward_prefill(
     if last_pos is not None:
         logits = logits[:, 0, :]
     return logits, kv
+
+
+@torch.no_grad()
+def forward_chunk(
+    params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+    cfg: LlamaConfig, attend_fn: Callable,
+) -> torch.Tensor:
+    """Chunked-prefill forward: a (B, T) token chunk at ``positions`` (T,).
+    ``attend_fn(layer_idx, q, k_new, v_new)`` takes (B, H, T, D) post-RoPE
+    tensors and returns the chunk's attention output (the serving
+    backends: attention over the cached prefix and the chunk, K1 with
+    ``q_offset`` = the chunk's start).  Returns (B, T, vocab) fp32 logits."""
+    return _decoder(params, tokens, positions, cfg, attend_fn)
 
 
 def _lean_decode_supported(cfg: LlamaConfig, params: Params) -> bool:

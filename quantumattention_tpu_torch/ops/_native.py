@@ -41,9 +41,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, scale_q, scale_k, out, B, Hq, Hkv, Sq, Skv, D,
     # q_code, k_code, v_code, out_code, scaling, causal, score_scale,
-    # m_out, l_out, stream
+    # q_offset, m_out, l_out, stream
     "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     # q, k, v, dout, m, l, delta, dq, B, Hq, Hkv, Sq, Skv, D, code, causal,
     # score_scale, sm_scale, stream
     "qa_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -80,6 +80,13 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P],
     # B, Hkv, E, I, F -> fp32 scratch entries qa_decode_layer needs
     "qa_decode_layer_workspace": [_I, _I, _I, _I, _I],
+    # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
+    # part_acc, part_ml, B, Hq, Hkv, num_pages, page_size, pages_per_seq, D,
+    # kv_code, score_scale, stream
+    "qa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _P],
+    # page_size -> pages one CTA of qa_paged_decode covers
+    "qa_paged_span_pages": [_I],
 }
 
 

@@ -8,7 +8,7 @@ the kernel or raises.  ``decode_attention.launches`` counts launches.
 
 Covered: (B, Hq, D) bf16 queries, an int8 cache with token-wise fp32 scales
 or a bf16 cache, ragged lengths including 0 (zero output rows), GQA, bf16
-output.  Not yet (ROADMAP queue 1, item 12): the 4-D multi-query q of
+output.  Not yet (ROADMAP queue 1, items 12a-c): the 4-D multi-query q of
 speculative verification, packed int4 caches, ``window``, and the
 ``decode_int8_qk``/``decode_int8_pv`` variants.
 """
@@ -77,12 +77,12 @@ def decode_attention(
     if window is not None:
         raise NotImplementedError(
             "decode_attention: sliding windows are not ported yet "
-            "(ROADMAP queue 1, item 12)"
+            "(ROADMAP queue 1, item 12c)"
         )
     if q.ndim != 3:
         raise NotImplementedError(
             "decode_attention: only (B, Hq, D) queries; the multi-query "
-            "verify mode is not ported yet (ROADMAP queue 1, item 12)"
+            "verify mode is not ported yet (ROADMAP queue 1, item 12b)"
         )
     batch, hq, d = q.shape
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
@@ -91,7 +91,7 @@ def decode_attention(
     if cache_dim * 2 == d:
         raise NotImplementedError(
             "decode_attention: packed int4 caches are not ported yet "
-            "(ROADMAP queue 1, item 12)"
+            "(ROADMAP queue 1, item 12a)"
         )
     if cache_dim != d or k_cache.shape[0] != batch:
         raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")

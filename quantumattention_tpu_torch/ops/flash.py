@@ -7,10 +7,12 @@ runs the kernel or raises.  ``flash_attention.launches`` counts launches.
 
 Covered: no scaling (bf16/fp16), head-wise (B, H) and token-wise (B, H, S)
 scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal masking,
-D in {64, 128}, and ``return_residuals`` (the backward's (m, l), as
-(B, Hq, Sq) fp32 rather than the TPU's 128-lane replication).  Not yet
-(ROADMAP queue 1, item 6 b-e): ``window``, position offsets, segment ids,
-``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
+D in {64, 128}, ``return_residuals`` (the backward's (m, l), as
+(B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), and
+``q_offset``, the global position of q's row 0 (chunked prefill: the causal
+mask becomes ``q_offset + i >= j``, and causal tile skipping follows it).
+Not yet (ROADMAP queue 1, item 6 b-e): ``window``, ``kv_offset``, segment
+ids, ``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ KERNEL_HEAD_DIMS = (64, 128)
 
 _NOT_YET = {
     "window": "sliding windows",
-    "q_offset": "position offsets",
     "kv_offset": "position offsets",
     "q_segment_ids": "segment ids",
     "kv_segment_ids": "segment ids",
@@ -58,22 +59,30 @@ def out_dtype_for(v_dtype) -> torch.dtype:
     return torch.bfloat16 if checks.is_8bit_dtype(v_dtype) else v_dtype
 
 
+def causal_keep(sq: int, skv: int, q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: query row i (global position q_offset + i) sees
+    key j iff q_offset + i >= j."""
+    rows = torch.arange(sq, device=device)[:, None] + q_offset
+    return torch.arange(skv, device=device)[None, :] <= rows
+
+
 def flash_attention_plain(
     q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None,
-    return_residuals=False,
+    return_residuals=False, q_offset: int = 0,
 ):
     """K1's plain version: dequantize, then the fp32 oracle.  With
     ``return_residuals`` also (m, l) from the fp32 logits."""
+    mask = causal_keep(q.shape[2], k.shape[2], q_offset, q.device) if is_causal else None
     out = sdpa_reference(
-        q, k, v, is_causal=is_causal, scale=sm_scale, scale_q=scale_q,
-        scale_k=scale_k, out_dtype=out_dtype_for(v.dtype),
+        q, k, v, attn_mask=mask, scale=sm_scale, scale_q=scale_q, scale_k=scale_k,
+        out_dtype=out_dtype_for(v.dtype),
     )
     if not return_residuals:
         return out
-    return out, residuals_plain(q, k, scale_q, scale_k, is_causal, sm_scale)
+    return out, residuals_plain(q, k, scale_q, scale_k, is_causal, sm_scale, q_offset)
 
 
-def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None):
+def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None, q_offset: int = 0):
     """(B, Hq, Sq, Skv) fp32 scores in K1's exp2 domain (times
     sm_scale * log2 e), masked entries at MASK_VALUE."""
     qf = q.float() if scale_q is None else quant.dequantize(q, scale_q)
@@ -81,18 +90,19 @@ def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None):
     kf = kf.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (sm_scale * LOG2E)
     if is_causal:
-        sq, skv = q.shape[2], k.shape[2]
-        above = torch.ones((sq, skv), dtype=torch.bool, device=q.device).triu(1)
-        s = s.masked_fill(above, DEFAULT_MASK_VALUE)
+        keep = causal_keep(q.shape[2], k.shape[2], q_offset, q.device)
+        s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
     return s
 
 
-def residuals_plain(q, k, scale_q=None, scale_k=None, is_causal=False, sm_scale=None):
+def residuals_plain(
+    q, k, scale_q=None, scale_k=None, is_causal=False, sm_scale=None, q_offset: int = 0
+):
     """Row max m and row sum l = sum(exp2(s - m)) of the exp2-domain
     scores, each (B, Hq, Sq) fp32, as K1 saves them."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = masked_scores(q, k, is_causal, sm_scale, scale_q, scale_k)
+    s = masked_scores(q, k, is_causal, sm_scale, scale_q, scale_k, q_offset)
     m = s.amax(dim=-1)
     return m, torch.exp2(s - m[..., None]).sum(dim=-1)
 
@@ -107,6 +117,7 @@ def flash_attention(
     is_causal: bool = False,
     sm_scale: Optional[float] = None,
     return_residuals: bool = False,
+    q_offset=None,
     **not_yet,
 ):
     """Fused attention forward over (B, H, S, D) tensors.
@@ -119,6 +130,9 @@ def flash_attention(
     ``return_residuals`` ``(out, (m, l))``, the row max and row sum of the
     online softmax in the exp2 domain of the scores times
     ``sm_scale * log2 e`` (and the scales), each (B, Hq, Sq) fp32.
+    ``q_offset`` (an int or a 0-d int tensor, read once on the host) is
+    the global position of q's row 0: with ``is_causal`` row i sees the
+    keys j <= q_offset + i, so Sq may be shorter than Skv (chunked prefill).
     """
     for name, val in not_yet.items():
         if name not in _NOT_YET:
@@ -142,15 +156,18 @@ def flash_attention(
         )
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    q_offset = 0 if q_offset is None else int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type == "cpu":
         return flash_attention_plain(
-            q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals
+            q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset
         )
     return _flash_fwd_cuda(
         dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
-        scaling, is_causal, sm_scale, return_residuals,
+        scaling, is_causal, sm_scale, return_residuals, q_offset,
     )
 
 
@@ -165,7 +182,8 @@ flash_attention.launches = 0
 _SCALING_CODES = {"none": 0, "head": 1, "token": 2}
 
 
-def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals):
+def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals,
+                    q_offset=0):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     tensors = [q, k, v] + [t for t in (scale_q, scale_k) if t is not None]
@@ -207,7 +225,7 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         _native.dtype_code(q.dtype), _native.dtype_code(k.dtype),
         _native.dtype_code(v.dtype), _native.dtype_code(out_dtype),
         _SCALING_CODES[scaling], int(bool(is_causal)),
-        float(sm_scale * LOG2E),
+        float(sm_scale * LOG2E), q_offset,
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

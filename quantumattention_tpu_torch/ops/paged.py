@@ -1,0 +1,261 @@
+"""Paged decode attention (counterpart of quantumattention_tpu/ops/paged.py).
+
+``paged_decode_attention`` is the wrapper of kernel K10 (``csrc/paged.cu``,
+the port of the Pallas ``_paged_kernel``, paged.py:77): one-token GQA decode
+over a pool of KV pages, each sequence's pages named by its row of a page
+table.  A CPU tensor runs the kernel's plain version,
+:func:`paged_decode_attention_plain`; a CUDA tensor runs the kernel or
+raises.  ``paged_decode_attention.launches`` counts launches.
+
+The math is that of the JAX kernel's DMA path (paged.py:230-293), not of
+K4: each page row of K and V is dequantized per element to bf16 (code times
+the row's scale, rounded once), the unnormalized P is rounded to bf16 before
+P.V, and the sum l divides at the end; K4 puts the scales on the scores.  It
+is not JAX's ``_gathered_reference`` either (paged.py:344-410, the interpret
+mode's default), so the parity tests run the JAX kernel with
+``use_dma=True``.
+
+The wrapper reads nothing back to the host: the kernel's grid comes from
+``pages_per_seq``, so a decode step that calls it can be captured in a CUDA
+graph.  It takes the folded (Hkv, P, ps/128, 128) scale layout of the JAX
+package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
+(Hkv, P, ps) one.
+
+Covered: (B, Hq, D) bf16 queries, int8 pages with token-wise fp32 scales and
+bf16 pages, GQA with up to 16 query heads per KV head, page sizes that are
+multiples of 16 up to 256, D in {64, 128} on the card (any on the CPU).
+Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a), the multi-query
+q (B, Hq, T, D) of speculative verification (item 12b) and ``window``
+(item 12c).  ``side`` (the burst side buffer, paged.py:446-457) exists for
+XLA's scatter copy and is not ported (ROADMAP, "Do not port these TPU
+workarounds").
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..utils import checks
+from . import _native
+from .sdpa import DEFAULT_MASK_VALUE
+
+LOG2E = math.log2(math.e)
+#: Query heads per KV head the kernel takes (csrc/paged.cu, kMaxGroup).
+MAX_GROUP = 16
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _scale_rows(sp: torch.Tensor) -> int:
+    if sp.ndim == 4:
+        if sp.shape[3] != 128:
+            raise ValueError(
+                f"folded scale pages must have a 128-lane minor, got {tuple(sp.shape)}"
+            )
+        return sp.shape[2] * sp.shape[3]
+    return sp.shape[2]
+
+
+def _flat_scales(sp: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(Hkv, P, ps) scales; the folded layout as a view of the same memory."""
+    if sp is None or sp.ndim == 3:
+        return sp
+    return sp.reshape(sp.shape[0], sp.shape[1], -1)
+
+
+def paged_decode_attention_plain(
+    q, k_pages, v_pages, lengths, page_indices, k_scale_pages=None, v_scale_pages=None,
+    sm_scale=None,
+) -> torch.Tensor:
+    """K10's plain version, on (Hkv, P, ps) scale pages: gather each
+    sequence's pages through its table row (entries past its pages are
+    replaced by page 0 and masked, never used), dequantize K and V per
+    element to bf16, fp32 scores times
+    sm_scale * log2(e), rows at or past the length masked, exp2 softmax with
+    the unnormalized P rounded to bf16 before P.V, division by the sum at
+    the end, zeros for an empty slot.  Returns (B, Hq, D) bf16."""
+    batch, hq, d = q.shape
+    hkv, _, ps, _ = k_pages.shape
+    pps = page_indices.shape[1]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    lengths = lengths.to(dev).long()
+    live = torch.arange(pps, device=dev)[None, :] < ((lengths + ps - 1) // ps)[:, None]
+    table = torch.where(live, page_indices.to(dev).long(), 0)
+
+    def gather(pages, scales):
+        x = pages[:, table].permute(1, 0, 2, 3, 4).reshape(batch, hkv, pps * ps, d)
+        if scales is not None:
+            s = scales[:, table].permute(1, 0, 2, 3).reshape(batch, hkv, pps * ps)
+            x = (x.float() * s.float()[..., None]).to(torch.bfloat16)
+        return x.to(torch.bfloat16).float()
+
+    k, v = gather(k_pages, k_scale_pages), gather(v_pages, v_scale_pages)
+    qg = q.to(torch.bfloat16).float().reshape(batch, hkv, group, d)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * (sm_scale * LOG2E)
+    valid = torch.arange(pps * ps, device=dev)[None, :] < lengths[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], DEFAULT_MASK_VALUE)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bhsd->bhgd", p.to(torch.bfloat16).float(), v) / l
+    o = torch.where((lengths > 0)[:, None, None, None], o, 0.0)
+    return o.reshape(batch, hq, d).to(torch.bfloat16)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    *,
+    k_scale_pages: Optional[torch.Tensor] = None,
+    v_scale_pages: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+    pages_per_block: int = 4,
+    window=None,
+    side: Optional[dict] = None,
+) -> torch.Tensor:
+    """Decode attention over paged KV; returns (B, Hq, D) bf16.
+
+    q (B, Hq, D) bf16; k_pages/v_pages (Hkv, num_pages, page_size, D) int8
+    with ``k_scale_pages``/``v_scale_pages`` (Hkv, num_pages, page_size)
+    fp32 (or the folded (Hkv, num_pages, page_size/128, 128)), or bf16
+    without; lengths (B,) int32 valid tokens per sequence (0 = empty, zero
+    output); page_indices (B, pages_per_seq) int32, entries past a
+    sequence's pages ignored.  ``pages_per_block`` must divide
+    pages_per_seq, as in JAX; it sizes the TPU's DMA blocks, and the card's
+    kernel tiles the pages its own way.
+    """
+    if q.ndim == 4:
+        raise NotImplementedError(
+            "paged_decode_attention: the multi-query q (B, Hq, T, D) of "
+            "speculative verification is not ported yet (ROADMAP queue 1, item 12b)"
+        )
+    batch, num_q_heads, head_dim = q.shape
+    num_kv_heads, _, page_rows, _ = k_pages.shape
+    pages_per_seq = page_indices.shape[1]
+    if num_q_heads % num_kv_heads != 0:
+        raise ValueError("num_q_heads must be divisible by num_kv_heads")
+    quantized = k_scale_pages is not None
+    if quantized != (v_scale_pages is not None):
+        raise ValueError("k_scale_pages and v_scale_pages go together")
+    if checks.is_8bit_dtype(k_pages.dtype) and not quantized:
+        raise ValueError("8-bit KV pages require scale pages")
+    int4 = False
+    if quantized:
+        scale_rows = _scale_rows(k_scale_pages)
+        if scale_rows == 2 * page_rows:
+            int4 = True
+        elif scale_rows != page_rows:
+            raise ValueError(
+                f"scale pages carry {scale_rows} token rows per page, but "
+                f"the KV pages have {page_rows} byte rows: expected exactly "
+                f"{page_rows} (int8 layout) or {2 * page_rows} (token-packed "
+                "int4 layout)"
+            )
+        if _scale_rows(v_scale_pages) != scale_rows or v_scale_pages.ndim != k_scale_pages.ndim:
+            raise ValueError(
+                f"k/v scale pages disagree on layout: "
+                f"{tuple(k_scale_pages.shape)} vs {tuple(v_scale_pages.shape)}"
+            )
+    if int4 and k_pages.dtype != torch.int8:
+        raise ValueError("int4 pages must use an int8 container")
+    if int4:
+        raise NotImplementedError(
+            "paged_decode_attention: token-packed int4 pages are not ported "
+            "yet (ROADMAP queue 1, item 12a)"
+        )
+    if pages_per_seq % pages_per_block != 0:
+        raise ValueError(
+            f"pages_per_seq ({pages_per_seq}) must be a multiple of "
+            f"pages_per_block ({pages_per_block})"
+        )
+    if window is not None:
+        _, right = window
+        if right not in (None, 0):
+            raise ValueError(
+                "paged_decode_attention window must be (left, 0) or "
+                f"(left, None): queries are the newest tokens, got right={right}"
+            )
+        raise NotImplementedError(
+            "paged_decode_attention: sliding windows are not ported yet "
+            "(ROADMAP queue 1, item 12c)"
+        )
+    if side is not None:
+        raise NotImplementedError(
+            "paged_decode_attention: the burst side buffer is a TPU workaround "
+            "for XLA's scatter copy and is not ported (ROADMAP, \"Do not port "
+            "these TPU workarounds\"); the port writes pages in place"
+        )
+    if k_pages.dtype not in (torch.int8, torch.bfloat16) or v_pages.dtype != k_pages.dtype:
+        raise NotImplementedError(
+            f"paged_decode_attention: {k_pages.dtype} pages are not ported yet"
+        )
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    ks, vs = _flat_scales(k_scale_pages), _flat_scales(v_scale_pages)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale
+        )
+    return _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale)
+
+
+paged_decode_attention.launches = 0
+
+
+def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
+    """Check what the kernel takes, launch it on the current stream."""
+    checks.require_hopper(q.device)
+    batch, hq, d = q.shape
+    hkv, num_pages, ps, _ = k_pages.shape
+    pps = page_indices.shape[1]
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"K10 expects bf16 queries, got {q.dtype}")
+    if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
+        raise ValueError("K10's lengths and page_indices must be int32")
+    if ks is not None and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
+        raise ValueError("K10's scale pages must be float32")
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
+        raise ValueError(
+            f"page shapes {tuple(k_pages.shape)}, {tuple(v_pages.shape)} do not match q {tuple(q.shape)}"
+        )
+    if tuple(lengths.shape) != (batch,) or page_indices.shape[0] != batch:
+        raise ValueError("lengths (B,) and page_indices (B, pages_per_seq) must match q's B")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K10 is built for head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"K10 takes at most {MAX_GROUP} query heads per KV head, got {hq // hkv}")
+    if ps % 16 or ps > 256:
+        raise ValueError(f"K10 takes page sizes that are multiples of 16 up to 256, got {ps}")
+    tensors = [q, k_pages, v_pages, lengths, page_indices] + [t for t in (ks, vs) if t is not None]
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError("all K10 operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("K10 operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("K10's operands must be 16-byte aligned")
+    lib = _native.library()
+    span_pages = lib.qa_paged_span_pages(ps)
+    nspan = -(-pps // span_pages)
+    group = hq // hkv
+    out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
+    part_acc = torch.empty((batch, hkv, nspan, group, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((batch, hkv, nspan, group, 2), dtype=torch.float32, device=q.device)
+    err = lib.qa_paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d,
+        _native.dtype_code(k_pages.dtype), float(sm_scale * LOG2E),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _native.check(err, "qa_paged_decode")
+    paged_decode_attention.launches += 1
+    return out

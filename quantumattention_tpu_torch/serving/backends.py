@@ -1,10 +1,15 @@
-"""Cache backend of the continuous-batching engine (counterpart of
+"""Cache backends of the continuous-batching engine (counterpart of
 quantumattention_tpu/serving/backends.py).
 
 ``SlotsBackend`` owns one ``kv_cache.KVCache`` per layer, contiguous rows
 (num_slots, Hkv, max_len, D) per slot, and everything that reads or writes
-them: the prefill forward with its cache writes, the decode step over all
-slots, decode bursts, and slot release.
+them: the prefill forward with its cache writes, chunked prefill, the decode
+step over all slots, decode bursts, and slot release.  ``PagedBackend``
+(backends.py:754-1623) owns a page pool per layer
+(``serving/paged_cache.LayerPages``) and the host ``PageAllocator`` (free
+list, page tables, the refcounted prefix cache); its decode step writes
+each slot's token into the page its table names and attends through kernel
+K10 (``ops/paged.paged_decode_attention``).
 
 A decode step takes one of two routes, as ``_decode_step_impl`` does in
 JAX (backends.py:364-376): the fused route when
@@ -24,15 +29,22 @@ function runs n times in a Python loop.  The cache is appended to in place
 every step, so the JAX burst's side buffers and once-per-burst flush
 (``_burst_impl_mega``, a TPU workaround) are not ported.
 
-Not ported: the paged backend (ROADMAP queue 1, item 17), chunked prefill,
-speculative verification and tensor-parallel meshes (items 15 and 19).
-Buffer donation is not ported either: it exists for JAX's immutable arrays,
-and the PyTorch cache is updated in place.
+A prefill chunk (``prefill_chunk``, both backends) attends over the
+slot's cached prefix, dequantized to bf16, and the chunk itself through K1
+with ``q_offset`` = the chunk's start (``_chunk_prefix_attend``,
+backends.py:66-108), then writes the chunk.
+
+Not ported: speculative verification and rollback and tensor-parallel
+meshes (ROADMAP queue 1, items 12b and 19), the paged burst's side buffers
+(``_burst_impl_side``, ``_flush_side_pages``: a TPU workaround; the port
+writes pages in place every step).  Buffer donation is not ported either:
+it exists for JAX's immutable arrays, and the PyTorch caches are updated in
+place.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,7 +52,11 @@ import torch
 from ..models import llama, quantized
 from ..ops import megastep, qmlp, qmm, quant
 from ..ops.decode import decode_attention
+from ..ops.flash import flash_attention
+from ..ops.paged import paged_decode_attention
+from ..utils import checks
 from . import kv_cache as kvc
+from . import paged_cache as pgc
 from .sampling import SamplingParams, sample, sample_with_logprob
 
 
@@ -55,7 +71,29 @@ def _launch_counters():
         (qmm.quantized_matmul4, "launches"),
         (qmlp.fused_layer_tail, "launches"),
         (megastep.fused_decode_layer, "launches"),
+        (paged_decode_attention, "launches"),
     ]
+
+
+def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int) -> torch.Tensor:
+    """Attention of a prefill chunk over the slot's first ``off`` cached
+    rows and itself (``_chunk_prefix_attend``, backends.py:66-108): the
+    prefix (``prefix()`` -> (k, v), (1, Hkv, off, D) bf16, dequantized per
+    element) is concatenated with the chunk's K/V, then K1 runs causal with
+    ``q_offset = off``."""
+    if off > 0:
+        k_pre, v_pre = prefix()
+        k_new = torch.cat([k_pre, k_new.to(torch.bfloat16)], dim=2)
+        v_new = torch.cat([v_pre, v_new.to(torch.bfloat16)], dim=2)
+    return flash_attention(q, k_new, v_new, is_causal=True, q_offset=off)
+
+
+def _dequantize_rows(values: torch.Tensor, scales) -> torch.Tensor:
+    """Cached rows (..., D) and their token scales (...) -> bf16."""
+    x = values.float()
+    if scales is not None:
+        x = x * scales.float()[..., None]
+    return x.to(torch.bfloat16)
 
 
 class _Burst:
@@ -63,7 +101,7 @@ class _Burst:
     active, remaining, EOS ids), a step counter, the (rows, capacity, B)
     trace, and on a CUDA device the step captured as a graph."""
 
-    def __init__(self, backend: "SlotsBackend", params, sp: SamplingParams, want_lp: bool,
+    def __init__(self, backend, params, sp: SamplingParams, want_lp: bool,
                  generator: Optional[torch.Generator], capacity: int) -> None:
         dev, b = backend.device, backend.num_slots
         self.backend, self.params, self.sp, self.want_lp = backend, params, sp, want_lp
@@ -127,6 +165,34 @@ class _Burst:
         self.backend.stats["graph_replays"] += 1
 
 
+def _run_burst(backend, key, params, tokens, active, remaining, eos_ids, generator,
+               n_steps: int, sp: SamplingParams, want_lp: bool) -> np.ndarray:
+    """``n_steps`` of ``backend._step`` on the device with sampling, EOS and
+    budgets; returns the packed (2 or 3, n_steps, B) trace, fetched once.
+    On a CUDA device the step is captured once per ``key`` as a graph (the
+    first burst's first step runs eagerly: the warm-up) and replayed; on
+    the CPU it runs in a loop."""
+    state = backend._bursts.get(key)
+    if state is None or state.capacity < n_steps:
+        state = _Burst(backend, params, sp, want_lp, generator, n_steps)
+        backend._bursts[key] = state
+    state.load(tokens, active, remaining, eos_ids)
+    n = n_steps
+    if backend.device.type == "cuda":
+        if state.graph is None:
+            state.step()  # warm-up, and this burst's first step
+            n -= 1
+            state.capture()
+        for _ in range(n):
+            state.replay()
+    else:
+        for _ in range(n):
+            state.step()
+    backend.stats["bursts"] += 1
+    backend.stats["host_fetches"] += 1
+    return state.trace[:, :n_steps].cpu().numpy()
+
+
 class SlotsBackend:
     """Contiguous slot cache: one (Hkv, max_len, D) row region per slot."""
 
@@ -139,7 +205,7 @@ class SlotsBackend:
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = checks.default_device(device)
         self.caches = [
             kvc.init_cache(
                 num_slots, cfg.num_kv_heads, max_len, cfg.head_dim,
@@ -185,6 +251,39 @@ class SlotsBackend:
         Returns the last-position logits (B, vocab)."""
         logits, kv = prefill_fn(params, tokens, last_pos=self._tensor(last_pos))
         self.write_prefill_batch(kv, slots, n_valid, padded)
+        return logits
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, tokens, req, off: int, tc: int) -> torch.Tensor:
+        """One prefill chunk of ``req`` (``_prefill_chunk_impl``,
+        backends.py:236-290): tokens (1, T) of which the first ``tc`` are
+        real, at positions off..off+T-1; attends over the slot's first
+        ``off`` rows and the chunk, then writes the chunk's T rows at
+        ``off`` (rows past ``tc`` hold garbage that the length masks and the
+        next chunk overwrites; ``max_len % prefill_chunk == 0`` keeps them in
+        the cache).  Returns (1, T, vocab) fp32 logits."""
+        slot = req.slot
+        positions = off + torch.arange(tokens.shape[1], dtype=torch.int32, device=self.device)
+        recorded = {}
+
+        def attend(idx, q, k_new, v_new):
+            recorded[idx] = (k_new, v_new)
+            c = self.caches[idx]
+
+            def prefix():
+                return tuple(
+                    _dequantize_rows(vals[slot : slot + 1, :, :off],
+                                     None if sc is None else sc[slot : slot + 1, :, :off])
+                    for vals, sc in ((c.k, c.k_scale), (c.v, c.v_scale))
+                )
+
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off)
+
+        logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
+        ids, offs, nval = self._tensor([slot]), self._tensor([off]), self._tensor([tc])
+        for idx, cache in enumerate(self.caches):
+            k, v = recorded[idx]
+            kvc.append(cache, ids, k.float(), v.float(), offs, nval)
         return logits
 
     # -- decode ----------------------------------------------------------------
@@ -266,25 +365,8 @@ class SlotsBackend:
         fetched once.  A slot's next token replaces its current one only
         while it is active; it stops on its EOS id or its budget."""
         key = (id(params), sp, want_lp, self.route(params))
-        state = self._bursts.get(key)
-        if state is None or state.capacity < n_steps:
-            state = _Burst(self, params, sp, want_lp, generator, n_steps)
-            self._bursts[key] = state
-        state.load(tokens, active, remaining, eos_ids)
-        n = n_steps
-        if self.device.type == "cuda":
-            if state.graph is None:
-                state.step()  # warm-up, and this burst's first step
-                n -= 1
-                state.capture()
-            for _ in range(n):
-                state.replay()
-        else:
-            for _ in range(n):
-                state.step()
-        self.stats["bursts"] += 1
-        self.stats["host_fetches"] += 1
-        return state.trace[:, :n_steps].cpu().numpy()
+        return _run_burst(self, key, params, tokens, active, remaining, eos_ids, generator,
+                          n_steps, sp, want_lp)
 
     # -- bookkeeping -------------------------------------------------------------
 
@@ -296,3 +378,269 @@ class SlotsBackend:
         ids = self._tensor([slot])
         for cache in self.caches:
             kvc.free_slots(cache, ids)
+
+
+class PagedBackend:
+    """vLLM-style paged cache: a page pool per layer and per-slot page
+    tables (backends.py:754-1623).
+
+    Admission makes a FULL reservation (the padded prompt and every new
+    token) before a request leaves the waiting queue, so no prefill chunk,
+    decode step or burst can run out of pages, and a burst runs over fixed
+    tables.  Page ``num_pages`` is one page past the allocator's pool, the
+    trash page: inactive slots' decode lanes write there, because their
+    table rows may name pages another sequence owns now (backends.py:797-802).
+
+    The device holds the page tensors and two persistent buffers, the page
+    tables and the per-slot positions, which a per-step ``decode`` or a
+    ``burst`` refreshes in place from the host allocator before it runs; a
+    step reads and advances them on the device alone, so a burst's step is
+    captured once as a CUDA graph, as on the slots backend.
+    """
+
+    name = "paged"
+
+    def __init__(
+        self, cfg: llama.LlamaConfig, *, num_slots: int, max_len: int,
+        cache_dtype=torch.int8, page_size: int = 128, num_pages: Optional[int] = None,
+        prefix_cache: bool = False, device=None,
+    ) -> None:
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.prefix_cache = prefix_cache
+        self.device = checks.default_device(device)
+        pages_per_seq = -(-max_len // page_size)
+        if num_pages is None:
+            # Every slot at max_len: the slots backend's capacity.
+            num_pages = num_slots * pages_per_seq + 1
+        self._trash_page = num_pages
+        self.pages = [
+            pgc.init_layer_pages(
+                cfg.num_kv_heads, num_pages + 1, page_size, cfg.head_dim, cache_dtype,
+                device=self.device,
+            )
+            for _ in range(cfg.num_layers)
+        ]
+        self.alloc = pgc.PageAllocator(num_pages, num_slots, pages_per_seq)
+        # The largest pages-per-block that divides the table width (JAX's
+        # choice; K10 validates it and tiles the pages its own way).
+        self._pages_per_block = next(n for n in (4, 2, 1) if pages_per_seq % n == 0)
+        self._tables = torch.zeros((num_slots, pages_per_seq), dtype=torch.int32, device=self.device)
+        self._positions = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+        self._bursts = {}
+        self.stats = {"bursts": 0, "host_fetches": 0, "graph_captures": 0, "graph_replays": 0}
+
+    # -- admission -------------------------------------------------------------
+
+    def check_submit(self, reservation: int) -> None:
+        """Refuse a request that could NEVER be admitted: its full
+        reservation exceeds the whole pool."""
+        need = self.alloc.pages_for(reservation, self.page_size)
+        if need > self.alloc.num_pages:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.alloc.num_pages}; raise num_pages or shrink the request"
+            )
+
+    def _prompt_hashes(self, req) -> List[bytes]:
+        return pgc.hash_pages(req.prompt, self.page_size)
+
+    def try_admit(self, req, slot: int, reservation: int) -> Optional[int]:
+        """Reserve the request's full footprint; None is FIFO backpressure.
+        With the prefix cache on, cached prompt pages are adopted (shared,
+        refcounted) and the matched token count returned: prefill resumes
+        at the first page not cached."""
+        matched: List[int] = []
+        if self.prefix_cache:
+            # At least one prompt token always prefills: the first sampled
+            # token needs fresh last-position logits.
+            usable = (len(req.prompt) - 1) // self.page_size
+            matched = self.alloc.match_prefix(self._prompt_hashes(req)[:usable])
+        need = self.alloc.pages_for(reservation, self.page_size) - len(matched)
+        # Matched idle pages leave the evictable pool on adoption.
+        avail = self.alloc.free_pages + max(0, self.alloc.evictable_pages - len(matched))
+        if need > avail:
+            return None
+        if matched:
+            self.alloc.adopt(slot, matched)
+        self.alloc.allocate(slot, reservation, self.page_size)
+        n_matched = len(matched) * self.page_size
+        if matched:
+            self.alloc.lengths[slot] = n_matched
+        return n_matched
+
+    def register_prefix(self, req) -> None:
+        """Publish a fully prefilled prompt's whole pages (a page holding
+        rows past the prompt is never whole, so never published)."""
+        hashes = self._prompt_hashes(req)
+        if hashes:
+            self.alloc.register(req.slot, hashes)
+
+    # -- prefill ---------------------------------------------------------------
+
+    def _ids(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64).reshape(-1), device=self.device)
+
+    def write_prefill_batch(
+        self, kv, slots: Sequence[int], n_valid: Sequence[int], padded: int
+    ) -> None:
+        """Every request's and every layer's prefill rows into the slots'
+        own pages, one indexed assignment per page tensor per layer
+        (``_batched_page_write``, backends.py:898-948): requests own
+        disjoint pages, so the write is exact."""
+        ps = self.page_size
+        n_pg = -(-padded // ps)
+        pids = self._ids(self.alloc.tables[list(slots), :n_pg])
+        kreq = len(slots)
+        for lp, (k, v) in zip(self.pages, kv):
+            for dst, dsc, x in ((lp.k, lp.k_scale, k), (lp.v, lp.v_scale, v)):
+                hkv, d = x.shape[1], x.shape[3]
+                xq, xs = kvc.quantize_tokens(x.float(), dst.dtype)
+                dst[:, pids] = (xq.reshape(kreq, hkv, n_pg, ps, d).transpose(0, 1)
+                                .reshape(hkv, kreq * n_pg, ps, d))
+                if xs is not None:
+                    dsc[:, pids] = (xs.reshape(kreq, hkv, n_pg, ps).transpose(0, 1)
+                                    .reshape(hkv, kreq * n_pg, ps))
+        for slot, n in zip(slots, n_valid):
+            self.alloc.lengths[slot] = n
+
+    def prefill_and_write(
+        self, prefill_fn, params, tokens, last_pos,
+        slots: Sequence[int], n_valid: Sequence[int], padded: int,
+    ) -> torch.Tensor:
+        """Whole-prompt prefill forward, then the batched page write.
+        Returns the last-position logits (B, vocab)."""
+        last = torch.as_tensor(list(last_pos), dtype=torch.int64, device=self.device)
+        logits, kv = prefill_fn(params, tokens, last_pos=last)
+        self.write_prefill_batch(kv, slots, n_valid, padded)
+        return logits
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, tokens, req, off: int, tc: int) -> torch.Tensor:
+        """One prefill chunk of ``req`` (``_prefill_chunk_impl``,
+        backends.py:989-1071): attends over the slot's first ``off`` rows,
+        gathered from its pages (``off`` is page-aligned), and the chunk;
+        then writes the pages that hold the chunk's ``tc`` real rows.  JAX
+        writes the chunk's full width, which past a prefix hit's
+        reservation lands on table entries that name no page of this slot
+        (page 0 by default); the port writes only the slot's reserved
+        pages.  Returns (1, T, vocab) fp32 logits."""
+        ps = self.page_size
+        row = self.alloc.tables[req.slot]
+        positions = off + torch.arange(tokens.shape[1], dtype=torch.int32, device=self.device)
+        prefix_ids = self._ids(row[: off // ps])
+        recorded = {}
+
+        def attend(idx, q, k_new, v_new):
+            recorded[idx] = (k_new, v_new)
+            lp = self.pages[idx]
+
+            def prefix():
+                return tuple(
+                    _dequantize_rows(vals[:, prefix_ids], None if sc is None else sc[:, prefix_ids])
+                    .reshape(vals.shape[0], off, vals.shape[3])[None]
+                    for vals, sc in ((lp.k, lp.k_scale), (lp.v, lp.v_scale))
+                )
+
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off)
+
+        logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
+        n_pg = -(-tc // ps)
+        own = row[off // ps : off // ps + n_pg]
+        for idx, lp in enumerate(self.pages):
+            k, v = recorded[idx]
+            pgc.write_tokens(lp, own, 0, k[0, :, : n_pg * ps].float(), v[0, :, : n_pg * ps].float())
+        self.alloc.lengths[req.slot] = off + tc
+        return logits
+
+    # -- decode ----------------------------------------------------------------
+
+    def route(self, params) -> str:
+        return "paged"
+
+    def _load_tables(self) -> None:
+        """The host allocator's tables and lengths into the device buffers,
+        in place (a captured step keeps their addresses)."""
+        self._tables.copy_(torch.from_numpy(self.alloc.tables))
+        self._positions.copy_(torch.from_numpy(self.alloc.lengths))
+
+    def _step(self, params, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        """One decode step over all slots from device tensors, with no host
+        synchronisation (``_decode_step_impl``, backends.py:1209-1277): per
+        layer, quantize each slot's k/v, write it at its position in the
+        page ``tables[slot, pos // ps]`` (inactive lanes to the trash page),
+        then K10 over the post-append lengths.  The rest of the step is
+        ``llama.forward_decode`` (on a fused quantized tree the lean T=1
+        decode with K8).  Advances the device positions of active slots.  Returns
+        (B, vocab) fp32 logits."""
+        ps = self.page_size
+        positions = self._positions.clone()  # pre-append
+        lengths = positions + active.to(torch.int32)  # post-append
+        pos = positions.long()
+        col = torch.clamp(pos // ps, max=self._tables.shape[1] - 1)
+        page = self._tables.gather(1, col[:, None])[:, 0].long()
+        page = torch.where(active, page, self._trash_page)
+        row = pos % ps
+
+        def attend(idx, q, k_new, v_new):
+            lp = self.pages[idx]
+            kq, ks = kvc.quantize_tokens(k_new, lp.k.dtype)
+            vq, vs = kvc.quantize_tokens(v_new, lp.v.dtype)
+            lp.k[:, page, row] = kq.transpose(0, 1)
+            lp.v[:, page, row] = vq.transpose(0, 1)
+            if ks is not None:
+                lp.k_scale[:, page, row] = ks.transpose(0, 1)
+                lp.v_scale[:, page, row] = vs.transpose(0, 1)
+            return paged_decode_attention(
+                q.to(torch.bfloat16).contiguous(), lp.k, lp.v, lengths, self._tables,
+                k_scale_pages=lp.k_scale, v_scale_pages=lp.v_scale,
+                pages_per_block=self._pages_per_block,
+            )
+
+        logits = llama.forward_decode(params, tokens, positions, self.cfg, attend)
+        self._positions.copy_(lengths)
+        return logits
+
+    @torch.no_grad()
+    def decode(self, params, tokens, active_mask, active_slots=None) -> torch.Tensor:
+        """One decode step over all slots (host inputs).  Returns
+        (num_slots, vocab) fp32 logits."""
+        mask = np.asarray(active_mask, bool)
+        for slot in np.flatnonzero(mask):
+            # Admission reserved the full footprint: a guard, no growth.
+            self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + 1, self.page_size)
+        self._load_tables()
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=self.device)
+        active = torch.as_tensor(mask, device=self.device)
+        logits = self._step(params, tokens, active)
+        self.alloc.lengths[mask] += 1
+        return logits
+
+    @torch.no_grad()
+    def burst(
+        self, params, tokens, active, remaining, eos_ids, generator,
+        n_steps: int, sp: SamplingParams, want_lp: bool,
+    ) -> np.ndarray:
+        """``n_steps`` decode steps on the device over the fixed tables
+        (``burst``, backends.py:1515-1568): the packed trace, fetched once;
+        the host lengths are then advanced by each slot's emitted count."""
+        mask = np.asarray(active, bool)
+        for slot in np.flatnonzero(mask):
+            self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + n_steps, self.page_size)
+        self._load_tables()
+        key = (id(params), sp, want_lp, self.route(params))
+        packed = _run_burst(self, key, params, tokens, active, remaining, eos_ids, generator,
+                            n_steps, sp, want_lp)
+        emits = packed[1] != 0.0 if want_lp else packed[1].astype(bool)
+        self.alloc.lengths += emits.sum(axis=0).astype(np.int32)
+        return packed
+
+    # -- bookkeeping -------------------------------------------------------------
+
+    def host_lengths(self) -> np.ndarray:
+        return np.asarray(self.alloc.lengths).copy()
+
+    def release(self, slot: int) -> None:
+        self.alloc.release(slot)

@@ -2,12 +2,19 @@
 quantumattention_tpu/serving/engine.py).
 
 Scheduling only: admission, prefill grouping, decode steps, sampling and
-emission.  Cache state lives behind ``serving/backends.SlotsBackend``.
-Every ``step()`` admits waiting requests into free slots, runs at most one
-batched whole-prompt prefill (every pending prompt that pads to the head
-request's bucket, the JAX engine's grouping rule, engine.py:503-562), and
-then one decode step over all slots, so live streams keep producing tokens
-while new prompts prefill.
+emission.  Cache state lives behind a backend, ``serving/backends.
+SlotsBackend`` (contiguous rows per slot) or ``PagedBackend``
+(``cache_backend="paged"``: a shared page pool, ``page_size`` and
+``num_pages``, with ``prefix_cache`` for automatic prefix caching).  Every
+``step()`` admits waiting requests into free slots (on the paged backend
+with their full reservation and any cached prefix adopted), advances
+prefill by one forward -- the head request's next chunk when it takes the
+chunked path (``prefill_chunk``: a prompt longer than one chunk, or a
+prefix hit, which resumes at a page-aligned offset), else one batched
+whole-prompt forward over every pending prompt that pads to the head
+request's bucket (the JAX engine's rule, engine.py:503-562) -- and then one
+decode step over all slots, so live streams keep producing tokens while new
+prompts prefill.
 
 First tokens are sampled and emitted synchronously, in the step that ran
 their prefill: the JAX engine's deferred and pipelined first-token fetch
@@ -20,11 +27,10 @@ waiting or prefilling, one sampling setting) in on-device bursts of up to n
 steps with one host fetch each (``SlotsBackend.burst``), clamped so that no
 request passes its budget or ``max_len`` (engine.py:426-441).
 
-Not ported (each raises ``NotImplementedError``): the paged backend and
-prefix cache (ROADMAP queue 1, item 17), chunked prefill and speculative
-decoding (item 15), int4 caches (item 12), tensor-parallel meshes (item
-19), and ``from_hf`` (it needs checkpoint files the repository does not
-hold).
+Not ported (each raises ``NotImplementedError``): speculative decoding
+(ROADMAP queue 1, item 12b), int4 caches (item 12a), tensor-parallel meshes
+(item 19), and ``from_hf`` (it needs checkpoint files the repository does
+not hold).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 
 from ..models import llama
 from ..utils.shapes import round_up
-from .backends import SlotsBackend
+from .backends import PagedBackend, SlotsBackend
 from .sampling import SamplingParams, sample, sample_with_logprob
 
 
@@ -64,23 +70,15 @@ class Request:
 
 
 _NOT_PORTED = {
-    "kv_int4": "int4 KV caches (ROADMAP queue 1, item 12)",
-    "cache_backend": "the paged backend (ROADMAP queue 1, item 17)",
-    "page_size": "the paged backend (ROADMAP queue 1, item 17)",
-    "num_pages": "the paged backend (ROADMAP queue 1, item 17)",
-    "prefill_chunk": "chunked prefill (ROADMAP queue 1, item 15)",
-    "prefix_cache": "prefix caching (ROADMAP queue 1, item 17)",
-    "draft": "speculative decoding (ROADMAP queue 1, item 15)",
-    "spec_tokens": "speculative decoding (ROADMAP queue 1, item 15)",
+    "kv_int4": "int4 KV caches (ROADMAP queue 1, item 12a)",
+    "draft": "speculative decoding (ROADMAP queue 1, item 12b)",
+    "spec_tokens": "speculative decoding (ROADMAP queue 1, item 12b)",
     "mesh": "tensor-parallel serving (ROADMAP queue 1, item 19)",
     "tp_axis": "tensor-parallel serving (ROADMAP queue 1, item 19)",
     "decode_block_kv": "decode block tuning (ROADMAP queue 1, item 10)",
 }
 #: The JAX engine's defaults of those arguments: passing them changes nothing.
-_DEFAULTS = {
-    "cache_backend": "slots", "page_size": 128, "spec_tokens": 4,
-    "tp_axis": "tp", "decode_block_kv": 2048,
-}
+_DEFAULTS = {"spec_tokens": 4, "tp_axis": "tp", "decode_block_kv": 2048}
 
 
 class Engine:
@@ -96,6 +94,11 @@ class Engine:
         cache_dtype=torch.int8,
         prefill_bucket: int = 128,
         seed: int = 0,
+        cache_backend: str = "slots",
+        page_size: int = 128,
+        num_pages: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = False,
         device=None,
         **not_ported,
     ) -> None:
@@ -104,6 +107,35 @@ class Engine:
                 raise TypeError(f"unexpected keyword argument {name!r}")
             if value not in (None, False, _DEFAULTS.get(name)):
                 raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not ported yet")
+        if cache_backend not in ("slots", "paged"):
+            raise ValueError(f"unknown cache_backend: {cache_backend!r}")
+        if prefill_chunk is not None and max_len % prefill_chunk != 0:
+            # Chunk writes are full-width; alignment keeps them in the cache.
+            raise ValueError(
+                f"max_len ({max_len}) must be a multiple of prefill_chunk ({prefill_chunk})"
+            )
+        if cache_backend == "paged":
+            # Prefill writes are padded to prefill_bucket / prefill_chunk
+            # widths and mapped onto whole pages, so both are page multiples.
+            if max_len % page_size != 0:
+                raise ValueError(
+                    f"max_len ({max_len}) must be a multiple of page_size ({page_size})"
+                )
+            if prefill_bucket % page_size != 0:
+                raise ValueError(
+                    f"prefill_bucket ({prefill_bucket}) must be a multiple of page_size ({page_size})"
+                )
+            if prefill_chunk is not None and prefill_chunk % page_size != 0:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be a multiple of page_size ({page_size})"
+                )
+        if prefix_cache:
+            # A prefix hit resumes at a page-aligned offset through the
+            # chunked path: it needs the paged backend and a chunk size.
+            if cache_backend != "paged":
+                raise ValueError("prefix_cache requires the paged backend")
+            if prefill_chunk is None:
+                raise ValueError("prefix_cache requires prefill_chunk")
         if device is None:
             # The first tensor leaf: a quantized embedding is a dict.
             embed = params["embed"]
@@ -114,10 +146,19 @@ class Engine:
         self.num_slots = num_slots
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
-        self._backend = SlotsBackend(
-            cfg, num_slots=num_slots, max_len=max_len,
-            cache_dtype=cache_dtype, device=self.device,
-        )
+        self.prefill_chunk = prefill_chunk
+        self.prefix_cache = prefix_cache
+        if cache_backend == "slots":
+            self._backend = SlotsBackend(
+                cfg, num_slots=num_slots, max_len=max_len,
+                cache_dtype=cache_dtype, device=self.device,
+            )
+        else:
+            self._backend = PagedBackend(
+                cfg, num_slots=num_slots, max_len=max_len, cache_dtype=cache_dtype,
+                page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
+                device=self.device,
+            )
         self.free_slots = list(range(num_slots))
         self.active: Dict[int, Request] = {}  # slot -> request
         self.waiting: List[Request] = []
@@ -130,6 +171,8 @@ class Engine:
             "prefill_forwards": 0,
             "decode_steps": 0,
             "generated_tokens": 0,
+            "prefix_hits": 0,
+            "prefix_tokens_reused": 0,
         }
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill_fn = functools.partial(llama.forward_prefill, cfg=cfg)
@@ -137,6 +180,14 @@ class Engine:
     @property
     def caches(self):
         return self._backend.caches
+
+    @property
+    def pages(self):
+        return self._backend.pages
+
+    @property
+    def alloc(self):
+        return self._backend.alloc
 
     @classmethod
     def from_hf(cls, checkpoint_path: str, **engine_kwargs):
@@ -171,7 +222,7 @@ class Engine:
             sampling=sampling or SamplingParams(), on_token=on_token,
             logprobs=logprobs,
         )
-        self._backend.check_submit(len(prompt) + max_new_tokens)
+        self._backend.check_submit(self._reservation_tokens(req))
         self.waiting.append(req)
         return req
 
@@ -250,28 +301,65 @@ class Engine:
     # Prefill / admission
     # ------------------------------------------------------------------
 
+    def _reservation_tokens(self, req: Request) -> int:
+        """The token capacity this request's prefill and decode will use
+        (engine.py:463-474): the prompt padded to its prefill width (bucket
+        or chunk) and room for every new token.  The paged admission check
+        and the allocation reserve the same quantity, so an admitted request
+        never runs out of pages."""
+        n = len(req.prompt)
+        if self.prefill_chunk is not None and n > self.prefill_chunk:
+            padded = round_up(n, self.prefill_chunk)
+        else:
+            padded = min(round_up(n, self.prefill_bucket), self.max_len)
+        return max(padded, n + req.max_new_tokens)
+
     def _admit(self) -> None:
-        """Move waiting requests into free slots, FIFO."""
+        """Move waiting requests into free slots, FIFO, reserving their
+        footprint (the head of the queue blocks admission until it fits).
+        A prefix hit sets the request's ``prefill_pos`` to the matched,
+        page-aligned token count."""
         while self.waiting and self.free_slots:
             req = self.waiting[0]
             slot = self.free_slots[0]
-            if self._backend.try_admit(req, slot, len(req.prompt)) is None:
+            matched = self._backend.try_admit(req, slot, self._reservation_tokens(req))
+            if matched is None:
                 break
             self.waiting.pop(0)
             self.free_slots.pop(0)
             req.slot = slot
+            if matched:
+                req.prefill_pos = matched
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += matched
             self.prefilling.append(req)
+
+    def _register_prefix(self, req: Request) -> None:
+        if self.prefix_cache:
+            self._backend.register_prefix(req)
 
     def _padded(self, req: Request) -> int:
         return min(round_up(len(req.prompt), self.prefill_bucket), self.max_len)
 
+    def _whole(self, req: Request) -> bool:
+        """Whether ``req`` prefills in one whole-prompt forward: nothing
+        prefilled yet (a prefix hit resumes at its offset, and the whole
+        path writes from 0) and no longer than one chunk."""
+        return req.prefill_pos == 0 and (
+            self.prefill_chunk is None or len(req.prompt) <= self.prefill_chunk
+        )
+
     def _prefill_advance_group(self) -> List[Request]:
-        """ONE batched whole-prompt forward over the pending prompts that pad
-        to the head request's bucket: a power-of-two count, at most 32
-        requests and 4096 padded tokens (the JAX engine's rule)."""
+        """Advance prefill by one forward: the head request's next chunk
+        when it takes the chunked path, else ONE batched whole-prompt
+        forward over the pending whole prompts that pad to the head
+        request's bucket: a power-of-two count, at most 32 requests and
+        4096 padded tokens (the JAX engine's rule, engine.py:519-562)."""
         head = self.prefilling[0]
+        if not self._whole(head):
+            return self._prefill_advance(head)
         width = self._padded(head)
-        group = [r for r in self.prefilling if self._padded(r) == width]
+        group = [r for r in self.prefilling if self._whole(r) and self._padded(r) == width]
         cap = min(32, max(1, 4096 // width), len(group))
         reqs = group[: 1 << (cap.bit_length() - 1)]
 
@@ -289,6 +377,7 @@ class Engine:
         finished: List[Request] = []
         for i, r in enumerate(reqs):
             self.prefilling.remove(r)
+            self._register_prefix(r)
             r.prefill_pos = len(r.prompt)
             self.stats["prefill_tokens"] += len(r.prompt)
             if self._emit(r, int(toks[i]), lp=None if lps is None else float(lps[i])):
@@ -296,6 +385,37 @@ class Engine:
             else:
                 self.active[r.slot] = r
         return finished
+
+    def _prefill_advance(self, req: Request) -> List[Request]:
+        """One chunk of a chunked request (engine.py:638-656); when its
+        prompt is all in the cache, publish its pages to the prefix cache,
+        sample its first token and move it to the decode set."""
+        logits_last = self._prefill_one_chunk(req)
+        if req.prefill_pos < len(req.prompt):
+            return []  # more chunks to go; decode still runs this step
+        self.prefilling.remove(req)
+        self._register_prefix(req)
+        toks, lps = self._sample_rows(logits_last, [req])
+        if self._emit(req, int(toks[0]), lp=None if lps is None else float(lps[0])):
+            return [req]  # max_new_tokens == 1
+        self.active[req.slot] = req
+        return []
+
+    def _prefill_one_chunk(self, req: Request) -> torch.Tensor:
+        """Run one prefill chunk of ``req`` (engine.py:658-673); returns the
+        chunk's last real position's logits (1, vocab)."""
+        off = req.prefill_pos
+        chunk = self.prefill_chunk
+        tc = min(chunk, len(req.prompt) - off)
+        tokens = np.zeros((1, chunk), np.int64)
+        tokens[0, :tc] = req.prompt[off : off + tc]
+        logits = self._backend.prefill_chunk(
+            self.params, torch.from_numpy(tokens).to(self.device), req, off, tc
+        )
+        req.prefill_pos = off + tc
+        self.stats["prefill_tokens"] += tc
+        self.stats["prefill_forwards"] += 1
+        return logits[:, tc - 1, :]
 
     # ------------------------------------------------------------------
     # Decode

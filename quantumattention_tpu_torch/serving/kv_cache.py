@@ -11,7 +11,7 @@ cache's tensors IN PLACE (indexed assignment / slice copies) and return the
 same object: a cache holds gigabytes at serving sizes, and a copy per
 token would dominate the decode step.
 
-Not yet: packed int4 caches (ROADMAP queue 1, item 12).  ``flush_side``
+Not yet: packed int4 caches (ROADMAP queue 1, item 12a).  ``flush_side``
 is not ported: it persists the TPU burst's side buffer, a workaround for
 XLA copying a scatter that feeds a Pallas call (ROADMAP, "Do not port these
 TPU workarounds"); the port's burst appends to the cache in place every
@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import quant
+from ..utils import checks
 
 
 @dataclasses.dataclass
@@ -45,9 +46,11 @@ def init_cache(
     num_slots: int, num_kv_heads: int, max_len: int, head_dim: int,
     dtype=torch.int8, device=None,
 ) -> KVCache:
-    """An empty cache; 8-bit scales start at ones (kv_cache.py:76-78)."""
+    """An empty cache; 8-bit scales start at ones (kv_cache.py:76-78).  On
+    the CUDA card unless ``device`` says otherwise."""
     if dtype not in (torch.int8, torch.bfloat16):
         raise NotImplementedError(f"{dtype} KV caches are not ported yet")
+    device = checks.default_device(device)
     shape = (num_slots, num_kv_heads, max_len, head_dim)
     cache = KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -60,8 +63,9 @@ def init_cache(
     return cache
 
 
-def _quantize_tokens(t: torch.Tensor, dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(..., D) float -> (values, (...) scales) in the cache container."""
+def quantize_tokens(t: torch.Tensor, dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(..., D) float -> (values, (...) scales or None) in the cache or
+    page container (int8 token-wise, or a cast)."""
     if dtype != torch.int8:
         return t.to(dtype), None
     return quant.dynamically_quantize_int8(t, reduction_dim=-1)
@@ -83,8 +87,8 @@ def append(
     T rows are written (rows past n_valid hold garbage that the lengths
     mask); a write is clipped at max_len.
     """
-    kq, ks = _quantize_tokens(k_new, cache.k.dtype)
-    vq, vs = _quantize_tokens(v_new, cache.v.dtype)
+    kq, ks = quantize_tokens(k_new, cache.k.dtype)
+    vq, vs = quantize_tokens(v_new, cache.v.dtype)
     t = k_new.shape[2]
     if t == 1:
         # One indexed write per tensor for all slots (distinct rows).

@@ -1,0 +1,232 @@
+"""Paged KV cache: a page pool per layer and per-sequence page tables
+(counterpart of quantumattention_tpu/serving/paged_cache.py).
+
+One logical page id addresses the same page in every layer's pool, so the
+allocator and the page tables are shared across layers while each layer
+owns its page tensors:
+
+  k / v:               (Hkv, num_pages, page_size, D)  int8 or bf16
+  k_scale / v_scale:   (Hkv, num_pages, page_size)     fp32 (int8 pages)
+
+The scales keep this (Hkv, P, ps) layout at every page size.  The JAX
+package folds pages wider than 128 tokens to (Hkv, P, ps/128, 128)
+(``scale_shape``), a Mosaic DMA tiling rule; the port does not (ROADMAP,
+"Do not port these TPU workarounds").  :func:`write_tokens` writes the
+page tensors IN PLACE, as ``kv_cache.append`` does: a pool holds gigabytes
+at serving sizes.
+
+Host state (numpy, Python scheduler work): the free list, the page tables
+(num_slots, pages_per_seq), lengths, allocated counts, and the refcounted
+prefix cache with its LRU pool of idle pages (``PageAllocator``).
+
+Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils import checks
+from .kv_cache import quantize_tokens
+
+
+def hash_pages(prompt: Sequence[int], page_size: int) -> List[bytes]:
+    """Chained content hashes of a prompt's WHOLE pages: ``h[i]`` names the
+    page of tokens ``[i*ps, (i+1)*ps)`` and everything before it, so two
+    prompts share page i only when they agree on ``[0, (i+1)*ps)`` (the
+    vLLM automatic-prefix-caching scheme).  A partial last page is never
+    hashed, so never shared."""
+    out: List[bytes] = []
+    h = b""
+    for i in range(len(prompt) // page_size):
+        chunk = np.asarray(prompt[i * page_size : (i + 1) * page_size], np.int32).tobytes()
+        h = hashlib.sha1(h + chunk).digest()
+        out.append(h)
+    return out
+
+
+@dataclasses.dataclass
+class LayerPages:
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def init_layer_pages(
+    num_kv_heads: int, num_pages: int, page_size: int, head_dim: int,
+    dtype=torch.int8, int4: bool = False, device=None,
+) -> LayerPages:
+    """Zeroed pages; int8 pages carry fp32 token scales that start at ones.
+    On the CUDA card unless ``device`` says otherwise."""
+    if int4:
+        raise NotImplementedError("int4 KV pages are not ported yet (ROADMAP queue 1, item 12a)")
+    if dtype not in (torch.int8, torch.bfloat16):
+        raise NotImplementedError(f"{dtype} KV pages are not ported yet")
+    device = checks.default_device(device)
+    shape = (num_kv_heads, num_pages, page_size, head_dim)
+    pages = LayerPages(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+    if dtype == torch.int8:
+        pages.k_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+        pages.v_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+    return pages
+
+
+def write_tokens(
+    pages: LayerPages,
+    page_ids: Sequence[int],
+    offset_in_first_page: int,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+) -> LayerPages:
+    """Write (Hkv, T, D) float tokens starting at ``offset_in_first_page``
+    of ``page_ids[0]`` and running on through the following pages, in
+    place; returns ``pages``.  ``page_ids`` are host ints (a list, numpy
+    array or CPU tensor) covering [offset, offset + T)."""
+    page_size = pages.k.shape[2]
+    kq, ks = quantize_tokens(k_new, pages.k.dtype)
+    vq, vs = quantize_tokens(v_new, pages.v.dtype)
+    ids = [int(p) for p in page_ids]
+    t = k_new.shape[1]
+    pos, src, pi = offset_in_first_page, 0, 0
+    while src < t:
+        take = min(page_size - pos, t - src)
+        page = ids[pi]
+        pages.k[:, page, pos : pos + take] = kq[:, src : src + take]
+        pages.v[:, page, pos : pos + take] = vq[:, src : src + take]
+        if ks is not None:
+            pages.k_scale[:, page, pos : pos + take] = ks[:, src : src + take]
+            pages.v_scale[:, page, pos : pos + take] = vs[:, src : src + take]
+        src += take
+        pos = 0
+        pi += 1
+    return pages
+
+
+class PageAllocator:
+    """Host-side free-list allocator and per-slot page tables, with
+    automatic prefix caching (vLLM-style): whole prompt pages are
+    content-addressed by chained hash (:func:`hash_pages`), refcounted while
+    a slot's table points at them, and parked in an LRU pool when idle,
+    reusable by a later prompt with the same prefix and evictable when the
+    free list runs dry.  Shared pages need no copy-on-write because the
+    engine writes only a slot's OWN pages: prefill resumes after the adopted
+    prefix, and decode appends past the prompt."""
+
+    def __init__(self, num_pages: int, num_slots: int, pages_per_seq: int):
+        self.num_pages = num_pages
+        self.pages_per_seq = pages_per_seq
+        self.free: List[int] = list(range(num_pages))
+        # Entry 0 is a safe default: a table entry is always a page id.
+        self.tables = np.zeros((num_slots, pages_per_seq), np.int32)
+        self.lengths = np.zeros((num_slots,), np.int32)
+        self.allocated = np.zeros((num_slots,), np.int32)
+        # Prefix cache: content hash -> page id, live refcounts, and the
+        # idle (refcount-0) pages in LRU order.
+        self.cache: Dict[bytes, int] = {}
+        self.page_hash: Dict[int, bytes] = {}
+        self.refs: Dict[int, int] = {}
+        self.idle: "collections.OrderedDict[int, None]" = collections.OrderedDict()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self.free)
+
+    @property
+    def evictable_pages(self) -> int:
+        return len(self.idle)
+
+    def pages_for(self, n_tokens: int, page_size: int) -> int:
+        return -(-n_tokens // page_size)
+
+    def can_fit(self, n_tokens: int, page_size: int) -> bool:
+        return self.pages_for(n_tokens, page_size) <= len(self.free) + len(self.idle)
+
+    def _take_free(self) -> int:
+        if self.free:
+            return self.free.pop()
+        if self.idle:  # evict the least recently used cached prefix page
+            page, _ = self.idle.popitem(last=False)
+            del self.cache[self.page_hash.pop(page)]
+            self.refs.pop(page, None)
+            return page
+        raise MemoryError("out of KV pages")
+
+    def allocate(self, slot: int, n_tokens: int, page_size: int) -> np.ndarray:
+        """Reserve pages so the slot can hold n_tokens in all; returns the
+        newly allocated page ids (possibly none)."""
+        have = int(self.allocated[slot])
+        need = max(have, self.pages_for(n_tokens, page_size))
+        if need > self.pages_per_seq:
+            raise ValueError(
+                f"{n_tokens} tokens need {need} pages > pages_per_seq ({self.pages_per_seq})"
+            )
+        new = []
+        for i in range(have, need):
+            page = self._take_free()
+            self.tables[slot, i] = page
+            new.append(page)
+        self.allocated[slot] = need
+        return np.asarray(new, np.int32)
+
+    def release(self, slot: int) -> None:
+        for i in range(int(self.allocated[slot])):
+            page = int(self.tables[slot, i])
+            if page in self.page_hash:
+                self.refs[page] -= 1
+                if self.refs[page] == 0:
+                    self.idle[page] = None  # evictable, newest last
+            else:
+                self.free.append(page)
+        self.tables[slot] = 0
+        self.lengths[slot] = 0
+        self.allocated[slot] = 0
+
+    # -- prefix cache ------------------------------------------------------
+
+    def match_prefix(self, hashes: Sequence[bytes]) -> List[int]:
+        """The longest cached run of ``hashes`` from the start, as page ids
+        (takes no references: see :meth:`adopt`)."""
+        pages: List[int] = []
+        for h in hashes:
+            page = self.cache.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def adopt(self, slot: int, pages: Sequence[int]) -> None:
+        """Point the slot's first ``len(pages)`` table entries at shared
+        pages (refcounted).  Must run before :meth:`allocate` for the slot."""
+        if int(self.allocated[slot]):
+            raise ValueError("adopt() requires an empty slot")
+        for i, page in enumerate(pages):
+            self.tables[slot, i] = page
+            self.refs[page] = self.refs.get(page, 0) + 1
+            self.idle.pop(page, None)  # back in use
+        self.allocated[slot] = len(pages)
+
+    def register(self, slot: int, hashes: Sequence[bytes]) -> None:
+        """Publish the slot's first ``len(hashes)`` OWN pages under their
+        content hashes (the first writer wins; adopted or registered pages
+        are skipped).  The slot keeps using them; later prompts may adopt
+        them, and they turn idle and evictable when every holder has
+        released them."""
+        for i, h in enumerate(hashes):
+            page = int(self.tables[slot, i])
+            if page in self.page_hash:  # adopted or already registered
+                continue
+            if h in self.cache:  # the same content published by another slot
+                continue
+            self.cache[h] = page
+            self.page_hash[page] = h
+            self.refs[page] = self.refs.get(page, 0) + 1

@@ -20,6 +20,21 @@ def cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when none is given.  Entry points that
+    allocate (caches, page pools, converted parameters) call this, so a
+    caller who does not ask for the CPU gets the card, and a machine
+    without one raises rather than quietly using the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not cuda_available():
+        raise RuntimeError(
+            "no device given and no CUDA card present: pass device='cpu' to "
+            "run the kernels' plain versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def compute_capability(device=None) -> tuple:
     """(major, minor) of the CUDA device, or (0, 0) without CUDA."""
     if not cuda_available():

@@ -51,7 +51,7 @@ ROUTES = {
 def trees():
     jcfg, tcfg = jl.LlamaConfig(**SHAPES), tl.LlamaConfig(**SHAPES)
     jtree = jq.fuse_projections(jq.init_quantized_params(jax.random.PRNGKey(0), jcfg))
-    ttree = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jtree), tcfg)
+    ttree = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jtree), tcfg, device="cpu")
     return jtree, ttree, jcfg, tcfg
 
 
@@ -70,7 +70,7 @@ def _cache_state(seed, max_len, lengths):
 
 def _backend(tcfg, max_len, state):
     values, lengths = state
-    be = SlotsBackend(tcfg, num_slots=SLOTS, max_len=max_len)
+    be = SlotsBackend(tcfg, num_slots=SLOTS, max_len=max_len, device="cpu")
     for c, (kq, ks, vq, vs) in zip(be.caches, values):
         for dst, src in ((c.k, kq), (c.k_scale, ks), (c.v, vq), (c.v_scale, vs)):
             dst.copy_(torch.from_numpy(src))

@@ -616,3 +616,170 @@ def test_engine_burst_on_card_matches_cpu(cuda):
         assert all(r.done and len(r.output) == 8 for r in reqs)
         outs[dev], stats[dev] = [r.output[0] for r in reqs], dict(eng.stats)
     assert outs["cpu"] == outs["cuda"] and stats["cpu"] == stats["cuda"]
+
+
+PAGED_SHAPES = [  # (B, Hq, Hkv, page_size, pages_per_seq, D)
+    (16, 32, 8, 128, 8, 128),
+    (5, 8, 8, 16, 9, 64),
+    (3, 16, 1, 256, 3, 128),
+    (7, 8, 2, 48, 5, 64),
+]
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", PAGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_paged_kernel_matches_plain(cuda, shape, kind):
+    """K10 against its plain version over a shuffled pool: ragged lengths
+    with an empty and a full slot, table entries past each sequence's pages
+    out of range (never read)."""
+    from quantumattention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    b, hq, hkv, ps, pps, d = shape
+    pool = b * pps + 3
+    g = torch.Generator().manual_seed(ps + d)
+    table = torch.randperm(pool, generator=g)[: b * pps].reshape(b, pps).to(torch.int32)
+    lens = torch.randint(1, pps * ps + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = 0, pps * ps
+    pages_of = (lens + ps - 1) // ps
+    table = torch.where(torch.arange(pps)[None] < pages_of[:, None], table, 99_999)
+    kf = _randn((hkv, pool, ps, d), 1, torch.float32, cuda)
+    vf = _randn((hkv, pool, ps, d), 2, torch.float32, cuda)
+    if kind == "int8":
+        k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
+        v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    q = _randn((b, hq, d), 3, torch.bfloat16, cuda)
+    table, lens = table.to(cuda), lens.to(cuda)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
+                                 pages_per_block=1)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_plain(q, k, v, lens, table, ks, vs)
+    assert torch.isfinite(out.float()).all()
+    assert float((out.float() - ref.float()).abs().max()) <= ATOL
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def test_paged_kernel_refuses_on_card(cuda):
+    from quantumattention_tpu_torch.ops.paged import paged_decode_attention
+
+    q = torch.zeros((1, 4, 128), dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros((2, 8, 24, 128), dtype=torch.bfloat16, device=cuda)
+    lens = torch.tensor([5], dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        paged_decode_attention(q, kp, kp, lens, table)
+    kp = torch.zeros((2, 8, 32, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, kp, kp, lens.long(), table)
+    with pytest.raises(ValueError, match="bf16"):
+        paged_decode_attention(q.float(), kp, kp, lens, table)
+
+
+@pytest.mark.parametrize("sq,skv,off,d", [(256, 640, 384, 128), (100, 357, 257, 64),
+                                          (64, 1024, 960, 128), (1, 130, 129, 64)])
+@pytest.mark.parametrize("mode", ["bf16", "e4m3-head"])
+def test_flash_q_offset_kernel_matches_plain(cuda, sq, skv, off, d, mode):
+    """K1 with a position offset (chunked prefill) against its plain version
+    and the fp32 oracle on the same inputs."""
+    q = _randn((1, 8, sq, d), 4, torch.bfloat16, cuda)
+    k = _randn((1, 2, skv, d), 5, torch.bfloat16, cuda)
+    v = _randn((1, 2, skv, d), 6, torch.bfloat16, cuda)
+    args, scales = (q, k, v), {}
+    if mode != "bf16":
+        q8, sq_ = quant.quantize_head_wise(q, torch.float8_e4m3fn)
+        k8, sk = quant.quantize_head_wise(k, torch.float8_e4m3fn)
+        args, scales = (q8, k8, v), {"scale_q": sq_, "scale_k": sk}
+    out = flash_attention(*args, is_causal=True, q_offset=off, **scales)
+    ref = flash_attention_plain(*args, is_causal=True, q_offset=off, **scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert float((out.float() - ref.float()).abs().max()) <= ATOL
+    assert float((out.float() - ref.float()).pow(2).mean().sqrt()) < RMSE_BAR
+
+
+def _filled_paged_backend(cfg, dev, lengths):
+    from quantumattention_tpu_torch.serving.backends import PagedBackend
+
+    be = PagedBackend(cfg, num_slots=16, max_len=128, page_size=32, device=dev)
+    rng = np.random.default_rng(0)
+    for lp in be.pages:
+        lp.k.copy_(torch.from_numpy(rng.integers(-127, 128, tuple(lp.k.shape)).astype(np.int8)))
+        lp.v.copy_(torch.from_numpy(rng.integers(-127, 128, tuple(lp.v.shape)).astype(np.int8)))
+        lp.k_scale.fill_(0.01)
+        lp.v_scale.fill_(0.01)
+    for slot, n in enumerate(lengths):
+        be.alloc.allocate(slot, n + 24, 32)
+        be.alloc.lengths[slot] = n
+    return be
+
+
+def test_paged_graph_burst_equals_eager_steps(cuda):
+    """A paged burst captured as a CUDA graph (K10 over the persistent page
+    table and positions) gives the tokens of eager per-step decode calls
+    from the same state; replays credit K10's launches."""
+    from quantumattention_tpu_torch.ops.paged import paged_decode_attention
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    cfg, params = _burst_model(cuda)
+    lengths = [3, 0, 17, 40] + [9] * 12
+    toks = np.arange(16) * 5 % cfg.vocab_size
+    ones = np.ones(16, bool)
+    be = _filled_paged_backend(cfg, cuda, lengths)
+    before = paged_decode_attention.launches
+    a = be.burst(params, toks, ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
+                 None, 6, SamplingParams(), False)
+    b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
+                 None, 4, SamplingParams(), False)
+    assert paged_decode_attention.launches - before == cfg.num_layers * 10
+    assert be.stats == {"bursts": 2, "host_fetches": 2, "graph_captures": 1, "graph_replays": 9}
+    np.testing.assert_array_equal(be.host_lengths(), np.asarray(lengths) + 10)
+    ref = _filled_paged_backend(cfg, cuda, lengths)
+    cur, steps = toks, []
+    for _ in range(10):
+        cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
+        steps.append(cur)
+    np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), np.stack(steps))
+    for x, y in zip(be.pages, ref.pages):
+        assert torch.equal(x.k, y.k) and torch.equal(x.v_scale, y.v_scale)
+
+
+def test_paged_prefix_engine_on_card_matches_cpu(cuda):
+    """The paged, prefix-cached engine with chunked prefill (K1 with
+    q_offset) and bursts (K10 in graphs) on the card against the CPU
+    engine: first tokens and counters equal."""
+    cfg, params = _burst_model("cpu")
+    shared = list(range(1, 70))
+    prompts = [shared + [3, 4], shared + [5], list(range(7, 30)), shared + [9, 9, 9]]
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        flags = {"kernel.qmlp": "force", "kernel.qmm": "force"} if dev == "cpu" else {}
+        with qt.config.patch(flags):
+            # 16 pages: the shared prefix's idle pages survive the short
+            # prompt's reservation (a pool of 9 would evict them first).
+            eng = Engine(_tree_on(params, dev), cfg, num_slots=2, max_len=128, num_pages=16,
+                         cache_backend="paged", page_size=32, prefill_chunk=64, prefix_cache=True)
+            reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+            eng.run_to_completion(decode_burst=4)
+        assert all(r.done and len(r.output) == 6 for r in reqs)
+        outs[dev], stats[dev] = [r.output[0] for r in reqs], dict(eng.stats)
+    assert outs["cpu"] == outs["cuda"] and stats["cpu"] == stats["cuda"]
+    assert stats["cuda"]["prefix_hits"] >= 1
+
+
+def test_default_device_is_the_card_on_card(cuda):
+    from quantumattention_tpu_torch.models import convert
+    from quantumattention_tpu_torch.serving import kv_cache, paged_cache
+    from quantumattention_tpu_torch.serving.backends import PagedBackend, SlotsBackend
+
+    cfg = llama.tiny()
+    assert kv_cache.init_cache(1, 2, 8, 64).k.device.type == "cuda"
+    assert paged_cache.init_layer_pages(2, 4, 16, 64).k.device.type == "cuda"
+    assert SlotsBackend(cfg, num_slots=1, max_len=8).device.type == "cuda"
+    assert PagedBackend(cfg, num_slots=1, max_len=32, page_size=16).pages[0].k.is_cuda
+    tree = {"embed": np.zeros((4, 2), np.float32), "final_norm": np.ones(2, np.float32),
+            "layers": [{"attn_norm": np.ones(2, np.float32)} for _ in range(cfg.num_layers)]}
+    assert convert.params_from_numpy(tree, cfg)["embed"].is_cuda

@@ -89,7 +89,7 @@ def test_kv_cache_append_matches_jax(dtype, width):
     and lengths, scales equal to float32 rounding."""
     tdt, jdt = (torch.int8, jnp.int8) if dtype == "int8" else (torch.bfloat16, jnp.bfloat16)
     rng = np.random.default_rng(width)
-    tc = tkvc.init_cache(3, HKV, 64, D, tdt)
+    tc = tkvc.init_cache(3, HKV, 64, D, tdt, device="cpu")
     jc = jkvc.init_cache(3, HKV, 64, D, jdt)
     for step in range(2):
         k = rng.standard_normal((2, HKV, width, D)).astype(np.float32)

@@ -34,13 +34,13 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def params(jax_params):
-    return convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), CFG)
+    return convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), CFG, device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["fp8", "bf16"])
 def test_engine_matches_jax_engine(jax_params, impl):
     jcfg, tcfg = jl.tiny(attention_impl=impl), tl.tiny(attention_impl=impl)
-    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), tcfg)
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), tcfg, device="cpu")
     je = JEngine(jax_params, jcfg, num_slots=2, max_len=256, cache_dtype=jnp.int8)
     jr = [je.submit(p, max_new_tokens=N_NEW) for p in PROMPTS]
     je.run_to_completion()
@@ -140,13 +140,16 @@ def test_engine_logprobs_and_stochastic_sampling(params):
 
 def test_engine_rejects_what_is_not_ported(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, cache_backend="paged")
+        Engine(params, CFG, kv_int4=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, prefill_chunk=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, prefix_cache=True)
+        Engine(params, CFG, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(params, CFG, draft=params)
+    # The paged backend, chunked prefill and the prefix cache are ported:
+    # the calls that used to be refused now construct.
+    eng = Engine(params, CFG, num_slots=1, max_len=256, cache_backend="paged", page_size=64,
+                 prefill_chunk=64, prefix_cache=True)
+    assert eng.alloc.num_pages == 5 and eng.prefill_chunk == 64
     eng = Engine(params, CFG, num_slots=1, max_len=64)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit([1] * 60, max_new_tokens=8)

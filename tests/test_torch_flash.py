@@ -208,4 +208,4 @@ def test_not_yet_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qt.attn_func(tq_, tk, tv, window=(8, 0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflash(tq_, tk, tv, q_offset=3)
+        tflash(tq_, tk, tv, kv_offset=3)

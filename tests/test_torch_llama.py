@@ -37,7 +37,7 @@ def jax_params():
 
 
 def _torch_params(jax_params, cfg):
-    return convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), cfg)
+    return convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params), cfg, device="cpu")
 
 
 def _f32(x):
@@ -99,7 +99,7 @@ def test_forward_decode_matches_jax(jax_params, impl):
     toks, last = _tokens()
     lens = [int(p) + 1 for p in last]
     jb = JSlots(jcfg, num_slots=2, max_len=64, cache_dtype=jnp.int8)
-    tb = TSlots(tcfg, num_slots=2, max_len=64, cache_dtype=torch.int8)
+    tb = TSlots(tcfg, num_slots=2, max_len=64, cache_dtype=torch.int8, device="cpu")
     jb.prefill_and_write(
         functools.partial(jl.forward_prefill, cfg=jcfg), jax_params,
         jnp.asarray(toks), list(last), [0, 1], lens, 40,

@@ -75,7 +75,7 @@ def trees():
     """(JAX fused int8 tree, the port's copy, JAX config, port config)."""
     jcfg, tcfg = jl.LlamaConfig(**SHAPES), tl.LlamaConfig(**SHAPES)
     jtree = jq.fuse_projections(jq.init_quantized_params(jax.random.PRNGKey(0), jcfg))
-    return jtree, convert.params_from_numpy(_np(jtree), tcfg), jcfg, tcfg
+    return jtree, convert.params_from_numpy(_np(jtree), tcfg, device="cpu"), jcfg, tcfg
 
 
 def _t(a):
@@ -171,7 +171,7 @@ def test_fused_decode_layer_refuses_what_it_does_not_take(trees):
     _, ttree, _, _ = trees
     x = torch.zeros((SLOTS, 256), dtype=torch.bfloat16)
     q = torch.zeros((SLOTS, 4, 128), dtype=torch.bfloat16)
-    cache = kvc.init_cache(SLOTS, 2, 64, 128)
+    cache = kvc.init_cache(SLOTS, 2, 64, 128, device="cpu")
     ctx = megastep.build_decode_ctx(cache.lengths, torch.ones(SLOTS, dtype=torch.bool), 64)
     args = (x, q, cache.k, cache.v, cache.k_scale, cache.v_scale, ctx, ttree["layers"][0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -206,13 +206,13 @@ def _gate_case(trees, *, batch=SLOTS, max_len=128, cache_dtype="int8", fused=Tru
     hkv = cfg_kw.get("num_kv_heads", SHAPES["num_kv_heads"])
     jdt, tdt = (jnp.int8, torch.int8) if cache_dtype == "int8" else (jnp.bfloat16, torch.bfloat16)
     jcache = jkvc.init_cache(batch, hkv, max_len, 128, jdt)
-    tcache = kvc.init_cache(batch, hkv, max_len, 128, tdt)
+    tcache = kvc.init_cache(batch, hkv, max_len, 128, tdt, device="cpu")
     if fused and "num_q_heads" not in cfg_kw:
         jp, tp = jtree, ttree
     else:
         base = jq.init_quantized_params(jax.random.PRNGKey(0), jcfg)
         jp = jq.fuse_projections(base) if fused else base
-        tp = convert.params_from_numpy(_np(jp), tl.LlamaConfig(**{**SHAPES, **cfg_kw}))
+        tp = convert.params_from_numpy(_np(jp), tl.LlamaConfig(**{**SHAPES, **cfg_kw}), device="cpu")
     with jconfig.patch({"kernel.megastep": "force"}), config.patch({"kernel.megastep": "force"}):
         return (bool(jmega.megastep_supported(jcfg, jp, jcache, batch, side_tokens=side_tokens)),
                 bool(megastep.megastep_supported(tc, tp, tcache, batch, side_tokens=side_tokens)))
@@ -247,7 +247,7 @@ def test_gate_cases_where_the_port_differs(trees):
 
 def test_gate_routes_by_flag_and_device(trees):
     _, ttree, _, tcfg = trees
-    cache = kvc.init_cache(SLOTS, 2, 128, 128)
+    cache = kvc.init_cache(SLOTS, 2, 128, 128, device="cpu")
     assert not megastep.megastep_supported(tcfg, ttree, cache, SLOTS)  # True: CUDA caches only
     with config.patch({"kernel.megastep": False}):
         assert not megastep.megastep_supported(tcfg, ttree, cache, SLOTS)
@@ -277,7 +277,7 @@ def _fill(backend, values, lengths):
 
 
 def _port_step(ttree, tcfg, max_len, values, lengths, tokens, active, flag):
-    be = SlotsBackend(tcfg, num_slots=SLOTS, max_len=max_len)
+    be = SlotsBackend(tcfg, num_slots=SLOTS, max_len=max_len, device="cpu")
     _fill(be, values, lengths)
     with config.patch({"kernel.megastep": flag, "kernel.qmlp": "force"}):
         assert be.route(ttree) == ("mega" if flag else "unfused")

@@ -110,7 +110,7 @@ def test_quantized_tree_structure_matches_jax():
     JAX package's tree: the same keys, int8-vs-int4 choices and shapes."""
     cfg = jl.tiny(**WIDE)
     jfp = jl.init_params(jax.random.PRNGKey(1), cfg)
-    tfp = convert.params_from_numpy(_np(jfp), tl.tiny(**WIDE))
+    tfp = convert.params_from_numpy(_np(jfp), tl.tiny(**WIDE), device="cpu")
     for jfn, tfn in ((jq.quantize_params, tq.quantize_params),
                      (jq.quantize_params_int4, tq.quantize_params_int4)):
         jtree = jq.fuse_projections(jfn(jfp))
@@ -144,7 +144,7 @@ def test_init_quantized_params_equals_quantize_of_init(int4):
 
 def test_convert_carries_quantized_trees_bit_for_bit():
     jtree = jq.fuse_projections(jq.init_quantized_params(jax.random.PRNGKey(0), jl.tiny(**WIDE), int4=True))
-    ttree = convert.params_from_numpy(_np(jtree), tl.tiny(**WIDE))
+    ttree = convert.params_from_numpy(_np(jtree), tl.tiny(**WIDE), device="cpu")
     assert ttree["layers"][0]["w_qkv"]["q4"].dtype == torch.int8
     back = convert.params_to_numpy(ttree)
     jl_, jdef = jax.tree_util.tree_flatten(_np(jtree))
@@ -188,7 +188,7 @@ def trees():
         base = jq.init_quantized_params(jax.random.PRNGKey(0), jl.tiny(**WIDE), int4=int4)
         for fused in (False, True):
             jtree = jq.fuse_projections(base) if fused else base
-            out[int4, fused] = (jtree, convert.params_from_numpy(_np(jtree), tl.tiny(**WIDE)))
+            out[int4, fused] = (jtree, convert.params_from_numpy(_np(jtree), tl.tiny(**WIDE), device="cpu"))
     return out
 
 
@@ -207,7 +207,7 @@ def test_quantized_model_matches_jax(trees, int4, fused):
         _close(tl.forward(ttree, torch.from_numpy(toks[:, :8]).long(), tcfg),
                jl.forward(jtree, jnp.asarray(toks[:, :8]), jcfg))
         jb = JSlots(jcfg, num_slots=2, max_len=64, cache_dtype=jnp.int8)
-        tb = TSlots(tcfg, num_slots=2, max_len=64, cache_dtype=torch.int8)
+        tb = TSlots(tcfg, num_slots=2, max_len=64, cache_dtype=torch.int8, device="cpu")
         lens = [int(p) + 1 for p in last]
         jlog = jb.prefill_and_write(functools.partial(jl.forward_prefill, cfg=jcfg), jtree,
                                     jnp.asarray(toks), list(last), [0, 1], lens, 24)
@@ -229,7 +229,7 @@ def test_lean_decode_equals_generic_decode(trees, monkeypatch):
     logits = []
     for lean in (True, False):
         monkeypatch.setattr(tl, "_lean_decode_supported", lambda *_: lean)
-        tb = TSlots(cfg, num_slots=2, max_len=64, cache_dtype=torch.int8)
+        tb = TSlots(cfg, num_slots=2, max_len=64, cache_dtype=torch.int8, device="cpu")
         tb.prefill_and_write(functools.partial(tl.forward_prefill, cfg=cfg), ttree, toks,
                              [15, 9], [0, 1], [16, 10], 16)
         logits.append(tb.decode(ttree, np.array([3, 4]), np.array([True, True]), [0, 1]))

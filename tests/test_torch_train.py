@@ -68,7 +68,7 @@ def runs(request, jax_params, tokens):
     jloss, jgrads = jax.value_and_grad(jl.loss_fn)(jax_params, jnp.asarray(tokens), jcfg)
     jnew, jstep_loss = jl.train_step(jax_params, jnp.asarray(tokens), jcfg, lr=LR)
     old = _np_tree(jax_params)
-    tparams = convert.params_from_numpy(old, tcfg)
+    tparams = convert.params_from_numpy(old, tcfg, device="cpu")
     ttokens = torch.from_numpy(tokens).long()
     tloss, tgrads = tl.loss_and_grads(tparams, ttokens, tcfg)
     tnew, tstep_loss = tl.train_step(tparams, ttokens, tcfg, lr=LR)
@@ -113,7 +113,7 @@ def test_train_step_params_match_jax(runs):
 
 def test_params_to_numpy_round_trips_bit_exact(jax_params):
     old = _np_tree(jax_params)
-    back = convert.params_to_numpy(convert.params_from_numpy(old, tl.tiny()))
+    back = convert.params_to_numpy(convert.params_from_numpy(old, tl.tiny(), device="cpu"))
     for (name, a), (_, b) in zip(_paths(back), _paths(old)):
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
