@@ -1,8 +1,8 @@
-// Shared helpers of the hand-written kernels: element loads and stores for
-// the dtype codes of ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8), the
-// mma.sync fragment helpers of the attention kernels, and the quantized
-// weight helpers and product launcher of K5-K8, and K8's tail stages that
-// K9 reuses.
+// Shared helpers of the hand-written kernels: the dtype codes of
+// ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8; 4 fp32 as an output
+// only), the mma.sync fragment helpers and tile loads of the attention
+// kernels, the quantized weight helpers and product launcher of K5-K8, and
+// K8's tail stages that K9 reuses.
 #pragma once
 
 #include <cstdint>
@@ -18,38 +18,14 @@ namespace qa {
 // logit flushes exp2 to 0 without the NaN of (-inf) - (-inf).
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 
-enum ElemCode { kBF16 = 0, kF16 = 1, kE4M3 = 2, kI8 = 3 };
-
-// One element as float. e4m3 and int8 embed exactly in bf16 and float;
-// fp16 is exact in float.
-__device__ __forceinline__ float load_elem(const void* p, int code, size_t i) {
-  switch (code) {
-    case kBF16:
-      return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-    case kF16:
-      return __half2float(static_cast<const __half*>(p)[i]);
-    case kE4M3:
-      return static_cast<float>(static_cast<const __nv_fp8_e4m3*>(p)[i]);
-    default:
-      return static_cast<float>(static_cast<const signed char*>(p)[i]);
-  }
-}
-
-// Output stores: fp16 or bf16 (every other code stores bf16).
-__device__ __forceinline__ void store_elem(void* p, int code, size_t i, float x) {
-  if (code == kF16) {
-    static_cast<__half*>(p)[i] = __float2half_rn(x);
-  } else {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
-  }
-}
+enum ElemCode { kBF16 = 0, kF16 = 1, kE4M3 = 2, kI8 = 3, kF32 = 4 };
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync helpers of the attention kernels (K1, K2, K3).
+// mma.sync helpers of the attention kernels (K2, K3, K10).
 //
 // m16n8k16 fragments, lane = 4 * g + t: an accumulator tile C (16 x 8)
 // holds c[0..1] at row g, columns 2t, 2t+1 and c[2..3] at row g + 8. The

@@ -19,7 +19,7 @@
 // What bounds them on the H100: the products, 2.5x the forward's flops
 // (five S x S x D products, two of them recomputing the forward's), which
 // only wgmma fed by TMA runs at the tensor cores' full rate. These are the
-// simple versions on mma.sync, in the structure of K1 (flash_fwd.cu):
+// simple versions on mma.sync:
 //
 // - K2: one CTA of 4 warps per (b, q head, 64-row Q block); each warp owns
 //   16 Q rows. Q and dO stay in shared memory, each K/V tile of KV head
@@ -36,6 +36,13 @@
 //   transposed scores S^T = K.Q^T directly, whose accumulator layout is the
 //   A operand of P^T.dO and dS^T.Q. The 32-row Q tile keeps the two fp32
 //   D-wide accumulators plus S^T and dP^T inside the register budget.
+//   At D = 256 the two accumulators alone would be 256 fp32 a thread, past
+//   the 255-register cap: two CTAs share each KV block, each recomputing
+//   S^T and dP^T over the full D from shared memory and owning half of the
+//   dK / dV columns (128 accumulators a thread). Recomputing is the cheaper
+//   of the choices: two passes (dV, then dK) would recompute the same
+//   products, and 8 KV rows a warp would halve the m16 MMA's rows. K2 keeps
+//   its 128-float dQ accumulator a thread at D = 256 unsplit.
 //
 // TMA, wgmma, cp.async pipelining and ldmatrix loads are later work
 // (ROADMAP queue 2). The window mode of the TPU kernels is not ported
@@ -62,6 +69,10 @@ template <int D>
 constexpr size_t dq_smem_bytes() {
   return sizeof(__nv_bfloat16) * (2 * kBQ2 + 2 * kBN2) * (D + kPad);
 }
+
+// CTAs that share one K3 KV block, each owning D / splits dK / dV columns.
+template <int D>
+constexpr int kDkvSplits = D > 128 ? 2 : 1;
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
@@ -217,8 +228,8 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
                      void* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv, int code,
                      int causal, float score_scale, float sm_scale) {
   constexpr int kStride = D + kPad;
-  constexpr int kNT = kBQ3 / 8;  // 8-column tiles of S^T per Q tile
-  constexpr int kDT = D / 8;     // 8-column dK / dV tiles
+  constexpr int kNT = kBQ3 / 8;                // 8-column tiles of S^T per Q tile
+  constexpr int kDT = D / kDkvSplits<D> / 8;  // 8-column dK / dV tiles this CTA owns
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + kBN3 * kStride;
@@ -228,7 +239,8 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
   float* li_s = m_s + kBQ3;
   float* d_s = li_s + kBQ3;
 
-  const int nb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int nb = blockIdx.x / kDkvSplits<D>, hk = blockIdx.y, b = blockIdx.z;
+  const int jt0 = (blockIdx.x % kDkvSplits<D>) * kDT;  // this CTA's first output tile
   const int group = Hq / Hkv;
   const int n0 = nb * kBN3;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -319,9 +331,9 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kDT; ++j) {
           uint32_t b0, b1;
-          load_b_nn(b0, b1, dOs, kStride, j, kk, g, t);
+          load_b_nn(b0, b1, dOs, kStride, jt0 + j, kk, g, t);
           mma_bf16(dv_acc[j], pa, b0, b1);
-          load_b_nn(b0, b1, Qs, kStride, j, kk, g, t);
+          load_b_nn(b0, b1, Qs, kStride, jt0 + j, kk, g, t);
           mma_bf16(dk_acc[j], sa, b0, b1);
         }
       }
@@ -330,7 +342,7 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
 #pragma unroll
   for (int j = 0; j < kDT; ++j) {
-    const int c = j * 8 + t * 2;
+    const int c = (jt0 + j) * 8 + t * 2;
     if (kv0 < Skv) {
       const size_t idx = kv_base + static_cast<size_t>(kv0) * D + c;
       store2(dk, code, idx, dk_acc[j][0] * sm_scale, dk_acc[j][1] * sm_scale);
@@ -370,7 +382,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   if (int err = set_smem(flash_bwd_dkv_kernel<D>, smem)) return err;
-  dim3 grid((Skv + kBN3 - 1) / kBN3, Hkv, B);
+  dim3 grid((Skv + kBN3 - 1) / kBN3 * kDkvSplits<D>, Hkv, B);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, m, l, delta, dk, dv, Hq, Hkv, Sq, Skv, code, causal, score_scale,
       sm_scale);
@@ -382,7 +394,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // Shared by both entries: q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D)
 // contiguous, 16-byte aligned, all of element type `code` (bf16 or fp16);
 // m, l, delta (B, Hq, Sq) fp32; score_scale = sm_scale * log2(e), the fold
-// under which m and l were saved.
+// under which m and l were saved. D is 64, 128 or 256.
 extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* m, const void* l, const void* delta, void* dq,
                                int B, int Hq, int Hkv, int Sq, int Skv, int D, int code,
@@ -398,6 +410,9 @@ extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                            score_scale, sm_scale, s);
     case 128:
       return launch_dq<128>(q, k, v, dout, mf, lf, df, dq, B, Hq, Hkv, Sq, Skv, code, causal,
+                            score_scale, sm_scale, s);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, mf, lf, df, dq, B, Hq, Hkv, Sq, Skv, code, causal,
                             score_scale, sm_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -420,6 +435,9 @@ extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                             causal, score_scale, sm_scale, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, mf, lf, df, dk, dv, B, Hq, Hkv, Sq, Skv, code,
+                             causal, score_scale, sm_scale, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, mf, lf, df, dk, dv, B, Hq, Hkv, Sq, Skv, code,
                              causal, score_scale, sm_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

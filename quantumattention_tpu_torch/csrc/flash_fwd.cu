@@ -1,272 +1,530 @@
-// K1: fused attention forward for Hopper (sm_90a).
+// K1: fused attention forward for Hopper (sm_90a), warp-specialised.
 //
 // Replaces the Pallas kernel quantumattention_tpu/ops/flash.py::_flash_kernel
 // (flash.py:123; host entry flash_attention, flash.py:701). Same math:
 // S = Q.K^T with scale_q * scale_k * sm_scale * log2(e) folded into the
 // scores, an exp2-domain online softmax with fp32 running max / sum /
-// accumulator, P rounded to bf16 for P.V with fp32 accumulation, top-left
-// causal and ragged-KV-tail masks with MASK_VALUE (not -inf), GQA by
-// KV-head index (q head hq reads KV head hq / G). With a position offset
-// (chunked prefill: q's row 0 sits at global position q_offset over a
-// longer K/V) the causal mask is q_offset + i >= j (flash.py:862-870).
+// accumulator, P rounded to bf16 (fp16 when V is fp16) for P.V with fp32
+// accumulation, top-left causal and ragged-KV-tail masks with MASK_VALUE
+// (not -inf), GQA by KV-head index (q head hq reads KV head hq / G). With a
+// position offset (chunked prefill: q's row 0 sits at global position
+// q_offset over a longer K/V) the causal mask is q_offset + i >= j
+// (flash.py:862-870).
 //
-// What bounds it on the H100: the two products, 4*S^2*D flops per head
-// (half of it under the causal mask), which the tensor cores run at up to
-// 989 TFLOP/s in bf16, and only through wgmma fed by TMA. This version is
-// the simple FlashAttention-2 structure on mma.sync: one CTA of 4 warps per
-// (b, q head, 64-row Q block), each warp owning 16 Q rows whose Q fragments,
-// scores, probabilities and output accumulator all stay in registers (the
-// m16n8k16 accumulator layout of S is the A-operand layout of P, so P never
-// leaves them). Each 64-row K/V tile is loaded once per CTA into shared
-// memory with 8-element vector loads and converted to bf16 on the way:
-// e4m3 and int8 are exact in bf16, which is what _compute_cast
-// (flash.py:109) does on the TPU. KV tiles wholly above the causal
-// diagonal (shifted by q_offset) are never loaded. TMA, wgmma, fp8
-// operands, cp.async pipelining and warp specialisation are later work
-// (ROADMAP queue 2).
+// What bounds it on the H100: operations. Q.K^T runs at the tensor cores'
+// fp8 (or int8) peak of 1979 TFLOP/s when Q and K are 8-bit, P.V at bf16's
+// 989; each is 2 * S^2 * D flops a head (half under the causal mask), far
+// above the card's balance point at any S worth a kernel. The design feeds
+// the tensor cores through TMA and wgmma only:
+//  - one CTA per (q head, batch, Q block), the heaviest causal Q blocks
+//    first; a producer warpgroup that lowers its registers
+//    (setmaxnreg.dec) and three consumer warpgroups (two at D = 256) that
+//    raise theirs (setmaxnreg.inc), each consumer owning 64 Q rows;
+//  - one producer thread issues every TMA load: Q once, then K and V tiles
+//    into a two-stage ring with full and empty mbarriers. The tensor maps
+//    are 3-D over (D, S, B * H), so rows past S read as zeros, never as the
+//    next head's rows, and only the ragged last tile needs a column mask.
+//    128-byte swizzled boxes (64 bytes for an 8-bit D = 64) match the wgmma
+//    descriptors. KV tiles wholly above the causal diagonal (shifted by
+//    q_offset) are never loaded;
+//  - Q.K^T is wgmma on the operands' own type, both K-major in shared
+//    memory: e4m3 x e4m3 and int8 x int8 (exact int32) at k32, bf16 and
+//    fp16 at k16. No 8-bit operand is widened;
+//  - the scores stay in registers: scales, masks (only on diagonal and
+//    ragged tiles; tiles wholly below the diagonal run without them) and
+//    the online softmax, then P packed to 16 bits is the register A operand
+//    of P.V, whose B is the V tile read MN-major through the transpose bit;
+//  - an e4m3 V (fp8 wgmma takes K-major B only) is widened to bf16 in
+//    shared memory by the producer warpgroup, in the same swizzled layout;
+//  - token-wise column scales come into shared memory with their tile, by
+//    plain loads of the producer warpgroup (a (B * H, Skv) fp32 row is not
+//    16-byte aligned for a bulk copy).
+// Left for later (ROADMAP queue 2): ping-pong scheduling of the consumers,
+// overlap of one tile's softmax with the next tile's Q.K^T inside a
+// warpgroup, a persistent grid, and fp8 P.V.
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using qa::load_a_frag;
-using qa::load_b_nn;
-using qa::load_b_nt;
-using qa::mma_bf16;
-using qa::pack_bf16;
+constexpr int kStages = 2;
 
-constexpr int kBM = 64;       // Q rows per CTA
-constexpr int kBN = 64;       // KV rows per tile
-constexpr int kWarps = 4;     // each warp owns 16 Q rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
+// Tile sizes and the shared-memory layout for head dim D and the element
+// code QK of Q and K.
+template <int D, int QK>
+struct Cfg {
+  static constexpr int kEs = (QK == qa::kBF16 || QK == qa::kF16) ? 2 : 1;
+  // Consumer warpgroups (64 Q rows each) and KV rows per tile, chosen by
+  // measurement on the H100 (PERF.md): three consumers at D = 64 and 128
+  // (tiles of 64 rows at 128, to fit 160 registers), two at 256, whose
+  // 128-float accumulator leaves room for tiles of 32 rows only (64 spill
+  // three times as much).
+  static constexpr int kConsumers = D == 256 ? 2 : 3;
+  static constexpr int kBN = D == 64 ? 128 : D == 128 ? 64 : 32;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // setmaxnreg: the producer gives its registers to the consumers.
+  static constexpr int kProducerRegs = kConsumers == 2 ? 24 : 32;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
+                "register file of one SM");
+  static constexpr int kBM = 64 * kConsumers;        // Q rows per CTA
+  static constexpr int kRowBytes = D * kEs;          // a Q or K row
+  static constexpr int kSpan = kRowBytes < 128 ? kRowBytes : 128;  // swizzle span
+  static constexpr int kSwizzle = kSpan == 128 ? qa::kSwizzle128 : qa::kSwizzle64;
+  static constexpr int kSpanElems = kSpan / kEs;     // TMA box columns of Q and K
+  static constexpr int kSteps = kRowBytes / 32;      // wgmma depth steps of Q.K^T
+  static constexpr int kQBytes = kBM * kRowBytes;
+  static constexpr int kKBytes = kBN * kRowBytes;
+  static constexpr int kVBytes = kBN * D * 2;        // V in shared memory is 16-bit
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kScaleOff = kVOff + kStages * kVBytes;
+  static constexpr int kBarOff = kScaleOff + kStages * kBN * 4;
+  static constexpr int kSmem = kBarOff + (1 + 3 * kStages) * 8 + 1024;  // + alignment slack
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 && kVBytes % 1024 == 0, "1024-byte tiles");
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
+};
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kBM + 2 * kBN) * (D + kPad) + sizeof(float) * kBN;
-}
+// Accumulator type of Q.K^T.
+template <int QK>
+using ScoreAcc = typename std::conditional<QK == qa::kI8, int, float>::type;
 
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, int code,
-                                          size_t base, int row0, int valid) {
-  qa::load_tile<kBN, D, kThreads, kPad>(dst, src, code, base, row0, valid);
-}
-
-// scaling: 0 none, 1 head-wise (B, H), 2 token-wise (B, H, S).
-// m_out / l_out (B, Hq, Sq) fp32, both or neither: the residuals of the
-// backward (K2/K3), i.e. each row's final running max and softmax sum in
-// the exp2 domain of the folded scores (flash.py:586-588).
-// kOffset: a q_offset may be nonzero. The q_offset = 0 instantiation is the
-// kernel without offsets: the offset's arithmetic cost two registers a
-// thread, past the 168 at which three CTAs fit on an SM (~17% slower at
-// B = 1, S = 1536, measured in chip_smoke's k1 phase).
-template <int D, bool kOffset>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                 const void* __restrict__ v, const float* __restrict__ scale_q,
-                 const float* __restrict__ scale_k, void* __restrict__ out,
-                 int Hq, int Hkv, int Sq, int Skv, int q_code, int k_code,
-                 int v_code, int out_code, int scaling, int causal,
-                 float score_scale, int q_offset_arg, float* __restrict__ m_out,
-                 float* __restrict__ l_out) {
-  const int q_offset = kOffset ? q_offset_arg : 0;
-  static_assert(kBM == kBN, "the Q tile reuses the tile loader");
-  constexpr int kStride = D + kPad;
-  constexpr int kNT = kBN / 8;   // 8-column score tiles per KV tile
-  constexpr int kDT = D / 8;     // 8-column output tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kBM * kStride;
-  __nv_bfloat16* Vs = Ks + kBN * kStride;
-  float* col_scale = reinterpret_cast<float*>(Vs + kBN * kStride);
-
-  const int mb = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (Hq / Hkv);
-  const int q0 = mb * kBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
-  const size_t q_base = static_cast<size_t>(b * Hq + hq) * Sq * D;
-  const size_t kv_base = static_cast<size_t>(b * Hkv + hk) * Skv * D;
-
-  // This thread's two Q rows and their folded score scales.
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  float rs0 = score_scale, rs1 = score_scale;
-  if (scaling == 1) {
-    const float s = scale_q[b * Hq + hq];
-    rs0 *= s;
-    rs1 *= s;
-  } else if (scaling == 2) {
-    const size_t sb = static_cast<size_t>(b * Hq + hq) * Sq;
-    rs0 *= row0 < Sq ? scale_q[sb + row0] : 0.f;
-    rs1 *= row1 < Sq ? scale_q[sb + row1] : 0.f;
+template <int D, int QK>
+__device__ __forceinline__ void qk_product(ScoreAcc<QK> (&acc)[Cfg<D, QK>::kBN / 2],
+                                           uint32_t q_addr, uint32_t k_addr) {
+  using C = Cfg<D, QK>;
+  qa::fence_regs(acc);
+  qa::wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < C::kSteps; ++st) {
+    const int blk = st * 32 / C::kSpan, within = st * 32 % C::kSpan;
+    const uint64_t a = qa::wgmma_desc(q_addr + blk * 64 * C::kSpan + within, 16, 8 * C::kSpan,
+                                      C::kSwizzle);
+    const uint64_t b = qa::wgmma_desc(k_addr + blk * C::kBN * C::kSpan + within, 16,
+                                      8 * C::kSpan, C::kSwizzle);
+    qa::WgmmaSS<C::kBN, QK>::run(acc, a, b, st > 0);
   }
-  const float head_k_scale = scaling == 1 ? scale_k[b * Hkv + hk] : 1.f;
+  qa::wgmma_commit();
+  qa::wgmma_wait<0>();
+  qa::fence_regs(acc);
+}
 
-  load_tile<D>(Qs, q, q_code, q_base, q0, Sq);
+// O += P.V over one tile: P (64 x BN) in registers, V (BN x D) 16-bit in
+// shared memory in 64-column 128-byte swizzled blocks.
+template <int D, int BN, int T>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pa)[BN / 16][4],
+                                           uint32_t v_addr) {
+  qa::fence_regs(o);
+  qa::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t b = qa::wgmma_desc(v_addr + kk * 16 * 128, BN * 128, 1024, qa::kSwizzle128);
+    qa::WgmmaRS<D, T>::run(o, pa[kk], b, 1);
+  }
+  qa::wgmma_commit();
+  qa::wgmma_wait<0>();
+  qa::fence_regs(o);
+}
+
+// This thread's scores of one tile in the exp2 domain: times the row scale
+// (and the token-wise column scale `cs`, or none), masked entries at
+// MASK_VALUE when kMask; returns each row's maximum over the thread's
+// columns. Column cl of the tile is masked when cl >= valid or (causal)
+// c0 + cl > row, c0 = n0 - q_offset.
+template <int BN, bool kMask>
+__device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs, float rs0,
+                                            float rs1, int t, int valid, bool causal, int c0,
+                                            int row0, int row1, float& mx0, float& mx1) {
+  mx0 = qa::kMaskValue;
+  mx1 = qa::kMaskValue;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cl = j * 8 + t * 2 + e;
+      const float c = cs != nullptr ? cs[cl] : 1.f;
+      float x0 = s[4 * j + e] * rs0 * c, x1 = s[4 * j + 2 + e] * rs1 * c;
+      if (kMask) {
+        const bool in = cl < valid;
+        x0 = in && (!causal || c0 + cl <= row0) ? x0 : qa::kMaskValue;
+        x1 = in && (!causal || c0 + cl <= row1) ? x1 : qa::kMaskValue;
+      }
+      s[4 * j + e] = x0;
+      s[4 * j + 2 + e] = x1;
+      mx0 = fmaxf(mx0, x0);
+      mx1 = fmaxf(mx1, x1);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// scaling: 0 none, 1 head-wise (B, H), 2 token-wise (B, H, S). v8: an e4m3
+// V (B, Hkv, Skv, D) that the producer widens, or null when tm_v maps a
+// 16-bit V. pv_f16: P.V in fp16 (V is fp16), else bf16. m_out / l_out
+// (B, Hq, Sq) fp32, both or neither: the residuals of the backward (K2/K3),
+// each row's final running max and softmax sum in the exp2 domain of the
+// folded scores (flash.py:586-588).
+template <int D, int QK>
+__global__ void __launch_bounds__(Cfg<D, QK>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const unsigned char* __restrict__ v8,
+                 const float* __restrict__ scale_q, const float* __restrict__ scale_k,
+                 void* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int pv_f16,
+                 int out_code, int scaling, int causal, float score_scale, int q_offset,
+                 float* __restrict__ m_out, float* __restrict__ l_out) {
+  using C = Cfg<D, QK>;
+  constexpr int kBN = C::kBN;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (qa::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + C::kKOff;
+  unsigned char* Vs = smem + C::kVOff;
+  float* col_scale = reinterpret_cast<float*>(smem + C::kScaleOff);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int hq = blockIdx.x, b = blockIdx.y;
+  // Under the causal mask the last Q blocks see the most KV tiles: run them first.
+  const int mb = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int hk = hq / (Hq / Hkv);
+  const int q0 = mb * C::kBM;
+  const int bh_q = b * Hq + hq, bh_k = b * Hkv + hk;
+  // Causal: rows q0 .. q0 + kBM - 1 see columns < q_offset + q0 + kBM at most.
+  const int kv_end = causal ? min(Skv, q_offset + q0 + C::kBM) : Skv;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    qa::mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      qa::mbar_init(&full_k[s], 128);
+      qa::mbar_init(&full_v[s], 128);
+      qa::mbar_init(&empty[s], 128 * C::kConsumers);
+    }
+    qa::mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], Qs + warp * 16 * kStride, kStride, kk, g, t);
 
-  float o[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
-
-  // Causal: rows q0..q0+63 see columns < q_offset + q0 + 64 at most.
-  const int kv_end = causal ? min(Skv, q_offset + q0 + kBM) : Skv;
-  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tile<D>(Ks, k, k_code, kv_base, n0, Skv);
-    load_tile<D>(Vs, v, v_code, kv_base, n0, Skv);
-    for (int c = threadIdx.x; c < kBN; c += kThreads) {
-      const int col = n0 + c;
-      col_scale[c] = scaling == 2
-          ? (col < Skv ? scale_k[static_cast<size_t>(b * Hkv + hk) * Skv + col] : 0.f)
-          : head_k_scale;
-    }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 columns per warp.
-    float s[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b_nt(b0, b1, Ks, kStride, j, kk, g, t);
-        mma_bf16(s[j], qf[kk], b0, b1);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 0) {
+    // Producer: every producer thread arrives on each full barrier once a
+    // tile (after its share of the column scales or of the widened V);
+    // thread 0 adds the TMA bytes first.
+    qa::reg_dealloc<C::kProducerRegs>();
+    if (tid == 0) {
+      qa::tma_prefetch(&tm_q);
+      qa::tma_prefetch(&tm_k);
+      if (v8 == nullptr) qa::tma_prefetch(&tm_v);
+      qa::mbar_expect_tx(full_q, C::kQBytes);
+      for (int w = 0; w < C::kConsumers; ++w) {
+        for (int c = 0; c < C::kRowBytes / C::kSpan; ++c) {
+          qa::tma_load_3d(Qs + (w * (C::kRowBytes / C::kSpan) + c) * 64 * C::kSpan, &tm_q, full_q,
+                          c * C::kSpanElems, q0 + 64 * w, bh_q);
+        }
       }
+      qa::mbar_arrive(full_q);
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages;
+      const int n0 = i * kBN;
+      qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      if (tid == 0) {
+        qa::mbar_expect_tx(&full_k[s], C::kKBytes);
+        for (int c = 0; c < C::kRowBytes / C::kSpan; ++c) {
+          qa::tma_load_3d(Ks + s * C::kKBytes + c * kBN * C::kSpan, &tm_k, &full_k[s],
+                          c * C::kSpanElems, n0, bh_k);
+        }
+        if (v8 == nullptr) {
+          qa::mbar_expect_tx(&full_v[s], C::kVBytes);
+          for (int c = 0; c < D / 64; ++c) {
+            qa::tma_load_3d(Vs + s * C::kVBytes + c * kBN * 128, &tm_v, &full_v[s], c * 64, n0,
+                            bh_k);
+          }
+        }
+      }
+      if (scaling == 2) {
+        const float* ks_row = scale_k + static_cast<size_t>(bh_k) * Skv;
+#pragma unroll 1
+        for (int r = tid; r < kBN; r += 128) {
+          col_scale[s * kBN + r] = n0 + r < Skv ? ks_row[n0 + r] : 0.f;
+        }
+      }
+      qa::mbar_arrive(&full_k[s]);
+      if (v8 != nullptr) {
+        // e4m3 V rows to bf16, 8 columns a step, into the swizzled layout
+        // a 128-byte-swizzled TMA box would have; rows past Skv are zeros.
+        const unsigned char* v_head = v8 + static_cast<size_t>(bh_k) * Skv * D;
+        unsigned char* vt = Vs + s * C::kVBytes;
+#pragma unroll 1
+        for (int idx = tid; idx < kBN * (D / 8); idx += 128) {
+          const int r = idx / (D / 8), c8 = idx % (D / 8);
+          uint4 x = make_uint4(0u, 0u, 0u, 0u);
+          if (n0 + r < Skv) x = qa::load8_bf16(v_head, qa::kE4M3, static_cast<size_t>(n0 + r) * D + c8 * 8);
+          *reinterpret_cast<uint4*>(vt + (c8 / 8) * kBN * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16) = x;
+        }
+        qa::fence_proxy_async();
+      }
+      qa::mbar_arrive(&full_v[s]);
+    }
+  } else {
+    // Consumer warpgroup cw: Q rows q0 + 64 cw .. + 63; this thread's rows
+    // row0 and row1 (the accumulator layout of hopper.cuh).
+    qa::reg_alloc<C::kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r_base = q0 + 64 * cw;
+    const int row0 = r_base + warp * 16 + g, row1 = row0 + 8;
+    float rs0 = score_scale, rs1 = score_scale;
+    if (scaling == 1) {
+      const float sc = scale_q[bh_q] * scale_k[bh_k];
+      rs0 *= sc;
+      rs1 *= sc;
+    } else if (scaling == 2) {
+      const size_t sb = static_cast<size_t>(bh_q) * Sq;
+      rs0 *= row0 < Sq ? scale_q[sb + row0] : 0.f;
+      rs1 *= row1 < Sq ? scale_q[sb + row1] : 0.f;
+    }
+    // Warpgroup-uniform tile classes: this warpgroup's rows sit at global
+    // positions p_lo .. p_hi.
+    const bool active = r_base < Sq;
+    const int p_lo = q_offset + r_base;
+    const int p_hi = q_offset + min(r_base + 63, Sq - 1);
+    const uint32_t q_addr = qa::smem_addr(Qs + cw * 64 * C::kRowBytes);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
+
+    qa::mbar_wait(full_q, 0);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const int n0 = i * kBN;
+      const bool skip = !active || (causal && n0 > p_hi);
+      const bool unmasked = (!causal || n0 + kBN - 1 <= p_lo) && n0 + kBN <= Skv;
+      qa::mbar_wait(&full_k[s], ph);
+      if (!skip) {
+        float sc[kBN / 2];
+        if constexpr (QK == qa::kI8) {
+          int acc[kBN / 2];
+          qk_product<D, QK>(acc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
+#pragma unroll
+          for (int j = 0; j < kBN / 2; ++j) sc[j] = static_cast<float>(acc[j]);
+        } else {
+          qk_product<D, QK>(sc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
+        }
+        const float* cs = scaling == 2 ? col_scale + s * kBN : nullptr;
+        float mx0, mx1;
+        if (unmasked) {
+          fold_scores<kBN, false>(sc, cs, rs0, rs1, t, 0, false, 0, 0, 0, mx0, mx1);
+        } else {
+          fold_scores<kBN, true>(sc, cs, rs0, rs1, t, Skv - n0, causal, n0 - q_offset, row0,
+                                 row1, mx0, mx1);
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          sc[4 * j] = exp2f(sc[4 * j] - mn0);
+          sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+          sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+          sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+          sum0 += sc[4 * j] + sc[4 * j + 1];
+          sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        l0 = a0 * l0 + sum0;
+        l1 = a1 * l1 + sum1;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+        // P's A operand: the accumulators of columns 16kk .. 16kk + 15.
+        uint32_t pa[kBN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+            pa[kk][r] = pv_f16 ? pack_f16(x0, x1) : qa::pack_bf16(x0, x1);
+          }
+        }
+        qa::mbar_wait(&full_v[s], ph);
+        const uint32_t v_addr = qa::smem_addr(Vs + s * C::kVBytes);
+        if (pv_f16) {
+          pv_product<D, kBN, qa::kF16>(o, pa, v_addr);
+        } else {
+          pv_product<D, kBN, qa::kBF16>(o, pa, v_addr);
+        }
+      } else {
+        qa::mbar_wait(&full_v[s], ph);
+      }
+      qa::mbar_arrive(&empty[s]);
     }
 
-    // Scale, mask, online softmax (rows row0 and row1 of this thread). The
-    // causal test q_offset + row >= col runs as row >= col - q_offset, so
-    // the offset stays in the warp-uniform column term.
-    const int c0 = n0 - q_offset;
-    float mx0 = qa::kMaskValue, mx1 = qa::kMaskValue;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cl = j * 8 + t * 2 + e;
-        const int col = n0 + cl;
-        const float cs = col_scale[cl];
-        const bool in = col < Skv;
-        s[j][e] = in && (!causal || c0 + cl <= row0) ? s[j][e] * rs0 * cs : qa::kMaskValue;
-        s[j][2 + e] = in && (!causal || c0 + cl <= row1) ? s[j][2 + e] * rs1 * cs : qa::kMaskValue;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
+    // Epilogue: full row sums, normalise, store; padded Q rows are never stored.
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = a0 * l0 + sum0;
-    l1 = a1 * l1 + sum1;
-#pragma unroll
-    for (int j = 0; j < kDT; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
-
-    // O += P V. The score accumulators of tiles 2kk, 2kk+1 are P's A operand.
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        uint32_t b0, b1;
-        load_b_nn(b0, b1, Vs, kStride, j, kk, g, t);
-        mma_bf16(o[j], pa, b0, b1);
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const size_t rb = static_cast<size_t>(bh_q) * Sq;
+    if (m_out != nullptr && t == 0) {  // the four lanes of a row hold equal m, l
+      if (row0 < Sq) {
+        m_out[rb + row0] = m0;
+        l_out[rb + row0] = l0;
+      }
+      if (row1 < Sq) {
+        m_out[rb + row1] = m1;
+        l_out[rb + row1] = l1;
       }
     }
-  }
-
-  // Epilogue: full row sums, normalise, store; padded Q rows are never stored.
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-  if (m_out != nullptr && t == 0) {  // the four lanes of a row hold equal m, l
-    const size_t rb = static_cast<size_t>(b * Hq + hq) * Sq;
-    if (row0 < Sq) {
-      m_out[rb + row0] = m0;
-      l_out[rb + row0] = l0;
-    }
-    if (row1 < Sq) {
-      m_out[rb + row1] = m1;
-      l_out[rb + row1] = l1;
-    }
-  }
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + t * 2;
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    const int c = j * 8 + t * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = half ? row1 : row0;
-      if (row >= Sq) continue;
-      const float inv = half ? inv1 : inv0;
-      const float x0 = o[j][2 * half] * inv, x1 = o[j][2 * half + 1] * inv;
-      const size_t idx = q_base + static_cast<size_t>(row) * D + c;
-      if (out_code == qa::kF16) {
-        *reinterpret_cast<__half2*>(static_cast<__half*>(out) + idx) = __floats2half2_rn(x0, x1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) =
-            __floats2bfloat162_rn(x0, x1);
+      for (int half = 0; half < 2; ++half) {
+        const int row = half ? row1 : row0;
+        if (row >= Sq) continue;
+        const float inv = half ? inv1 : inv0;
+        const float x0 = o[4 * j + 2 * half] * inv, x1 = o[4 * j + 2 * half + 1] * inv;
+        const size_t idx = (rb + row) * D + c;
+        if (out_code == qa::kF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(x0, x1);
+        } else if (out_code == qa::kF16) {
+          *reinterpret_cast<__half2*>(static_cast<__half*>(out) + idx) = __floats2half2_rn(x0, x1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) =
+              __floats2bfloat162_rn(x0, x1);
+        }
       }
     }
   }
 }
 
-template <int D, bool kOffset>
-int launch(const void* q, const void* k, const void* v, const float* sq,
-           const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
-           int q_code, int k_code, int v_code, int out_code, int scaling,
-           int causal, float score_scale, int q_offset, float* m_out, float* l_out,
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+CUtensorMapDataType map_type(int code) {
+  switch (code) {
+    case qa::kBF16:
+      return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    case qa::kF16:
+      return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    default:
+      return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  }
+}
+
+// A (B * H, S, D) tensor as a 3-D map over (D, S, B * H) with boxes of
+// `cols` x `rows` x 1.
+cudaError_t encode(CUtensorMap* map, const void* ptr, int code, int D, int S, int BH, int cols,
+                   int rows, int span) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const int es = code == qa::kBF16 || code == qa::kF16 ? 2 : 1;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * es,
+                                 static_cast<cuuint64_t>(S) * D * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, map_type(code), 3, const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int QK>
+int launch(const void* q, const void* k, const void* v, const float* sq, const float* sk,
+           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int v_code, int out_code,
+           int scaling, int causal, float score_scale, int q_offset, float* m_out, float* l_out,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kOffset>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  using C = Cfg<D, QK>;
+  CUtensorMap tm_q, tm_k, tm_v = {};
+  cudaError_t err = encode(&tm_q, q, QK, D, Sq, B * Hq, C::kSpanElems, 64, C::kSpan);
+  if (err == cudaSuccess) err = encode(&tm_k, k, QK, D, Skv, B * Hkv, C::kSpanElems, C::kBN, C::kSpan);
+  const bool v_e4m3 = v_code == qa::kE4M3;
+  if (err == cudaSuccess && !v_e4m3) err = encode(&tm_v, v, v_code, D, Skv, B * Hkv, 64, C::kBN, 128);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kBM - 1) / kBM, Hq, B);
-  flash_fwd_kernel<D, kOffset><<<grid, kThreads, smem, stream>>>(
-      q, k, v, sq, sk, out, Hq, Hkv, Sq, Skv, q_code, k_code, v_code,
-      out_code, scaling, causal, score_scale, q_offset, m_out, l_out);
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D, QK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Hq, B, (Sq + C::kBM - 1) / C::kBM);
+  flash_fwd_kernel<D, QK><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, v_e4m3 ? static_cast<const unsigned char*>(v) : nullptr, sq, sk, out, Hq,
+      Hkv, Sq, Skv, v_code == qa::kF16, out_code, scaling, causal, score_scale, q_offset, m_out,
+      l_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(int qk_code, const void* q, const void* k, const void* v, const float* sq,
+             const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv, int v_code,
+             int out_code, int scaling, int causal, float score_scale, int q_offset, float* m_out,
+             float* l_out, cudaStream_t stream) {
+  switch (qk_code) {
+    case qa::kBF16:
+      return launch<D, qa::kBF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                                  scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+    case qa::kF16:
+      return launch<D, qa::kF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                                 scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+    case qa::kE4M3:
+      return launch<D, qa::kE4M3>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                                  scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+    default:
+      return launch<D, qa::kI8>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                                scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+  }
 }
 
 }  // namespace
 
 // score_scale = sm_scale * log2(e). Tensors are contiguous (B, H, S, D) and
-// 16-byte aligned. q_offset >= 0: the global position of q's row 0 (the
+// 16-byte aligned; q and k of one element code, v bf16, fp16 or e4m3, out
+// bf16, fp16 or fp32. q_offset >= 0: the global position of q's row 0 (the
 // causal mask is q_offset + i >= j). m_out / l_out: (B, Hq, Sq) fp32
-// residuals, or both null.
+// residuals, or both null. D is 64, 128 or 256.
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* scale_q, const void* scale_k, void* out,
                             int B, int Hq, int Hkv, int Sq, int Skv, int D,
@@ -279,17 +537,21 @@ extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
   float* lo = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0 || B == 0) return 0;
-  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool offset = causal && q_offset != 0;
+  if (q_offset < 0 || Skv <= 0 || q_code != k_code || q_code < qa::kBF16 || q_code > qa::kI8 ||
+      (v_code != qa::kBF16 && v_code != qa::kF16 && v_code != qa::kE4M3) ||
+      (out_code != qa::kBF16 && out_code != qa::kF16 && out_code != qa::kF32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (D) {
     case 64:
-      return (offset ? launch<64, true> : launch<64, false>)(
-          q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code, k_code, v_code, out_code,
-          scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_d<64>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                          scaling, causal, score_scale, q_offset, mo, lo, s);
     case 128:
-      return (offset ? launch<128, true> : launch<128, false>)(
-          q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, q_code, k_code, v_code, out_code,
-          scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_d<128>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                           scaling, causal, score_scale, q_offset, mo, lo, s);
+    case 256:
+      return launch_d<256>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+                           scaling, causal, score_scale, q_offset, mo, lo, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

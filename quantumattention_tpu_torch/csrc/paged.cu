@@ -32,7 +32,10 @@
 //    bf16 while it builds the K and V fragments;
 //  - the 4 warps' (m, l, acc) merge through shared memory at the end of the
 //    span, and a second small kernel merges the spans in a fixed order, as
-//    K4's split-KV does (csrc/decode.cu): deterministic, no atomics.
+//    K4's split-KV does (csrc/decode.cu): deterministic, no atomics;
+//  - D is 64, 128 or 256. At 256 the query's A fragments (64 registers) are
+//    read from shared memory at each tile instead of held beside the
+//    128-float accumulator, and the two stages take ~145 KB.
 #include "common.cuh"
 
 namespace {
@@ -151,7 +154,9 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
     *reinterpret_cast<uint4*>(Qs + r * L::kQStride + c) = v;
   }
 
-  uint32_t qf[D / 16][4];
+  // The query's A fragments, held in registers up to D = 128.
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
   float o[kDT][4];
 #pragma unroll
   for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -168,9 +173,9 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
       qa::cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if (kQRegs && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], Qs, L::kQStride, kk, g, t);
+      for (int kk = 0; kk < (kQRegs ? D / 16 : 0); ++kk) load_a_frag(qf[kk], Qs, L::kQStride, kk, g, t);
     }
     const unsigned char* kt = smem + (it & 1) * L::kStageBytes;
     const unsigned char* vt = kt + L::kTileBytes;
@@ -195,7 +200,13 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
           load_b_nt(b0, b1, reinterpret_cast<const __nv_bfloat16*>(kt), L::kRowBytes / 2,
                     warp * 2 + j, kk, g, t);
         }
-        mma_bf16(s[j], qf[kk], b0, b1);
+        if constexpr (kQRegs) {
+          mma_bf16(s[j], qf[kk], b0, b1);
+        } else {
+          uint32_t a[4];
+          load_a_frag(a, Qs, L::kQStride, kk, g, t);
+          mma_bf16(s[j], a, b0, b1);
+        }
       }
     }
 
@@ -381,8 +392,8 @@ extern "C" int qa_paged_span_pages(int ps) {
 // table (B, pps) int32 page ids; out (B, Hq, D) bf16; part_acc
 // (B, Hkv, nspan, G, D) and part_ml (B, Hkv, nspan, G, 2) fp32 scratch with
 // nspan = ceil(pps / qa_paged_span_pages(ps)). score_scale = sm_scale *
-// log2(e). D is 64 or 128, G = Hq / Hkv at most 16, ps a multiple of 16 up
-// to 256.
+// log2(e). D is 64, 128 or 256, G = Hq / Hkv at most 16, ps a multiple of
+// 16 up to 256.
 extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* lengths, const void* table,
                                void* out, void* part_acc, void* part_ml, int B, int Hq, int Hkv,
@@ -390,7 +401,7 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
                                void* stream) {
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || ps <= 0 || ps % 16 != 0 ||
-      ps > 256 || pps <= 0 || P <= 0 || (D != 64 && D != 128) ||
+      ps > 256 || pps <= 0 || P <= 0 || (D != 64 && D != 128 && D != 256) ||
       (kv_code != qa::kI8 && kv_code != qa::kBF16) ||
       ((kv_code == qa::kI8) != (k_scale != nullptr && v_scale != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -400,7 +411,14 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool q8 = kv_code == qa::kI8;
   cudaError_t err;
-  if (D == 128) {
+  if (D == 256) {
+    err = q8 ? launch_spans<256, true>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
+                                       part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
+                                       score_scale, s)
+             : launch_spans<256, false>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
+                                        part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
+                                        score_scale, s);
+  } else if (D == 128) {
     err = q8 ? launch_spans<128, true>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
                                        part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
                                        score_scale, s)

@@ -32,7 +32,7 @@ from .utils import checks
 #: Head dims the fused kernel accepts (the CUDA build's).
 SUPPORTED_HEAD_DIMS = KERNEL_HEAD_DIMS
 
-_FLOAT_QK_DTYPES = (torch.bfloat16, torch.float16)
+_FLOAT_QK_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _FP8_QK_DTYPES = (torch.float8_e4m3fn,)
 
 
@@ -62,9 +62,11 @@ def validate_flash_input(
 ) -> Tuple[bool, str]:
     """Shape/dtype/feature validation for the fused kernel; ``(ok, reason)``.
 
-    Differs from the JAX package where the kernels differ: float32 Q/K/V and
-    head dims other than 64/128 are refused (the CUDA build takes
-    bf16/fp16/e4m3/int8 tiles of those widths), so the fallback serves them.
+    Differs from the JAX package where the kernels differ: head dims other
+    than 64/128/256 are refused (JAX also takes any multiple of 8 up to
+    512; ROADMAP queue 3, fault 8), so the fallback serves them.  fp32
+    Q/K/V are taken, as in JAX: K1 reads them rounded to bf16 and returns
+    fp32.
     """
     if attn_mask is not None:
         return False, "attn_mask is not supported by the fused kernel"

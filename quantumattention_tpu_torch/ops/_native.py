@@ -191,6 +191,8 @@ DTYPE_CODES = {
     torch.float8_e4m3fn: 2,
     torch.int8: 3,
 }
+#: fp32 as an output code only (K1 stores fp32 outputs); no kernel reads it.
+F32_OUT_CODE = 4
 
 
 def dtype_code(dtype) -> int:

@@ -5,12 +5,16 @@ the port of the Pallas ``_flash_kernel``, flash.py:123).  A CPU tensor runs
 the kernel's plain version, :func:`flash_attention_plain`; a CUDA tensor
 runs the kernel or raises.  ``flash_attention.launches`` counts launches.
 
-Covered: no scaling (bf16/fp16), head-wise (B, H) and token-wise (B, H, S)
-scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal masking,
-D in {64, 128}, ``return_residuals`` (the backward's (m, l), as
-(B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), and
+Covered: no scaling (bf16/fp16/fp32), head-wise (B, H) and token-wise
+(B, H, S) scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal
+masking, D in {64, 128, 256}, ``return_residuals`` (the backward's (m, l),
+as (B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), and
 ``q_offset``, the global position of q's row 0 (chunked prefill: the causal
 mask becomes ``q_offset + i >= j``, and causal tile skipping follows it).
+The kernel's products take 8- and 16-bit operands: on the card fp32 Q/K/V
+enter rounded to bf16, and the kernel stores the fp32 output unrounded.
+Other head dims (a multiple of 8 up to 512 in the JAX package) are not
+built yet (ROADMAP queue 3, fault 8).
 Not yet (ROADMAP queue 1, item 6 b-e): ``window``, ``kv_offset``, segment
 ids, ``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
 """
@@ -29,7 +33,7 @@ from .sdpa import DEFAULT_MASK_VALUE, sdpa_reference
 LOG2E = math.log2(math.e)
 
 #: Head dims the CUDA kernel is built for.
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _NOT_YET = {
     "window": "sliding windows",
@@ -122,8 +126,9 @@ def flash_attention(
 ):
     """Fused attention forward over (B, H, S, D) tensors.
 
-    q (B, Hq, Sq, D) bf16/fp16, or e4m3/int8 with scales; k (B, Hkv, Skv, D)
-    of q's family, Hq % Hkv == 0; v (B, Hkv, Skv, D) bf16/fp16/e4m3.
+    q (B, Hq, Sq, D) bf16/fp16/fp32, or e4m3/int8 with scales; k
+    (B, Hkv, Skv, D) of q's dtype, Hq % Hkv == 0; v (B, Hkv, Skv, D)
+    bf16/fp16/fp32/e4m3.
     ``scale_q``/``scale_k``: (B, H) head-wise or (B, H, S) token-wise fp32
     dequantization scales, both or neither.  ``sm_scale`` defaults to
     1/sqrt(D).  Returns (B, Hq, Sq, D) in v's float dtype; with
@@ -163,12 +168,19 @@ def flash_attention(
         return flash_attention_plain(
             q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset
         )
+    out_dtype = out_dtype_for(v.dtype)
+    q, k, v = (to_16bit(t) for t in (q, k, v))
     return _flash_fwd_cuda(
         dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
-        scaling, is_causal, sm_scale, return_residuals, q_offset,
+        scaling, is_causal, sm_scale, return_residuals, q_offset, out_dtype,
     )
+
+
+def to_16bit(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to bf16, the kernels' operand type; others unchanged."""
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
 
 
 def dense(t: torch.Tensor) -> torch.Tensor:
@@ -183,8 +195,9 @@ _SCALING_CODES = {"none": 0, "head": 1, "token": 2}
 
 
 def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals,
-                    q_offset=0):
-    """Check what the kernel takes, launch it on the current stream."""
+                    q_offset, out_dtype):
+    """Check what the kernel takes, launch it on the current stream; the
+    output in ``out_dtype`` (v's before fp32 was rounded to bf16)."""
     checks.require_hopper(q.device)
     tensors = [q, k, v] + [t for t in (scale_q, scale_k) if t is not None]
     for t in tensors:
@@ -198,6 +211,10 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
     _, hkv, skv, _ = k.shape
     if k.shape != v.shape or k.shape[0] != batch or k.shape[3] != d:
         raise ValueError(f"bad K/V shapes {tuple(k.shape)}, {tuple(v.shape)}")
+    if skv == 0:
+        raise ValueError("K1 needs at least one key")
+    if q.dtype != k.dtype:
+        raise ValueError(f"K1 takes q and k of one dtype, got {q.dtype} and {k.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"K1 is built for head_dim {KERNEL_HEAD_DIMS}, got {d}")
     if scaling == "head" and (
@@ -210,7 +227,6 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         raise ValueError("token-wise scales must be (B, Hq, Sq) and (B, Hkv, Skv)")
     if v.dtype == torch.int8:
         raise ValueError("K1 takes a float or e4m3 V")
-    out_dtype = out_dtype_for(v.dtype)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     m = l = None
     if return_residuals:
@@ -223,7 +239,8 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         None if scale_k is None else scale_k.data_ptr(),
         out.data_ptr(), batch, hq, hkv, sq, skv, d,
         _native.dtype_code(q.dtype), _native.dtype_code(k.dtype),
-        _native.dtype_code(v.dtype), _native.dtype_code(out_dtype),
+        _native.dtype_code(v.dtype),
+        _native.F32_OUT_CODE if out_dtype == torch.float32 else _native.dtype_code(out_dtype),
         _SCALING_CODES[scaling], int(bool(is_causal)),
         float(sm_scale * LOG2E), q_offset,
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),

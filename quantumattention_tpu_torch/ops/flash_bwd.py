@@ -19,7 +19,9 @@ so dK/dV come out (B, Hkv, Skv, D) with no per-q-head buffers.
 A CPU tensor runs each kernel's plain version (the same formulas on whole
 (Sq, Skv) fp32 matrices); a CUDA tensor runs the kernel or raises.
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` count launches.
-Covered: bf16/fp16, GQA, ragged Sq/Skv, top-left causal, D in {64, 128}.
+Covered: bf16/fp16 (fp32 inputs enter the kernels rounded to bf16 and
+their gradients return in fp32), GQA, ragged Sq/Skv, top-left causal, D in
+{64, 128, 256}.
 The window mode waits for K1's (ROADMAP queue 1, item 6b) and raises.
 """
 
@@ -32,7 +34,7 @@ import torch
 
 from ..utils import checks
 from . import _native
-from .flash import KERNEL_HEAD_DIMS, LOG2E, dense, masked_scores
+from .flash import KERNEL_HEAD_DIMS, LOG2E, dense, masked_scores, to_16bit
 
 _FLOAT_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -108,8 +110,8 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Blockwise backward; returns (dq, dk, dv) in the input dtypes.
 
-    q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), bf16 or fp16, one dtype;
-    m, l the forward's (B, Hq, Sq) fp32 residuals.
+    q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), bf16, fp16 or fp32, one
+    dtype; m, l the forward's (B, Hq, Sq) fp32 residuals.
     """
     if window is not None:
         raise NotImplementedError(
@@ -129,12 +131,13 @@ def flash_attention_bwd(
     if m.shape != (batch, hq, sq) or l.shape != (batch, hq, sq):
         raise ValueError(f"m and l must be (B, Hq, Sq) = {(batch, hq, sq)}")
     sm_scale = _default_scale(q, sm_scale)
+    dtypes = (q.dtype, k.dtype, v.dtype)
     args = [q, k, v, do, m, l, row_delta(o, do)]
     if q.device.type != "cpu":
-        args = [dense(t) for t in args[:4]] + [t.float().contiguous() for t in args[4:]]
+        args = [dense(to_16bit(t)) for t in args[:4]] + [t.float().contiguous() for t in args[4:]]
     dq = flash_bwd_dq(*args, is_causal=is_causal, sm_scale=sm_scale)
     dk, dv = flash_bwd_dkv(*args, is_causal=is_causal, sm_scale=sm_scale)
-    return dq, dk, dv
+    return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
 
 
 def _check_cuda(name, q, k, v, do, m, l, delta) -> None:
@@ -147,7 +150,10 @@ def _check_cuda(name, q, k, v, do, m, l, delta) -> None:
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError(f"{name}'s q, k, v, do must be 16-byte aligned")
     if len({t.dtype for t in (q, k, v, do)}) != 1 or q.dtype not in _FLOAT_DTYPES:
-        raise ValueError(f"{name} takes q, k, v, do of one dtype, bf16 or fp16")
+        raise ValueError(
+            f"{name} takes q, k, v, do of one dtype, bf16 or fp16 (flash_attention_bwd "
+            "rounds fp32 to bf16)"
+        )
     if any(t.dtype != torch.float32 for t in (m, l, delta)):
         raise ValueError(f"{name} takes fp32 m, l, delta")
     if q.shape[-1] not in KERNEL_HEAD_DIMS:

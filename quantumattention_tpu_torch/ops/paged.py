@@ -23,7 +23,8 @@ package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
 
 Covered: (B, Hq, D) bf16 queries, int8 pages with token-wise fp32 scales and
 bf16 pages, GQA with up to 16 query heads per KV head, page sizes that are
-multiples of 16 up to 256, D in {64, 128} on the card (any on the CPU).
+multiples of 16 up to 256, D in {64, 128, 256} on the card (any on the
+CPU).
 Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a), the multi-query
 q (B, Hq, T, D) of speculative verification (item 12b) and ``window``
 (item 12c).  ``side`` (the burst side buffer, paged.py:446-457) exists for
@@ -45,7 +46,7 @@ from .sdpa import DEFAULT_MASK_VALUE
 LOG2E = math.log2(math.e)
 #: Query heads per KV head the kernel takes (csrc/paged.cu, kMaxGroup).
 MAX_GROUP = 16
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _scale_rows(sp: torch.Tensor) -> int:
