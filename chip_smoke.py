@@ -8,7 +8,8 @@ Phases, each printing its numbers on lines of their own:
    (every kernel is built here from ``quantumattention_tpu_torch/csrc``);
 2. K1 (flash forward): each instantiation's registers and spills
    (``k1_ptxas``); the kernel against its plain version and the fp32 SDPA
-   oracle at the serving shapes, head dims 64/128/256, bf16, fp16, fp32,
+   oracle at the serving shapes, head dims 64/128/256 and 72/96/320/512
+   (between and above the instantiated widths), bf16, fp16, fp32,
    e4m3 and int8 Q/K (head- and token-wise) and an e4m3 V; at the timed
    shape (B = 1, 32/8 heads, S = 1536, D = 128, causal) the device time by
    CUDA-graph replay (``ms``; ``call_ms`` adds the host's per-call work)
@@ -21,9 +22,15 @@ Phases, each printing its numbers on lines of their own:
 3. K4 (decode) likewise, over a ragged int8 and a bf16 slot cache;
 4. K1's residuals (m, l) against their plain version (D = 64/128/256; e4m3
    Q/K at the bars of fp8 tensor-core sums);
-5. K2 (dQ) and K3 (dK, dV) (D = 64/128/256) against their plain version and against
-   autograd of the fp32 oracle, with CUDA-event times of both kernels,
-   their plain versions, the fp8 path's whole backward and SDPA's;
+5. K2 (dQ) and K3 (dK, dV): each instantiation's registers and spills
+   (``k23_ptxas``); against their plain version and against autograd of
+   the fp32 oracle at D = 64/96/128/256/320/512 and GQA groups 1, 4 and 8,
+   bitwise equal across two runs; at the timed shape device times by
+   CUDA-graph replay (``ms``) and by CUDA events (``call_ms``), their plain
+   versions and the fp8 path's whole backward; then the original library's protocol
+   shape (``k23_protocol``: B = 16, H = 16, S = 8192, D = 128, causal) beside
+   the SDPA flash and cuDNN backward, one batch entry and two heads against
+   the oracle's autograd;
 6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16) against
    their plain versions at Llama-3-8B's projection shapes (w_qkv, wo,
    w_gate_up, w_down, lm_head) and M = 4 and 1536, with device times of
@@ -82,11 +89,15 @@ Phases, each printing its numbers on lines of their own:
    bf16 weights) serves 4 prompts on the paged backend in chunks of 128:
    K1 in every chunk forward (q_offset > 0 after the first), K10 in every
    decode step, no SDPA fallback, last logits against a plain-attention
-   run;
+   run; ``d96`` does the same at Phi-3-mini's attention width (32 query and
+   32 KV heads of 96) and takes one training step through K1, K2 and K3 at
+   D = 96, gradients against the plain path's;
 15. training: the bf16 weights take 3 SGD steps over 1024 positions
    through the fp8 path (K1 forward, K1 recompute, K2 and K3 backward);
    the launch counts prove it, the first loss is held against the plain
-   path's, and the gradients of a 4-layer cut against plain attention's.
+   path's, and the gradients of a 4-layer cut against plain attention's;
+16. SDPA's whole backward at K2/K3's timed shape by CUDA-graph replay, the
+   library call beside both kernels (last: see ``phase_sdpa_backward``).
 
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
@@ -128,6 +139,7 @@ from quantumattention_tpu_torch.ops.flash_bwd import (
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    pack_stats,
     row_delta,
 )
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
@@ -222,7 +234,21 @@ GRAD_CHECK_LAYERS = 4
 D256_MODEL = {"num_layers": 2, "hidden_size": 3072, "intermediate_size": 24576,
               "num_q_heads": 16, "num_kv_heads": 8, "head_dim": 256}
 D256_PROMPTS = [150, 200, 300, 450]
-D256_SERVE = {"max_len": 1024, "page_size": 128, "chunk": 128, "new": 9}
+#: How the head-dim model checks (serve_d256, d96) serve: paged, pages of
+#: 128, chunks of 128, 9 new tokens.
+WIDTH_SERVE = {"max_len": 1024, "page_size": 128, "chunk": 128, "new": 9}
+#: The head-dim-96 model check: the Llama block at Phi-3-mini's published
+#: width (microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32
+#: attention and 32 KV heads of 96, intermediate 8192, vocab 32064), cut to
+#: 2 layers; prompts on the paged backend in chunks of 128, then one
+#: training step over 512 positions.
+D96_MODEL = {"num_layers": 2, "hidden_size": 3072, "intermediate_size": 8192,
+             "num_q_heads": 32, "num_kv_heads": 32, "head_dim": 96, "vocab_size": 32064}
+D96_PROMPTS = [150, 260, 333]
+D96_TRAIN_POSITIONS = 512
+#: Head dims between and above the kernels' instantiated widths (64, 128,
+#: 256, 512) that the K1, K10 and K2/K3 phases check.
+ANY_WIDTHS = (72, 96, 320, 512)
 #: The original library's benchmark protocol (its bench.py:1-5, SURVEY.md
 #: section 6): batch 16, 16 heads (MHA), 8192 positions, head dims 64/128/256.
 PROTOCOL = {"B": 16, "H": 16, "S": 8192, "D": (64, 128, 256)}
@@ -305,22 +331,16 @@ def bound(nbytes: float, ops=None) -> dict:
     return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
 
-def sdpa_library_ms(gen, b: int, s: int, d: int, causal: bool, backward: bool = False) -> float:
+def sdpa_library_ms(gen, b: int, s: int, d: int, causal: bool) -> float:
     """bf16 ``scaled_dot_product_attention`` with the flash and cuDNN back
-    ends at (b, 32 q heads, s, d) over 8 KV heads (its forward, or with
-    ``backward`` its backward, dQ dK dV in one call): the yardstick of K1,
-    K2 and K3, used nowhere in the port."""
+    ends at (b, 32 q heads, s, d) over 8 KV heads: the yardstick of K1, used
+    nowhere in the port."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v = _randn((b, 32, s, d), gen), _randn((b, 8, s, d), gen), _randn((b, 8, s, d), gen)
     with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]):
-        if not backward:
-            return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True))
-        leaves = [t.requires_grad_() for t in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
-        do = torch.randn_like(out)
-        return time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
 
 
 def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -404,14 +424,15 @@ def _visible_pairs(sq: int, skv: int, causal: bool, q_offset: int = 0) -> int:
     return sum(min(skv, q_offset + i + 1) for i in range(sq))
 
 
-def _k1_ptxas() -> list:
-    """Registers and spills of each K1 instantiation (D, Q/K code) from the
-    build's ptxas output."""
+def _ptxas(kernel: str) -> list:
+    """Registers and spills of each instantiation (width W, element code)
+    of the kernels whose name matches ``kernel`` from the build's ptxas
+    output."""
     rows, cur = [], None
     for line in _native.build_info()["log"].splitlines():
-        m = re.search(r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Function properties for \S*?(" + kernel + r")ILi(\d+)ELi(\d+)E", line)
         if m:
-            cur = {"D": int(m.group(1)), "qk_code": int(m.group(2))}
+            cur = {"kernel": m.group(1), "W": int(m.group(2)), "code": int(m.group(3))}
             continue
         if cur is None:
             continue
@@ -431,7 +452,7 @@ def phase_k1(gen) -> dict:
     shapes, head dims 64/128/256 and every operand type; device times by
     graph replay at the timed shape (fp8 head-wise, bf16, q_offset 0 and
     130, B = 4); then the original library's benchmark protocol."""
-    for row in _k1_ptxas():
+    for row in _ptxas("flash_fwd_kernel"):
         log("k1_ptxas " + json.dumps(row))
     cases = [
         (b, s, mode, True, 128)
@@ -443,6 +464,12 @@ def phase_k1(gen) -> dict:
               (1, 512, "bf16", True, 256), (1, 512, "head", True, 256),
               (1, 512, "token", False, 256), (1, 512, "fp32", True, 256),
               (1, 512, "fp16", False, 64), (1, 512, "int8", False, 256)]
+    # Head dims between and above the instantiated widths: zero columns past
+    # D, 8-bit Q/K of D % 16 == 8 zero-padded by the wrapper, two CTAs a Q
+    # block at 320 and 512.
+    cases += [(1, 512, mode, True, d) for d in ANY_WIDTHS for mode in ("bf16", "head", "token")]
+    cases += [(1, 512, "int8", False, 72), (1, 512, "e4m3v", True, 96),
+              (1, 512, "fp16", True, 320), (1, 512, "fp32", False, 512), (4, 57, "head", True, 96)]
     worst = {}
     timing = None
     for b, s, mode, causal, d in cases:
@@ -661,35 +688,75 @@ def _oracle_grads(q, k, v, do, causal):
     return torch.autograd.grad(out, leaves, do.float())
 
 
+def sdpa_bwd_ms(gen, q, k, v, causal: bool, backends, graph: bool = True) -> float:
+    """SDPA's backward (dQ, dK and dV in one autograd call) through the
+    given back ends, by CUDA-graph replay (or CUDA events): the yardstick of
+    K2 and K3, used nowhere in the port."""
+    from torch.nn.attention import sdpa_kernel
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with sdpa_kernel(backends):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+        do = _randn(tuple(out.shape), gen)
+
+        def fn():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        return graph_ms(fn, reps=5, iters=10) if graph else time_ms(fn, iters=3, warmup=1)
+
+
+def _k23_case(gen, b, hq, hkv, s, causal, d) -> tuple:
+    """One K2/K3 case: (record, inputs) with the errors against the plain
+    version and the oracle's autograd, and two runs' bitwise equality."""
+    q, k, v = _randn((b, hq, s, d), gen), _randn((b, hkv, s, d), gen), _randn((b, hkv, s, d), gen)
+    do = _randn((b, hq, s, d), gen)
+    out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
+    grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    again = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
+    oracle = _oracle_grads(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    rec = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
+           "bitwise_repeat": all(torch.equal(x, y) for x, y in zip(grads, again))}
+    for name, g, p, o in zip(("dq", "dk", "dv"), grads, plain, oracle):
+        rec[f"{name}_rel_vs_plain"] = max_rel(g, p)
+        rec[f"{name}_rel_vs_oracle"] = max_rel(g, o)
+        rec[f"{name}_max_abs_vs_plain"] = max_abs(g, p)
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"K2/K3 gave non-finite {name}: {rec}")
+    return rec, (q, k, v, do, out, m, l)
+
+
 def phase_k23(gen) -> dict:
-    """K2 and K3 against their plain version and the fp32 oracle's autograd."""
-    cases = [(b, s, causal, 128) for b in (1, 4) for s in (57, 512, 1536)
+    """K2 and K3 against their plain version and the fp32 oracle's autograd
+    over head dims and GQA groups, bitwise equal across two runs; device
+    times at the timed shape; the protocol shape."""
+    for row in _ptxas("flash_bwd_dq_kernel|flash_bwd_dkv_kernel"):
+        log("k23_ptxas " + json.dumps(row))
+    # (B, Hq, Hkv, S, causal, D): Llama-3-8B's heads at D = 128; GQA groups
+    # 1, 4 and 8 at the other widths.
+    cases = [(b, 32, 8, s, causal, 128) for b in (1, 4) for s in (57, 512, 1536)
              for causal in (True, False)]
-    cases += [(1, 512, True, 64), (1, 512, True, 256), (1, 200, False, 256)]
+    cases += [(1, 32, 8, 512, True, 64), (1, 32, 8, 512, True, 256), (1, 32, 8, 200, False, 256),
+              (1, 32, 32, 512, True, 96), (1, 32, 8, 333, False, 96), (1, 16, 8, 512, True, 320),
+              (1, 16, 2, 200, False, 320), (1, 16, 8, 256, True, 512), (1, 8, 1, 130, True, 512),
+              (1, 64, 8, 300, True, 72)]
     worst = {"dq": 0.0, "dkv": 0.0}
     timing = None
-    for b, s, causal, d in cases:
-        q = _randn((b, 32, s, d), gen)
-        k = _randn((b, 8, s, d), gen)
-        v = _randn((b, 8, s, d), gen)
-        do = _randn((b, 32, s, d), gen)
-        out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
-        grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
-        plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
-        oracle = _oracle_grads(q, k, v, do, causal)
-        torch.cuda.synchronize()
-        rec = {"B": b, "S": s, "D": d, "causal": causal}
-        for name, g, p, o in zip(("dq", "dk", "dv"), grads, plain, oracle):
-            rec[f"{name}_rel_vs_plain"] = max_rel(g, p)
-            rec[f"{name}_rel_vs_oracle"] = max_rel(g, o)
-            rec[f"{name}_max_abs_vs_plain"] = max_abs(g, p)
-            if not bool(torch.isfinite(g).all()):
-                raise RuntimeError(f"K2/K3 gave non-finite {name}: {rec}")
-        if (b, s, causal, d) in ((1, 1536, True, 128), (4, 1536, True, 128)):
+    for b, hq, hkv, s, causal, d in cases:
+        rec, (q, k, v, do, out, m, l) = _k23_case(gen, b, hq, hkv, s, causal, d)
+        if (b, hq, s, causal, d) in ((1, 32, 1536, True, 128), (4, 32, 1536, True, 128)):
             delta = row_delta(out, do)
             args = (q, k, v, do, m, l, delta)
-            rec["dq_ms"] = time_ms(lambda: flash_bwd_dq(*args, is_causal=causal))
-            rec["dkv_ms"] = time_ms(lambda: flash_bwd_dkv(*args, is_causal=causal))
+            # The kernels alone (their per-row statistics packed once, as
+            # flash_attention_bwd packs them for both), then each call by
+            # events, packing included (the parent's K2/K3 were timed so).
+            kw = {"is_causal": causal, "stats": pack_stats(m, l, delta)}
+            rec["dq_ms"] = graph_ms(lambda: flash_bwd_dq(*args, **kw))
+            rec["dkv_ms"] = graph_ms(lambda: flash_bwd_dkv(*args, **kw))
+            rec["dq_call_ms"] = time_ms(lambda: flash_bwd_dq(*args, is_causal=causal))
+            rec["dkv_call_ms"] = time_ms(lambda: flash_bwd_dkv(*args, is_causal=causal))
             rec["dq_plain_ms"] = time_ms(lambda: flash_bwd_dq_plain(*args, is_causal=causal), iters=5)
             rec["dkv_plain_ms"] = time_ms(lambda: flash_bwd_dkv_plain(*args, is_causal=causal), iters=5)
             # The fp8 path's whole backward (bf16 K1 recompute, then K2/K3)
@@ -707,28 +774,99 @@ def phase_k23(gen) -> dict:
                 timing = rec
         log("k23 " + json.dumps(rec))
         bad = [key for key, val in rec.items() if "_rel_vs_" in key and not val < GRAD_BAR]
-        if bad:
+        if bad or not rec["bitwise_repeat"]:
             raise RuntimeError(f"K2/K3 disagree ({bad}): {rec}")
         worst["dq"] = max(worst["dq"], rec["dq_max_abs_vs_plain"])
         worst["dkv"] = max(worst["dkv"], rec["dk_max_abs_vs_plain"], rec["dv_max_abs_vs_plain"])
-        del q, k, v, do, out, m, l, grads, plain, oracle
+        del q, k, v, do, out, m, l
     torch.cuda.empty_cache()
+    _k23_protocol(gen)
     # Bounds at the timed shape (1, 1536, bf16, causal): each kernel reads q,
     # k, v, dO and the fp32 rows m, l, delta once and writes its gradients;
     # K2 does three products and K3 four, 2 * Hq * S^2 * D / 2 each. The
-    # library call is SDPA's whole backward (dQ, dK and dV in one call).
+    # library call (SDPA's whole backward, phase_sdpa_backward) is timed last.
     s, d = 1536, 128
     reads = (32 + 8 + 8 + 32) * s * d * 2 + 3 * 32 * s * 4
     unit = 2 * 32 * s * s * d / 2
-    lib = sdpa_library_ms(gen, 1, s, d, True, backward=True)
-    log(f"k23 library sdpa_bf16_backward_ms={lib}")
     return {
         "dq": {"max_abs_err": worst["dq"], "ms": timing["dq_ms"], "plain_ms": timing["dq_plain_ms"],
-               **bound(reads + 32 * s * d * 2, {"bf16": 3 * unit}), "library_ms": lib},
+               **bound(reads + 32 * s * d * 2, {"bf16": 3 * unit})},
         "dkv": {"max_abs_err": worst["dkv"], "ms": timing["dkv_ms"],
                 "plain_ms": timing["dkv_plain_ms"],
-                **bound(reads + 2 * 8 * s * d * 2, {"bf16": 4 * unit}), "library_ms": lib},
+                **bound(reads + 2 * 8 * s * d * 2, {"bf16": 4 * unit})},
     }
+
+
+def phase_sdpa_backward(gen) -> float:
+    """SDPA's whole backward (dQ, dK and dV in one call) at K2/K3's timed
+    shape (B = 1, 32/8 heads, S = 1536, D = 128, causal, bf16) by CUDA-graph
+    replay, each back end alone and the two together, and by CUDA events:
+    the library call beside both kernels. It runs after every other phase:
+    a failed capture of SDPA's autograd backward (its flash back end's, on
+    the H100) can leave PyTorch's default CUDA generator unusable, and
+    nothing after it draws from that generator. Returns the graph-replay
+    time of the two back ends together (the events' where capture failed)."""
+    from torch.nn.attention import SDPBackend
+
+    s, d = 1536, 128
+    q, k, v = _randn((1, 32, s, d), gen), _randn((1, 8, s, d), gen), _randn((1, 8, s, d), gen)
+    both = [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION]
+    lib = {"call_ms": sdpa_bwd_ms(gen, q, k, v, True, both, graph=False)}
+    for name, backends in (("flash", [SDPBackend.FLASH_ATTENTION]),
+                           ("cudnn", [SDPBackend.CUDNN_ATTENTION]), ("either", both)):
+        try:
+            lib[name] = sdpa_bwd_ms(gen, q, k, v, True, backends)
+        except RuntimeError as e:  # the back end refuses the shape, or capture fails
+            lib[name] = None
+            lib[f"{name}_error"] = str(e).splitlines()[0][:160]
+    log("k23 library sdpa_bf16_backward_ms=" + json.dumps(lib))
+    return lib["either"] if lib["either"] is not None else lib["call_ms"]
+
+
+def _k23_protocol(gen) -> None:
+    """K2 and K3 at the original library's protocol shape (B = 16, H = 16,
+    S = 8192, D = 128, causal, bf16) beside SDPA's flash and cuDNN
+    backward, by CUDA events. TFLOP/s count the backward's five products
+    (2.5x the forward's 4 B H S^2 D, halved under the mask) for all three;
+    K2 and K3 run seven between them (the score products twice). The plain
+    version would need 17 GB of fp32 scores a call: one batch entry and two
+    heads are held against the fp32 oracle's autograd."""
+    from torch.nn.attention import SDPBackend
+
+    b, h, s, d = PROTOCOL["B"], PROTOCOL["H"], PROTOCOL["S"], 128
+    q, k, v, do = (_randn((b, h, s, d), gen) for _ in range(4))
+    out, (m, l) = flash_attention(q, k, v, is_causal=True, return_residuals=True)
+    grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=True)
+    oracle = _oracle_grads(*(t[:1, :2] for t in (q, k, v, do)), True)
+    rec = {"B": b, "H": h, "S": s, "D": d, "causal": True}
+    for name, g, o in zip(("dq", "dk", "dv"), grads, oracle):
+        rec[f"{name}_rel_vs_oracle"] = max_rel(g[:1, :2], o)
+    del grads, oracle
+    delta = row_delta(out, do)
+    args = (q, k, v, do, m, l, delta)
+    kw = {"is_causal": True, "stats": pack_stats(m, l, delta)}
+    rec["dq_ms"] = time_ms(lambda: flash_bwd_dq(*args, **kw), iters=3, warmup=1)
+    rec["dkv_ms"] = time_ms(lambda: flash_bwd_dkv(*args, **kw), iters=3, warmup=1)
+    flops = 5 * 2 * b * h * s * s * d / 2
+    rec["k23_ms"] = rec["dq_ms"] + rec["dkv_ms"]
+    rec["k23_tflops"] = flops / rec["k23_ms"] / 1e9
+    del args, delta, out, m, l
+    torch.cuda.empty_cache()
+    for name, backend in (("sdpa_flash", SDPBackend.FLASH_ATTENTION),
+                          ("sdpa_cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            ms = sdpa_bwd_ms(gen, q, k, v, True, [backend], graph=False)
+        except RuntimeError as e:  # the back end refuses this shape
+            rec[f"{name}_ms"] = rec[f"{name}_tflops"] = None
+            rec[f"{name}_refused"] = str(e).splitlines()[0][:120]
+            continue
+        rec[f"{name}_ms"], rec[f"{name}_tflops"] = ms, flops / ms / 1e9
+        torch.cuda.empty_cache()
+    log("k23_protocol " + json.dumps(rec))
+    if not all(rec[f"{n}_rel_vs_oracle"] < GRAD_BAR for n in ("dq", "dk", "dv")):
+        raise RuntimeError(f"K2/K3 disagree at the protocol shape: {rec}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
 
 
 def _reset_counts() -> None:
@@ -1449,7 +1587,12 @@ def phase_k10(gen) -> dict:
             recs[ps, kind] = rec
             del caches, kd, vd, ksd, vsd, k, v, ks, vs, args
         torch.cuda.empty_cache()
-    worst = max(worst, _k10_d256(gen))
+    worst = max(worst, _k10_width(gen, 256, D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"],
+                                  "k10_d256"))
+    for d in ANY_WIDTHS:
+        hq, hkv = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if d == 96
+                   else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
+        worst = max(worst, _k10_width(gen, d, hq, hkv, "k10_width"))
     # The JSON line: the serving point's pages (int8, 128 tokens). No
     # PyTorch call reads an int8 page pool through a table.
     pick = recs[PAGED16["page_size"], "int8"]
@@ -1457,11 +1600,12 @@ def phase_k10(gen) -> dict:
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
 
 
-def _k10_d256(gen) -> float:
-    """K10 at head dim 256 (D256_MODEL's attention: 16 q heads over 8 KV
-    heads) against its plain version and the fp32 oracle, 16 slots over a
-    shuffled pool of 128-token pages, int8 and bf16."""
-    b, hq, hkv, d, ps = K10_SLOTS, D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"], 256, 128
+def _k10_width(gen, d: int, hq: int, hkv: int, label: str) -> float:
+    """K10 at head dim d (256: D256_MODEL's attention; 96: D96_MODEL's;
+    the others over 16 q heads and 8 KV heads) against its plain version and
+    the fp32 oracle, 16 slots over a shuffled pool of 128-token pages, int8
+    and bf16."""
+    b, ps = K10_SLOTS, 128
     rng = np.random.default_rng(11)
     lens_np = rng.integers(1, K10_MAX_LEN + 1, b)
     lens_np[0], lens_np[1] = 0, K10_MAX_LEN
@@ -1489,10 +1633,10 @@ def _k10_d256(gen) -> float:
                "zero_row_exact": bool((out[0] == 0).all())}
         rec["ms"] = graph_ms(lambda: paged_decode_attention(
             q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs))
-        log("k10_d256 " + json.dumps(rec))
+        log(f"{label} " + json.dumps(rec))
         if (not bool(torch.isfinite(out.float()).all()) or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL
                 or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]):
-            raise RuntimeError(f"K10 disagrees at D = 256: {rec}")
+            raise RuntimeError(f"K10 disagrees at D = {d}: {rec}")
         worst = max(worst, rec["max_abs_vs_plain"])
         del k, v, ks, vs, out, plain, kd, vd, kdq, vdq, oracle
     torch.cuda.empty_cache()
@@ -1726,20 +1870,28 @@ def phase_serve_d256() -> dict:
     """A short check of the kernels at head dim 256 on a model: D256_MODEL
     (2 layers of the Llama block with Gemma-7B's attention width: 16 query
     heads of 256 over 8 KV heads, hidden 3072) with seeded random bf16
-    weights serves D256_PROMPTS on the paged backend with chunked prefill.
-    Checks: every request completes, K1 runs in every chunk forward (with
-    q_offset > 0 after the first chunk) and K10 in every decode step, no
-    SDPA fallback, and each prompt's last logits against a plain-attention
-    whole-prompt run within PREFILL_REL_BOUND."""
-    cfg = llama.llama3_8b(**D256_MODEL)
+    weights serves D256_PROMPTS on the paged backend with chunked prefill
+    (``_serve_width``)."""
+    return _serve_width("serve_d256", D256_MODEL, D256_PROMPTS, seed=256)
+
+
+def _serve_width(label: str, model: dict, prompt_lens: list, seed: int) -> dict:
+    """A 2-layer model of the Llama block at ``model``'s attention width,
+    seeded random bf16 weights, serves prompts of ``prompt_lens`` tokens on
+    the paged backend with chunked prefill (WIDTH_SERVE). Checks: every
+    request completes, K1 runs in every chunk forward (with q_offset > 0
+    after the first chunk) and K10 in every decode step, no SDPA fallback,
+    and each prompt's last logits against a plain-attention whole-prompt run
+    within PREFILL_REL_BOUND."""
+    cfg = llama.llama3_8b(**model)
     L = cfg.num_layers
-    params = llama.init_params(torch.Generator("cuda").manual_seed(256), cfg, "cuda")
-    eng = Engine(params, cfg, num_slots=len(D256_PROMPTS), max_len=D256_SERVE["max_len"],
-                 cache_dtype=torch.int8, cache_backend="paged", page_size=D256_SERVE["page_size"],
-                 prefill_chunk=D256_SERVE["chunk"], device="cuda")
+    params = llama.init_params(torch.Generator("cuda").manual_seed(seed), cfg, "cuda")
+    eng = Engine(params, cfg, num_slots=len(prompt_lens), max_len=WIDTH_SERVE["max_len"],
+                 cache_dtype=torch.int8, cache_backend="paged", page_size=WIDTH_SERVE["page_size"],
+                 prefill_chunk=WIDTH_SERVE["chunk"], device="cuda")
     backend = eng._backend
-    rng = np.random.default_rng(256)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in D256_PROMPTS]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
     chunks, last = [], {}
     orig = backend.prefill_chunk
 
@@ -1753,37 +1905,102 @@ def phase_serve_d256() -> dict:
 
     backend.prefill_chunk = chunk
     _reset_counts()
-    reqs = [eng.submit(p, max_new_tokens=D256_SERVE["new"]) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=WIDTH_SERVE["new"]) for p in prompts]
     eng.run_to_completion()
     torch.cuda.synchronize()
     launches = _counts()
     backend.prefill_chunk = orig
     stats = dict(eng.stats)
     offsets = sorted({off for off, _ in chunks})
-    plain_cfg = llama.llama3_8b(**D256_MODEL, attention_impl="sdpa")
+    plain_cfg = llama.llama3_8b(**model, attention_impl="sdpa")
     errs = []
     for r, p in zip(reqs, prompts):
         tokens = torch.tensor([p], device="cuda")
         ref, _ = llama.forward_prefill(params, tokens, plain_cfg,
                                        last_pos=torch.tensor([len(p) - 1], device="cuda"))
         errs.append(rel_fro(last[r.id], ref[0]))
-    rec = {"model": D256_MODEL, "prompts": D256_PROMPTS, "launches": launches, "stats": stats,
+    rec = {"model": model, "prompts": prompt_lens, "launches": launches, "stats": stats,
            "chunk_offsets": offsets, "prefill_rel_err": errs, "bound": PREFILL_REL_BOUND}
-    log("serve_d256 " + json.dumps(rec))
-    if any(not r.done or len(r.output) != D256_SERVE["new"] for r in reqs):
-        raise RuntimeError("serve_d256: a request did not complete")
+    log(f"{label} " + json.dumps(rec))
+    if any(not r.done or len(r.output) != WIDTH_SERVE["new"] for r in reqs):
+        raise RuntimeError(f"{label}: a request did not complete")
     if len(chunks) != stats["prefill_forwards"] or any(k1 != L for _, k1 in chunks):
-        raise RuntimeError(f"serve_d256: K1 missed a chunk forward: {chunks}")
+        raise RuntimeError(f"{label}: K1 missed a chunk forward: {chunks}")
     if max(offsets) <= 0:
-        raise RuntimeError("serve_d256: no chunk ran K1 with q_offset > 0")
+        raise RuntimeError(f"{label}: no chunk ran K1 with q_offset > 0")
     if launches["k10"] != L * stats["decode_steps"] or launches["sdpa_fallback"]:
-        raise RuntimeError(f"serve_d256: decode launches {launches} for {stats['decode_steps']} steps")
+        raise RuntimeError(f"{label}: decode launches {launches} for {stats['decode_steps']} steps")
     if not all(np.isfinite(errs)) or not max(errs) < PREFILL_REL_BOUND:
-        raise RuntimeError(f"serve_d256: prefill logits off: {errs}")
+        raise RuntimeError(f"{label}: prefill logits off: {errs}")
     del eng, backend, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_d96() -> dict:
+    """The head-dim-96 check (a check, not a cell): D96_MODEL (Phi-3-mini's
+    attention width, 2 layers) serves D96_PROMPTS on the paged backend
+    (``_serve_width``: K1 with q_offset and K10 at D = 96), then its
+    gradients over D96_TRAIN_POSITIONS positions through K1, K2 and K3 (bf16
+    and fp8 attention) are held against plain attention's within
+    TRAIN_GRAD_BOUND, and it takes one training step through them."""
+    _serve_width("d96", D96_MODEL, D96_PROMPTS, seed=96)
+    cfg = llama.llama3_8b(**D96_MODEL)
+    L = cfg.num_layers
+    params = llama.init_params(torch.Generator("cuda").manual_seed(96), cfg, "cuda")
+    rng = np.random.default_rng(96)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, D96_TRAIN_POSITIONS + 1))).to("cuda")
+    _, ref = llama.loss_and_grads(params, tokens, llama.llama3_8b(**D96_MODEL, attention_impl="sdpa"))
+    ref = _grad_leaves(ref)
+    errs, launches = {}, {}
+    for impl in ("bf16", "fp8"):
+        _reset_train_counts()
+        _, grads = llama.loss_and_grads(params, tokens, llama.llama3_8b(**D96_MODEL, attention_impl=impl))
+        torch.cuda.synchronize()
+        launches[impl] = _train_counts()
+        errs[impl] = {name: rel_fro(g, ref[name]) for name, g in _grad_leaves(grads).items()}
+        del grads
+    _reset_train_counts()
+    params, loss = llama.train_step(params, tokens, cfg)
+    loss = float(loss)
+    launches["train_step"] = _train_counts()
+    rec = {"model": D96_MODEL, "positions": D96_TRAIN_POSITIONS, "grad_rel_fro_vs_plain": errs,
+           "bounds": TRAIN_GRAD_BOUND, "launches": launches, "loss": loss}
+    log("d96 train " + json.dumps(rec))
+    for name, n in launches.items():
+        k1_min = L if name == "bf16" else 2 * L  # the fp8 path recomputes the bf16 forward
+        if n["k1"] < k1_min or n["k2"] < L or n["k3"] < L or n["sdpa_fallback"]:
+            raise RuntimeError(f"d96 {name}: K1/K2/K3 missed a layer or fell back: {n}")
+    for impl, e in errs.items():
+        if not all(x < TRAIN_GRAD_BOUND[impl] for x in e.values()):
+            raise RuntimeError(f"d96: {impl} gradients off: {e}")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"d96: non-finite training loss {loss}")
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _reset_train_counts() -> None:
+    flash_attention.launches = 0
+    flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = 0
+    dispatch.sdpa_fallback.calls = 0
+
+
+def _train_counts() -> dict:
+    return {"k1": flash_attention.launches, "k2": flash_bwd_dq.launches,
+            "k3": flash_bwd_dkv.launches, "sdpa_fallback": dispatch.sdpa_fallback.calls}
+
+
+def _grad_leaves(grads) -> dict:
+    """The gradient leaves the training checks compare: the embedding, the
+    first layer's wq, wk, wv and the last layer's w_down."""
+    first, last = grads["layers"][0], grads["layers"][-1]
+    return {"embed": grads["embed"], "layers.0.wq": first["wq"], "layers.0.wk": first["wk"],
+            "layers.0.wv": first["wv"], f"layers.{len(grads['layers']) - 1}.w_down": last["w_down"]}
 
 
 def _checked_grads(params, tokens, impl):
@@ -1792,9 +2009,7 @@ def _checked_grads(params, tokens, impl):
     cut = {**params, "layers": params["layers"][:GRAD_CHECK_LAYERS]}
     cfg = llama.llama3_8b(num_layers=GRAD_CHECK_LAYERS, attention_impl=impl)
     _, grads = llama.loss_and_grads(cut, tokens, cfg)
-    first, last = grads["layers"][0], grads["layers"][-1]
-    return {"embed": grads["embed"], "layers.0.wq": first["wq"], "layers.0.wk": first["wk"],
-            "layers.0.wv": first["wv"], f"layers.{GRAD_CHECK_LAYERS - 1}.w_down": last["w_down"]}
+    return _grad_leaves(grads)
 
 
 def phase_train(params) -> dict:
@@ -1825,10 +2040,7 @@ def phase_train(params) -> dict:
         if not all(e < TRAIN_GRAD_BOUND[impl] for e in errs.values()):
             raise RuntimeError(f"{impl} gradients off: {errs}")
 
-    flash_attention.launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dkv.launches = 0
-    dispatch.sdpa_fallback.calls = 0
+    _reset_train_counts()
     steps = []
     for i in range(TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
@@ -1842,8 +2054,7 @@ def phase_train(params) -> dict:
                       "tok_s": TRAIN_POSITIONS / sec,
                       "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
         log("train step " + json.dumps(steps[-1]))
-    launches = {"k1": flash_attention.launches, "k2": flash_bwd_dq.launches,
-                "k3": flash_bwd_dkv.launches, "sdpa_fallback": dispatch.sdpa_fallback.calls}
+    launches = _train_counts()
     first_rel = abs(steps[0]["loss"] - plain_loss) / abs(plain_loss)
     rec = {"layers": L, "positions": TRAIN_POSITIONS, "launches": launches,
            "plain_loss": plain_loss, "first_loss_rel_err": first_rel,
@@ -1886,7 +2097,9 @@ def main() -> int:
     s64 = phase_serve_int8_64(params)
     paged = phase_serve_paged_prefix_16(params)
     phase_serve_d256()
+    phase_d96()
     train = phase_train(params)
+    k23["dq"]["library_ms"] = k23["dkv"]["library_ms"] = phase_sdpa_backward(gen)
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], **k1},

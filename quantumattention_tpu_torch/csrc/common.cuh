@@ -1,7 +1,7 @@
 // Shared helpers of the hand-written kernels: the dtype codes of
 // ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8; 4 fp32 as an output
-// only), the mma.sync fragment helpers and tile loads of the attention
-// kernels, the quantized weight helpers and product launcher of K5-K8, and
+// only), the attention kernels' instantiated widths, the mma.sync fragment
+// helpers, the quantized weight helpers and product launcher of K5-K8, and
 // K8's tail stages that K9 reuses.
 #pragma once
 
@@ -20,12 +20,20 @@ constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 
 enum ElemCode { kBF16 = 0, kF16 = 1, kE4M3 = 2, kI8 = 3, kF32 = 4 };
 
+// The instantiated width of the attention kernels (K1, K2, K3, K10) that a
+// runtime head dim D rounds up to: 64, 128, 256 or 512 (whose output
+// columns CTAs share); 0 when D is not a multiple of 8 in 8..512.
+inline int kernel_width(int D) {
+  if (D <= 0 || D % 8 != 0 || D > 512) return 0;
+  return D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 512;
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync helpers of the attention kernels (K2, K3, K10).
+// mma.sync helpers (K5-K10).
 //
 // m16n8k16 fragments, lane = 4 * g + t: an accumulator tile C (16 x 8)
 // holds c[0..1] at row g, columns 2t, 2t+1 and c[2..3] at row g + 8. The
@@ -84,20 +92,6 @@ __device__ __forceinline__ uint4 load8_bf16(const void* p, int code, size_t i) {
   out.z = pack_bf16(f[4], f[5]);
   out.w = pack_bf16(f[6], f[7]);
   return out;
-}
-
-// ROWS x D tile of a (.., S, D) tensor starting at row0 -> smem (row stride
-// D + PAD), zero rows past `valid`; THREADS threads share the copy.
-template <int ROWS, int D, int THREADS, int PAD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* src, int code,
-                                          size_t base, int row0, int valid) {
-  constexpr int kGroups = ROWS * D / 8;
-  for (int i = threadIdx.x; i < kGroups; i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid) v = load8_bf16(src, code, base + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = v;
-  }
 }
 
 // A operand of rows 0..15 of a bf16 smem tile (row stride `stride`),

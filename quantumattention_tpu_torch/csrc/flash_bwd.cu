@@ -1,5 +1,5 @@
 // K2 (dQ) and K3 (dK, dV): blockwise flash-attention backward for Hopper
-// (sm_90a).
+// (sm_90a), on TMA and wgmma.
 //
 // Replace the Pallas kernels quantumattention_tpu/ops/flash_bwd.py::_dq_kernel
 // (flash_bwd.py:112) and ::_dkv_kernel (flash_bwd.py:150); host entry
@@ -13,89 +13,207 @@
 //   dQ = sm_scale * dS.K      dK = sm_scale * dS^T.Q      dV = P^T.dO
 //
 // with top-left causal and ragged-tail masks (masked P = 0), GQA by KV-head
-// index, P and dS rounded to bf16 as product operands (as the TPU kernels
-// do) and fp32 accumulation.
+// index, P and dS rounded to the inputs' 16-bit type (bf16, as the TPU
+// kernels round them, or fp16 for fp16 inputs) as product operands, and
+// fp32 accumulation.
 //
-// What bounds them on the H100: the products, 2.5x the forward's flops
-// (five S x S x D products, two of them recomputing the forward's), which
-// only wgmma fed by TMA runs at the tensor cores' full rate. These are the
-// simple versions on mma.sync:
-//
-// - K2: one CTA of 4 warps per (b, q head, 64-row Q block); each warp owns
-//   16 Q rows. Q and dO stay in shared memory, each K/V tile of KV head
-//   hq / G is loaded once per CTA, tiles wholly above the causal diagonal
-//   are skipped, and S, dP, dS and the dQ accumulator live in registers (the
-//   accumulator layout of dS is the A operand of dS.K). The heaviest Q
-//   blocks are scheduled first under the causal mask.
-// - K3: one CTA of 4 warps per (b, KV head, 64-row KV block); each warp
-//   owns 16 KV rows. It loops over the G query heads that share the KV
-//   head and, for each, over 32-row Q tiles from the causal diagonal down,
-//   so the GQA group sum happens in registers: no (B, Hq, S, D) buffers, no
-//   atomics, deterministic results (the TPU kernel writes per-q-head dK/dV
-//   and sums the group outside, flash_bwd.py:345-351). It computes the
-//   transposed scores S^T = K.Q^T directly, whose accumulator layout is the
-//   A operand of P^T.dO and dS^T.Q. The 32-row Q tile keeps the two fp32
-//   D-wide accumulators plus S^T and dP^T inside the register budget.
-//   At D = 256 the two accumulators alone would be 256 fp32 a thread, past
-//   the 255-register cap: two CTAs share each KV block, each recomputing
-//   S^T and dP^T over the full D from shared memory and owning half of the
-//   dK / dV columns (128 accumulators a thread). Recomputing is the cheaper
-//   of the choices: two passes (dV, then dK) would recompute the same
-//   products, and 8 KV rows a warp would halve the m16 MMA's rows. K2 keeps
-//   its 128-float dQ accumulator a thread at D = 256 unsplit.
-//
-// TMA, wgmma, cp.async pipelining and ldmatrix loads are later work
-// (ROADMAP queue 2). The window mode of the TPU kernels is not ported
-// (the wrapper refuses it).
+// What bounds them on the H100: operations. The backward is five S x S x D
+// products a head (K2 three: S, dP, dS.K; K3 four: S^T, dP^T, P^T.dO,
+// dS^T.Q; the two score products run in both), 2.5x the forward's, far
+// above the card's balance point at any S worth a kernel. So both kernels
+// feed the tensor cores by TMA and wgmma only:
+//  - one or two consumer warpgroups of 64 rows each and no producer
+//    warpgroup: thread 0 issues every TMA load, two tiles ahead through a
+//    three-stage ring with full and empty mbarriers (every wait traps when
+//    it can never complete, hopper.cuh). ptxas compiles every thread's code
+//    under the launch bound's cap of 65536 / threads registers, rounded to
+//    whole warpgroups, whatever setmaxnreg grants later: a producer
+//    warpgroup (or warp) beside two consumers leaves them 168, where K3's
+//    two 64 x 128 fp32 accumulators beside S^T and dP^T spilled kilobytes
+//    a thread; two consumers alone get 255. The loads are 128-byte swizzled
+//    64-column boxes of 3-D tensor maps over (D, S, B * H): rows past S and
+//    columns past D read as zeros, never as the next head's rows;
+//  - each Q row's m, 1/l and D come packed as (B * H, Sq_pad, 4) fp32 rows
+//    (the wrapper packs them), so that K3's tile of them is one bulk copy;
+//  - K2: one CTA per (q head, batch, 64 rows a consumer of Q), the heaviest
+//    causal blocks first. Q and dO load once; the K and V tiles of KV head
+//    hq / G stream through the ring. Each consumer runs S = Q.K^T and
+//    dP = dO.V^T as SS wgmma (both K-major), P and dS in registers (masks
+//    only on diagonal and ragged tiles), then dS packed to 16 bits is the
+//    register A operand of dQ += dS.K, whose B is the K tile read MN-major
+//    through the transpose bit, the way K1 reads V;
+//  - K3: one CTA per (KV block, q head), which fills the card (384 CTAs of
+//    128 KV rows at B = 1, Hq = 32, S = 1536, heaviest causal blocks first,
+//    where one CTA per 64-row KV block walking its G = 4 q heads gave 192
+//    and at most 76% of the SMs under the causal triangle). The KV block's K
+//    and V load once; Q and dO tiles and their rows' statistics stream
+//    through the ring. Each consumer owns 64 KV rows and computes
+//    S^T = K.Q^T and dP^T = V.dO^T directly, so that the accumulators have
+//    KV rows as M and P^T and dS^T are the register A operands of
+//    dV += P^T.dO and dK += dS^T.Q (dO and Q read MN-major);
+//  - the GQA group sum of K3 is deterministic and uses no float atomics:
+//    the G CTAs of one KV block's group form a thread-block cluster (one
+//    per q head), each writes its fp32 dK and dV into its own shared memory,
+//    and after a cluster barrier CTA r sums rows r / G of the block over the
+//    G CTAs' shared memory in rank order and stores them. Chosen over fp32
+//    per-head partials and a second summing pass (the TPU kernel's layout,
+//    flash_bwd.py:345-351) because those would move ~50 MB of partials
+//    through device memory at the shape above, a third of the kernel's
+//    bound. Above the portable cluster size of 8, or where G has no divisor
+//    in 2..8, a CTA walks G / c q heads in a fixed order inside (c the
+//    largest divisor of G up to 8) and the cluster of c sums the rest;
+//  - head dims: any multiple of 8 up to 512, rounded up to an instantiated
+//    width W of 64, 128, 256 or 512 (qa::kernel_width): the tensor maps'
+//    inner extent is D, so the columns past D are zeros (a box wholly past
+//    D reads as zeros too), and only D columns are stored. The score
+//    products run over all of W: a depth cut at D between wgmma instructions
+//    made ptxas serialise every wgmma of the kernel (its warning C7515; K2
+//    0.115 against 0.088 ms, K3 0.173 against 0.143 at B = 1, Hq = 32,
+//    S = 1536, D = 128 on the H100), so D = 96 spends a quarter of them on
+//    zero columns, D = 72 and 320 close to half. The
+//    fp32 accumulators bound the output columns a CTA owns: K2 splits dQ's
+//    columns over two CTAs at W = 512 (256 each); K3 splits dK and dV into
+//    128-column parts above W = 128 (two CTAs at 256, four at 512). Each CTA
+//    of a split recomputes the score products over the full D.
+// Not here: the window of the TPU kernels (the wrapper refuses it), fp8
+// products, and one fused pass with dQ summed by atomics (FA3's design,
+// which would make dQ nondeterministic).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using qa::load_a_frag;
-using qa::load_b_nn;
-using qa::load_b_nt;
-using qa::mma_bf16;
-using qa::pack_bf16;
+constexpr int kStages = 3;
+constexpr int kAhead = kStages - 1;  // tiles in flight ahead of the one computed
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;    // bf16 elements of row padding (bank spread)
-constexpr int kBQ2 = 64;   // K2: Q rows per CTA (16 per warp)
-constexpr int kBN2 = 64;   // K2: KV rows per tile
-constexpr int kBN3 = 64;   // K3: KV rows per CTA (16 per warp)
-constexpr int kBQ3 = 32;   // K3: Q rows per tile
+// 16-bit rows of the instantiated width W in 64-column blocks of 128-byte
+// swizzled rows (one TMA box each).
+template <int W>
+struct Rows {
+  static constexpr int kBlocks = W / 64;
+  static constexpr int kRowBytes = W * 2;
+};
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kBQ2 + 2 * kBN2) * (D + kPad);
-}
+// K2 tiles and shared memory at width W.
+template <int W>
+struct DqCfg {
+  static constexpr int kOD = W > 256 ? 256 : W;  // dQ columns a CTA owns
+  static constexpr int kSplits = W / kOD;
+  static constexpr int kConsumers = W > 256 ? 1 : 2;
+  static constexpr int kBN = W <= 128 ? 64 : W == 256 ? 32 : 16;  // KV rows a tile
+  static constexpr int kThreads = 128 * kConsumers;
+  static constexpr int kBM = 64 * kConsumers;  // Q rows per CTA
+  static constexpr int kQBytes = kBM * Rows<W>::kRowBytes;
+  static constexpr int kKBytes = kBN * Rows<W>::kRowBytes;
+  static constexpr int kDOOff = kQBytes;
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKBytes;
+  static constexpr int kSmem = kBarOff + (1 + 2 * kStages) * 8 + 1024;  // + alignment slack
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 && kBN * 128 % 1024 == 0,
+                "1024-byte boxes");
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
+};
 
-// CTAs that share one K3 KV block, each owning D / splits dK / dV columns.
-template <int D>
-constexpr int kDkvSplits = D > 128 ? 2 : 1;
+// K3 tiles and shared memory at width W.
+template <int W>
+struct DkvCfg {
+  static constexpr int kOD = W > 128 ? 128 : W;  // dK / dV columns a CTA owns
+  static constexpr int kSplits = W / kOD;
+  static constexpr int kConsumers = W <= 128 ? 2 : 1;
+  // Q rows a tile: 64 at W <= 128 (kept although it spills some 60 bytes
+  // at 255 registers: 32-row tiles spill nothing and ran slower on the H100).
+  static constexpr int kBQ = W <= 128 ? 64 : W == 256 ? 32 : 16;
+  static constexpr int kThreads = 128 * kConsumers;
+  static constexpr int kBM = 64 * kConsumers;  // KV rows per CTA
+  static constexpr int kKBytes = kBM * Rows<W>::kRowBytes;
+  static constexpr int kQBytes = kBQ * Rows<W>::kRowBytes;
+  static constexpr int kStatBytes = kBQ * 16;  // (m, 1/l, D, 0) of a tile's rows
+  static constexpr int kVOff = kKBytes;
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDOOff = kQOff + kStages * kQBytes;
+  static constexpr int kStatOff = kDOOff + kStages * kQBytes;
+  static constexpr int kRedStride = kOD + 4;                  // fp32, padded against bank conflicts
+  static constexpr int kRedBytes = 2 * kBM * kRedStride * 4;  // dK then dV, after the loop
+  static constexpr int kLayout = kStatOff + kStages * kStatBytes;
+  static constexpr int kBarOff = kLayout > kRedBytes ? kLayout : kRedBytes;
+  static constexpr int kSmem = kBarOff + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kKBytes % 1024 == 0 && kQBytes % 1024 == 0 && kBQ * 128 % 1024 == 0,
+                "1024-byte boxes");
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
+};
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kBN3 + 2 * kBQ3) * (D + kPad) + sizeof(float) * 3 * kBQ3;
-}
-
-// Row statistics of Q row `row` (padded rows: l = 0, so P = 0).
-__device__ __forceinline__ void row_stats(const float* m, const float* l, const float* delta,
-                                          size_t base, int row, int Sq, float& mr, float& lr_inv,
-                                          float& dr) {
-  mr = 0.f;
-  lr_inv = 0.f;
-  dr = 0.f;
-  if (row < Sq) {
-    const float lv = l[base + row];
-    mr = m[base + row];
-    lr_inv = lv == 0.f ? 0.f : 1.f / lv;
-    dr = delta[base + row];
+template <int T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (T == qa::kF16) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return qa::pack_bf16(lo, hi);
   }
 }
 
-__device__ __forceinline__ void store2(void* p, int code, size_t idx, float x0, float x1) {
-  if (code == qa::kF16) {
+// acc (64 x N) = A . B^T over W columns in 16-column depth steps: A's 64
+// rows and B's N rows K-major in 64-column blocks (64 * 128 and N * 128
+// bytes apart).
+template <int N, int T, int W>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int st = 0; st < W / 16; ++st) {
+    const int blk = st / 4, within = st % 4 * 32;
+    const uint64_t a = qa::wgmma_desc(a_addr + blk * 64 * 128 + within, 16, 1024, qa::kSwizzle128);
+    const uint64_t b = qa::wgmma_desc(b_addr + blk * N * 128 + within, 16, 1024, qa::kSwizzle128);
+    qa::WgmmaSS<N, T>::run(acc, a, b, st > 0);
+  }
+}
+
+// The two score products of a tile, S = A1 . B1^T and dP = A2 . B2^T, in
+// one wgmma group.
+template <int N, int T, int W>
+__device__ __forceinline__ void score_products(float (&s)[N / 2], float (&dp)[N / 2],
+                                               uint32_t a1, uint32_t b1, uint32_t a2,
+                                               uint32_t b2) {
+  qa::fence_regs(s);
+  qa::fence_regs(dp);
+  qa::wgmma_fence();
+  ss_product<N, T, W>(s, a1, b1);
+  ss_product<N, T, W>(dp, a2, b2);
+  qa::wgmma_commit();
+  qa::wgmma_wait<0>();
+  qa::fence_regs(s);
+  qa::fence_regs(dp);
+}
+
+// acc (64 x N) += A . B: A (64 x DEPTH) packed 16-bit in registers, B the
+// DEPTH rows of a tile from the column block at b_addr on, read MN-major
+// (64-column blocks DEPTH * 128 bytes apart, 8-row groups 1024).
+template <int N, int T, int DEPTH>
+__device__ __forceinline__ void rs_product(float (&acc)[N / 2], const uint32_t (&pa)[DEPTH / 16][4],
+                                           uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < DEPTH / 16; ++kk) {
+    const uint64_t b = qa::wgmma_desc(b_addr + kk * 16 * 128, DEPTH * 128, 1024, qa::kSwizzle128);
+    qa::WgmmaRS<N, T>::run(acc, pa[kk], b, 1);
+  }
+}
+
+// The accumulators of columns 16kk .. 16kk + 15, packed: a k16 A operand.
+template <int N, int T>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack16<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void store2(void* p, size_t idx, float x0, float x1) {
+  if constexpr (T == qa::kF16) {
     *reinterpret_cast<__half2*>(static_cast<__half*>(p) + idx) = __floats2half2_rn(x0, x1);
   } else {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + idx) =
@@ -103,343 +221,491 @@ __device__ __forceinline__ void store2(void* p, int code, size_t idx, float x0, 
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                    const void* __restrict__ v, const void* __restrict__ dout,
-                    const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ delta, void* __restrict__ dq, int Hq,
-                    int Hkv, int Sq, int Skv, int code, int causal, float score_scale,
+// K2. tm_q / tm_do map (B * Hq, Sq, D), tm_k / tm_v (B * Hkv, Skv, D), all
+// of element type T; stats (B * Hq, Sq_pad, 4) fp32 rows (m, 1/l, D, 0),
+// zero past Sq; dq (B, Hq, Sq, D) of T.
+template <int W, int T>
+__global__ void __launch_bounds__(DqCfg<W>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float4* __restrict__ stats, void* __restrict__ dq, int Hq, int Hkv,
+                    int Sq, int Sq_pad, int Skv, int D, int causal, float score_scale,
                     float sm_scale) {
-  constexpr int kStride = D + kPad;
-  constexpr int kNT = kBN2 / 8;  // 8-column score tiles per KV tile
-  constexpr int kDT = D / 8;     // 8-column dQ tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kBQ2 * kStride;
-  __nv_bfloat16* Ks = dOs + kBQ2 * kStride;
-  __nv_bfloat16* Vs = Ks + kBN2 * kStride;
+  using C = DqCfg<W>;
+  constexpr int kBN = C::kBN, kOD = C::kOD;
+  constexpr int kBlocks = Rows<W>::kBlocks;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (qa::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + C::kDOOff;
+  unsigned char* Ks = smem + C::kKOff;
+  unsigned char* Vs = smem + C::kVOff;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kStages;
 
+  const int hq = blockIdx.x / C::kSplits, b = blockIdx.y;
+  const int col0 = blockIdx.x % C::kSplits * kOD;  // this CTA's first dQ column
   // Under the causal mask the last Q blocks see the most KV tiles: run them first.
-  const int mb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int hq = blockIdx.y, b = blockIdx.z;
+  const int mb = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int hk = hq / (Hq / Hkv);
-  const int q0 = mb * kBQ2;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = mb * C::kBM;
+  const int bh_q = b * Hq + hq, bh_k = b * Hkv + hk;
+  const int kv_end = causal ? min(Skv, q0 + C::kBM) : Skv;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+
+  // Thread 0 loads tile i into stage i % kStages once the consumers have
+  // released the tile that used it before.
+  auto load_tile = [&](int i) {
+    const int s = i % kStages;
+    qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+    qa::mbar_expect_tx(&full[s], 2 * kBlocks * kBN * 128);
+    for (int c = 0; c < kBlocks; ++c) {
+      qa::tma_load_3d(Ks + s * C::kKBytes + c * kBN * 128, &tm_k, &full[s], c * 64, i * kBN, bh_k);
+      qa::tma_load_3d(Vs + s * C::kKBytes + c * kBN * 128, &tm_v, &full[s], c * 64, i * kBN, bh_k);
+    }
+    qa::mbar_arrive(&full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    qa::mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      qa::mbar_init(&full[s], 1);
+      qa::mbar_init(&empty[s], C::kThreads);
+    }
+    qa::mbar_init_fence();
+    qa::tma_prefetch(&tm_q);
+    qa::tma_prefetch(&tm_k);
+    qa::tma_prefetch(&tm_v);
+    qa::tma_prefetch(&tm_do);
+    qa::mbar_expect_tx(full_q, 2 * C::kConsumers * kBlocks * 64 * 128);
+    for (int w = 0; w < C::kConsumers; ++w) {
+      for (int c = 0; c < kBlocks; ++c) {
+        const int off = (w * kBlocks + c) * 64 * 128;
+        qa::tma_load_3d(Qs + off, &tm_q, full_q, c * 64, q0 + 64 * w, bh_q);
+        qa::tma_load_3d(dOs + off, &tm_do, full_q, c * 64, q0 + 64 * w, bh_q);
+      }
+    }
+    qa::mbar_arrive(full_q);
+    for (int i = 0; i < min(kAhead, ntiles); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  // Consumer warpgroup cw: Q rows q0 + 64 cw .. + 63; this thread's rows
+  // row0 and row1 (the accumulator layout of hopper.cuh).
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const size_t q_base = static_cast<size_t>(b * Hq + hq) * Sq * D;
-  const size_t kv_base = static_cast<size_t>(b * Hkv + hk) * Skv * D;
-  const size_t r_base = static_cast<size_t>(b * Hq + hq) * Sq;
+  const int r_base = q0 + 64 * cw;
+  const int row0 = r_base + warp * 16 + g, row1 = row0 + 8;
+  const size_t rb = static_cast<size_t>(bh_q) * Sq;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 st0 = row0 < Sq ? stats[static_cast<size_t>(bh_q) * Sq_pad + row0] : zero4;
+  const float4 st1 = row1 < Sq ? stats[static_cast<size_t>(bh_q) * Sq_pad + row1] : zero4;
+  // Warpgroup-uniform tile classes: this warpgroup's rows are p_lo .. p_hi.
+  const bool active = r_base < Sq;
+  const int p_lo = r_base, p_hi = min(r_base + 63, Sq - 1);
+  const uint32_t q_addr = qa::smem_addr(Qs + cw * kBlocks * 64 * 128);
+  const uint32_t do_addr = qa::smem_addr(dOs + cw * kBlocks * 64 * 128);
 
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  float m0, li0, d0, m1, li1, d1;
-  row_stats(m, l, delta, r_base, row0, Sq, m0, li0, d0);
-  row_stats(m, l, delta, r_base, row1, Sq, m1, li1, d1);
-
-  qa::load_tile<kBQ2, D, kThreads, kPad>(Qs, q, code, q_base, q0, Sq);
-  qa::load_tile<kBQ2, D, kThreads, kPad>(dOs, dout, code, q_base, q0, Sq);
-  const __nv_bfloat16* Qw = Qs + warp * 16 * kStride;
-  const __nv_bfloat16* dOw = dOs + warp * 16 * kStride;
-
-  float acc[kDT][4];
+  float acc[kOD / 2];
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < kOD / 2; ++i) acc[i] = 0.f;
 
-  const int kv_end = causal ? min(Skv, q0 + kBQ2) : Skv;
-  for (int n0 = 0; n0 < kv_end; n0 += kBN2) {
-    __syncthreads();  // the previous tile is no longer read
-    qa::load_tile<kBN2, D, kThreads, kPad>(Ks, k, code, kv_base, n0, Skv);
-    qa::load_tile<kBN2, D, kThreads, kPad>(Vs, v, code, kv_base, n0, Skv);
-    __syncthreads();
-
-    // S = Q.K^T and dP = dO.V^T: 16 rows x 64 columns per warp.
-    float s[kNT][4], dp[kNT][4];
+  qa::mbar_wait(full_q, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages;
+    const int n0 = i * kBN;
+    const bool skip = !active || (causal && n0 > p_hi);
+    const bool unmasked = (!causal || n0 + kBN - 1 <= p_lo) && n0 + kBN <= Skv;
+    qa::mbar_wait(&full[s], (i / kStages) & 1);
+    if (!skip) {
+      const uint32_t k_addr = qa::smem_addr(Ks + s * C::kKBytes);
+      const uint32_t v_addr = qa::smem_addr(Vs + s * C::kKBytes);
+      float sc[kBN / 2], dp[kBN / 2];
+      score_products<kBN, T, W>(sc, dp, q_addr, k_addr, do_addr, v_addr);
+      // P from the saved (m, l), then dS = P o (dP - D), kept in sc.
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
+      for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a_frag(aq, Qw, kStride, kk, g, t);
-      load_a_frag(ado, dOw, kStride, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        uint32_t b0, b1;
-        load_b_nt(b0, b1, Ks, kStride, j, kk, g, t);
-        mma_bf16(s[j], aq, b0, b1);
-        load_b_nt(b0, b1, Vs, kStride, j, kk, g, t);
-        mma_bf16(dp[j], ado, b0, b1);
+        for (int e = 0; e < 2; ++e) {
+          float p0 = exp2f(sc[4 * j + e] * score_scale - st0.x) * st0.y;
+          float p1 = exp2f(sc[4 * j + 2 + e] * score_scale - st1.x) * st1.y;
+          if (!unmasked) {
+            const int col = n0 + j * 8 + t * 2 + e;
+            const bool in = col < Skv;
+            p0 = in && (!causal || col <= row0) && st0.y != 0.f ? p0 : 0.f;
+            p1 = in && (!causal || col <= row1) && st1.y != 0.f ? p1 : 0.f;
+          }
+          sc[4 * j + e] = p0 * (dp[4 * j + e] - st0.z);
+          sc[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - st1.z);
+        }
       }
+      // dQ += dS.K: dS packed is the A operand.
+      uint32_t pa[kBN / 16][4];
+      pack_a<kBN, T>(pa, sc);
+      qa::fence_regs(pa);
+      qa::fence_regs(acc);
+      qa::wgmma_fence();
+      rs_product<kOD, T, kBN>(acc, pa, k_addr + col0 / 64 * kBN * 128);
+      qa::wgmma_commit();
+      qa::wgmma_wait<0>();
+      qa::fence_regs(acc);
     }
-
-    // P from the saved (m, l), then dS = P o (dP - D), kept in s.
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + j * 8 + t * 2 + e;
-        const bool in = col < Skv;
-        const float p0 = in && (!causal || col <= row0) && li0 != 0.f
-            ? exp2f(s[j][e] * score_scale - m0) * li0 : 0.f;
-        const float p1 = in && (!causal || col <= row1) && li1 != 0.f
-            ? exp2f(s[j][2 + e] * score_scale - m1) * li1 : 0.f;
-        s[j][e] = p0 * (dp[j][e] - d0);
-        s[j][2 + e] = p1 * (dp[j][2 + e] - d1);
-      }
-    }
-
-    // dQ += dS.K: the dS accumulators of tiles 2kk, 2kk+1 are the A operand.
-#pragma unroll
-    for (int kk = 0; kk < kBN2 / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        uint32_t b0, b1;
-        load_b_nn(b0, b1, Ks, kStride, j, kk, g, t);
-        mma_bf16(acc[j], a, b0, b1);
-      }
-    }
+    qa::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && i + kAhead < ntiles) load_tile(i + kAhead);
+    __syncwarp();
   }
 
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    const int c = j * 8 + t * 2;
-    if (row0 < Sq)
-      store2(dq, code, q_base + static_cast<size_t>(row0) * D + c, acc[j][0] * sm_scale,
-             acc[j][1] * sm_scale);
-    if (row1 < Sq)
-      store2(dq, code, q_base + static_cast<size_t>(row1) * D + c, acc[j][2] * sm_scale,
-             acc[j][3] * sm_scale);
+  for (int j = 0; j < kOD / 8; ++j) {
+    const int c = col0 + j * 8 + t * 2;
+    if (c >= D) continue;
+    if (row0 < Sq) store2<T>(dq, (rb + row0) * D + c, acc[4 * j] * sm_scale, acc[4 * j + 1] * sm_scale);
+    if (row1 < Sq) {
+      store2<T>(dq, (rb + row1) * D + c, acc[4 * j + 2] * sm_scale, acc[4 * j + 3] * sm_scale);
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                     const void* __restrict__ v, const void* __restrict__ dout,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ delta, void* __restrict__ dk,
-                     void* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv, int code,
-                     int causal, float score_scale, float sm_scale) {
-  constexpr int kStride = D + kPad;
-  constexpr int kNT = kBQ3 / 8;                // 8-column tiles of S^T per Q tile
-  constexpr int kDT = D / kDkvSplits<D> / 8;  // 8-column dK / dV tiles this CTA owns
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kBN3 * kStride;
-  __nv_bfloat16* Qs = Vs + kBN3 * kStride;
-  __nv_bfloat16* dOs = Qs + kBQ3 * kStride;
-  float* m_s = reinterpret_cast<float*>(dOs + kBQ3 * kStride);
-  float* li_s = m_s + kBQ3;
-  float* d_s = li_s + kBQ3;
+// K3. Maps as K2's; stats as K2's; dk, dv (B, Hkv, Skv, D) of T. Launched
+// in clusters of (c, 1, 1) CTAs along x = hk * c + rank; each CTA covers the
+// q heads hk * G + rank * heads + 0 .. heads - 1 (G = c * heads).
+template <int W, int T>
+__global__ void __launch_bounds__(DkvCfg<W>::kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const float4* __restrict__ stats, void* __restrict__ dk, void* __restrict__ dv,
+                     int Hq, int Hkv, int Sq, int Sq_pad, int Skv, int D, int causal,
+                     float score_scale, float sm_scale, int heads) {
+  using C = DkvCfg<W>;
+  constexpr int kBQ = C::kBQ, kOD = C::kOD;
+  constexpr int kBlocks = Rows<W>::kBlocks;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (qa::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + C::kVOff;
+  unsigned char* Qs = smem + C::kQOff;
+  unsigned char* dOs = smem + C::kDOOff;
+  unsigned char* Ss = smem + C::kStatOff;
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kStages;
 
-  const int nb = blockIdx.x / kDkvSplits<D>, hk = blockIdx.y, b = blockIdx.z;
-  const int jt0 = (blockIdx.x % kDkvSplits<D>) * kDT;  // this CTA's first output tile
-  const int group = Hq / Hkv;
-  const int n0 = nb * kBN3;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const size_t kv_base = static_cast<size_t>(b * Hkv + hk) * Skv * D;
-  const int kv0 = n0 + warp * 16 + g, kv1 = kv0 + 8;  // this thread's two KV rows
-
-  qa::load_tile<kBN3, D, kThreads, kPad>(Ks, k, code, kv_base, n0, Skv);
-  qa::load_tile<kBN3, D, kThreads, kPad>(Vs, v, code, kv_base, n0, Skv);
-  const __nv_bfloat16* Kw = Ks + warp * 16 * kStride;
-  const __nv_bfloat16* Vw = Vs + warp * 16 * kStride;
-
-  float dk_acc[kDT][4], dv_acc[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  }
-
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int hk = blockIdx.x / ranks, b = blockIdx.z;
+  const int nb = blockIdx.y / C::kSplits;  // the heaviest causal KV blocks come first
+  const int col0 = blockIdx.y % C::kSplits * kOD;
+  const int h_first = hk * (Hq / Hkv) + rank * heads;
+  const int n0 = nb * C::kBM;
+  const int bh_k = b * Hkv + hk;
   // Top-left causal: Q rows above n0 see none of this block's columns.
-  const int q_begin = causal ? (n0 / kBQ3) * kBQ3 : 0;
-  for (int h = 0; h < group; ++h) {
-    const int hq = hk * group + h;
-    const size_t q_base = static_cast<size_t>(b * Hq + hq) * Sq * D;
-    const size_t r_base = static_cast<size_t>(b * Hq + hq) * Sq;
-    for (int q0 = q_begin; q0 < Sq; q0 += kBQ3) {
-      __syncthreads();  // the previous Q tile is no longer read
-      qa::load_tile<kBQ3, D, kThreads, kPad>(Qs, q, code, q_base, q0, Sq);
-      qa::load_tile<kBQ3, D, kThreads, kPad>(dOs, dout, code, q_base, q0, Sq);
-      for (int i = threadIdx.x; i < kBQ3; i += kThreads)
-        row_stats(m, l, delta, r_base, q0 + i, Sq, m_s[i], li_s[i], d_s[i]);
-      __syncthreads();
+  const int q_begin = causal ? n0 / kBQ * kBQ : 0;
+  const int nq = Sq > q_begin ? (Sq - q_begin + kBQ - 1) / kBQ : 0;
+  const int ntiles = heads * nq;
 
-      // S^T = K.Q^T and dP^T = V.dO^T: 16 KV rows x 32 Q columns per warp.
-      float st[kNT][4], dpt[kNT][4];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a_frag(ak, Kw, kStride, kk, g, t);
-        load_a_frag(av, Vw, kStride, kk, g, t);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          uint32_t b0, b1;
-          load_b_nt(b0, b1, Qs, kStride, j, kk, g, t);
-          mma_bf16(st[j], ak, b0, b1);
-          load_b_nt(b0, b1, dOs, kStride, j, kk, g, t);
-          mma_bf16(dpt[j], av, b0, b1);
-        }
-      }
+  // Thread 0 loads tile i (q head h_first + i / nq, Q rows from
+  // q_begin + (i % nq) * kBQ) with its rows' statistics.
+  auto load_tile = [&](int i) {
+    const int s = i % kStages;
+    const int bh_q = b * Hq + h_first + i / nq;
+    const int q0 = q_begin + i % nq * kBQ;
+    qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+    qa::mbar_expect_tx(&full[s], 2 * kBlocks * kBQ * 128 + C::kStatBytes);
+    for (int c = 0; c < kBlocks; ++c) {
+      qa::tma_load_3d(Qs + s * C::kQBytes + c * kBQ * 128, &tm_q, &full[s], c * 64, q0, bh_q);
+      qa::tma_load_3d(dOs + s * C::kQBytes + c * kBQ * 128, &tm_do, &full[s], c * 64, q0, bh_q);
+    }
+    qa::bulk_load(Ss + s * C::kStatBytes, stats + static_cast<size_t>(bh_q) * Sq_pad + q0,
+                  C::kStatBytes, &full[s]);
+    qa::mbar_arrive(&full[s]);
+  };
 
+  if (threadIdx.x == 0) {
+    qa::mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      qa::mbar_init(&full[s], 1);
+      qa::mbar_init(&empty[s], C::kThreads);
+    }
+    qa::mbar_init_fence();
+    qa::tma_prefetch(&tm_q);
+    qa::tma_prefetch(&tm_k);
+    qa::tma_prefetch(&tm_v);
+    qa::tma_prefetch(&tm_do);
+    qa::mbar_expect_tx(full_kv, 2 * C::kConsumers * kBlocks * 64 * 128);
+    for (int w = 0; w < C::kConsumers; ++w) {
+      for (int c = 0; c < kBlocks; ++c) {
+        const int off = (w * kBlocks + c) * 64 * 128;
+        qa::tma_load_3d(Ks + off, &tm_k, full_kv, c * 64, n0 + 64 * w, bh_k);
+        qa::tma_load_3d(Vs + off, &tm_v, full_kv, c * 64, n0 + 64 * w, bh_k);
+      }
+    }
+    qa::mbar_arrive(full_kv);
+    for (int i = 0; i < min(kAhead, ntiles); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  // Consumer warpgroup cw: KV rows n0 + 64 cw .. + 63; this thread's rows
+  // kv0 and kv1. Columns of its accumulators are Q rows of the tile.
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k_lo = n0 + 64 * cw;
+  const int kv0 = k_lo + warp * 16 + g, kv1 = kv0 + 8;
+  const bool active = k_lo < Skv;
+  const uint32_t k_addr = qa::smem_addr(Ks + cw * kBlocks * 64 * 128);
+  const uint32_t v_addr = qa::smem_addr(Vs + cw * kBlocks * 64 * 128);
+
+  float dk_acc[kOD / 2], dv_acc[kOD / 2];
+#pragma unroll
+  for (int i = 0; i < kOD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  qa::mbar_wait(full_kv, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages;
+    const int q0 = q_begin + i % nq * kBQ;
+    // Warpgroup-uniform classes: every (kv, q) of the tile masked, or none.
+    const bool skip = !active || (causal && q0 + kBQ - 1 < k_lo);
+    const bool unmasked = (!causal || q0 >= k_lo + 63) && k_lo + 64 <= Skv && q0 + kBQ <= Sq;
+    qa::mbar_wait(&full[s], (i / kStages) & 1);
+    if (!skip) {
+      const uint32_t qt_addr = qa::smem_addr(Qs + s * C::kQBytes);
+      const uint32_t dot_addr = qa::smem_addr(dOs + s * C::kQBytes);
+      const float4* qst = reinterpret_cast<const float4*>(Ss + s * C::kStatBytes);
+      float st[kBQ / 2], dpt[kBQ / 2];
+      score_products<kBQ, T, W>(st, dpt, k_addr, qt_addr, v_addr, dot_addr);
       // P^T (kept in st) and dS^T = P^T o (dP^T - D) (kept in dpt).
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
+      for (int j = 0; j < kBQ / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int cl = j * 8 + t * 2 + e;
-          const int qc = q0 + cl;
-          const float mq = m_s[cl], liq = li_s[cl], dq_ = d_s[cl];
-          const bool qin = liq != 0.f;  // zero for padded Q rows
-          const float p0 = qin && kv0 < Skv && (!causal || kv0 <= qc)
-              ? exp2f(st[j][e] * score_scale - mq) * liq : 0.f;
-          const float p1 = qin && kv1 < Skv && (!causal || kv1 <= qc)
-              ? exp2f(st[j][2 + e] * score_scale - mq) * liq : 0.f;
-          st[j][e] = p0;
-          st[j][2 + e] = p1;
-          dpt[j][e] = p0 * (dpt[j][e] - dq_);
-          dpt[j][2 + e] = p1 * (dpt[j][2 + e] - dq_);
+          const float4 sq = qst[cl];
+          float p0 = exp2f(st[4 * j + e] * score_scale - sq.x) * sq.y;
+          float p1 = exp2f(st[4 * j + 2 + e] * score_scale - sq.x) * sq.y;
+          if (!unmasked) {
+            const int qc = q0 + cl;
+            p0 = sq.y != 0.f && kv0 < Skv && (!causal || kv0 <= qc) ? p0 : 0.f;
+            p1 = sq.y != 0.f && kv1 < Skv && (!causal || kv1 <= qc) ? p1 : 0.f;
+          }
+          st[4 * j + e] = p0;
+          st[4 * j + 2 + e] = p1;
+          dpt[4 * j + e] = p0 * (dpt[4 * j + e] - sq.z);
+          dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - sq.z);
         }
       }
-
-      // dV += P^T.dO and dK += dS^T.Q (the depth is the 32 Q rows).
-#pragma unroll
-      for (int kk = 0; kk < kBQ3 / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < kDT; ++j) {
-          uint32_t b0, b1;
-          load_b_nn(b0, b1, dOs, kStride, jt0 + j, kk, g, t);
-          mma_bf16(dv_acc[j], pa, b0, b1);
-          load_b_nn(b0, b1, Qs, kStride, jt0 + j, kk, g, t);
-          mma_bf16(dk_acc[j], sa, b0, b1);
-        }
-      }
+      uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+      pack_a<kBQ, T>(pa, st);
+      pack_a<kBQ, T>(sa, dpt);
+      qa::fence_regs(pa);
+      qa::fence_regs(sa);
+      qa::fence_regs(dv_acc);
+      qa::fence_regs(dk_acc);
+      qa::wgmma_fence();
+      rs_product<kOD, T, kBQ>(dv_acc, pa, dot_addr + col0 / 64 * kBQ * 128);
+      rs_product<kOD, T, kBQ>(dk_acc, sa, qt_addr + col0 / 64 * kBQ * 128);
+      qa::wgmma_commit();
+      qa::wgmma_wait<0>();
+      qa::fence_regs(dv_acc);
+      qa::fence_regs(dk_acc);
     }
+    qa::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && i + kAhead < ntiles) load_tile(i + kAhead);
+    __syncwarp();
   }
 
+  // Every consumer is past its last product: the tiles' shared memory
+  // takes this CTA's fp32 dK (times sm_scale) and dV rows.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  const int r0 = 64 * cw + warp * 16 + g;
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    const int c = (jt0 + j) * 8 + t * 2;
-    if (kv0 < Skv) {
-      const size_t idx = kv_base + static_cast<size_t>(kv0) * D + c;
-      store2(dk, code, idx, dk_acc[j][0] * sm_scale, dk_acc[j][1] * sm_scale);
-      store2(dv, code, idx, dv_acc[j][0], dv_acc[j][1]);
-    }
-    if (kv1 < Skv) {
-      const size_t idx = kv_base + static_cast<size_t>(kv1) * D + c;
-      store2(dk, code, idx, dk_acc[j][2] * sm_scale, dk_acc[j][3] * sm_scale);
-      store2(dv, code, idx, dv_acc[j][2], dv_acc[j][3]);
-    }
+  for (int j = 0; j < kOD / 8; ++j) {
+    const int c = j * 8 + t * 2;
+    *reinterpret_cast<float2*>(red + r0 * C::kRedStride + c) =
+        make_float2(dk_acc[4 * j] * sm_scale, dk_acc[4 * j + 1] * sm_scale);
+    *reinterpret_cast<float2*>(red + (r0 + 8) * C::kRedStride + c) =
+        make_float2(dk_acc[4 * j + 2] * sm_scale, dk_acc[4 * j + 3] * sm_scale);
+    *reinterpret_cast<float2*>(red + (C::kBM + r0) * C::kRedStride + c) =
+        make_float2(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(red + (C::kBM + r0 + 8) * C::kRedStride + c) =
+        make_float2(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
   }
+
+  // The group sum: after the cluster barrier every rank's rows are in its
+  // shared memory; rank r sums its share of the rows over ranks 0, 1, ...
+  // in order and stores them. The second barrier keeps each CTA's shared
+  // memory alive until its peers have read it.
+  cluster.sync();
+  const int per = (C::kBM + ranks - 1) / ranks;
+  const int r_lo = rank * per, r_hi = min(C::kBM, r_lo + per);
+  const int n_rows = max(0, r_hi - r_lo);
+  constexpr int kC4 = kOD / 4;
+  for (int idx = threadIdx.x; idx < 2 * n_rows * kC4; idx += C::kThreads) {
+    const int which = idx / (n_rows * kC4), rem = idx % (n_rows * kC4);
+    const int row = r_lo + rem / kC4, c4 = rem % kC4;
+    const int grow = n0 + row, col = col0 + 4 * c4;
+    if (grow >= Skv || col >= D) continue;
+    const float* src = red + (which * C::kBM + row) * C::kRedStride + 4 * c4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < ranks; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, r));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const size_t o = (static_cast<size_t>(bh_k) * Skv + grow) * D + col;
+    void* dst = which ? dv : dk;
+    store2<T>(dst, o, sum.x, sum.y);
+    store2<T>(dst, o + 2, sum.z, sum.w);
+  }
+  cluster.sync();
 }
 
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* m,
-              const float* l, const float* delta, void* dq, int B, int Hq, int Hkv, int Sq,
-              int Skv, int code, int causal, float score_scale, float sm_scale,
-              cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  if (int err = set_smem(flash_bwd_dq_kernel<D>, smem)) return err;
-  dim3 grid((Sq + kBQ2 - 1) / kBQ2, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, m, l, delta, dq, Hq, Hkv, Sq, Skv, code, causal, score_scale, sm_scale);
+// The four tensor maps of one launch: Q and dO in boxes of q_rows rows,
+// K and V in boxes of kv_rows.
+cudaError_t encode_maps(CUtensorMap (&tm)[4], const void* q, const void* k, const void* v,
+                        const void* dout, int code, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                        int q_rows, int kv_rows) {
+  cudaError_t err = qa::encode_tensor_map(&tm[0], q, code, D, Sq, B * Hq, 64, q_rows, 128);
+  if (err == cudaSuccess) err = qa::encode_tensor_map(&tm[1], k, code, D, Skv, B * Hkv, 64, kv_rows, 128);
+  if (err == cudaSuccess) err = qa::encode_tensor_map(&tm[2], v, code, D, Skv, B * Hkv, 64, kv_rows, 128);
+  if (err == cudaSuccess) err = qa::encode_tensor_map(&tm[3], dout, code, D, Sq, B * Hq, 64, q_rows, 128);
+  return err;
+}
+
+// Arguments shared by both kernels' launches.
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float4* stats;
+  int B, Hq, Hkv, Sq, Sq_pad, Skv, D, causal;
+  float score_scale, sm_scale;
+  cudaStream_t stream;
+};
+
+template <int W, int T>
+int launch_dq(const Args& a, void* dq) {
+  using C = DqCfg<W>;
+  CUtensorMap tm[4];
+  cudaError_t err = encode_maps(tm, a.q, a.k, a.v, a.dout, T, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.D,
+                                64, C::kBN);
+  if (err == cudaSuccess) err = set_smem(flash_bwd_dq_kernel<W, T>, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(a.Hq * C::kSplits, a.B, (a.Sq + C::kBM - 1) / C::kBM);
+  flash_bwd_dq_kernel<W, T><<<grid, C::kThreads, C::kSmem, a.stream>>>(
+      tm[0], tm[1], tm[2], tm[3], a.stats, dq, a.Hq, a.Hkv, a.Sq, a.Sq_pad, a.Skv, a.D, a.causal,
+      a.score_scale, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* m,
-               const float* l, const float* delta, void* dk, void* dv, int B, int Hq, int Hkv,
-               int Sq, int Skv, int code, int causal, float score_scale, float sm_scale,
-               cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  if (int err = set_smem(flash_bwd_dkv_kernel<D>, smem)) return err;
-  dim3 grid((Skv + kBN3 - 1) / kBN3 * kDkvSplits<D>, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, m, l, delta, dk, dv, Hq, Hkv, Sq, Skv, code, causal, score_scale,
-      sm_scale);
+// CTAs per cluster of K3: the largest divisor of the group G up to the
+// portable cluster size 8.
+int dkv_cluster(int G) {
+  for (int c = G < 8 ? G : 8; c > 1; --c) {
+    if (G % c == 0) return c;
+  }
+  return 1;
+}
+
+template <int W, int T>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  using C = DkvCfg<W>;
+  CUtensorMap tm[4];
+  cudaError_t err = encode_maps(tm, a.q, a.k, a.v, a.dout, T, a.B, a.Hq, a.Hkv, a.Sq, a.Skv, a.D,
+                                C::kBQ, 64);
+  if (err == cudaSuccess) err = set_smem(flash_bwd_dkv_kernel<W, T>, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = a.Hq / a.Hkv;
+  const int ranks = dkv_cluster(G);
+  cudaLaunchConfig_t launch = {};
+  launch.gridDim = dim3(a.Hkv * ranks, (a.Skv + C::kBM - 1) / C::kBM * C::kSplits, a.B);
+  launch.blockDim = dim3(C::kThreads, 1, 1);
+  launch.dynamicSmemBytes = C::kSmem;
+  launch.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  launch.attrs = attr;
+  launch.numAttrs = 1;
+  err = cudaLaunchKernelEx(&launch, flash_bwd_dkv_kernel<W, T>, tm[0], tm[1], tm[2], tm[3],
+                           a.stats, dk, dv, a.Hq, a.Hkv, a.Sq, a.Sq_pad, a.Skv, a.D, a.causal,
+                           a.score_scale, a.sm_scale, G / ranks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_dq_t(int code, const Args& a, void* dq) {
+  return code == qa::kF16 ? launch_dq<W, qa::kF16>(a, dq) : launch_dq<W, qa::kBF16>(a, dq);
+}
+
+template <int W>
+int launch_dkv_t(int code, const Args& a, void* dk, void* dv) {
+  return code == qa::kF16 ? launch_dkv<W, qa::kF16>(a, dk, dv)
+                          : launch_dkv<W, qa::kBF16>(a, dk, dv);
+}
+
+bool bad_args(int code, int D, int Hq, int Hkv, int Sq, int Sq_pad) {
+  return (code != qa::kBF16 && code != qa::kF16) || qa::kernel_width(D) == 0 || Hkv <= 0 ||
+         Hq % Hkv != 0 || Sq_pad < Sq || Sq_pad % 64 != 0;
 }
 
 }  // namespace
 
 // Shared by both entries: q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D)
 // contiguous, 16-byte aligned, all of element type `code` (bf16 or fp16);
-// m, l, delta (B, Hq, Sq) fp32; score_scale = sm_scale * log2(e), the fold
-// under which m and l were saved. D is 64, 128 or 256.
+// stats (B, Hq, Sq_pad, 4) fp32 rows (m, 1/l, D, 0) of each Q row, zero
+// past Sq, Sq_pad a multiple of 64 at least Sq: the forward's residuals in
+// the exp2 domain of score_scale = sm_scale * log2(e), 1/l = 0 where l = 0,
+// and D = rowsum(dO o O). D (the head dim) is a multiple of 8 up to 512.
 extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const void* m, const void* l, const void* delta, void* dq,
-                               int B, int Hq, int Hkv, int Sq, int Skv, int D, int code,
-                               int causal, float score_scale, float sm_scale, void* stream) {
-  const float* mf = static_cast<const float*>(m);
-  const float* lf = static_cast<const float*>(l);
-  const float* df = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                               const void* stats, void* dq, int B, int Hq, int Hkv, int Sq,
+                               int Sq_pad, int Skv, int D, int code, int causal, float score_scale,
+                               float sm_scale, void* stream) {
   if (Sq == 0 || B == 0) return 0;
-  switch (D) {
+  if (bad_args(code, D, Hq, Hkv, Sq, Sq_pad) || Skv <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{q, k, v, dout, static_cast<const float4*>(stats), B, Hq, Hkv, Sq, Sq_pad, Skv, D,
+               causal, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
+  switch (qa::kernel_width(D)) {
     case 64:
-      return launch_dq<64>(q, k, v, dout, mf, lf, df, dq, B, Hq, Hkv, Sq, Skv, code, causal,
-                           score_scale, sm_scale, s);
+      return launch_dq_t<64>(code, a, dq);
     case 128:
-      return launch_dq<128>(q, k, v, dout, mf, lf, df, dq, B, Hq, Hkv, Sq, Skv, code, causal,
-                            score_scale, sm_scale, s);
+      return launch_dq_t<128>(code, a, dq);
     case 256:
-      return launch_dq<256>(q, k, v, dout, mf, lf, df, dq, B, Hq, Hkv, Sq, Skv, code, causal,
-                            score_scale, sm_scale, s);
+      return launch_dq_t<256>(code, a, dq);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_dq_t<512>(code, a, dq);
   }
 }
 
 extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                const void* m, const void* l, const void* delta, void* dk,
-                                void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                                int code, int causal, float score_scale, float sm_scale,
-                                void* stream) {
-  const float* mf = static_cast<const float*>(m);
-  const float* lf = static_cast<const float*>(l);
-  const float* df = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                const void* stats, void* dk, void* dv, int B, int Hq, int Hkv,
+                                int Sq, int Sq_pad, int Skv, int D, int code, int causal,
+                                float score_scale, float sm_scale, void* stream) {
   if (Skv == 0 || B == 0) return 0;
-  switch (D) {
+  if (bad_args(code, D, Hq, Hkv, Sq, Sq_pad)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, dout, static_cast<const float4*>(stats), B, Hq, Hkv, Sq, Sq_pad, Skv, D,
+               causal, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
+  switch (qa::kernel_width(D)) {
     case 64:
-      return launch_dkv<64>(q, k, v, dout, mf, lf, df, dk, dv, B, Hq, Hkv, Sq, Skv, code,
-                            causal, score_scale, sm_scale, s);
+      return launch_dkv_t<64>(code, a, dk, dv);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, mf, lf, df, dk, dv, B, Hq, Hkv, Sq, Skv, code,
-                             causal, score_scale, sm_scale, s);
+      return launch_dkv_t<128>(code, a, dk, dv);
     case 256:
-      return launch_dkv<256>(q, k, v, dout, mf, lf, df, dk, dv, B, Hq, Hkv, Sq, Skv, code,
-                             causal, score_scale, sm_scale, s);
+      return launch_dkv_t<256>(code, a, dk, dv);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_dkv_t<512>(code, a, dk, dv);
   }
 }

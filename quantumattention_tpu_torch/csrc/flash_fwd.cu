@@ -38,7 +38,26 @@
 //    shared memory by the producer warpgroup, in the same swizzled layout;
 //  - token-wise column scales come into shared memory with their tile, by
 //    plain loads of the producer warpgroup (a (B * H, Skv) fp32 row is not
-//    16-byte aligned for a bulk copy).
+//    16-byte aligned for a bulk copy);
+//  - head dims: any multiple of 8 up to 512, as the JAX package takes. The
+//    kernel is instantiated at widths 64, 128, 256 and 512 (qa::kernel_width
+//    rounds D up). The tensor maps' inner extent is D itself and the boxes
+//    keep the instantiated width, so TMA writes zeros into the columns past
+//    D (a box wholly past D reads as zeros too): they change neither Q.K^T
+//    nor P.V, and stores write the D real columns only. Both products run
+//    over the whole instantiated width, so they waste (W - D) / W of their
+//    work (D = 72 or 96 at W = 128: 44% or 25%; D = 160 at 256: 38%): a
+//    depth cut at D between wgmma instructions made this kernel 29% slower
+//    at D = 128 on the H100 (0.0686 against 0.0532 ms at B = 1, Hq = 32,
+//    S = 1536, fp8 head-wise, causal), as it made ptxas serialise K2/K3's. At
+//    W = 512 one CTA's 64 x 512 fp32 accumulator would need 256 registers
+//    a thread: two CTAs share each Q block, each computing Q.K^T and the
+//    softmax over the full D and P.V for its 256 output columns (one
+//    consumer warpgroup: Q 64 KB, K 32 KB and V's half 16 KB a stage). That
+//    doubles the Q.K^T work at those widths; D = 320 wastes 37.5% of P.V
+//    besides. A tensor map's row stride must be a multiple of 16 bytes, so
+//    8-bit Q/K of D % 16 == 8 come zero-padded to D + 8 from the wrapper
+//    (ops/flash.py).
 // Left for later (ROADMAP queue 2): ping-pong scheduling of the consumers,
 // overlap of one tile's softmax with the next tile's Q.K^T inside a
 // warpgroup, a persistent grid, and fp8 P.V.
@@ -51,33 +70,41 @@ namespace {
 
 constexpr int kStages = 2;
 
-// Tile sizes and the shared-memory layout for head dim D and the element
-// code QK of Q and K.
-template <int D, int QK>
+// Tile sizes and the shared-memory layout for the instantiated width W and
+// the element code QK of Q and K.
+template <int W, int QK>
 struct Cfg {
   static constexpr int kEs = (QK == qa::kBF16 || QK == qa::kF16) ? 2 : 1;
+  static constexpr int kOD = W > 256 ? 256 : W;      // output columns a CTA owns
+  static constexpr int kSplits = W / kOD;            // CTAs sharing a Q block
   // Consumer warpgroups (64 Q rows each) and KV rows per tile, chosen by
-  // measurement on the H100 (PERF.md): three consumers at D = 64 and 128
+  // measurement on the H100 (PERF.md): three consumers at W = 64 and 128
   // (tiles of 64 rows at 128, to fit 160 registers), two at 256, whose
   // 128-float accumulator leaves room for tiles of 32 rows only (64 spill
-  // three times as much).
-  static constexpr int kConsumers = D == 256 ? 2 : 3;
-  static constexpr int kBN = D == 64 ? 128 : D == 128 ? 64 : 32;
+  // three times as much), one at 512 (Q alone is 64 KB a warpgroup).
+  static constexpr int kConsumers = W == 512 ? 1 : W == 256 ? 2 : 3;
+  static constexpr int kBN = W == 64 ? 128 : W == 128 ? 64 : 32;
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  // setmaxnreg: the producer gives its registers to the consumers.
-  static constexpr int kProducerRegs = kConsumers == 2 ? 24 : 32;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
-  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
+  // setmaxnreg: the producer gives its registers to the consumers. ptxas
+  // compiles every warpgroup's code under the launch bound's cap (168
+  // registers at 384 threads, 128 at 512), so the consumers' code never
+  // uses more than that; one consumer (256 threads) has the full 255 and
+  // no need to move registers.
+  static constexpr bool kRealloc = kConsumers > 1;
+  static constexpr int kProducerRegs = kConsumers == 3 ? 32 : 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static_assert(!kRealloc || kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
                 "register file of one SM");
   static constexpr int kBM = 64 * kConsumers;        // Q rows per CTA
-  static constexpr int kRowBytes = D * kEs;          // a Q or K row
+  static constexpr int kRowBytes = W * kEs;          // a Q or K row
   static constexpr int kSpan = kRowBytes < 128 ? kRowBytes : 128;  // swizzle span
   static constexpr int kSwizzle = kSpan == 128 ? qa::kSwizzle128 : qa::kSwizzle64;
   static constexpr int kSpanElems = kSpan / kEs;     // TMA box columns of Q and K
+  static constexpr int kBlocks = kRowBytes / kSpan;  // column blocks of a Q or K row
   static constexpr int kSteps = kRowBytes / 32;      // wgmma depth steps of Q.K^T
   static constexpr int kQBytes = kBM * kRowBytes;
   static constexpr int kKBytes = kBN * kRowBytes;
-  static constexpr int kVBytes = kBN * D * 2;        // V in shared memory is 16-bit
+  static constexpr int kVBytes = kBN * kOD * 2;      // V in shared memory is 16-bit
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKBytes;
   static constexpr int kScaleOff = kVOff + kStages * kVBytes;
@@ -91,10 +118,10 @@ struct Cfg {
 template <int QK>
 using ScoreAcc = typename std::conditional<QK == qa::kI8, int, float>::type;
 
-template <int D, int QK>
-__device__ __forceinline__ void qk_product(ScoreAcc<QK> (&acc)[Cfg<D, QK>::kBN / 2],
+template <int W, int QK>
+__device__ __forceinline__ void qk_product(ScoreAcc<QK> (&acc)[Cfg<W, QK>::kBN / 2],
                                            uint32_t q_addr, uint32_t k_addr) {
-  using C = Cfg<D, QK>;
+  using C = Cfg<W, QK>;
   qa::fence_regs(acc);
   qa::wgmma_fence();
 #pragma unroll
@@ -169,17 +196,18 @@ __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
 // 16-bit V. pv_f16: P.V in fp16 (V is fp16), else bf16. m_out / l_out
 // (B, Hq, Sq) fp32, both or neither: the residuals of the backward (K2/K3),
 // each row's final running max and softmax sum in the exp2 domain of the
-// folded scores (flash.py:586-588).
-template <int D, int QK>
-__global__ void __launch_bounds__(Cfg<D, QK>::kThreads, 1)
+// folded scores (flash.py:586-588). D <= W is the tensors' head dim.
+template <int W, int QK>
+__global__ void __launch_bounds__(Cfg<W, QK>::kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const unsigned char* __restrict__ v8,
                  const float* __restrict__ scale_q, const float* __restrict__ scale_k,
-                 void* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int pv_f16,
+                 void* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int D, int pv_f16,
                  int out_code, int scaling, int causal, float score_scale, int q_offset,
                  float* __restrict__ m_out, float* __restrict__ l_out) {
-  using C = Cfg<D, QK>;
+  using C = Cfg<W, QK>;
   constexpr int kBN = C::kBN;
+  constexpr int kOD = C::kOD;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (qa::smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* Qs = smem;
@@ -191,7 +219,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
 
-  const int hq = blockIdx.x, b = blockIdx.y;
+  const int hq = blockIdx.x / C::kSplits, b = blockIdx.y;
+  const int col0 = blockIdx.x % C::kSplits * kOD;  // this CTA's first output column
   // Under the causal mask the last Q blocks see the most KV tiles: run them first.
   const int mb = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int hk = hq / (Hq / Hkv);
@@ -217,15 +246,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // Producer: every producer thread arrives on each full barrier once a
     // tile (after its share of the column scales or of the widened V);
     // thread 0 adds the TMA bytes first.
-    qa::reg_dealloc<C::kProducerRegs>();
+    if constexpr (C::kRealloc) qa::reg_dealloc<C::kProducerRegs>();
     if (tid == 0) {
       qa::tma_prefetch(&tm_q);
       qa::tma_prefetch(&tm_k);
       if (v8 == nullptr) qa::tma_prefetch(&tm_v);
       qa::mbar_expect_tx(full_q, C::kQBytes);
       for (int w = 0; w < C::kConsumers; ++w) {
-        for (int c = 0; c < C::kRowBytes / C::kSpan; ++c) {
-          qa::tma_load_3d(Qs + (w * (C::kRowBytes / C::kSpan) + c) * 64 * C::kSpan, &tm_q, full_q,
+        for (int c = 0; c < C::kBlocks; ++c) {
+          qa::tma_load_3d(Qs + (w * C::kBlocks + c) * 64 * C::kSpan, &tm_q, full_q,
                           c * C::kSpanElems, q0 + 64 * w, bh_q);
         }
       }
@@ -237,15 +266,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
       if (tid == 0) {
         qa::mbar_expect_tx(&full_k[s], C::kKBytes);
-        for (int c = 0; c < C::kRowBytes / C::kSpan; ++c) {
+        for (int c = 0; c < C::kBlocks; ++c) {
           qa::tma_load_3d(Ks + s * C::kKBytes + c * kBN * C::kSpan, &tm_k, &full_k[s],
                           c * C::kSpanElems, n0, bh_k);
         }
         if (v8 == nullptr) {
           qa::mbar_expect_tx(&full_v[s], C::kVBytes);
-          for (int c = 0; c < D / 64; ++c) {
-            qa::tma_load_3d(Vs + s * C::kVBytes + c * kBN * 128, &tm_v, &full_v[s], c * 64, n0,
-                            bh_k);
+          for (int c = 0; c < kOD / 64; ++c) {
+            qa::tma_load_3d(Vs + s * C::kVBytes + c * kBN * 128, &tm_v, &full_v[s],
+                            col0 + c * 64, n0, bh_k);
           }
         }
       }
@@ -259,14 +288,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       qa::mbar_arrive(&full_k[s]);
       if (v8 != nullptr) {
         // e4m3 V rows to bf16, 8 columns a step, into the swizzled layout
-        // a 128-byte-swizzled TMA box would have; rows past Skv are zeros.
+        // a 128-byte-swizzled TMA box would have; rows past Skv and
+        // columns past D are zeros.
         const unsigned char* v_head = v8 + static_cast<size_t>(bh_k) * Skv * D;
         unsigned char* vt = Vs + s * C::kVBytes;
 #pragma unroll 1
-        for (int idx = tid; idx < kBN * (D / 8); idx += 128) {
-          const int r = idx / (D / 8), c8 = idx % (D / 8);
+        for (int idx = tid; idx < kBN * (kOD / 8); idx += 128) {
+          const int r = idx / (kOD / 8), c8 = idx % (kOD / 8);
+          const int col = col0 + c8 * 8;
           uint4 x = make_uint4(0u, 0u, 0u, 0u);
-          if (n0 + r < Skv) x = qa::load8_bf16(v_head, qa::kE4M3, static_cast<size_t>(n0 + r) * D + c8 * 8);
+          if (n0 + r < Skv && col < D) {
+            x = qa::load8_bf16(v_head, qa::kE4M3, static_cast<size_t>(n0 + r) * D + col);
+          }
           *reinterpret_cast<uint4*>(vt + (c8 / 8) * kBN * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16) = x;
         }
         qa::fence_proxy_async();
@@ -276,7 +309,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   } else {
     // Consumer warpgroup cw: Q rows q0 + 64 cw .. + 63; this thread's rows
     // row0 and row1 (the accumulator layout of hopper.cuh).
-    qa::reg_alloc<C::kConsumerRegs>();
+    if constexpr (C::kRealloc) qa::reg_alloc<C::kConsumerRegs>();
     const int cw = wg - 1;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
@@ -299,9 +332,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const int p_hi = q_offset + min(r_base + 63, Sq - 1);
     const uint32_t q_addr = qa::smem_addr(Qs + cw * 64 * C::kRowBytes);
 
-    float o[D / 2];
+    float o[kOD / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kOD / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
 
     qa::mbar_wait(full_q, 0);
@@ -316,11 +349,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         float sc[kBN / 2];
         if constexpr (QK == qa::kI8) {
           int acc[kBN / 2];
-          qk_product<D, QK>(acc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
+          qk_product<W, QK>(acc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
 #pragma unroll
           for (int j = 0; j < kBN / 2; ++j) sc[j] = static_cast<float>(acc[j]);
         } else {
-          qk_product<D, QK>(sc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
+          qk_product<W, QK>(sc, q_addr, qa::smem_addr(Ks + s * C::kKBytes));
         }
         const float* cs = scaling == 2 ? col_scale + s * kBN : nullptr;
         float mx0, mx1;
@@ -352,7 +385,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         l0 = a0 * l0 + sum0;
         l1 = a1 * l1 + sum1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < kOD / 8; ++j) {
           o[4 * j] *= a0;
           o[4 * j + 1] *= a0;
           o[4 * j + 2] *= a1;
@@ -371,9 +404,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         qa::mbar_wait(&full_v[s], ph);
         const uint32_t v_addr = qa::smem_addr(Vs + s * C::kVBytes);
         if (pv_f16) {
-          pv_product<D, kBN, qa::kF16>(o, pa, v_addr);
+          pv_product<kOD, kBN, qa::kF16>(o, pa, v_addr);
         } else {
-          pv_product<D, kBN, qa::kBF16>(o, pa, v_addr);
+          pv_product<kOD, kBN, qa::kBF16>(o, pa, v_addr);
         }
       } else {
         qa::mbar_wait(&full_v[s], ph);
@@ -381,7 +414,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       qa::mbar_arrive(&empty[s]);
     }
 
-    // Epilogue: full row sums, normalise, store; padded Q rows are never stored.
+    // Epilogue: full row sums, normalise, store; padded Q rows and columns
+    // past D are never stored, and the residuals by the first split only.
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -390,7 +424,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
     const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
     const size_t rb = static_cast<size_t>(bh_q) * Sq;
-    if (m_out != nullptr && t == 0) {  // the four lanes of a row hold equal m, l
+    if (m_out != nullptr && t == 0 && col0 == 0) {  // the four lanes of a row hold equal m, l
       if (row0 < Sq) {
         m_out[rb + row0] = m0;
         l_out[rb + row0] = l0;
@@ -401,8 +435,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       }
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = j * 8 + t * 2;
+    for (int j = 0; j < kOD / 8; ++j) {
+      const int c = col0 + j * 8 + t * 2;
+      if (c >= D) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = half ? row1 : row0;
@@ -423,97 +458,51 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-CUtensorMapDataType map_type(int code) {
-  switch (code) {
-    case qa::kBF16:
-      return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    case qa::kF16:
-      return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-    default:
-      return CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  }
-}
-
-// A (B * H, S, D) tensor as a 3-D map over (D, S, B * H) with boxes of
-// `cols` x `rows` x 1.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int code, int D, int S, int BH, int cols,
-                   int rows, int span) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const int es = code == qa::kBF16 || code == qa::kF16 ? 2 : 1;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * es,
-                                 static_cast<cuuint64_t>(S) * D * es};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, map_type(code), 3, const_cast<void*>(ptr), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <int D, int QK>
+template <int W, int QK>
 int launch(const void* q, const void* k, const void* v, const float* sq, const float* sk,
-           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int v_code, int out_code,
+           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D, int v_code, int out_code,
            int scaling, int causal, float score_scale, int q_offset, float* m_out, float* l_out,
            cudaStream_t stream) {
-  using C = Cfg<D, QK>;
+  using C = Cfg<W, QK>;
   CUtensorMap tm_q, tm_k, tm_v = {};
-  cudaError_t err = encode(&tm_q, q, QK, D, Sq, B * Hq, C::kSpanElems, 64, C::kSpan);
-  if (err == cudaSuccess) err = encode(&tm_k, k, QK, D, Skv, B * Hkv, C::kSpanElems, C::kBN, C::kSpan);
+  cudaError_t err =
+      qa::encode_tensor_map(&tm_q, q, QK, D, Sq, B * Hq, C::kSpanElems, 64, C::kSpan);
+  if (err == cudaSuccess) {
+    err = qa::encode_tensor_map(&tm_k, k, QK, D, Skv, B * Hkv, C::kSpanElems, C::kBN, C::kSpan);
+  }
   const bool v_e4m3 = v_code == qa::kE4M3;
-  if (err == cudaSuccess && !v_e4m3) err = encode(&tm_v, v, v_code, D, Skv, B * Hkv, 64, C::kBN, 128);
+  if (err == cudaSuccess && !v_e4m3) {
+    err = qa::encode_tensor_map(&tm_v, v, v_code, D, Skv, B * Hkv, 64, C::kBN, 128);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_fwd_kernel<D, QK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_fwd_kernel<W, QK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Hq, B, (Sq + C::kBM - 1) / C::kBM);
-  flash_fwd_kernel<D, QK><<<grid, C::kThreads, C::kSmem, stream>>>(
+  dim3 grid(Hq * C::kSplits, B, (Sq + C::kBM - 1) / C::kBM);
+  flash_fwd_kernel<W, QK><<<grid, C::kThreads, C::kSmem, stream>>>(
       tm_q, tm_k, tm_v, v_e4m3 ? static_cast<const unsigned char*>(v) : nullptr, sq, sk, out, Hq,
-      Hkv, Sq, Skv, v_code == qa::kF16, out_code, scaling, causal, score_scale, q_offset, m_out,
+      Hkv, Sq, Skv, D, v_code == qa::kF16, out_code, scaling, causal, score_scale, q_offset, m_out,
       l_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_d(int qk_code, const void* q, const void* k, const void* v, const float* sq,
-             const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv, int v_code,
-             int out_code, int scaling, int causal, float score_scale, int q_offset, float* m_out,
-             float* l_out, cudaStream_t stream) {
+template <int W>
+int launch_w(int qk_code, const void* q, const void* k, const void* v, const float* sq,
+             const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+             int v_code, int out_code, int scaling, int causal, float score_scale, int q_offset,
+             float* m_out, float* l_out, cudaStream_t stream) {
   switch (qk_code) {
     case qa::kBF16:
-      return launch<D, qa::kBF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+      return launch<W, qa::kBF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
                                   scaling, causal, score_scale, q_offset, m_out, l_out, stream);
     case qa::kF16:
-      return launch<D, qa::kF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+      return launch<W, qa::kF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
                                  scaling, causal, score_scale, q_offset, m_out, l_out, stream);
     case qa::kE4M3:
-      return launch<D, qa::kE4M3>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+      return launch<W, qa::kE4M3>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
                                   scaling, causal, score_scale, q_offset, m_out, l_out, stream);
     default:
-      return launch<D, qa::kI8>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+      return launch<W, qa::kI8>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
                                 scaling, causal, score_scale, q_offset, m_out, l_out, stream);
   }
 }
@@ -524,7 +513,8 @@ int launch_d(int qk_code, const void* q, const void* k, const void* v, const flo
 // 16-byte aligned; q and k of one element code, v bf16, fp16 or e4m3, out
 // bf16, fp16 or fp32. q_offset >= 0: the global position of q's row 0 (the
 // causal mask is q_offset + i >= j). m_out / l_out: (B, Hq, Sq) fp32
-// residuals, or both null. D is 64, 128 or 256.
+// residuals, or both null. D is a multiple of 8 up to 512, and of 16 for
+// 8-bit Q/K (a tensor map's row stride is a multiple of 16 bytes).
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* scale_q, const void* scale_k, void* out,
                             int B, int Hq, int Hkv, int Sq, int Skv, int D,
@@ -537,21 +527,26 @@ extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
   float* lo = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0 || B == 0) return 0;
+  const bool qk8 = q_code == qa::kE4M3 || q_code == qa::kI8;
   if (q_offset < 0 || Skv <= 0 || q_code != k_code || q_code < qa::kBF16 || q_code > qa::kI8 ||
       (v_code != qa::kBF16 && v_code != qa::kF16 && v_code != qa::kE4M3) ||
-      (out_code != qa::kBF16 && out_code != qa::kF16 && out_code != qa::kF32)) {
+      (out_code != qa::kBF16 && out_code != qa::kF16 && out_code != qa::kF32) ||
+      (qk8 && D % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (D) {
+  switch (qa::kernel_width(D)) {
     case 64:
-      return launch_d<64>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
+      return launch_w<64>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
                           scaling, causal, score_scale, q_offset, mo, lo, s);
     case 128:
-      return launch_d<128>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
-                           scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<128>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
+                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
     case 256:
-      return launch_d<256>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, v_code, out_code,
-                           scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<256>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
+                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
+    case 512:
+      return launch_w<512>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
+                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

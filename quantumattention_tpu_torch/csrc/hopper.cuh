@@ -79,6 +79,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy (wgmma, TMA) accesses.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -151,6 +161,16 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
+// The same for packed register A operands: defined before the fence that
+// opens the products reading them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3]) :: "memory");
+  }
+}
+
 // D (64 x N) (+)= A . B^T with A (64 x k) and B (N x k) K-major in shared
 // memory, k = 32 bytes: bf16/fp16 k16 into fp32, e4m3 k32 into fp32, int8
 // k32 into int32 (exact). `acc` 0 overwrites D.
@@ -161,6 +181,34 @@ struct WgmmaSS;
 // MN-major in shared memory (transposed read), fp32 accumulation.
 template <int N, int T>
 struct WgmmaRS;
+
+template <>
+struct WgmmaSS<16, kBF16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaSS<16, kF16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 template <>
 struct WgmmaSS<32, kBF16> {
@@ -695,5 +743,56 @@ struct WgmmaRS<256, kF16> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps, encoded per call through cuTensorMapEncodeTiled,
+// reached through the runtime (no -lcuda).
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (B * H, S, D) tensor of element code `code` as a 3-D map over
+// (D, S, B * H) with boxes of `cols` x `rows` x 1 and a `span`-byte swizzle
+// (128 or 64). D is the tensor's own width: a box that reaches past D or S
+// reads zeros there, so a tile of an instantiated width wider than D has
+// zero columns (the products over them add nothing). The row stride D
+// times the element size must be a multiple of 16 bytes.
+inline cudaError_t encode_tensor_map(CUtensorMap* map, const void* ptr, int code, int D, int S,
+                                     int BH, int cols, int rows, int span) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const int es = code == kBF16 || code == kF16 ? 2 : 1;
+  const CUtensorMapDataType type = code == kBF16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : code == kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * es,
+                                 static_cast<cuuint64_t>(S) * D * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace qa

@@ -33,9 +33,20 @@
 //  - the 4 warps' (m, l, acc) merge through shared memory at the end of the
 //    span, and a second small kernel merges the spans in a fixed order, as
 //    K4's split-KV does (csrc/decode.cu): deterministic, no atomics;
-//  - D is 64, 128 or 256. At 256 the query's A fragments (64 registers) are
-//    read from shared memory at each tile instead of held beside the
-//    128-float accumulator, and the two stages take ~145 KB.
+//  - head dims: any multiple of 8 up to 512, rounded up to an instantiated
+//    width W of 64, 128, 256 or 512 (qa::kernel_width). Page rows of D
+//    columns land in tiles W columns wide whose columns past D are
+//    zero-filled (the query's are zero too); the products run over all of W
+//    with loop bounds known at compile time (runtime chunk counts and early
+//    loop exits made this kernel a third slower at D = 128 on the H100: 33.3
+//    against 24.8 us), and only D columns are stored. An int8 row of
+//    D % 16 == 8 is not 16-byte aligned, so such pages are copied 8 bytes a
+//    cp.async. At W = 256 the
+//    query's A fragments (64 registers) are read from shared memory at each
+//    tile instead of held beside the 128-float accumulator, and the two
+//    stages take ~145 KB; at W = 512 two CTAs share each span, each scoring
+//    the full D and owning 256 output columns (K tiles 512 wide, V tiles
+//    256: ~218 KB for bf16 pages).
 #include "common.cuh"
 
 namespace {
@@ -52,20 +63,27 @@ constexpr int kWarps = 4;        // each warp owns 16 rows of a tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxGroup = 16;    // query heads per KV head: the MMA's M rows
 
-template <int D, bool Q8>
+// W: the instantiated width of the query and K rows; a CTA owns kVW <= 256
+// output columns (V rows).
+template <int W, bool Q8>
 struct Layout {
   static constexpr int kElem = Q8 ? 1 : 2;
-  // Row stride in shared memory: 16 bytes of padding spread the rows of a
+  static constexpr int kVW = W > 256 ? 256 : W;
+  static constexpr int kSplits = W / kVW;
+  // Row strides in shared memory: 16 bytes of padding spread the rows of a
   // fragment load over the banks.
-  static constexpr int kRowBytes = D * kElem + 16;
-  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kKRowBytes = W * kElem + 16;
+  static constexpr int kVRowBytes = kVW * kElem + 16;
+  static constexpr int kKTileBytes = kTile * kKRowBytes;
+  static constexpr int kVTileBytes = kTile * kVRowBytes;
   // K tile, V tile, K scales, V scales.
-  static constexpr int kStageBytes = 2 * kTileBytes + 2 * kTile * 4;
+  static constexpr int kStageBytes = kKTileBytes + kVTileBytes + 2 * kTile * 4;
   // The warps' partials at the end of the span reuse the stages.
-  static constexpr int kMergeBytes = kWarps * kMaxGroup * (D + 2) * 4;
+  static constexpr int kMergeBytes = kWarps * kMaxGroup * (kVW + 2) * 4;
   static constexpr int kWorkBytes = 2 * kStageBytes > kMergeBytes ? 2 * kStageBytes : kMergeBytes;
-  static constexpr int kQStride = D + 8;  // bf16 elements
+  static constexpr int kQStride = W + 8;  // bf16 elements
   static constexpr size_t kSmem = kWorkBytes + kMaxGroup * kQStride * 2;
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
 };
 
 // 4 bytes from device memory to shared memory, asynchronously; zero when
@@ -76,26 +94,74 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool val
                :: "r"(dst), "l"(gmem), "r"(valid ? 4 : 0));
 }
 
+// 8 bytes likewise (int8 rows of D % 16 == 8 are only 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 8 : 0));
+}
+
+// One chunk of CH bytes (16, or 8 where a row is only 8-byte aligned).
+template <int CH>
+__device__ __forceinline__ void cp_chunk(void* smem, const void* gmem, bool valid) {
+  if constexpr (CH == 16) {
+    qa::cp_async16(smem, gmem, valid);
+  } else {
+    cp_async8(smem, gmem, valid);
+  }
+}
+
+// The K and V page rows row0 .. row0 + kTile - 1 (below `stop`) of one tile
+// in chunks of CH bytes, KCH a K row and VCH a V row (from column byte
+// v_off on); chunks past the row's row_bytes, and rows at or past stop,
+// are zero-filled.
+template <int CH, int KCH, int VCH, typename PageRow>
+__device__ __forceinline__ void fetch_rows(unsigned char* kt, int k_stride, unsigned char* vt,
+                                           int v_stride, const unsigned char* kp,
+                                           const unsigned char* vp, int row0, int stop,
+                                           int row_bytes, int v_off, PageRow page_row) {
+  for (int c = threadIdx.x; c < kTile * KCH; c += kThreads) {
+    const int r = c / KCH, cc = c % KCH;
+    const bool live = row0 + r < stop;
+    const size_t base = live ? page_row(row0 + r) * row_bytes : 0;
+    const bool k_ok = live && cc * CH < row_bytes;
+    cp_chunk<CH>(kt + r * k_stride + cc * CH, kp + (k_ok ? base + cc * CH : 0), k_ok);
+    if constexpr (KCH == VCH) {
+      const bool v_ok = live && v_off + cc * CH < row_bytes;
+      cp_chunk<CH>(vt + r * v_stride + cc * CH, vp + (v_ok ? base + v_off + cc * CH : 0), v_ok);
+    }
+  }
+  if constexpr (KCH != VCH) {
+    for (int c = threadIdx.x; c < kTile * VCH; c += kThreads) {
+      const int r = c / VCH, cc = c % VCH;
+      const bool v_ok = row0 + r < stop && v_off + cc * CH < row_bytes;
+      const size_t off = v_ok ? page_row(row0 + r) * row_bytes + v_off + cc * CH : 0;
+      cp_chunk<CH>(vt + r * v_stride + cc * CH, vp + off, v_ok);
+    }
+  }
+}
+
 __device__ __forceinline__ float i8f(const unsigned char* p) {
   return static_cast<float>(*reinterpret_cast<const signed char*>(p));
 }
 
-template <int D, bool Q8>
+template <int W, bool Q8>
 __global__ void __launch_bounds__(kThreads)
 paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __restrict__ kp,
                   const unsigned char* __restrict__ vp, const float* __restrict__ ksp,
                   const float* __restrict__ vsp, const int* __restrict__ lengths,
                   const int* __restrict__ table, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int Hq, int Hkv, int P, int ps, int pps,
+                  float* __restrict__ part_ml, int Hq, int Hkv, int P, int ps, int pps, int D,
                   int span_pages, float score_scale) {
-  using L = Layout<D, Q8>;
-  constexpr int kChunks = D * L::kElem / 16;  // 16-byte chunks a page row
-  constexpr int kDT = D / 8;                  // 8-column output tiles
+  using L = Layout<W, Q8>;
+  constexpr int kDT = L::kVW / 8;  // 8-column output tiles
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kWorkBytes);
 
-  const int span = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int span = blockIdx.x, h = blockIdx.y / L::kSplits, b = blockIdx.z;
+  const int col0 = blockIdx.y % L::kSplits * L::kVW;  // this CTA's first output column
   const int nspan = gridDim.x;
+  const int row_bytes = D * L::kElem;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -104,7 +170,7 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
   const int stop = min(len, start + span_pages * ps);
   const size_t part = (static_cast<size_t>(b) * Hkv + h) * nspan + span;
   if (start >= len) {
-    for (int r = tid; r < G; r += kThreads) {
+    for (int r = tid; r < (col0 == 0 ? G : 0); r += kThreads) {
       part_ml[2 * (part * G + r)] = -INFINITY;
       part_ml[2 * (part * G + r) + 1] = 0.f;
     }
@@ -122,14 +188,16 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
 
   auto fetch = [&](int row0, int stage) {
     unsigned char* kt = smem + stage * L::kStageBytes;
-    unsigned char* vt = kt + L::kTileBytes;
-    float* kst = reinterpret_cast<float*>(vt + L::kTileBytes);
-    for (int c = tid; c < kTile * kChunks; c += kThreads) {
-      const int r = c / kChunks, cc = c % kChunks;
-      const bool ok = row0 + r < stop;
-      const size_t off = ok ? page_row(row0 + r) * (D * L::kElem) + cc * 16 : 0;
-      qa::cp_async16(kt + r * L::kRowBytes + cc * 16, kp + off, ok);
-      qa::cp_async16(vt + r * L::kRowBytes + cc * 16, vp + off, ok);
+    unsigned char* vt = kt + L::kKTileBytes;
+    float* kst = reinterpret_cast<float*>(vt + L::kVTileBytes);
+    if (row_bytes % 16 == 0) {
+      fetch_rows<16, W * L::kElem / 16, L::kVW * L::kElem / 16>(
+          kt, L::kKRowBytes, vt, L::kVRowBytes, kp, vp, row0, stop, row_bytes, col0 * L::kElem,
+          page_row);
+    } else {
+      fetch_rows<8, W * L::kElem / 8, L::kVW * L::kElem / 8>(
+          kt, L::kKRowBytes, vt, L::kVRowBytes, kp, vp, row0, stop, row_bytes, col0 * L::kElem,
+          page_row);
     }
     if constexpr (Q8) {
       for (int r = tid; r < kTile; r += kThreads) {
@@ -145,18 +213,18 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
   fetch(start, 0);
   qa::cp_async_commit();
 
-  // The group's query rows, zero rows up to 16.
+  // The group's query rows, zero rows up to 16 and zero columns past D.
   const size_t q_base = (static_cast<size_t>(b) * Hq + static_cast<size_t>(h) * G) * D;
-  for (int i = tid; i < kMaxGroup * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = tid; i < kMaxGroup * (W / 8); i += kThreads) {
+    const int r = i / (W / 8), c = (i % (W / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < G) v = *reinterpret_cast<const uint4*>(q + q_base + static_cast<size_t>(r) * D + c);
+    if (r < G && c < D) v = *reinterpret_cast<const uint4*>(q + q_base + static_cast<size_t>(r) * D + c);
     *reinterpret_cast<uint4*>(Qs + r * L::kQStride + c) = v;
   }
 
-  // The query's A fragments, held in registers up to D = 128.
-  constexpr bool kQRegs = D <= 128;
-  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  // The query's A fragments, held in registers up to W = 128.
+  constexpr bool kQRegs = W <= 128;
+  uint32_t qf[kQRegs ? W / 16 : 1][4];
   float o[kDT][4];
 #pragma unroll
   for (int j = 0; j < kDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -175,11 +243,11 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
     __syncthreads();
     if (kQRegs && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < (kQRegs ? D / 16 : 0); ++kk) load_a_frag(qf[kk], Qs, L::kQStride, kk, g, t);
+      for (int kk = 0; kk < (kQRegs ? W / 16 : 0); ++kk) load_a_frag(qf[kk], Qs, L::kQStride, kk, g, t);
     }
     const unsigned char* kt = smem + (it & 1) * L::kStageBytes;
-    const unsigned char* vt = kt + L::kTileBytes;
-    const float* kst = reinterpret_cast<const float*>(vt + L::kTileBytes);
+    const unsigned char* vt = kt + L::kKTileBytes;
+    const float* kst = reinterpret_cast<const float*>(vt + L::kVTileBytes);
     const float* vst = kst + kTile;
 
     // S = Q K^T over the warp's 16 rows: two 8-column tiles.
@@ -189,15 +257,15 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       const int kr = wrow + j * 8 + g;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < W / 16; ++kk) {
         uint32_t b0, b1;
         if constexpr (Q8) {
           const float sc = kst[kr];
-          const unsigned char* r = kt + kr * L::kRowBytes + kk * 16 + t * 2;
+          const unsigned char* r = kt + kr * L::kKRowBytes + kk * 16 + t * 2;
           b0 = pack_bf16(i8f(r) * sc, i8f(r + 1) * sc);
           b1 = pack_bf16(i8f(r + 8) * sc, i8f(r + 9) * sc);
         } else {
-          load_b_nt(b0, b1, reinterpret_cast<const __nv_bfloat16*>(kt), L::kRowBytes / 2,
+          load_b_nt(b0, b1, reinterpret_cast<const __nv_bfloat16*>(kt), L::kKRowBytes / 2,
                     warp * 2 + j, kk, g, t);
         }
         if constexpr (kQRegs) {
@@ -267,12 +335,12 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
       o[j][3] *= a1;
       uint32_t b0, b1;
       if constexpr (Q8) {
-        const unsigned char* c = vt + vr * L::kRowBytes + j * 8 + g;
-        b0 = pack_bf16(i8f(c) * vs0, i8f(c + L::kRowBytes) * vs1);
-        b1 = pack_bf16(i8f(c + 8 * L::kRowBytes) * vs8, i8f(c + 9 * L::kRowBytes) * vs9);
+        const unsigned char* c = vt + vr * L::kVRowBytes + j * 8 + g;
+        b0 = pack_bf16(i8f(c) * vs0, i8f(c + L::kVRowBytes) * vs1);
+        b1 = pack_bf16(i8f(c + 8 * L::kVRowBytes) * vs8, i8f(c + 9 * L::kVRowBytes) * vs9);
       } else {
-        load_b_nn(b0, b1, reinterpret_cast<const __nv_bfloat16*>(vt) + wrow * (L::kRowBytes / 2),
-                  L::kRowBytes / 2, j, 0, g, t);
+        load_b_nn(b0, b1, reinterpret_cast<const __nv_bfloat16*>(vt) + wrow * (L::kVRowBytes / 2),
+                  L::kVRowBytes / 2, j, 0, g, t);
       }
       mma_bf16(o[j], pa, b0, b1);
     }
@@ -286,19 +354,20 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  float* wacc = reinterpret_cast<float*>(smem);      // [warp][row][D]
-  float* wml = wacc + kWarps * kMaxGroup * D;         // [warp][row][2]
+  constexpr int kVW = L::kVW;
+  float* wacc = reinterpret_cast<float*>(smem);      // [warp][row][kVW]
+  float* wml = wacc + kWarps * kMaxGroup * kVW;       // [warp][row][2]
   const int r0 = g, r1 = g + 8;
 #pragma unroll
   for (int j = 0; j < kDT; ++j) {
     const int c = j * 8 + t * 2;
     if (r0 < G) {
-      wacc[(warp * kMaxGroup + r0) * D + c] = o[j][0];
-      wacc[(warp * kMaxGroup + r0) * D + c + 1] = o[j][1];
+      wacc[(warp * kMaxGroup + r0) * kVW + c] = o[j][0];
+      wacc[(warp * kMaxGroup + r0) * kVW + c + 1] = o[j][1];
     }
     if (r1 < G) {
-      wacc[(warp * kMaxGroup + r1) * D + c] = o[j][2];
-      wacc[(warp * kMaxGroup + r1) * D + c + 1] = o[j][3];
+      wacc[(warp * kMaxGroup + r1) * kVW + c] = o[j][2];
+      wacc[(warp * kMaxGroup + r1) * kVW + c + 1] = o[j][3];
     }
   }
   if (t == 0) {
@@ -312,8 +381,9 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < G * kVW; i += kThreads) {
+    const int r = i / kVW, c = i % kVW;
+    if (col0 + c >= D) continue;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wml[2 * (w * kMaxGroup + r)]);
@@ -321,11 +391,11 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __re
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float wt = exp2f(wml[2 * (w * kMaxGroup + r)] - mx);
-      acc += wt * wacc[(w * kMaxGroup + r) * D + c];
+      acc += wt * wacc[(w * kMaxGroup + r) * kVW + c];
       l += wt * wml[2 * (w * kMaxGroup + r) + 1];
     }
-    part_acc[(part * G + r) * D + c] = acc;
-    if (c == 0) {
+    part_acc[(part * G + r) * D + col0 + c] = acc;
+    if (col0 + c == 0) {
       part_ml[2 * (part * G + r)] = mx;
       part_ml[2 * (part * G + r) + 1] = l;
     }
@@ -361,23 +431,35 @@ paged_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__
   }
 }
 
-template <int D, bool Q8>
+template <int W, bool Q8>
 cudaError_t launch_spans(const void* q, const void* k, const void* v, const void* ks,
                          const void* vs, const void* lengths, const void* table, void* part_acc,
-                         void* part_ml, int B, int Hq, int Hkv, int P, int ps, int pps,
+                         void* part_ml, int B, int Hq, int Hkv, int P, int ps, int pps, int D,
                          int span_pages, int nspan, float score_scale, cudaStream_t stream) {
-  using L = Layout<D, Q8>;
-  cudaError_t err = cudaFuncSetAttribute(paged_span_kernel<D, Q8>,
+  using L = Layout<W, Q8>;
+  cudaError_t err = cudaFuncSetAttribute(paged_span_kernel<W, Q8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return err;
-  paged_span_kernel<D, Q8><<<dim3(nspan, Hkv, B), kThreads, L::kSmem, stream>>>(
+  paged_span_kernel<W, Q8><<<dim3(nspan, Hkv * L::kSplits, B), kThreads, L::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const unsigned char*>(k),
       static_cast<const unsigned char*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(lengths),
       static_cast<const int*>(table), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), Hq, Hkv, P, ps, pps, span_pages, score_scale);
+      static_cast<float*>(part_ml), Hq, Hkv, P, ps, pps, D, span_pages, score_scale);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_spans_w(bool q8, const void* q, const void* k, const void* v, const void* ks,
+                           const void* vs, const void* lengths, const void* table,
+                           void* part_acc, void* part_ml, int B, int Hq, int Hkv, int P, int ps,
+                           int pps, int D, int span_pages, int nspan, float score_scale,
+                           cudaStream_t stream) {
+  return q8 ? launch_spans<W, true>(q, k, v, ks, vs, lengths, table, part_acc, part_ml, B, Hq,
+                                    Hkv, P, ps, pps, D, span_pages, nspan, score_scale, stream)
+            : launch_spans<W, false>(q, k, v, ks, vs, lengths, table, part_acc, part_ml, B, Hq,
+                                     Hkv, P, ps, pps, D, span_pages, nspan, score_scale, stream);
 }
 
 }  // namespace
@@ -392,16 +474,17 @@ extern "C" int qa_paged_span_pages(int ps) {
 // table (B, pps) int32 page ids; out (B, Hq, D) bf16; part_acc
 // (B, Hkv, nspan, G, D) and part_ml (B, Hkv, nspan, G, 2) fp32 scratch with
 // nspan = ceil(pps / qa_paged_span_pages(ps)). score_scale = sm_scale *
-// log2(e). D is 64, 128 or 256, G = Hq / Hkv at most 16, ps a multiple of
-// 16 up to 256.
+// log2(e). D is a multiple of 8 up to 512, G = Hq / Hkv at most 16, ps a
+// multiple of 16 up to 256.
 extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* lengths, const void* table,
                                void* out, void* part_acc, void* part_ml, int B, int Hq, int Hkv,
                                int P, int ps, int pps, int D, int kv_code, float score_scale,
                                void* stream) {
   if (B == 0) return 0;
+  const int width = qa::kernel_width(D);
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || ps <= 0 || ps % 16 != 0 ||
-      ps > 256 || pps <= 0 || P <= 0 || (D != 64 && D != 128 && D != 256) ||
+      ps > 256 || pps <= 0 || P <= 0 || width == 0 ||
       (kv_code != qa::kI8 && kv_code != qa::kBF16) ||
       ((kv_code == qa::kI8) != (k_scale != nullptr && v_scale != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -411,27 +494,23 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool q8 = kv_code == qa::kI8;
   cudaError_t err;
-  if (D == 256) {
-    err = q8 ? launch_spans<256, true>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                       part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                       score_scale, s)
-             : launch_spans<256, false>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                        part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                        score_scale, s);
-  } else if (D == 128) {
-    err = q8 ? launch_spans<128, true>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                       part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                       score_scale, s)
-             : launch_spans<128, false>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                        part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                        score_scale, s);
-  } else {
-    err = q8 ? launch_spans<64, true>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                      part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                      score_scale, s)
-             : launch_spans<64, false>(q, k, v, k_scale, v_scale, lengths, table, part_acc,
-                                       part_ml, B, Hq, Hkv, P, ps, pps, span_pages, nspan,
-                                       score_scale, s);
+  switch (width) {
+    case 64:
+      err = launch_spans_w<64>(q8, q, k, v, k_scale, v_scale, lengths, table, part_acc, part_ml,
+                               B, Hq, Hkv, P, ps, pps, D, span_pages, nspan, score_scale, s);
+      break;
+    case 128:
+      err = launch_spans_w<128>(q8, q, k, v, k_scale, v_scale, lengths, table, part_acc, part_ml,
+                                B, Hq, Hkv, P, ps, pps, D, span_pages, nspan, score_scale, s);
+      break;
+    case 256:
+      err = launch_spans_w<256>(q8, q, k, v, k_scale, v_scale, lengths, table, part_acc, part_ml,
+                                B, Hq, Hkv, P, ps, pps, D, span_pages, nspan, score_scale, s);
+      break;
+    default:
+      err = launch_spans_w<512>(q8, q, k, v, k_scale, v_scale, lengths, table, part_acc, part_ml,
+                                B, Hq, Hkv, P, ps, pps, D, span_pages, nspan, score_scale, s);
+      break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_merge_kernel<<<dim3(Hkv, B), kThreads, 0, s>>>(

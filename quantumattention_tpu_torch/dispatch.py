@@ -25,12 +25,12 @@ import torch
 from . import config
 from .ops import quant
 from .ops.autodiff import attention_with_vjp, exact_attention_bwd, needs_grad
-from .ops.flash import KERNEL_HEAD_DIMS, flash_attention
+from .ops.flash import flash_attention
 from .ops.sdpa import sdpa_reference
-from .utils import checks
+from .utils import checks, shapes
 
-#: Head dims the fused kernel accepts (the CUDA build's).
-SUPPORTED_HEAD_DIMS = KERNEL_HEAD_DIMS
+#: The head dims JAX names; any other multiple of 8 up to 512 is taken too.
+SUPPORTED_HEAD_DIMS = shapes.SUPPORTED_HEAD_DIMS
 
 _FLOAT_QK_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _FP8_QK_DTYPES = (torch.float8_e4m3fn,)
@@ -62,11 +62,10 @@ def validate_flash_input(
 ) -> Tuple[bool, str]:
     """Shape/dtype/feature validation for the fused kernel; ``(ok, reason)``.
 
-    Differs from the JAX package where the kernels differ: head dims other
-    than 64/128/256 are refused (JAX also takes any multiple of 8 up to
-    512; ROADMAP queue 3, fault 8), so the fallback serves them.  fp32
-    Q/K/V are taken, as in JAX: K1 reads them rounded to bf16 and returns
-    fp32.
+    Takes what the JAX package takes: head dims 64/128/256 and any other
+    multiple of 8 up to 512 (the kernels round them up to an instantiated
+    width with zero columns), and fp32 Q/K/V, which K1 reads rounded to bf16
+    and returns in fp32.
     """
     if attn_mask is not None:
         return False, "attn_mask is not supported by the fused kernel"
@@ -92,10 +91,8 @@ def validate_flash_input(
         return False, f"query/key head_dim mismatch: {d_q} vs {d_k}"
     if d_q != d_v:
         return False, f"query/value head_dim mismatch: {d_q} vs {d_v}"
-    if d_q not in SUPPORTED_HEAD_DIMS:
-        return False, (
-            f"head_dim {d_q} unsupported (want one of {SUPPORTED_HEAD_DIMS})"
-        )
+    if not shapes.head_dim_supported(d_q):
+        return False, shapes.head_dim_reason(d_q)
     if not _dtype_ok_qk(query.dtype):
         return False, f"query dtype {query.dtype} unsupported"
     if not _dtype_ok_qk(key.dtype):

@@ -44,14 +44,14 @@ _SIGNATURES = {
     # q_offset, m_out, l_out, stream
     "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
-    # q, k, v, dout, m, l, delta, dq, B, Hq, Hkv, Sq, Skv, D, code, causal,
+    # q, k, v, dout, stats, dq, B, Hq, Hkv, Sq, Sq_pad, Skv, D, code, causal,
     # score_scale, sm_scale, stream
-    "qa_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _F, _P],
-    # q, k, v, dout, m, l, delta, dk, dv, B, Hq, Hkv, Sq, Skv, D, code,
+    "qa_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _F, _F, _P],
+    # q, k, v, dout, stats, dk, dv, B, Hq, Hkv, Sq, Sq_pad, Skv, D, code,
     # causal, score_scale, sm_scale, stream
-    "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _F, _F, _P],
+    "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _F, _P],
     # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
     # B, Hq, Hkv, Smax, D, kv_code, score_scale, stream
     "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

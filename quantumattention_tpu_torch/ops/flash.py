@@ -7,14 +7,17 @@ runs the kernel or raises.  ``flash_attention.launches`` counts launches.
 
 Covered: no scaling (bf16/fp16/fp32), head-wise (B, H) and token-wise
 (B, H, S) scales on e4m3 or int8 Q/K, GQA, ragged Sq/Skv, top-left causal
-masking, D in {64, 128, 256}, ``return_residuals`` (the backward's (m, l),
+masking, any head dim JAX takes (a multiple of 8 up to 512; the kernel
+runs it at an instantiated width of 64, 128, 256 or 512 with zero columns),
+``return_residuals`` (the backward's (m, l),
 as (B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), and
 ``q_offset``, the global position of q's row 0 (chunked prefill: the causal
 mask becomes ``q_offset + i >= j``, and causal tile skipping follows it).
 The kernel's products take 8- and 16-bit operands: on the card fp32 Q/K/V
 enter rounded to bf16, and the kernel stores the fp32 output unrounded.
-Other head dims (a multiple of 8 up to 512 in the JAX package) are not
-built yet (ROADMAP queue 3, fault 8).
+8-bit Q/K whose rows are not a multiple of 16 bytes (D % 16 == 8) go to the
+kernel zero-padded to D + 8 columns (:func:`pad_8bit_columns`: a TMA tensor
+map's row stride is a multiple of 16 bytes), and the output is cut back.
 Not yet (ROADMAP queue 1, item 6 b-e): ``window``, ``kv_offset``, segment
 ids, ``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
 """
@@ -26,14 +29,11 @@ from typing import Optional
 
 import torch
 
-from ..utils import checks
+from ..utils import checks, shapes
 from . import _native, quant
 from .sdpa import DEFAULT_MASK_VALUE, sdpa_reference
 
 LOG2E = math.log2(math.e)
-
-#: Head dims the CUDA kernel is built for.
-KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _NOT_YET = {
     "window": "sliding windows",
@@ -169,13 +169,35 @@ def flash_attention(
             q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset
         )
     out_dtype = out_dtype_for(v.dtype)
-    q, k, v = (to_16bit(t) for t in (q, k, v))
-    return _flash_fwd_cuda(
+    d = q.shape[-1]
+    shapes.check_kernel_head_dim("K1", d)
+    q, k, v = pad_8bit_columns(*(to_16bit(t) for t in (q, k, v)))
+    res = _flash_fwd_cuda(
         dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
         scaling, is_causal, sm_scale, return_residuals, q_offset, out_dtype,
     )
+    if q.shape[-1] == d:
+        return res
+    out = (res[0] if return_residuals else res)[..., :d].contiguous()
+    return (out, res[1]) if return_residuals else out
+
+
+def pad_8bit_columns(q, k, v):
+    """(q, k, v) with zero columns up to the next multiple of 16 when q and
+    k are 8-bit and D % 16 == 8, else as given.  A tensor map's row stride
+    is a multiple of 16 bytes; the zero columns change neither Q.K^T nor
+    the output's first D columns (sm_scale must come from the true D)."""
+    d = q.shape[-1]
+    if not checks.is_8bit_dtype(q.dtype) or d % 16 == 0:
+        return q, k, v
+    padded = []
+    for t in (q, k, v):
+        p = torch.zeros(t.shape[:-1] + (shapes.round_up(d, 16),), dtype=t.dtype, device=t.device)
+        p[..., :d] = t
+        padded.append(p)
+    return tuple(padded)
 
 
 def to_16bit(t: torch.Tensor) -> torch.Tensor:
@@ -215,8 +237,8 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         raise ValueError("K1 needs at least one key")
     if q.dtype != k.dtype:
         raise ValueError(f"K1 takes q and k of one dtype, got {q.dtype} and {k.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K1 is built for head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    if checks.is_8bit_dtype(q.dtype) and d % 16:
+        raise ValueError(f"K1 takes 8-bit q and k whose head_dim is a multiple of 16, got {d}")
     if scaling == "head" and (
         scale_q.shape != (batch, hq) or scale_k.shape != (batch, hkv)
     ):

@@ -13,15 +13,17 @@ from the forward's saved (m, l)::
     dQ = sm_scale dS.K,  dK = sm_scale dS^T.Q,  dV = P^T.dO
 
 m and l are (B, Hq, Sq) fp32, as ``flash_attention(...,
-return_residuals=True)`` returns them.  K3 sums the GQA group in the kernel,
-so dK/dV come out (B, Hkv, Skv, D) with no per-q-head buffers.
+return_residuals=True)`` returns them.  K3 sums the GQA group in the kernel
+(a cluster of the group's CTAs, in a fixed order), so dK/dV come out
+(B, Hkv, Skv, D) with no per-q-head buffers.
 
 A CPU tensor runs each kernel's plain version (the same formulas on whole
 (Sq, Skv) fp32 matrices); a CUDA tensor runs the kernel or raises.
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches`` count launches.
 Covered: bf16/fp16 (fp32 inputs enter the kernels rounded to bf16 and
-their gradients return in fp32), GQA, ragged Sq/Skv, top-left causal, D in
-{64, 128, 256}.
+their gradients return in fp32), GQA, ragged Sq/Skv, top-left causal, any
+head dim JAX takes (a multiple of 8 up to 512, run at an instantiated width
+of 64, 128, 256 or 512 with zero columns).
 The window mode waits for K1's (ROADMAP queue 1, item 6b) and raises.
 """
 
@@ -32,9 +34,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils import checks
+from ..utils import checks, shapes
 from . import _native
-from .flash import KERNEL_HEAD_DIMS, LOG2E, dense, masked_scores, to_16bit
+from .flash import LOG2E, dense, masked_scores, to_16bit
 
 _FLOAT_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -133,10 +135,12 @@ def flash_attention_bwd(
     sm_scale = _default_scale(q, sm_scale)
     dtypes = (q.dtype, k.dtype, v.dtype)
     args = [q, k, v, do, m, l, row_delta(o, do)]
+    stats = None
     if q.device.type != "cpu":
         args = [dense(to_16bit(t)) for t in args[:4]] + [t.float().contiguous() for t in args[4:]]
-    dq = flash_bwd_dq(*args, is_causal=is_causal, sm_scale=sm_scale)
-    dk, dv = flash_bwd_dkv(*args, is_causal=is_causal, sm_scale=sm_scale)
+        stats = pack_stats(*args[4:])
+    dq = flash_bwd_dq(*args, is_causal=is_causal, sm_scale=sm_scale, stats=stats)
+    dk, dv = flash_bwd_dkv(*args, is_causal=is_causal, sm_scale=sm_scale, stats=stats)
     return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
 
 
@@ -156,26 +160,39 @@ def _check_cuda(name, q, k, v, do, m, l, delta) -> None:
         )
     if any(t.dtype != torch.float32 for t in (m, l, delta)):
         raise ValueError(f"{name} takes fp32 m, l, delta")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} is built for head_dim {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    shapes.check_kernel_head_dim(name, q.shape[-1])
 
 
-def _dims(q, k):
+def pack_stats(m: torch.Tensor, l: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The per-row statistics K2 and K3 read, (B, Hq, Sq_pad, 4) fp32 rows
+    (m, 1/l, D, 0) with 1/l = 0 where l = 0 and zero rows past Sq (Sq_pad =
+    Sq rounded up to 64), so that K3 takes a Q tile's rows in one bulk
+    copy."""
+    batch, hq, sq = m.shape
+    out = torch.zeros((batch, hq, shapes.round_up(sq, 64), 4), dtype=torch.float32, device=m.device)
+    out[:, :, :sq, 0] = m
+    out[:, :, :sq, 1] = torch.where(l == 0, 0.0, 1.0 / l)
+    out[:, :, :sq, 2] = delta
+    return out
+
+
+def _dims(q, k, stats):
     batch, hq, sq, d = q.shape
-    return batch, hq, k.shape[1], sq, k.shape[2], d
+    return batch, hq, k.shape[1], sq, stats.shape[2], k.shape[2], d
 
 
-def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None):
-    """Kernel K2 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype."""
+def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None):
+    """Kernel K2 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype.  ``stats``
+    is ``pack_stats(m, l, delta)`` where the caller has it already."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
     _check_cuda("K2", q, k, v, do, m, l, delta)
     sm_scale = _default_scale(q, sm_scale)
     dq = torch.empty_like(q)
+    stats = pack_stats(m, l, delta) if stats is None else stats
     err = _native.library().qa_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, k), _native.dtype_code(q.dtype), int(bool(is_causal)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+        *_dims(q, k, stats), _native.dtype_code(q.dtype), int(bool(is_causal)),
         float(sm_scale * LOG2E), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -184,18 +201,20 @@ def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None):
-    """Kernel K3 on CUDA tensors: (dK, dV), each (B, Hkv, Skv, D)."""
+def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None):
+    """Kernel K3 on CUDA tensors: (dK, dV), each (B, Hkv, Skv, D).  ``stats``
+    as K2's."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
     _check_cuda("K3", q, k, v, do, m, l, delta)
     sm_scale = _default_scale(q, sm_scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    stats = pack_stats(m, l, delta) if stats is None else stats
     err = _native.library().qa_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k), _native.dtype_code(q.dtype), int(bool(is_causal)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        *_dims(q, k, stats), _native.dtype_code(q.dtype), int(bool(is_causal)),
         float(sm_scale * LOG2E), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -23,8 +23,9 @@ package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
 
 Covered: (B, Hq, D) bf16 queries, int8 pages with token-wise fp32 scales and
 bf16 pages, GQA with up to 16 query heads per KV head, page sizes that are
-multiples of 16 up to 256, D in {64, 128, 256} on the card (any on the
-CPU).
+multiples of 16 up to 256, any head dim JAX takes (a multiple of 8 up to
+512, run at an instantiated width of 64, 128, 256 or 512 with zero
+columns).
 Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a), the multi-query
 q (B, Hq, T, D) of speculative verification (item 12b) and ``window``
 (item 12c).  ``side`` (the burst side buffer, paged.py:446-457) exists for
@@ -39,14 +40,13 @@ from typing import Optional
 
 import torch
 
-from ..utils import checks
+from ..utils import checks, shapes
 from . import _native
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
 #: Query heads per KV head the kernel takes (csrc/paged.cu, kMaxGroup).
 MAX_GROUP = 16
-KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _scale_rows(sp: torch.Tensor) -> int:
@@ -228,8 +228,7 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
         )
     if tuple(lengths.shape) != (batch,) or page_indices.shape[0] != batch:
         raise ValueError("lengths (B,) and page_indices (B, pages_per_seq) must match q's B")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K10 is built for head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    shapes.check_kernel_head_dim("K10", d)
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"K10 takes at most {MAX_GROUP} query heads per KV head, got {hq // hkv}")
     if ps % 16 or ps > 256:

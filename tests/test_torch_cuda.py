@@ -130,6 +130,10 @@ def test_flash_kernel_widths_and_types(cuda, d, shape, mode, causal):
     """K1 over head dims 64/128/256 and every operand type against its
     plain version and the fp32 oracle; the output is the same with and
     without residuals, and the residuals match their plain version."""
+    _k1_width_case(cuda, d, shape, mode, causal)
+
+
+def _k1_width_case(cuda, d, shape, mode, causal):
     b, hq, hkv, sq, skv, off = shape
     fdt = {"fp16": torch.float16, "fp32": torch.float32}.get(mode, torch.bfloat16)
     q = _randn((b, hq, sq, d), 31, fdt, cuda)
@@ -195,7 +199,7 @@ def test_decode_kernel_matches_plain(cuda, cache, group, d):
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     q = _randn((1, 2, 8, 64), 7, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous())
+        flash_attention(q[..., :44].contiguous(), q[..., :44].contiguous(), q[..., :44].contiguous())
     lens = torch.tensor([3], dtype=torch.int64, device=cuda)
     cache = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -303,6 +307,79 @@ def test_flash_bwd_kernels_match_plain(cuda, shape, dtype):
         assert g.shape == t.shape and g.dtype == t.dtype
         assert bool(torch.isfinite(g).all())
         assert _max_rel(g, p) < GRAD_BAR
+
+
+ANY_WIDTHS = [72, 96, 160, 320, 512]
+K1_ANY_SHAPES = [  # (B, Hq, Hkv, Sq, Skv, q_offset)
+    (2, 4, 1, 3, 3, 0),
+    (1, 8, 2, 100, 357, 130),
+    (1, 4, 4, 200, 200, 0),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("mode", K1_WIDTH_MODES)
+@pytest.mark.parametrize("shape", K1_ANY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("d", ANY_WIDTHS)
+def test_flash_kernel_any_width(cuda, d, shape, mode, causal):
+    """K1 at head dims between and above the instantiated widths (zero
+    columns past D; 8-bit Q/K of D % 16 == 8, e4m3 at D = 72, zero-padded by
+    the wrapper; two CTAs a Q block above 256) over its seven operand types,
+    against its plain version and the fp32 oracle, residuals included."""
+    _k1_width_case(cuda, d, shape, mode, causal)
+
+
+BWD_ANY_SHAPES = [(3, 3), (100, 77), (130, 130)]  # (Sq, Skv)
+
+
+@pytest.mark.parametrize("sqkv", BWD_ANY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 320, 512])
+def test_flash_bwd_any_width(cuda, d, causal, group, sqkv):
+    """K2 and K3 against their plain versions and the fp32 oracle's
+    autograd over head dims, GQA groups (K3's cluster sum of 1, 4 and 8
+    CTAs) and ragged lengths."""
+    sq, skv = sqkv
+    hkv = 2
+    q = _randn((1, hkv * group, sq, d), 41, torch.bfloat16, cuda)
+    k = _randn((1, hkv, skv, d), 42, torch.bfloat16, cuda)
+    v = _randn((1, hkv, skv, d), 43, torch.bfloat16, cuda)
+    do = _randn((1, hkv * group, sq, d), 44, torch.bfloat16, cuda)
+    out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = sdpa_reference(*leaves, is_causal=causal, out_dtype=torch.float32)
+    oracle = torch.autograd.grad(ref, leaves, do.float())
+    torch.cuda.synchronize()
+    for g, p, o, t in zip(grads, plain, oracle, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert bool(torch.isfinite(g).all())
+        assert _max_rel(g, p) < GRAD_BAR
+        assert _max_rel(g, o) < GRAD_BAR
+
+
+@pytest.mark.parametrize("d,group,causal", [(128, 4, True), (96, 8, False), (512, 4, True),
+                                            (64, 16, True), (128, 12, False)])
+def test_flash_bwd_is_deterministic(cuda, d, group, causal):
+    """Two runs of K2 and K3 give the same bits: K3 sums the GQA group in a
+    fixed order (a cluster of up to 8 CTAs, and a loop over q heads inside
+    each CTA past 8), no float atomics anywhere."""
+    q = _randn((2, 2 * group, 150, d), 51, torch.bfloat16, cuda)
+    k = _randn((2, 2, 150, d), 52, torch.bfloat16, cuda)
+    v = _randn((2, 2, 150, d), 53, torch.bfloat16, cuda)
+    do = _randn((2, 2 * group, 150, d), 54, torch.bfloat16, cuda)
+    out, (m, l) = flash_attention(q, k, v, is_causal=causal, return_residuals=True)
+    first = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    second = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal)
+    plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal)
+    torch.cuda.synchronize()
+    for a, b, p in zip(first, second, plain):
+        assert torch.equal(a, b)
+        assert _max_rel(a, p) < GRAD_BAR
 
 
 @pytest.mark.parametrize("entry", ["attn_func", "fp8_attn_func", "fp8_token_wise_attn_func"])
@@ -692,6 +769,11 @@ PAGED_SHAPES = [  # (B, Hq, Hkv, page_size, pages_per_seq, D)
     (3, 16, 1, 256, 3, 128),
     (7, 8, 2, 48, 5, 64),
     (4, 16, 8, 64, 6, 256),
+    (6, 32, 32, 128, 4, 96),
+    (5, 16, 4, 32, 7, 96),
+    (4, 8, 2, 64, 5, 320),
+    (3, 8, 8, 16, 6, 72),
+    (3, 4, 1, 128, 3, 512),
 ]
 
 
