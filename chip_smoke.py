@@ -38,14 +38,17 @@ Phases, each printing its numbers on lines of their own:
    host's per-call work), weight GB/s at M = 4, and K5 unsplit against
    the split-K schedule;
 7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
-   layer, int8 and int4, with and without the next layer's QKV, at M = 4
-   and 256, with times as in 6 and the kernels launched per tail;
+   layer, int8 and int4, with and without the next layer's QKV, at M = 4,
+   16, 64 and 256, with times as in 6, weight GB/s and the kernels launched
+   per tail; at Phi-3-mini's layer (int8, M = 4, with the QKV); and one tail
+   captured in a CUDA graph (its kernels use programmatic dependent launch)
+   replayed against the eager call, bit for bit;
 8. K9 (the fused decode layer) against its plain version at Llama-3-8B's
    layer, 16 slots / max_len 1024 and 64 / 512, ragged lengths with an
    empty slot: error, device time by graph replay (weights and cache cold
    in L2), the plain version's time, kernels a call, GB/s, the time of K8's
-   stages alone, and each cluster size of its attention kernel (all must
-   give the same bits);
+   stages alone, and two runs held bitwise equal (the per-kernel split of
+   K8 and K9 runs last, see 17);
 9. the engine: Llama-3-8B at full width and depth with seeded random bf16
    weights serves 6 greedy requests on 4 slots through K1 and K4; the
    launch counts prove the path went through the kernels, and each
@@ -97,7 +100,13 @@ Phases, each printing its numbers on lines of their own:
    the launch counts prove it, the first loss is held against the plain
    path's, and the gradients of a 4-layer cut against plain attention's;
 16. SDPA's whole backward at K2/K3's timed shape by CUDA-graph replay, the
-   library call beside both kernels (last: see ``phase_sdpa_backward``).
+   library call beside both kernels (see ``phase_sdpa_backward``);
+17. the per-kernel split of one K8 call (int8, M = 4/16/64/256, with and
+   without the QKV), of each tail product alone (M = 4 and 64) and of one
+   K9 call, by ``torch.profiler`` (``split_k8``, ``split_product``,
+   ``split_k9``), last so that the profiler stays out of the other phases'
+   timings; ``python3 chip_smoke.py --split-only`` prints only these, on any
+   tree of the port.
 
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
@@ -221,7 +230,10 @@ QMM_ROWS = (4, 1536)
 #: timed calls cycle through copies of a weight that together exceed this
 #: (2.5x the H100's 50 MB L2 cache), so no call finds its weight cached.
 COLD_BYTES = 128e6
-TAIL_ROWS = (4, 256)
+TAIL_ROWS = (4, 16, 64, 256)
+#: K8 at Phi-3-mini's layer (microsoft/Phi-3-mini-4k-instruct config.json:
+#: hidden 3072, intermediate 8192, 32 heads of 96 with as many KV heads).
+PHI3_TAIL = {"E": 3072, "I": 8192, "Q": 3072, "F": 9216}
 SERVE_PROMPTS = [57, 128, 300, 300, 900, 1500]
 SERVE_PROMPTS_INT4 = [57, 300, 900]
 TRAIN_POSITIONS = 1024
@@ -1209,6 +1221,8 @@ def phase_k8(gen) -> dict:
                     timing = rec
         del wo, w_gu, w_down, w_qkv
     torch.cuda.empty_cache()
+    worst = max(worst, _k8_phi3(gen))
+    _k8_graph_check(gen)
     # Bound at int8, M = 4, with the fold: the four matrices' codes and
     # scales, x, attn, out and qkv; 2*M*(Q*E + 3*E*I + E*F) bf16 operations.
     # No single PyTorch call computes the layer tail.
@@ -1217,6 +1231,62 @@ def phase_k8(gen) -> dict:
     nbytes = macs + 4 * (3 * e + 2 * inter + f) + m * (2 * e + q_dim + f) * 2
     return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             **bound(nbytes, {"bf16": 2 * m * macs}), "library_ms": None}
+
+
+def _k8_phi3(gen) -> float:
+    """K8 at Phi-3-mini's layer, int8, M = 4 with the fold: error against
+    the plain version, time by graph replay, weight GB/s."""
+    e, inter, q_dim, f = PHI3_TAIL["E"], PHI3_TAIL["I"], PHI3_TAIL["Q"], PHI3_TAIL["F"]
+    mats = [_qmat_random(q_dim, e, gen, False), _qmat_random(e, 2 * inter, gen, False),
+            _qmat_random(inter, e, gen, False), _qmat_random(e, f, gen, False)]
+    wo, w_gu, w_down, w_qkv = mats
+    norm = _randn((e,), gen, torch.float32).abs() + 0.5
+    m = TAIL_ROWS[0]
+    x, attn = _randn((m, e), gen), _randn((m, q_dim), gen)
+    kw = dict(eps=1e-5, attn_out=attn, wo=wo, next_attn_norm=norm, next_w_qkv=w_qkv)
+    kern = lambda: qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)  # noqa: E731
+    got, ref = kern(), qmlp.fused_layer_tail_plain(x, norm, w_gu, w_down, **kw)
+    torch.cuda.synchronize()
+    rec = {"model": "phi3_mini", "fmt": "int8", "M": m, "fold": True,
+           "kernels_per_tail": qmlp.fused_layer_tail.last_kernels,
+           "max_abs_vs_plain": max(max_abs(a, b) for a, b in zip(got, ref)),
+           "rel_vs_plain": max(max_rel(a, b) for a, b in zip(got, ref))}
+    if not all(bool(torch.isfinite(a).all()) for a in got) or not rec["rel_vs_plain"] <= QUANT_KERNEL_REL:
+        raise RuntimeError(f"K8 disagrees with its plain version at Phi-3-mini's layer: {rec}")
+    rec["ms"] = graph_ms(kern)
+    rec["weight_GBps"] = _weight_bytes(mats) / rec["ms"] / 1e6
+    log("k8 " + json.dumps(rec))
+    del mats, wo, w_gu, w_down, w_qkv
+    torch.cuda.empty_cache()
+    return rec["max_abs_vs_plain"]
+
+
+def _k8_graph_check(gen) -> None:
+    """K8's kernels are launched with programmatic dependent launch: one
+    tail captured in a CUDA graph must replay to the eager call's bits."""
+    e, inter, q_dim, f = 512, 1024, 512, 768
+    wo, w_gu = _qmat_random(q_dim, e, gen, False), _qmat_random(e, 2 * inter, gen, False)
+    w_down, w_qkv = _qmat_random(inter, e, gen, False), _qmat_random(e, f, gen, False)
+    norm = _randn((e,), gen, torch.float32).abs() + 0.5
+    x, attn = _randn((16, e), gen), _randn((16, q_dim), gen)
+    kw = dict(eps=1e-5, attn_out=attn, wo=wo, next_attn_norm=norm, next_w_qkv=w_qkv)
+    want = qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"k8_pdl_graph captured=True kernels={qmlp.fused_layer_tail.last_kernels} "
+        f"replay_equals_eager={equal}")
+    if not equal:
+        raise RuntimeError("K8 replayed from a CUDA graph differs from the eager call")
+    del graph
 
 
 def _k9_bytes(lens, hkv: int, d: int, mats, e: int, f: int) -> int:
@@ -1231,9 +1301,8 @@ def phase_k9(gen) -> dict:
     """K9 against its plain version at Llama-3-8B's layer, 16 slots / 1024
     and 64 slots / 512, ragged lengths with empty slots: error, device time
     (CUDA graph replays, weights and cache cold in L2), the plain version's
-    time, kernels a call, GB/s, the split between the attention + wo kernel
-    and K8's stages (the same tail without wo), and the time at each
-    cluster size of the attention kernel."""
+    time, kernels a call, GB/s, the time of K8's stages alone (the same tail
+    without wo), and two runs held bitwise equal."""
     cfg = llama.llama3_8b()
     e, inter, hq, hkv, d = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
                             cfg.num_kv_heads, cfg.head_dim)
@@ -1279,20 +1348,12 @@ def phase_k9(gen) -> dict:
         rec["tail_only_ms"] = graph_ms(lambda: qmlp.fused_layer_tail(
             x, layer["mlp_norm"], layer["w_gate_up"], layer["w_down"], eps=cfg.rms_norm_eps,
             next_attn_norm=nxt["attn_norm"], next_w_qkv=nxt["w_qkv"]))
-        # The attention kernel's cluster size (the card's rule picks one):
-        # each slot's rows are computed by one CTA in one order whatever the
-        # size, so every size must give the same bits.
-        want = megastep.fused_decode_layer(*args, **kw)
-        rec["ms_by_cluster"] = {}
-        for n in (1, 2, 4, 8):
-            megastep._CLUSTER = n
-            try:
-                got = megastep.fused_decode_layer(*args, **kw)
-                if not all(torch.equal(a, w) for a, w in zip(got, want)):
-                    raise RuntimeError(f"K9 at cluster size {n} differs from the rule's choice: {rec}")
-                rec["ms_by_cluster"][n] = graph_ms(lambda: megastep.fused_decode_layer(*args, **kw))
-            finally:
-                megastep._CLUSTER = 0
+        # Two runs give the same bits: every reduction has a fixed order.
+        first, second = (megastep.fused_decode_layer(*args, **kw) for _ in range(2))
+        rec["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(first, second))
+        if not rec["bitwise_repeatable"]:
+            raise RuntimeError(f"K9 differs between two runs: {rec}")
+        del first, second
         nbytes = _k9_bytes(lens.tolist(), hkv, d, mats, e, f)
         macs = cfg.q_dim * e + 3 * e * inter + e * f
         ops = 2 * b * macs + 4 * hq * d * int(lens.sum())
@@ -1308,6 +1369,103 @@ def phase_k9(gen) -> dict:
     pick = recs[K9_SHAPES[1]]
     return {"max_abs_err": worst, "ms": pick["ms"], "plain_ms": pick["plain_ms"],
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
+
+
+SPLIT_TAIL_ROWS = (4, 16, 64, 256)
+
+
+def _kernel_split(fn, reps: int = 5) -> dict:
+    """Device time of each kernel inside one call of ``fn``: ``torch.profiler``
+    (CUDA activity) over ``reps`` calls, weights cold in L2 (one layer's
+    exceed it).  A kernel launched with programmatic dependent launch starts
+    before the one ahead of it ends, so each kernel is charged the time from
+    the end of the kernel before it (or its own start, if later) to its own
+    end: the charges add up to the call's span.  Returns {"kernels": [[name,
+    launches a call, us a call], ...] in the order they first ran, "span_us"},
+    or {"kernels": "not measured"} when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and ev.time_range.end > ev.time_range.start]
+    evs.sort(key=lambda ev: ev.time_range.start)
+    order, rows, prev_end = [], {}, None
+    for ev in evs:
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.name)
+        name = re.sub(r"\(.*", "", name)[:80]
+        start, end = ev.time_range.start, ev.time_range.end
+        us = end - (start if prev_end is None else max(start, min(prev_end, end)))
+        prev_end = end if prev_end is None else max(prev_end, end)
+        if name not in rows:
+            order.append(name)
+            rows[name] = [0, 0.0]
+        rows[name][0] += 1
+        rows[name][1] += us
+    if not order:
+        return {"kernels": "not measured"}
+    kernels = [[n, rows[n][0] / reps, rows[n][1] / reps] for n in order]
+    # The last call's kernels: start and end in us from its first start.
+    last = evs[-(len(evs) // reps):]
+    t0 = last[0].time_range.start
+    timeline = [[round(ev.time_range.start - t0, 1), round(ev.time_range.end - t0, 1)] for ev in last]
+    return {"kernels": kernels, "span_us": sum(k[2] for k in kernels), "timeline": timeline}
+
+
+def phase_split(gen) -> None:
+    """The per-kernel split of one K8 call (int8, Llama-3-8B's layer, M = 4,
+    16, 64 and 256, with and without the next layer's QKV) and one K9 call
+    (16 slots / 1024 and 64 / 512), with the call's time by graph replay
+    beside it (``ms``).  Uses only the public entry points, so the same
+    function measures an earlier tree of the port (``--split-only``)."""
+    cfg = llama.llama3_8b()
+    e, q_dim, inter = cfg.hidden_size, cfg.q_dim, cfg.intermediate_size
+    f = cfg.q_dim + 2 * cfg.kv_dim
+    wo = _qmat_random(q_dim, e, gen, False)
+    w_gu = _qmat_random(e, 2 * inter, gen, False)
+    w_down = _qmat_random(inter, e, gen, False)
+    w_qkv = _qmat_random(e, f, gen, False)
+    norm = _randn((e,), gen, torch.float32).abs() + 0.5
+    for m in SPLIT_TAIL_ROWS:
+        x, attn = _randn((m, e), gen), _randn((m, q_dim), gen)
+        for fold in (False, True):
+            kw = dict(eps=cfg.rms_norm_eps, attn_out=attn, wo=wo)
+            if fold:
+                kw.update(next_attn_norm=norm, next_w_qkv=w_qkv)
+            call = lambda: qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)  # noqa: E731
+            rec = {"M": m, "fold": fold, "ms": graph_ms(call), **_kernel_split(call)}
+            log("split_k8 " + json.dumps(rec))
+    if hasattr(qmlp, "tail_matmul"):  # the tail product alone, on each matrix
+        for m in (4, 64):
+            for name, w in (("wo", wo), ("w_gate_up", w_gu), ("w_down", w_down), ("w_qkv", w_qkv)):
+                x = _randn((m, w["q"].shape[0]), gen)
+                ms = graph_ms(lambda: qmlp.tail_matmul(x, w))  # noqa: B023
+                log("split_product " + json.dumps({"W": name, "M": m, "ms": ms,
+                                                  "weight_GBps": _weight_bytes(w) / ms / 1e6}))
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    layer = {"wo": wo, "mlp_norm": norm, "w_gate_up": w_gu, "w_down": w_down}
+    rng = np.random.default_rng(9)
+    for b, s_max in K9_SHAPES:
+        lens = rng.integers(1, s_max + 1, b)
+        lens[:3] = [0, 1, s_max]
+        kc, ks = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), gen, torch.float32), reduction_dim=-1)
+        vc, vs = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), gen, torch.float32), reduction_dim=-1)
+        x, q = _randn((b, e), gen), _randn((b, hq, d), gen)
+        ctx = megastep.build_decode_ctx(torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                                        torch.zeros(b, dtype=torch.bool, device="cuda"), s_max)
+        call = lambda: megastep.fused_decode_layer(  # noqa: E731
+            x, q, kc, vc, ks, vs, ctx, layer, next_attn_norm=norm, next_w_qkv=w_qkv,
+            eps=cfg.rms_norm_eps)
+        rec = {"B": b, "S": s_max, "ms": graph_ms(call), **_kernel_split(call)}
+        log("split_k9 " + json.dumps(rec))
+        del kc, vc, ks, vs
+    del wo, w_gu, w_down, w_qkv, layer
+    torch.cuda.empty_cache()
 
 
 def _mega_vs_unfused(backend, tree, cfg, seed: int) -> float:
@@ -2083,6 +2241,9 @@ def main() -> int:
     log(f"card {smi}")
     env = phase_env()
     gen = torch.Generator("cuda").manual_seed(0)
+    if "--split-only" in sys.argv[1:]:
+        phase_split(gen)
+        return 0
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
@@ -2100,6 +2261,7 @@ def main() -> int:
     phase_d96()
     train = phase_train(params)
     k23["dq"]["library_ms"] = k23["dkv"]["library_ms"] = phase_sdpa_backward(gen)
+    phase_split(gen)  # last: the profiler stays out of every other phase's timings
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], **k1},

@@ -1,8 +1,8 @@
 // Shared helpers of the hand-written kernels: the dtype codes of
 // ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8; 4 fp32 as an output
 // only), the attention kernels' instantiated widths, the mma.sync fragment
-// helpers, the quantized weight helpers and product launcher of K5-K8, and
-// K8's tail stages that K9 reuses.
+// helpers, the quantized weight helpers and product launcher of K5-K7, and
+// the tail product's interface (csrc/tail.cu) that K8 and K9 share.
 #pragma once
 
 #include <cstdint>
@@ -161,35 +161,57 @@ struct QMat {
   int int4;
 };
 
-// Host side of the quantized product (csrc/qmm.cu), shared with K8.
+// Host side of the quantized product of K5-K7 (csrc/qmm.cu).
 // x (M, K) bf16 row-major. K ranges of the split-K schedule: `requested`
 // 0 applies the card's rule (split when the output tiles are fewer than
 // the SMs); the result never leaves a range empty.
 int qgemm_splits(int M, int N, int K, int requested);
-// fp32 partial sums partial[z][M][N] of the `splits` K ranges, unscaled.
-cudaError_t qgemm_partial(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
-                          float* partial, cudaStream_t stream);
 // out (M, N) bf16 = the product, scaled per column for int8 and cast once;
 // with splits > 1 through `partial` and a fixed-order reduction.
 cudaError_t qgemm_out(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
                       float* partial, __nv_bfloat16* out, cudaStream_t stream);
 
-// K8's stages after the wo product (csrc/qmlp.cu), shared with K9
-// (csrc/megastep.cu): the row kernel adds the wo product's `wo_splits`
-// fp32 partial sums (wo_partial[z][M][E], in order z = 0, 1, ...), times
-// wo_scale (nullable), casts, adds x -> x1 and applies RMSNorm -> h (with
-// wo_partial null: x1 = x); then SwiGLU, the down product and its residual
-// -> out, and with w_qkv the next layer's RMSNorm and QKV -> qkv_out.
-// `partial` (layer_tail_workspace entries) may alias wo_partial. Adds the
-// kernels it launched to *launched.
-cudaError_t layer_tail_stages(const float* wo_partial, int wo_splits, const float* wo_scale,
-                              const __nv_bfloat16* x, const float* norm, QMat gu, QMat wd,
-                              const float* next_norm, QMat wqkv, __nv_bfloat16* out,
-                              __nv_bfloat16* qkv_out, __nv_bfloat16* x1, __nv_bfloat16* h,
-                              __nv_bfloat16* act, float* partial, int M, int E, int I, int F,
-                              float eps, int* launched, cudaStream_t stream);
-// fp32 entries of `partial` that layer_tail_stages (and K8's wo product,
-// Q > 0) need.
+// The tail product of K8 and K9 (csrc/tail.cu). Units of 128 weight
+// columns by 128 unpacked rows; activation rows rounded up to a width of
+// 8..256 (0: more rows than the tail takes).
+constexpr int kTailBN = 128;
+constexpr int kTailKB = 128;
+constexpr int kTailMaxRows = 256;
+
+// The persistent schedule of a product (ops/qmlp.tail_schedule in Python):
+// min(tail_ctas_per_sm(width) * SMs, units) CTAs; units u = tile * kblocks
+// + kblock; CTA c takes `base` units, plus one when c < rem, from c * base
+// + min(c, rem) on.
+struct TailSched {
+  int tiles, kblocks, ctas, base, rem;
+};
+
+int num_sms();
+int tail_width(int M);
+// CTAs an SM at activation width `width`: 2 up to 64, else 1.
+int tail_ctas_per_sm(int width);
+TailSched tail_schedule(int M, int N, int K, int sms);
+// fp32 entries of one product's partial sums: a (M, 128) slab per slot.
+size_t tail_partial_floats(int M, int N, int K);
+// The product of x (M, K) bf16 and w (K, N): fp32 partial sums of each
+// (CTA, column tile) into `partial`; *sched receives its schedule.
+cudaError_t tail_product(const __nv_bfloat16* x, QMat w, int M, int N, int K, float* partial,
+                         TailSched* sched, cudaStream_t stream);
+// out (M, N) bf16 = the product's sums, times scale (nullable), cast once.
+cudaError_t tail_reduce_out(const float* partial, const TailSched& sched, const float* scale,
+                            __nv_bfloat16* out, int M, int N, cudaStream_t stream);
+
+// K8's stages, shared with K9 (csrc/megastep.cu): with attn, x1 = x +
+// cast(attn @ wo) (else x1 = x), h = RMSNorm(x1); act = SwiGLU of h @
+// w_gate_up; out = x1 + cast(act @ w_down); with w_qkv, the next layer's
+// RMSNorm and QKV -> qkv_out. Every product runs on the tail product, every
+// reduction in a fixed order. Adds the kernels it launched to *launched.
+cudaError_t layer_tail(const __nv_bfloat16* x, const __nv_bfloat16* attn, QMat wo, const float* norm,
+                       QMat gu, QMat wd, const float* next_norm, QMat wqkv, __nv_bfloat16* out,
+                       __nv_bfloat16* qkv_out, __nv_bfloat16* x1, __nv_bfloat16* h,
+                       __nv_bfloat16* act, float* partial, int M, int E, int Q, int I, int F,
+                       float eps, int* launched, cudaStream_t stream);
+// fp32 entries of `partial` that layer_tail needs (Q = 0: no wo product).
 size_t layer_tail_workspace(int M, int E, int Q, int I, int F);
 
 }  // namespace qa

@@ -57,17 +57,6 @@ __host__ __device__ constexpr int stage_bytes(int bm, bool int4) {
   return bm * kXStride * 2 + (int4 ? kBK / 2 : kBK) * kWStride;
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
 int block_m(int M) { return M <= 16 ? 16 : 64; }
 
 // A CTA: rows m0 .. m0 + BM of x times columns n0 .. n0 + 128 of w, over
@@ -284,11 +273,6 @@ int qgemm_splits(int M, int N, int K, int requested) {
   want = std::max(1, std::min(want, iters));
   const int per = (iters + want - 1) / want;
   return (iters + per - 1) / per;
-}
-
-cudaError_t qgemm_partial(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
-                          float* partial, cudaStream_t stream) {
-  return launch_any(x, w, M, N, K, splits, partial, nullptr, stream);
 }
 
 cudaError_t qgemm_out(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,

@@ -72,14 +72,19 @@ _SIGNATURES = {
     "qa_layer_tail_workspace": [_I, _I, _I, _I, _I],
     # x, q, k, v, k_scale, v_scale, lengths, window_left, wo (q, s), norm,
     # w_gate_up (q, s), w_down (q, s), next_norm, w_qkv (q, s), out,
-    # qkv_out, x1, h, act, partial, B, Hq, Hkv, S, D, E, I, F, score_scale,
-    # eps, CTAs per attention cluster (0 = the card's rule), n_launches (int*),
-    # stream
+    # qkv_out, attn, x1, h, act, partial, B, Hq, Hkv, S, D, E, I, F,
+    # score_scale, eps, n_launches (int*), stream
     "qa_decode_layer": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P],
-    # B, Hkv, E, I, F -> fp32 scratch entries qa_decode_layer needs
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    # B, Q (= Hq * D), E, I, F -> fp32 scratch entries qa_decode_layer needs
     "qa_decode_layer_workspace": [_I, _I, _I, _I, _I],
+    # M, N, K, out (int[5]: CTAs, base, rem, tiles, k-blocks) -> width
+    "qa_tail_schedule": [_I, _I, _I, _P],
+    # M, N, K -> fp32 partial-sum entries of one tail product
+    "qa_tail_workspace": [_I, _I, _I],
+    # x, w, scale, int4, out, partial, M, N, K, stream
+    "qa_tail_matmul": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
     # part_acc, part_ml, B, Hq, Hkv, num_pages, page_size, pages_per_seq, D,
     # kv_code, score_scale, stream

@@ -2,9 +2,10 @@
 
 ``fused_decode_layer`` is the wrapper of kernel K9 (``csrc/megastep.cu``,
 the port of the Pallas ``_mega_kernel``, megastep.py:72): one C call runs
-a whole decode layer over the int8 slot cache -- attention with the wo
-product folded into each KV head's epilogue, residual, RMSNorm, the SwiGLU
-MLP and, optionally, the next layer's RMSNorm + QKV projection -- as a fixed
+a whole decode layer over the int8 slot cache -- attention (one CTA per KV
+head and slot), then K8's stages on the tail product (``ops/qmlp``): the wo
+product with the residual and RMSNorm in its reduction, the SwiGLU MLP and,
+optionally, the next layer's RMSNorm + QKV projection -- as a fixed
 sequence of hand-written kernels with no PyTorch op between them.  A CPU
 tensor runs the plain version, :func:`fused_decode_layer_plain`; a CUDA
 tensor runs the kernel or raises.  ``fused_decode_layer.launches`` counts
@@ -26,7 +27,7 @@ The gate keeps the JAX structure checks (megastep.py:378-411).  The Mosaic
 VMEM terms (``_pick_bkv``, ``_pick_tile``, ``_side_bytes``,
 ``_VMEM_BUDGET``) size TPU blocks and are not carried over; the card's own
 limit is the query group (at most 8 query heads per KV head: the group's
-output tile shares shared memory with the cache and wo rings).  The burst
+rows share one mma.sync tile).  The burst
 side buffer (``side=``, ``flush_side``) is a TPU workaround and is not
 ported.
 """
@@ -49,8 +50,6 @@ from .sdpa import DEFAULT_MASK_VALUE
 LOG2E = math.log2(math.e)
 #: Query heads per KV head that K9 takes (csrc/megastep.cu, kMaxGroup).
 MAX_GROUP = 8
-#: CTAs per cluster of K9's attention kernel (1, 2, 4, 8; 0 = the card's rule).
-_CLUSTER = 0
 
 
 def _is_q8(w: Any) -> bool:
@@ -258,11 +257,12 @@ def _mega_cuda(x, q, cache_k, cache_v, cache_ks, cache_vs, step_ctx, layer,
     if batch == 0:
         return out if qkv is None else (out, qkv)
     lib = _native.library()
+    attn = torch.empty((batch, hq * d), dtype=x.dtype, device=dev)
     x1 = torch.empty_like(x)
     h = torch.empty_like(x)
     act = torch.empty((batch, inter), dtype=x.dtype, device=dev)
     partial = torch.empty(
-        (lib.qa_decode_layer_workspace(batch, hkv, e_dim, inter, f_out),),
+        (lib.qa_decode_layer_workspace(batch, hq * d, e_dim, inter, f_out),),
         dtype=torch.float32, device=dev,
     )
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -276,9 +276,10 @@ def _mega_cuda(x, q, cache_k, cache_v, cache_ks, cache_vs, step_ctx, layer,
         layer["w_gate_up"]["q"].data_ptr(), layer["w_gate_up"]["s"].data_ptr(),
         layer["w_down"]["q"].data_ptr(), layer["w_down"]["s"].data_ptr(),
         ptr(next_attn_norm), ptr(nq.get("q")), ptr(nq.get("s")),
-        out.data_ptr(), ptr(qkv), x1.data_ptr(), h.data_ptr(), act.data_ptr(), partial.data_ptr(),
-        batch, hq, hkv, s_max, d, e_dim, inter, f_out, float(sm_scale * LOG2E), float(eps),
-        _CLUSTER, ctypes.byref(kernels), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), ptr(qkv), attn.data_ptr(), x1.data_ptr(), h.data_ptr(), act.data_ptr(),
+        partial.data_ptr(), batch, hq, hkv, s_max, d, e_dim, inter, f_out,
+        float(sm_scale * LOG2E), float(eps), ctypes.byref(kernels),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _native.check(err, "qa_decode_layer")
     fused_decode_layer.launches += 1

@@ -1,15 +1,24 @@
 """Fused quantized decoder-layer tail (counterpart of
 quantumattention_tpu/ops/qmlp.py).
 
-``fused_layer_tail`` is the wrapper of kernel K8 (``csrc/qmlp.cu``, the
-port of the Pallas ``_tail_kernel``, qmlp.py:93): one C call that runs
-wo + residual + RMSNorm + SwiGLU MLP + residual and, optionally, the next
-layer's RMSNorm + QKV projection as a fixed sequence of hand-written
-kernels with no PyTorch op between them.  A CPU tensor runs the plain
-version, :func:`fused_layer_tail_plain`; a CUDA tensor runs the kernel or
-raises.  ``fused_layer_tail.launches`` counts calls, and
-``fused_layer_tail.last_kernels`` holds the number of kernels the last
-call launched on the card.
+``fused_layer_tail`` is the wrapper of kernel K8 (``csrc/qmlp.cu`` over
+``csrc/tail.cu``, the port of the Pallas ``_tail_kernel``, qmlp.py:93): one
+C call that runs wo + residual + RMSNorm + SwiGLU MLP + residual and,
+optionally, the next layer's RMSNorm + QKV projection as a fixed sequence of
+hand-written kernels with no PyTorch op between them.  A CPU tensor runs the
+plain version, :func:`fused_layer_tail_plain`; a CUDA tensor runs the kernel
+or raises.  ``fused_layer_tail.launches`` counts calls, and
+``fused_layer_tail.last_kernels`` holds the number of kernels the last call
+launched on the card.
+
+Every product of the tail (and of K9's) runs on the tail product: a
+persistent grid with one CTA per SM over (128-column tile, 128-row k-block)
+units, each CTA taking an equal share in a fixed order (stream-K), weights
+and activations by TMA, wgmma with the weight columns as M and the
+activation rows as N (:func:`tail_width`).  :func:`tail_schedule` is that
+schedule, a pure function of the shape and the SM count, which the kernels
+compute alike; the reductions add each tile's partial sums in CTA order, so
+results are bitwise repeatable.  :func:`tail_matmul` runs one product alone.
 
 Layout (models/quantized.fuse_projections): x (M, E); attn_out (M, Q)
 with wo (Q, E); w_gate_up (E, 2I) = [gate | up]; w_down (I, E); next
@@ -28,8 +37,9 @@ matrix through shared-memory tiles and keep nothing resident.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +52,99 @@ from .qmm import check_activation, check_weight, dequantize_int4_tile, quantized
 #: Row cap of the fused tail (qmlp.py:64): decode batches and short
 #: prefill groups.
 _MAX_ROWS = 256
+
+
+#: Weight columns and unpacked weight rows of one tail-product unit
+#: (csrc/common.cuh, kTailBN / kTailKB).
+TAIL_BN = 128
+TAIL_KB = 128
+#: The SM count of the H100 SXM: the default of :func:`tail_schedule`.
+H100_SMS = 132
+
+
+class TailSchedule(NamedTuple):
+    """The tail product's persistent schedule (csrc/tail.cu).  Units
+    ``u = tile * kblocks + kblock``; CTA c takes ``base`` units (one more
+    when ``c < rem``) from ``c * base + min(c, rem)`` on.  ``width`` is the
+    wgmma N the activation rows round up to."""
+
+    width: int
+    tiles: int
+    kblocks: int
+    ctas: int
+    base: int
+    rem: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.kblocks
+
+    def cta_units(self, c: int):
+        """[start, stop) of CTA c's units."""
+        start = c * self.base + min(c, self.rem)
+        return start, start + self.base + (1 if c < self.rem else 0)
+
+    def segments(self):
+        """(cta, tile, kb0, kb1, slot) of every (CTA, tile) pair, in CTA
+        order: CTA c sums k-blocks [kb0, kb1) of the tile into slot c + t."""
+        out = []
+        for c in range(self.ctas):
+            u0, u1 = self.cta_units(c)
+            u = u0
+            while u < u1:
+                t = u // self.kblocks
+                stop = min(u1, (t + 1) * self.kblocks)
+                out.append((c, t, u - t * self.kblocks, stop - t * self.kblocks, c + t))
+                u = stop
+        return out
+
+    def tile_slots(self, t: int):
+        """The slots of tile t in the order the reductions add them."""
+        return [slot for _, tile, _, _, slot in self.segments() if tile == t]
+
+    def partial_floats(self, m: int) -> int:
+        """fp32 entries of the product's partial sums: (ctas + tiles) slots
+        of (m, 128)."""
+        return (self.ctas + self.tiles) * m * TAIL_BN
+
+
+def tail_unit_rows(kb: int, int4: bool):
+    """The rows k-block ``kb`` of a tail product stages (csrc/tail.cu's TMA
+    coordinates): (its weight rows -- packed rows for int4 --, the two
+    64-row ranges of the activation columns its wgmma depth covers).  An
+    int4 unit is 64 packed rows of one 256-row packing block: low nibbles
+    rows [256g + 64j, +64), high nibbles [256g + 128 + 64j, +64)."""
+    if int4:
+        k0 = (kb // 2) * 256 + (kb % 2) * 64
+        return range(64 * kb, 64 * kb + 64), (range(k0, k0 + 64), range(k0 + 128, k0 + 192))
+    k0 = TAIL_KB * kb
+    return range(k0, k0 + TAIL_KB), (range(k0, k0 + 64), range(k0 + 64, k0 + 128))
+
+
+def tail_ctas_per_sm(width: int) -> int:
+    """CTAs an SM of the tail product at an activation width: two up to 64
+    (more warps hide the conversion's latencies), else one."""
+    return 2 if width <= 64 else 1
+
+
+def tail_width(m: int) -> int:
+    """wgmma's N for m activation rows: 8, 16, 32, 64, 128 or 256."""
+    if not 0 < m <= _MAX_ROWS:
+        raise ValueError(f"the tail product takes 1..{_MAX_ROWS} rows, got {m}")
+    return max(8, 1 << (m - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def tail_schedule(m: int, n: int, k: int, sms: int = H100_SMS) -> TailSchedule:
+    """The persistent schedule of an (m, k) @ (k, n) tail product on a card
+    of ``sms`` SMs (int8 or int4 alike: a unit is 128 rows of either): one
+    or two CTAs an SM by the width, each with an equal share of units."""
+    if n % TAIL_BN or k % TAIL_KB:
+        raise ValueError(f"the tail product needs N and K % 128 == 0, got N={n} K={k}")
+    tiles, kblocks = n // TAIL_BN, k // TAIL_KB
+    units, width = tiles * kblocks, tail_width(m)
+    ctas = max(1, min(tail_ctas_per_sm(width) * sms, units))
+    return TailSchedule(width, tiles, kblocks, ctas, units // ctas, units % ctas)
 
 
 def _is_q(w: Any) -> bool:
@@ -232,3 +335,50 @@ def _tail_cuda(x, norm_w, w_gate_up, w_down, *, eps, attn_out, wo, next_attn_nor
     fused_layer_tail.launches += 1
     fused_layer_tail.last_kernels = kernels.value
     return out if qkv is None else (out, qkv)
+
+
+def tail_matmul_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """The tail product's plain version: ``x @ w`` in fp32, cast once
+    (int8: times the column scales; int4: over weights rounded to x.dtype)."""
+    return _proj(x, w).to(x.dtype)
+
+
+def tail_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """One tail product (csrc/tail.cu) and its reduction: x (M, K) bf16
+    times a quantized (K, N) matrix, M <= 256.  The product K8 and K9 run
+    for each of their matrices, alone; a CPU tensor runs the plain version.
+    ``tail_matmul.launches`` counts calls on the card."""
+    int4, k, n = _minfo(w)
+    if x.ndim != 2 or x.shape[1] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not match a ({k}, {n}) matrix")
+    if x.device.type == "cpu":
+        return tail_matmul_plain(x, w)
+    checks.require_hopper(x.device)
+    check_activation(x, "tail product")
+    m = x.shape[0]
+    if m > _MAX_ROWS or n % TAIL_BN or k % (256 if int4 else TAIL_KB):
+        raise ValueError(f"the tail product takes M <= {_MAX_ROWS}, N % 128 == 0 and K % "
+                         f"{256 if int4 else 128} == 0: M={m} N={n} K={k}")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _native.library()
+    partial = torch.empty((lib.qa_tail_workspace(m, n, k),), dtype=torch.float32, device=x.device)
+    q, s, flag = _mat(w, x.device, "tail product")
+    err = lib.qa_tail_matmul(x.data_ptr(), q, s, flag, out.data_ptr(), partial.data_ptr(), m, n, k,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _native.check(err, "qa_tail_matmul")
+    tail_matmul.launches += 1
+    return out
+
+
+tail_matmul.launches = 0
+
+
+def card_tail_schedule(m: int, n: int, k: int) -> TailSchedule:
+    """The schedule the kernels compute on the current card (csrc/tail.cu,
+    ``qa_tail_schedule``), for holding against :func:`tail_schedule`."""
+    out = (ctypes.c_int * 5)()
+    width = _native.library().qa_tail_schedule(m, n, k, out)
+    ctas, base, rem, tiles, kblocks = list(out)
+    return TailSchedule(width, tiles, kblocks, ctas, base, rem)

@@ -492,7 +492,11 @@ def test_qmm_wrappers_refuse_what_they_do_not_take(cuda):
         qmm.quantized_matmul(x, w["q"], w["s"])
 
 
-TAIL_SHAPES = [(4, 256, 512, 256, 384), (9, 256, 512, 512, 512), (256, 512, 1024, 512, 768)]
+#: (M, E, I, Q, F): the row counts around the tail product's widths (8,
+#: 16, 32, 64, 128, 256), and widths that give CTAs several tiles.
+TAIL_SHAPES = [(1, 256, 512, 256, 384), (4, 256, 512, 256, 384), (9, 256, 512, 512, 512),
+               (16, 512, 768, 256, 384), (17, 256, 512, 512, 512), (64, 512, 1024, 512, 768),
+               (65, 256, 512, 256, 384), (256, 512, 1024, 512, 768)]
 
 
 @pytest.mark.parametrize("fold", [False, True], ids=["tail", "fold"])
@@ -518,10 +522,40 @@ def test_layer_tail_kernel_matches_plain(cuda, shape, fmt, fold):
     before = qmlp.fused_layer_tail.launches
     got = qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
     want = qmlp.fused_layer_tail_plain(x, norm, w_gu, w_down, **kw)
+    again = qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)
     torch.cuda.synchronize()
-    assert qmlp.fused_layer_tail.launches == before + 1
-    for a, b in zip(got if fold else [got], want if fold else [want]):
+    assert qmlp.fused_layer_tail.launches == before + 2
+    assert qmlp.fused_layer_tail.last_kernels == 5 + (wo is not None) + 2 * fold
+    for a, b, c in zip(*((t if fold else [t]) for t in (got, want, again))):
         _close_rel(a, b)
+        assert torch.equal(a, c)  # bitwise repeatable: a fixed reduction order
+
+
+TAIL_PRODUCT_SHAPES = [(512, 384), (4096, 1024), (1024, 4096)]  # (K, N)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("kn", TAIL_PRODUCT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 64, 65, 128, 256])
+def test_tail_product_matches_plain(cuda, m, kn, int4):
+    """The tail product alone (csrc/tail.cu) against its plain version at
+    every activation width, over shapes whose CTAs hold one unit, several
+    units of one tile, or units of two tiles; two runs agree bitwise, and
+    the card's schedule is the Python one."""
+    from quantumattention_tpu_torch.ops import qmlp
+
+    k, n = kn
+    x = _randn((m, k), 60, torch.bfloat16, cuda)
+    w = _qmat(k, n, 61, int4, cuda)
+    before = qmlp.tail_matmul.launches
+    got = qmlp.tail_matmul(x, w)
+    again = qmlp.tail_matmul(x, w)
+    torch.cuda.synchronize()
+    assert qmlp.tail_matmul.launches == before + 2
+    _close_rel(got, qmlp.tail_matmul_plain(x, w))
+    assert torch.equal(got, again)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qmlp.card_tail_schedule(m, n, k) == qmlp.tail_schedule(m, n, k, sms)
 
 
 def _quant_tiny():
@@ -615,11 +649,13 @@ def _qmat8(k, n, seed, dev):
 
 
 @pytest.mark.parametrize("window", [None, 40], ids=["full", "window40"])
-@pytest.mark.parametrize("b,s_max,group", [(16, 128, 4), (32, 200, 1), (20, 64, 8)])
+@pytest.mark.parametrize("b,s_max,group", [(1, 64, 2), (16, 128, 4), (32, 200, 1), (20, 64, 8),
+                                           (64, 256, 2), (65, 96, 8)])
 def test_fused_decode_layer_matches_plain(cuda, b, s_max, group, window):
-    """K9 (attention with wo in each head's epilogue, then K8's stages) on
-    ragged lengths with empty slots, a slot count that is not a multiple of
-    16, a max_len that is not a multiple of 64, and a window."""
+    """K9 (attention, one CTA per KV head and slot, then K8's stages on the
+    tail product) on ragged lengths with empty slots, slot counts of 1 and
+    not a multiple of 16, a max_len that is not a multiple of 64, query
+    groups of 1/2/4/8 and a window; a second run agrees bitwise."""
     from quantumattention_tpu_torch.ops import megastep
 
     e, inter, hkv, d = 256, 384, 2, 128
@@ -631,7 +667,7 @@ def test_fused_decode_layer_matches_plain(cuda, b, s_max, group, window):
     kc, ks = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), 46, torch.float32, cuda), reduction_dim=-1)
     vc, vs = quant.dynamically_quantize_int8(_randn((b, hkv, s_max, d), 47, torch.float32, cuda), reduction_dim=-1)
     lens = np.random.default_rng(b).integers(0, s_max + 1, b)
-    lens[:3] = [0, 1, s_max]
+    lens[:3] = [0, 1, s_max] if b >= 3 else [s_max]
     ctx = {"lengths": torch.tensor(lens, dtype=torch.int32, device=cuda), "s_max": s_max,
            "window_left": None if window is None else window - 1}
     x = _randn((b, e), 48, torch.bfloat16, cuda)
@@ -640,15 +676,17 @@ def test_fused_decode_layer_matches_plain(cuda, b, s_max, group, window):
         before = megastep.fused_decode_layer.launches
         got = megastep.fused_decode_layer(x, q, kc, vc, ks, vs, ctx, layer, eps=1e-5, **kw)
         ref = megastep.fused_decode_layer_plain(x, q, kc, vc, ks, vs, ctx, layer, eps=1e-5, **kw)
+        again = megastep.fused_decode_layer(x, q, kc, vc, ks, vs, ctx, layer, eps=1e-5, **kw)
         torch.cuda.synchronize()
-        assert megastep.fused_decode_layer.launches == before + 1
+        assert megastep.fused_decode_layer.launches == before + 2
         ref = ref if kw else (ref, None)
-        for a, r in zip(got, ref):
+        for a, r, a2 in zip(got, ref, again):
             if r is None:
                 assert a is None
                 continue
             assert bool(torch.isfinite(a.float()).all())
             assert float((a.float() - r.float()).abs().max() / r.float().abs().max()) <= K9_REL
+            assert torch.equal(a, a2)
 
 
 def test_fused_decode_layer_refuses_on_card(cuda):
