@@ -19,7 +19,14 @@ Phases, each printing its numbers on lines of their own:
    H = 16, S = 8192, D 64/128/256, causal and not, bf16 / fp8 head-wise /
    fp8 token-wise TFLOP/s beside SDPA flash and cuDNN, one batch entry and
    two heads against the fp32 oracle);
-3. K4 (decode) likewise, over a ragged int8 and a bf16 slot cache;
+3. K4 (decode) over a ragged int8 and a bf16 slot cache (4 slots of
+   0/57/900/2047 rows): the decode-attention core's registers and spills
+   (``k4_ptxas``), the kernel against its plain version and the fp32 oracle,
+   bitwise equal across two runs and under graph capture, device time by
+   CUDA-graph replay with the cache cold in L2 (``ms``; ``call_ms`` by
+   events with the host's work), and for the bf16 cache SDPA over the same
+   rows with a length mask (``library_ms``); then head dims 72/96/320/512
+   (``k4_width``) and 32 query heads over one KV head (``k4_group``);
 4. K1's residuals (m, l) against their plain version (D = 64/128/256; e4m3
    Q/K at the bars of fp8 tensor-core sums);
 5. K2 (dQ) and K3 (dK, dV): each instantiation's registers and spills
@@ -35,8 +42,9 @@ Phases, each printing its numbers on lines of their own:
    their plain versions at Llama-3-8B's projection shapes (w_qkv, wo,
    w_gate_up, w_down, lm_head) and M = 4 and 1536, with device times of
    kernel and plain version (CUDA graph replays; ``call_ms`` adds the
-   host's per-call work), weight GB/s at M = 4, and K5 unsplit against
-   the split-K schedule;
+   host's per-call work), weight GB/s at M = 4, K5 unsplit against
+   the split-K schedule, and at w_gate_up ``torch._weight_int8pack_mm``
+   beside K5 where the card's torch runs it (``k5_library``);
 7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
    layer, int8 and int4, with and without the next layer's QKV, at M = 4,
    16, 64 and 256, with times as in 6, weight GB/s and the kernels launched
@@ -52,7 +60,9 @@ Phases, each printing its numbers on lines of their own:
 9. the engine: Llama-3-8B at full width and depth with seeded random bf16
    weights serves 6 greedy requests on 4 slots through K1 and K4; the
    launch counts prove the path went through the kernels, and each
-   request's prefill logits are held against a plain-attention run;
+   request's prefill logits are held against a plain-attention run; then
+   the same tree and prompts decode in CUDA-graph bursts of 16
+   (``engine_burst``: ms a burst step, K4 once a layer a step);
 10. quantized serving: the same weights, quantized to int8 and fused
    (``fuse_projections(quantize_params(...))``), serve the 6 requests
    through K1, K4, K5/K6 and K8 (one K8 call per layer a decode step);
@@ -72,8 +82,9 @@ Phases, each printing its numbers on lines of their own:
 12. K10 (paged decode) against its plain version and the fp32 oracle at
    Llama-3-8B's attention shapes: 16 slots over a shuffled page pool,
    ragged lengths up to 1024 with an empty slot, page sizes 128 and 256,
-   int8 and bf16 pages; device time by graph replay with the pool cold in
-   L2, the plain version's time, GB/s, and K4 on the same rows laid out
+   int8 and bf16 pages, bitwise equal across two runs and under graph
+   capture; device time by graph replay with the pool cold in L2, the
+   plain version's time, GB/s, and K4 on the same rows laid out
    contiguously (what the gather costs); and at head dim 256
    (``k10_d256``);
 13. ``serve_paged_prefix_16``, the JAX package's prefix-caching point: the
@@ -107,6 +118,10 @@ Phases, each printing its numbers on lines of their own:
    ``split_k9``), last so that the profiler stays out of the other phases'
    timings; ``python3 chip_smoke.py --split-only`` prints only these, on any
    tree of the port.
+
+``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
+timing (``engine_burst``, phase 9), also over an earlier tree of the port
+(a copy of this script beside that tree's package).
 
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
@@ -236,6 +251,9 @@ TAIL_ROWS = (4, 16, 64, 256)
 PHI3_TAIL = {"E": 3072, "I": 8192, "Q": 3072, "F": 9216}
 SERVE_PROMPTS = [57, 128, 300, 300, 900, 1500]
 SERVE_PROMPTS_INT4 = [57, 300, 900]
+#: The engine phase's tree and prompts decoded in graph-captured bursts of
+#: 16 steps, 64 new tokens a request (the 4-slot end-to-end number K4 moves).
+ENGINE_BURST = {"burst": 16, "new": 64}
 TRAIN_POSITIONS = 1024
 TRAIN_STEPS = 3
 GRAD_CHECK_LAYERS = 4
@@ -436,15 +454,17 @@ def _visible_pairs(sq: int, skv: int, causal: bool, q_offset: int = 0) -> int:
     return sum(min(skv, q_offset + i + 1) for i in range(sq))
 
 
-def _ptxas(kernel: str) -> list:
-    """Registers and spills of each instantiation (width W, element code)
-    of the kernels whose name matches ``kernel`` from the build's ptxas
-    output."""
+def _ptxas(kernel: str, params=("W", "code")) -> list:
+    """Registers and spills of each instantiation of the kernels whose name
+    matches ``kernel`` from the build's ptxas output, with its integer
+    template arguments under ``params`` (width W and element code for K1-K3;
+    W, NG and mode for the decode-attention core; none for its merge)."""
+    args = "".join(r"ILi(\d+)E" if i == 0 else r"Li(\d+)E" for i in range(len(params)))
     rows, cur = [], None
     for line in _native.build_info()["log"].splitlines():
-        m = re.search(r"Function properties for \S*?(" + kernel + r")ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Function properties for \S*?(" + kernel + r")" + args, line)
         if m:
-            cur = {"kernel": m.group(1), "W": int(m.group(2)), "code": int(m.group(3))}
+            cur = {"kernel": m.group(1), **{k: int(v) for k, v in zip(params, m.groups()[1:])}}
             continue
         if cur is None:
             continue
@@ -601,8 +621,77 @@ def _k1_protocol(gen) -> None:
         torch.cuda.empty_cache()
 
 
+def _graph_equal(fn) -> bool:
+    """One call of ``fn`` captured in a CUDA graph and replayed gives the
+    eager call's bits."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    del graph
+    return equal
+
+
+def _k4_cache(gen, b, hkv, s_max, d, cache_dtype):
+    """A K4 cache of random rows: int8 codes with token scales, or bf16;
+    and its dequantized fp32 rows."""
+    kf = _randn((b, hkv, s_max, d), gen, torch.float32)
+    vf = _randn((b, hkv, s_max, d), gen, torch.float32)
+    if cache_dtype == torch.int8:
+        kc, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
+        vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+        return (kc, vc, ks, vs), (quant.dequantize(kc, ks), quant.dequantize(vc, vs))
+    return (kf.bfloat16(), vf.bfloat16(), None, None), (kf.bfloat16().float(), vf.bfloat16().float())
+
+
+def _k4_check(label, q, cache, deq, lens, lengths) -> dict:
+    """K4 against its plain version and the fp32 oracle; raises where it
+    disagrees, is not finite, leaves an empty slot non-zero, or differs
+    between two runs."""
+    kc, vc, ks, vs = cache
+    out = decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs)
+    again = decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs)
+    plain = decode_attention_plain(q, kc, vc, lengths, ks, vs)
+    b, hq, d = q.shape
+    oracle = torch.zeros((b, hq, d), device="cuda")
+    for i, n in enumerate(lens):
+        if n:
+            oracle[i] = sdpa_reference(q[i : i + 1, :, None, :], deq[0][i : i + 1, :, :n],
+                                       deq[1][i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0, :]
+    torch.cuda.synchronize()
+    rec = {"cache": str(kc.dtype).split(".")[-1], "B": b, "Hq": hq, "Hkv": kc.shape[1], "D": d,
+           "lengths": list(lens), "max_abs_vs_plain": max_abs(out, plain),
+           "rmse_vs_oracle": rmse(out, oracle),
+           "zero_row_exact": all(bool((out[i] == 0).all()) for i, n in enumerate(lens) if n == 0),
+           "bitwise_two_runs": torch.equal(out, again)}
+    if (not bool(torch.isfinite(out.float()).all()) or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL
+            or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]
+            or not rec["bitwise_two_runs"]):
+        raise RuntimeError(f"K4 disagrees ({label}): {rec}")
+    return rec
+
+
 def phase_k4(gen) -> dict:
-    """K4 against its plain version and the fp32 oracle."""
+    """K4 against its plain version and the fp32 oracle at the 4-slot
+    serving shape (int8 and bf16 caches), bitwise equal across two runs and
+    under graph capture; the core's registers and spills (``k4_ptxas``);
+    device time by graph replay with the cache cold in L2 (``ms``: copies
+    cycled past COLD_BYTES, as K10's), by CUDA events with the host's work
+    (``call_ms``), the plain version's, and for the bf16 cache SDPA over the
+    same rows (``library_ms``); then head dims 72/96/320/512
+    (``k4_width``) and a GQA group of 32 (``k4_group``)."""
+    # The decode-attention core (W, NG, mode 0 K4 int8, 1 K10 int8, 2 bf16)
+    # and its merge kernel.
+    for row in _ptxas("decode_attn_kernel", ("W", "NG", "mode")) + _ptxas("merge_kernel", ()):
+        log("k4_ptxas " + json.dumps(row))
     b, hq, hkv, s_max, d = 4, 32, 8, 2048, 128
     lens = [0, 57, 900, 2047]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -610,47 +699,76 @@ def phase_k4(gen) -> dict:
     timing = None
     for cache_dtype in (torch.int8, torch.bfloat16):
         q = _randn((b, hq, d), gen)
-        kf = _randn((b, hkv, s_max, d), gen)
-        vf = _randn((b, hkv, s_max, d), gen)
-        if cache_dtype == torch.int8:
-            kc, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-            vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
-            kd, vd = quant.dequantize(kc, ks), quant.dequantize(vc, vs)
-        else:
-            kc, vc, ks, vs = kf, vf, None, None
-            kd, vd = kf.float(), vf.float()
-        out = decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs)
-        plain = decode_attention_plain(q, kc, vc, lengths, ks, vs)
-        oracle = torch.zeros((b, hq, d), device="cuda")
-        for i, n in enumerate(lens):
-            if n:
-                oracle[i] = sdpa_reference(
-                    q[i : i + 1, :, None, :], kd[i : i + 1, :, :n], vd[i : i + 1, :, :n],
-                    out_dtype=torch.float32,
-                )[0, :, 0, :]
-        torch.cuda.synchronize()
-        err = max_abs(out, plain)
-        r = rmse(out, oracle)
-        rec = {"cache": str(cache_dtype).split(".")[-1], "lengths": lens,
-               "max_abs_vs_plain": err, "rmse_vs_oracle": r,
-               "zero_row_exact": bool((out[0] == 0).all())}
-        rec["ms"] = time_ms(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
+        cache, deq = _k4_cache(gen, b, hkv, s_max, d, cache_dtype)
+        rec = _k4_check("4 slots", q, cache, deq, lens, lengths)
+        del deq
+        kc, vc, ks, vs = cache
+        rec["graph_equal"] = _graph_equal(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
+        if not rec["graph_equal"]:
+            raise RuntimeError(f"K4 under graph capture differs from the eager call: {rec}")
+        nbytes = sum(t.numel() * t.element_size() for t in cache if t is not None)
+        n = max(1, math.ceil(COLD_BYTES / nbytes))
+        caches = [cache] + [tuple(None if t is None else t.clone() for t in cache) for _ in range(n - 1)]
+        rec["cache_copies"] = n
+        rec["ms"] = graph_ms([lambda c=c: decode_attention(q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3])
+                              for c in caches])
+        rec["call_ms"] = time_ms(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
         rec["plain_ms"] = time_ms(lambda: decode_attention_plain(q, kc, vc, lengths, ks, vs), iters=5)
+        if ks is None:
+            # The library call for a bf16 cache: SDPA over the same rows
+            # with a length mask (the empty slot 0 left out: SDPA gives NaN
+            # for a row that sees no key), timed over the same cold copies.
+            mask = (torch.arange(s_max, device="cuda")[None, :] < lengths[1:, None])[:, None, None, :]
+            ql = q[1:, :, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ref = sdpa(ql, kc[1:], vc[1:], attn_mask=mask, enable_gqa=True)[:, :, 0]
+            out = decode_attention(q, kc, vc, lengths)[1:]
+            rec["library_max_abs_vs_k4"] = max_abs(out, ref)
+            rec["library_ms"] = graph_ms([lambda c=c: sdpa(ql, c[0][1:], c[1][1:], attn_mask=mask,
+                                                           enable_gqa=True) for c in caches])
+            del ref, out
         cache_bytes = sum(lens) * hkv * d * 2 * kc.element_size()
         rec["kernel_GBps"] = cache_bytes / rec["ms"] / 1e6
         log("k4 " + json.dumps(rec))
-        if (not bool(torch.isfinite(out).all()) or err > KERNEL_VS_PLAIN_ATOL
-                or not r < RMSE_BAR or not rec["zero_row_exact"]):
-            raise RuntimeError(f"K4 disagrees: {rec}")
-        worst = max(worst, err)
+        worst = max(worst, rec["max_abs_vs_plain"])
         if cache_dtype == torch.int8:
             timing = rec
+        del caches, cache
+    torch.cuda.empty_cache()
+    # Fault 9: every head dim JAX takes (between and above the instantiated
+    # widths) and a group of more than 16 query heads a KV head.
+    for dw in ANY_WIDTHS:
+        hq_w, hkv_w = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if dw == 96
+                       else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
+        worst = max(worst, _k4_width(gen, dw, hq_w, hkv_w, "k4_width"))
+    worst = max(worst, _k4_width(gen, 128, 32, 1, "k4_group"))
     # Bound at the timed int8 cache: the valid K/V rows (1 byte an element,
     # a 4-byte scale a row) and q and out; its few flops a byte bind nothing.
-    # No PyTorch call reads an int8 cache with token-wise scales.
+    # No PyTorch call reads an int8 cache with token-wise scales (the bf16
+    # cache's SDPA time is on its k4 line).
     nbytes = sum(lens) * hkv * 2 * (d + 4) + 2 * b * hq * d * 2
     return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             **bound(nbytes), "library_ms": None}
+
+
+def _k4_width(gen, d: int, hq: int, hkv: int, label: str) -> float:
+    """K4 at head dim d, int8 and bf16 caches, 4 slots of lengths 0/57/900/
+    2047, against its plain version and the fp32 oracle; device time by
+    graph replay."""
+    lens = [0, 57, 900, 2047]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for cache_dtype in (torch.int8, torch.bfloat16):
+        q = _randn((4, hq, d), gen)
+        cache, deq = _k4_cache(gen, 4, hkv, 2048, d, cache_dtype)
+        rec = _k4_check(label, q, cache, deq, lens, lengths)
+        kc, vc, ks, vs = cache
+        rec["ms"] = graph_ms(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
+        log(f"{label} " + json.dumps(rec))
+        worst = max(worst, rec["max_abs_vs_plain"])
+        del cache, deq, kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return worst
 
 
 def phase_k1_residuals(gen) -> dict:
@@ -1018,6 +1136,57 @@ def phase_engine():
     return launches, params
 
 
+def phase_engine_burst(params) -> dict:
+    """The engine phase's bf16 tree and prompts on 4 slots, decoded in
+    CUDA-graph bursts (``run_to_completion(decode_burst=16)``), 64 new
+    tokens a request: ms a burst step (bursts that captured their graph
+    left out), K4 once a layer a step."""
+    cfg = llama.llama3_8b()
+    eng = Engine(params, cfg, num_slots=4, max_len=2048, cache_dtype=torch.int8, device="cuda")
+    backend = eng._backend
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=ENGINE_BURST["new"])
+            for n in SERVE_PROMPTS]
+    orig = backend.burst
+    timers = {"burst_s": 0.0, "steps": 0, "bursts": 0, "captured": 0}
+
+    def timed(*args):
+        captures = backend.stats["graph_captures"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        if backend.stats["graph_captures"] == captures:
+            timers["burst_s"] += time.perf_counter() - t
+            timers["steps"] += args[6]  # a burst's n_steps
+            timers["bursts"] += 1
+        else:
+            timers["captured"] += 1
+        return out
+
+    backend.burst = timed
+    _reset_counts()
+    eng.run_to_completion(decode_burst=ENGINE_BURST["burst"])
+    torch.cuda.synchronize()
+    launches = _counts()
+    backend.burst = orig
+    stats = dict(eng.stats)
+    rec = {"stats": stats, "backend": dict(backend.stats), "launches": launches,
+           "timed_bursts": timers["bursts"], "capturing_bursts": timers["captured"],
+           "timed_steps": timers["steps"],
+           "burst_ms_per_step": 1e3 * timers["burst_s"] / max(1, timers["steps"])}
+    log("engine_burst " + json.dumps(rec))
+    for r in reqs:
+        if not r.done or len(r.output) != ENGINE_BURST["new"]:
+            raise RuntimeError(f"engine_burst: request {r.id} ended with {len(r.output)} tokens")
+    if launches["k4"] < cfg.num_layers * stats["decode_steps"] or timers["bursts"] == 0:
+        raise RuntimeError(f"engine_burst: K4 ran {launches['k4']} times for {stats['decode_steps']} steps")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _decode_vs_unfused(label: str, eng, tree, seed: int) -> float:
     """One decode step of all 4 slots through K8 against the unfused step
     (``kernel.qmlp = False``) on the same cache state: prefill 4 prompts,
@@ -1106,6 +1275,27 @@ def _cold_copies(w: dict, m: int) -> list:
     return [w] + [{k: t.clone() for k, t in w.items()} for _ in range(n - 1)]
 
 
+def _int8pack_mm(x, copies: list, w: dict) -> dict:
+    """``torch._weight_int8pack_mm`` (x times int8 W^T (N, K) with a scale
+    an output column, in x's type) at K5's shape, where the card's torch
+    runs it on CUDA: the library call computing K5's function (its scales
+    rounded to bf16), timed over the same cold weight copies, never used by
+    the port."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return {"available": False, "reason": "this torch has no _weight_int8pack_mm"}
+    wts = [(c["q"].t().contiguous(), c["s"].reshape(-1).to(x.dtype)) for c in copies]
+    try:
+        out = fn(x, *wts[0])
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as err:
+        return {"available": False, "reason": str(err).strip().splitlines()[0][:200]}
+    rec = {"available": True, "rel_vs_plain": max_rel(out, qmm.quantized_matmul_plain(x, w["q"], w["s"])),
+           "ms": graph_ms([lambda t=t: fn(x, *t) for t in wts])}
+    del wts, out
+    return rec
+
+
 def phase_qmm(gen) -> dict:
     """K5, K6 and K7 against their plain versions at Llama-3-8B's shapes."""
     cfg = llama.llama3_8b()
@@ -1150,6 +1340,8 @@ def phase_qmm(gen) -> dict:
                 else:
                     rec[f"{key}_tflops"] = 2 * m * k * n / rec[f"{key}_ms"] / 1e9
                 worst[key] = max(worst[key], rec[f"{key}_max_abs_vs_plain"])
+            if name == "w_gate_up":
+                rec["k5_library"] = _int8pack_mm(x, c8, w8)
             timing[name, m] = rec
             log("qmm " + json.dumps(rec))
             del x, c8, c4, runs
@@ -1157,8 +1349,9 @@ def phase_qmm(gen) -> dict:
     torch.cuda.empty_cache()
     # The JSON line's times: the decode regime; K6 at wo, where the rule splits.
     # Bounds: the weight codes and scales, x and out at M = 4, with 2*M*K*N
-    # bf16 operations. No PyTorch call multiplies int8 or packed int4
-    # weights with per-channel or group scales by bf16 activations on CUDA.
+    # bf16 operations. K5's library call: torch._weight_int8pack_mm at
+    # w_gate_up, M = 4, where it runs on CUDA; no PyTorch call multiplies
+    # packed int4 weights with group scales by bf16 activations on CUDA.
     pick = {"k5": ("w_gate_up", "k5"), "k6": ("wo", "k6"), "k7": ("w_gate_up", "k7")}
     dims = {name: (k, n) for name, k, n in shapes}
     out = {}
@@ -1170,6 +1363,8 @@ def phase_qmm(gen) -> dict:
                     "plain_ms": timing[name, m][f"{k}_plain_ms"],
                     **bound(wbytes + (m * kk + m * n) * 2, {"bf16": 2 * m * kk * n}),
                     "library_ms": None}
+    lib5 = timing["w_gate_up", QMM_ROWS[0]]["k5_library"]
+    out["k5"]["library_ms"] = lib5["ms"] if lib5["available"] else None
     return out
 
 
@@ -1677,10 +1872,10 @@ def _gathered_rows(pages, scales, table):
 
 def phase_k10(gen) -> dict:
     """K10 against its plain version and the fp32 oracle at Llama-3-8B's
-    attention shapes over a shuffled page pool; device time by graph replay
-    with the pool cold in L2 (copies of the pool cycled past COLD_BYTES),
-    the plain version's time, GB/s, and K4 over the same rows laid out
-    contiguously."""
+    attention shapes over a shuffled page pool, bitwise equal across two
+    runs and under graph capture; device time by graph replay with the pool
+    cold in L2 (copies of the pool cycled past COLD_BYTES), the plain
+    version's time, GB/s, and K4 over the same rows laid out contiguously."""
     cfg = llama.llama3_8b()
     b, hq, hkv, d = K10_SLOTS, cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
     rng = np.random.default_rng(10)
@@ -1712,9 +1907,12 @@ def phase_k10(gen) -> dict:
             page_bytes = int(lens_np.sum()) * hkv * 2 * (d * k.element_size() + (4 if ks is not None else 0))
             rec = {"page_size": ps, "pages": kind, "B": b, "lengths_sum": int(lens_np.sum()),
                    "max_abs_vs_plain": max_abs(out, plain), "rmse_vs_oracle": rmse(out, oracle),
-                   "zero_row_exact": bool((out[0] == 0).all())}
+                   "zero_row_exact": bool((out[0] == 0).all()),
+                   "bitwise_two_runs": torch.equal(out, paged_decode_attention(*args, **kw)),
+                   "graph_equal": _graph_equal(lambda: paged_decode_attention(*args, **kw))}
             if (not bool(torch.isfinite(out.float()).all()) or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL
-                    or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]):
+                    or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]
+                    or not rec["bitwise_two_runs"] or not rec["graph_equal"]):
                 raise RuntimeError(f"K10 disagrees: {rec}")
             worst = max(worst, rec["max_abs_vs_plain"])
             del kdq, vdq, oracle, out, plain
@@ -2244,6 +2442,10 @@ def main() -> int:
     if "--split-only" in sys.argv[1:]:
         phase_split(gen)
         return 0
+    if "--engine-burst-only" in sys.argv[1:]:
+        cfg = llama.llama3_8b()
+        phase_engine_burst(llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda"))
+        return 0
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
@@ -2253,6 +2455,7 @@ def main() -> int:
     k9 = phase_k9(gen)
     k10 = phase_k10(gen)
     launches, params = phase_engine()
+    phase_engine_burst(params)
     q8 = phase_quant_serving(params, int4=False)
     q4 = phase_quant_serving(params, int4=True)
     s64 = phase_serve_int8_64(params)

@@ -20,7 +20,7 @@ constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 
 enum ElemCode { kBF16 = 0, kF16 = 1, kE4M3 = 2, kI8 = 3, kF32 = 4 };
 
-// The instantiated width of the attention kernels (K1, K2, K3, K10) that a
+// The instantiated width of the attention kernels (K1, K2, K3, K4, K10) that a
 // runtime head dim D rounds up to: 64, 128, 256 or 512 (whose output
 // columns CTAs share); 0 when D is not a multiple of 8 in 8..512.
 inline int kernel_width(int D) {
@@ -48,11 +48,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&hi)) << 16);
-}
-
 // D = A(16x16 bf16, row) * B(16x8 bf16, col) + C, fp32 accumulate.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -60,6 +55,22 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 (byte i of v is element i) -> bf16 pairs (0, 1) and (2, 3),
+// exactly, on the integer and fp32 pipes: each byte, offset to unsigned,
+// becomes the low mantissa byte of 2^23 (0x4B000000 + u), minus 2^23 + 128
+// gives the integer as a float, and a float holding an integer of at most
+// 8 significant bits is its bf16 in the upper half. No I2F or F2F
+// conversion instruction is issued.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // Eight consecutive elements (any input code) -> eight bf16 in a uint4.
@@ -103,23 +114,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t* a, const __nv_bfloat16* ti
   a[1] = *reinterpret_cast<const uint32_t*>(tile + (g + 8) * stride + c);
   a[2] = *reinterpret_cast<const uint32_t*>(tile + g * stride + c + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(tile + (g + 8) * stride + c + 8);
-}
-
-// B operand for X . Y^T: Y rows 8j..8j+7 of a bf16 smem tile, depth
-// columns 16 kk .. 16 kk + 15 (Y row-major is B column-major).
-__device__ __forceinline__ void load_b_nt(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                          int stride, int j, int kk, int g, int t) {
-  const __nv_bfloat16* r = tile + (j * 8 + g) * stride + kk * 16 + t * 2;
-  b0 = *reinterpret_cast<const uint32_t*>(r);
-  b1 = *reinterpret_cast<const uint32_t*>(r + 8);
-}
-
-// B operand for X . Y: Y rows 16kk..16kk+15 (the depth), columns 8j..8j+7.
-__device__ __forceinline__ void load_b_nn(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* tile,
-                                          int stride, int j, int kk, int g, int t) {
-  const __nv_bfloat16* c = tile + (kk * 16 + t * 2) * stride + j * 8 + g;
-  b0 = pack_raw(c[0], c[stride]);
-  b1 = pack_raw(c[8 * stride], c[9 * stride]);
 }
 
 // ---------------------------------------------------------------------------

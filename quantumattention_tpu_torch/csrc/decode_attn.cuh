@@ -1,0 +1,801 @@
+// The split-KV decode-attention core of K4 (csrc/decode.cu, a contiguous
+// slot cache) and K10 (csrc/paged.cu, KV pages through a page table),
+// sm_90a.
+//
+// Both compute one-token GQA decode attention: per (slot b, KV head h) the
+// G query heads of the group against the cache rows [0, lengths[b]), an
+// exp2 online softmax in fp32, P.V with fp32 accumulation, a bf16 output,
+// and exact zeros for a slot of length 0. They differ in the row source
+// (phys_row below) and in where an int8 token scale enters (Mode).
+//
+// What bounds it on the H100: bytes. Every valid row of K and V is read
+// once (1 byte an element for int8, plus a 4-byte scale) for 4 * G * D
+// flops, far below the card's ~295 flops/byte. The design:
+//  - a persistent grid, sized from the SM count and the kernel's occupancy
+//    (never from the lengths, so nothing is read back to the host and a
+//    call can be captured in a CUDA graph). The work is the 64-row tiles of
+//    every segment, a segment being (slot, KV head, query split, column
+//    split), in that order. Each CTA sums the tiles of the B lengths itself
+//    and takes an equal contiguous share of them (shares differ by at most
+//    one tile; at least kMinTiles a CTA where there are enough, so fewer
+//    CTAs take part in a short call), which may span segments.
+//    ops/decode.decode_schedule is the same schedule in Python;
+//  - one producer warp streams each tile into an mbarrier ring of 2-4
+//    stages: TMA boxes of 16 rows from a 2-D map over the (rows, D) cache
+//    or page pool, 128-byte swizzled (int8 rows of D % 16 == 8 break the
+//    tensor map's 16-byte stride rule: there the warp's 32 lanes copy the
+//    same swizzled layout 8 bytes a cp.async). The page of a 16-row box is
+//    read from the table once, and only for rows below the length; boxes
+//    at or past the length are never fetched;
+//  - four consumer warps own 16 rows of every tile each, with swap-AB
+//    mma.sync m16n8k16 products: S^T = K.Q^T (the cache rows are M, the
+//    query rows N, rounded up to 8 or 16) and O^T = V^T.P^T (the output
+//    columns are M). int8 codes become bf16 four at a time from 32-bit
+//    shared loads on the integer and fp32 pipes (i8x4_to_bf16); P's
+//    accumulators become P^T's B fragments by movmatrix. Each warp keeps
+//    its own online softmax; at the end of a segment's run of tiles the
+//    four merge in shared memory in warp order and one (m, l, acc) partial
+//    is written, at index cta + segment;
+//  - a merge kernel (csrc/decode_attn.cu) launched with programmatic
+//    dependent launch sums each segment's partials in CTA order (bitwise
+//    repeatable) and writes the bf16 output, zeros for an empty slot.
+// The query rows of a segment are a runtime count up to 16 (more are split
+// over segments) and the mask is one column limit per query row, so a
+// multi-query or windowed mode changes only row_limit.
+#pragma once
+
+#include <cstring>
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace qa {
+namespace dattn {
+
+constexpr int kRows = 64;      // cache rows per tile
+constexpr int kBox = 16;       // rows per TMA box: one consumer warp's rows
+constexpr int kConsumers = 4;  // consumer warps
+constexpr int kThreads = (kConsumers + 1) * 32;
+constexpr int kMaxQRows = 16;  // query rows of one segment
+constexpr int kSmemCap = 232448;
+constexpr int kTwoPerSm = 112 * 1024;  // shared memory of a CTA that lets two share an SM
+constexpr int kMaxCtas = 256;          // CTAs of a call (the merge's weights a query row)
+
+// Where an int8 token scale enters (bf16 caches have none):
+//   kScoreScale (K4, as JAX's _decode_kernel): exact integer codes in the
+//     products, the K scale on the scores, P times the V scale rounded to
+//     bf16;
+//   kElemScale (K10, as JAX's DMA path): code times the row's scale rounded
+//     to bf16 per element, P rounded to bf16.
+enum Mode { kScoreScale = 0, kElemScale = 1, kPlain16 = 2 };
+
+struct Params {
+  const __nv_bfloat16* q;  // (B, Hq, D)
+  const float* ks;         // token scales, or null
+  const float* vs;
+  const int* lengths;      // (B,)
+  const int* table;        // K10: (B, pps) page ids; K4: null
+  const unsigned char* k;  // the rows for cp.async (tma == 0)
+  const unsigned char* v;
+  float* part_acc;         // (ctas + B * segs, qrows, ccols)
+  float* part_ml;          // (ctas + B * segs, qrows, 2)
+  int B, Hq, Hkv, D;
+  int smax;                // rows a slot can hold (K4: Smax; K10: pps * ps)
+  int P, ps, pps;          // K10's pool
+  int qsplits, csplits;    // query-row splits of 16 and column splits of VW
+  int qrows, ccols;        // rows and columns of one split
+  int vw;                  // columns of a split (the template's VW)
+  int ctas;
+  int tma;                 // 1: TMA boxes; 0: cp.async (int8, D % 16 == 8)
+  float score_scale;       // sm_scale * log2(e)
+};
+
+// The columns a CTA of width W and element size E owns (V and the output):
+// all of W up to 256 columns; at 512, 256 for int8 and 64 for bf16 (two or
+// eight column splits, each scoring the full width), so two stages of K and
+// V tiles fit the shared memory.
+__host__ __device__ constexpr int v_cols(int W, int E) { return W <= 256 ? W : (E == 1 ? 256 : 64); }
+
+// Bytes of a K / V tile row in shared memory: whole 128-byte swizzle spans.
+__host__ __device__ constexpr int k_row_bytes(int W, int E) { return W * E < 128 ? 128 : W * E; }
+__host__ __device__ constexpr int v_row_bytes(int W, int E) {
+  return v_cols(W, E) * E < 128 ? 128 : v_cols(W, E) * E;
+}
+__host__ __device__ constexpr int stage_bytes(int W, int E) {
+  return kRows * (k_row_bytes(W, E) + v_row_bytes(W, E));
+}
+// Two buffers of query rows (bf16, rows 16 bytes apart beyond W), the
+// warps' partials at the end of a segment, K10's token scales of each
+// stage, the ring's barriers and the alignment slack.
+__host__ __device__ constexpr int fixed_bytes(int W, int E, int NG) {
+  return 2 * NG * (2 * W + 16) + kConsumers * NG * (v_cols(W, E) + 2) * 4 + 4 * 2 * kRows * 4 +
+         2 * 4 * 8 + 1024;
+}
+// Stages of the ring: as many as fit, up to 4, in half an SM's shared
+// memory (two CTAs an SM) where two fit there, else in all of it.
+__host__ __device__ constexpr int ring_stages(int W, int E, int NG) {
+  return ((fixed_bytes(W, E, NG) + 2 * stage_bytes(W, E) <= kTwoPerSm ? kTwoPerSm : kSmemCap) -
+          fixed_bytes(W, E, NG)) / stage_bytes(W, E) > 4
+             ? 4
+             : ((fixed_bytes(W, E, NG) + 2 * stage_bytes(W, E) <= kTwoPerSm ? kTwoPerSm : kSmemCap) -
+                fixed_bytes(W, E, NG)) / stage_bytes(W, E);
+}
+__host__ __device__ constexpr int smem_bytes(int W, int E, int NG) {
+  return ring_stages(W, E, NG) * stage_bytes(W, E) + fixed_bytes(W, E, NG);
+}
+
+template <int W, int E, int NG>
+struct Layout {
+  static constexpr int kVW = v_cols(W, E);
+  static constexpr int kKRow = k_row_bytes(W, E);
+  static constexpr int kVRow = v_row_bytes(W, E);
+  static constexpr int kKTile = kRows * kKRow;
+  static constexpr int kStage = stage_bytes(W, E);
+  static constexpr int kQStride = 2 * W + 16;  // bytes of a query row
+  static constexpr int kQBytes = NG * kQStride;
+  static constexpr int kScratch = kConsumers * NG * (kVW + 2) * 4;
+  static constexpr int kStages = ring_stages(W, E, NG);
+  static constexpr int kSmem = smem_bytes(W, E, NG);
+  static constexpr int kPerSm = kSmem <= kTwoPerSm ? 2 : 1;
+  static_assert(kStages >= 2 && kSmem <= kSmemCap, "two stages in the shared memory of one CTA");
+};
+
+// Tiles of slot b (rows [0, min(lengths[b], smax)) in 64-row tiles).
+__device__ __forceinline__ int slot_len(const Params& p, int b) {
+  return min(max(__ldg(p.lengths + b), 0), p.smax);
+}
+
+__device__ __forceinline__ int len_tiles(int len) { return (len + kRows - 1) / kRows; }
+
+// The query rows' column limit: every row of a one-token decode sees the
+// slot's rows [0, len).
+__device__ __forceinline__ int row_limit(int len, int /*qrow*/) { return len; }
+
+// The physical row (of the (rows, D) view of the cache or pool) of slot
+// b's row r of KV head h; r a multiple of 16 for K10 (a box never crosses a
+// page: page sizes are multiples of 16). A page id out of range is clamped.
+__device__ __forceinline__ int phys_row(const Params& p, int b, int h, int r) {
+  if (p.table == nullptr) return (b * p.Hkv + h) * p.smax + r;
+  const int page = min(max(__ldg(p.table + b * p.pps + r / p.ps), 0), p.P - 1);
+  return (h * p.P + page) * p.ps + r % p.ps;
+}
+
+// Byte offset of (row, byte column) in a tile of 128-byte-swizzled spans:
+// span-major, 64 rows of 128 bytes a span (a TMA box's layout).
+__device__ __forceinline__ int tile_off(int row, int col) {
+  return (col >> 7) * (kRows * 128) + row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+// The current tile of a CTA's share: slot b (length len, `tiles` tiles),
+// segment j of the slot, tile i of the segment.
+struct TileIt {
+  int b, j, i, len, tiles;
+};
+
+// The share's tile after `it` (segments in order, empty slots skipped).
+__device__ __forceinline__ void advance(const Params& p, int segs, TileIt& it) {
+  if (++it.i < it.tiles) return;
+  it.i = 0;
+  if (++it.j < segs) return;
+  it.j = 0;
+  do {
+    ++it.b;
+    it.len = it.b < p.B ? slot_len(p, it.b) : 0;
+    it.tiles = len_tiles(it.len);
+  } while (it.b < p.B && it.tiles == 0);
+}
+
+// The CTAs that take part in a call of n tiles: each takes at least
+// kMinTiles (fewer partials to merge), at most `ctas` of them.
+constexpr int kMinTiles = 2;
+
+__host__ __device__ __forceinline__ int active_ctas(int n, int ctas) {
+  const int a = n / kMinTiles;
+  return a < 1 ? 1 : (a < ctas ? a : ctas);
+}
+
+// The first tile of CTA c's share of n tiles, and its count: an equal
+// contiguous share, one more for the first n % active CTAs.
+__host__ __device__ __forceinline__ void share(int n, int ctas, int c, int& u0, int& count) {
+  const int a = active_ctas(n, ctas);
+  const int base = n / a, rem = n % a;
+  u0 = c < a ? c * base + min(c, rem) : n;
+  count = c < a ? base + (c < rem ? 1 : 0) : 0;
+}
+
+// The CTA whose share holds tile u.
+__host__ __device__ __forceinline__ int owner(int n, int ctas, int u) {
+  const int a = active_ctas(n, ctas);
+  const int base = n / a, rem = n % a;
+  const int big = rem * (base + 1);
+  return u < big ? u / (base + 1) : rem + (u - big) / base;
+}
+
+// Every lane of a warp: CTA c's share of the call's tiles (its count; its
+// first tile as `it` when the count is not 0). The lengths of the first 32
+// slots stay in registers, so up to 32 slots are read once.
+__device__ __forceinline__ void find_share(const Params& p, int segs, int c, TileIt& it, int& count) {
+  const int lane = threadIdx.x & 31;
+  const int len0 = lane < p.B ? slot_len(p, lane) : 0;
+  auto slot = [&](int b0) { return b0 == 0 ? len0 : (b0 + lane < p.B ? slot_len(p, b0 + lane) : 0); };
+  int total = 0;
+  for (int b0 = 0; b0 < p.B; b0 += 32) {
+    int x = len_tiles(slot(b0)) * segs;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    total += x;
+  }
+  int u;
+  share(total, p.ctas, c, u, count);
+  if (count == 0) return;
+  int before = 0;
+  for (int b0 = 0; b0 < p.B; b0 += 32) {
+    const int len = slot(b0);
+    const int x = len_tiles(len) * segs;
+    int inc = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (u < before + __shfl_sync(0xffffffffu, inc, 31)) {
+      const int L = __ffs(__ballot_sync(0xffffffffu, u < before + inc)) - 1;
+      const int start = before + __shfl_sync(0xffffffffu, inc - x, L);
+      const int lb = __shfl_sync(0xffffffffu, len, L);
+      it.b = b0 + L;
+      it.len = lb;
+      it.tiles = len_tiles(lb);
+      it.j = (u - start) / it.tiles;
+      it.i = (u - start) % it.tiles;
+      return;
+    }
+    before += __shfl_sync(0xffffffffu, inc, 31);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Fragment helpers.
+// ---------------------------------------------------------------------------
+
+// Four int8 codes as floats (as i8x4_to_bf16), elements 0 and 2 times
+// `sa`, 1 and 3 times `sb`, rounded to bf16 pairs (0, 1) and (2, 3): one
+// FMUL an element, one cvt.rn.bf16x2 a pair.
+__device__ __forceinline__ void i8x4_scaled(uint32_t v, float sa, float sb, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = pack_bf16(f0 * sa, f1 * sb);
+  hi = pack_bf16(f2 * sa, f3 * sb);
+}
+
+// The 8x8 b16 matrix held as accumulator fragments (lane 4g + t: row g,
+// columns 2t, 2t + 1), transposed in place.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// 8 bytes from device memory to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(smem_addr(smem)), "l"(gmem));
+}
+
+// An arrival on `bar` once this thread's earlier cp.asyncs have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
+}
+
+
+// ---------------------------------------------------------------------------
+// The kernel. Grid: p.ctas CTAs of kThreads; warps 0-3 consume, warp 4
+// produces. W: the instantiated width; NG: query rows of a segment rounded
+// up to 8 or 16.
+// ---------------------------------------------------------------------------
+
+template <int W, int NG, int MODE>
+__global__ void __launch_bounds__(kThreads, Layout<W, MODE == kPlain16 ? 2 : 1, NG>::kPerSm)
+decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                   const Params p) {
+  constexpr int E = MODE == kPlain16 ? 2 : 1;
+  using L = Layout<W, E, NG>;
+  constexpr int kVW = L::kVW;
+  constexpr int kNT = NG / 8;    // query n-tiles of 8
+  constexpr int kKK = W / 16;    // depth steps of S^T
+  constexpr int kCB = kVW / 32;  // pairs of 16-column output tiles
+  constexpr int S = L::kStages;
+  constexpr int kGroup = 8;      // tiles whose boxes the producer locates at once
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qbuf = ring + S * L::kStage;                    // two query buffers
+  float* scratch = reinterpret_cast<float*>(qbuf + 2 * L::kQBytes);  // [warp][NG][kVW]
+  float* scratch_ml = scratch + kConsumers * NG * kVW;           // [warp][NG][2]
+  float* scale_ring = scratch_ml + kConsumers * NG * 2;          // [stage][K 64 | V 64] (K10 int8)
+  uint64_t* full = reinterpret_cast<uint64_t*>(scale_ring + 4 * 2 * kRows);
+  uint64_t* empty = full + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int splits = p.qsplits * p.csplits;
+  const int segs = p.Hkv * splits;
+  pdl_launch_dependents();
+
+  TileIt it;
+  int count;
+  find_share(p, segs, blockIdx.x, it, count);
+  if (count == 0) return;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], p.tma ? 1 : 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // The producer. Its lanes locate the 16-row boxes of kGroup tiles at a
+    // time (lane 4a + x: box x of the group's tile a; K10 reads the page
+    // table there, in parallel), then stream each tile's boxes below the
+    // length: TMA boxes issued by lane 0, or 8-byte cp.asyncs of every lane.
+    if (p.tma && lane == 0) {
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+    }
+    for (int k0 = 0; k0 < count; k0 += kGroup) {
+      TileIt mine = it;
+      for (int a = 0; a < lane / 4 && k0 + a + 1 < count; ++a) advance(p, segs, mine);
+      const int r_box = mine.i * kRows + (lane & 3) * kBox;
+      const int my_row = k0 + lane / 4 < count && r_box < mine.len
+                             ? phys_row(p, mine.b, mine.j / splits, r_box) : 0;
+      for (int k = k0; k < min(k0 + kGroup, count); ++k) {
+        const int s = k % S;
+        int rows[kRows / kBox];
+#pragma unroll
+        for (int bx = 0; bx < kRows / kBox; ++bx) rows[bx] = __shfl_sync(0xffffffffu, my_row, (k - k0) * 4 + bx);
+        if (k >= S) mbar_wait(&empty[s], (k / S + 1) & 1);
+        const int cs = it.j % p.csplits;
+        const int nbox = (min(kRows, it.len - it.i * kRows) + kBox - 1) / kBox;
+        unsigned char* kt = ring + s * L::kStage;
+        unsigned char* vt = kt + L::kKTile;
+        float* st = scale_ring + s * 2 * kRows;
+        if (lane == 0) {
+          uint32_t bytes = p.tma ? nbox * kBox * (L::kKRow + L::kVRow) : 0;
+          if constexpr (MODE == kElemScale) bytes += nbox * 2 * kBox * 4;
+          if (bytes) mbar_expect_tx(&full[s], bytes);
+          for (int bx = 0; bx < nbox; ++bx) {
+            if (p.tma) {
+#pragma unroll
+              for (int c = 0; c < L::kKRow / 128; ++c)
+                tma_load_2d(kt + c * kRows * 128 + bx * kBox * 128, &tm_k, &full[s], c * (128 / E),
+                            rows[bx]);
+#pragma unroll
+              for (int c = 0; c < L::kVRow / 128; ++c)
+                tma_load_2d(vt + c * kRows * 128 + bx * kBox * 128, &tm_v, &full[s],
+                            cs * kVW + c * (128 / E), rows[bx]);
+            }
+            if constexpr (MODE == kElemScale) {
+              bulk_load(st + bx * kBox, p.ks + rows[bx], kBox * 4, &full[s]);
+              bulk_load(st + kRows + bx * kBox, p.vs + rows[bx], kBox * 4, &full[s]);
+            }
+          }
+          if (p.tma) mbar_arrive(&full[s]);
+        }
+        if (!p.tma) {
+          // int8 rows of D % 16 == 8 bytes, into the same swizzled layout.
+          const int kch = p.D / 8, v0 = cs * kVW, vch = min(kVW, p.D - v0) / 8;
+          for (int bx = 0; bx < nbox; ++bx) {
+            const unsigned char* kr = p.k + static_cast<size_t>(rows[bx]) * p.D;
+            const unsigned char* vr = p.v + static_cast<size_t>(rows[bx]) * p.D + v0;
+            for (int x = lane; x < kBox * kch; x += 32) {
+              const int r = x / kch, c = x % kch;
+              cp_async8(kt + tile_off(bx * kBox + r, 8 * c), kr + static_cast<size_t>(r) * p.D + 8 * c);
+            }
+            for (int x = lane; x < kBox * vch; x += 32) {
+              const int r = x / vch, c = x % vch;
+              cp_async8(vt + tile_off(bx * kBox + r, 8 * c), vr + static_cast<size_t>(r) * p.D + 8 * c);
+            }
+          }
+          cp_async_arrive(&full[s]);
+        }
+        advance(p, segs, it);
+      }
+    }
+    return;
+  }
+
+  // The consumers. Lane 4g + t; this warp's rows of a tile are
+  // wrow .. wrow + 15: S^T's rows wrow + g and wrow + g + 8, P^T's depth
+  // rows wrow + 2t, +1, +8, +9.
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * kBox;
+  const int G = p.Hq / p.Hkv;
+
+  // A segment's query rows into query buffer `buf` by 16-byte cp.asyncs:
+  // zero rows up to NG, zero columns past D.
+  auto load_q = [&](const TileIt& x, int buf) {
+    const int h = x.j / splits, qs = (x.j / p.csplits) % p.qsplits;
+    const int rows = min(kMaxQRows, G - qs * kMaxQRows);
+    const __nv_bfloat16* src = p.q + (static_cast<size_t>(x.b) * p.Hq + h * G + qs * kMaxQRows) * p.D;
+    unsigned char* dst = qbuf + buf * L::kQBytes;
+    for (int i = threadIdx.x; i < NG * (W / 8); i += kConsumers * 32) {
+      const int r = i / (W / 8), c = (i % (W / 8)) * 8;
+      const bool ok = r < rows && c < p.D;
+      cp_async16(dst + r * L::kQStride + c * 2, ok ? src + static_cast<size_t>(r) * p.D + c : src, ok);
+    }
+    cp_async_commit();
+  };
+  // K4's token scales of a tile, one load ahead (zero past the length): the
+  // K and V scales of rows g, g + 8 of the warp's 16.
+  auto load_scales = [&](const TileIt& x, float (&sc)[4]) {
+    if constexpr (MODE == kScoreScale) {
+      const int rbase = x.i * kRows + wrow;
+      if (rbase < x.len) {
+        const int pr = phys_row(p, x.b, x.j / splits, rbase);
+        sc[0] = rbase + g < x.len ? __ldg(p.ks + pr + g) : 0.f;
+        sc[1] = rbase + g + 8 < x.len ? __ldg(p.ks + pr + g + 8) : 0.f;
+        sc[2] = rbase + g < x.len ? __ldg(p.vs + pr + g) : 0.f;
+        sc[3] = rbase + g + 8 < x.len ? __ldg(p.vs + pr + g + 8) : 0.f;
+      }
+    }
+  };
+
+  float o[2 * kCB][kNT][4];
+  float m_run[kNT][2], l_run[kNT][2];  // per query 8j + 2t + e; l this lane's rows only
+  auto reset = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < 2 * kCB; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      m_run[j][0] = m_run[j][1] = -INFINITY;
+      l_run[j][0] = l_run[j][1] = 0.f;
+    }
+  };
+  reset();
+  int qcur = 0;
+  load_q(it, 0);
+  float sc[4] = {0.f, 0.f, 0.f, 0.f}, sc_next[4] = {0.f, 0.f, 0.f, 0.f};
+  load_scales(it, sc);
+  cp_async_wait<0>();
+  named_barrier(1, kConsumers * 32);
+
+  for (int k = 0; k < count; ++k) {
+    const bool more = k + 1 < count;
+    TileIt nx = it;
+    if (more) {
+      advance(p, segs, nx);
+      load_scales(nx, sc_next);
+    }
+    const bool last = !more || nx.b != it.b || nx.j != it.j;  // of this segment's run
+    if (last && more) load_q(nx, qcur ^ 1);
+    const int s = k % S;
+    const int rbase = it.i * kRows + wrow;  // the slot row of this warp's first row
+    const int nvalid = it.len - rbase;      // of this warp's rows, those below the length
+    if (nvalid > 0) {
+      mbar_wait(&full[s], (k / S) & 1);
+      const unsigned char* kt = ring + s * L::kStage;
+      const unsigned char* vt = kt + L::kKTile;
+      const unsigned char* qsm = qbuf + qcur * L::kQBytes;
+      const int qs = (it.j / p.csplits) % p.qsplits;
+      // K10's scales of rows g, g + 8 (K) and 2t, 2t + 1, 2t + 8, 2t + 9
+      // (V), zero past the length (the box's rows there may hold any bits).
+      float ksa = 0.f, ksb = 0.f, vs0 = 0.f, vs1 = 0.f, vs8 = 0.f, vs9 = 0.f;
+      if constexpr (MODE == kElemScale) {
+        const float* st = scale_ring + s * 2 * kRows + wrow;
+        ksa = g < nvalid ? st[g] : 0.f;
+        ksb = g + 8 < nvalid ? st[g + 8] : 0.f;
+        vs0 = 2 * t < nvalid ? st[kRows + 2 * t] : 0.f;
+        vs1 = 2 * t + 1 < nvalid ? st[kRows + 2 * t + 1] : 0.f;
+        vs8 = 2 * t + 8 < nvalid ? st[kRows + 2 * t + 8] : 0.f;
+        vs9 = 2 * t + 9 < nvalid ? st[kRows + 2 * t + 9] : 0.f;
+      }
+
+      // S^T = K . Q^T: K's depth in the order (4t, 4t+1 | 4t+2, 4t+3) of
+      // each 16 columns, Q's B fragments in the same order; even and odd
+      // depth steps into two sums, so two products are in flight.
+      float sacc[kNT][4], sodd[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = sodd[j][e] = 0.f;
+      const int ra = wrow + g, rb = ra + 8;
+#pragma unroll
+      for (int kk = 0; kk < kKK; ++kk) {
+        uint32_t a[4];
+        if constexpr (E == 1) {
+          const uint32_t wa = *reinterpret_cast<const uint32_t*>(kt + tile_off(ra, kk * 16 + 4 * t));
+          const uint32_t wb = *reinterpret_cast<const uint32_t*>(kt + tile_off(rb, kk * 16 + 4 * t));
+          if constexpr (MODE == kElemScale) {
+            i8x4_scaled(wa, ksa, ksa, a[0], a[2]);
+            i8x4_scaled(wb, ksb, ksb, a[1], a[3]);
+          } else {
+            i8x4_to_bf16(wa, a[0], a[2]);
+            i8x4_to_bf16(wb, a[1], a[3]);
+          }
+        } else {
+          const uint2 xa = *reinterpret_cast<const uint2*>(kt + tile_off(ra, kk * 32 + 8 * t));
+          const uint2 xb = *reinterpret_cast<const uint2*>(kt + tile_off(rb, kk * 32 + 8 * t));
+          a[0] = xa.x;
+          a[2] = xa.y;
+          a[1] = xb.x;
+          a[3] = xb.y;
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const uint2 qv = *reinterpret_cast<const uint2*>(qsm + (8 * j + g) * L::kQStride + (kk * 16 + 4 * t) * 2);
+          mma_bf16(kk & 1 ? sodd[j] : sacc[j], a, qv.x, qv.y);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] += sodd[j][e];
+
+      // Scale, mask (a slot row at or past its query row's limit), online
+      // softmax per query; P (times K4's V scale) as P^T's B fragments.
+      const int sa = it.i * kRows + ra, sb = sa + 8;  // slot rows of the accumulators
+      uint32_t pb[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        float pv[2][2];  // [row a / b][query e]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int lim = row_limit(it.len, qs * kMaxQRows + 8 * j + 2 * t + e);
+          float x0 = sacc[j][e] * p.score_scale, x1 = sacc[j][2 + e] * p.score_scale;
+          if constexpr (MODE == kScoreScale) {
+            x0 *= sc[0];
+            x1 *= sc[1];
+          }
+          x0 = sa < lim ? x0 : kMaskValue;
+          x1 = sb < lim ? x1 : kMaskValue;
+          float mx = fmaxf(x0, x1);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          const float m_new = fmaxf(m_run[j][e], mx);
+          const float alpha = exp2f(m_run[j][e] - m_new);
+          m_run[j][e] = m_new;
+          const float p0 = exp2f(x0 - m_new), p1 = exp2f(x1 - m_new);
+          l_run[j][e] = alpha * l_run[j][e] + (p0 + p1);
+#pragma unroll
+          for (int mt = 0; mt < 2 * kCB; ++mt) {
+            o[mt][j][e] *= alpha;
+            o[mt][j][2 + e] *= alpha;
+          }
+          if constexpr (MODE == kScoreScale) {
+            pv[0][e] = p0 * sc[2];
+            pv[1][e] = p1 * sc[3];
+          } else {
+            pv[0][e] = p0;
+            pv[1][e] = p1;
+          }
+        }
+        pb[j][0] = movmatrix_trans(pack_bf16(pv[0][0], pv[0][1]));
+        pb[j][1] = movmatrix_trans(pack_bf16(pv[1][0], pv[1][1]));
+      }
+
+      // O^T += V^T . P^T: output columns 32cb + 4g .. +3 are this lane's
+      // (rows g and g + 8 of output tiles 2cb and 2cb + 1).
+      const int v0 = wrow + 2 * t;
+      const bool partial = nvalid < kBox;
+#pragma unroll
+      for (int cb = 0; cb < kCB; ++cb) {
+        uint32_t a0[4], a1[4];  // output tiles 2cb and 2cb + 1
+        if constexpr (E == 1) {
+          const int col = 32 * cb + 4 * g;
+          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0, col));
+          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 1, col));
+          const uint32_t x8 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 8, col));
+          const uint32_t x9 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 9, col));
+          const uint32_t y0 = __byte_perm(x0, x1, 0x5140), y1 = __byte_perm(x0, x1, 0x7362);
+          const uint32_t y8 = __byte_perm(x8, x9, 0x5140), y9 = __byte_perm(x8, x9, 0x7362);
+          if constexpr (MODE == kElemScale) {
+            i8x4_scaled(y0, vs0, vs1, a0[0], a0[1]);
+            i8x4_scaled(y1, vs0, vs1, a1[0], a1[1]);
+            i8x4_scaled(y8, vs8, vs9, a0[2], a0[3]);
+            i8x4_scaled(y9, vs8, vs9, a1[2], a1[3]);
+          } else {
+            i8x4_to_bf16(y0, a0[0], a0[1]);
+            i8x4_to_bf16(y1, a1[0], a1[1]);
+            i8x4_to_bf16(y8, a0[2], a0[3]);
+            i8x4_to_bf16(y9, a1[2], a1[3]);
+          }
+        } else {
+          const int col = 64 * cb + 8 * g;
+          uint2 x0 = *reinterpret_cast<const uint2*>(vt + tile_off(v0, col));
+          uint2 x1 = *reinterpret_cast<const uint2*>(vt + tile_off(v0 + 1, col));
+          uint2 x8 = *reinterpret_cast<const uint2*>(vt + tile_off(v0 + 8, col));
+          uint2 x9 = *reinterpret_cast<const uint2*>(vt + tile_off(v0 + 9, col));
+          if (partial) {  // rows past the length may hold any bits: zero them
+            const uint2 z = make_uint2(0u, 0u);
+            x0 = 2 * t < nvalid ? x0 : z;
+            x1 = 2 * t + 1 < nvalid ? x1 : z;
+            x8 = 2 * t + 8 < nvalid ? x8 : z;
+            x9 = 2 * t + 9 < nvalid ? x9 : z;
+          }
+          a0[0] = __byte_perm(x0.x, x1.x, 0x5410);
+          a0[1] = __byte_perm(x0.x, x1.x, 0x7632);
+          a0[2] = __byte_perm(x8.x, x9.x, 0x5410);
+          a0[3] = __byte_perm(x8.x, x9.x, 0x7632);
+          a1[0] = __byte_perm(x0.y, x1.y, 0x5410);
+          a1[1] = __byte_perm(x0.y, x1.y, 0x7632);
+          a1[2] = __byte_perm(x8.y, x9.y, 0x5410);
+          a1[3] = __byte_perm(x8.y, x9.y, 0x7632);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          mma_bf16(o[2 * cb][j], a0, pb[j][0], pb[j][1]);
+          mma_bf16(o[2 * cb + 1][j], a1, pb[j][0], pb[j][1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+
+    if (last) {
+      // The end of this segment's run: the warps' (m, l, acc) into shared
+      // memory, merged in warp order into the partial at cta + segment.
+      float* wacc = scratch + warp * NG * kVW;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int q = 8 * j + 2 * t;
+#pragma unroll
+        for (int mt = 0; mt < 2 * kCB; ++mt) {
+          const int col = 32 * (mt >> 1) + 4 * g + 2 * (mt & 1);
+          *reinterpret_cast<float2*>(wacc + q * kVW + col) = make_float2(o[mt][j][0], o[mt][j][2]);
+          *reinterpret_cast<float2*>(wacc + (q + 1) * kVW + col) = make_float2(o[mt][j][1], o[mt][j][3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float l = l_run[j][e];
+          l += __shfl_xor_sync(0xffffffffu, l, 4);
+          l += __shfl_xor_sync(0xffffffffu, l, 8);
+          l += __shfl_xor_sync(0xffffffffu, l, 16);
+          if (g == 0) {
+            scratch_ml[2 * (warp * NG + q + e)] = m_run[j][e];
+            scratch_ml[2 * (warp * NG + q + e) + 1] = l;
+          }
+        }
+      }
+      named_barrier(1, kConsumers * 32);
+      const int qs = (it.j / p.csplits) % p.qsplits, cs = it.j % p.csplits;
+      const int rows = min(kMaxQRows, G - qs * kMaxQRows), cols = min(kVW, p.D - cs * kVW);
+      const size_t piece = blockIdx.x + static_cast<size_t>(it.b) * segs + it.j;
+      for (int i = threadIdx.x; i < rows * cols; i += kConsumers * 32) {
+        const int q = i / cols, c = i % cols;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < kConsumers; ++w) mx = fmaxf(mx, scratch_ml[2 * (w * NG + q)]);
+        float acc = 0.f, l = 0.f;
+#pragma unroll
+        for (int w = 0; w < kConsumers; ++w) {
+          const float f = exp2f(scratch_ml[2 * (w * NG + q)] - mx);  // 0 for a warp without rows
+          acc += f * scratch[(w * NG + q) * kVW + c];
+          l += f * scratch_ml[2 * (w * NG + q) + 1];
+        }
+        p.part_acc[(piece * p.qrows + q) * p.ccols + c] = acc;
+        if (c == 0) {
+          p.part_ml[2 * (piece * p.qrows + q)] = mx;
+          p.part_ml[2 * (piece * p.qrows + q) + 1] = l;
+        }
+      }
+      cp_async_wait<0>();  // the next segment's queries
+      named_barrier(1, kConsumers * 32);
+      qcur ^= 1;
+      reset();
+    }
+    it = nx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = sc_next[i];
+  }
+}
+
+// The merge of every segment's partials (csrc/decode_attn.cu): grid (segs,
+// B), launched with programmatic dependent launch after the kernel above.
+cudaError_t merge(const Params& p, __nv_bfloat16* out, cudaStream_t stream);
+
+// The plan of one call: the instantiation, the grid and the splits.
+struct Plan {
+  int W, NG, ctas, qsplits, csplits, qrows, ccols, vw, segs, tma;
+};
+
+// Fills *pl for a call over B slots of Hq / Hkv heads, head dim D (a
+// multiple of 8 up to 512), rows of E bytes an element, `smax` rows a slot.
+// The grid: as many CTAs as the card holds at once (two an SM where the
+// shared memory allows), at most kMaxCtas and one a tile of the most the
+// slots can hold.
+inline cudaError_t plan(int E, int B, int Hq, int Hkv, int D, int smax, Plan* pl) {
+  const int W = kernel_width(D);
+  if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || smax <= 0) return cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  pl->W = W;
+  pl->qsplits = (G + kMaxQRows - 1) / kMaxQRows;
+  pl->qrows = G < kMaxQRows ? G : kMaxQRows;
+  pl->NG = pl->qrows <= 8 ? 8 : 16;
+  pl->vw = v_cols(W, E);
+  pl->csplits = (D + pl->vw - 1) / pl->vw;
+  pl->ccols = D < pl->vw ? D : pl->vw;
+  pl->segs = Hkv * pl->qsplits * pl->csplits;
+  pl->tma = (D * E) % 16 == 0;
+  const int per_sm = smem_bytes(W, E, pl->NG) <= kTwoPerSm ? 2 : 1;
+  const long long cap = static_cast<long long>(B) * pl->segs * ((smax + kRows - 1) / kRows);
+  long long ctas = static_cast<long long>(per_sm) * num_sms();
+  ctas = ctas < kMaxCtas ? ctas : kMaxCtas;
+  pl->ctas = static_cast<int>(ctas < cap ? ctas : cap);
+  return cudaSuccess;
+}
+
+// Launches the kernel of plan `pl` and the merge. k, v: the cache or pool as
+// a (rows, D) matrix of E-byte elements.
+template <int W, int NG, int MODE>
+cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat16* out,
+                   cudaStream_t stream) {
+  constexpr int E = MODE == kPlain16 ? 2 : 1;
+  using L = Layout<W, E, NG>;
+  constexpr int kMaxDevices = 64;
+  // Raise the dynamic shared-memory limit once per device (not on every
+  // launch: a launch may be captured into a CUDA graph).
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !configured[dev]) {
+    err = cudaFuncSetAttribute(decode_attn_kernel<W, NG, MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    configured[dev] = err == cudaSuccess;
+  }
+  CUtensorMap tm_k, tm_v;
+  std::memset(&tm_k, 0, sizeof(tm_k));
+  std::memset(&tm_v, 0, sizeof(tm_v));
+  const int code = E == 1 ? kI8 : kBF16;
+  if (err == cudaSuccess && p.tma)
+    err = tensor_map_2d(&tm_k, k, code, p.D, rows, static_cast<size_t>(p.D) * E, 128 / E, kBox, true);
+  if (err == cudaSuccess && p.tma)
+    err = tensor_map_2d(&tm_v, v, code, p.D, rows, static_cast<size_t>(p.D) * E, 128 / E, kBox, true);
+  if (err != cudaSuccess) return err;
+  p.k = static_cast<const unsigned char*>(k);
+  p.v = static_cast<const unsigned char*>(v);
+  decode_attn_kernel<W, NG, MODE><<<p.ctas, kThreads, L::kSmem, stream>>>(tm_k, tm_v, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(p, out, stream);
+}
+
+// The kernel of `mode` at the plan's width and query rows.
+template <int MODE>
+cudaError_t run(const Plan& pl, Params p, const void* k, const void* v, int rows,
+                __nv_bfloat16* out, cudaStream_t stream) {
+  p.qsplits = pl.qsplits;
+  p.csplits = pl.csplits;
+  p.qrows = pl.qrows;
+  p.ccols = pl.ccols;
+  p.vw = pl.vw;
+  p.ctas = pl.ctas;
+  p.tma = pl.tma;
+  const bool wide = pl.NG == 16;
+  switch (pl.W) {
+    case 64:
+      return wide ? launch<64, 16, MODE>(p, k, v, rows, out, stream)
+                  : launch<64, 8, MODE>(p, k, v, rows, out, stream);
+    case 128:
+      return wide ? launch<128, 16, MODE>(p, k, v, rows, out, stream)
+                  : launch<128, 8, MODE>(p, k, v, rows, out, stream);
+    case 256:
+      return wide ? launch<256, 16, MODE>(p, k, v, rows, out, stream)
+                  : launch<256, 8, MODE>(p, k, v, rows, out, stream);
+    default:
+      return wide ? launch<512, 16, MODE>(p, k, v, rows, out, stream)
+                  : launch<512, 8, MODE>(p, k, v, rows, out, stream);
+  }
+}
+
+// The bf16 caches of K4 and K10 (one instantiation set, csrc/decode_attn.cu).
+cudaError_t run_plain16(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                        __nv_bfloat16* out, cudaStream_t stream);
+
+}  // namespace dattn
+}  // namespace qa

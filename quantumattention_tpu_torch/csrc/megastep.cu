@@ -65,22 +65,6 @@ constexpr int kBarOff = kWarps * kWarpRing;
 constexpr int kSmem = kBarOff + kWarps * kStages * 8 + 1024;  // + alignment slack
 static_assert(kWarps * kMaxGroup * (kOStride + 2) * 4 <= kBarOff, "the merge fits in the rings");
 
-// Four int8 (byte i of v is element i) -> bf16 pairs (0, 1) and (2, 3),
-// exactly, on the integer and fp32 pipes: each byte, offset to unsigned,
-// becomes the low mantissa byte of 2^23 (0x4B000000 + u), minus 2^23 + 128
-// gives the integer as a float, and a float holding an integer of at most
-// 8 significant bits is its bf16 in the upper half. No I2F or F2F
-// conversion instruction is issued.
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = v ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // Byte offset of (row, byte column) in a 128-B-swizzled tile of 128-byte rows.
 __device__ __forceinline__ int sw(int row, int col) {
   return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
@@ -194,8 +178,8 @@ attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 #pragma unroll
       for (int jj = 0; jj < kBN / 8; ++jj) {
         uint32_t b0v, b1v;
-        i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(kt + sw(jj * 8 + gq, kk * 16 + 4 * tq)),
-                     b0v, b1v);
+        qa::i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(kt + sw(jj * 8 + gq, kk * 16 + 4 * tq)),
+                         b0v, b1v);
         qa::mma_bf16(sc[jj], qf[kk], b0v, b1v);
       }
     }
@@ -260,8 +244,8 @@ attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
         const uint32_t x0 = vt[sw(r, c)], x1 = vt[sw(r + 1, c)];
         const uint32_t x2 = vt[sw(r + 8, c)], x3 = vt[sw(r + 9, c)];
         uint32_t b0v, b1v;
-        i8x4_to_bf16(__byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040), 0x5410),
-                     b0v, b1v);
+        qa::i8x4_to_bf16(__byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040), 0x5410),
+                         b0v, b1v);
         qa::mma_bf16(o[n], pf[kk], b0v, b1v);
       }
     }

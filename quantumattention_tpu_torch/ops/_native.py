@@ -53,11 +53,13 @@ _SIGNATURES = {
     "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _F, _P],
     # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
-    # B, Hq, Hkv, Smax, D, kv_code, score_scale, stream
+    # B, Hq, Hkv, Smax, D, kv_code, score_scale, stream (K4)
     "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   _I, _F, _P],
-    # Smax -> number of split-KV chunks of qa_decode
-    "qa_decode_num_splits": [_I],
+    # code, B, Hq, Hkv, D, smax, out (int[6]: CTAs, query splits, column
+    # splits, rows and columns of a split, segments a slot) -> the plan of
+    # qa_decode / qa_paged_decode (the split-KV core, csrc/decode_attn.cuh)
+    "qa_decode_attn_plan": [_I, _I, _I, _I, _I, _I, _P],
     # x, w, scale, out, partial, M, N, K, int4, splits, stream
     "qa_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # M, N, K, requested (0 = the card's rule) -> K ranges of qa_qmm
@@ -90,8 +92,6 @@ _SIGNATURES = {
     # kv_code, score_scale, stream
     "qa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _F, _P],
-    # page_size -> pages one CTA of qa_paged_decode covers
-    "qa_paged_span_pages": [_I],
 }
 
 

@@ -6,8 +6,18 @@ port of the Pallas ``_decode_kernel``, decode.py:56).  A CPU tensor runs the
 kernel's plain version, :func:`decode_attention_plain`; a CUDA tensor runs
 the kernel or raises.  ``decode_attention.launches`` counts launches.
 
+K4 and K10 (``ops/paged.py``) run on one split-KV decode-attention core
+(``csrc/decode_attn.cuh``): a persistent grid whose CTAs each take an equal
+contiguous share of the valid 64-row tiles of every (slot, KV head, query
+split, column split) segment, and one merge kernel that sums each
+segment's partials in CTA order.  :func:`decode_schedule` is that schedule
+in Python; :func:`decode_split` how a call's query heads and columns are
+split into segments.
+
 Covered: (B, Hq, D) bf16 queries, an int8 cache with token-wise fp32 scales
-or a bf16 cache, ragged lengths including 0 (zero output rows), GQA, bf16
+or a bf16 cache, ragged lengths including 0 (zero output rows), any GQA
+group, any head dim JAX takes (a multiple of 8 up to 512, run at an
+instantiated width of 64, 128, 256 or 512 with zero columns), bf16
 output.  Not yet (ROADMAP queue 1, items 12a-c): the 4-D multi-query q of
 speculative verification, packed int4 caches, ``window``, and the
 ``decode_int8_qk``/``decode_int8_pv`` variants.
@@ -15,16 +25,146 @@ speculative verification, packed int4 caches, ``window``, and the
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..utils import checks
+from ..utils import checks, shapes
 from . import _native
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
+#: Cache rows of one tile of the decode-attention core (csrc/decode_attn.cuh, kRows).
+ROWS_PER_TILE = 64
+#: Query rows one segment holds; more query heads a KV head are split.
+MAX_QUERY_ROWS = 16
+#: Tiles a CTA takes at least, where there are enough (kMinTiles).
+MIN_TILES = 2
+
+
+def decode_split(hq: int, hkv: int, d: int, int8: bool) -> tuple:
+    """How the core splits one (slot, KV head) into segments: (query
+    splits, column splits, rows of a split, columns of a split).  A split
+    holds up to 16 query heads and, at the instantiated width 512, 256
+    output columns (int8) or 64 (bf16), so two stages of K and V tiles fit
+    the shared memory (csrc/decode_attn.cuh, v_cols)."""
+    group = hq // hkv
+    width = shapes.kernel_width(d)
+    vw = width if width <= 256 else (256 if int8 else 64)
+    return (shapes.cdiv(group, MAX_QUERY_ROWS), shapes.cdiv(d, vw),
+            min(group, MAX_QUERY_ROWS), min(d, vw))
+
+
+@dataclass(frozen=True)
+class DecodeSchedule:
+    """The core's persistent schedule over one call's lengths.
+
+    Tiles are numbered slot by slot, segment by segment, row by row.  The
+    first ``active`` CTAs (at most ``ctas``, each with at least MIN_TILES
+    tiles where there are that many) share them: CTA c takes ``base``
+    tiles, one more when c < ``rem``, from c * base + min(c, rem) on.  A
+    run of a CTA's tiles inside one segment writes one partial, at index
+    cta + segment (segment = slot * segments + j), and the merge sums a
+    segment's partials in CTA order."""
+
+    ctas: int
+    segments: int     # segments a slot
+    tiles: tuple      # tiles of each slot's segments
+    total: int        # tiles of the call
+
+    @property
+    def active(self) -> int:
+        return max(1, min(self.ctas, self.total // MIN_TILES))
+
+    @property
+    def base(self) -> int:
+        return self.total // self.active
+
+    @property
+    def rem(self) -> int:
+        return self.total % self.active
+
+    def cta_tiles(self, c: int) -> tuple:
+        """The tiles [u0, u1) of CTA c's share (empty past ``active``)."""
+        if c >= self.active:
+            return self.total, self.total
+        u0 = c * self.base + min(c, self.rem)
+        return u0, u0 + self.base + (1 if c < self.rem else 0)
+
+    def segment_tiles(self, seg: int) -> tuple:
+        """The tiles [t0, t1) of segment seg (slot seg // segments)."""
+        b, j = divmod(seg, self.segments)
+        t0 = int(self._slot_starts[b]) + j * self.tiles[b]
+        return t0, t0 + self.tiles[b]
+
+    @functools.cached_property
+    def _slot_starts(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.tiles)[:-1]]).astype(np.int64) * self.segments
+
+    def owner(self, u: int) -> int:
+        """The CTA whose share holds tile u."""
+        big = self.rem * (self.base + 1)
+        return u // (self.base + 1) if u < big else self.rem + (u - big) // self.base
+
+    def runs(self, c: int) -> list:
+        """CTA c's runs in order: (segment, first tile, stop tile) of each
+        segment its share touches, tiles numbered within the segment."""
+        u0, u1 = self.cta_tiles(c)
+        out = []
+        if u0 == u1:
+            return out
+        b = int(np.searchsorted(self._slot_starts, u0, side="right")) - 1
+        while b < len(self.tiles) and self._slot_starts[b] < u1:
+            for j in range(self.segments if self.tiles[b] else 0):
+                seg = b * self.segments + j
+                t0, t1 = self.segment_tiles(seg)
+                lo, hi = max(t0, u0), min(t1, u1)
+                if lo < hi:
+                    out.append((seg, lo - t0, hi - t0))
+            b += 1
+        return out
+
+    def merge_order(self, seg: int) -> list:
+        """The CTAs whose partials the merge sums for segment seg, in order
+        (partial index cta + seg); empty for an empty slot."""
+        t0, t1 = self.segment_tiles(seg)
+        if t0 == t1:
+            return []
+        return list(range(self.owner(t0), self.owner(t1 - 1) + 1))
+
+
+def decode_schedule(lengths, segments: int, rows_per_tile: int, ctas: int,
+                    max_rows: Optional[int] = None) -> DecodeSchedule:
+    """The schedule of ``ctas`` CTAs over slots of these lengths (clamped to
+    [0, max_rows]), each slot ``segments`` segments of ceil(length /
+    rows_per_tile) tiles (csrc/decode_attn.cuh: find_share, share, owner)."""
+    lens = np.clip(np.asarray(lengths, np.int64), 0, max_rows)
+    tiles = tuple(int(t) for t in -(-lens // rows_per_tile))
+    return DecodeSchedule(ctas, segments, tiles, sum(tiles) * segments)
+
+
+def card_plan(code: int, batch: int, hq: int, hkv: int, d: int, smax: int) -> dict:
+    """The plan the card computes for a call (``qa_decode_attn_plan``):
+    CTAs, splits and partial sizes."""
+    out = (ctypes.c_int * 6)()
+    _native.check(_native.library().qa_decode_attn_plan(code, batch, hq, hkv, d, smax, out),
+                  "qa_decode_attn_plan")
+    ctas, qsplits, csplits, qrows, ccols, segs = list(out)
+    return {"ctas": ctas, "qsplits": qsplits, "csplits": csplits, "qrows": qrows,
+            "ccols": ccols, "segments": segs}
+
+
+def core_scratch(plan: dict, batch: int, device) -> tuple:
+    """The partials' fp32 scratch of one call: (acc, (m, l))."""
+    pieces = plan["ctas"] + batch * plan["segments"]
+    acc = torch.empty((pieces, plan["qrows"], plan["ccols"]), dtype=torch.float32, device=device)
+    ml = torch.empty((pieces, plan["qrows"], 2), dtype=torch.float32, device=device)
+    return acc, ml
 
 
 def decode_attention_plain(
@@ -118,8 +258,10 @@ def decode_attention(
 decode_attention.launches = 0
 
 
-def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
-    """Check what the kernel takes, launch it on the current stream."""
+def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale, scratch=None):
+    """Check what the kernel takes, launch it on the current stream.
+    ``scratch`` (the partials, :func:`core_scratch`) is for tests that read
+    the card's split."""
     checks.require_hopper(q.device)
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
@@ -137,21 +279,17 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
         raise ValueError("K4's q and caches must be 16-byte aligned")
     batch, hq, d = q.shape
     _, hkv, s_max, _ = k_cache.shape
-    if d % 4:
-        raise ValueError(f"K4 needs head_dim % 4 == 0, got {d}")
-    lib = _native.library()
-    nsplit = lib.qa_decode_num_splits(s_max)
+    shapes.check_kernel_head_dim("K4", d)
+    code = _native.dtype_code(k_cache.dtype)
+    plan = card_plan(code, batch, hq, hkv, d, s_max)
+    part_acc, part_ml = scratch if scratch is not None else core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
-    group = hq // hkv
-    part_acc = torch.empty((batch, hkv, nsplit, group, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((batch, hkv, nsplit, group, 2), dtype=torch.float32, device=q.device)
-    err = lib.qa_decode(
+    err = _native.library().qa_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, s_max, d,
-        _native.dtype_code(k_cache.dtype), float(sm_scale * LOG2E),
+        part_ml.data_ptr(), batch, hq, hkv, s_max, d, code, float(sm_scale * LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_decode")

@@ -15,9 +15,11 @@ is not JAX's ``_gathered_reference`` either (paged.py:344-410, the interpret
 mode's default), so the parity tests run the JAX kernel with
 ``use_dma=True``.
 
-The wrapper reads nothing back to the host: the kernel's grid comes from
-``pages_per_seq``, so a decode step that calls it can be captured in a CUDA
-graph.  It takes the folded (Hkv, P, ps/128, 128) scale layout of the JAX
+The wrapper reads nothing back to the host: the kernel runs on the
+split-KV decode-attention core it shares with K4 (``csrc/decode_attn.cuh``,
+``ops/decode.decode_schedule``), whose grid comes from the card and the
+shapes, never from the lengths, so a decode step that calls it can be
+captured in a CUDA graph.  It takes the folded (Hkv, P, ps/128, 128) scale layout of the JAX
 package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
 (Hkv, P, ps) one.
 
@@ -42,10 +44,11 @@ import torch
 
 from ..utils import checks, shapes
 from . import _native
+from .decode import card_plan, core_scratch
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
-#: Query heads per KV head the kernel takes (csrc/paged.cu, kMaxGroup).
+#: Query heads per KV head the kernel takes (csrc/paged.cu).
 MAX_GROUP = 16
 
 
@@ -210,8 +213,10 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
-def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
-    """Check what the kernel takes, launch it on the current stream."""
+def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, scratch=None):
+    """Check what the kernel takes, launch it on the current stream.
+    ``scratch`` (the partials, ``ops/decode.core_scratch``) is for tests
+    that read the card's split."""
     checks.require_hopper(q.device)
     batch, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -241,20 +246,16 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
             raise ValueError("K10 operands must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("K10's operands must be 16-byte aligned")
-    lib = _native.library()
-    span_pages = lib.qa_paged_span_pages(ps)
-    nspan = -(-pps // span_pages)
-    group = hq // hkv
+    code = _native.dtype_code(k_pages.dtype)
+    plan = card_plan(code, batch, hq, hkv, d, pps * ps)
+    part_acc, part_ml = scratch if scratch is not None else core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
-    part_acc = torch.empty((batch, hkv, nspan, group, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((batch, hkv, nspan, group, 2), dtype=torch.float32, device=q.device)
-    err = lib.qa_paged_decode(
+    err = _native.library().qa_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d,
-        _native.dtype_code(k_pages.dtype), float(sm_scale * LOG2E),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, code,
+        float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_paged_decode")
     paged_decode_attention.launches += 1

@@ -174,11 +174,19 @@ def _k1_width_case(cuda, d, shape, mode, causal):
     assert float(((l - pl).abs() / pl).max()) <= l_bar
 
 
-@pytest.mark.parametrize("cache", ["int8", "bf16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 64)])
-def test_decode_kernel_matches_plain(cuda, cache, group, d):
-    b, hkv, s_max = 8, 2, 600
-    lens = torch.tensor([0, 1, 63, 64, 65, 256, 257, 600], dtype=torch.int32, device=cuda)
+#: (GQA group, head dim) of K4's card cases: groups 1-16 and one of 32
+#: (split over two segments; the parent kernel took it), head dims at and
+#: between the instantiated widths (fault 9: D >= 432 overflowed the parent's
+#: fp32 shared-memory tiles).
+DECODE_CASES = [(1, 64), (4, 128), (8, 64), (16, 128), (32, 128), (4, 72), (1, 96), (8, 320),
+                (4, 432), (4, 512), (16, 512)]
+#: Slot lengths across the core's 16-row boxes, 64-row tiles and shares.
+DECODE_LENGTHS = [0, 1, 63, 64, 65, 256, 257, 600]
+
+
+def _decode_case(cuda, cache, group, d, hkv=2, s_max=600):
+    b = len(DECODE_LENGTHS)
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=cuda)
     q = _randn((b, hkv * group, d), 4, torch.bfloat16, cuda)
     kf = _randn((b, hkv, s_max, d), 5, torch.float32, cuda)
     vf = _randn((b, hkv, s_max, d), 6, torch.float32, cuda)
@@ -187,13 +195,114 @@ def test_decode_kernel_matches_plain(cuda, cache, group, d):
         vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
     else:
         kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+    return q, kc, vc, lens, ks, vs
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+@pytest.mark.parametrize("group,d", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, cache, group, d):
+    q, kc, vc, lens, ks, vs = _decode_case(cuda, cache, group, d)
     before = decode_attention.launches
     out = decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs)
     assert decode_attention.launches == before + 1
+    again = decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs)
     plain = decode_attention_plain(q, kc, vc, lens, ks, vs)
     torch.cuda.synchronize()
     assert bool((out[0] == 0).all())
+    assert torch.isfinite(out.float()).all()
     assert float((out.float() - plain.float()).abs().max()) <= ATOL
+    assert torch.equal(out, again)  # the merge sums in a fixed order
+
+
+def _paged_case(cuda, shape, kind):
+    """K10's inputs over a shuffled pool: ragged lengths with an empty and
+    a full slot, table entries past each sequence's pages out of range."""
+    b, hq, hkv, ps, pps, d = shape
+    pool = b * pps + 3
+    g = torch.Generator().manual_seed(ps + d)
+    table = torch.randperm(pool, generator=g)[: b * pps].reshape(b, pps).to(torch.int32)
+    lens = torch.randint(1, pps * ps + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = 0, pps * ps
+    pages_of = (lens + ps - 1) // ps
+    table = torch.where(torch.arange(pps)[None] < pages_of[:, None], table, 99_999)
+    kf = _randn((hkv, pool, ps, d), 1, torch.float32, cuda)
+    vf = _randn((hkv, pool, ps, d), 2, torch.float32, cuda)
+    if kind == "int8":
+        k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
+        v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    q = _randn((b, hq, d), 3, torch.bfloat16, cuda)
+    return q, k, v, lens.to(cuda), table.to(cuda), ks, vs
+
+
+def _core_calls(cuda, kernel, kind):
+    """One K4 or K10 call of the decode-attention core: (call(scratch=None),
+    lengths, plan)."""
+    from quantumattention_tpu_torch.ops import decode, paged
+
+    if kernel == "k4":
+        q, kc, vc, lens, ks, vs = _decode_case(cuda, kind, 4, 128)
+        plan = decode.card_plan(3 if kind == "int8" else 0, q.shape[0], q.shape[1], kc.shape[1], 128,
+                                kc.shape[2])
+
+        def call(scratch=None):
+            return decode._decode_cuda(q, kc, vc, lens, ks, vs, 128 ** -0.5, scratch=scratch)
+
+        return call, lens, plan, kc.shape[2]
+    q, k, v, lens, table, ks, vs = _paged_case(cuda, (16, 32, 8, 128, 8, 128), kind)
+    smax = table.shape[1] * k.shape[2]
+    plan = decode.card_plan(3 if kind == "int8" else 0, q.shape[0], q.shape[1], k.shape[0], 128, smax)
+
+    def call(scratch=None):
+        return paged._paged_cuda(q, k, v, lens, table, ks, vs, 128 ** -0.5, scratch=scratch)
+
+    return call, lens, plan, smax
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_decode_core_split_is_the_schedule(cuda, kernel, kind):
+    """The card's split is ops/decode.decode_schedule: the partials the
+    kernel writes are exactly the (CTA, segment) runs of the Python
+    schedule, and the card's plan splits as decode_split says."""
+    from quantumattention_tpu_torch.ops import decode
+
+    call, lens, plan, smax = _core_calls(cuda, kernel, kind)
+    acc, ml = decode.core_scratch(plan, lens.shape[0], cuda)
+    ml.fill_(float("nan"))
+    call(scratch=(acc, ml))
+    torch.cuda.synchronize()
+    written = set(torch.nonzero(torch.isfinite(ml[:, 0, 0])).flatten().tolist())
+    sched = decode.decode_schedule(lens.cpu().numpy(), plan["segments"], decode.ROWS_PER_TILE,
+                                   plan["ctas"], smax)
+    assert written == {c + seg for c in range(sched.ctas) for seg, _, _ in sched.runs(c)}
+    assert plan["ctas"] <= 256
+    hq, hkv = (32, 8) if kernel == "k10" else (8, 2)
+    split = (plan["qsplits"], plan["csplits"], plan["qrows"], plan["ccols"])
+    assert split == decode.decode_split(hq, hkv, 128, kind == "int8")
+    assert plan["segments"] == hkv * plan["qsplits"] * plan["csplits"]
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_decode_core_is_deterministic_and_capturable(cuda, kernel, kind):
+    """Two runs give the same bits, and so does one call captured in a CUDA
+    graph and replayed."""
+    call, _, _, _ = _core_calls(cuda, kernel, kind)
+    want = call()
+    assert torch.equal(call(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
@@ -824,23 +933,7 @@ def test_paged_kernel_matches_plain(cuda, shape, kind):
     from quantumattention_tpu_torch.ops.paged import (
         paged_decode_attention, paged_decode_attention_plain)
 
-    b, hq, hkv, ps, pps, d = shape
-    pool = b * pps + 3
-    g = torch.Generator().manual_seed(ps + d)
-    table = torch.randperm(pool, generator=g)[: b * pps].reshape(b, pps).to(torch.int32)
-    lens = torch.randint(1, pps * ps + 1, (b,), generator=g, dtype=torch.int32)
-    lens[0], lens[1] = 0, pps * ps
-    pages_of = (lens + ps - 1) // ps
-    table = torch.where(torch.arange(pps)[None] < pages_of[:, None], table, 99_999)
-    kf = _randn((hkv, pool, ps, d), 1, torch.float32, cuda)
-    vf = _randn((hkv, pool, ps, d), 2, torch.float32, cuda)
-    if kind == "int8":
-        k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-        v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
-    else:
-        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
-    q = _randn((b, hq, d), 3, torch.bfloat16, cuda)
-    table, lens = table.to(cuda), lens.to(cuda)
+    q, k, v, lens, table, ks, vs = _paged_case(cuda, shape, kind)
     before = paged_decode_attention.launches
     out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
                                  pages_per_block=1)

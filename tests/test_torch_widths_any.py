@@ -16,7 +16,8 @@ Tolerances, as tests/test_torch_widths.py states them:
     repository's 1e-2 bar;
   * gradients: max|a - b| / max|b| < 2e-2, the JAX suite's bar
     (tests/test_autodiff.py:27-30);
-  * paged decode: RMSE < 1e-2 and max |diff| <= 1/32;
+  * paged decode and decode (K10's and K4's plain versions): RMSE < 1e-2
+    and max |diff| <= 1/32;
   * the padded-column helper: the padded inputs give the unpadded output to
     fp32 rounding (atol 1e-6: zero columns add exact zeros, the summation
     order of the wider product may differ).
@@ -32,6 +33,7 @@ from quantumattention_tpu import dispatch as jdispatch
 from quantumattention_tpu.ops import quant as jq
 from quantumattention_tpu.ops.flash import flash_attention as jflash
 from quantumattention_tpu.ops.flash_bwd import flash_attention_bwd as jbwd
+from quantumattention_tpu.ops.decode import decode_attention as jdecode
 from quantumattention_tpu.ops.paged import paged_decode_attention as jpaged
 import quantumattention_tpu_torch as qt
 from quantumattention_tpu_torch import dispatch as tdispatch
@@ -42,6 +44,7 @@ from quantumattention_tpu_torch.ops.flash import (
     flash_attention_plain,
     pad_8bit_columns,
 )
+from quantumattention_tpu_torch.ops.decode import decode_attention as tdecode
 from quantumattention_tpu_torch.ops.paged import paged_decode_attention
 from quantumattention_tpu_torch.utils import shapes
 
@@ -237,3 +240,68 @@ def test_pack_stats_rows():
     torch.testing.assert_close(stats[:, :, :70, 1], want_inv, atol=0, rtol=0)
     assert float(stats[0, 1, 5, 1]) == 0.0
     assert not stats[:, :, 70:].any() and not stats[..., 3].any()
+
+
+def _decode_inputs(seed, d, kind, b=3, hq=4, hkv=2, s_max=96):
+    """The same decode inputs for each framework: bf16 q, an int8 cache
+    with token scales or a bf16 cache, lengths with an empty slot."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((b, hkv, s_max, d)).astype(np.float32)) for _ in range(2))
+    if kind == "int8":
+        (kc, ks), (vc, vs) = (tq.dynamically_quantize_int8(x, reduction_dim=-1) for x in (k, v))
+        jc = [jnp.asarray(x.numpy()) for x in (kc, vc, ks, vs)]
+    else:
+        kc, vc, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+        jc = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (kc, vc)] + [None, None]
+    lengths = np.asarray([0, s_max - 5, 17][:b], np.int32)
+    jq_ = jnp.asarray(q.float().numpy()).astype(jnp.bfloat16)
+    return (q, kc, vc, torch.from_numpy(lengths), ks, vs), (jq_, *jc[:2], jnp.asarray(lengths), *jc[2:])
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("d", [72, 96, 320, 512])
+def test_decode_any_width_matches_jax(d, kind):
+    """K4's plain version against JAX's decode_attention (interpret mode),
+    GQA (4 q heads over 2), an empty slot; tolerance as K10's above (both
+    round P, times the V scale, to bf16; the JAX kernel's running maximum
+    moves block by block)."""
+    (q, kc, vc, lengths, ks, vs), (jq_, jk, jv, jl, jks, jvs) = _decode_inputs(d, d, kind)
+    got = tdecode(q, kc, vc, lengths, k_scale=ks, v_scale=vs)
+    want = jdecode(jq_, jk, jv, jl, k_scale=jks, v_scale=jvs, interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    diff = got.float() - want
+    assert float(diff.abs().max()) <= PAGED_ATOL
+    assert float(diff.pow(2).mean().sqrt()) < PAGED_RMSE
+
+
+#: Head dims of the decode sweep: multiples of 8 between and at the
+#: instantiated widths, the edge past 512, and widths that are not
+#: multiples of 8.
+DECODE_SWEEP = [8, 16, 24, 56, 64, 72, 120, 128, 136, 248, 256, 264, 320, 504, 512, 520, 4, 12, 100, 1000]
+
+
+@pytest.mark.parametrize("d", DECODE_SWEEP)
+def test_decode_width_sweep_matches_jax(d):
+    """Which head dims decode attention takes.  JAX's decode_attention
+    checks none: its Pallas kernel (here in interpret mode) computes any
+    width, and so does K4's plain version on the CPU; both agree on the
+    values.  On the card K4 takes exactly the widths JAX's attention
+    validation takes (validate_flash_input: a multiple of 8 up to 512), the
+    widths K1, K2, K3 and K10 take; it refuses the rest before launching."""
+    (q, kc, vc, lengths, _, _), (jq_, jk, jv, jl, _, _) = _decode_inputs(d, d, "bf16", b=2, hq=2, hkv=1, s_max=16)
+    got = tdecode(q, kc, vc, lengths)
+    want = np.array(jdecode(jq_, jk, jv, jl, interpret=True).astype(jnp.float32))
+    assert got.shape == q.shape and want.shape == tuple(q.shape)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=PAGED_ATOL, rtol=0)
+    shapes_ = [(1, 2, 8, d), (1, 1, 8, d), (1, 1, 8, d)]
+    jax_takes = jdispatch.validate_flash_input(*(jnp.zeros(s, jnp.bfloat16) for s in shapes_))[0]
+    try:
+        shapes.check_kernel_head_dim("K4", d)
+        kernel_takes = True
+    except ValueError:
+        kernel_takes = False
+    assert kernel_takes == jax_takes == (d % 8 == 0 and d <= 512)
+    assert shapes.kernel_width(d) == (0 if not kernel_takes else min(w for w in (64, 128, 256, 512) if d <= w))
