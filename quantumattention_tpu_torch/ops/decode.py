@@ -11,8 +11,8 @@ K4 and K10 (``ops/paged.py``) run on one split-KV decode-attention core
 contiguous share of the valid 64-row tiles of every (slot, KV head, query
 split, column split) segment, and one merge kernel that sums each
 segment's partials in CTA order.  :func:`decode_schedule` is that schedule
-in Python; :func:`decode_split` how a call's query heads and columns are
-split into segments.
+in Python; :func:`card_plan` reads the card's plan of a call (CTAs, and how
+its query heads and columns are split into segments).
 
 Covered: (B, Hq, D) bf16 queries, an int8 cache with token-wise fp32 scales
 or a bf16 cache, ragged lengths including 0 (zero output rows), any GQA
@@ -45,19 +45,6 @@ ROWS_PER_TILE = 64
 MAX_QUERY_ROWS = 16
 #: Tiles a CTA takes at least, where there are enough (kMinTiles).
 MIN_TILES = 2
-
-
-def decode_split(hq: int, hkv: int, d: int, int8: bool) -> tuple:
-    """How the core splits one (slot, KV head) into segments: (query
-    splits, column splits, rows of a split, columns of a split).  A split
-    holds up to 16 query heads and, at the instantiated width 512, 256
-    output columns (int8) or 64 (bf16), so two stages of K and V tiles fit
-    the shared memory (csrc/decode_attn.cuh, v_cols)."""
-    group = hq // hkv
-    width = shapes.kernel_width(d)
-    vw = width if width <= 256 else (256 if int8 else 64)
-    return (shapes.cdiv(group, MAX_QUERY_ROWS), shapes.cdiv(d, vw),
-            min(group, MAX_QUERY_ROWS), min(d, vw))
 
 
 @dataclass(frozen=True)
@@ -258,10 +245,8 @@ def decode_attention(
 decode_attention.launches = 0
 
 
-def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale, scratch=None):
-    """Check what the kernel takes, launch it on the current stream.
-    ``scratch`` (the partials, :func:`core_scratch`) is for tests that read
-    the card's split."""
+def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
+    """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
@@ -282,7 +267,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale, scrat
     shapes.check_kernel_head_dim("K4", d)
     code = _native.dtype_code(k_cache.dtype)
     plan = card_plan(code, batch, hq, hkv, d, s_max)
-    part_acc, part_ml = scratch if scratch is not None else core_scratch(plan, batch, q.device)
+    part_acc, part_ml = core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

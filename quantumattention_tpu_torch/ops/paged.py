@@ -213,10 +213,8 @@ def paged_decode_attention(
 paged_decode_attention.launches = 0
 
 
-def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, scratch=None):
-    """Check what the kernel takes, launch it on the current stream.
-    ``scratch`` (the partials, ``ops/decode.core_scratch``) is for tests
-    that read the card's split."""
+def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
+    """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     batch, hq, d = q.shape
     hkv, num_pages, ps, _ = k_pages.shape
@@ -248,7 +246,7 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, sc
         raise ValueError("K10's operands must be 16-byte aligned")
     code = _native.dtype_code(k_pages.dtype)
     plan = card_plan(code, batch, hq, hkv, d, pps * ps)
-    part_acc, part_ml = scratch if scratch is not None else core_scratch(plan, batch, q.device)
+    part_acc, part_ml = core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -43,11 +43,3 @@ def check_kernel_head_dim(name: str, d: int) -> None:
             f"{name} takes a head_dim that is a multiple of 8 up to {MAX_HEAD_DIM}, got {d}"
         )
 
-
-def kernel_width(d: int) -> int:
-    """The instantiated width (64, 128, 256 or 512) the attention kernels run
-    head dim ``d`` at, with zero columns past d (csrc/common.cuh,
-    qa::kernel_width); 0 where no kernel takes d."""
-    if not (d > 0 and head_dim_supported(d)):
-        return 0
-    return next(w for w in (64, 128, 256, 512) if d <= w)

@@ -96,11 +96,24 @@ def test_random_ragged_lengths(seed):
         _check(decode.decode_schedule(lens, segs, rows, ctas, max_rows), lens, rows, max_rows)
 
 
-def test_owner_inverts_the_shares():
-    sched = decode.decode_schedule([5, 300, 0, 77], 3, 64, 10, 512)
+@pytest.mark.parametrize("lens,segs,rows,ctas,max_rows", [
+    ([5, 300, 0, 77], 3, 64, 10, 512),
+    ([0, 57, 900, 2047], 8, 64, 132, 2048),     # the 4-slot point on one CTA a SM
+    ([0, 57, 900, 2047], 8, 64, 264, 2048),     # two a SM: fewer take part
+    ([0, 57, 900, 2047], 16, 16, 7, 2048),      # few CTAs, many tiles each
+    ([1] * 9, 4, 32, 5, 64),                    # one tile a segment
+    ([64, 65, 63, 128], 2, 64, 3, 128),         # lengths at tile edges
+    ([1024, 0, 0, 1000], 1, 64, 256, 1024),     # two slots, most CTAs idle
+    ([0, 0, 17], 5, 16, 1, 1024),               # one CTA takes every tile
+    (list(range(0, 513, 8)), 8, 32, 132, 512),  # 65 slots of every 8th length
+])
+def test_owner_inverts_the_shares(lens, segs, rows, ctas, max_rows):
+    """owner(u) is the CTA whose share holds tile u, for every tile."""
+    sched = decode.decode_schedule(lens, segs, rows, ctas, max_rows)
     for c in range(sched.ctas):
         u0, u1 = sched.cta_tiles(c)
         assert all(sched.owner(u) == c for u in range(u0, u1))
+    assert sorted(sched.owner(u) for u in range(sched.total)) == [sched.owner(u) for u in range(sched.total)]
 
 
 def test_empty_call_has_no_work():
@@ -108,17 +121,3 @@ def test_empty_call_has_no_work():
     assert sched.total == 0
     assert all(sched.runs(c) == [] for c in range(sched.ctas))
     assert all(sched.merge_order(s) == [] for s in range(24))
-
-
-@pytest.mark.parametrize("hq,hkv,d,int8,want", [
-    (32, 8, 128, True, (1, 1, 4, 128)),     # Llama-3-8B
-    (32, 32, 96, False, (1, 1, 1, 96)),     # Phi-3-mini
-    (16, 8, 256, True, (1, 1, 2, 256)),
-    (8, 2, 512, True, (1, 2, 4, 256)),      # two column splits of 256
-    (8, 2, 512, False, (1, 8, 4, 64)),      # bf16: eight of 64
-    (16, 1, 320, False, (1, 5, 16, 64)),
-    (32, 1, 128, True, (2, 1, 16, 128)),    # G = 32: two query splits
-    (40, 2, 72, True, (2, 1, 16, 72)),      # G = 20: 16 + 4
-])
-def test_decode_split(hq, hkv, d, int8, want):
-    assert decode.decode_split(hq, hkv, d, int8) == want

@@ -304,4 +304,3 @@ def test_decode_width_sweep_matches_jax(d):
     except ValueError:
         kernel_takes = False
     assert kernel_takes == jax_takes == (d % 8 == 0 and d <= 512)
-    assert shapes.kernel_width(d) == (0 if not kernel_takes else min(w for w in (64, 128, 256, 512) if d <= w))
