@@ -38,15 +38,24 @@ Phases, each printing its numbers on lines of their own:
    shape (``k23_protocol``: B = 16, H = 16, S = 8192, D = 128, causal) beside
    the SDPA flash and cuDNN backward, one batch entry and two heads against
    the oracle's autograd;
-6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16) against
-   their plain versions at Llama-3-8B's projection shapes (w_qkv, wo,
-   w_gate_up, w_down, lm_head) and M = 4 and 1536, with device times of
-   kernel and plain version (CUDA graph replays; ``call_ms`` adds the
-   host's per-call work), weight GB/s at M = 4, K5 unsplit against
-   the split-K schedule, and the library calls where the card's torch runs
-   them: ``torch._weight_int8pack_mm`` beside K5 at w_gate_up
-   (``k5_library``) and K6 at wo (``k6_library``),
+6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16): the
+   registers and spills of each instantiation of the K5/K7 kernel
+   (``qmm_ptxas``, csrc/qgemm.cu); each against its plain version at
+   Llama-3-8B's projection shapes (w_qkv, wo, w_gate_up, w_down, lm_head)
+   and M = 4, 64 (the LM head at 64 slots) and 1536, the route each took
+   (``route_launches``: K5 and K7 through the register-A wgmma kernel, K6
+   through the split-K mma.sync kernel), two runs and a graph-captured
+   replay held bitwise equal, device times of kernel and plain version
+   (CUDA graph replays; ``call_ms`` adds the host's per-call work), K6's
+   mma.sync kernel unsplit at the same shape (``k5_qgemm_ms``, what K5 ran
+   on before the wgmma kernel), each product's bound, weight GB/s at decode rows,
+   TFLOP/s and a bf16 ``torch.matmul`` of the same shape (``bf16_gemm_ms``,
+   context, not a port) at 1536 rows, and the library calls where the
+   card's torch runs them: ``torch._weight_int8pack_mm`` beside K5 at
+   w_gate_up (``k5_library``) and K6 at wo (``k6_library``),
    ``torch._weight_int4pack_mm`` beside K7 at w_gate_up (``k7_library``);
+   then float32 rows through K5, K6 and K7 against their plain versions
+   (``qmm_f32``);
 7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
    layer, int8 and int4, with and without the next layer's QKV, at M = 4,
    16, 64 and 256, with times as in 6, weight GB/s and the kernels launched
@@ -71,7 +80,9 @@ Phases, each printing its numbers on lines of their own:
    then the int4 tree (``quantize_params_int4``) serves 3 through K7 and
    K8.  Prefill logits are held against the same tree run with plain
    attention and ``kernel.qmm = kernel.qmlp = False``, and one decode step
-   through K8 against the unfused step on the same cache state;
+   through K8 against the unfused step on the same cache state; then one
+   1536-token prefill forward of each tree (``quant_prefill``: device time
+   over 3 forwards, 4 x 32 K5 or K7 launches at 1536 rows a forward);
 11. ``serve_int8_64``, the JAX package's flagship serving point: the int8
    fused tree on 64 slots, max_len 512, 64 prompts of 128 tokens, 257 new
    tokens each, ``run_to_completion(decode_burst=64)``: prefill through K1
@@ -122,8 +133,10 @@ Phases, each printing its numbers on lines of their own:
    tree of the port.
 
 ``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
-timing (``engine_burst``, phase 9), also over an earlier tree of the port
-(a copy of this script beside that tree's package).
+timing (``engine_burst``, phase 9), and ``--quant-prefill-only`` only the
+quantized prefill timing (``quant_prefill``, phase 10), also over an
+earlier tree of the port (a copy of this script beside that tree's
+package).
 
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
@@ -253,7 +266,17 @@ PAGED16 = {"slots": 16, "max_len": 1024, "page_size": 128, "chunk": 256, "num_pa
 #: dense): device memory bytes/s and tensor-core operations/s by operand type.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "fp8": 1979e12}
-QMM_ROWS = (4, 1536)
+#: K5-K7's rows: a decode step at 4 slots, the LM head at 64 slots, and a
+#: 1536-token prefill.
+QMM_ROWS = (4, 64, 1536)
+#: K5/K7 over float32 rows (fault 10) against their plain version:
+#: max|a - b| / max|b|, the CPU suite's fp32 bar (tests/test_torch_qmm.py:
+#: the same fp32 products summed in another order).
+QMM_F32_REL = 1e-5
+#: The quantized prefill timed in ``quant_prefill``: one prompt of 1536
+#: tokens (batch 1) through the fused int8 and int4 Llama-3-8B trees,
+#: 3 forwards after a warm-up.
+QUANT_PREFILL = {"tokens": 1536, "reps": 3}
 #: At decode rows each weight is read once a step, from device memory: the
 #: timed calls cycle through copies of a weight that together exceed this
 #: (2.5x the H100's 50 MB L2 cache), so no call finds its weight cached.
@@ -300,6 +323,7 @@ K1_SOURCE = "quantumattention_tpu_torch/csrc/flash_fwd.cu"
 K4_SOURCE = "quantumattention_tpu_torch/csrc/decode.cu"
 K23_SOURCE = "quantumattention_tpu_torch/csrc/flash_bwd.cu"
 QMM_SOURCE = "quantumattention_tpu_torch/csrc/qmm.cu"
+QGEMM_SOURCE = "quantumattention_tpu_torch/csrc/qgemm.cu"
 K8_SOURCE = "quantumattention_tpu_torch/csrc/qmlp.cu"
 K1_REPLACES = "quantumattention_tpu/ops/flash.py:123"
 K4_REPLACES = "quantumattention_tpu/ops/decode.py:56"
@@ -1295,10 +1319,69 @@ def phase_quant_serving(params, int4: bool) -> dict:
     if not all(ran):
         raise RuntimeError(f"{label}: a quantized-product kernel never ran: {launches}")
     _decode_vs_unfused(label, eng, tree, seed=3)
-    del eng, tree
+    del eng
+    gc.collect()
+    _quant_prefill(label, tree)
+    del tree
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _quant_prefill(label: str, tree) -> dict:
+    """One prefill forward of QUANT_PREFILL["tokens"] tokens (batch 1)
+    through a fused quantized Llama-3-8B tree: device time by CUDA events
+    over QUANT_PREFILL["reps"] forwards after a warm-up.  Checks that each
+    forward ran its four products a layer (w_qkv, wo, w_gate_up, w_down)
+    at that many rows through K5 (int8) or K7 (int4), and nothing else of
+    its kind but the LM head's product at the last position."""
+    cfg = llama.llama3_8b()
+    n = QUANT_PREFILL["tokens"]
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
+    last = torch.tensor([n - 1], device="cuda")
+    seen = []
+    orig = quantized.matmul
+
+    def recording(x, w, **kw):
+        if quantized.is_quantized(w) or quantized.is_quantized4(w):
+            seen.append(("k7" if quantized.is_quantized4(w) else "k5", x.reshape(-1, x.shape[-1]).shape[0]))
+        return orig(x, w, **kw)
+
+    def forward():
+        return llama.forward_prefill(tree, tokens, cfg, last_pos=last)[0]
+
+    logits = forward()  # warm-up
+    torch.cuda.synchronize()
+    quantized.matmul = recording
+    try:
+        _reset_counts()
+        routes = dict(getattr(qmm, "route_launches", {}))
+        logits = forward()
+        torch.cuda.synchronize()
+        launches = _counts()
+    finally:
+        quantized.matmul = orig
+    rec = {"tokens": n, "layers": cfg.num_layers, "launches": launches,
+           "products_at_rows": sum(1 for _, m in seen if m == n),
+           "products": {f"{key}@{m}": sum(1 for s in seen if s == (key, m)) for key, m in sorted(set(seen))}}
+    if routes:
+        rec["wgmma_launches"] = qmm.route_launches["wgmma"] - routes["wgmma"]
+    rec["ms"] = time_ms(forward, iters=QUANT_PREFILL["reps"], warmup=1)
+    rec["tok_s"] = n / rec["ms"] * 1e3
+    log(f"quant_prefill {label} " + json.dumps(rec))
+    if logits.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"quant_prefill {label}: logits {tuple(logits.shape)} not finite")
+    want = 4 * cfg.num_layers
+    kinds = {key for key, m in seen if m == n}
+    kind = kinds.pop() if len(kinds) == 1 else None
+    others = sum(1 for key, m in seen if key == kind and m != n)
+    if rec["products_at_rows"] != want or kind is None or not 0 <= launches[kind] - want <= others:
+        raise RuntimeError(f"quant_prefill {label}: {rec['products_at_rows']} products at {n} rows, "
+                           f"launches {launches}; want {want} through one kernel")
+    if routes and rec["wgmma_launches"] < want:
+        raise RuntimeError(f"quant_prefill {label}: {rec['wgmma_launches']} wgmma launches for {want} products")
+    return rec
 
 
 def _qmat_random(k: int, n: int, gen, int4: bool):
@@ -1308,7 +1391,7 @@ def _qmat_random(k: int, n: int, gen, int4: bool):
 
 def _cold_copies(w: dict, m: int) -> list:
     """``w`` and clones of it, enough to exceed COLD_BYTES at decode rows."""
-    n = max(1, math.ceil(COLD_BYTES / _weight_bytes(w))) if m == QMM_ROWS[0] else 1
+    n = max(1, math.ceil(COLD_BYTES / _weight_bytes(w))) if m < QMM_ROWS[-1] else 1
     return [w] + [{k: t.clone() for k, t in w.items()} for _ in range(n - 1)]
 
 
@@ -1365,8 +1448,97 @@ def _int4pack_mm(x, copies: list, w: dict) -> dict:
     return rec
 
 
+def _qmm_ptxas() -> list:
+    """Registers and spills of each instantiation of the K5/K7 kernel
+    (csrc/qgemm.cu: width W, int4, whole tiles) and of the fp32 rows'
+    kernel, and whether ptxas serialised its wgmma (C7512)."""
+    log_lines = _native.build_info()["log"].splitlines()
+    rows, cur = [], None
+    for line in log_lines:
+        m = re.search(r"Function properties for (\S*?qgemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)E\S*)", line)
+        f = re.search(r"Function properties for (\S*?qgemm_f32_kernelILb(\d)E\S*)", line)
+        if m:
+            cur = {"kernel": "qgemm_wgmma", "W": int(m.group(2)), "int4": m.group(3) == "1",
+                   "whole": m.group(4) == "1", "symbol": m.group(1)}
+            continue
+        if f:
+            cur = {"kernel": "qgemm_f32", "int4": f.group(2) == "1", "symbol": f.group(1)}
+            continue
+        if cur is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if sp:
+            cur["spill_stores"], cur["spill_loads"] = int(sp.group(1)), int(sp.group(2))
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            cur["registers"] = int(r.group(1))
+            sym = cur.pop("symbol")
+            cur["wgmma_serialized"] = any("C7512" in x and sym in x for x in log_lines)
+            rows.append(cur)
+            cur = None
+    return rows
+
+
+def _qgemm_kernel(x, q, s) -> torch.Tensor:
+    """K6's mma.sync kernel (csrc/qmm.cu's qgemm_kernel) unsplit at the
+    same shape: what K5 ran on before the wgmma kernel, timed beside it in
+    this run.  Counts no launch."""
+    m, n = x.shape[0], q.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    _native.check(_native.library().qa_qmm(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None, m, n, x.shape[1], 1,
+        torch.cuda.current_stream().cuda_stream), "qa_qmm")
+    return out
+
+
+def _qmm_f32_checks(gen) -> None:
+    """Fault 10: float32 rows through K5, K6 and K7 on the card, float32
+    out, against their plain versions within QMM_F32_REL, at wo's shape."""
+    k = n = 4096
+    w8, w4 = _qmat_random(k, n, gen, int4=False), _qmat_random(k, n, gen, int4=True)
+    for m in (4, 37):
+        x = _randn((m, k), gen, torch.float32)
+        cases = {
+            "k5": (lambda: qmm.quantized_matmul(x, w8["q"], w8["s"], n_streams=1),
+                   lambda: qmm.quantized_matmul_plain(x, w8["q"], w8["s"])),
+            "k6": (lambda: qmm.quantized_matmul(x, w8["q"], w8["s"], n_streams=4),
+                   lambda: qmm.quantized_matmul_plain(x, w8["q"], w8["s"], 4)),
+            "k7": (lambda: qmm.quantized_matmul4(x, w4["q4"], w4["s"]),
+                   lambda: qmm.quantized_matmul4_plain(x, w4["q4"], w4["s"])),
+        }
+        for key, (kern, plain) in cases.items():
+            before = qmm.route_launches["f32"]
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            rec = {"kernel": key, "M": m, "K": k, "N": n, "dtype": str(out.dtype),
+                   "route_f32": qmm.route_launches["f32"] - before,
+                   "rel_vs_plain": max_rel(out, ref), "bar": QMM_F32_REL}
+            log("qmm_f32 " + json.dumps(rec))
+            if (out.dtype != torch.float32 or rec["route_f32"] != 1 or not bool(torch.isfinite(out).all())
+                    or not rec["rel_vs_plain"] <= QMM_F32_REL):
+                raise RuntimeError(f"{key} over float32 rows: {rec}")
+
+
+def _qmm_bytes(k: int, n: int, m: int, int4: bool) -> int:
+    """Bytes a product must move: the codes and scales, x and out (bf16)."""
+    wbytes = k * n // 2 + (k // 128) * n * 4 if int4 else k * n + n * 4
+    return wbytes + (m * k + m * n) * 2
+
+
 def phase_qmm(gen) -> dict:
-    """K5, K6 and K7 against their plain versions at Llama-3-8B's shapes."""
+    """K5, K6 and K7 against their plain versions at Llama-3-8B's shapes,
+    beside K6's mma.sync kernel unsplit (``k5_qgemm_ms``; what K5 and K7
+    ran on before the wgmma kernel) and,
+    at 1536 rows, a bf16 ``torch.matmul`` of the same shape
+    (``bf16_gemm_ms``, context for what the card gives a bf16 product, not
+    a port); the routes, two runs and a graph replay held bitwise equal;
+    then float32 rows (fault 10)."""
+    ptx = _qmm_ptxas()
+    for rec in ptx:
+        log("qmm_ptxas " + json.dumps(rec))
+    built = _native.build_info()["seconds"] is not None  # else no compiler output to read
+    if built and len([r for r in ptx if r["kernel"] == "qgemm_wgmma"]) != 12:
+        raise RuntimeError(f"expected 12 instantiations of the K5/K7 kernel, found {len(ptx)}")
     cfg = llama.llama3_8b()
     e, inter = cfg.hidden_size, cfg.intermediate_size
     shapes = [("w_qkv", e, cfg.q_dim + 2 * cfg.kv_dim), ("wo", cfg.q_dim, e),
@@ -1394,21 +1566,41 @@ def phase_qmm(gen) -> dict:
                    "weight_copies": [len(c8), len(c4)]}
             for key, (kerns, plain, w) in runs.items():
                 kern = kerns[0]
+                routes = dict(qmm.route_launches)
                 out, ref = kern(), plain()
+                again = kern()
                 torch.cuda.synchronize()
+                rec[f"{key}_route"] = [r for r, v in qmm.route_launches.items() if v != routes[r]]
                 rec[f"{key}_max_abs_vs_plain"] = max_abs(out, ref)
                 rec[f"{key}_rel_vs_plain"] = max_rel(out, ref)
-                if not bool(torch.isfinite(out).all()) or not rec[f"{key}_rel_vs_plain"] <= QUANT_KERNEL_REL:
-                    raise RuntimeError(f"{key} disagrees with its plain version: {rec}")
-                del out, ref
+                rec[f"{key}_bitwise_repeat"] = torch.equal(out, again)
+                rec[f"{key}_graph_equal"] = _graph_equal(kern)
+                if (not bool(torch.isfinite(out).all()) or not rec[f"{key}_rel_vs_plain"] <= QUANT_KERNEL_REL
+                        or not rec[f"{key}_bitwise_repeat"] or not rec[f"{key}_graph_equal"]):
+                    raise RuntimeError(f"{key} disagrees with its plain version or itself: {rec}")
+                del out, ref, again
                 rec[f"{key}_ms"] = graph_ms(kerns)
                 rec[f"{key}_plain_ms"] = graph_ms(plain, reps=1, iters=3)
                 rec[f"{key}_call_ms"] = time_ms(kern)
-                if m == QMM_ROWS[0]:
+                if m < QMM_ROWS[-1]:
                     rec[f"{key}_weight_GBps"] = _weight_bytes(w) / rec[f"{key}_ms"] / 1e6
                 else:
                     rec[f"{key}_tflops"] = 2 * m * k * n / rec[f"{key}_ms"] / 1e9
                 worst[key] = max(worst[key], rec[f"{key}_max_abs_vs_plain"])
+            # K5 (one K range) and K7 through the register-A wgmma kernel,
+            # K6 through the split-K mma.sync kernel.
+            want = {"k5": ["wgmma"], "k6": ["mma_sync"], "k7": ["wgmma"]}
+            bad = {key: rec[f"{key}_route"] for key, r in want.items() if rec[f"{key}_route"] != r}
+            if bad:
+                raise RuntimeError(f"qmm {name} M={m}: routes {bad}, want {want}")
+            rec["k5_qgemm_ms"] = graph_ms([lambda w=w: _qgemm_kernel(x, w["q"], w["s"]) for w in c8])
+            for key, int4 in (("k5", False), ("k7", True)):
+                rec[f"{key}_bound_ms"] = bound(_qmm_bytes(k, n, m, int4), {"bf16": 2 * m * k * n})["bound_ms"]
+            if m == QMM_ROWS[-1]:
+                wb = _randn((k, n), gen)
+                rec["bf16_gemm_ms"] = graph_ms(lambda: torch.matmul(x, wb))
+                rec["bf16_gemm_tflops"] = 2 * m * k * n / rec["bf16_gemm_ms"] / 1e9
+                del wb
             if name == "w_gate_up":
                 rec["k5_library"] = _int8pack_mm(x, c8, w8)
                 rec["k7_library"] = _int4pack_mm(x, c4, w4)
@@ -1419,25 +1611,29 @@ def phase_qmm(gen) -> dict:
             del x, c8, c4, runs
         del w8, w4
     torch.cuda.empty_cache()
-    # The JSON line's times: the decode regime; K6 at wo, where the rule splits.
-    # Bounds: the weight codes and scales, x and out at M = 4, with 2*M*K*N
-    # bf16 operations. The library calls, where they run on CUDA:
+    _qmm_f32_checks(gen)
+    # The JSON line's times: the decode regime (M = 4); K6 at wo, where the
+    # rule splits. Bounds: the weight codes and scales, x and out, with
+    # 2*M*K*N bf16 operations. The library calls, where they run on CUDA:
     # torch._weight_int8pack_mm (K5 at w_gate_up, K6 at wo) and
-    # torch._weight_int4pack_mm (K7 at w_gate_up), at M = 4.
-    pick = {"k5": ("w_gate_up", "k5"), "k6": ("wo", "k6"), "k7": ("w_gate_up", "k7")}
+    # torch._weight_int4pack_mm (K7 at w_gate_up). K5 and K7 add their
+    # prefill numbers at w_gate_up, M = 1536.
+    pick = {"k5": "w_gate_up", "k6": "wo", "k7": "w_gate_up"}
     dims = {name: (k, n) for name, k, n in shapes}
+    m0, mp = QMM_ROWS[0], QMM_ROWS[-1]
     out = {}
-    for key, (name, k) in pick.items():
+    for key, name in pick.items():
         kk, n = dims[name]
-        m = QMM_ROWS[0]
-        wbytes = kk * n // 2 + (kk // 128) * n * 4 if key == "k7" else kk * n + n * 4
-        out[key] = {"max_abs_err": worst[key], "ms": timing[name, m][f"{k}_ms"],
-                    "plain_ms": timing[name, m][f"{k}_plain_ms"],
-                    **bound(wbytes + (m * kk + m * n) * 2, {"bf16": 2 * m * kk * n}),
-                    "library_ms": None}
-    for key, (name, _) in pick.items():
-        lib_rec = timing[name, QMM_ROWS[0]][f"{key}_library"]
-        out[key]["library_ms"] = lib_rec["ms"] if lib_rec["available"] else None
+        rec = timing[name, m0]
+        lib_rec = rec[f"{key}_library"]
+        out[key] = {"max_abs_err": worst[key], "ms": rec[f"{key}_ms"], "plain_ms": rec[f"{key}_plain_ms"],
+                    **bound(_qmm_bytes(kk, n, m0, key == "k7"), {"bf16": 2 * m0 * kk * n}),
+                    "library_ms": lib_rec["ms"] if lib_rec["available"] else None}
+        if key != "k6":
+            pre = timing[name, mp]
+            out[key].update({"prefill_ms": pre[f"{key}_ms"], "prefill_bound_ms": pre[f"{key}_bound_ms"],
+                             "prefill_library_ms": pre[f"{key}_library"]["ms"]
+                             if pre[f"{key}_library"]["available"] else None})
     return out
 
 
@@ -2519,6 +2715,16 @@ def main() -> int:
         cfg = llama.llama3_8b()
         phase_engine_burst(llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda"))
         return 0
+    if "--quant-prefill-only" in sys.argv[1:]:
+        params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
+        for label, quant_fn in (("serve_int8", quantized.quantize_params),
+                                ("serve_int4", quantized.quantize_params_int4)):
+            tree = quantized.fuse_projections(quant_fn(params))
+            _quant_prefill(label, tree)
+            del tree
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
@@ -2547,11 +2753,11 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": train["k2"], **k23["dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
          "replaces": K3_REPLACES, "launches": train["k3"], **k23["dkv"]},
-        {"name": "qmm", "route": "cuda", "source": QMM_SOURCE, "replaces": K5_REPLACES,
+        {"name": "qmm", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K5_REPLACES,
          "launches": q8["k5"] + q4["k5"], **k567["k5"]},
         {"name": "qmm_splitk", "route": "cuda", "source": QMM_SOURCE, "replaces": K6_REPLACES,
          "launches": q8["k6"] + q4["k6"], **k567["k6"]},
-        {"name": "qmm4", "route": "cuda", "source": QMM_SOURCE, "replaces": K7_REPLACES,
+        {"name": "qmm4", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K7_REPLACES,
          "launches": q4["k7"], **k567["k7"]},
         {"name": "layer_tail", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
          "launches": q8["k8"] + q4["k8"], **k8},

@@ -1,8 +1,9 @@
 // Shared helpers of the hand-written kernels: the dtype codes of
 // ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8; 4 fp32 as an output
 // only), the attention kernels' instantiated widths, the mma.sync fragment
-// helpers, the quantized weight helpers and product launcher of K5-K7, and
-// the tail product's interface (csrc/tail.cu) that K8 and K9 share.
+// helpers, the quantized weight helpers, K6's launcher (csrc/qmm.cu), the
+// tail product's interface (csrc/tail.cu) that K8 and K9 share, and the
+// K5/K7 product's (csrc/qgemm.cu).
 #pragma once
 
 #include <cstdint>
@@ -155,15 +156,15 @@ struct QMat {
   int int4;
 };
 
-// Host side of the quantized product of K5-K7 (csrc/qmm.cu).
-// x (M, K) bf16 row-major. K ranges of the split-K schedule: `requested`
-// 0 applies the card's rule (split when the output tiles are fewer than
-// the SMs); the result never leaves a range empty.
+// Host side of K6, the split-K int8 product (csrc/qmm.cu). x (M, K) bf16
+// row-major. K ranges of the split-K schedule: `requested` 0 applies the
+// card's rule (split when the output tiles are fewer than the SMs); the
+// result never leaves a range empty.
 int qgemm_splits(int M, int N, int K, int requested);
-// out (M, N) bf16 = the product, scaled per column for int8 and cast once;
-// with splits > 1 through `partial` and a fixed-order reduction.
-cudaError_t qgemm_out(const __nv_bfloat16* x, QMat w, int M, int N, int K, int splits,
-                      float* partial, __nv_bfloat16* out, cudaStream_t stream);
+// out (M, N) bf16 = x @ w (int8 (K, N)), scaled per column by s and cast
+// once; with splits > 1 through `partial` and a fixed-order reduction.
+cudaError_t qgemm_out(const __nv_bfloat16* x, const signed char* w, const float* s, int M, int N,
+                      int K, int splits, float* partial, __nv_bfloat16* out, cudaStream_t stream);
 
 // The tail product of K8 and K9 (csrc/tail.cu). Units of 128 weight
 // columns by 128 unpacked rows; activation rows rounded up to a width of
@@ -207,5 +208,35 @@ cudaError_t layer_tail(const __nv_bfloat16* x, const __nv_bfloat16* attn, QMat w
                        float eps, int* launched, cudaStream_t stream);
 // fp32 entries of `partial` that layer_tail needs (Q = 0: no wo product).
 size_t layer_tail_workspace(int M, int E, int Q, int I, int F);
+
+// The register-A product of K5 and K7 (csrc/qgemm.cu). Up to kQgemmRows
+// activation rows run stream-K over (128-column tile, 128-row k-block)
+// units, rows rounded up to a width of 8..128, their fp32 partial sums
+// reduced by tail_reduce_out; more rows run whole (256-column, 128-row)
+// output tiles. ops/qmm.qgemm_schedule is the same schedule in Python.
+constexpr int kQgemmRows = 128;
+
+struct QgemmSched {
+  int whole;                // 1: whole output tiles; 0: stream-K
+  int width;                // wgmma N: 8..128
+  int row_tiles, col_tiles;  // output tiles (stream-K: one row tile, 128-column tiles)
+  TailSched sk;             // stream-K: units, CTAs and shares; whole: kblocks and CTAs
+};
+
+// CTAs an SM: 4 at widths up to 32, 2 at 64 and 128 (stream-K), 1 (whole tiles).
+int qgemm_ctas_per_sm(int width, bool whole);
+QgemmSched qgemm_schedule(int M, int N, int K, int sms);
+// fp32 entries of the stream-K partial sums (0 for whole tiles).
+size_t qgemm_partial_floats(int M, int N, int K);
+// The weight column (of a consumer's 128) that row r of m64 tile mt of the
+// product holds: thread (warp w, lane 4g + t) owns rows 16w + g and 16w + g
+// + 8 of both tiles, the four columns 4(8w + g) .. + 3.
+__host__ __device__ inline int qgemm_column(int mt, int r) {
+  return 4 * (8 * (r >> 4) + (r & 7)) + 2 * mt + ((r >> 3) & 1);
+}
+// out (M, N) bf16 = x (M, K) bf16 @ w, int8 scaled per column or int4;
+// `partial` holds qgemm_partial_floats entries (null for whole tiles).
+cudaError_t qgemm(const __nv_bfloat16* x, QMat w, int M, int N, int K, float* partial,
+                  __nv_bfloat16* out, cudaStream_t stream);
 
 }  // namespace qa

@@ -67,14 +67,14 @@ namespace {
 struct MapKey {
   const void* ptr;
   size_t pitch;
-  int code, cols, rows, box_cols, box_rows, swizzle;
+  int code, cols, rows, box_cols, box_rows, swizzle, promotion;
   bool operator==(const MapKey& o) const { return std::memcmp(this, &o, sizeof(MapKey)) == 0; }
 };
 
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t h = reinterpret_cast<size_t>(k.ptr) ^ (k.pitch * 0x9E3779B97F4A7C15ull);
-    for (int v : {k.code, k.cols, k.rows, k.box_cols, k.box_rows, k.swizzle})
+    for (int v : {k.code, k.cols, k.rows, k.box_cols, k.box_rows, k.swizzle, k.promotion})
       h = (h ^ static_cast<size_t>(v)) * 0x100000001B3ull;
     return h;
   }
@@ -85,7 +85,8 @@ constexpr size_t kMaxCachedMaps = 4096;
 }  // namespace
 
 cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, int code, int cols, int rows,
-                          size_t pitch, int box_cols, int box_rows, bool swizzle) {
+                          size_t pitch, int box_cols, int box_rows, bool swizzle,
+                          int l2_promotion) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
   MapKey key;
@@ -98,6 +99,7 @@ cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, int code, int cols,
   key.box_cols = box_cols;
   key.box_rows = box_rows;
   key.swizzle = swizzle;
+  key.promotion = l2_promotion;
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
@@ -114,7 +116,9 @@ cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, int code, int cols,
                         2, const_cast<void*>(ptr), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        l2_promotion == 128 ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B
+                                            : CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   if (cache.size() >= kMaxCachedMaps) cache.clear();
   cache.emplace(key, *map);

@@ -60,10 +60,19 @@ _SIGNATURES = {
     # splits, rows and columns of a split, segments a slot) -> the plan of
     # qa_decode / qa_paged_decode (the split-KV core, csrc/decode_attn.cuh)
     "qa_decode_attn_plan": [_I, _I, _I, _I, _I, _I, _P],
-    # x, w, scale, out, partial, M, N, K, int4, splits, stream
-    "qa_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w (int8), scale, out, partial, M, N, K, splits, stream (K6)
+    "qa_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # M, N, K, requested (0 = the card's rule) -> K ranges of qa_qmm
     "qa_qmm_splits": [_I, _I, _I, _I],
+    # x (fp32), w, scale, out (fp32), partial, M, N, K, int4, splits, stream
+    "qa_qmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, out, partial, M, N, K, int4, stream (K5/K7, csrc/qgemm.cu)
+    "qa_qgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # M, N, K, out (int[7]: whole, row tiles, column tiles, k-blocks, CTAs,
+    # base, rem) -> activation width
+    "qa_qgemm_schedule": [_I, _I, _I, _P],
+    # M, N, K -> fp32 partial-sum entries of qa_qgemm
+    "qa_qgemm_workspace": [_I, _I, _I],
     # x, attn, wo (q, s, int4), norm, w_gate_up (q, s, int4),
     # w_down (q, s, int4), next_norm, w_qkv (q, s, int4), out, qkv_out,
     # x1, h, act, partial, M, E, Q, I, F, eps, n_launches (int*), stream
@@ -170,6 +179,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.qa_qgemm_columns.argtypes = [_P]  # out (int[128]): the column permutation
+        lib.qa_qgemm_columns.restype = None
         lib.qa_error_string.argtypes = [ctypes.c_int]
         lib.qa_error_string.restype = ctypes.c_char_p
         _State.lib = lib

@@ -217,8 +217,8 @@ def _mega_cuda(x, q, cache_k, cache_v, cache_ks, cache_vs, step_ctx, layer,
     """Check what K9 takes, allocate its workspace, launch."""
     dev = x.device
     checks.require_hopper(dev)
-    check_activation(x, "K9")
-    check_activation(q, "K9 q")
+    check_activation(x, "K9", (torch.bfloat16,))
+    check_activation(q, "K9 q", (torch.bfloat16,))
     batch, hq, d = q.shape
     _, hkv, s_max, _ = cache_k.shape
     e_dim = x.shape[1]

@@ -286,11 +286,11 @@ def _mat(w: Optional[dict], device, name: str):
 def _tail_cuda(x, norm_w, w_gate_up, w_down, *, eps, attn_out, wo, next_attn_norm, next_w_qkv):
     """Check what K8 takes, allocate its workspace, launch."""
     checks.require_hopper(x.device)
-    check_activation(x, "K8")
+    check_activation(x, "K8", (torch.bfloat16,))
     if x.shape[0] > _MAX_ROWS:
         raise ValueError(f"K8 takes at most {_MAX_ROWS} rows, got {x.shape[0]}")
     if attn_out is not None:
-        check_activation(attn_out, "K8")
+        check_activation(attn_out, "K8", (torch.bfloat16,))
     for v in (norm_w, next_attn_norm):
         if v is not None and (v.dtype != torch.float32 or not v.is_contiguous()
                               or v.device != x.device):
@@ -354,7 +354,7 @@ def tail_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return tail_matmul_plain(x, w)
     checks.require_hopper(x.device)
-    check_activation(x, "tail product")
+    check_activation(x, "tail product", (torch.bfloat16,))
     m = x.shape[0]
     if m > _MAX_ROWS or n % TAIL_BN or k % (256 if int4 else TAIL_KB):
         raise ValueError(f"the tail product takes M <= {_MAX_ROWS}, N % 128 == 0 and K % "

@@ -616,38 +616,118 @@ def _close_rel(a, b, bound=QREL):
     assert float((a.float() - b.float()).abs().max()) <= bound * float(b.float().abs().max())
 
 
-@pytest.mark.parametrize("splits", [None, 1, 3], ids=["auto", "s1", "s3"])
-@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
-@pytest.mark.parametrize("shape", QMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_qmm_kernels_match_plain(cuda, shape, int4, splits):
-    from quantumattention_tpu_torch.ops import qmm
+#: K5/K7 at the rows around the kernel's widths (8 .. 128 stream-K, whole
+#: 128-row tiles above), over one k-block and one column tile, then over
+#: shapes of several tiles (N % 256 == 128 among them).
+QMM_ROWS = [1, 4, 9, 16, 17, 64, 65, 256, 257, 1536]
+QMM_CASES = [(m, k, 128, int4, splits) for m in QMM_ROWS for int4, k in ((False, 128), (True, 256))
+             for splits in ([None] if int4 else [None, 1, 3])]
+QMM_CASES += [(m, k, n, int4, splits) for m, k, n in QMM_SHAPES for int4 in (False, True)
+              for splits in ([None] if int4 else [None, 1, 3])]
 
-    m, k, n = shape
+
+def _qmm_ids(case):
+    m, k, n, int4, splits = case
+    return f"{m}x{k}x{n}-{'int4' if int4 else 'int8'}-{'auto' if splits is None else f's{splits}'}"
+
+
+def _graph_call(fn):
+    """One call of ``fn`` captured in a CUDA graph and replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.parametrize("case", QMM_CASES, ids=_qmm_ids)
+def test_qmm_kernels_match_plain(cuda, case):
+    """K5/K6/K7 against their plain versions; the route each call took
+    (K7 and an unsplit K5 on the register-A wgmma kernel, a split K5 on
+    K6's mma.sync kernel) by the launch counts; two runs and a
+    graph-captured replay bitwise equal."""
+    from quantumattention_tpu_torch.ops import _native, qmm
+
+    m, k, n, int4, splits = case
     x = _randn((m, k), 30, torch.bfloat16, cuda)
     w = _qmat(k, n, 31, int4, cuda)
     counts = (qmm.quantized_matmul.launches, qmm.quantized_matmul.splitk_launches,
               qmm.quantized_matmul4.launches)
+    routes = dict(qmm.route_launches)
     if int4:
-        out = qmm.quantized_matmul4(x, w["q4"], w["s"], n_streams=splits)
+        call = lambda: qmm.quantized_matmul4(x, w["q4"], w["s"])  # noqa: E731
         plain = qmm.quantized_matmul4_plain(x, w["q4"], w["s"])
     else:
-        out = qmm.quantized_matmul(x, w["q"], w["s"], n_streams=splits)
+        call = lambda: qmm.quantized_matmul(x, w["q"], w["s"], n_streams=splits)  # noqa: E731
         plain = qmm.quantized_matmul_plain(x, w["q"], w["s"])
+    out = call()
     torch.cuda.synchronize()
     _close_rel(out, plain)
     ran = (qmm.quantized_matmul.launches - counts[0], qmm.quantized_matmul.splitk_launches - counts[1],
            qmm.quantized_matmul4.launches - counts[2])
     assert sum(ran) == 1 and (ran[2] == 1) == int4
-    if not int4 and splits is not None:
-        assert ran[1] == (splits > 1)
+    n_splits = 1 if int4 else _native.library().qa_qmm_splits(m, n, k, splits or 0)
+    if not int4:
+        assert ran[1] == (n_splits > 1)
+    route = "wgmma" if n_splits == 1 else "mma_sync"
+    assert {r: qmm.route_launches[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes}
+    assert torch.equal(call(), out)
+    assert torch.equal(_graph_call(call), out)
+
+
+@pytest.mark.parametrize("mkn", [(m, k, n) for m in QMM_ROWS for k, n in ((128, 128), (512, 384), (4096, 28672), (14336, 4096))],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_qgemm_schedule_on_card_is_the_python_one(cuda, mkn):
+    """The schedule and column permutation the K5/K7 kernel computes on the
+    card (csrc/qgemm.cu) are ops/qmm's Python twins."""
+    from quantumattention_tpu_torch.ops import qmm
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qmm.card_qgemm_schedule(*mkn) == qmm.qgemm_schedule(*mkn, sms)
+    assert qmm.card_qgemm_columns() == [qmm.qgemm_column(i // 64, i % 64) for i in range(128)]
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6", "k7"])
+@pytest.mark.parametrize("m", [1, 4, 37, 300])
+def test_qmm_float32_rows_match_plain(cuda, kernel, m):
+    """Fault 10: float32 activations through K5, K6 and K7 on the card
+    return float32 within 1e-5 of max|plain| (the CPU suite's fp32 bar,
+    tests/test_torch_qmm.py), as JAX's kernels take and return them."""
+    from quantumattention_tpu_torch.ops import qmm
+
+    k, n = 1024, 384
+    x = _randn((m, k), 34, torch.float32, cuda)
+    w = _qmat(k, n, 35, kernel == "k7", cuda)
+    before = qmm.route_launches["f32"]
+    if kernel == "k7":
+        out, plain = qmm.quantized_matmul4(x, w["q4"], w["s"]), qmm.quantized_matmul4_plain(x, w["q4"], w["s"])
+    else:
+        streams = 3 if kernel == "k6" else 1
+        out = qmm.quantized_matmul(x, w["q"], w["s"], n_streams=streams)
+        plain = qmm.quantized_matmul_plain(x, w["q"], w["s"], streams)
+    torch.cuda.synchronize()
+    assert qmm.route_launches["f32"] == before + 1
+    _close_rel(out, plain, 1e-5)
 
 
 def test_qmm_wrappers_refuse_what_they_do_not_take(cuda):
-    from quantumattention_tpu_torch.ops import qmm
+    from quantumattention_tpu_torch.ops import qmlp, qmm
 
     w = _qmat(256, 128, 32, False, cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        qmm.quantized_matmul(_randn((4, 256), 33, torch.float32, cuda), w["q"], w["s"])
+    x32 = _randn((4, 256), 33, torch.float32, cuda)
+    # float32 rows are K5's (fault 10), not the tail product's.
+    _close_rel(qmm.quantized_matmul(x32, w["q"], w["s"]), qmm.quantized_matmul_plain(x32, w["q"], w["s"]), 1e-5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qmlp.tail_matmul(x32, w)
+    with pytest.raises(ValueError, match="float16"):
+        qmm.quantized_matmul(x32.half(), w["q"], w["s"])
     w100 = _qmat(256, 100, 32, False, cuda)
     with pytest.raises(ValueError, match="N % 128"):
         qmm.quantized_matmul(_randn((4, 256), 33, torch.bfloat16, cuda), w100["q"], w100["s"])
