@@ -19,14 +19,17 @@ Phases, each printing its numbers on lines of their own:
    H = 16, S = 8192, D 64/128/256, causal and not, bf16 / fp8 head-wise /
    fp8 token-wise TFLOP/s beside SDPA flash and cuDNN, one batch entry and
    two heads against the fp32 oracle);
-3. K4 (decode) over a ragged int8 and a bf16 slot cache (4 slots of
-   0/57/900/2047 rows): the decode-attention core's registers and spills
-   (``k4_ptxas``), the kernel against its plain version and the fp32 oracle,
-   bitwise equal across two runs and under graph capture, device time by
-   CUDA-graph replay with the cache cold in L2 (``ms``; ``call_ms`` by
-   events with the host's work), and for the bf16 cache SDPA over the same
-   rows with a length mask (``library_ms``); then head dims 72/96/320/512
-   (``k4_width``) and 32 query heads over one KV head (``k4_group``);
+3. K4 (decode) over a ragged int8, bf16, packed int4 and e4m3 slot cache
+   (4 slots of 0/57/900/2047 rows): the decode-attention core's registers
+   and spills (``k4_ptxas``), the kernel against its plain version and the
+   fp32 oracle, bitwise equal across two runs and under graph capture,
+   device time by CUDA-graph replay with the cache cold in L2 (``ms``;
+   ``call_ms`` by events with the host's work) beside the bound, and for
+   the bf16 cache SDPA over the same rows with a length mask
+   (``library_ms``); a float32 query over the int4 cache
+   (``k4_f32_query``); then head dims 72/96/320/512 (``k4_width``; int4 and
+   e4m3 too at 72 and 512) and 32 query heads over one KV head
+   (``k4_group``);
 4. K1's residuals (m, l) against their plain version (D = 64/128/256; e4m3
    Q/K at the bars of fp8 tensor-core sums);
 5. K2 (dQ) and K3 (dK, dV): each instantiation's registers and spills
@@ -39,20 +42,19 @@ Phases, each printing its numbers on lines of their own:
    the SDPA flash and cuDNN backward, one batch entry and two heads against
    the oracle's autograd;
 6. K5 (w8a16 product), K6 (its split-K schedule) and K7 (w4a16): the
-   registers and spills of each instantiation of the K5/K7 kernel
+   registers and spills of each instantiation of their kernel
    (``qmm_ptxas``, csrc/qgemm.cu); each against its plain version at
    Llama-3-8B's projection shapes (w_qkv, wo, w_gate_up, w_down, lm_head)
    and M = 4, 64 (the LM head at 64 slots) and 1536, the route each took
-   (``route_launches``: K5 and K7 through the register-A wgmma kernel, K6
-   through the split-K mma.sync kernel), two runs and a graph-captured
-   replay held bitwise equal, device times of kernel and plain version
-   (CUDA graph replays; ``call_ms`` adds the host's per-call work), K6's
-   mma.sync kernel unsplit at the same shape (``k5_qgemm_ms``, what K5 ran
-   on before the wgmma kernel), each product's bound, weight GB/s at decode rows,
-   TFLOP/s and a bf16 ``torch.matmul`` of the same shape (``bf16_gemm_ms``,
-   context, not a port) at 1536 rows, and the library calls where the
-   card's torch runs them: ``torch._weight_int8pack_mm`` beside K5 at
-   w_gate_up (``k5_library``) and K6 at wo (``k6_library``),
+   (``route_launches``: all three through the register-A wgmma kernel, K6
+   with ``n_streams`` = 4), two runs and a graph-captured replay held
+   bitwise equal, device times of kernel and plain version (CUDA graph
+   replays; ``call_ms`` adds the host's per-call work), each product's
+   bound, weight GB/s at decode rows, TFLOP/s and a bf16 ``torch.matmul``
+   of the same shape (``bf16_gemm_ms``, context, not a port) at 1536 rows,
+   and the library calls where the card's torch runs them:
+   ``torch._weight_int8pack_mm`` beside K5 at w_gate_up (``k5_library``)
+   and K6 at wo, w_qkv and w_down, M = 4 and 64 (``k6_library``),
    ``torch._weight_int4pack_mm`` beside K7 at w_gate_up (``k7_library``);
    then float32 rows through K5, K6 and K7 against their plain versions
    (``qmm_f32``);
@@ -95,11 +97,13 @@ Phases, each printing its numbers on lines of their own:
 12. K10 (paged decode) against its plain version and the fp32 oracle at
    Llama-3-8B's attention shapes: 16 slots over a shuffled page pool,
    ragged lengths up to 1024 with an empty slot, page sizes 128 and 256,
-   int8 and bf16 pages, bitwise equal across two runs and under graph
-   capture; device time by graph replay with the pool cold in L2, the
-   plain version's time, GB/s, and K4 on the same rows laid out
-   contiguously (what the gather costs); and at head dim 256
-   (``k10_d256``);
+   int8 and bf16 pages (and int4 and e4m3 pages of 128), bitwise equal
+   across two runs and under graph capture; device time by graph replay
+   with the pool cold in L2 beside the bound, the plain version's time,
+   GB/s, and K4 on the same rows laid out contiguously (what the gather
+   costs); then ``k10_geometry`` (a GQA group of 32; pages of 8 and 512
+   tokens; every page type, whether rows went by TMA or cp.async), and
+   head dims 256 (``k10_d256``) and 72/96/320/512 (``k10_width``);
 13. ``serve_paged_prefix_16``, the JAX package's prefix-caching point: the
    int8 fused tree on the paged backend (16 slots, max_len 1024, pages of
    128, chunks of 256, prefix cache, a pool of 192 pages), 16 prompts of
@@ -111,6 +115,14 @@ Phases, each printing its numbers on lines of their own:
    against cold and cold against a plain whole-prompt run, one K10 step of
    16 slots against the same step through K10's plain version, and a graph
    burst of 8 steps against 8 eager steps;
+    Then the low-bit caches end to end on the bf16 tree: ``serve_kv_int4``
+   (the slots backend with ``kv_int4=True``, 3 requests; prefill logits
+   against plain attention, one decode step through K4 against the step
+   through K4's plain version), and ``serve_paged_int4`` /
+   ``serve_paged_e4m3`` (the point above over int4 or e4m3 pages, cut to
+   4 slots and 17 new tokens in bursts of 8: the same checks, with each
+   round's final-chunk logits held against the same chunk through K1's
+   plain version over the same quantized prefix);
 14. ``serve_d256``: a 2-layer model of the Llama block at Gemma-7B's
    attention width (16 query heads of 256 over 8 KV heads, seeded random
    bf16 weights) serves 4 prompts on the paged backend in chunks of 128:
@@ -126,10 +138,11 @@ Phases, each printing its numbers on lines of their own:
 16. SDPA's whole backward at K2/K3's timed shape by CUDA-graph replay, the
    library call beside both kernels (see ``phase_sdpa_backward``);
 17. the per-kernel split of one K8 call (int8, M = 4/16/64/256, with and
-   without the QKV), of each tail product alone (M = 4 and 64) and of one
-   K9 call, by ``torch.profiler`` (``split_k8``, ``split_product``,
-   ``split_k9``), last so that the profiler stays out of the other phases'
-   timings; ``python3 chip_smoke.py --split-only`` prints only these, on any
+   without the QKV), of one K6 call (wo, w_qkv, w_down at M = 4 and 64:
+   the product and its reduction), of each tail product alone (M = 4 and 64) and of
+   one K9 call, by ``torch.profiler`` (``split_k8``, ``split_k6``,
+   ``split_product``, ``split_k9``), last so that the profiler stays out of
+   the other phases' timings; ``python3 chip_smoke.py --split-only`` prints only these, on any
    tree of the port.
 
 ``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
@@ -168,7 +181,12 @@ from quantumattention_tpu_torch import config, dispatch
 from quantumattention_tpu_torch.models import llama, quantized
 from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
-from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+from quantumattention_tpu_torch.ops.decode import (
+    cache_kind,
+    card_plan,
+    decode_attention,
+    decode_attention_plain,
+)
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
 from quantumattention_tpu_torch.ops.paged import paged_decode_attention, paged_decode_attention_plain
 from quantumattention_tpu_torch.ops.flash_bwd import (
@@ -257,11 +275,18 @@ SERVE64 = {"slots": 64, "max_len": 512, "prompt": 128, "new": 257, "burst": 64,
 BURST_CHECK_STEPS = 8
 #: K10 at Llama-3-8B's attention: slots, max_len, page sizes, spare pages.
 K10_SLOTS, K10_MAX_LEN, K10_PAGE_SIZES, K10_SPARE_PAGES = 16, 1024, (128, 256), 64
+#: Fault 11's geometry at Llama-3-8B's head dim: (q heads, KV heads, page
+#: size) for a GQA group of 32 and pages of 8 and 512 tokens.
+K10_GEOMETRY = ((32, 1, 128), (32, 8, 8), (32, 8, 512))
 #: The JAX package's prefix-caching point (benchmarks/prefix_cache_bench.py:
 #: 28-47): 16 slots, max_len 1024, pages of 128, chunks of 256, a pool of
 #: 16 * 8 + 64 pages, 16 prompts of 512 tokens sharing 384, 129 new tokens.
 PAGED16 = {"slots": 16, "max_len": 1024, "page_size": 128, "chunk": 256, "num_pages": 192,
            "prompt": 512, "shared": 384, "new": 129, "burst": 64}
+#: The same point over int4 and e4m3 pages (fault 12), cut to 4 slots and
+#: 17 new tokens in bursts of 8 to stay inside the run's time.
+LOWBIT_PAGED = {"slots": 4, "max_len": 1024, "page_size": 128, "chunk": 256, "num_pages": 48,
+                "prompt": 512, "shared": 384, "new": 17, "burst": 8, "same_path_check": True}
 #: The card's peaks for ``bound_ms`` (NVIDIA's H100 SXM data sheet,
 #: dense): device memory bytes/s and tensor-core operations/s by operand type.
 HBM_BYTES_S = 3.35e12
@@ -315,6 +340,8 @@ D96_TRAIN_POSITIONS = 512
 #: Head dims between and above the kernels' instantiated widths (64, 128,
 #: 256, 512) that the K1, K10 and K2/K3 phases check.
 ANY_WIDTHS = (72, 96, 320, 512)
+#: Head dims at which K4 and K10 also run over int4 and e4m3 caches.
+LOWBIT_WIDTHS = (72, 512)
 #: The original library's benchmark protocol (its bench.py:1-5, SURVEY.md
 #: section 6): batch 16, 16 heads (MHA), 8192 positions, head dims 64/128/256.
 PROTOCOL = {"B": 16, "H": 16, "S": 8192, "D": (64, 128, 256)}
@@ -322,7 +349,6 @@ PROTOCOL = {"B": 16, "H": 16, "S": 8192, "D": (64, 128, 256)}
 K1_SOURCE = "quantumattention_tpu_torch/csrc/flash_fwd.cu"
 K4_SOURCE = "quantumattention_tpu_torch/csrc/decode.cu"
 K23_SOURCE = "quantumattention_tpu_torch/csrc/flash_bwd.cu"
-QMM_SOURCE = "quantumattention_tpu_torch/csrc/qmm.cu"
 QGEMM_SOURCE = "quantumattention_tpu_torch/csrc/qgemm.cu"
 K8_SOURCE = "quantumattention_tpu_torch/csrc/qmlp.cu"
 K1_REPLACES = "quantumattention_tpu/ops/flash.py:123"
@@ -701,16 +727,28 @@ def _graph_equal(fn) -> bool:
     return equal
 
 
-def _k4_cache(gen, b, hkv, s_max, d, cache_dtype):
-    """A K4 cache of random rows: int8 codes with token scales, or bf16;
-    and its dequantized fp32 rows."""
+def _k4_cache(gen, b, hkv, s_max, d, kind):
+    """A K4 cache of random rows: int8 or e4m3 codes, or int4 codes packed
+    along the head dim, with token scales, or bf16; and its dequantized
+    fp32 rows."""
     kf = _randn((b, hkv, s_max, d), gen, torch.float32)
     vf = _randn((b, hkv, s_max, d), gen, torch.float32)
-    if cache_dtype == torch.int8:
-        kc, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-        vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
-        return (kc, vc, ks, vs), (quant.dequantize(kc, ks), quant.dequantize(vc, vs))
-    return (kf.bfloat16(), vf.bfloat16(), None, None), (kf.bfloat16().float(), vf.bfloat16().float())
+    if kind == "bf16":
+        return (kf.bfloat16(), vf.bfloat16(), None, None), (kf.bfloat16().float(), vf.bfloat16().float())
+    if kind == "int4":
+        (kc, ks), (vc, vs) = (quant.dynamically_quantize_int4(x, reduction_dim=-1) for x in (kf, vf))
+        deq = tuple(quant.dequantize(quant.unpack_int4(c), sc) for c, sc in ((kc, ks), (vc, vs)))
+        return (kc, vc, ks, vs), deq
+    fn = quant.dynamically_quantize_int8 if kind == "int8" else quant.dynamically_quantize_fp8
+    (kc, ks), (vc, vs) = (fn(x, reduction_dim=-1) for x in (kf, vf))
+    return (kc, vc, ks, vs), (quant.dequantize(kc, ks), quant.dequantize(vc, vs))
+
+
+def _cache_kind(t: torch.Tensor, d: int) -> str:
+    """The cache type of a K4 cache tensor (int4: a halved minor dim)."""
+    if t.shape[-1] * 2 == d:
+        return "int4"
+    return {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16"}[t.dtype]
 
 
 def _k4_check(label, q, cache, deq, lens, lengths) -> dict:
@@ -725,10 +763,11 @@ def _k4_check(label, q, cache, deq, lens, lengths) -> dict:
     oracle = torch.zeros((b, hq, d), device="cuda")
     for i, n in enumerate(lens):
         if n:
-            oracle[i] = sdpa_reference(q[i : i + 1, :, None, :], deq[0][i : i + 1, :, :n],
+            oracle[i] = sdpa_reference(q[i : i + 1, :, None, :].float(), deq[0][i : i + 1, :, :n],
                                        deq[1][i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0, :]
     torch.cuda.synchronize()
-    rec = {"cache": str(kc.dtype).split(".")[-1], "B": b, "Hq": hq, "Hkv": kc.shape[1], "D": d,
+    rec = {"cache": _cache_kind(kc, d), "q": str(q.dtype).split(".")[-1], "B": b, "Hq": hq,
+           "Hkv": kc.shape[1], "D": d,
            "lengths": list(lens), **decode_vs_plain(out, plain, lens),
            "rmse_vs_oracle": rmse(out, oracle),
            "zero_row_exact": all(bool((out[i] == 0).all()) for i, n in enumerate(lens) if n == 0),
@@ -742,26 +781,33 @@ def _k4_check(label, q, cache, deq, lens, lengths) -> dict:
 
 def phase_k4(gen) -> dict:
     """K4 against its plain version and the fp32 oracle at the 4-slot
-    serving shape (int8 and bf16 caches), bitwise equal across two runs and
-    under graph capture; the core's registers and spills (``k4_ptxas``);
-    device time by graph replay with the cache cold in L2 (``ms``: copies
-    cycled past COLD_BYTES, as K10's), by CUDA events with the host's work
-    (``call_ms``), the plain version's, and for the bf16 cache SDPA over the
-    same rows (``library_ms``); then head dims 72/96/320/512
-    (``k4_width``) and a GQA group of 32 (``k4_group``)."""
-    # The decode-attention core (W, NG, mode 0 K4 int8, 1 K10 int8, 2 bf16)
-    # and its merge kernel.
-    for row in _ptxas("decode_attn_kernel", ("W", "NG", "mode")) + _ptxas("merge_kernel", ()):
+    serving shape (int8, bf16, int4 and e4m3 caches), bitwise equal across
+    two runs and under graph capture; the core's registers and spills
+    (``k4_ptxas``); device time by graph replay with the cache cold in L2
+    (``ms``: copies cycled past COLD_BYTES, as K10's), by CUDA events with
+    the host's work (``call_ms``), the plain version's, and for the bf16
+    cache SDPA over the same rows (``library_ms``); a float32 query over the
+    int4 cache (``k4_f32_query``); then head dims 72/96/320/512
+    (``k4_width``; int4 and e4m3 too at 72 and 512) and a GQA group of 32
+    (``k4_group``)."""
+    # The decode-attention core (W, NG, mode 0 K4 / 1 K10 / 2 bf16, kind 0
+    # int8 / 1 e4m3 / 2 bf16 / 3 int4 by head dim / 4 int4 by token) and its
+    # merge kernel.
+    for row in _ptxas("decode_attn_kernel", ("W", "NG", "mode", "kind")) + _ptxas("merge_kernel", ()):
         log("k4_ptxas " + json.dumps(row))
     b, hq, hkv, s_max, d = 4, 32, 8, 2048, 128
     lens = [0, 57, 900, 2047]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     worst = 0.0
     timing = None
-    for cache_dtype in (torch.int8, torch.bfloat16):
+    for kind in ("int8", "bf16", "int4", "e4m3"):
         q = _randn((b, hq, d), gen)
-        cache, deq = _k4_cache(gen, b, hkv, s_max, d, cache_dtype)
+        cache, deq = _k4_cache(gen, b, hkv, s_max, d, kind)
         rec = _k4_check("4 slots", q, cache, deq, lens, lengths)
+        if kind == "int4":
+            frec = _k4_check("f32 query", q.float(), cache, deq, lens, lengths)
+            log("k4_f32_query " + json.dumps(frec))
+            worst = max(worst, frec["max_abs_vs_plain"])
         del deq
         kc, vc, ks, vs = cache
         rec["graph_equal"] = _graph_equal(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
@@ -788,40 +834,44 @@ def phase_k4(gen) -> dict:
             rec["library_ms"] = graph_ms([lambda c=c: sdpa(ql, c[0][1:], c[1][1:], attn_mask=mask,
                                                            enable_gqa=True) for c in caches])
             del ref, out
-        cache_bytes = sum(lens) * hkv * d * 2 * kc.element_size()
+        # Bound: the valid K/V rows (codes, and a 4-byte scale a row where
+        # quantized), q and out; its few flops a byte bind nothing.
+        row_bytes = kc.shape[-1] * kc.element_size() + (4 if ks is not None else 0)
+        cache_bytes = sum(lens) * hkv * 2 * row_bytes
         rec["kernel_GBps"] = cache_bytes / rec["ms"] / 1e6
+        rec.update(bound(cache_bytes + 2 * b * hq * d * 2))
         log("k4 " + json.dumps(rec))
         worst = max(worst, rec["max_abs_vs_plain"])
-        if cache_dtype == torch.int8:
+        if kind == "int8":
             timing = rec
         del caches, cache
     torch.cuda.empty_cache()
     # Fault 9: every head dim JAX takes (between and above the instantiated
-    # widths) and a group of more than 16 query heads a KV head.
+    # widths) and a group of more than 16 query heads a KV head; fault 12:
+    # the int4 and e4m3 caches at 72 (rows of 36 and 72 bytes: cp.async)
+    # and 512.
     for dw in ANY_WIDTHS:
         hq_w, hkv_w = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if dw == 96
                        else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
-        worst = max(worst, _k4_width(gen, dw, hq_w, hkv_w, "k4_width"))
-    worst = max(worst, _k4_width(gen, 128, 32, 1, "k4_group"))
-    # Bound at the timed int8 cache: the valid K/V rows (1 byte an element,
-    # a 4-byte scale a row) and q and out; its few flops a byte bind nothing.
-    # No PyTorch call reads an int8 cache with token-wise scales (the bf16
-    # cache's SDPA time is on its k4 line).
-    nbytes = sum(lens) * hkv * 2 * (d + 4) + 2 * b * hq * d * 2
+        kinds = ("int8", "bf16", "int4", "e4m3") if dw in LOWBIT_WIDTHS else ("int8", "bf16")
+        worst = max(worst, _k4_width(gen, dw, hq_w, hkv_w, "k4_width", kinds))
+    worst = max(worst, _k4_width(gen, 128, 32, 1, "k4_group", ("int8", "bf16", "int4")))
+    # The JSON line: the int8 cache. No PyTorch call reads an int8 cache
+    # with token-wise scales (the bf16 cache's SDPA time is on its k4 line).
     return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            **bound(nbytes), "library_ms": None}
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None}
 
 
-def _k4_width(gen, d: int, hq: int, hkv: int, label: str) -> float:
-    """K4 at head dim d, int8 and bf16 caches, 4 slots of lengths 0/57/900/
-    2047, against its plain version and the fp32 oracle; device time by
-    graph replay."""
+def _k4_width(gen, d: int, hq: int, hkv: int, label: str, kinds=("int8", "bf16")) -> float:
+    """K4 at head dim d over caches of ``kinds``, 4 slots of lengths
+    0/57/900/2047, against its plain version and the fp32 oracle; device
+    time by graph replay."""
     lens = [0, 57, 900, 2047]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     worst = 0.0
-    for cache_dtype in (torch.int8, torch.bfloat16):
+    for kind in kinds:
         q = _randn((4, hq, d), gen)
-        cache, deq = _k4_cache(gen, 4, hkv, 2048, d, cache_dtype)
+        cache, deq = _k4_cache(gen, 4, hkv, 2048, d, kind)
         rec = _k4_check(label, q, cache, deq, lens, lengths)
         kc, vc, ks, vs = cache
         rec["ms"] = graph_ms(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
@@ -1088,17 +1138,17 @@ def _weight_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def serve(label: str, params, prompt_lens, seed: int, plain_flags=None):
+def serve(label: str, params, prompt_lens, seed: int, plain_flags=None, kv_int4: bool = False):
     """Llama-3-8B serves greedy requests on 4 slots (max_len 2048, int8
-    cache) through the Engine, with the launch counts reset just before and
-    read just after.  Checks completion, K1 and K4 on every layer, no SDPA
-    fallback, and each prefill's last-position logits against the same
-    tree run with plain attention (and ``plain_flags``).  Returns (engine,
-    launches, stats)."""
+    cache, packed int4 with ``kv_int4``) through the Engine, with the launch
+    counts reset just before and read just after.  Checks completion, K1
+    and K4 on every layer, no SDPA fallback, and each prefill's
+    last-position logits against the same tree run with plain attention
+    (and ``plain_flags``).  Returns (engine, launches, stats)."""
     cfg = llama.llama3_8b()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(params, cfg, num_slots=4, max_len=2048, cache_dtype=torch.int8,
-                 device="cuda")
+                 kv_int4=kv_int4, device="cuda")
     rng = np.random.default_rng(seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
@@ -1291,6 +1341,79 @@ def _decode_vs_unfused(label: str, eng, tree, seed: int) -> float:
     return float(rel.max())
 
 
+def _slots_k4_vs_plain(label: str, eng, tree, seed: int) -> None:
+    """One decode step of all 4 slots through K4 against the same step with
+    K4's plain version on the same cache (the lengths restored between: the
+    step rewrites the same rows), after a whole-prompt prefill of 4
+    prompts."""
+    cfg = llama.llama3_8b()
+    backend = eng._backend
+    rng = np.random.default_rng(seed)
+    lens = [100, 37, 128, 64]
+    tokens = torch.zeros((4, 128), dtype=torch.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+    slots = [0, 1, 2, 3]
+    backend.prefill_and_write(eng._prefill_fn, tree, tokens.cuda(), [n - 1 for n in lens],
+                              slots, lens, 128)
+    saved = [cache.lengths.clone() for cache in backend.caches]
+    cur = rng.integers(0, cfg.vocab_size, 4)
+    mask = np.ones(4, bool)
+
+    def plain_k4(q, k, v, lengths, *, k_scale, v_scale):
+        return decode_attention_plain(q, k, v, lengths, k_scale, v_scale)
+
+    kernel = backends.decode_attention
+    backends.decode_attention = plain_k4
+    try:
+        before = decode_attention.launches
+        ref = backend.decode(tree, cur, mask, slots)
+        if decode_attention.launches != before:
+            raise RuntimeError(f"{label}: the plain step launched K4")
+    finally:
+        backends.decode_attention = kernel
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    before = decode_attention.launches
+    got = backend.decode(tree, cur, mask, slots)
+    torch.cuda.synchronize()
+    k4 = decode_attention.launches - before
+    rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+    agree = (got.argmax(-1) == ref.argmax(-1)).tolist()
+    log(f"{label} k4_vs_plain k4_calls={k4} rel_err={rel.tolist()} argmax_agree={agree} "
+        f"bound={DECODE_K8_REL_BOUND}")
+    for slot in slots:
+        backend.release(slot)
+    if k4 != cfg.num_layers:
+        raise RuntimeError(f"{label}: the step ran K4 {k4} times for {cfg.num_layers} layers")
+    if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"{label}: the K4 step is off its plain step by {rel.tolist()}")
+
+
+def phase_serve_lowbit(params) -> dict:
+    """Fault 12 end to end on Llama-3-8B (the bf16 tree): the slots backend
+    with an int4 cache (``serve_kv_int4``: prefill logits against plain
+    attention, one decode step through K4 against its plain version), then
+    the paged backend with int4 and with e4m3 pages (``serve_paged_int4``,
+    ``serve_paged_e4m3``: chunked prefill, a prefix hit, graph bursts, the
+    checks of the prefix-caching point at LOWBIT_PAGED's size).  Returns the
+    launches of the three runs."""
+    eng, launches, _ = serve("serve_kv_int4", params, SERVE_PROMPTS_INT4, seed=5, kv_int4=True)
+    if eng.caches[0].k.shape[-1] * 2 != llama.llama3_8b().head_dim:
+        raise RuntimeError("serve_kv_int4: the cache is not packed int4")
+    _slots_k4_vs_plain("serve_kv_int4", eng, params, seed=6)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = dict(launches)
+    for label, dtype, int4 in (("serve_paged_int4", torch.int8, True),
+                               ("serve_paged_e4m3", torch.float8_e4m3fn, False)):
+        got = _serve_paged(label, params, LOWBIT_PAGED, dtype, int4, plain_flags={})
+        for k, v in got.items():
+            total[k] += v
+    return total
+
+
 def phase_quant_serving(params, int4: bool) -> dict:
     """The bf16 weights quantized (int8 or int4) and fused, served through
     K1, K4, K5/K6 (or K7) and K8; launches checked, prefill logits against
@@ -1449,9 +1572,10 @@ def _int4pack_mm(x, copies: list, w: dict) -> dict:
 
 
 def _qmm_ptxas() -> list:
-    """Registers and spills of each instantiation of the K5/K7 kernel
-    (csrc/qgemm.cu: width W, int4, whole tiles) and of the fp32 rows'
-    kernel, and whether ptxas serialised its wgmma (C7512)."""
+    """Registers and spills of each instantiation of the K5/K6/K7 kernel
+    (csrc/qgemm.cu: width W, int4, whole tiles)
+    and of the fp32 rows' kernel, and whether ptxas serialised its wgmma
+    (C7512)."""
     log_lines = _native.build_info()["log"].splitlines()
     rows, cur = [], None
     for line in log_lines:
@@ -1477,18 +1601,6 @@ def _qmm_ptxas() -> list:
             rows.append(cur)
             cur = None
     return rows
-
-
-def _qgemm_kernel(x, q, s) -> torch.Tensor:
-    """K6's mma.sync kernel (csrc/qmm.cu's qgemm_kernel) unsplit at the
-    same shape: what K5 ran on before the wgmma kernel, timed beside it in
-    this run.  Counts no launch."""
-    m, n = x.shape[0], q.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
-    _native.check(_native.library().qa_qmm(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None, m, n, x.shape[1], 1,
-        torch.cuda.current_stream().cuda_stream), "qa_qmm")
-    return out
 
 
 def _qmm_f32_checks(gen) -> None:
@@ -1527,23 +1639,22 @@ def _qmm_bytes(k: int, n: int, m: int, int4: bool) -> int:
 
 def phase_qmm(gen) -> dict:
     """K5, K6 and K7 against their plain versions at Llama-3-8B's shapes,
-    beside K6's mma.sync kernel unsplit (``k5_qgemm_ms``; what K5 and K7
-    ran on before the wgmma kernel) and,
-    at 1536 rows, a bf16 ``torch.matmul`` of the same shape
-    (``bf16_gemm_ms``, context for what the card gives a bf16 product, not
-    a port); the routes, two runs and a graph replay held bitwise equal;
-    then float32 rows (fault 10)."""
+    each with its bound, beside (at 1536 rows) a bf16 ``torch.matmul`` of
+    the same shape (``bf16_gemm_ms``, context for what the card gives a
+    bf16 product, not a port) and the library calls where the card's torch
+    runs them (K6 at wo, w_qkv and w_down, M = 4 and 64); the routes (all
+    three on the register-A wgmma kernel), two runs and a graph replay held
+    bitwise equal; then float32 rows (fault 10)."""
     ptx = _qmm_ptxas()
     for rec in ptx:
         log("qmm_ptxas " + json.dumps(rec))
     built = _native.build_info()["seconds"] is not None  # else no compiler output to read
     if built and len([r for r in ptx if r["kernel"] == "qgemm_wgmma"]) != 12:
-        raise RuntimeError(f"expected 12 instantiations of the K5/K7 kernel, found {len(ptx)}")
+        raise RuntimeError(f"expected 12 instantiations of the K5/K6/K7 kernel, found {len(ptx)}")
     cfg = llama.llama3_8b()
     e, inter = cfg.hidden_size, cfg.intermediate_size
     shapes = [("w_qkv", e, cfg.q_dim + 2 * cfg.kv_dim), ("wo", cfg.q_dim, e),
               ("w_gate_up", e, 2 * inter), ("w_down", inter, e), ("lm_head", e, cfg.vocab_size)]
-    lib = _native.library()
     worst = {"k5": 0.0, "k6": 0.0, "k7": 0.0}
     timing = {}
     for name, k, n in shapes:
@@ -1551,8 +1662,8 @@ def phase_qmm(gen) -> dict:
         w4 = _qmat_random(k, n, gen, int4=True)
         for m in QMM_ROWS:
             x = _randn((m, k), gen)
-            auto = lib.qa_qmm_splits(m, n, k, 0)
-            split = auto if auto > 1 else 4  # K6 at every shape, the rule's count where it splits
+            auto = qmm.is_split_k(m, n, None, torch.cuda.get_device_properties(0).multi_processor_count)
+            split = 4  # K6 at every shape: n_streams > 1
             c8, c4 = _cold_copies(w8, m), _cold_copies(w4, m)
             runs = {
                 "k5": ([lambda w=w: qmm.quantized_matmul(x, w["q"], w["s"], n_streams=1) for w in c8],
@@ -1562,7 +1673,7 @@ def phase_qmm(gen) -> dict:
                 "k7": ([lambda w=w: qmm.quantized_matmul4(x, w["q4"], w["s"]) for w in c4],
                        lambda: qmm.quantized_matmul4_plain(x, w4["q4"], w4["s"]), w4),
             }
-            rec = {"W": name, "M": m, "K": k, "N": n, "auto_splits": auto, "k6_splits": split,
+            rec = {"W": name, "M": m, "K": k, "N": n, "rule_splits": auto, "k6_streams": split,
                    "weight_copies": [len(c8), len(c4)]}
             for key, (kerns, plain, w) in runs.items():
                 kern = kerns[0]
@@ -1587,14 +1698,11 @@ def phase_qmm(gen) -> dict:
                 else:
                     rec[f"{key}_tflops"] = 2 * m * k * n / rec[f"{key}_ms"] / 1e9
                 worst[key] = max(worst[key], rec[f"{key}_max_abs_vs_plain"])
-            # K5 (one K range) and K7 through the register-A wgmma kernel,
-            # K6 through the split-K mma.sync kernel.
-            want = {"k5": ["wgmma"], "k6": ["mma_sync"], "k7": ["wgmma"]}
-            bad = {key: rec[f"{key}_route"] for key, r in want.items() if rec[f"{key}_route"] != r}
+            # K5, K6 and K7 through the register-A wgmma kernel.
+            bad = {key: rec[f"{key}_route"] for key in runs if rec[f"{key}_route"] != ["wgmma"]}
             if bad:
-                raise RuntimeError(f"qmm {name} M={m}: routes {bad}, want {want}")
-            rec["k5_qgemm_ms"] = graph_ms([lambda w=w: _qgemm_kernel(x, w["q"], w["s"]) for w in c8])
-            for key, int4 in (("k5", False), ("k7", True)):
+                raise RuntimeError(f"qmm {name} M={m}: routes {bad}, want wgmma")
+            for key, int4 in (("k5", False), ("k6", False), ("k7", True)):
                 rec[f"{key}_bound_ms"] = bound(_qmm_bytes(k, n, m, int4), {"bf16": 2 * m * k * n})["bound_ms"]
             if m == QMM_ROWS[-1]:
                 wb = _randn((k, n), gen)
@@ -1604,7 +1712,7 @@ def phase_qmm(gen) -> dict:
             if name == "w_gate_up":
                 rec["k5_library"] = _int8pack_mm(x, c8, w8)
                 rec["k7_library"] = _int4pack_mm(x, c4, w4)
-            if name == "wo" and m == QMM_ROWS[0]:
+            if name in ("wo", "w_qkv", "w_down") and m < QMM_ROWS[-1]:
                 rec["k6_library"] = _int8pack_mm(x, c8, w8)
             timing[name, m] = rec
             log("qmm " + json.dumps(rec))
@@ -1904,6 +2012,14 @@ def phase_split(gen) -> None:
             call = lambda: qmlp.fused_layer_tail(x, norm, w_gu, w_down, **kw)  # noqa: E731
             rec = {"M": m, "fold": fold, "ms": graph_ms(call), **_kernel_split(call)}
             log("split_k8 " + json.dumps(rec))
+    # K6 (wo, w_qkv, w_down at decode rows, where the card's rule splits):
+    # the product's and the reduction's kernels a call.
+    for m in (4, 64):
+        for name, w in (("wo", wo), ("w_qkv", w_qkv), ("w_down", w_down)):
+            x = _randn((m, w["q"].shape[0]), gen)
+            call = lambda: qmm.quantized_matmul(x, w["q"], w["s"])  # noqa: E731,B023
+            rec = {"W": name, "M": m, "ms": graph_ms(call), **_kernel_split(call)}
+            log("split_k6 " + json.dumps(rec))
     if hasattr(qmlp, "tail_matmul"):  # the tail product alone, on each matrix
         for m in (4, 64):
             for name, w in (("wo", wo), ("w_gate_up", w_gu), ("w_down", w_down), ("w_qkv", w_qkv)):
@@ -2004,6 +2120,13 @@ def _burst_vs_eager(backend, tree, seed: int) -> None:
         raise RuntimeError("serve_int8_64: the graph-captured burst's tokens differ from eager steps")
 
 
+def _later_bursts_ms(calls) -> float | None:
+    """ms a step over the bursts after the first (graph replays only), from
+    (name, steps, seconds) decode calls; None with fewer than two bursts."""
+    bursts = [(k, dt) for n, k, dt in calls if n == "burst"][1:]
+    return 1e3 * sum(dt for _, dt in bursts) / sum(k for k, _ in bursts) if bursts else None
+
+
 def phase_serve_int8_64(params) -> dict:
     """The JAX package's flagship serving point on Llama-3-8B at full width
     and depth: the bf16 weights quantized to int8 and fused, 64 slots,
@@ -2028,7 +2151,7 @@ def phase_serve_int8_64(params) -> dict:
     rng = np.random.default_rng(64)
     reqs = [eng.submit(rng.integers(0, cfg.vocab_size, SERVE64["prompt"]).tolist(),
                        max_new_tokens=SERVE64["new"]) for _ in range(SERVE64["slots"])]
-    timers = {"prefill_s": 0.0, "decode_s": 0.0}
+    timers = {"prefill_s": 0.0, "decode_s": 0.0, "calls": []}
     dec = {k: 0 for k in _counts()}
     prefills = []
     orig = {name: getattr(backend, name) for name in ("prefill_and_write", "decode", "burst")}
@@ -2049,7 +2172,9 @@ def phase_serve_int8_64(params) -> dict:
             t = time.perf_counter()
             out = orig[name](*args)
             torch.cuda.synchronize()
-            timers["decode_s"] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            timers["decode_s"] += dt
+            timers["calls"].append((name, args[6] if name == "burst" else 1, dt))
             for k, v in _counts().items():
                 dec[k] += v - before[k]
             return out
@@ -2073,6 +2198,10 @@ def phase_serve_int8_64(params) -> dict:
         "prefill_tok_s": stats["prefill_tokens"] / timers["prefill_s"],
         "decode_tok_s": decode_tokens / timers["decode_s"],
         "decode_ms_per_step": 1e3 * timers["decode_s"] / stats["decode_steps"],
+        # Each decode call (name, steps, ms); and the bursts after the
+        # first, whose first step runs eagerly and is captured.
+        "decode_calls_ms": [[n, k, 1e3 * dt] for n, k, dt in timers["calls"]],
+        "later_bursts_ms_per_step": _later_bursts_ms(timers["calls"]),
         "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("serve_int8_64 " + json.dumps(rec))
@@ -2117,19 +2246,26 @@ def phase_serve_int8_64(params) -> dict:
 
 
 def _paged_pool(gen, kind: str, ps: int, pool: int, hkv: int, d: int):
-    """K and V pages of a pool (int8 with token scales, or bf16)."""
+    """K and V pages of a pool: int8 or e4m3 with token scales, token-packed
+    int4 (pages of ps/2 byte rows) with token scales, or bf16."""
     kf = _randn((hkv, pool, ps, d), gen, torch.float32)
     vf = _randn((hkv, pool, ps, d), gen, torch.float32)
     if kind == "bf16":
         return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
-    k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-    v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
+    if kind == "int4":
+        (k, ks), (v, vs) = (quant.quantize_int4_values(x, reduction_dim=-1) for x in (kf, vf))
+        return quant.pack_int4(k, axis=2), quant.pack_int4(v, axis=2), ks, vs
+    fn = quant.dynamically_quantize_int8 if kind == "int8" else quant.dynamically_quantize_fp8
+    (k, ks), (v, vs) = (fn(x, reduction_dim=-1) for x in (kf, vf))
     return k, v, ks, vs
 
 
 def _gathered_rows(pages, scales, table):
     """Each slot's pages in table order as contiguous (B, Hkv, S, D) rows
-    (codes or bf16) and (B, Hkv, S) scales: K4's slot-cache layout."""
+    (codes or bf16; token-packed int4 pages unpacked) and (B, Hkv, S)
+    scales: K4's slot-cache layout."""
+    if scales is not None and scales.shape[2] == 2 * pages.shape[2]:
+        pages = quant.unpack_int4(pages, axis=2)
     b, pps = table.shape
     hkv, _, ps, d = pages.shape
     rows = pages[:, table.long()].permute(1, 0, 2, 3, 4).reshape(b, hkv, pps * ps, d).contiguous()
@@ -2139,12 +2275,40 @@ def _gathered_rows(pages, scales, table):
     return rows, sc
 
 
+def _k10_vs_plain(q, pages, lens_np, lens, table) -> dict:
+    """K10 against its plain version and the fp32 oracle over the slots'
+    gathered rows: the record of :func:`decode_vs_plain` with the oracle's
+    RMSE and the empty slots' exact zeros.  Raises where it disagrees."""
+    k, v, ks, vs = pages
+    out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
+                                 pages_per_block=1)
+    plain = paged_decode_attention_plain(q, k, v, lens, table, ks, vs)
+    (kd, ksd), (vd, vsd) = _gathered_rows(k, ks, table), _gathered_rows(v, vs, table)
+    kdq = kd.float() if ksd is None else kd.float() * ksd[..., None]
+    vdq = vd.float() if vsd is None else vd.float() * vsd[..., None]
+    oracle = torch.zeros(q.shape, device="cuda")
+    for i, n in enumerate(lens_np.tolist()):
+        if n:
+            oracle[i] = sdpa_reference(q[i : i + 1, :, None].float(), kdq[i : i + 1, :, :n],
+                                       vdq[i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0]
+    torch.cuda.synchronize()
+    rec = {**decode_vs_plain(out, plain, lens_np.tolist()), "rmse_vs_oracle": rmse(out, oracle),
+           "zero_row_exact": all(bool((out[i] == 0).all()) for i, n in enumerate(lens_np.tolist()) if not n)}
+    if (not bool(torch.isfinite(out.float()).all()) or not decode_close(rec)
+            or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]):
+        raise RuntimeError(f"K10 disagrees: {rec}")
+    return rec
+
+
 def phase_k10(gen) -> dict:
     """K10 against its plain version and the fp32 oracle at Llama-3-8B's
-    attention shapes over a shuffled page pool, bitwise equal across two
+    attention shapes over a shuffled page pool (int8 and bf16 pages of 128
+    and 256 tokens, int4 and e4m3 pages of 128), bitwise equal across two
     runs and under graph capture; device time by graph replay with the pool
     cold in L2 (copies of the pool cycled past COLD_BYTES), the plain
-    version's time, GB/s, and K4 over the same rows laid out contiguously."""
+    version's time, GB/s, and K4 over the same rows laid out contiguously;
+    then fault 11's geometry (``k10_geometry``: a GQA group of 32, pages of
+    8 and 512 tokens) and other head dims (``k10_d256``, ``k10_width``)."""
     cfg = llama.llama3_8b()
     b, hq, hkv, d = K10_SLOTS, cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
     rng = np.random.default_rng(10)
@@ -2157,34 +2321,24 @@ def phase_k10(gen) -> dict:
         pps = K10_MAX_LEN // ps
         pool = b * pps + K10_SPARE_PAGES
         table = torch.from_numpy(rng.permutation(pool)[: b * pps].reshape(b, pps).astype(np.int32)).cuda()
-        for kind in ("int8", "bf16"):
+        kinds = ("int8", "bf16", "int4", "e4m3") if ps == PAGED16["page_size"] else ("int8", "bf16")
+        for kind in kinds:
             k, v, ks, vs = _paged_pool(gen, kind, ps, pool, hkv, d)
             args = (q, k, v, lens, table)
             kw = {"k_scale_pages": ks, "v_scale_pages": vs}
             out = paged_decode_attention(*args, **kw)
-            plain = paged_decode_attention_plain(*args, ks, vs)
-            kd, ksd = _gathered_rows(k, ks, table)
-            vd, vsd = _gathered_rows(v, vs, table)
-            kdq = kd.float() if ksd is None else kd.float() * ksd[..., None]
-            vdq = vd.float() if vsd is None else vd.float() * vsd[..., None]
-            oracle = torch.zeros((b, hq, d), device="cuda")
-            for i, n in enumerate(lens_np.tolist()):
-                if n:
-                    oracle[i] = sdpa_reference(q[i : i + 1, :, None], kdq[i : i + 1, :, :n],
-                                               vdq[i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0]
-            torch.cuda.synchronize()
-            page_bytes = int(lens_np.sum()) * hkv * 2 * (d * k.element_size() + (4 if ks is not None else 0))
             rec = {"page_size": ps, "pages": kind, "B": b, "lengths_sum": int(lens_np.sum()),
-                   **decode_vs_plain(out, plain, lens_np.tolist()), "rmse_vs_oracle": rmse(out, oracle),
-                   "zero_row_exact": bool((out[0] == 0).all()),
+                   **_k10_vs_plain(q, (k, v, ks, vs), lens_np, lens, table),
                    "bitwise_two_runs": torch.equal(out, paged_decode_attention(*args, **kw)),
                    "graph_equal": _graph_equal(lambda: paged_decode_attention(*args, **kw))}
-            if (not bool(torch.isfinite(out.float()).all()) or not decode_close(rec)
-                    or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]
-                    or not rec["bitwise_two_runs"] or not rec["graph_equal"]):
-                raise RuntimeError(f"K10 disagrees: {rec}")
+            if not rec["bitwise_two_runs"] or not rec["graph_equal"]:
+                raise RuntimeError(f"K10 is not repeatable: {rec}")
             worst = max(worst, rec["max_abs_vs_plain"])
-            del kdq, vdq, oracle, out, plain
+            del out
+            # The valid page rows' bytes: codes (half a byte an element for
+            # int4) and fp32 scales.
+            row_bytes = d * k.element_size() // (2 if kind == "int4" else 1) + (4 if ks is not None else 0)
+            page_bytes = int(lens_np.sum()) * hkv * 2 * row_bytes
             # The pool cold in L2: copies of it cycled past COLD_BYTES.
             pool_bytes = sum(t.numel() * t.element_size() for t in (k, v, ks, vs) if t is not None)
             n = max(1, math.ceil(COLD_BYTES / pool_bytes))
@@ -2198,7 +2352,11 @@ def phase_k10(gen) -> dict:
             rec["call_ms"] = time_ms(lambda: paged_decode_attention(*args, **kw))
             rec["GBps"] = page_bytes / rec["ms"] / 1e6
             del pools
-            # K4 over the same rows, contiguous, cold likewise.
+            # K4 over the same rows, contiguous (int4 packed along the head
+            # dim, K4's layout), cold likewise.
+            (kd, ksd), (vd, vsd) = _gathered_rows(k, ks, table), _gathered_rows(v, vs, table)
+            if kind == "int4":
+                kd, vd = quant.pack_int4(kd), quant.pack_int4(vd)
             n4 = max(1, math.ceil(COLD_BYTES / (kd.numel() * kd.element_size() * 2)))
             caches = [(kd, vd, ksd, vsd)] + [tuple(None if t is None else t.clone() for t in (kd, vd, ksd, vsd))
                                                for _ in range(n4 - 1)]
@@ -2212,12 +2370,16 @@ def phase_k10(gen) -> dict:
             recs[ps, kind] = rec
             del caches, kd, vd, ksd, vsd, k, v, ks, vs, args
         torch.cuda.empty_cache()
-    worst = max(worst, _k10_width(gen, 256, D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"],
-                                  "k10_d256"))
-    for d in ANY_WIDTHS:
-        hq, hkv = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if d == 96
-                   else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
-        worst = max(worst, _k10_width(gen, d, hq, hkv, "k10_width"))
+    for g_hq, g_hkv, g_ps in K10_GEOMETRY:
+        worst = max(worst, _k10_case(gen, d, g_hq, g_hkv, g_ps, "k10_geometry",
+                                     ("int8", "bf16", "int4", "e4m3")))
+    worst = max(worst, _k10_case(gen, 256, D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"], 128,
+                                 "k10_d256"))
+    for dw in ANY_WIDTHS:
+        hq_w, hkv_w = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if dw == 96
+                       else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
+        kinds = ("int8", "bf16", "int4", "e4m3") if dw in LOWBIT_WIDTHS else ("int8", "bf16")
+        worst = max(worst, _k10_case(gen, dw, hq_w, hkv_w, 128, "k10_width", kinds))
     # The JSON line: the serving point's pages (int8, 128 tokens). No
     # PyTorch call reads an int8 page pool through a table.
     pick = recs[PAGED16["page_size"], "int8"]
@@ -2225,50 +2387,38 @@ def phase_k10(gen) -> dict:
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
 
 
-def _k10_width(gen, d: int, hq: int, hkv: int, label: str) -> float:
-    """K10 at head dim d (256: D256_MODEL's attention; 96: D96_MODEL's;
-    the others over 16 q heads and 8 KV heads) against its plain version and
-    the fp32 oracle, 16 slots over a shuffled pool of 128-token pages, int8
-    and bf16."""
-    b, ps = K10_SLOTS, 128
-    rng = np.random.default_rng(11)
+def _k10_case(gen, d: int, hq: int, hkv: int, ps: int, label: str, kinds=("int8", "bf16")) -> float:
+    """K10 at head dim d, hq / hkv heads and pages of ps tokens (16 slots up
+    to K10_MAX_LEN over a shuffled pool) over pages of ``kinds``, against
+    its plain version and the fp32 oracle; device time by graph replay and
+    whether the card's plan moves rows by TMA boxes or cp.async."""
+    b = K10_SLOTS
+    rng = np.random.default_rng(11 + ps)
     lens_np = rng.integers(1, K10_MAX_LEN + 1, b)
     lens_np[0], lens_np[1] = 0, K10_MAX_LEN
     lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
-    pps = K10_MAX_LEN // ps
+    pps = -(-K10_MAX_LEN // ps)
     pool = b * pps + K10_SPARE_PAGES
     table = torch.from_numpy(rng.permutation(pool)[: b * pps].reshape(b, pps).astype(np.int32)).cuda()
     q = _randn((b, hq, d), gen)
     worst = 0.0
-    for kind in ("int8", "bf16"):
-        k, v, ks, vs = _paged_pool(gen, kind, ps, pool, hkv, d)
-        out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs)
-        plain = paged_decode_attention_plain(q, k, v, lens, table, ks, vs)
-        (kd, ksd), (vd, vsd) = _gathered_rows(k, ks, table), _gathered_rows(v, vs, table)
-        kdq = kd.float() if ksd is None else kd.float() * ksd[..., None]
-        vdq = vd.float() if vsd is None else vd.float() * vsd[..., None]
-        oracle = torch.zeros((b, hq, d), device="cuda")
-        for i, n in enumerate(lens_np.tolist()):
-            if n:
-                oracle[i] = sdpa_reference(q[i : i + 1, :, None], kdq[i : i + 1, :, :n],
-                                           vdq[i : i + 1, :, :n], out_dtype=torch.float32)[0, :, 0]
-        torch.cuda.synchronize()
+    for kind in kinds:
+        pages = _paged_pool(gen, kind, ps, pool, hkv, d)
+        k, v, ks, vs = pages
+        plan = card_plan(cache_kind(k.dtype, kind == "int4", pages=True), b, hq, hkv, d, pps * ps, ps)
         rec = {"D": d, "page_size": ps, "pages": kind, "B": b, "Hq": hq, "Hkv": hkv,
-               **decode_vs_plain(out, plain, lens_np.tolist()), "rmse_vs_oracle": rmse(out, oracle),
-               "zero_row_exact": bool((out[0] == 0).all())}
+               "tma": plan["tma"], "segments": plan["segments"],
+               **_k10_vs_plain(q, pages, lens_np, lens, table)}
         rec["ms"] = graph_ms(lambda: paged_decode_attention(
-            q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs))
+            q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs, pages_per_block=1))
         log(f"{label} " + json.dumps(rec))
-        if (not bool(torch.isfinite(out.float()).all()) or not decode_close(rec)
-                or not rec["rmse_vs_oracle"] < RMSE_BAR or not rec["zero_row_exact"]):
-            raise RuntimeError(f"K10 disagrees at D = {d}: {rec}")
         worst = max(worst, rec["max_abs_vs_plain"])
-        del k, v, ks, vs, out, plain, kd, vd, kdq, vdq, oracle
+        del pages, k, v, ks, vs
     torch.cuda.empty_cache()
     return worst
 
 
-def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
+def _paged_k10_vs_plain(label: str, backend, tree, cfg, width: int, seed: int) -> None:
     """Fill every slot by whole-prompt prefill, then one decode step of all
     slots through K10 against the same step with K10's plain version on the
     same pages (the lengths restored between: the step rewrites the same
@@ -2278,7 +2428,6 @@ def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
 
     rng = np.random.default_rng(seed)
     slots = list(range(backend.num_slots))
-    width = PAGED16["prompt"]
     lens = rng.integers(width // 2, width + 1, len(slots))
     for g in range(0, len(slots), 8):
         tokens = torch.zeros((len(slots[g: g + 8]), width), dtype=torch.int64)
@@ -2302,7 +2451,7 @@ def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
         before = paged_decode_attention.launches
         ref = backend.decode(tree, cur, mask)
         if paged_decode_attention.launches != before:
-            raise RuntimeError("serve_paged_prefix_16: the plain step launched K10")
+            raise RuntimeError(f"{label}: the plain step launched K10")
     finally:
         backends.paged_decode_attention = kernel
     backend.alloc.lengths[:] = saved
@@ -2312,12 +2461,12 @@ def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
     k10 = paged_decode_attention.launches - before
     rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    log(f"serve_paged_prefix_16 k10_vs_plain k10_calls={k10} worst_rel_err={float(rel.max())} "
+    log(f"{label} k10_vs_plain k10_calls={k10} worst_rel_err={float(rel.max())} "
         f"mean_rel_err={float(rel.mean())} argmax_agree={agree} bound={DECODE_K8_REL_BOUND}")
     if k10 != cfg.num_layers:
-        raise RuntimeError(f"serve_paged_prefix_16: the step ran K10 {k10} times for {cfg.num_layers} layers")
+        raise RuntimeError(f"{label}: the step ran K10 {k10} times for {cfg.num_layers} layers")
     if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
-        raise RuntimeError(f"serve_paged_prefix_16: the K10 step is off its plain step by {float(rel.max())}")
+        raise RuntimeError(f"{label}: the K10 step is off its plain step by {float(rel.max())}")
 
     backend.alloc.lengths[:] = saved
     replays = backend.stats["graph_replays"]
@@ -2325,17 +2474,17 @@ def _paged_k10_vs_plain(backend, tree, cfg, seed: int) -> None:
                            np.full(len(slots), -1, np.int32), None, BURST_CHECK_STEPS,
                            SamplingParams(), False)
     if backend.stats["graph_replays"] - replays != BURST_CHECK_STEPS:
-        raise RuntimeError("serve_paged_prefix_16: the checked burst did not run from its captured graph")
+        raise RuntimeError(f"{label}: the checked burst did not run from its captured graph")
     backend.alloc.lengths[:] = saved
     steps = []
     for _ in range(BURST_CHECK_STEPS):
         cur = backend.decode(tree, cur, mask).argmax(-1).cpu().numpy()
         steps.append(cur)
     equal = bool((packed[0] == np.stack(steps)).all())
-    log(f"serve_paged_prefix_16 graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={len(slots)} "
+    log(f"{label} graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={len(slots)} "
         f"tokens_equal={equal}")
     if not equal:
-        raise RuntimeError("serve_paged_prefix_16: the graph-captured burst's tokens differ from eager steps")
+        raise RuntimeError(f"{label}: the graph-captured burst's tokens differ from eager steps")
     for s in slots:
         backend.release(s)
 
@@ -2345,8 +2494,6 @@ def phase_serve_paged_prefix_16(params) -> dict:
     and depth: the int8 fused tree on the paged backend, 16 prompts of 512
     tokens sharing a 384-token prefix, served cold and then hot, decode in
     bursts of 64 through K10 (one call a layer a step)."""
-    cfg = llama.llama3_8b()
-    L = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2354,19 +2501,42 @@ def phase_serve_paged_prefix_16(params) -> dict:
     torch.cuda.synchronize()
     log(f"serve_paged_prefix_16 quantize_s={time.perf_counter() - t0:.3f} "
         f"weights_GB={_weight_bytes(tree) / 1e9:.3f}")
+    total = _serve_paged("serve_paged_prefix_16", tree, PAGED16, torch.int8, False,
+                         plain_flags={"kernel.qmm": False, "kernel.qmlp": False})
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _serve_paged(label: str, tree, shape: dict, cache_dtype, kv_int4: bool, plain_flags) -> dict:
+    """``tree`` on the paged backend at ``shape`` (slots, max_len, pages,
+    chunks, a pool, prompts sharing a prefix, new tokens, bursts): served
+    cold and then hot (every prompt's shared pages a prefix hit), decode in
+    bursts through K10 (one call a layer a step); final-chunk logits hot
+    against cold and cold against a plain whole-prompt run (SDPA attention,
+    ``plain_flags``), then one decode step through K10 against its plain
+    version and a graph-captured burst against eager steps.  Returns the
+    launches of both rounds."""
+    cfg = llama.llama3_8b()
+    L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(tree, cfg, num_slots=PAGED16["slots"], max_len=PAGED16["max_len"],
-                 cache_dtype=torch.int8, cache_backend="paged", page_size=PAGED16["page_size"],
-                 num_pages=PAGED16["num_pages"], prefill_chunk=PAGED16["chunk"], prefix_cache=True,
-                 device="cuda")
+    eng = Engine(tree, cfg, num_slots=shape["slots"], max_len=shape["max_len"],
+                 cache_dtype=cache_dtype, kv_int4=kv_int4, cache_backend="paged",
+                 page_size=shape["page_size"], num_pages=shape["num_pages"],
+                 prefill_chunk=shape["chunk"], prefix_cache=True, device="cuda")
     backend = eng._backend
     rng = np.random.default_rng(16)
-    shared = rng.integers(0, cfg.vocab_size, PAGED16["shared"]).tolist()
-    prompts = [shared + rng.integers(0, cfg.vocab_size, PAGED16["prompt"] - PAGED16["shared"]).tolist()
-               for _ in range(PAGED16["slots"])]
+    shared = rng.integers(0, cfg.vocab_size, shape["shared"]).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, shape["prompt"] - shape["shared"]).tolist()
+               for _ in range(shape["slots"])]
     orig = {name: getattr(backend, name) for name in ("prefill_chunk", "decode", "burst")}
     total = {k: 0 for k in _counts()}
-    last_logits = {}
+    last_logits, plain_logits = {}, {}
+    # Low-bit pages: a chunk reads its prefix quantized, so its logits are
+    # held against the same chunk through plain attention (``same_path``),
+    # not against an unquantized whole-prompt run or the other round.
+    same_path = shape.get("same_path_check", False)
     for rnd in ("cold", "hot"):
         timers = {"prefill_s": 0.0, "decode_s": 0.0, "burst_s": 0.0, "burst_steps": 0,
                   "step_s": 0.0, "steps": 0}
@@ -2379,6 +2549,17 @@ def phase_serve_paged_prefix_16(params) -> dict:
             peak_pages[0] = max(peak_pages[0], pool.num_pages - pool.free_pages - pool.evictable_pages)
 
         def timed_chunk(params_, tokens, req, off, tc):
+            if same_path and off > 0 and off + tc == len(req.prompt):
+                # The same chunk through K1's plain version first, over the
+                # same quantized prefix (its own page writes are rewritten
+                # by the kernel's run below).
+                kernel = backends.flash_attention
+                backends.flash_attention = flash_attention_plain
+                try:
+                    plain_logits[rnd, req.id % shape["slots"]] = orig["prefill_chunk"](
+                        params_, tokens, req, off, tc)[0, tc - 1].clone()
+                finally:
+                    backends.flash_attention = kernel
             torch.cuda.synchronize()
             before = flash_attention.launches
             t = time.perf_counter()
@@ -2387,7 +2568,7 @@ def phase_serve_paged_prefix_16(params) -> dict:
             timers["prefill_s"] += time.perf_counter() - t
             chunks.append((off, tc, flash_attention.launches - before))
             if off + tc == len(req.prompt):
-                last_logits[rnd, req.id % PAGED16["slots"]] = logits[0, tc - 1].clone()
+                last_logits[rnd, req.id % shape["slots"]] = logits[0, tc - 1].clone()
             in_use()
             return logits
 
@@ -2415,8 +2596,8 @@ def phase_serve_paged_prefix_16(params) -> dict:
         stats0, bstats0 = dict(eng.stats), dict(backend.stats)
         _reset_counts()
         t0 = time.perf_counter()
-        reqs = [eng.submit(p, max_new_tokens=PAGED16["new"]) for p in prompts]
-        eng.run_to_completion(decode_burst=PAGED16["burst"])
+        reqs = [eng.submit(p, max_new_tokens=shape["new"]) for p in prompts]
+        eng.run_to_completion(decode_burst=shape["burst"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
@@ -2441,51 +2622,56 @@ def phase_serve_paged_prefix_16(params) -> dict:
             "peak_pages_in_use": peak_pages[0], "pool_pages": pool.num_pages,
             "chunk_offsets": sorted({off for off, _, _ in chunks}),
         }
-        log("serve_paged_prefix_16 " + json.dumps(rec))
+        log(f"{label} " + json.dumps(rec))
 
         for r in reqs:
-            if not r.done or len(r.output) != PAGED16["new"]:
-                raise RuntimeError(f"serve_paged_prefix_16 {rnd}: request {r.id} ended with {len(r.output)} tokens")
+            if not r.done or len(r.output) != shape["new"]:
+                raise RuntimeError(f"{label} {rnd}: request {r.id} ended with {len(r.output)} tokens")
             if not all(0 <= t < cfg.vocab_size for t in r.output):
-                raise RuntimeError(f"serve_paged_prefix_16 {rnd}: out-of-vocabulary tokens")
-        hits = 0 if rnd == "cold" else PAGED16["slots"]
-        if stats["prefix_hits"] != hits or stats["prefix_tokens_reused"] != hits * PAGED16["shared"]:
-            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: prefix hits {stats}")
+                raise RuntimeError(f"{label} {rnd}: out-of-vocabulary tokens")
+        hits = 0 if rnd == "cold" else shape["slots"]
+        if stats["prefix_hits"] != hits or stats["prefix_tokens_reused"] != hits * shape["shared"]:
+            raise RuntimeError(f"{label} {rnd}: prefix hits {stats}")
         if dec["k10"] != L * stats["decode_steps"] or dec["k4"] or dec["k9"]:
-            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: decode launches {dec} for "
+            raise RuntimeError(f"{label} {rnd}: decode launches {dec} for "
                                f"{stats['decode_steps']} steps")
         if any(k1 != L for _, _, k1 in chunks) or len(chunks) != stats["prefill_forwards"]:
-            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: K1 missed a chunk forward: {chunks}")
-        want_offs = [0, PAGED16["chunk"]] if rnd == "cold" else [PAGED16["shared"]]
+            raise RuntimeError(f"{label} {rnd}: K1 missed a chunk forward: {chunks}")
+        want_offs = [0, shape["chunk"]] if rnd == "cold" else [shape["shared"]]
         if rec["chunk_offsets"] != want_offs:
-            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: chunk offsets {rec['chunk_offsets']}")
+            raise RuntimeError(f"{label} {rnd}: chunk offsets {rec['chunk_offsets']}")
         if launches["sdpa_fallback"]:
-            raise RuntimeError("serve_paged_prefix_16: the main path fell back to SDPA")
+            raise RuntimeError(f"{label}: the main path fell back to SDPA")
         if bstats["bursts"] < 1 or bstats["host_fetches"] != bstats["bursts"]:
-            raise RuntimeError(f"serve_paged_prefix_16 {rnd}: not one host fetch a burst: {bstats}")
+            raise RuntimeError(f"{label} {rnd}: not one host fetch a burst: {bstats}")
 
     # Hot logits against cold, cold against a plain whole-prompt run of the
-    # same tree (SDPA attention, the plain weight products).
+    # same tree (SDPA attention, the plain weight products); low-bit pages:
+    # each round's final chunk against the same chunk through plain K1.
     plain_cfg = llama.llama3_8b(attention_impl="sdpa")
     worst = {"hot_vs_cold": 0.0, "cold_vs_plain": 0.0}
-    for g in range(0, PAGED16["slots"], 8):
+    if same_path:
+        worst = {f"{rnd}_vs_plain_chunk": max(rel_fro(last_logits[rnd, i], plain_logits[rnd, i])
+                                              for i in range(shape["slots"]))
+                 for rnd in ("cold", "hot")}
+    for g in range(0, 0 if same_path else shape["slots"], 8):
         tokens = torch.tensor(prompts[g: g + 8], device="cuda")
-        last = torch.full((tokens.shape[0],), PAGED16["prompt"] - 1, device="cuda")
-        with config.patch({"kernel.qmm": False, "kernel.qmlp": False}):
+        last = torch.full((tokens.shape[0],), shape["prompt"] - 1, device="cuda")
+        with config.patch(plain_flags):
             ref, _ = llama.forward_prefill(tree, tokens, plain_cfg, last_pos=last)
         for i in range(tokens.shape[0]):
             cold, hot = last_logits["cold", g + i], last_logits["hot", g + i]
             if not bool(torch.isfinite(hot).all() and torch.isfinite(cold).all()):
-                raise RuntimeError("serve_paged_prefix_16: final-chunk logits are not finite")
+                raise RuntimeError(f"{label}: final-chunk logits are not finite")
             worst["hot_vs_cold"] = max(worst["hot_vs_cold"], rel_fro(hot, cold))
             worst["cold_vs_plain"] = max(worst["cold_vs_plain"], rel_fro(cold, ref[i]))
         del ref
-    log(f"serve_paged_prefix_16 logits worst_rel_err={json.dumps(worst)} bound={PREFILL_REL_BOUND}")
+    log(f"{label} logits worst_rel_err={json.dumps(worst)} bound={PREFILL_REL_BOUND}")
     if not max(worst.values()) < PREFILL_REL_BOUND:
-        raise RuntimeError(f"serve_paged_prefix_16: final-chunk logits off: {worst}")
+        raise RuntimeError(f"{label}: final-chunk logits off: {worst}")
 
-    _paged_k10_vs_plain(backend, tree, cfg, seed=17)
-    del eng, backend, tree
+    _paged_k10_vs_plain(label, backend, tree, cfg, shape["prompt"], seed=17)
+    del eng, backend
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -2739,6 +2925,7 @@ def main() -> int:
     q4 = phase_quant_serving(params, int4=True)
     s64 = phase_serve_int8_64(params)
     paged = phase_serve_paged_prefix_16(params)
+    phase_serve_lowbit(params)
     phase_serve_d256()
     phase_d96()
     train = phase_train(params)
@@ -2755,7 +2942,7 @@ def main() -> int:
          "replaces": K3_REPLACES, "launches": train["k3"], **k23["dkv"]},
         {"name": "qmm", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K5_REPLACES,
          "launches": q8["k5"] + q4["k5"], **k567["k5"]},
-        {"name": "qmm_splitk", "route": "cuda", "source": QMM_SOURCE, "replaces": K6_REPLACES,
+        {"name": "qmm_splitk", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K6_REPLACES,
          "launches": q8["k6"] + q4["k6"], **k567["k6"]},
         {"name": "qmm4", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K7_REPLACES,
          "launches": q4["k7"], **k567["k7"]},

@@ -1,9 +1,9 @@
 // Shared helpers of the hand-written kernels: the dtype codes of
 // ops/_native.py (0 bf16, 1 fp16, 2 e4m3, 3 int8; 4 fp32 as an output
 // only), the attention kernels' instantiated widths, the mma.sync fragment
-// helpers, the quantized weight helpers, K6's launcher (csrc/qmm.cu), the
-// tail product's interface (csrc/tail.cu) that K8 and K9 share, and the
-// K5/K7 product's (csrc/qgemm.cu).
+// helpers, the quantized weight helpers, the tail product's interface
+// (csrc/tail.cu) that K8 and K9 share, and the K5/K6/K7 product's
+// (csrc/qgemm.cu).
 #pragma once
 
 #include <cstdint>
@@ -156,16 +156,6 @@ struct QMat {
   int int4;
 };
 
-// Host side of K6, the split-K int8 product (csrc/qmm.cu). x (M, K) bf16
-// row-major. K ranges of the split-K schedule: `requested` 0 applies the
-// card's rule (split when the output tiles are fewer than the SMs); the
-// result never leaves a range empty.
-int qgemm_splits(int M, int N, int K, int requested);
-// out (M, N) bf16 = x @ w (int8 (K, N)), scaled per column by s and cast
-// once; with splits > 1 through `partial` and a fixed-order reduction.
-cudaError_t qgemm_out(const __nv_bfloat16* x, const signed char* w, const float* s, int M, int N,
-                      int K, int splits, float* partial, __nv_bfloat16* out, cudaStream_t stream);
-
 // The tail product of K8 and K9 (csrc/tail.cu). Units of 128 weight
 // columns by 128 unpacked rows; activation rows rounded up to a width of
 // 8..256 (0: more rows than the tail takes).
@@ -209,11 +199,12 @@ cudaError_t layer_tail(const __nv_bfloat16* x, const __nv_bfloat16* attn, QMat w
 // fp32 entries of `partial` that layer_tail needs (Q = 0: no wo product).
 size_t layer_tail_workspace(int M, int E, int Q, int I, int F);
 
-// The register-A product of K5 and K7 (csrc/qgemm.cu). Up to kQgemmRows
-// activation rows run stream-K over (128-column tile, 128-row k-block)
-// units, rows rounded up to a width of 8..128, their fp32 partial sums
-// reduced by tail_reduce_out; more rows run whole (256-column, 128-row)
-// output tiles. ops/qmm.qgemm_schedule is the same schedule in Python.
+// The register-A product of K5, K6 and K7 (csrc/qgemm.cu). Up to
+// kQgemmRows activation rows run stream-K over (128-column tile, 128-row
+// k-block) units, rows rounded up to a width of 8..128, their fp32 partial
+// sums reduced by tail_reduce_out; more rows run whole (256-column,
+// 128-row) output tiles. ops/qmm.qgemm_schedule is the same schedule in
+// Python.
 constexpr int kQgemmRows = 128;
 
 struct QgemmSched {

@@ -2,11 +2,12 @@
 //
 // Replaces the Pallas kernel quantumattention_tpu/ops/decode.py::_decode_kernel
 // (decode.py:56; host entry decode_attention, decode.py:321). Same math:
-// scores q.k (int8 K taken as its integer value) times sm_scale * log2(e)
-// times the token's K scale, exp2-domain online softmax in fp32, P times the
-// token's V scale rounded to bf16 for P.V with fp32 accumulation, a bf16
-// output, and exact zeros for a slot of length 0 (the engine decodes over
-// every slot, active or not).
+// scores q.k (int8, e4m3 or int4 K taken as its exact value) times
+// sm_scale * log2(e) times the token's K scale, exp2-domain online softmax
+// in fp32, P times the token's V scale rounded to bf16 for P.V with fp32
+// accumulation, a bf16 output, and exact zeros for a slot of length 0 (the
+// engine decodes over every slot, active or not). Queries are bf16 (the
+// wrapper rounds float32 and float16 ones, as K1 does).
 //
 // What bounds it on the H100: bytes (each valid cache row of K and V read
 // once, 4 * G * D flops a row). It runs on the split-KV decode-attention
@@ -15,37 +16,31 @@
 // (B * Hkv * Smax, D) cache, swap-AB mma.sync products with int8 codes
 // converted four at a time, one fixed-order merge kernel). Here the rows of
 // (slot b, KV head h) are rows (b * Hkv + h) * Smax + r of the cache, and the
-// int8 scales enter as the TPU kernel puts them (kScoreScale). Head dims: any
-// multiple of 8 up to 512, at the instantiated width 64/128/256/512; any GQA
-// group (more than 16 query heads a KV head are split over segments).
+// scales enter as the TPU kernel puts them (kScoreScale). A packed int4 cache
+// holds element d and d + D/2 in byte d of a row of D/2 bytes: the low
+// nibbles meet the query's columns [0, D/2), the high ones [D/2, D), and
+// give the output's columns in the same halves. Head dims: any multiple of
+// 8 up to 512, at the instantiated width 64/128/256/512; any GQA group
+// (more than 16 query heads a KV head are split over segments). The e4m3
+// and int4 instantiations are in decode_e4m3.cu and decode_int4.cu.
 #include "decode_attn.cuh"
 
-namespace qa {
-namespace dattn {
-
-cudaError_t run_score_scale(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
-                            __nv_bfloat16* out, cudaStream_t stream) {
-  return run<kScoreScale>(pl, p, k, v, rows, out, stream);
-}
-
-}  // namespace dattn
-}  // namespace qa
-
-// q (B, Hq, D) bf16; k, v (B, Hkv, Smax, D) int8 (kv_code 3, with fp32
-// token scales (B, Hkv, Smax)) or bf16 (kv_code 0, scales null); lengths
-// (B,) int32; out (B, Hq, D) bf16; part_acc and part_ml fp32 scratch of the
-// sizes qa_decode_attn_plan gives. score_scale = sm_scale * log2(e).
+// q (B, Hq, D) bf16; k, v (B, Hkv, Smax, D) of element kind `kind` (0 int8,
+// 1 e4m3, with fp32 token scales (B, Hkv, Smax); 2 bf16, scales null; 3
+// int4, rows of D/2 packed bytes, with token scales); lengths (B,) int32;
+// out (B, Hq, D) bf16; part_acc and part_ml fp32 scratch of the sizes
+// qa_decode_attn_plan gives. score_scale = sm_scale * log2(e).
 extern "C" int qa_decode(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* lengths, void* out, void* part_acc,
-                         void* part_ml, int B, int Hq, int Hkv, int Smax, int D, int kv_code,
+                         void* part_ml, int B, int Hq, int Hkv, int Smax, int D, int kind,
                          float score_scale, void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
-  const bool q8 = kv_code == qa::kI8;
-  if ((!q8 && kv_code != qa::kBF16) || q8 != (k_scale != nullptr && v_scale != nullptr))
+  const bool scaled = kind != kKindBF16;
+  if (kind == kKindI4T || scaled != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  cudaError_t err = plan(q8 ? 1 : 2, B, Hq, Hkv, D, Smax, &pl);
+  cudaError_t err = plan(kind, B, Hq, Hkv, D, Smax, 0, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -64,6 +59,11 @@ extern "C" int qa_decode(const void* q, const void* k, const void* v, const void
   const int rows = B * Hkv * Smax;
   auto* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = q8 ? run_score_scale(pl, p, k, v, rows, o, s) : run_plain16(pl, p, k, v, rows, o, s);
+  switch (kind) {
+    case kKindI8: err = run<kScoreScale, kKindI8>(pl, p, k, v, rows, o, s); break;
+    case kKindF8: err = run_k4_e4m3(pl, p, k, v, rows, o, s); break;
+    case kKindI4D: err = run_k4_int4(pl, p, k, v, rows, o, s); break;
+    default: err = run_plain16(pl, p, k, v, rows, o, s); break;
+  }
   return static_cast<int>(err);
 }

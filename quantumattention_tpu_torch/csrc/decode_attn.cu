@@ -15,6 +15,9 @@ constexpr int kMergeCols = 32;  // output columns of a merge CTA
 // zeros for an empty slot. A warp forms the weights 2^(m_c - M) of its
 // query rows in shared memory; then each thread sums its column of up to
 // four rows over the partials, the loads of all four issued together.
+// Head-dim-packed int4 (p.half = W / 2) writes column f of its W-wide frame
+// to output column f (f < W/2) or D/2 + f - W/2, dropping the frame's
+// columns past D/2 in each half.
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __nv_bfloat16* out) {
   constexpr int kWarps = kMergeThreads / 32;
   constexpr int kPerLane = kMaxCtas / 32;
@@ -48,14 +51,20 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
   }
   const int G = p.Hq / p.Hkv;
   const int h = j / splits, qs = (j / p.csplits) % p.qsplits, cs = j % p.csplits;
-  const int rows = min(kMaxQRows, G - qs * kMaxQRows), cols = min(p.vw, p.D - cs * p.vw);
+  const int rows = min(kMaxQRows, G - qs * kMaxQRows);
+  const int cols = p.half ? p.vw : min(p.vw, p.D - cs * p.vw);
   const int col = blockIdx.z * kMergeCols + lane;
   if (blockIdx.z * kMergeCols >= cols) return;
-  __nv_bfloat16* dst = out + (static_cast<size_t>(b) * p.Hq + h * G + qs * kMaxQRows) * p.D + cs * p.vw;
+  int ocol = cs * p.vw + col;  // the output column of this thread, or -1
+  if (p.half) {
+    const int dh = p.D / 2, byte = ocol % p.half;
+    ocol = byte < dh ? byte + (ocol >= p.half ? dh : 0) : -1;
+  }
+  __nv_bfloat16* dst = out + (static_cast<size_t>(b) * p.Hq + h * G + qs * kMaxQRows) * p.D + ocol;
   const int tiles = len_tiles(slot_len(p, b));
   if (tiles == 0) {
     for (int q = warp; q < rows; q += kWarps)
-      if (col < cols) dst[static_cast<size_t>(q) * p.D + col] = __float2bfloat16_rn(0.f);
+      if (col < cols && ocol >= 0) dst[static_cast<size_t>(q) * p.D] = __float2bfloat16_rn(0.f);
     return;
   }
   const int t0 = before * segs + j * tiles;
@@ -90,7 +99,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
     if (lane == 0) inv_l[q] = 1.f / lsum;
   }
   __syncthreads();
-  if (col >= cols) return;
+  if (col >= cols || ocol < 0) return;
   constexpr int kRowsPer = kMaxQRows / kWarps;
   const size_t step = static_cast<size_t>(p.qrows) * p.ccols;
   const float* acc = p.part_acc + s0 * step + col;
@@ -106,7 +115,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
 #pragma unroll
   for (int r = 0; r < kRowsPer; ++r) {
     const int q = warp + kWarps * r;
-    if (q < rows) dst[static_cast<size_t>(q) * p.D + col] = __float2bfloat16_rn(num[r] * inv_l[q]);
+    if (q < rows) dst[static_cast<size_t>(q) * p.D] = __float2bfloat16_rn(num[r] * inv_l[q]);
   }
 }
 
@@ -128,20 +137,23 @@ cudaError_t merge(const Params& p, __nv_bfloat16* out, cudaStream_t stream) {
 
 cudaError_t run_plain16(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
                         __nv_bfloat16* out, cudaStream_t stream) {
-  return run<kPlain16>(pl, p, k, v, rows, out, stream);
+  return run<kPlain16, kKindBF16>(pl, p, k, v, rows, out, stream);
 }
 
 }  // namespace dattn
 }  // namespace qa
 
-// The plan of a decode-attention call (K4: smax = Smax; K10: smax =
-// pages_per_seq * page_size) over a cache of element code `code` (3 int8,
-// 0 bf16): out[6] = CTAs, query splits, column splits, rows and columns of
-// a split, segments a slot. The partials take (CTAs + B * segments) x rows
-// x columns fp32 (and x 2 for m, l). Returns a CUDA error code.
-extern "C" int qa_decode_attn_plan(int code, int B, int Hq, int Hkv, int D, int smax, int* out) {
+// The plan of a decode-attention call (K4: smax = Smax, ps = 0; K10: smax =
+// pages_per_seq * page_size, ps = page_size) over a cache of element kind
+// `kind` (qa::dattn::Kind: 0 int8, 1 e4m3, 2 bf16, 3 head-dim-packed int4,
+// 4 token-packed int4): out[8] = CTAs, query splits, column splits, rows
+// and columns of a split, segments a slot, TMA (1) or cp.async rows (0),
+// the instantiated width. The partials take (CTAs + B * segments) x rows x
+// columns fp32 (and x 2 for m, l). Returns a CUDA error code.
+extern "C" int qa_decode_attn_plan(int kind, int B, int Hq, int Hkv, int D, int smax, int ps,
+                                   int* out) {
   qa::dattn::Plan pl;
-  const cudaError_t err = qa::dattn::plan(code == qa::kI8 ? 1 : 2, B, Hq, Hkv, D, smax, &pl);
+  const cudaError_t err = qa::dattn::plan(kind, B, Hq, Hkv, D, smax, ps, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = pl.ctas;
   out[1] = pl.qsplits;
@@ -149,5 +161,7 @@ extern "C" int qa_decode_attn_plan(int code, int B, int Hq, int Hkv, int D, int 
   out[3] = pl.qrows;
   out[4] = pl.ccols;
   out[5] = pl.segs;
+  out[6] = pl.tma;
+  out[7] = pl.W;
   return 0;
 }

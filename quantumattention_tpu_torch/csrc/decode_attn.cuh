@@ -6,11 +6,19 @@
 // G query heads of the group against the cache rows [0, lengths[b]), an
 // exp2 online softmax in fp32, P.V with fp32 accumulation, a bf16 output,
 // and exact zeros for a slot of length 0. They differ in the row source
-// (phys_row below) and in where an int8 token scale enters (Mode).
+// (locate below) and in where a token scale enters (Mode). The cache
+// elements (Kind): int8 or e4m3 codes with fp32 token scales, bf16, or
+// int4 codes packed two a byte with token scales, in K4's slot cache along
+// the head dim (byte d: element d low, d + D/2 high; the S product splits
+// its depth in halves, the output columns of P.V come in the same halves)
+// and in K10's pages along a page's tokens (byte row i of a page of ps
+// tokens: token i low, i + ps/2 high; the tile follows the tokens, each
+// tile row holding the byte row of its token and taking its nibble).
 //
 // What bounds it on the H100: bytes. Every valid row of K and V is read
-// once (1 byte an element for int8, plus a 4-byte scale) for 4 * G * D
-// flops, far below the card's ~295 flops/byte. The design:
+// once (1 byte an element for int8 and e4m3, half a byte for int4, plus a
+// 4-byte scale) for 4 * G * D flops, far below the card's ~295 flops/byte.
+// The design:
 //  - a persistent grid, sized from the SM count and the kernel's occupancy
 //    (never from the lengths, so nothing is read back to the host and a
 //    call can be captured in a CUDA graph). The work is the 64-row tiles of
@@ -21,18 +29,26 @@
 //    CTAs take part in a short call), which may span segments.
 //    ops/decode.decode_schedule is the same schedule in Python;
 //  - one producer warp streams each tile into an mbarrier ring of 2-4
-//    stages: TMA boxes of 16 rows from a 2-D map over the (rows, D) cache
-//    or page pool, 128-byte swizzled (int8 rows of D % 16 == 8 break the
-//    tensor map's 16-byte stride rule: there the warp's 32 lanes copy the
-//    same swizzled layout 8 bytes a cp.async). The page of a 16-row box is
-//    read from the table once, and only for rows below the length; boxes
-//    at or past the length are never fetched;
+//    stages: TMA boxes of 16 rows from a 2-D map over the (rows, row
+//    bytes) cache or page pool, 128-byte swizzled. The page of a 16-row box
+//    is read from the table once, and only for rows below the length;
+//    boxes at or past the length are never fetched. Where a box cannot be
+//    a TMA box (a row stride that is not a multiple of 16 bytes, such as
+//    int8 rows of D % 16 == 8 or int4 rows of D % 32 != 0; a page size that
+//    is not a multiple of 16 tokens, or of 32 for int4 pages, so a box
+//    would cross a page or a page's half) the warp's 32 lanes copy each
+//    row below the length into the same swizzled layout by 16-, 8- or
+//    4-byte cp.asyncs, a row's page (and K10's scales) read row by row;
 //  - four consumer warps own 16 rows of every tile each, with swap-AB
 //    mma.sync m16n8k16 products: S^T = K.Q^T (the cache rows are M, the
 //    query rows N, rounded up to 8 or 16) and O^T = V^T.P^T (the output
-//    columns are M). int8 codes become bf16 four at a time from 32-bit
-//    shared loads on the integer and fp32 pipes (i8x4_to_bf16); P's
-//    accumulators become P^T's B fragments by movmatrix. Each warp keeps
+//    columns are M). int8 and int4 codes become bf16 four at a time from
+//    32-bit shared loads on the integer and fp32 pipes (a nibble masked
+//    once a word), e4m3 codes by cvt.rn.f16x2.e4m3x2, exactly in every
+//    case; P's accumulators become P^T's B fragments by movmatrix.
+//    Rows past the length may hold any bits (NaN codes of e4m3 or bf16
+//    included): their scores are replaced by the mask value and their V
+//    words by zeros. Each warp keeps
 //    its own online softmax; at the end of a segment's run of tiles the
 //    four merge in shared memory in warp order and one (m, l, acc) partial
 //    is written, at index cta + segment;
@@ -61,13 +77,18 @@ constexpr int kSmemCap = 232448;
 constexpr int kTwoPerSm = 112 * 1024;  // shared memory of a CTA that lets two share an SM
 constexpr int kMaxCtas = 256;          // CTAs of a call (the merge's weights a query row)
 
-// Where an int8 token scale enters (bf16 caches have none):
-//   kScoreScale (K4, as JAX's _decode_kernel): exact integer codes in the
-//     products, the K scale on the scores, P times the V scale rounded to
-//     bf16;
+// Where a token scale enters (bf16 caches have none):
+//   kScoreScale (K4, as JAX's _decode_kernel): exact codes in the products,
+//     the K scale on the scores, P times the V scale rounded to bf16;
 //   kElemScale (K10, as JAX's DMA path): code times the row's scale rounded
 //     to bf16 per element, P rounded to bf16.
 enum Mode { kScoreScale = 0, kElemScale = 1, kPlain16 = 2 };
+
+// The cache elements (the kind codes of ops/decode.py): int8 and e4m3 rows
+// of D codes, bf16 rows of D values, int4 packed along the head dim (K4:
+// rows of D/2 bytes) or along a page's tokens (K10: byte rows of D, two
+// tokens each).
+enum Kind { kKindI8 = 0, kKindF8 = 1, kKindBF16 = 2, kKindI4D = 3, kKindI4T = 4 };
 
 struct Params {
   const __nv_bfloat16* q;  // (B, Hq, D)
@@ -81,61 +102,76 @@ struct Params {
   float* part_ml;          // (ctas + B * segs, qrows, 2)
   int B, Hq, Hkv, D;
   int smax;                // rows a slot can hold (K4: Smax; K10: pps * ps)
-  int P, ps, pps;          // K10's pool
+  int P, ps, pps;          // K10's pool (ps in tokens)
   int qsplits, csplits;    // query-row splits of 16 and column splits of VW
   int qrows, ccols;        // rows and columns of one split
   int vw;                  // columns of a split (the template's VW)
   int ctas;
-  int tma;                 // 1: TMA boxes; 0: cp.async (int8, D % 16 == 8)
+  int tma;                 // 1: TMA boxes; 0: cp.async rows of `chunk` bytes
+  int chunk;
+  int half;                // head-dim-packed int4: W / 2 (the output halves); else 0
   float score_scale;       // sm_scale * log2(e)
 };
 
-// The columns a CTA of width W and element size E owns (V and the output):
-// all of W up to 256 columns; at 512, 256 for int8 and 64 for bf16 (two or
-// eight column splits, each scoring the full width), so two stages of K and
-// V tiles fit the shared memory.
-__host__ __device__ constexpr int v_cols(int W, int E) { return W <= 256 ? W : (E == 1 ? 256 : 64); }
+__host__ __device__ constexpr int elem_bytes(int kind) { return kind == kKindBF16 ? 2 : 1; }
 
-// Bytes of a K / V tile row in shared memory: whole 128-byte swizzle spans.
-__host__ __device__ constexpr int k_row_bytes(int W, int E) { return W * E < 128 ? 128 : W * E; }
-__host__ __device__ constexpr int v_row_bytes(int W, int E) {
-  return v_cols(W, E) * E < 128 ? 128 : v_cols(W, E) * E;
+// The columns a CTA of width W owns (V and the output): all of W up to 256
+// columns; at 512, 256 for 1-byte codes and 64 for bf16 (two or eight
+// column splits, each scoring the full width), so two stages of K and V
+// tiles fit the shared memory. Head-dim-packed int4 splits its output
+// columns in its two halves (low and high nibbles) at 512.
+__host__ __device__ constexpr int v_cols(int W, int kind) {
+  return W <= 256 ? W : (kind == kKindBF16 ? 64 : 256);
 }
-__host__ __device__ constexpr int stage_bytes(int W, int E) {
-  return kRows * (k_row_bytes(W, E) + v_row_bytes(W, E));
+
+// Bytes of a cache row at width W, and of a K / V tile row in shared
+// memory (whole 128-byte swizzle spans). Head-dim-packed int4 stages the
+// whole packed row for V too.
+__host__ __device__ constexpr int row_bytes(int W, int kind) {
+  return kind == kKindI4D ? W / 2 : W * elem_bytes(kind);
+}
+__host__ __device__ constexpr int k_row_bytes(int W, int kind) {
+  return row_bytes(W, kind) < 128 ? 128 : row_bytes(W, kind);
+}
+__host__ __device__ constexpr int v_row_bytes(int W, int kind) {
+  return kind == kKindI4D ? k_row_bytes(W, kind)
+                          : (v_cols(W, kind) * elem_bytes(kind) < 128 ? 128 : v_cols(W, kind) * elem_bytes(kind));
+}
+__host__ __device__ constexpr int stage_bytes(int W, int kind) {
+  return kRows * (k_row_bytes(W, kind) + v_row_bytes(W, kind));
 }
 // Two buffers of query rows (bf16, rows 16 bytes apart beyond W), the
 // warps' partials at the end of a segment, K10's token scales of each
 // stage, the ring's barriers and the alignment slack.
-__host__ __device__ constexpr int fixed_bytes(int W, int E, int NG) {
-  return 2 * NG * (2 * W + 16) + kConsumers * NG * (v_cols(W, E) + 2) * 4 + 4 * 2 * kRows * 4 +
+__host__ __device__ constexpr int fixed_bytes(int W, int kind, int NG) {
+  return 2 * NG * (2 * W + 16) + kConsumers * NG * (v_cols(W, kind) + 2) * 4 + 4 * 2 * kRows * 4 +
          2 * 4 * 8 + 1024;
 }
 // Stages of the ring: as many as fit, up to 4, in half an SM's shared
 // memory (two CTAs an SM) where two fit there, else in all of it.
-__host__ __device__ constexpr int ring_stages(int W, int E, int NG) {
-  return ((fixed_bytes(W, E, NG) + 2 * stage_bytes(W, E) <= kTwoPerSm ? kTwoPerSm : kSmemCap) -
-          fixed_bytes(W, E, NG)) / stage_bytes(W, E) > 4
-             ? 4
-             : ((fixed_bytes(W, E, NG) + 2 * stage_bytes(W, E) <= kTwoPerSm ? kTwoPerSm : kSmemCap) -
-                fixed_bytes(W, E, NG)) / stage_bytes(W, E);
+__host__ __device__ constexpr int ring_room(int W, int kind, int NG) {
+  return (fixed_bytes(W, kind, NG) + 2 * stage_bytes(W, kind) <= kTwoPerSm ? kTwoPerSm : kSmemCap) -
+         fixed_bytes(W, kind, NG);
 }
-__host__ __device__ constexpr int smem_bytes(int W, int E, int NG) {
-  return ring_stages(W, E, NG) * stage_bytes(W, E) + fixed_bytes(W, E, NG);
+__host__ __device__ constexpr int ring_stages(int W, int kind, int NG) {
+  return ring_room(W, kind, NG) / stage_bytes(W, kind) > 4 ? 4 : ring_room(W, kind, NG) / stage_bytes(W, kind);
+}
+__host__ __device__ constexpr int smem_bytes(int W, int kind, int NG) {
+  return ring_stages(W, kind, NG) * stage_bytes(W, kind) + fixed_bytes(W, kind, NG);
 }
 
-template <int W, int E, int NG>
+template <int W, int KIND, int NG>
 struct Layout {
-  static constexpr int kVW = v_cols(W, E);
-  static constexpr int kKRow = k_row_bytes(W, E);
-  static constexpr int kVRow = v_row_bytes(W, E);
+  static constexpr int kVW = v_cols(W, KIND);
+  static constexpr int kKRow = k_row_bytes(W, KIND);
+  static constexpr int kVRow = v_row_bytes(W, KIND);
   static constexpr int kKTile = kRows * kKRow;
-  static constexpr int kStage = stage_bytes(W, E);
+  static constexpr int kStage = stage_bytes(W, KIND);
   static constexpr int kQStride = 2 * W + 16;  // bytes of a query row
   static constexpr int kQBytes = NG * kQStride;
   static constexpr int kScratch = kConsumers * NG * (kVW + 2) * 4;
-  static constexpr int kStages = ring_stages(W, E, NG);
-  static constexpr int kSmem = smem_bytes(W, E, NG);
+  static constexpr int kStages = ring_stages(W, KIND, NG);
+  static constexpr int kSmem = smem_bytes(W, KIND, NG);
   static constexpr int kPerSm = kSmem <= kTwoPerSm ? 2 : 1;
   static_assert(kStages >= 2 && kSmem <= kSmemCap, "two stages in the shared memory of one CTA");
 };
@@ -151,13 +187,30 @@ __device__ __forceinline__ int len_tiles(int len) { return (len + kRows - 1) / k
 // slot's rows [0, len).
 __device__ __forceinline__ int row_limit(int len, int /*qrow*/) { return len; }
 
-// The physical row (of the (rows, D) view of the cache or pool) of slot
-// b's row r of KV head h; r a multiple of 16 for K10 (a box never crosses a
-// page: page sizes are multiples of 16). A page id out of range is clamped.
-__device__ __forceinline__ int phys_row(const Params& p, int b, int h, int r) {
-  if (p.table == nullptr) return (b * p.Hkv + h) * p.smax + r;
+// Where slot b's token r of KV head h lives: .x its row of the (rows, row
+// bytes) view of the cache or pool, .y its token scale's index. K4: row
+// (b * Hkv + h) * Smax + r; K10: token r % ps of page table[b][r / ps] (an
+// id out of range is clamped), whose byte row in token-packed int4 pages is
+// r % (ps / 2) of the page.
+template <int KIND>
+__device__ __forceinline__ int2 locate(const Params& p, int b, int h, int r) {
+  if (p.table == nullptr) {
+    const int x = (b * p.Hkv + h) * p.smax + r;
+    return make_int2(x, x);
+  }
   const int page = min(max(__ldg(p.table + b * p.pps + r / p.ps), 0), p.P - 1);
-  return (h * p.P + page) * p.ps + r % p.ps;
+  const int o = r % p.ps, base = h * p.P + page;
+  if constexpr (KIND == kKindI4T) {
+    const int half = p.ps >> 1;
+    return make_int2(base * half + (o < half ? o : o - half), base * p.ps + o);
+  }
+  return make_int2(base * p.ps + o, base * p.ps + o);
+}
+
+// The shift of token r's nibble in a token-packed int4 page: 4 in the
+// page's second half.
+__device__ __forceinline__ int nibble_shift(const Params& p, int r) {
+  return r % p.ps >= (p.ps >> 1) ? 4 : 0;
 }
 
 // Byte offset of (row, byte column) in a tile of 128-byte-swizzled spans:
@@ -257,19 +310,56 @@ __device__ __forceinline__ void find_share(const Params& p, int segs, int c, Til
 // Fragment helpers.
 // ---------------------------------------------------------------------------
 
-// Four int8 codes as floats (as i8x4_to_bf16), elements 0 and 2 times
-// `sa`, 1 and 3 times `sb`, rounded to bf16 pairs (0, 1) and (2, 3): one
-// FMUL an element, one cvt.rn.bf16x2 a pair.
-__device__ __forceinline__ void i8x4_scaled(uint32_t v, float sa, float sb, uint32_t& lo,
-                                            uint32_t& hi) {
-  const uint32_t u = v ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-  lo = pack_bf16(f0 * sa, f1 * sb);
-  hi = pack_bf16(f2 * sa, f3 * sb);
+// e4m3 codes (byte i element i) as floats, exactly: cvt.rn.f16x2.e4m3x2
+// (sm_89+) a pair at a time.
+__device__ __forceinline__ void f8x4_to_float(uint32_t v, float (&f)[4]) {
+  uint32_t h01, h23;
+  asm("{\n.reg .b16 a, b;\nmov.b32 {a, b}, %2;\n"
+      "cvt.rn.f16x2.e4m3x2 %0, a;\ncvt.rn.f16x2.e4m3x2 %1, b;\n}\n"
+      : "=r"(h01), "=r"(h23) : "r"(v));
+  const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&h01));
+  const float2 y = __half22float2(*reinterpret_cast<const __half2*>(&h23));
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = y.x;
+  f[3] = y.y;
 }
+
+// Four codes of kind KIND in the bytes of v (int4: one nibble a byte, in
+// the low four bits) as floats: integers offset to unsigned in the low
+// mantissa byte of 2^23, minus 2^23 + the offset.
+template <int KIND>
+__device__ __forceinline__ void codes_to_float(uint32_t v, float (&f)[4]) {
+  if constexpr (KIND == kKindF8) {
+    f8x4_to_float(v, f);
+  } else {
+    constexpr bool kNib = KIND == kKindI4D || KIND == kKindI4T;
+    const uint32_t u = v ^ (kNib ? 0x08080808u : 0x80808080u);
+    const float off = kNib ? 8388616.f : 8388736.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - off;
+  }
+}
+
+// Four codes as bf16 pairs (0, 1) and (2, 3): exactly (every int8, int4
+// and e4m3 value is a bf16), or with elements 0 and 2 times `sa`, 1 and 3
+// times `sb`, each rounded once to bf16.
+template <int KIND, bool SCALED>
+__device__ __forceinline__ void codes_to_bf16(uint32_t v, float sa, float sb, uint32_t& lo, uint32_t& hi) {
+  float f[4];
+  codes_to_float<KIND>(v, f);
+  if constexpr (SCALED) {
+    lo = pack_bf16(f[0] * sa, f[1] * sb);
+    hi = pack_bf16(f[2] * sa, f[3] * sb);
+  } else {
+    // An exact small integer or e4m3 value: its bf16 is the float's upper half.
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+}
+
+// The nibbles of a packed int4 word at shift `sh` (0 low, 4 high), one a byte.
+__device__ __forceinline__ uint32_t nibbles(uint32_t v, int sh) { return (v >> sh) & 0x0F0F0F0Fu; }
 
 // The 8x8 b16 matrix held as accumulator fragments (lane 4g + t: row g,
 // columns 2t, 2t + 1), transposed in place.
@@ -279,9 +369,27 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
   return d;
 }
 
-// 8 bytes from device memory to shared memory, asynchronously.
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(smem_addr(smem)), "l"(gmem));
+// N (4, 8 or 16) bytes from device memory to shared memory,
+// asynchronously; zeros when !valid (the source is then not read).
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem, bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "n"(N), "r"(valid ? N : 0));
+}
+
+// `bytes` bytes of a row (a multiple of `chunk`, both ends `chunk`-aligned)
+// into row `row` of a swizzled tile.
+__device__ __forceinline__ void copy_row(unsigned char* tile, int row, const unsigned char* src,
+                                         int bytes, int chunk) {
+  for (int c = 0; c < bytes; c += chunk) {
+    if (chunk == 16) {
+      cp_async_n<16>(tile + tile_off(row, c), src + c);
+    } else if (chunk == 8) {
+      cp_async_n<8>(tile + tile_off(row, c), src + c);
+    } else {
+      cp_async_n<4>(tile + tile_off(row, c), src + c);
+    }
+  }
 }
 
 // An arrival on `bar` once this thread's earlier cp.asyncs have landed.
@@ -294,15 +402,16 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // ---------------------------------------------------------------------------
 // The kernel. Grid: p.ctas CTAs of kThreads; warps 0-3 consume, warp 4
 // produces. W: the instantiated width; NG: query rows of a segment rounded
-// up to 8 or 16.
+// up to 8 or 16; MODE and KIND above.
 // ---------------------------------------------------------------------------
 
-template <int W, int NG, int MODE>
-__global__ void __launch_bounds__(kThreads, Layout<W, MODE == kPlain16 ? 2 : 1, NG>::kPerSm)
+template <int W, int NG, int MODE, int KIND>
+__global__ void __launch_bounds__(kThreads, Layout<W, KIND, NG>::kPerSm)
 decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                    const Params p) {
-  constexpr int E = MODE == kPlain16 ? 2 : 1;
-  using L = Layout<W, E, NG>;
+  constexpr int E = elem_bytes(KIND);
+  constexpr bool kFloatCodes = KIND == kKindF8 || KIND == kKindBF16;  // rows may hold NaN bits
+  using L = Layout<W, KIND, NG>;
   constexpr int kVW = L::kVW;
   constexpr int kNT = NG / 8;    // query n-tiles of 8
   constexpr int kKK = W / 16;    // depth steps of S^T
@@ -314,12 +423,13 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   unsigned char* qbuf = ring + S * L::kStage;                    // two query buffers
   float* scratch = reinterpret_cast<float*>(qbuf + 2 * L::kQBytes);  // [warp][NG][kVW]
   float* scratch_ml = scratch + kConsumers * NG * kVW;           // [warp][NG][2]
-  float* scale_ring = scratch_ml + kConsumers * NG * 2;          // [stage][K 64 | V 64] (K10 int8)
+  float* scale_ring = scratch_ml + kConsumers * NG * 2;          // [stage][K 64 | V 64] (K10)
   uint64_t* full = reinterpret_cast<uint64_t*>(scale_ring + 4 * 2 * kRows);
   uint64_t* empty = full + 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int splits = p.qsplits * p.csplits;
   const int segs = p.Hkv * splits;
+  const int krow = KIND == kKindI4D ? p.D / 2 : p.D * E;  // bytes of a cache row
   pdl_launch_dependents();
 
   TileIt it;
@@ -333,40 +443,58 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
     }
     mbar_init_fence();
   }
+  if (!p.tma) {
+    // cp.async rows never write a K tile's bytes past the row: zero them
+    // once (the query's zero columns meet them; stale e4m3 or bf16 bits
+    // there could be NaN).
+    const int words = (L::kKRow - krow) / 4;
+    for (int x = threadIdx.x; x < S * kRows * words; x += kThreads) {
+      const int s = x / (kRows * words), r = (x / words) % kRows, c = krow + 4 * (x % words);
+      *reinterpret_cast<uint32_t*>(ring + s * L::kStage + tile_off(r, c)) = 0u;
+    }
+  }
   __syncthreads();
 
   if (warp == kConsumers) {
-    // The producer. Its lanes locate the 16-row boxes of kGroup tiles at a
-    // time (lane 4a + x: box x of the group's tile a; K10 reads the page
-    // table there, in parallel), then stream each tile's boxes below the
-    // length: TMA boxes issued by lane 0, or 8-byte cp.asyncs of every lane.
+    // The producer. TMA: its lanes locate the 16-row boxes of kGroup tiles
+    // at a time (lane 4a + x: box x of the group's tile a; K10 reads the
+    // page table there, in parallel), then lane 0 streams each tile's boxes
+    // below the length. cp.async: the lanes copy the tile's rows below the
+    // length, a row each.
     if (p.tma && lane == 0) {
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
     }
+    const int vcol = KIND == kKindI4D ? 0 : 1;  // V columns follow the split
     for (int k0 = 0; k0 < count; k0 += kGroup) {
-      TileIt mine = it;
-      for (int a = 0; a < lane / 4 && k0 + a + 1 < count; ++a) advance(p, segs, mine);
-      const int r_box = mine.i * kRows + (lane & 3) * kBox;
-      const int my_row = k0 + lane / 4 < count && r_box < mine.len
-                             ? phys_row(p, mine.b, mine.j / splits, r_box) : 0;
+      int2 mine_loc = make_int2(0, 0);
+      if (p.tma) {
+        TileIt mine = it;
+        for (int a = 0; a < lane / 4 && k0 + a + 1 < count; ++a) advance(p, segs, mine);
+        const int r_box = mine.i * kRows + (lane & 3) * kBox;
+        if (k0 + lane / 4 < count && r_box < mine.len) mine_loc = locate<KIND>(p, mine.b, mine.j / splits, r_box);
+      }
       for (int k = k0; k < min(k0 + kGroup, count); ++k) {
         const int s = k % S;
-        int rows[kRows / kBox];
-#pragma unroll
-        for (int bx = 0; bx < kRows / kBox; ++bx) rows[bx] = __shfl_sync(0xffffffffu, my_row, (k - k0) * 4 + bx);
         if (k >= S) mbar_wait(&empty[s], (k / S + 1) & 1);
         const int cs = it.j % p.csplits;
-        const int nbox = (min(kRows, it.len - it.i * kRows) + kBox - 1) / kBox;
+        const int nrow = min(kRows, it.len - it.i * kRows);
         unsigned char* kt = ring + s * L::kStage;
         unsigned char* vt = kt + L::kKTile;
         float* st = scale_ring + s * 2 * kRows;
-        if (lane == 0) {
-          uint32_t bytes = p.tma ? nbox * kBox * (L::kKRow + L::kVRow) : 0;
-          if constexpr (MODE == kElemScale) bytes += nbox * 2 * kBox * 4;
-          if (bytes) mbar_expect_tx(&full[s], bytes);
-          for (int bx = 0; bx < nbox; ++bx) {
-            if (p.tma) {
+        if (p.tma) {
+          const int nbox = (nrow + kBox - 1) / kBox;
+          int rows[kRows / kBox], srows[kRows / kBox];
+#pragma unroll
+          for (int bx = 0; bx < kRows / kBox; ++bx) {
+            rows[bx] = __shfl_sync(0xffffffffu, mine_loc.x, (k - k0) * 4 + bx);
+            srows[bx] = __shfl_sync(0xffffffffu, mine_loc.y, (k - k0) * 4 + bx);
+          }
+          if (lane == 0) {
+            uint32_t bytes = nbox * kBox * (L::kKRow + L::kVRow);
+            if constexpr (MODE == kElemScale) bytes += nbox * 2 * kBox * 4;
+            mbar_expect_tx(&full[s], bytes);
+            for (int bx = 0; bx < nbox; ++bx) {
 #pragma unroll
               for (int c = 0; c < L::kKRow / 128; ++c)
                 tma_load_2d(kt + c * kRows * 128 + bx * kBox * 128, &tm_k, &full[s], c * (128 / E),
@@ -374,28 +502,25 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
 #pragma unroll
               for (int c = 0; c < L::kVRow / 128; ++c)
                 tma_load_2d(vt + c * kRows * 128 + bx * kBox * 128, &tm_v, &full[s],
-                            cs * kVW + c * (128 / E), rows[bx]);
+                            vcol * cs * kVW + c * (128 / E), rows[bx]);
+              if constexpr (MODE == kElemScale) {
+                bulk_load(st + bx * kBox, p.ks + srows[bx], kBox * 4, &full[s]);
+                bulk_load(st + kRows + bx * kBox, p.vs + srows[bx], kBox * 4, &full[s]);
+              }
             }
-            if constexpr (MODE == kElemScale) {
-              bulk_load(st + bx * kBox, p.ks + rows[bx], kBox * 4, &full[s]);
-              bulk_load(st + kRows + bx * kBox, p.vs + rows[bx], kBox * 4, &full[s]);
-            }
+            mbar_arrive(&full[s]);
           }
-          if (p.tma) mbar_arrive(&full[s]);
-        }
-        if (!p.tma) {
-          // int8 rows of D % 16 == 8 bytes, into the same swizzled layout.
-          const int kch = p.D / 8, v0 = cs * kVW, vch = min(kVW, p.D - v0) / 8;
-          for (int bx = 0; bx < nbox; ++bx) {
-            const unsigned char* kr = p.k + static_cast<size_t>(rows[bx]) * p.D;
-            const unsigned char* vr = p.v + static_cast<size_t>(rows[bx]) * p.D + v0;
-            for (int x = lane; x < kBox * kch; x += 32) {
-              const int r = x / kch, c = x % kch;
-              cp_async8(kt + tile_off(bx * kBox + r, 8 * c), kr + static_cast<size_t>(r) * p.D + 8 * c);
-            }
-            for (int x = lane; x < kBox * vch; x += 32) {
-              const int r = x / vch, c = x % vch;
-              cp_async8(vt + tile_off(bx * kBox + r, 8 * c), vr + static_cast<size_t>(r) * p.D + 8 * c);
+        } else {
+          const int h = it.j / splits;
+          const int v0 = KIND == kKindI4D ? 0 : cs * kVW * E;
+          const int vbytes = KIND == kKindI4D ? krow : min(kVW, p.D - cs * kVW) * E;
+          for (int r = lane; r < nrow; r += 32) {
+            const int2 loc = locate<KIND>(p, it.b, h, it.i * kRows + r);
+            copy_row(kt, r, p.k + static_cast<size_t>(loc.x) * krow, krow, p.chunk);
+            copy_row(vt, r, p.v + static_cast<size_t>(loc.x) * krow + v0, vbytes, p.chunk);
+            if constexpr (MODE == kElemScale) {
+              cp_async_n<4>(st + r, p.ks + loc.y);
+              cp_async_n<4>(st + kRows + r, p.vs + loc.y);
             }
           }
           cp_async_arrive(&full[s]);
@@ -413,17 +538,30 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   const int wrow = warp * kBox;
   const int G = p.Hq / p.Hkv;
 
-  // A segment's query rows into query buffer `buf` by 16-byte cp.asyncs:
-  // zero rows up to NG, zero columns past D.
+  // A segment's query rows into query buffer `buf` by cp.asyncs: zero rows
+  // up to NG, zero columns past D. Head-dim-packed int4 meets the low
+  // nibbles with columns [0, W/2) of the buffer and the high nibbles with
+  // [W/2, W): the query's columns [0, D/2) go to the first, [D/2, D) to the
+  // second, 4 at a time (D/2 is a multiple of 4).
   auto load_q = [&](const TileIt& x, int buf) {
     const int h = x.j / splits, qs = (x.j / p.csplits) % p.qsplits;
     const int rows = min(kMaxQRows, G - qs * kMaxQRows);
     const __nv_bfloat16* src = p.q + (static_cast<size_t>(x.b) * p.Hq + h * G + qs * kMaxQRows) * p.D;
     unsigned char* dst = qbuf + buf * L::kQBytes;
-    for (int i = threadIdx.x; i < NG * (W / 8); i += kConsumers * 32) {
-      const int r = i / (W / 8), c = (i % (W / 8)) * 8;
-      const bool ok = r < rows && c < p.D;
-      cp_async16(dst + r * L::kQStride + c * 2, ok ? src + static_cast<size_t>(r) * p.D + c : src, ok);
+    if constexpr (KIND == kKindI4D) {
+      const int dh = p.D / 2;
+      for (int i = threadIdx.x; i < NG * (W / 4); i += kConsumers * 32) {
+        const int r = i / (W / 4), c = (i % (W / 4)) * 4;
+        const int hc = c % (W / 2), sc = hc + (c >= W / 2 ? dh : 0);
+        const bool ok = r < rows && hc < dh;
+        cp_async_n<8>(dst + r * L::kQStride + c * 2, ok ? src + static_cast<size_t>(r) * p.D + sc : src, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < NG * (W / 8); i += kConsumers * 32) {
+        const int r = i / (W / 8), c = (i % (W / 8)) * 8;
+        const bool ok = r < rows && c < p.D;
+        cp_async16(dst + r * L::kQStride + c * 2, ok ? src + static_cast<size_t>(r) * p.D + c : src, ok);
+      }
     }
     cp_async_commit();
   };
@@ -433,7 +571,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
     if constexpr (MODE == kScoreScale) {
       const int rbase = x.i * kRows + wrow;
       if (rbase < x.len) {
-        const int pr = phys_row(p, x.b, x.j / splits, rbase);
+        const int pr = locate<KIND>(p, x.b, x.j / splits, rbase).y;
         sc[0] = rbase + g < x.len ? __ldg(p.ks + pr + g) : 0.f;
         sc[1] = rbase + g + 8 < x.len ? __ldg(p.ks + pr + g + 8) : 0.f;
         sc[2] = rbase + g < x.len ? __ldg(p.vs + pr + g) : 0.f;
@@ -481,6 +619,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       const unsigned char* vt = kt + L::kKTile;
       const unsigned char* qsm = qbuf + qcur * L::kQBytes;
       const int qs = (it.j / p.csplits) % p.qsplits;
+      const int cs = it.j % p.csplits;
       // K10's scales of rows g, g + 8 (K) and 2t, 2t + 1, 2t + 8, 2t + 9
       // (V), zero past the length (the box's rows there may hold any bits).
       float ksa = 0.f, ksb = 0.f, vs0 = 0.f, vs1 = 0.f, vs8 = 0.f, vs9 = 0.f;
@@ -493,41 +632,72 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
         vs8 = 2 * t + 8 < nvalid ? st[kRows + 2 * t + 8] : 0.f;
         vs9 = 2 * t + 9 < nvalid ? st[kRows + 2 * t + 9] : 0.f;
       }
+      const int ra = wrow + g, rb = ra + 8;
+      // Token-packed int4: the nibble of each row this lane converts.
+      int sha = 0, shb = 0, sh0 = 0, sh1 = 0, sh8 = 0, sh9 = 0;
+      if constexpr (KIND == kKindI4T) {
+        const int r0 = it.i * kRows;
+        sha = nibble_shift(p, r0 + ra);
+        shb = nibble_shift(p, r0 + rb);
+        sh0 = nibble_shift(p, rbase + 2 * t);
+        sh1 = nibble_shift(p, rbase + 2 * t + 1);
+        sh8 = nibble_shift(p, rbase + 2 * t + 8);
+        sh9 = nibble_shift(p, rbase + 2 * t + 9);
+      }
 
       // S^T = K . Q^T: K's depth in the order (4t, 4t+1 | 4t+2, 4t+3) of
       // each 16 columns, Q's B fragments in the same order; even and odd
-      // depth steps into two sums, so two products are in flight.
+      // depth steps (head-dim-packed int4: low and high halves) into two
+      // sums, so two products are in flight.
       float sacc[kNT][4], sodd[kNT][4];
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sacc[j][e] = sodd[j][e] = 0.f;
-      const int ra = wrow + g, rb = ra + 8;
+      if constexpr (KIND == kKindI4D) {
 #pragma unroll
-      for (int kk = 0; kk < kKK; ++kk) {
-        uint32_t a[4];
-        if constexpr (E == 1) {
+        for (int kk = 0; kk < kKK / 2; ++kk) {
           const uint32_t wa = *reinterpret_cast<const uint32_t*>(kt + tile_off(ra, kk * 16 + 4 * t));
           const uint32_t wb = *reinterpret_cast<const uint32_t*>(kt + tile_off(rb, kk * 16 + 4 * t));
-          if constexpr (MODE == kElemScale) {
-            i8x4_scaled(wa, ksa, ksa, a[0], a[2]);
-            i8x4_scaled(wb, ksb, ksb, a[1], a[3]);
-          } else {
-            i8x4_to_bf16(wa, a[0], a[2]);
-            i8x4_to_bf16(wb, a[1], a[3]);
-          }
-        } else {
-          const uint2 xa = *reinterpret_cast<const uint2*>(kt + tile_off(ra, kk * 32 + 8 * t));
-          const uint2 xb = *reinterpret_cast<const uint2*>(kt + tile_off(rb, kk * 32 + 8 * t));
-          a[0] = xa.x;
-          a[2] = xa.y;
-          a[1] = xb.x;
-          a[3] = xb.y;
-        }
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const uint2 qv = *reinterpret_cast<const uint2*>(qsm + (8 * j + g) * L::kQStride + (kk * 16 + 4 * t) * 2);
-          mma_bf16(kk & 1 ? sodd[j] : sacc[j], a, qv.x, qv.y);
+          for (int hh = 0; hh < 2; ++hh) {
+            uint32_t a[4];
+            codes_to_bf16<KIND, false>(nibbles(wa, 4 * hh), 1.f, 1.f, a[0], a[2]);
+            codes_to_bf16<KIND, false>(nibbles(wb, 4 * hh), 1.f, 1.f, a[1], a[3]);
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+              const uint2 qv = *reinterpret_cast<const uint2*>(
+                  qsm + (8 * j + g) * L::kQStride + (hh * (W / 2) + kk * 16 + 4 * t) * 2);
+              mma_bf16(hh ? sodd[j] : sacc[j], a, qv.x, qv.y);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kKK; ++kk) {
+          uint32_t a[4];
+          if constexpr (E == 1) {
+            uint32_t wa = *reinterpret_cast<const uint32_t*>(kt + tile_off(ra, kk * 16 + 4 * t));
+            uint32_t wb = *reinterpret_cast<const uint32_t*>(kt + tile_off(rb, kk * 16 + 4 * t));
+            if constexpr (KIND == kKindI4T) {
+              wa = nibbles(wa, sha);
+              wb = nibbles(wb, shb);
+            }
+            codes_to_bf16<KIND, MODE == kElemScale>(wa, ksa, ksa, a[0], a[2]);
+            codes_to_bf16<KIND, MODE == kElemScale>(wb, ksb, ksb, a[1], a[3]);
+          } else {
+            const uint2 xa = *reinterpret_cast<const uint2*>(kt + tile_off(ra, kk * 32 + 8 * t));
+            const uint2 xb = *reinterpret_cast<const uint2*>(kt + tile_off(rb, kk * 32 + 8 * t));
+            a[0] = xa.x;
+            a[2] = xa.y;
+            a[1] = xb.x;
+            a[3] = xb.y;
+          }
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const uint2 qv = *reinterpret_cast<const uint2*>(qsm + (8 * j + g) * L::kQStride + (kk * 16 + 4 * t) * 2);
+            mma_bf16(kk & 1 ? sodd[j] : sacc[j], a, qv.x, qv.y);
+          }
         }
       }
 #pragma unroll
@@ -578,32 +748,53 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
         pb[j][1] = movmatrix_trans(pack_bf16(pv[1][0], pv[1][1]));
       }
 
-      // O^T += V^T . P^T: output columns 32cb + 4g .. +3 are this lane's
-      // (rows g and g + 8 of output tiles 2cb and 2cb + 1).
+      // O^T += V^T . P^T: output columns 32cb + 4g .. +3 of the split are
+      // this lane's (rows g and g + 8 of output tiles 2cb and 2cb + 1).
+      // Head-dim-packed int4: column f of the W-wide output frame is the
+      // low nibble of packed byte f (f < W/2) or the high nibble of byte
+      // f - W/2; the merge maps the frame onto the D columns.
       const int v0 = wrow + 2 * t;
       const bool partial = nvalid < kBox;
 #pragma unroll
       for (int cb = 0; cb < kCB; ++cb) {
         uint32_t a0[4], a1[4];  // output tiles 2cb and 2cb + 1
         if constexpr (E == 1) {
-          const int col = 32 * cb + 4 * g;
-          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0, col));
-          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 1, col));
-          const uint32_t x8 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 8, col));
-          const uint32_t x9 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 9, col));
+          int col = 32 * cb + 4 * g;
+          int shc = 0;
+          if constexpr (KIND == kKindI4D) {
+            const int f = cs * kVW + 32 * cb;
+            shc = f >= W / 2 ? 4 : 0;
+            col = f % (W / 2) + 4 * g;
+          }
+          uint32_t x0 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0, col));
+          uint32_t x1 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 1, col));
+          uint32_t x8 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 8, col));
+          uint32_t x9 = *reinterpret_cast<const uint32_t*>(vt + tile_off(v0 + 9, col));
+          if constexpr (KIND == kKindI4D) {
+            x0 = nibbles(x0, shc);
+            x1 = nibbles(x1, shc);
+            x8 = nibbles(x8, shc);
+            x9 = nibbles(x9, shc);
+          } else if constexpr (KIND == kKindI4T) {
+            x0 = nibbles(x0, sh0);
+            x1 = nibbles(x1, sh1);
+            x8 = nibbles(x8, sh8);
+            x9 = nibbles(x9, sh9);
+          } else if constexpr (kFloatCodes) {
+            if (partial) {  // rows past the length may hold any bits: zero them
+              x0 = 2 * t < nvalid ? x0 : 0u;
+              x1 = 2 * t + 1 < nvalid ? x1 : 0u;
+              x8 = 2 * t + 8 < nvalid ? x8 : 0u;
+              x9 = 2 * t + 9 < nvalid ? x9 : 0u;
+            }
+          }
           const uint32_t y0 = __byte_perm(x0, x1, 0x5140), y1 = __byte_perm(x0, x1, 0x7362);
           const uint32_t y8 = __byte_perm(x8, x9, 0x5140), y9 = __byte_perm(x8, x9, 0x7362);
-          if constexpr (MODE == kElemScale) {
-            i8x4_scaled(y0, vs0, vs1, a0[0], a0[1]);
-            i8x4_scaled(y1, vs0, vs1, a1[0], a1[1]);
-            i8x4_scaled(y8, vs8, vs9, a0[2], a0[3]);
-            i8x4_scaled(y9, vs8, vs9, a1[2], a1[3]);
-          } else {
-            i8x4_to_bf16(y0, a0[0], a0[1]);
-            i8x4_to_bf16(y1, a1[0], a1[1]);
-            i8x4_to_bf16(y8, a0[2], a0[3]);
-            i8x4_to_bf16(y9, a1[2], a1[3]);
-          }
+          constexpr bool kScaled = MODE == kElemScale;
+          codes_to_bf16<KIND, kScaled>(y0, vs0, vs1, a0[0], a0[1]);
+          codes_to_bf16<KIND, kScaled>(y1, vs0, vs1, a1[0], a1[1]);
+          codes_to_bf16<KIND, kScaled>(y8, vs8, vs9, a0[2], a0[3]);
+          codes_to_bf16<KIND, kScaled>(y9, vs8, vs9, a1[2], a1[3]);
         } else {
           const int col = 64 * cb + 8 * g;
           uint2 x0 = *reinterpret_cast<const uint2*>(vt + tile_off(v0, col));
@@ -663,7 +854,8 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       }
       named_barrier(1, kConsumers * 32);
       const int qs = (it.j / p.csplits) % p.qsplits, cs = it.j % p.csplits;
-      const int rows = min(kMaxQRows, G - qs * kMaxQRows), cols = min(kVW, p.D - cs * kVW);
+      const int rows = min(kMaxQRows, G - qs * kMaxQRows);
+      const int cols = KIND == kKindI4D ? kVW : min(kVW, p.D - cs * kVW);
       const size_t piece = blockIdx.x + static_cast<size_t>(it.b) * segs + it.j;
       for (int i = threadIdx.x; i < rows * cols; i += kConsumers * 32) {
         const int q = i / cols, c = i % cols;
@@ -698,30 +890,40 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
 // B), launched with programmatic dependent launch after the kernel above.
 cudaError_t merge(const Params& p, __nv_bfloat16* out, cudaStream_t stream);
 
-// The plan of one call: the instantiation, the grid and the splits.
+// The plan of one call: the instantiation, the grid, the splits and how the
+// rows are copied.
 struct Plan {
-  int W, NG, ctas, qsplits, csplits, qrows, ccols, vw, segs, tma;
+  int W, NG, ctas, qsplits, csplits, qrows, ccols, vw, segs, tma, chunk, half;
 };
 
 // Fills *pl for a call over B slots of Hq / Hkv heads, head dim D (a
-// multiple of 8 up to 512), rows of E bytes an element, `smax` rows a slot.
-// The grid: as many CTAs as the card holds at once (two an SM where the
-// shared memory allows), at most kMaxCtas and one a tile of the most the
-// slots can hold.
-inline cudaError_t plan(int E, int B, int Hq, int Hkv, int D, int smax, Plan* pl) {
+// multiple of 8 up to 512), elements of `kind`, `smax` rows a slot, and
+// (K10) pages of `ps` tokens (0 for K4). The grid: as many CTAs as the card
+// holds at once (two an SM where the shared memory allows), at most
+// kMaxCtas and one a tile of the most the slots can hold.
+inline cudaError_t plan(int kind, int B, int Hq, int Hkv, int D, int smax, int ps, Plan* pl) {
   const int W = kernel_width(D);
-  if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || smax <= 0) return cudaErrorInvalidValue;
+  if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || smax <= 0 || kind < kKindI8 || kind > kKindI4T ||
+      (kind == kKindI4T && (ps <= 0 || ps % 2 != 0)))
+    return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   pl->W = W;
   pl->qsplits = (G + kMaxQRows - 1) / kMaxQRows;
   pl->qrows = G < kMaxQRows ? G : kMaxQRows;
   pl->NG = pl->qrows <= 8 ? 8 : 16;
-  pl->vw = v_cols(W, E);
-  pl->csplits = (D + pl->vw - 1) / pl->vw;
-  pl->ccols = D < pl->vw ? D : pl->vw;
+  pl->vw = v_cols(W, kind);
+  pl->half = kind == kKindI4D ? W / 2 : 0;
+  pl->csplits = kind == kKindI4D ? W / pl->vw : (D + pl->vw - 1) / pl->vw;
+  pl->ccols = kind == kKindI4D ? pl->vw : (D < pl->vw ? D : pl->vw);
   pl->segs = Hkv * pl->qsplits * pl->csplits;
-  pl->tma = (D * E) % 16 == 0;
-  const int per_sm = smem_bytes(W, E, pl->NG) <= kTwoPerSm ? 2 : 1;
+  // TMA boxes of 16 rows: 16-byte row strides, and (K10) boxes inside one
+  // page (int4: one half of a page). Else rows by the widest cp.async
+  // their bytes allow.
+  const int rb = kind == kKindI4D ? D / 2 : D * elem_bytes(kind);
+  const int box_tokens = kind == kKindI4T ? 2 * kBox : kBox;
+  pl->tma = rb % 16 == 0 && (ps == 0 || ps % box_tokens == 0);
+  pl->chunk = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : 4;
+  const int per_sm = smem_bytes(W, kind, pl->NG) <= kTwoPerSm ? 2 : 1;
   const long long cap = static_cast<long long>(B) * pl->segs * ((smax + kRows - 1) / kRows);
   long long ctas = static_cast<long long>(per_sm) * num_sms();
   ctas = ctas < kMaxCtas ? ctas : kMaxCtas;
@@ -730,12 +932,12 @@ inline cudaError_t plan(int E, int B, int Hq, int Hkv, int D, int smax, Plan* pl
 }
 
 // Launches the kernel of plan `pl` and the merge. k, v: the cache or pool as
-// a (rows, D) matrix of E-byte elements.
-template <int W, int NG, int MODE>
+// a (rows, row bytes) matrix.
+template <int W, int NG, int MODE, int KIND>
 cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat16* out,
                    cudaStream_t stream) {
-  constexpr int E = MODE == kPlain16 ? 2 : 1;
-  using L = Layout<W, E, NG>;
+  constexpr int E = elem_bytes(KIND);
+  using L = Layout<W, KIND, NG>;
   constexpr int kMaxDevices = 64;
   // Raise the dynamic shared-memory limit once per device (not on every
   // launch: a launch may be captured into a CUDA graph).
@@ -744,7 +946,7 @@ cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
   if (err == cudaSuccess && !configured[dev]) {
-    err = cudaFuncSetAttribute(decode_attn_kernel<W, NG, MODE>,
+    err = cudaFuncSetAttribute(decode_attn_kernel<W, NG, MODE, KIND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     configured[dev] = err == cudaSuccess;
   }
@@ -752,21 +954,22 @@ cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat
   std::memset(&tm_k, 0, sizeof(tm_k));
   std::memset(&tm_v, 0, sizeof(tm_v));
   const int code = E == 1 ? kI8 : kBF16;
+  const int cols = KIND == kKindI4D ? p.D / 2 : p.D;  // elements of a row
   if (err == cudaSuccess && p.tma)
-    err = tensor_map_2d(&tm_k, k, code, p.D, rows, static_cast<size_t>(p.D) * E, 128 / E, kBox, true);
+    err = tensor_map_2d(&tm_k, k, code, cols, rows, static_cast<size_t>(cols) * E, 128 / E, kBox, true);
   if (err == cudaSuccess && p.tma)
-    err = tensor_map_2d(&tm_v, v, code, p.D, rows, static_cast<size_t>(p.D) * E, 128 / E, kBox, true);
+    err = tensor_map_2d(&tm_v, v, code, cols, rows, static_cast<size_t>(cols) * E, 128 / E, kBox, true);
   if (err != cudaSuccess) return err;
   p.k = static_cast<const unsigned char*>(k);
   p.v = static_cast<const unsigned char*>(v);
-  decode_attn_kernel<W, NG, MODE><<<p.ctas, kThreads, L::kSmem, stream>>>(tm_k, tm_v, p);
+  decode_attn_kernel<W, NG, MODE, KIND><<<p.ctas, kThreads, L::kSmem, stream>>>(tm_k, tm_v, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge(p, out, stream);
 }
 
-// The kernel of `mode` at the plan's width and query rows.
-template <int MODE>
+// The kernel of `mode` and `kind` at the plan's width and query rows.
+template <int MODE, int KIND>
 cudaError_t run(const Plan& pl, Params p, const void* k, const void* v, int rows,
                 __nv_bfloat16* out, cudaStream_t stream) {
   p.qsplits = pl.qsplits;
@@ -776,26 +979,39 @@ cudaError_t run(const Plan& pl, Params p, const void* k, const void* v, int rows
   p.vw = pl.vw;
   p.ctas = pl.ctas;
   p.tma = pl.tma;
+  p.chunk = pl.chunk;
+  p.half = pl.half;
   const bool wide = pl.NG == 16;
   switch (pl.W) {
     case 64:
-      return wide ? launch<64, 16, MODE>(p, k, v, rows, out, stream)
-                  : launch<64, 8, MODE>(p, k, v, rows, out, stream);
+      return wide ? launch<64, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch<64, 8, MODE, KIND>(p, k, v, rows, out, stream);
     case 128:
-      return wide ? launch<128, 16, MODE>(p, k, v, rows, out, stream)
-                  : launch<128, 8, MODE>(p, k, v, rows, out, stream);
+      return wide ? launch<128, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch<128, 8, MODE, KIND>(p, k, v, rows, out, stream);
     case 256:
-      return wide ? launch<256, 16, MODE>(p, k, v, rows, out, stream)
-                  : launch<256, 8, MODE>(p, k, v, rows, out, stream);
+      return wide ? launch<256, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch<256, 8, MODE, KIND>(p, k, v, rows, out, stream);
     default:
-      return wide ? launch<512, 16, MODE>(p, k, v, rows, out, stream)
-                  : launch<512, 8, MODE>(p, k, v, rows, out, stream);
+      return wide ? launch<512, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch<512, 8, MODE, KIND>(p, k, v, rows, out, stream);
   }
 }
 
-// The bf16 caches of K4 and K10 (one instantiation set, csrc/decode_attn.cu).
+// The instantiations, one source each so that nvcc builds them in
+// parallel: the bf16 caches of K4 and K10 (csrc/decode_attn.cu); K4's
+// int8, e4m3 and int4 (csrc/decode.cu, decode_e4m3.cu, decode_int4.cu);
+// K10's (csrc/paged.cu, paged_e4m3.cu, paged_int4.cu).
 cudaError_t run_plain16(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
                         __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_k4_e4m3(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                        __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_k4_int4(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                        __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_k10_e4m3(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                         __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_k10_int4(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                         __nv_bfloat16* out, cudaStream_t stream);
 
 }  // namespace dattn
 }  // namespace qa

@@ -4,8 +4,9 @@
 // Replaces the Pallas kernel quantumattention_tpu/ops/paged.py::_paged_kernel
 // (paged.py:77; host entry paged_decode_attention, paged.py:413). Same math
 // as its DMA path: each page row of K and V is dequantized per element to
-// bf16 (int8 code times the row's fp32 scale, rounded once; bf16 pages as
-// they are), scores q.k in fp32 times sm_scale * log2(e), rows at or past
+// bf16 (int8, e4m3 or int4 code times the row's fp32 scale, rounded once;
+// bf16 pages as they are), scores q.k in fp32 times sm_scale * log2(e)
+// (queries rounded to bf16 by the wrapper), rows at or past
 // lengths[slot] masked with MASK_VALUE, an exp2 online softmax with fp32
 // m, l and accumulator, the unnormalized P rounded to bf16 for P.V, the
 // division by l at the end, and exact zeros for a slot of length 0.
@@ -20,44 +21,37 @@
 // 16-row box of slot b's rows is rows (h * P + page) * ps + r % ps of the
 // pool, the page read from the table (the TPU kernel's scalar prefetch)
 // once a box and only below the slot's length, so table entries past a
-// sequence's pages are never read; the int8 scales enter per element
-// (kElemScale). Page sizes: multiples of 16 up to 256 (a box never crosses
-// a page); head dims: any multiple of 8 up to 512; up to 16 query heads a
-// KV head.
+// sequence's pages are never read; the scales enter per element
+// (kElemScale). Token-packed int4 pages (byte row i of a page of ps tokens
+// holds token i low and i + ps/2 high) are read a byte row a token, each
+// token taking its nibble. Page sizes: any (even for int4); a 16-token box
+// that stays inside a page (and inside its half, for int4: ps % 32 == 0)
+// goes by TMA, other sizes row by row by cp.async. Head dims: any multiple
+// of 8 up to 512; any GQA group (more than 16 query heads a KV head are
+// split over segments). The e4m3 and int4 instantiations are in
+// paged_e4m3.cu and paged_int4.cu.
 #include "decode_attn.cuh"
 
-namespace qa {
-namespace dattn {
-
-cudaError_t run_elem_scale(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
-                           __nv_bfloat16* out, cudaStream_t stream) {
-  return run<kElemScale>(pl, p, k, v, rows, out, stream);
-}
-
-}  // namespace dattn
-}  // namespace qa
-
-// q (B, Hq, D) bf16; k, v (Hkv, P, ps, D) int8 (kv_code 3, with fp32 token
-// scales (Hkv, P, ps)) or bf16 (kv_code 0, scales null); lengths (B,) int32;
-// table (B, pps) int32 page ids; out (B, Hq, D) bf16; part_acc and part_ml
-// fp32 scratch of the sizes qa_decode_attn_plan gives for smax = pps * ps.
-// score_scale = sm_scale * log2(e). G = Hq / Hkv at most 16, ps a multiple
-// of 16 up to 256.
+// q (B, Hq, D) bf16; k, v (Hkv, P, ps, D) of element kind `kind` (0 int8, 1
+// e4m3, with fp32 token scales (Hkv, P, ps); 2 bf16, scales null; 4 int4,
+// pages (Hkv, P, ps/2, D) token-packed, scales (Hkv, P, ps)); lengths (B,)
+// int32; table (B, pps) int32 page ids; out (B, Hq, D) bf16; part_acc and
+// part_ml fp32 scratch of the sizes qa_decode_attn_plan gives for smax =
+// pps * ps. score_scale = sm_scale * log2(e).
 extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* lengths, const void* table,
                                void* out, void* part_acc, void* part_ml, int B, int Hq, int Hkv,
-                               int P, int ps, int pps, int D, int kv_code, float score_scale,
+                               int P, int ps, int pps, int D, int kind, float score_scale,
                                void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
-  const bool q8 = kv_code == qa::kI8;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxQRows || ps <= 0 || ps % kBox != 0 ||
-      ps > 256 || pps <= 0 || P <= 0 || (!q8 && kv_code != qa::kBF16) ||
-      q8 != (k_scale != nullptr && v_scale != nullptr)) {
+  const bool scaled = kind != kKindBF16;
+  if (Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || pps <= 0 || P <= 0 || kind == kKindI4D ||
+      scaled != (k_scale != nullptr && v_scale != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Plan pl;
-  cudaError_t err = plan(q8 ? 1 : 2, B, Hq, Hkv, D, pps * ps, &pl);
+  cudaError_t err = plan(kind, B, Hq, Hkv, D, pps * ps, ps, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -76,9 +70,14 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
   p.ps = ps;
   p.pps = pps;
   p.score_scale = score_scale;
-  const int rows = Hkv * P * ps;
+  const int rows = Hkv * P * (kind == kKindI4T ? ps / 2 : ps);
   auto* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = q8 ? run_elem_scale(pl, p, k, v, rows, o, s) : run_plain16(pl, p, k, v, rows, o, s);
+  switch (kind) {
+    case kKindI8: err = run<kElemScale, kKindI8>(pl, p, k, v, rows, o, s); break;
+    case kKindF8: err = run_k10_e4m3(pl, p, k, v, rows, o, s); break;
+    case kKindI4T: err = run_k10_int4(pl, p, k, v, rows, o, s); break;
+    default: err = run_plain16(pl, p, k, v, rows, o, s); break;
+  }
   return static_cast<int>(err);
 }

@@ -1,11 +1,17 @@
-// K5 and K7 on Hopper, sm_90a: out = x @ W for bf16 activation rows x
+// K5, K6 and K7 on Hopper, sm_90a: out = x @ W for bf16 activation rows x
 // (M, K) and an int8 weight (K, N) with fp32 column scales, or a packed
 // int4 weight (K/2, N) with fp32 group scales (K/128, N).
 //
 // Replaces the Pallas kernels of quantumattention_tpu/ops/qmm.py:
-//   K5 _qmm_kernel (qmm.py:49; host quantized_matmul, :191) wherever the
-//      split-K rule gives one K range (csrc/qmm.cu keeps K6's split);
-//   K7 _qmm4_kernel (qmm.py:118; host quantized_matmul4, :323) at every M.
+//   K5 _qmm_kernel (qmm.py:49; host quantized_matmul, :191);
+//   K6 _qmm_kernel_ms (qmm.py:70): K5's math over disjoint K ranges, summed
+//      in a fixed order. On the TPU the split feeds several DMA streams;
+//      here it is stream-K's split of each column tile's k-blocks over the
+//      CTAs, which a decode product of few column tiles needs to fill the
+//      SMs, reduced as K5's and K7's stream-K splits are (below);
+//   K7 _qmm4_kernel (qmm.py:118; host quantized_matmul4, :323).
+// Every bf16 product of the three runs here; csrc/qmm.cu keeps the float32
+// rows.
 // Numerics as in JAX: an int8 code becomes bf16 exactly, products sum in
 // fp32, the int8 column scale applies once to the sum, which is cast once;
 // an int4 nibble times its fp32 group scale is rounded to bf16 before the
@@ -51,7 +57,10 @@
 //    128-row k-block) units: four CTAs an SM at widths up to 32, two above,
 //    each an equal share of the units in a fixed order; one fp32 partial a
 //    (CTA, tile) segment, added in CTA order by the tail product's
-//    reduction (qa::tail_reduce_out): bitwise repeatable, no atomics. Above
+//    reduction (qa::tail_reduce_out): bitwise repeatable, no atomics. (A
+//    reduction inside the launch, per-tile arrival counters and each tile's
+//    CTAs summing it once all had arrived, was slower at every K6 decode
+//    shape measured: PERF.md.) Above
 //    128 rows, whole output tiles of 256 columns (two consumer warpgroups)
 //    by 128 rows, one CTA an SM, row tiles fastest, so that the CTAs
 //    resident at once share each weight tile through L2.
@@ -514,7 +523,7 @@ cudaError_t qgemm(const __nv_bfloat16* x, QMat w, int M, int N, int K, float* pa
 
 }  // namespace qa
 
-// The schedule of an (M rows, N columns, K deep) K5/K7 product on this
+// The schedule of an (M rows, N columns, K deep) K5/K6/K7 product on this
 // card, for the tests: out[0..6] = whole, row tiles, column tiles,
 // k-blocks, CTAs, base, rem; returns the activation width.
 extern "C" int qa_qgemm_schedule(int M, int N, int K, int* out) {

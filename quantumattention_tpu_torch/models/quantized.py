@@ -27,7 +27,7 @@ from typing import Any, Dict
 import torch
 
 from .. import config
-from ..ops import qmm
+from ..ops import qmm, quant
 from ..utils import checks
 
 Params = Dict[str, Any]
@@ -56,9 +56,7 @@ def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
     r, c = q.shape
     if r % _PACK_BLOCK:
         raise ValueError(f"rows ({r}) must be a multiple of {_PACK_BLOCK}")
-    g = q.reshape(r // _PACK_BLOCK, _PACK_BLOCK, c).to(torch.int32)
-    lo, hi = g[:, :INT4_GROUP], g[:, INT4_GROUP:]
-    return ((hi << 4) | (lo & 0xF)).to(torch.int8).reshape(r // 2, c)
+    return quant.pack_int4(q.reshape(r // _PACK_BLOCK, _PACK_BLOCK, c), axis=1).reshape(r // 2, c)
 
 
 def unpack_int4_rows(packed: torch.Tensor, out_dtype=torch.int8) -> torch.Tensor:

@@ -14,13 +14,17 @@ segment's partials in CTA order.  :func:`decode_schedule` is that schedule
 in Python; :func:`card_plan` reads the card's plan of a call (CTAs, and how
 its query heads and columns are split into segments).
 
-Covered: (B, Hq, D) bf16 queries, an int8 cache with token-wise fp32 scales
-or a bf16 cache, ragged lengths including 0 (zero output rows), any GQA
-group, any head dim JAX takes (a multiple of 8 up to 512, run at an
-instantiated width of 64, 128, 256 or 512 with zero columns), bf16
-output.  Not yet (ROADMAP queue 1, items 12a-c): the 4-D multi-query q of
-speculative verification, packed int4 caches, ``window``, and the
-``decode_int8_qk``/``decode_int8_pv`` variants.
+Covered: (B, Hq, D) float queries (bf16; float32 and float16 enter the
+kernel rounded to bf16, as K1's do), caches of int8 or e4m3 with
+token-wise fp32 scales, packed int4 (minor dim D/2, element d in the low
+nibble and d + D/2 in the high nibble of byte d, ``quant.pack_int4``) with
+the same scales, or bf16; ragged lengths including 0 (zero output rows),
+any GQA group, any head dim JAX takes (a multiple of 8 up to 512, run at
+an instantiated width of 64, 128, 256 or 512 with zero columns), bf16
+output as JAX returns.  8-bit queries are refused, as in JAX.  Not yet
+(ROADMAP queue 1, items 12b-c): the 4-D multi-query q of speculative
+verification, ``window``, and the ``decode_int8_qk``/``decode_int8_pv``
+variants.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from ..utils import checks, shapes
-from . import _native
+from . import _native, quant
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
@@ -45,6 +49,29 @@ ROWS_PER_TILE = 64
 MAX_QUERY_ROWS = 16
 #: Tiles a CTA takes at least, where there are enough (kMinTiles).
 MIN_TILES = 2
+#: The core's element kinds (csrc/decode_attn.cuh, Kind): int4 is packed
+#: along the head dim in K4's slot cache, along a page's tokens in K10's.
+KINDS = {"int8": 0, "e4m3": 1, "bf16": 2, "int4": 3, "int4_pages": 4}
+
+
+def cache_kind(dtype, int4: bool = False, pages: bool = False) -> int:
+    """The core's element kind of a cache or page pool."""
+    if int4:
+        return KINDS["int4_pages" if pages else "int4"]
+    names = {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16"}
+    if dtype not in names:
+        raise ValueError(f"the decode kernels take int8, e4m3, int4 or bf16 caches, got {dtype}")
+    return KINDS[names[dtype]]
+
+
+def core_segments(hq: int, hkv: int, d: int, kind: int) -> int:
+    """Segments a slot in the core's schedule (``plan``): KV heads x query
+    splits of MAX_QUERY_ROWS x column splits of the output width a CTA
+    owns.  Used with :func:`decode_schedule` for K4 and K10 alike."""
+    w = shapes.kernel_width(d)
+    vw = w if w <= 256 else (64 if kind == KINDS["bf16"] else 256)
+    csplits = w // vw if kind == KINDS["int4"] else -(-d // vw)
+    return hkv * -(-(hq // hkv) // MAX_QUERY_ROWS) * csplits
 
 
 @dataclass(frozen=True)
@@ -135,15 +162,16 @@ def decode_schedule(lengths, segments: int, rows_per_tile: int, ctas: int,
     return DecodeSchedule(ctas, segments, tiles, sum(tiles) * segments)
 
 
-def card_plan(code: int, batch: int, hq: int, hkv: int, d: int, smax: int) -> dict:
+def card_plan(kind: int, batch: int, hq: int, hkv: int, d: int, smax: int, ps: int = 0) -> dict:
     """The plan the card computes for a call (``qa_decode_attn_plan``):
-    CTAs, splits and partial sizes."""
-    out = (ctypes.c_int * 6)()
-    _native.check(_native.library().qa_decode_attn_plan(code, batch, hq, hkv, d, smax, out),
+    CTAs, splits, partial sizes, and whether rows go by TMA boxes (K10:
+    ``ps`` its page size; 0 for K4)."""
+    out = (ctypes.c_int * 8)()
+    _native.check(_native.library().qa_decode_attn_plan(kind, batch, hq, hkv, d, smax, ps, out),
                   "qa_decode_attn_plan")
-    ctas, qsplits, csplits, qrows, ccols, segs = list(out)
+    ctas, qsplits, csplits, qrows, ccols, segs, tma, width = list(out)
     return {"ctas": ctas, "qsplits": qsplits, "csplits": csplits, "qrows": qrows,
-            "ccols": ccols, "segments": segs}
+            "ccols": ccols, "segments": segs, "tma": bool(tma), "width": width}
 
 
 def core_scratch(plan: dict, batch: int, device) -> tuple:
@@ -157,8 +185,10 @@ def core_scratch(plan: dict, batch: int, device) -> tuple:
 def decode_attention_plain(
     q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, sm_scale=None
 ) -> torch.Tensor:
-    """K4's plain version in fp32: dequantize, mask rows >= lengths[b],
-    exp2 softmax with sm_scale * log2(e) folded into the scores, the
+    """K4's plain version in fp32: q rounded to bf16 (the kernel's input),
+    the cache's exact codes (a packed int4 cache unpacked as
+    ``quant.unpack_int4``), mask rows >= lengths[b], exp2 softmax with
+    sm_scale * log2(e) and the K scale folded into the scores, the
     unnormalized P (times the V scale) rounded to bf16 as the kernel does,
     P.V divided by the softmax sum, zeros for empty slots."""
     batch, hq, d = q.shape
@@ -166,7 +196,10 @@ def decode_attention_plain(
     group = hq // hkv
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    qg = q.float().reshape(batch, hkv, group, d)
+    qg = q.to(torch.bfloat16).float().reshape(batch, hkv, group, d)
+    if k_cache.shape[-1] * 2 == d:
+        k_cache = quant.unpack_int4(k_cache)
+        v_cache = quant.unpack_int4(v_cache)
     k = k_cache.float()
     v = v_cache.float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * (sm_scale * LOG2E)
@@ -197,7 +230,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-step GQA decode attention; returns (B, Hq, D) in bf16.
 
-    q (B, Hq, D) bf16; k_cache/v_cache (B, Hkv, Smax, D) int8 with
+    q (B, Hq, D) float; k_cache/v_cache (B, Hkv, Smax, D) int8 or e4m3, or
+    (B, Hkv, Smax, D/2) packed int4 in an int8 container, with
     ``k_scale``/``v_scale`` (B, Hkv, Smax) fp32, or bf16 without scales;
     lengths (B,) int32 valid rows per slot (0 = empty slot, zero output).
     """
@@ -215,26 +249,28 @@ def decode_attention(
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError("k_cache and v_cache must be equal (B, Hkv, Smax, D)")
     _, hkv, s_max, cache_dim = k_cache.shape
-    if cache_dim * 2 == d:
-        raise NotImplementedError(
-            "decode_attention: packed int4 caches are not ported yet "
-            "(ROADMAP queue 1, item 12a)"
+    int4 = cache_dim * 2 == d
+    if int4 and k_cache.dtype != torch.int8:
+        raise ValueError(
+            "packed-int4 cache (minor dim = head_dim/2) must use an int8 "
+            f"container, got {k_cache.dtype}"
         )
-    if cache_dim != d or k_cache.shape[0] != batch:
+    if (not int4 and cache_dim != d) or k_cache.shape[0] != batch:
         raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    if checks.is_8bit_dtype(q.dtype):
+        raise ValueError(
+            "decode_attention expects float queries (the cache may be "
+            "8-bit, but q has no dequant-scale path)"
+        )
     if hq % hkv != 0:
         raise ValueError("num_q_heads must be divisible by num_kv_heads")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     quantized = k_scale is not None
-    if k_cache.dtype == torch.int8 and not quantized:
+    if checks.is_8bit_dtype(k_cache.dtype) and not quantized:
         raise ValueError("8-bit KV cache requires k_scale/v_scale")
-    if k_cache.dtype not in (torch.int8, torch.bfloat16):
-        raise NotImplementedError(f"decode_attention: {k_cache.dtype} caches are not ported yet")
     if quantized and (k_scale.shape != (batch, hkv, s_max) or v_scale.shape != k_scale.shape):
         raise ValueError("k_scale/v_scale must be (B, Hkv, Smax)")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"decode_attention expects bf16 queries, got {q.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
@@ -248,6 +284,12 @@ decode_attention.launches = 0
 def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
+    kind = cache_kind(k_cache.dtype, int4=k_cache.shape[-1] * 2 == q.shape[-1])
+    if v_cache.dtype != k_cache.dtype:
+        raise ValueError("K4's k and v caches must share a type")
+    if (kind == KINDS["bf16"]) != (k_scale is None):
+        raise ValueError("K4 takes token scales with int8, e4m3 and int4 caches, none with bf16")
+    q = q.to(torch.bfloat16).contiguous()  # float32 / float16 queries enter rounded
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     if k_scale is not None and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
@@ -265,8 +307,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
     batch, hq, d = q.shape
     _, hkv, s_max, _ = k_cache.shape
     shapes.check_kernel_head_dim("K4", d)
-    code = _native.dtype_code(k_cache.dtype)
-    plan = card_plan(code, batch, hq, hkv, d, s_max)
+    plan = card_plan(kind, batch, hq, hkv, d, s_max)
     part_acc, part_ml = core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_decode(
@@ -274,7 +315,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, s_max, d, code, float(sm_scale * LOG2E),
+        part_ml.data_ptr(), batch, hq, hkv, s_max, d, kind, float(sm_scale * LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_decode")

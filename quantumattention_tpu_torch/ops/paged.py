@@ -23,16 +23,18 @@ captured in a CUDA graph.  It takes the folded (Hkv, P, ps/128, 128) scale layou
 package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
 (Hkv, P, ps) one.
 
-Covered: (B, Hq, D) bf16 queries, int8 pages with token-wise fp32 scales and
-bf16 pages, GQA with up to 16 query heads per KV head, page sizes that are
-multiples of 16 up to 256, any head dim JAX takes (a multiple of 8 up to
-512, run at an instantiated width of 64, 128, 256 or 512 with zero
-columns).
-Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a), the multi-query
-q (B, Hq, T, D) of speculative verification (item 12b) and ``window``
-(item 12c).  ``side`` (the burst side buffer, paged.py:446-457) exists for
-XLA's scatter copy and is not ported (ROADMAP, "Do not port these TPU
-workarounds").
+Covered: (B, Hq, D) float queries (float32 and float16 enter the kernel
+rounded to bf16), int8 or e4m3 pages with token-wise fp32 scales,
+token-packed int4 pages (``serving/paged_cache``: (Hkv, P, ps/2, D) bytes,
+byte row i of a page holding token i in its low nibble and i + ps/2 in its
+high nibble, scales (Hkv, P, ps) per real token) and bf16 pages; any GQA
+group, any page size (even for int4), any head dim JAX takes (a multiple
+of 8 up to 512, run at an instantiated width of 64, 128, 256 or 512 with
+zero columns).  8-bit queries are refused, as in JAX.
+Not yet: the multi-query q (B, Hq, T, D) of speculative verification
+(ROADMAP queue 1, item 12b) and ``window`` (item 12c).  ``side`` (the burst
+side buffer, paged.py:446-457) exists for XLA's scatter copy and is not
+ported (ROADMAP, "Do not port these TPU workarounds").
 """
 
 from __future__ import annotations
@@ -43,13 +45,11 @@ from typing import Optional
 import torch
 
 from ..utils import checks, shapes
-from . import _native
-from .decode import card_plan, core_scratch
+from . import _native, quant
+from .decode import cache_kind, card_plan, core_scratch
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
-#: Query heads per KV head the kernel takes (csrc/paged.cu).
-MAX_GROUP = 16
 
 
 def _scale_rows(sp: torch.Tensor) -> int:
@@ -75,12 +75,16 @@ def paged_decode_attention_plain(
 ) -> torch.Tensor:
     """K10's plain version, on (Hkv, P, ps) scale pages: gather each
     sequence's pages through its table row (entries past its pages are
-    replaced by page 0 and masked, never used), dequantize K and V per
-    element to bf16, fp32 scores times
+    replaced by page 0 and masked, never used), unpack token-packed int4
+    pages (``quant.unpack_int4`` along the page's token axis), dequantize
+    K and V per element to bf16, q rounded to bf16, fp32 scores times
     sm_scale * log2(e), rows at or past the length masked, exp2 softmax with
     the unnormalized P rounded to bf16 before P.V, division by the sum at
     the end, zeros for an empty slot.  Returns (B, Hq, D) bf16."""
     batch, hq, d = q.shape
+    if k_scale_pages is not None and k_scale_pages.shape[2] == 2 * k_pages.shape[2]:
+        k_pages = quant.unpack_int4(k_pages, axis=2)
+        v_pages = quant.unpack_int4(v_pages, axis=2)
     hkv, _, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
     group = hq // hkv
@@ -126,10 +130,11 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Decode attention over paged KV; returns (B, Hq, D) bf16.
 
-    q (B, Hq, D) bf16; k_pages/v_pages (Hkv, num_pages, page_size, D) int8
-    with ``k_scale_pages``/``v_scale_pages`` (Hkv, num_pages, page_size)
-    fp32 (or the folded (Hkv, num_pages, page_size/128, 128)), or bf16
-    without; lengths (B,) int32 valid tokens per sequence (0 = empty, zero
+    q (B, Hq, D) float; k_pages/v_pages (Hkv, num_pages, page_size, D) int8
+    or e4m3, or token-packed int4 (Hkv, num_pages, page_size/2, D), with
+    ``k_scale_pages``/``v_scale_pages`` (Hkv, num_pages, page_size) fp32 (or
+    the folded (Hkv, num_pages, page_size/128, 128)), or bf16 without;
+    lengths (B,) int32 valid tokens per sequence (0 = empty, zero
     output); page_indices (B, pages_per_seq) int32, entries past a
     sequence's pages ignored.  ``pages_per_block`` must divide
     pages_per_seq, as in JAX; it sizes the TPU's DMA blocks, and the card's
@@ -169,10 +174,10 @@ def paged_decode_attention(
             )
     if int4 and k_pages.dtype != torch.int8:
         raise ValueError("int4 pages must use an int8 container")
-    if int4:
-        raise NotImplementedError(
-            "paged_decode_attention: token-packed int4 pages are not ported "
-            "yet (ROADMAP queue 1, item 12a)"
+    if checks.is_8bit_dtype(q.dtype):
+        raise ValueError(
+            "paged_decode_attention expects float queries (the pages may be "
+            "8-bit, but q has no dequant-scale path)"
         )
     if pages_per_seq % pages_per_block != 0:
         raise ValueError(
@@ -196,10 +201,6 @@ def paged_decode_attention(
             "for XLA's scatter copy and is not ported (ROADMAP, \"Do not port "
             "these TPU workarounds\"); the port writes pages in place"
         )
-    if k_pages.dtype not in (torch.int8, torch.bfloat16) or v_pages.dtype != k_pages.dtype:
-        raise NotImplementedError(
-            f"paged_decode_attention: {k_pages.dtype} pages are not ported yet"
-        )
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     ks, vs = _flat_scales(k_scale_pages), _flat_scales(v_scale_pages)
@@ -207,20 +208,23 @@ def paged_decode_attention(
         return paged_decode_attention_plain(
             q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale
         )
-    return _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale)
+    return _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4)
 
 
 paged_decode_attention.launches = 0
 
 
-def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
+def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     batch, hq, d = q.shape
-    hkv, num_pages, ps, _ = k_pages.shape
+    hkv, num_pages, rows, _ = k_pages.shape
+    ps = 2 * rows if int4 else rows
     pps = page_indices.shape[1]
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"K10 expects bf16 queries, got {q.dtype}")
+    kind = cache_kind(k_pages.dtype, int4=int4, pages=True)
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError("K10's k and v pages must share a type")
+    q = q.to(torch.bfloat16).contiguous()  # float32 / float16 queries enter rounded
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise ValueError("K10's lengths and page_indices must be int32")
     if ks is not None and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
@@ -232,10 +236,6 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
     if tuple(lengths.shape) != (batch,) or page_indices.shape[0] != batch:
         raise ValueError("lengths (B,) and page_indices (B, pages_per_seq) must match q's B")
     shapes.check_kernel_head_dim("K10", d)
-    if hq // hkv > MAX_GROUP:
-        raise ValueError(f"K10 takes at most {MAX_GROUP} query heads per KV head, got {hq // hkv}")
-    if ps % 16 or ps > 256:
-        raise ValueError(f"K10 takes page sizes that are multiples of 16 up to 256, got {ps}")
     tensors = [q, k_pages, v_pages, lengths, page_indices] + [t for t in (ks, vs) if t is not None]
     for t in tensors:
         if t.device != q.device:
@@ -244,15 +244,14 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale):
             raise ValueError("K10 operands must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("K10's operands must be 16-byte aligned")
-    code = _native.dtype_code(k_pages.dtype)
-    plan = card_plan(code, batch, hq, hkv, d, pps * ps)
+    plan = card_plan(kind, batch, hq, hkv, d, pps * ps, ps)
     part_acc, part_ml = core_scratch(plan, batch, q.device)
     out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, code,
+        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, kind,
         float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_paged_decode")

@@ -12,12 +12,10 @@ a CUDA tensor runs a kernel or raises.  Launches are counted in
 
 Routes on the card, fixed in code:
 
-* bf16 rows, K7 at every M and K5 wherever the split-K rule gives one K
-  range: the register-A, swap-AB wgmma kernel of ``csrc/qgemm.cu``
-  (:func:`qgemm_schedule` is its persistent schedule, :func:`qgemm_column`
-  the permutation of the weight columns over its fragments);
-* bf16 rows that the rule splits (or an explicit ``n_streams`` > 1): K6,
-  the split-K mma.sync kernel of ``csrc/qmm.cu``;
+* bf16 rows, K5, K6 and K7 alike: the register-A, swap-AB wgmma kernel of
+  ``csrc/qgemm.cu`` (:func:`qgemm_schedule` is its persistent schedule,
+  :func:`qgemm_column` the permutation of the weight columns over its
+  fragments);
 * float32 rows (K5, K6 and K7 alike): fp32 FMAs on the CUDA cores
   (``csrc/qmm.cu``), float32 out, as JAX returns x's type.
 
@@ -29,11 +27,21 @@ fp32 sum is scaled per column, then cast once; an int4 nibble times its
 fp32 group scale is rounded to x.dtype before the product (qmm.py:99-115),
 with no epilogue scale.
 
-The split-K rule is the card's own: split the K range over several CTAs
-when the output tiles are fewer than the SMs (a decode-shaped product of
-few column tiles would otherwise leave SMs idle).  The JAX auto rule
+K6 is K5's product with the K range split and the parts summed in a fixed
+order.  On the card the split is stream-K's: a product of up to 128 rows
+shares its (column tile, k-block) units out over the CTAs, so a tile's
+k-blocks may fall to several CTAs, whose fp32 parts the tail product's
+reduction kernel adds in CTA order (:meth:`QgemmSchedule.segments`), as for
+K5 and K7.  (Summing them inside the same launch was slower at every decode
+shape measured: PERF.md §6.)  A bf16 call counts as
+K6 (``splitk_launches``) where the card's rule splits it, that is where
+its 128-column tiles are fewer than the SMs at up to 128 rows (a decode
+product of few column tiles, which would otherwise leave SMs idle), or
+where the caller asks for ``n_streams`` > 1; the card's schedule may split
+finer than ``n_streams``, which JAX's signature keeps.  The JAX auto rule
 (qmm.py:231-253) balances TPU DMA streams against a VMEM budget and is not
-carried over; an explicit ``n_streams`` is obeyed.
+carried over.  Float32 rows split their K range into ``qa_qmm_splits``
+parts (an explicit ``n_streams`` is obeyed there).
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils import checks
-from . import _native
+from . import _native, quant
 
 
 def supported(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -71,12 +79,10 @@ def supported4(x: torch.Tensor, w4: torch.Tensor) -> bool:
 def unpack_int4(w4: torch.Tensor) -> torch.Tensor:
     """(R/2, N) packed int4 -> (R, N) int32 nibble values, for any row
     extent that is a multiple of 128 packed rows: byte row r of each
-    128-row tile holds tile row r (low nibble) and 128 + r (high)."""
+    128-row tile holds tile row r (low nibble) and 128 + r (high), the
+    split-halves layout of ``quant.pack_int4`` in 256-row blocks."""
     r2, n = w4.shape
-    g = w4.to(torch.int32).reshape(r2 // 128, 128, n)
-    lo = (g << 28) >> 28
-    hi = g >> 4  # the byte's sign is the high nibble's
-    return torch.cat([lo, hi], dim=1).reshape(2 * r2, n)
+    return quant.unpack_int4(w4.reshape(r2 // 128, 128, n), torch.int32, axis=1).reshape(2 * r2, n)
 
 
 def dequantize_int4_tile(w4: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
@@ -293,17 +299,26 @@ def card_qgemm_columns():
     return list(out)
 
 
-#: Launches by route, beside the per-kernel counts: "wgmma" (csrc/qgemm.cu),
-#: "mma_sync" (csrc/qmm.cu's split-K kernel) and "f32" (float32 rows), so that
-#: a run can show which kernel served K5 and K7.
-route_launches = {"wgmma": 0, "mma_sync": 0, "f32": 0}
+def is_split_k(m: int, n: int, n_streams: Optional[int], sms: int = H100_SMS) -> bool:
+    """Whether a bf16 call is K6 (see the module docstring): an explicit
+    ``n_streams`` > 1, or the card's rule (up to 128 rows, fewer 128-column
+    tiles than SMs)."""
+    if n_streams is not None:
+        return n_streams > 1
+    return m <= QGEMM_ROWS and n // QGEMM_BN < sms
 
 
-def _count(int4: bool, splits: int, route: str) -> None:
+#: Launches by route, beside the per-kernel counts: "wgmma" (csrc/qgemm.cu)
+#: and "f32" (float32 rows, csrc/qmm.cu), so that a run can show which
+#: kernel served K5, K6 and K7.
+route_launches = {"wgmma": 0, "f32": 0}
+
+
+def _count(int4: bool, k6: bool, route: str) -> None:
     route_launches[route] += 1
     if int4:
         quantized_matmul4.launches += 1
-    elif splits > 1:
+    elif k6:
         quantized_matmul.splitk_launches += 1
     else:
         quantized_matmul.launches += 1
@@ -329,17 +344,21 @@ def _qmm_cuda(x, w, scale, n_streams, *, int4: bool):
         return out
     lib = _native.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    splits = 1 if int4 else lib.qa_qmm_splits(m, n, k, n_streams or 0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     if x.dtype == torch.float32:
-        route, entry, floats = "f32", lib.qa_qmm_f32, splits * m * n if splits > 1 else 0
-    elif splits == 1:
-        route, entry, floats = "wgmma", lib.qa_qgemm, lib.qa_qgemm_workspace(m, n, k)
-    else:
-        route, entry, floats = "mma_sync", lib.qa_qmm, splits * m * n
+        splits = 1 if int4 else lib.qa_qmm_splits(m, n, k, n_streams or 0)
+        partial = torch.empty((splits * m * n,), dtype=torch.float32, device=x.device) if splits > 1 else None
+        err = lib.qa_qmm_f32(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                             ptr(partial), m, n, k, int(int4), splits, stream)
+        _native.check(err, "qa_qmm_f32")
+        _count(int4, splits > 1, "f32")
+        return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    k6 = not int4 and is_split_k(m, n, n_streams, sms)
+    floats = lib.qa_qgemm_workspace(m, n, k)
     partial = torch.empty((floats,), dtype=torch.float32, device=x.device) if floats else None
-    args = [x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), m, n, k]
-    args += {"f32": [int(int4), splits], "wgmma": [int(int4)], "mma_sync": [splits]}[route]
-    _native.check(entry(*args, stream), entry.__name__)
-    _count(int4, splits, route)
+    err = lib.qa_qgemm(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), ptr(partial),
+                       m, n, k, int(int4), stream)
+    _native.check(err, "qa_qgemm")
+    _count(int4, k6, "wgmma")
     return out

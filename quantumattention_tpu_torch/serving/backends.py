@@ -88,8 +88,12 @@ def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int) -> torch.Tensor:
     return flash_attention(q, k_new, v_new, is_causal=True, q_offset=off)
 
 
-def _dequantize_rows(values: torch.Tensor, scales) -> torch.Tensor:
-    """Cached rows (..., D) and their token scales (...) -> bf16."""
+def _dequantize_rows(values: torch.Tensor, scales, int4_axis: Optional[int] = None) -> torch.Tensor:
+    """Cached rows (..., D) and their token scales (...) -> bf16.  A packed
+    int4 container is unpacked first along ``int4_axis`` (backends.py:86-88,
+    1015-1019): the head dim of a slot cache (-1), a page's token axis (2)."""
+    if int4_axis is not None:
+        values = quant.unpack_int4(values, axis=int4_axis)
     x = values.float()
     if scales is not None:
         x = x * scales.float()[..., None]
@@ -200,16 +204,17 @@ class SlotsBackend:
 
     def __init__(
         self, cfg: llama.LlamaConfig, *, num_slots: int, max_len: int,
-        cache_dtype=torch.int8, device=None,
+        cache_dtype=torch.int8, kv_int4: bool = False, device=None,
     ) -> None:
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
+        self.kv_int4 = kv_int4
         self.device = checks.default_device(device)
         self.caches = [
             kvc.init_cache(
                 num_slots, cfg.num_kv_heads, max_len, cfg.head_dim,
-                cache_dtype, device=self.device,
+                cache_dtype, int4=kv_int4, device=self.device,
             )
             for _ in range(cfg.num_layers)
         ]
@@ -273,7 +278,8 @@ class SlotsBackend:
             def prefix():
                 return tuple(
                     _dequantize_rows(vals[slot : slot + 1, :, :off],
-                                     None if sc is None else sc[slot : slot + 1, :, :off])
+                                     None if sc is None else sc[slot : slot + 1, :, :off],
+                                     -1 if self.kv_int4 else None)
                     for vals, sc in ((c.k, c.k_scale), (c.v, c.v_scale))
                 )
 
@@ -402,14 +408,15 @@ class PagedBackend:
 
     def __init__(
         self, cfg: llama.LlamaConfig, *, num_slots: int, max_len: int,
-        cache_dtype=torch.int8, page_size: int = 128, num_pages: Optional[int] = None,
-        prefix_cache: bool = False, device=None,
+        cache_dtype=torch.int8, kv_int4: bool = False, page_size: int = 128,
+        num_pages: Optional[int] = None, prefix_cache: bool = False, device=None,
     ) -> None:
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
         self.prefix_cache = prefix_cache
+        self.kv_int4 = kv_int4
         self.device = checks.default_device(device)
         pages_per_seq = -(-max_len // page_size)
         if num_pages is None:
@@ -419,7 +426,7 @@ class PagedBackend:
         self.pages = [
             pgc.init_layer_pages(
                 cfg.num_kv_heads, num_pages + 1, page_size, cfg.head_dim, cache_dtype,
-                device=self.device,
+                int4=kv_int4, device=self.device,
             )
             for _ in range(cfg.num_layers)
         ]
@@ -489,7 +496,8 @@ class PagedBackend:
         """Every request's and every layer's prefill rows into the slots'
         own pages, one indexed assignment per page tensor per layer
         (``_batched_page_write``, backends.py:898-948): requests own
-        disjoint pages, so the write is exact."""
+        disjoint pages, so the write is exact.  Token-packed int4 pages are
+        packed whole here (split halves along each page's tokens)."""
         ps = self.page_size
         n_pg = -(-padded // ps)
         pids = self._ids(self.alloc.tables[list(slots), :n_pg])
@@ -497,9 +505,11 @@ class PagedBackend:
         for lp, (k, v) in zip(self.pages, kv):
             for dst, dsc, x in ((lp.k, lp.k_scale, k), (lp.v, lp.v_scale, v)):
                 hkv, d = x.shape[1], x.shape[3]
-                xq, xs = kvc.quantize_tokens(x.float(), dst.dtype)
-                dst[:, pids] = (xq.reshape(kreq, hkv, n_pg, ps, d).transpose(0, 1)
-                                .reshape(hkv, kreq * n_pg, ps, d))
+                xq, xs = pgc.quantize_page_tokens(x.float(), dst.dtype, self.kv_int4)
+                xq = xq.reshape(kreq, hkv, n_pg, ps, d)
+                if self.kv_int4:
+                    xq = quant.pack_int4(xq, axis=3)
+                dst[:, pids] = xq.transpose(0, 1).reshape(hkv, kreq * n_pg, dst.shape[2], d)
                 if xs is not None:
                     dsc[:, pids] = (xs.reshape(kreq, hkv, n_pg, ps).transpose(0, 1)
                                     .reshape(hkv, kreq * n_pg, ps))
@@ -539,7 +549,8 @@ class PagedBackend:
 
             def prefix():
                 return tuple(
-                    _dequantize_rows(vals[:, prefix_ids], None if sc is None else sc[:, prefix_ids])
+                    _dequantize_rows(vals[:, prefix_ids], None if sc is None else sc[:, prefix_ids],
+                                     2 if self.kv_int4 else None)
                     .reshape(vals.shape[0], off, vals.shape[3])[None]
                     for vals, sc in ((lp.k, lp.k_scale), (lp.v, lp.v_scale))
                 )
@@ -570,8 +581,9 @@ class PagedBackend:
         """One decode step over all slots from device tensors, with no host
         synchronisation (``_decode_step_impl``, backends.py:1209-1277): per
         layer, quantize each slot's k/v, write it at its position in the
-        page ``tables[slot, pos // ps]`` (inactive lanes to the trash page),
-        then K10 over the post-append lengths.  The rest of the step is
+        page ``tables[slot, pos // ps]`` (inactive lanes to the trash page;
+        int4 pages by nibble writes, ``paged_cache.write_lanes``), then K10
+        over the post-append lengths.  The rest of the step is
         ``llama.forward_decode`` (on a fused quantized tree the lean T=1
         decode with K8).  Advances the device positions of active slots.  Returns
         (B, vocab) fp32 logits."""
@@ -586,13 +598,7 @@ class PagedBackend:
 
         def attend(idx, q, k_new, v_new):
             lp = self.pages[idx]
-            kq, ks = kvc.quantize_tokens(k_new, lp.k.dtype)
-            vq, vs = kvc.quantize_tokens(v_new, lp.v.dtype)
-            lp.k[:, page, row] = kq.transpose(0, 1)
-            lp.v[:, page, row] = vq.transpose(0, 1)
-            if ks is not None:
-                lp.k_scale[:, page, row] = ks.transpose(0, 1)
-                lp.v_scale[:, page, row] = vs.transpose(0, 1)
+            pgc.write_lanes(lp, page, row, k_new, v_new)
             return paged_decode_attention(
                 q.to(torch.bfloat16).contiguous(), lp.k, lp.v, lengths, self._tables,
                 k_scale_pages=lp.k_scale, v_scale_pages=lp.v_scale,

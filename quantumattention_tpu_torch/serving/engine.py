@@ -27,9 +27,13 @@ waiting or prefilling, one sampling setting) in on-device bursts of up to n
 steps with one host fetch each (``SlotsBackend.burst``), clamped so that no
 request passes its budget or ``max_len`` (engine.py:426-441).
 
+``kv_int4=True`` stores the KV cache as int4 (an 8-bit ``cache_dtype``):
+packed along the head dim in the slots backend, along each page's tokens
+in the paged backend.
+
 Not ported (each raises ``NotImplementedError``): speculative decoding
-(ROADMAP queue 1, item 12b), int4 caches (item 12a), tensor-parallel meshes
-(item 19), and ``from_hf`` (it needs checkpoint files the repository does
+(ROADMAP queue 1, item 12b), tensor-parallel meshes (item 19), and
+``from_hf`` (it needs checkpoint files the repository does
 not hold).
 """
 
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..utils import checks
 from ..utils.shapes import round_up
 from .backends import PagedBackend, SlotsBackend
 from .sampling import SamplingParams, sample, sample_with_logprob
@@ -70,7 +75,6 @@ class Request:
 
 
 _NOT_PORTED = {
-    "kv_int4": "int4 KV caches (ROADMAP queue 1, item 12a)",
     "draft": "speculative decoding (ROADMAP queue 1, item 12b)",
     "spec_tokens": "speculative decoding (ROADMAP queue 1, item 12b)",
     "mesh": "tensor-parallel serving (ROADMAP queue 1, item 19)",
@@ -92,6 +96,7 @@ class Engine:
         num_slots: int = 8,
         max_len: int = 2048,
         cache_dtype=torch.int8,
+        kv_int4: bool = False,
         prefill_bucket: int = 128,
         seed: int = 0,
         cache_backend: str = "slots",
@@ -109,6 +114,8 @@ class Engine:
                 raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not ported yet")
         if cache_backend not in ("slots", "paged"):
             raise ValueError(f"unknown cache_backend: {cache_backend!r}")
+        if kv_int4 and not checks.is_8bit_dtype(cache_dtype):
+            raise ValueError("kv_int4 requires an 8-bit cache_dtype")
         if prefill_chunk is not None and max_len % prefill_chunk != 0:
             # Chunk writes are full-width; alignment keeps them in the cache.
             raise ValueError(
@@ -148,15 +155,16 @@ class Engine:
         self.prefill_bucket = prefill_bucket
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = prefix_cache
+        self.kv_int4 = kv_int4
         if cache_backend == "slots":
             self._backend = SlotsBackend(
                 cfg, num_slots=num_slots, max_len=max_len,
-                cache_dtype=cache_dtype, device=self.device,
+                cache_dtype=cache_dtype, kv_int4=kv_int4, device=self.device,
             )
         else:
             self._backend = PagedBackend(
                 cfg, num_slots=num_slots, max_len=max_len, cache_dtype=cache_dtype,
-                page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
+                kv_int4=kv_int4, page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
                 device=self.device,
             )
         self.free_slots = list(range(num_slots))

@@ -1,8 +1,9 @@
 """Quantized ragged KV cache for decode serving (counterpart of
 quantumattention_tpu/serving/kv_cache.py).
 
-  k / v:            (num_slots, Hkv, Smax, D)   int8 (default) or bf16
-  k_scale/v_scale:  (num_slots, Hkv, Smax)      fp32 (int8 caches only)
+  k / v:            (num_slots, Hkv, Smax, D)   int8 (default), e4m3 or bf16;
+                    (num_slots, Hkv, Smax, D/2) packed int4 (int8 container)
+  k_scale/v_scale:  (num_slots, Hkv, Smax)      fp32 (8-bit caches only)
   lengths:          (num_slots,)                int32 valid lengths
 
 Token-wise quantization (reduction over D).  Unlike the JAX package, whose
@@ -11,7 +12,9 @@ cache's tensors IN PLACE (indexed assignment / slice copies) and return the
 same object: a cache holds gigabytes at serving sizes, and a copy per
 token would dominate the decode step.
 
-Not yet: packed int4 caches (ROADMAP queue 1, item 12a).  ``flush_side``
+A packed int4 cache (``int4=True``) holds element d in the low nibble and
+element d + D/2 in the high nibble of byte d (``quant.pack_int4``); it is
+recognised by its halved minor dim, as in JAX.  ``flush_side``
 is not ported: it persists the TPU burst's side buffer, a workaround for
 XLA copying a scatter that feeds a Pallas call (ROADMAP, "Do not port these
 TPU workarounds"); the port's burst appends to the cache in place every
@@ -44,12 +47,18 @@ class KVCache:
 
 def init_cache(
     num_slots: int, num_kv_heads: int, max_len: int, head_dim: int,
-    dtype=torch.int8, device=None,
+    dtype=torch.int8, int4: bool = False, device=None,
 ) -> KVCache:
-    """An empty cache; 8-bit scales start at ones (kv_cache.py:76-78).  On
-    the CUDA card unless ``device`` says otherwise."""
-    if dtype not in (torch.int8, torch.bfloat16):
-        raise NotImplementedError(f"{dtype} KV caches are not ported yet")
+    """An empty cache; 8-bit scales start at ones (kv_cache.py:76-78).
+    ``int4=True`` stores packed 4-bit values, two an int8 byte (minor dim
+    head_dim/2): half the int8 cache's bytes, about twice its rounding
+    error.  On the CUDA card unless ``device`` says otherwise."""
+    if int4:
+        if dtype != torch.int8:
+            raise ValueError("int4 cache uses an int8 container")
+        if head_dim % 2 != 0:
+            raise ValueError("int4 cache requires an even head_dim")
+        head_dim //= 2
     device = checks.default_device(device)
     shape = (num_slots, num_kv_heads, max_len, head_dim)
     cache = KVCache(
@@ -57,18 +66,24 @@ def init_cache(
         v=torch.zeros(shape, dtype=dtype, device=device),
         lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
     )
-    if dtype == torch.int8:
+    if checks.is_8bit_dtype(dtype):
         cache.k_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
         cache.v_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
     return cache
 
 
-def quantize_tokens(t: torch.Tensor, dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def quantize_tokens(t: torch.Tensor, dtype, int4: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(..., D) float -> (values, (...) scales or None) in the cache or
-    page container (int8 token-wise, or a cast)."""
-    if dtype != torch.int8:
+    container (kv_cache.py:83-94): int4 packed along D, int8 or e4m3
+    token-wise, any other type a cast."""
+    if not checks.is_8bit_dtype(dtype):
         return t.to(dtype), None
-    return quant.dynamically_quantize_int8(t, reduction_dim=-1)
+    if int4:
+        return quant.dynamically_quantize_int4(t, reduction_dim=-1)
+    if dtype == torch.int8:
+        return quant.dynamically_quantize_int8(t, reduction_dim=-1)
+    return quant.dynamically_quantize_fp8(t, reduction_dim=-1)
 
 
 def append(
@@ -87,8 +102,9 @@ def append(
     T rows are written (rows past n_valid hold garbage that the lengths
     mask); a write is clipped at max_len.
     """
-    kq, ks = quantize_tokens(k_new, cache.k.dtype)
-    vq, vs = quantize_tokens(v_new, cache.v.dtype)
+    int4 = cache.k.shape[-1] * 2 == k_new.shape[-1]  # the packed layout
+    kq, ks = quantize_tokens(k_new, cache.k.dtype, int4)
+    vq, vs = quantize_tokens(v_new, cache.v.dtype, int4)
     t = k_new.shape[2]
     if t == 1:
         # One indexed write per tensor for all slots (distinct rows).

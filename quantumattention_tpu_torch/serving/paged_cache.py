@@ -5,8 +5,9 @@ One logical page id addresses the same page in every layer's pool, so the
 allocator and the page tables are shared across layers while each layer
 owns its page tensors:
 
-  k / v:               (Hkv, num_pages, page_size, D)  int8 or bf16
-  k_scale / v_scale:   (Hkv, num_pages, page_size)     fp32 (int8 pages)
+  k / v:               (Hkv, num_pages, page_size, D)  int8, e4m3 or bf16;
+                       (Hkv, num_pages, page_size/2, D) token-packed int4
+  k_scale / v_scale:   (Hkv, num_pages, page_size)     fp32 (8-bit pages)
 
 The scales keep this (Hkv, P, ps) layout at every page size.  The JAX
 package folds pages wider than 128 tokens to (Hkv, P, ps/128, 128)
@@ -19,7 +20,13 @@ Host state (numpy, Python scheduler work): the free list, the page tables
 (num_slots, pages_per_seq), lengths, allocated counts, and the refcounted
 prefix cache with its LRU pool of idle pages (``PageAllocator``).
 
-Not yet: token-packed int4 pages (ROADMAP queue 1, item 12a).
+Token-packed int4 pages (``int4=True``, paged_cache.py:69-83) hold two
+tokens a byte along the page's token axis, split halves within each page
+(``quant.pack_int4``): byte row i holds token i in its low nibble and
+token i + page_size/2 in its high nibble; the scales stay one per real
+token, and a scale extent twice the byte rows marks the layout.  Writes
+into them read, modify and write the bytes (:func:`write_tokens`,
+:func:`write_lanes`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import quant
 from ..utils import checks
 from .kv_cache import quantize_tokens
 
@@ -63,22 +71,67 @@ def init_layer_pages(
     num_kv_heads: int, num_pages: int, page_size: int, head_dim: int,
     dtype=torch.int8, int4: bool = False, device=None,
 ) -> LayerPages:
-    """Zeroed pages; int8 pages carry fp32 token scales that start at ones.
-    On the CUDA card unless ``device`` says otherwise."""
+    """Zeroed pages; 8-bit pages carry fp32 token scales that start at
+    ones.  ``int4=True``: token-packed pages (Hkv, P, page_size/2, D) with
+    one scale a real token (the module docstring).  On the CUDA card
+    unless ``device`` says otherwise."""
+    rows = page_size
     if int4:
-        raise NotImplementedError("int4 KV pages are not ported yet (ROADMAP queue 1, item 12a)")
-    if dtype not in (torch.int8, torch.bfloat16):
-        raise NotImplementedError(f"{dtype} KV pages are not ported yet")
+        if dtype != torch.int8:
+            raise ValueError("int4 pages use an int8 container")
+        if page_size % 2 != 0:
+            raise ValueError("int4 pages need an even page_size")
+        rows = page_size // 2
     device = checks.default_device(device)
-    shape = (num_kv_heads, num_pages, page_size, head_dim)
+    shape = (num_kv_heads, num_pages, rows, head_dim)
     pages = LayerPages(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
-    if dtype == torch.int8:
-        pages.k_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
-        pages.v_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+    if checks.is_8bit_dtype(dtype):
+        scales = (num_kv_heads, num_pages, page_size)
+        pages.k_scale = torch.ones(scales, dtype=torch.float32, device=device)
+        pages.v_scale = torch.ones(scales, dtype=torch.float32, device=device)
     return pages
+
+
+def is_int4(pages: LayerPages) -> bool:
+    """Token-packed int4 pages: a scale row per token, two tokens a byte row."""
+    return pages.k_scale is not None and pages.k_scale.shape[2] == 2 * pages.k.shape[2]
+
+
+def quantize_page_tokens(t: torch.Tensor, dtype, int4: bool):
+    """(..., D) float -> values and token scales for pages: int4 values
+    unpacked (the pages pack the token axis), else as ``quantize_tokens``."""
+    if int4:
+        return quant.quantize_int4_values(t, reduction_dim=-1)
+    return quantize_tokens(t, dtype)
+
+
+def write_lanes(pages: LayerPages, page: torch.Tensor, off: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """One token a lane, in place: lane b's (Hkv, D) k/v rows go to token
+    ``off[b]`` of page ``page[b]`` (int64 (B,) each).  Token-packed int4
+    pages get nibble writes (backends.py:1134-1207): the byte row
+    ``off % (ps/2)`` is read, its low nibble (first half of the page) or
+    high nibble (second half) replaced, and written back."""
+    int4 = is_int4(pages)
+    kq, ks = quantize_page_tokens(k_new, pages.k.dtype, int4)
+    vq, vs = quantize_page_tokens(v_new, pages.v.dtype, int4)
+    if int4:
+        half = pages.k.shape[2]
+        low = (off < half)[None, :, None]
+        row = torch.where(off < half, off, off - half)
+        for dst, val in ((pages.k, kq), (pages.v, vq)):
+            old = dst[:, page, row].to(torch.int32)
+            new = val.transpose(0, 1).to(torch.int32) & 0xF
+            dst[:, page, row] = torch.where(low, (old & ~0xF) | new, (old & 0xF) | (new << 4)).to(torch.int8)
+    else:
+        pages.k[:, page, off] = kq.transpose(0, 1)
+        pages.v[:, page, off] = vq.transpose(0, 1)
+    if ks is not None:
+        pages.k_scale[:, page, off] = ks.transpose(0, 1)
+        pages.v_scale[:, page, off] = vs.transpose(0, 1)
 
 
 def write_tokens(
@@ -91,18 +144,29 @@ def write_tokens(
     """Write (Hkv, T, D) float tokens starting at ``offset_in_first_page``
     of ``page_ids[0]`` and running on through the following pages, in
     place; returns ``pages``.  ``page_ids`` are host ints (a list, numpy
-    array or CPU tensor) covering [offset, offset + T)."""
-    page_size = pages.k.shape[2]
-    kq, ks = quantize_tokens(k_new, pages.k.dtype)
-    vq, vs = quantize_tokens(v_new, pages.v.dtype)
+    array or CPU tensor) covering [offset, offset + T).  Token-packed int4
+    pages are unpacked a page at a time, spliced and packed again."""
+    int4 = is_int4(pages)
+    page_size = pages.k_scale.shape[2] if int4 else pages.k.shape[2]
+    kq, ks = quantize_page_tokens(k_new, pages.k.dtype, int4)
+    vq, vs = quantize_page_tokens(v_new, pages.v.dtype, int4)
     ids = [int(p) for p in page_ids]
     t = k_new.shape[1]
+
+    def write_page(dst, values, page, pos, take, src):
+        if not int4:
+            dst[:, page, pos : pos + take] = values[:, src : src + take]
+            return
+        full = quant.unpack_int4(dst[:, page], torch.int8, axis=1)
+        full[:, pos : pos + take] = values[:, src : src + take]
+        dst[:, page] = quant.pack_int4(full, axis=1)
+
     pos, src, pi = offset_in_first_page, 0, 0
     while src < t:
         take = min(page_size - pos, t - src)
         page = ids[pi]
-        pages.k[:, page, pos : pos + take] = kq[:, src : src + take]
-        pages.v[:, page, pos : pos + take] = vq[:, src : src + take]
+        write_page(pages.k, kq, page, pos, take, src)
+        write_page(pages.v, vq, page, pos, take, src)
         if ks is not None:
             pages.k_scale[:, page, pos : pos + take] = ks[:, src : src + take]
             pages.v_scale[:, page, pos : pos + take] = vs[:, src : src + take]

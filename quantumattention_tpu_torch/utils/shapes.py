@@ -35,6 +35,11 @@ def head_dim_reason(d: int) -> str:
     )
 
 
+def kernel_width(d: int) -> int:
+    """The instantiated width a head dim runs at (``qa::kernel_width``)."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+
+
 def check_kernel_head_dim(name: str, d: int) -> None:
     """Raise where kernel ``name`` does not take head dim ``d`` (a positive
     multiple of 8 up to 512)."""

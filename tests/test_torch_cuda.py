@@ -211,15 +211,19 @@ def _decode_case(cuda, cache, group, d, hkv=2, s_max=600):
     q = _randn((b, hkv * group, d), 4, torch.bfloat16, cuda)
     kf = _randn((b, hkv, s_max, d), 5, torch.float32, cuda)
     vf = _randn((b, hkv, s_max, d), 6, torch.float32, cuda)
-    if cache == "int8":
-        kc, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-        vc, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
-    else:
-        kc, vc, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+    if cache == "bf16":
+        return q, kf.bfloat16(), vf.bfloat16(), lens, None, None
+    fn = {"int8": quant.dynamically_quantize_int8, "e4m3": quant.dynamically_quantize_fp8,
+          "int4": quant.dynamically_quantize_int4}[cache]
+    (kc, ks), (vc, vs) = fn(kf, reduction_dim=-1), fn(vf, reduction_dim=-1)
     return q, kc, vc, lens, ks, vs
 
 
-@pytest.mark.parametrize("cache", ["int8", "bf16"])
+#: The cache types K4 and K10 take (fault 12: int4 and e4m3).
+CACHE_KINDS = ["int8", "bf16", "int4", "e4m3"]
+
+
+@pytest.mark.parametrize("cache", CACHE_KINDS)
 @pytest.mark.parametrize("group,d", DECODE_CASES)
 def test_decode_kernel_matches_plain(cuda, cache, group, d):
     q, kc, vc, lens, ks, vs = _decode_case(cuda, cache, group, d)
@@ -235,9 +239,37 @@ def test_decode_kernel_matches_plain(cuda, cache, group, d):
     assert torch.equal(out, again)  # the merge sums in a fixed order
 
 
+@pytest.mark.parametrize("qtype", [torch.float32, torch.float16], ids=["f32", "f16"])
+@pytest.mark.parametrize("cache", ["int8", "int4"])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_decode_kernels_take_float_queries(cuda, kernel, cache, qtype):
+    """Fault 12: float32 and float16 queries enter K4 and K10 rounded to
+    bf16 (the plain versions round them likewise); the output is bf16, as
+    JAX returns."""
+    if kernel == "k4":
+        q, kc, vc, lens, ks, vs = _decode_case(cuda, cache, 4, 128)
+        q = q.to(qtype)
+        out = decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs)
+        plain = decode_attention_plain(q, kc, vc, lens, ks, vs)
+    else:
+        from quantumattention_tpu_torch.ops.paged import (
+            paged_decode_attention, paged_decode_attention_plain)
+
+        q, k, v, lens, table, ks, vs = _paged_case(cuda, (5, 16, 4, 32, 7, 128), cache)
+        q = q.to(qtype)
+        out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
+                                     pages_per_block=1)
+        plain = paged_decode_attention_plain(q, k, v, lens, table, ks, vs)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    _assert_decode_close(out, plain, lens)
+
+
 def _paged_case(cuda, shape, kind):
     """K10's inputs over a shuffled pool: ragged lengths with an empty and
-    a full slot, table entries past each sequence's pages out of range."""
+    a full slot, table entries past each sequence's pages out of range;
+    int8 and e4m3 pages with token scales, token-packed int4 pages (ps/2
+    byte rows) with token scales, or bf16 pages."""
     b, hq, hkv, ps, pps, d = shape
     pool = b * pps + 3
     g = torch.Generator().manual_seed(ps + d)
@@ -248,11 +280,14 @@ def _paged_case(cuda, shape, kind):
     table = torch.where(torch.arange(pps)[None] < pages_of[:, None], table, 99_999)
     kf = _randn((hkv, pool, ps, d), 1, torch.float32, cuda)
     vf = _randn((hkv, pool, ps, d), 2, torch.float32, cuda)
-    if kind == "int8":
-        k, ks = quant.dynamically_quantize_int8(kf, reduction_dim=-1)
-        v, vs = quant.dynamically_quantize_int8(vf, reduction_dim=-1)
-    else:
+    if kind == "bf16":
         k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    elif kind == "int4":
+        (k, ks), (v, vs) = (quant.quantize_int4_values(x, reduction_dim=-1) for x in (kf, vf))
+        k, v = quant.pack_int4(k, axis=2), quant.pack_int4(v, axis=2)
+    else:
+        fn = quant.dynamically_quantize_int8 if kind == "int8" else quant.dynamically_quantize_fp8
+        (k, ks), (v, vs) = fn(kf, reduction_dim=-1), fn(vf, reduction_dim=-1)
     q = _randn((b, hq, d), 3, torch.bfloat16, cuda)
     return q, k, v, lens.to(cuda), table.to(cuda), ks, vs
 
@@ -263,7 +298,8 @@ def _core_calls(cuda, kernel, kind):
     library's entry point into the partial buffers it is given."""
     from quantumattention_tpu_torch.ops import _native, decode, paged
 
-    lib, code, scale = _native.library(), 3 if kind == "int8" else 0, 128 ** -0.5
+    lib, scale = _native.library(), 128 ** -0.5
+    code = decode.KINDS["int4_pages" if kind == "int4" and kernel != "k4" else kind]
     stream = torch.cuda.current_stream(cuda).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     if kernel == "k4":
@@ -280,29 +316,33 @@ def _core_calls(cuda, kernel, kind):
                                         b, hq, hkv, smax, 128, code, float(scale * decode.LOG2E),
                                         stream), "qa_decode")
     else:
-        q, k, v, lens, table, ks, vs = _paged_case(cuda, (16, 32, 8, 128, 8, 128), kind)
-        b, hq, hkv, smax = q.shape[0], q.shape[1], k.shape[0], table.shape[1] * k.shape[2]
+        # k10: Llama-3-8B's heads; k10_g32: a GQA group of 32 (fault 11).
+        shape = (16, 32, 8, 128, 8, 128) if kernel == "k10" else (6, 64, 2, 128, 8, 128)
+        q, k, v, lens, table, ks, vs = _paged_case(cuda, shape, kind)
+        ps = shape[3]
+        b, hq, hkv, smax = q.shape[0], q.shape[1], k.shape[0], table.shape[1] * ps
 
         def call():
-            return paged._paged_cuda(q, k, v, lens, table, ks, vs, scale)
+            return paged._paged_cuda(q, k, v, lens, table, ks, vs, scale, kind == "int4")
 
         def raw(acc, ml):
             out = torch.empty_like(q)
             _native.check(lib.qa_paged_decode(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), lens.data_ptr(),
                 table.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(), b, hq, hkv,
-                k.shape[1], k.shape[2], table.shape[1], 128, code, float(scale * decode.LOG2E),
+                k.shape[1], ps, table.shape[1], 128, code, float(scale * decode.LOG2E),
                 stream), "qa_paged_decode")
-    plan = decode.card_plan(code, b, hq, hkv, 128, smax)
+    plan = decode.card_plan(code, b, hq, hkv, 128, smax, 0 if kernel == "k4" else ps)
     return call, raw, lens, plan, smax
 
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
-@pytest.mark.parametrize("kernel", ["k4", "k10"])
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+@pytest.mark.parametrize("kernel", ["k4", "k10", "k10_g32"])
 def test_decode_core_split_is_the_schedule(cuda, kernel, kind):
     """The card's split is ops/decode.decode_schedule: the partials the
     kernel writes are exactly the (CTA, segment) runs of the Python
-    schedule."""
+    schedule, K10's group of 32 split over segments as K4's is (its
+    segments those of ``decode.core_segments``)."""
     from quantumattention_tpu_torch.ops import decode
 
     _, raw, lens, plan, smax = _core_calls(cuda, kernel, kind)
@@ -311,36 +351,45 @@ def test_decode_core_split_is_the_schedule(cuda, kernel, kind):
     raw(acc, ml)
     torch.cuda.synchronize()
     written = set(torch.nonzero(torch.isfinite(ml[:, 0, 0])).flatten().tolist())
+    hq, hkv = {"k4": (8, 2), "k10": (32, 8), "k10_g32": (64, 2)}[kernel]
+    kcode = decode.KINDS["int4_pages" if kind == "int4" and kernel != "k4" else kind]
+    assert plan["segments"] == decode.core_segments(hq, hkv, 128, kcode)
     sched = decode.decode_schedule(lens.cpu().numpy(), plan["segments"], decode.ROWS_PER_TILE,
                                    plan["ctas"], smax)
     assert written == {c + seg for c in range(sched.ctas) for seg, _, _ in sched.runs(c)}
     assert plan["ctas"] <= 256
 
 
-@pytest.mark.parametrize("hq,hkv,d,int8,want", [
-    (32, 8, 128, True, (1, 1, 4, 128)),     # Llama-3-8B
-    (32, 32, 96, False, (1, 1, 1, 96)),     # Phi-3-mini
-    (16, 8, 256, True, (1, 1, 2, 256)),
-    (8, 2, 512, True, (1, 2, 4, 256)),      # two column splits of 256
-    (8, 2, 512, False, (1, 8, 4, 64)),      # bf16: eight of 64
-    (16, 1, 320, False, (1, 5, 16, 64)),
-    (32, 1, 128, True, (2, 1, 16, 128)),    # G = 32: two query splits
-    (40, 2, 72, True, (2, 1, 16, 72)),      # G = 20: 16 + 4
+@pytest.mark.parametrize("hq,hkv,d,kind,want", [
+    (32, 8, 128, "int8", (1, 1, 4, 128)),     # Llama-3-8B
+    (32, 32, 96, "bf16", (1, 1, 1, 96)),      # Phi-3-mini
+    (16, 8, 256, "int8", (1, 1, 2, 256)),
+    (8, 2, 512, "int8", (1, 2, 4, 256)),      # two column splits of 256
+    (8, 2, 512, "bf16", (1, 8, 4, 64)),       # bf16: eight of 64
+    (16, 1, 320, "bf16", (1, 5, 16, 64)),
+    (32, 1, 128, "int8", (2, 1, 16, 128)),    # G = 32: two query splits
+    (40, 2, 72, "int8", (2, 1, 16, 72)),      # G = 20: 16 + 4
+    (32, 8, 128, "int4", (1, 1, 4, 128)),     # head-dim-packed int4: one frame of W
+    (16, 8, 320, "int4", (1, 2, 2, 256)),     # at 512: the low and the high nibbles
+    (32, 8, 128, "e4m3", (1, 1, 4, 128)),
 ])
-def test_decode_core_plan(cuda, hq, hkv, d, int8, want):
+def test_decode_core_plan(cuda, hq, hkv, d, kind, want):
     """The card's plan splits a (slot, KV head) into (query splits, column
     splits, rows of a split, columns of a split): up to 16 query heads a
-    split and, at the instantiated width 512, 256 output columns (int8) or
-    64 (bf16), so that two stages of K and V tiles fit the shared memory."""
+    split and, at the instantiated width 512, 256 output columns (1-byte
+    codes; head-dim-packed int4 its two nibble halves) or 64 (bf16), so
+    that two stages of K and V tiles fit the shared memory; the segments
+    are ``decode.core_segments``."""
     from quantumattention_tpu_torch.ops import decode
 
-    plan = decode.card_plan(3 if int8 else 0, 4, hq, hkv, d, 2048)
+    plan = decode.card_plan(decode.KINDS[kind], 4, hq, hkv, d, 2048)
     assert (plan["qsplits"], plan["csplits"], plan["qrows"], plan["ccols"]) == want
     assert plan["segments"] == hkv * plan["qsplits"] * plan["csplits"]
+    assert plan["segments"] == decode.core_segments(hq, hkv, d, decode.KINDS[kind])
 
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
-@pytest.mark.parametrize("kernel", ["k4", "k10"])
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+@pytest.mark.parametrize("kernel", ["k4", "k10", "k10_g32"])
 def test_decode_core_is_deterministic_and_capturable(cuda, kernel, kind):
     """Two runs give the same bits, and so does one call captured in a CUDA
     graph and replayed."""
@@ -648,11 +697,12 @@ def _graph_call(fn):
 
 @pytest.mark.parametrize("case", QMM_CASES, ids=_qmm_ids)
 def test_qmm_kernels_match_plain(cuda, case):
-    """K5/K6/K7 against their plain versions; the route each call took
-    (K7 and an unsplit K5 on the register-A wgmma kernel, a split K5 on
-    K6's mma.sync kernel) by the launch counts; two runs and a
-    graph-captured replay bitwise equal."""
-    from quantumattention_tpu_torch.ops import _native, qmm
+    """K5/K6/K7 against their plain versions (K6: ``n_streams`` K ranges
+    summed in order, at the K5-K9 bar); every bf16 call on the register-A
+    wgmma kernel, counted as K6 where the split rule or ``n_streams`` > 1
+    says so; two runs and a graph-captured replay bitwise equal (the
+    stream-K split is reduced in CTA order)."""
+    from quantumattention_tpu_torch.ops import qmm
 
     m, k, n, int4, splits = case
     x = _randn((m, k), 30, torch.bfloat16, cuda)
@@ -665,20 +715,20 @@ def test_qmm_kernels_match_plain(cuda, case):
         plain = qmm.quantized_matmul4_plain(x, w["q4"], w["s"])
     else:
         call = lambda: qmm.quantized_matmul(x, w["q"], w["s"], n_streams=splits)  # noqa: E731
-        plain = qmm.quantized_matmul_plain(x, w["q"], w["s"])
+        plain = qmm.quantized_matmul_plain(x, w["q"], w["s"], splits or 1)
     out = call()
     torch.cuda.synchronize()
     _close_rel(out, plain)
     ran = (qmm.quantized_matmul.launches - counts[0], qmm.quantized_matmul.splitk_launches - counts[1],
            qmm.quantized_matmul4.launches - counts[2])
     assert sum(ran) == 1 and (ran[2] == 1) == int4
-    n_splits = 1 if int4 else _native.library().qa_qmm_splits(m, n, k, splits or 0)
     if not int4:
-        assert ran[1] == (n_splits > 1)
-    route = "wgmma" if n_splits == 1 else "mma_sync"
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert ran[1] == int(qmm.is_split_k(m, n, splits, sms))
     assert {r: qmm.route_launches[r] - routes[r] for r in routes} == {
-        r: int(r == route) for r in routes}
+        r: int(r == "wgmma") for r in routes}
     assert torch.equal(call(), out)
+    assert torch.equal(_graph_call(call), out)
     assert torch.equal(_graph_call(call), out)
 
 
@@ -1056,15 +1106,20 @@ PAGED_SHAPES = [  # (B, Hq, Hkv, page_size, pages_per_seq, D)
     (4, 8, 2, 64, 5, 320),
     (3, 8, 8, 16, 6, 72),
     (3, 4, 1, 128, 3, 512),
+    (4, 64, 2, 128, 4, 128),   # a GQA group of 32 (fault 11)
+    (5, 32, 8, 8, 40, 128),    # pages of 8 tokens: rows by cp.async
+    (3, 32, 8, 512, 2, 128),   # pages of 512: 32 boxes a page
+    (4, 8, 2, 24, 9, 64),      # pages of 24 (int4: halves of 12)
 ]
 
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kind", CACHE_KINDS)
 @pytest.mark.parametrize("shape", PAGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_paged_kernel_matches_plain(cuda, shape, kind):
     """K10 against its plain version over a shuffled pool: ragged lengths
     with an empty and a full slot, table entries past each sequence's pages
-    out of range (never read)."""
+    out of range (never read); every page type, GQA groups up to 32 and
+    page sizes from 8 to 512."""
     from quantumattention_tpu_torch.ops.paged import (
         paged_decode_attention, paged_decode_attention_plain)
 
@@ -1083,17 +1138,18 @@ def test_paged_kernel_matches_plain(cuda, shape, kind):
 def test_paged_kernel_refuses_on_card(cuda):
     from quantumattention_tpu_torch.ops.paged import paged_decode_attention
 
+    # Pages of 24 tokens and float32 queries are taken now (faults 11, 12):
+    # only what the kernel does not take is refused.
     q = torch.zeros((1, 4, 128), dtype=torch.bfloat16, device=cuda)
-    kp = torch.zeros((2, 8, 24, 128), dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros((2, 8, 32, 128), dtype=torch.bfloat16, device=cuda)
     lens = torch.tensor([5], dtype=torch.int32, device=cuda)
     table = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        paged_decode_attention(q, kp, kp, lens, table)
-    kp = torch.zeros((2, 8, 32, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         paged_decode_attention(q, kp, kp, lens.long(), table)
-    with pytest.raises(ValueError, match="bf16"):
-        paged_decode_attention(q.float(), kp, kp, lens, table)
+    with pytest.raises(ValueError, match="float queries"):
+        paged_decode_attention(q.to(torch.int8), kp, kp, lens, table)
+    with pytest.raises(ValueError, match="take int8, e4m3, int4 or bf16"):
+        paged_decode_attention(q, kp.half(), kp.half(), lens, table)
 
 
 @pytest.mark.parametrize("sq,skv,off,d", [(256, 640, 384, 128), (100, 357, 257, 64),

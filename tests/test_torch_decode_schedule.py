@@ -121,3 +121,28 @@ def test_empty_call_has_no_work():
     assert sched.total == 0
     assert all(sched.runs(c) == [] for c in range(sched.ctas))
     assert all(sched.merge_order(s) == [] for s in range(24))
+
+
+@pytest.mark.parametrize("hq,hkv,d,kind,want", [
+    (64, 2, 128, "int8", 2 * 2),      # G = 32: two query splits a KV head (K10, fault 11)
+    (32, 8, 128, "int4", 8),          # Llama-3-8B, head-dim-packed int4: one split
+    (16, 8, 512, "int4", 8 * 2),      # int4 at 512: its two nibble halves
+    (16, 8, 320, "e4m3", 8 * 2),      # 1-byte codes at 512 wide: 256 columns a split
+    (16, 8, 320, "bf16", 8 * 5),      # bf16 at 512 wide: 64 columns a split
+    (96, 2, 96, "int4_pages", 2 * 3),  # G = 48 over token-packed pages
+])
+def test_core_segments(hq, hkv, d, kind, want):
+    assert decode.core_segments(hq, hkv, d, decode.KINDS[kind]) == want
+
+
+@pytest.mark.parametrize("ps", [8, 128, 512])
+@pytest.mark.parametrize("ctas", [1, 132, 256])
+def test_k10_group_split_schedule(ctas, ps):
+    """K10 at G = 32 (two query splits a KV head) over pages of 8, 128 and
+    512 tokens: the schedule K10 now shares with K4 covers each tile once,
+    balanced, in a fixed merge order (the page size changes where a tile's
+    rows come from, not the tiles)."""
+    lens = np.random.default_rng(ps).integers(0, 4 * ps + 1, 6)
+    segs = decode.core_segments(64, 2, 128, decode.KINDS["int8"])
+    _check(decode.decode_schedule(lens, segs, decode.ROWS_PER_TILE, ctas, 4 * ps), lens,
+           decode.ROWS_PER_TILE, 4 * ps)

@@ -139,8 +139,11 @@ def test_engine_logprobs_and_stochastic_sampling(params):
 
 
 def test_engine_rejects_what_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, kv_int4=True)
+    # int4 caches are ported (tests/test_torch_kv_int4.py): they construct,
+    # and take an 8-bit container only, as in JAX.
+    assert Engine(params, CFG, num_slots=1, max_len=64, kv_int4=True).caches[0].k.shape[-1] == CFG.head_dim // 2
+    with pytest.raises(ValueError, match="8-bit cache_dtype"):
+        Engine(params, CFG, num_slots=1, max_len=64, cache_dtype=torch.bfloat16, kv_int4=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(params, CFG, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -183,14 +183,13 @@ def test_paged_validation_matches_jax():
 
 
 def test_paged_not_ported_modes_raise():
-    """int4 token-packed pages, the multi-query q, windows and the side
-    buffer: each valid in JAX, each NotImplementedError naming ROADMAP."""
+    """The multi-query q, windows and the side buffer: each valid in JAX,
+    each NotImplementedError naming ROADMAP.  (Token-packed int4 pages are
+    ported: tests/test_torch_kv_int4.py holds them against JAX.)"""
     q = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
     kp = torch.zeros((2, 8, 32, 64), dtype=torch.int8)
     lengths, table = torch.tensor([5], dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32)
-    s64, s32 = torch.ones((2, 8, 64)), torch.ones((2, 8, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12a"):
-        paged_decode_attention(q, kp, kp, lengths, table, k_scale_pages=s64, v_scale_pages=s64)
+    s32 = torch.ones((2, 8, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
         paged_decode_attention(q[:, :, None], kp, kp, lengths, table, k_scale_pages=s32,
                                v_scale_pages=s32)
@@ -200,8 +199,6 @@ def test_paged_not_ported_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         paged_decode_attention(q, kp, kp, lengths, table, k_scale_pages=s32, v_scale_pages=s32,
                                side={"k": kp})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12a"):
-        pgc.init_layer_pages(2, 4, 32, 64, torch.int8, int4=True, device="cpu")
 
 
 def test_hash_pages_equals_jax():

@@ -1,9 +1,10 @@
-"""The K5/K7 kernel's schedule and column permutation (ops/qmm), on the CPU.
+"""The K5/K6/K7 kernel's schedule and column permutation (ops/qmm), on the CPU.
 
-K5 and K7 run on one register-A, swap-AB wgmma kernel (csrc/qgemm.cu): up
-to 128 activation rows as stream-K over (128-column tile, 128-row k-block)
-units with fp32 partial sums added in CTA order, more rows as whole
-(256-column, 128-row) output tiles.  Its A fragments hold the weight
+K5, K6 and K7 run on one register-A, swap-AB wgmma kernel (csrc/qgemm.cu):
+up to 128 activation rows as stream-K over (128-column tile, 128-row
+k-block) units with fp32 partial sums added in CTA order by the tail
+product's reduction kernel, more rows as whole (256-column, 128-row) output
+tiles.  Its A fragments hold the weight
 columns in a permuted order that the epilogue undoes.  The kernel computes
 the same closed forms as the Python functions; these tests hold the Python
 functions to what the kernel relies on: every unit run exactly once,
@@ -154,3 +155,49 @@ def test_check_activation_takes_bf16_and_float32(dtype):
         qmm.check_activation(x.half(), "K5")
     with pytest.raises(ValueError, match="contiguous"):
         qmm.check_activation(torch.zeros((4, 512), dtype=dtype)[:, ::2], "K5")
+
+
+@pytest.mark.parametrize("name,m", [(n, m) for n in {**LLAMA3_8B, **SMALL} for m in (1, 4, 64, 128, 129)])
+def test_stream_k_reduction_order(name, m):
+    """The stream-K reduction (K6's split and every stream-K K5/K7 call):
+    each column tile sums the slots of the consecutive CTAs whose shares
+    hold its k-blocks (owner of its first k-block to owner of its last), in
+    CTA order, each slot once over the call; a CTA shares at most two tiles
+    with other CTAs (its first and its last)."""
+    n, k = {**LLAMA3_8B, **SMALL}[name]
+    sched = qmm.qgemm_schedule(m, n, k)
+    if sched.whole:
+        assert sched.partial_floats(m) == 0
+        return
+    order = [[] for _ in range(sched.col_tiles)]
+    for _, t, _, _, slot in sched.segments():
+        order[t].append(slot)
+    owner = lambda u: next(c for c in range(sched.ctas) if sched._start(c) <= u < sched._start(c + 1))  # noqa: E731
+    shared = {c: 0 for c in range(sched.ctas)}
+    seen = set()
+    for t, slots in enumerate(order):
+        ctas = [slot - t for slot in slots]
+        first, last = owner(t * sched.kblocks), owner((t + 1) * sched.kblocks - 1)
+        assert ctas == list(range(first, last + 1))
+        assert not seen & set(slots)
+        seen |= set(slots)
+        assert max(slots) < sched.ctas + sched.col_tiles  # inside partial_floats' slots
+        if len(ctas) > 1:
+            for c in ctas:
+                shared[c] += 1
+    assert max(shared.values()) <= 2
+    covered = sorted((t, kb) for _, t, kb0, kb1, _ in sched.segments() for kb in range(kb0, kb1))
+    assert covered == [(t, kb) for t in range(sched.col_tiles) for kb in range(sched.kblocks)]
+
+
+@pytest.mark.parametrize("name,m,streams,want", [
+    ("wo", 4, None, True), ("w_qkv", 4, None, True), ("w_down", 64, None, True),
+    ("w_gate_up", 4, None, False), ("lm_head", 4, None, False), ("wo", 1536, None, False),
+    ("wo", 4, 1, False), ("w_gate_up", 4, 4, True), ("wo", 129, None, False),
+])
+def test_is_split_k_follows_the_split_rule(name, m, streams, want):
+    """A bf16 call counts as K6 where the card's rule splits it (up to 128
+    rows and fewer 128-column tiles than the SMs) or the caller asks for
+    more than one K range."""
+    n = {**LLAMA3_8B, **SMALL}[name][0]
+    assert qmm.is_split_k(m, n, streams) is want
