@@ -28,8 +28,13 @@ Phases, each printing its numbers on lines of their own:
    the bf16 cache SDPA over the same rows with a length mask
    (``library_ms``); a float32 query over the int4 cache
    (``k4_f32_query``); then head dims 72/96/320/512 (``k4_width``; int4 and
-   e4m3 too at 72 and 512) and 32 query heads over one KV head
-   (``k4_group``);
+   e4m3 too at 72 and 512), 32 query heads over one KV head
+   (``k4_group``) and the speculative draft's width, head dim 64 at
+   Llama-3.2-1B's heads (``k4_draft``); then verify mode (``k4_verify``:
+   T = 2 and 5 candidates a head, GQA groups 1, 4 and 8, every cache
+   kind, against the plain version; ``k4_verify_time``: T = 5, cold, by
+   ``profiling.chain_bench``, beside the bound and SDPA with the
+   (B, Hq, T, S) mask);
 4. K1's residuals (m, l) against their plain version (D = 64/128/256; e4m3
    Q/K at the bars of fp8 tensor-core sums);
 5. K2 (dQ) and K3 (dK, dV): each instantiation's registers and spills
@@ -45,7 +50,8 @@ Phases, each printing its numbers on lines of their own:
    registers and spills of each instantiation of their kernel
    (``qmm_ptxas``, csrc/qgemm.cu); each against its plain version at
    Llama-3-8B's projection shapes (w_qkv, wo, w_gate_up, w_down, lm_head)
-   and M = 4, 64 (the LM head at 64 slots) and 1536, the route each took
+   and M = 4, 64 (the LM head at 64 slots), 80 (a paged verify pass) and
+   1536, the route each took
    (``route_launches``: all three through the register-A wgmma kernel, K6
    with ``n_streams`` = 4), two runs and a graph-captured replay held
    bitwise equal, device times of kernel and plain version (CUDA graph
@@ -60,8 +66,8 @@ Phases, each printing its numbers on lines of their own:
    (``qmm_f32``);
 7. K8 (the fused layer tail) against its plain version at Llama-3-8B's
    layer, int8 and int4, with and without the next layer's QKV, at M = 4,
-   16, 64 and 256, with times as in 6, weight GB/s and the kernels launched
-   per tail; at Phi-3-mini's layer (int8, M = 4, with the QKV); and one tail
+   16, 64, 80 (a paged verify pass) and 256, with times as in 6, weight
+   GB/s and the kernels launched per tail; at Phi-3-mini's layer (int8, M = 4, with the QKV); and one tail
    captured in a CUDA graph (its kernels use programmatic dependent launch)
    replayed against the eager call, bit for bit;
 8. K9 (the fused decode layer) against its plain version at Llama-3-8B's
@@ -103,7 +109,8 @@ Phases, each printing its numbers on lines of their own:
    GB/s, and K4 on the same rows laid out contiguously (what the gather
    costs); then ``k10_geometry`` (a GQA group of 32; pages of 8 and 512
    tokens; every page type, whether rows went by TMA or cp.async), and
-   head dims 256 (``k10_d256``) and 72/96/320/512 (``k10_width``);
+   head dims 256 (``k10_d256``) and 72/96/320/512 (``k10_width``); verify
+   mode as K4's (``k10_verify``, ``k10_verify_time``);
 13. ``serve_paged_prefix_16``, the JAX package's prefix-caching point: the
    int8 fused tree on the paged backend (16 slots, max_len 1024, pages of
    128, chunks of 256, prefix cache, a pool of 192 pages), 16 prompts of
@@ -123,6 +130,15 @@ Phases, each printing its numbers on lines of their own:
    4 slots and 17 new tokens in bursts of 8: the same checks, with each
    round's final-chunk logits held against the same chunk through K1's
    plain version over the same quantized prefix);
+    Then speculative decoding (``phase_speculative``, the ``spec_*``
+   lines): Llama-3-8B with a draft at Llama-3.2-1B's published widths,
+   greedy, 4 proposals a round, on 4 slots over int8, int4 and fp16 caches
+   and the target drafting for itself, then the int8 fused tree on the
+   paged backend at the prefix-caching point's geometry, with a small
+   draft and with itself: K4 and K10 in verify mode (T = 5 candidates a
+   head), each run beside the engine without a draft; every emitted token
+   the argmax of its round's verify logits, verify logits within 5% of
+   single plain steps, every page released;
 14. ``serve_d256``: a 2-layer model of the Llama block at Gemma-7B's
    attention width (16 query heads of 256 over 8 KV heads, seeded random
    bf16 weights) serves 4 prompts on the paged backend in chunks of 128:
@@ -182,10 +198,12 @@ from quantumattention_tpu_torch.models import llama, quantized
 from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import (
+    KINDS,
     cache_kind,
     card_plan,
     decode_attention,
     decode_attention_plain,
+    kernel_query,
 )
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain
 from quantumattention_tpu_torch.ops.paged import paged_decode_attention, paged_decode_attention_plain
@@ -202,7 +220,7 @@ from quantumattention_tpu_torch.ops.flash_bwd import (
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
 from quantumattention_tpu_torch.serving import backends
 from quantumattention_tpu_torch.serving.engine import Engine
-from quantumattention_tpu_torch.utils import checks
+from quantumattention_tpu_torch.utils import checks, profiling
 
 #: The repository's accuracy bar: RMSE against the fp32 SDPA oracle.
 RMSE_BAR = 1e-2
@@ -291,9 +309,10 @@ LOWBIT_PAGED = {"slots": 4, "max_len": 1024, "page_size": 128, "chunk": 256, "nu
 #: dense): device memory bytes/s and tensor-core operations/s by operand type.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "fp8": 1979e12}
-#: K5-K7's rows: a decode step at 4 slots, the LM head at 64 slots, and a
-#: 1536-token prefill.
-QMM_ROWS = (4, 64, 1536)
+#: K5-K7's rows: a decode step at 4 slots, the LM head at 64 slots, a
+#: verify pass of 16 slots x 5 candidates (``phase_speculative``'s paged
+#: run), and a 1536-token prefill.
+QMM_ROWS = (4, 64, 80, 1536)
 #: K5/K7 over float32 rows (fault 10) against their plain version:
 #: max|a - b| / max|b|, the CPU suite's fp32 bar (tests/test_torch_qmm.py:
 #: the same fp32 products summed in another order).
@@ -306,7 +325,9 @@ QUANT_PREFILL = {"tokens": 1536, "reps": 3}
 #: timed calls cycle through copies of a weight that together exceed this
 #: (2.5x the H100's 50 MB L2 cache), so no call finds its weight cached.
 COLD_BYTES = 128e6
-TAIL_ROWS = (4, 16, 64, 256)
+#: K8's rows: decode steps of 4, 16 and 64 slots, a verify pass of 16
+#: slots x 5 candidates, a prefill chunk of 256.
+TAIL_ROWS = (4, 16, 64, 80, 256)
 #: K8 at Phi-3-mini's layer (microsoft/Phi-3-mini-4k-instruct config.json:
 #: hidden 3072, intermediate 8192, 32 heads of 96 with as many KV heads).
 PHI3_TAIL = {"E": 3072, "I": 8192, "Q": 3072, "F": 9216}
@@ -363,6 +384,28 @@ K9_SOURCE = "quantumattention_tpu_torch/csrc/megastep.cu"
 K9_REPLACES = "quantumattention_tpu/ops/megastep.py:72"
 K10_SOURCE = "quantumattention_tpu_torch/csrc/paged.cu"
 K10_REPLACES = "quantumattention_tpu/ops/paged.py:77"
+#: The float caches K4 and K10 take without scales (fault 13: float16 and
+#: float32 beside bf16).
+FLOAT_CACHES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+#: Verify mode (speculative decoding): candidates a head, GQA groups and
+#: cache kinds held against the plain versions; the timed point is T = 5
+#: (spec_tokens = 4) at Llama-3-8B's group of 4.
+VERIFY_T, VERIFY_G = (2, 5), (1, 4, 8)
+VERIFY_KINDS = ("int8", "e4m3", "int4", "bf16", "f16", "f32")
+VERIFY_TIMED_T = 5
+#: The draft of the speculative phase: a Llama at Llama-3.2-1B's published
+#: widths (meta-llama/Llama-3.2-1B config.json: vocab 128256, hidden 2048,
+#: intermediate 8192, 16 layers, 32 query and 8 KV heads of 64, rope theta
+#: 500000, tied embeddings), weights seeded; its llama3 rope scaling is not
+#: modelled.
+DRAFT_1B = {"vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192, "num_layers": 16,
+            "num_q_heads": 32, "num_kv_heads": 8, "head_dim": 64, "rope_theta": 500000.0,
+            "tie_embeddings": True}
+#: The speculative runs: (a) the engine phase's 4 slots and prompts, 64 new
+#: tokens each; (b)-(c) 2 of its requests; (d) serve_paged_prefix_16's
+#: geometry with 33 new tokens.
+SPEC = {"slots": 4, "max_len": 2048, "new": 64, "gamma": 4, "few": 2}
+SPEC_PAGED = dict(PAGED16, new=33)
 
 
 def log(msg: str) -> None:
@@ -549,9 +592,12 @@ def _ptxas(kernel: str, params=("W", "code")) -> list:
     args = "".join(r"ILi(\d+)E" if i == 0 else r"Li(\d+)E" for i in range(len(params)))
     rows, cur = [], None
     for line in _native.build_info()["log"].splitlines():
-        m = re.search(r"Function properties for \S*?(" + kernel + r")" + args, line)
+        # A trailing bool argument (the decode core's verify mode) as "multi".
+        m = re.search(r"Function properties for \S*?(" + kernel + r")" + args + r"(?:Lb(\d)E)?", line)
         if m:
             cur = {"kernel": m.group(1), **{k: int(v) for k, v in zip(params, m.groups()[1:])}}
+            if m.group(len(params) + 2) is not None:
+                cur["multi"] = int(m.group(len(params) + 2))
             continue
         if cur is None:
             continue
@@ -729,12 +775,13 @@ def _graph_equal(fn) -> bool:
 
 def _k4_cache(gen, b, hkv, s_max, d, kind):
     """A K4 cache of random rows: int8 or e4m3 codes, or int4 codes packed
-    along the head dim, with token scales, or bf16; and its dequantized
-    fp32 rows."""
+    along the head dim, with token scales, or bf16, fp16 or fp32; and its
+    dequantized fp32 rows."""
     kf = _randn((b, hkv, s_max, d), gen, torch.float32)
     vf = _randn((b, hkv, s_max, d), gen, torch.float32)
-    if kind == "bf16":
-        return (kf.bfloat16(), vf.bfloat16(), None, None), (kf.bfloat16().float(), vf.bfloat16().float())
+    if kind in FLOAT_CACHES:
+        kc, vc = kf.to(FLOAT_CACHES[kind]), vf.to(FLOAT_CACHES[kind])
+        return (kc, vc, None, None), (kc.float(), vc.float())
     if kind == "int4":
         (kc, ks), (vc, vs) = (quant.dynamically_quantize_int4(x, reduction_dim=-1) for x in (kf, vf))
         deq = tuple(quant.dequantize(quant.unpack_int4(c), sc) for c, sc in ((kc, ks), (vc, vs)))
@@ -748,7 +795,8 @@ def _cache_kind(t: torch.Tensor, d: int) -> str:
     """The cache type of a K4 cache tensor (int4: a halved minor dim)."""
     if t.shape[-1] * 2 == d:
         return "int4"
-    return {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16"}[t.dtype]
+    return {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16",
+            torch.float16: "f16", torch.float32: "f32"}[t.dtype]
 
 
 def _k4_check(label, q, cache, deq, lens, lengths) -> dict:
@@ -787,12 +835,13 @@ def phase_k4(gen) -> dict:
     (``ms``: copies cycled past COLD_BYTES, as K10's), by CUDA events with
     the host's work (``call_ms``), the plain version's, and for the bf16
     cache SDPA over the same rows (``library_ms``); a float32 query over the
-    int4 cache (``k4_f32_query``); then head dims 72/96/320/512
-    (``k4_width``; int4 and e4m3 too at 72 and 512) and a GQA group of 32
-    (``k4_group``)."""
-    # The decode-attention core (W, NG, mode 0 K4 / 1 K10 / 2 bf16, kind 0
-    # int8 / 1 e4m3 / 2 bf16 / 3 int4 by head dim / 4 int4 by token) and its
-    # merge kernel.
+    int4 cache (``k4_f32_query``); for the fp16 cache the query's fp16
+    conversion timed apart (``query_convert_ms``); then head dims
+    72/96/320/512 (``k4_width``; int4 and e4m3 too at 72 and 512), a GQA
+    group of 32 (``k4_group``) and the draft's head dim 64 (``k4_draft``)."""
+    # The decode-attention core (W, NG, mode 0 K4 / 1 K10 / 2 unscaled, kind
+    # 0 int8 / 1 e4m3 / 2 bf16 / 3 int4 by head dim / 4 int4 by token / 5
+    # fp16 / 6 fp32, multi 1 in verify mode) and its merge kernel.
     for row in _ptxas("decode_attn_kernel", ("W", "NG", "mode", "kind")) + _ptxas("merge_kernel", ()):
         log("k4_ptxas " + json.dumps(row))
     b, hq, hkv, s_max, d = 4, 32, 8, 2048, 128
@@ -800,7 +849,7 @@ def phase_k4(gen) -> dict:
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     worst = 0.0
     timing = None
-    for kind in ("int8", "bf16", "int4", "e4m3"):
+    for kind in ("int8", "bf16", "int4", "e4m3", "f16", "f32"):
         q = _randn((b, hq, d), gen)
         cache, deq = _k4_cache(gen, b, hkv, s_max, d, kind)
         rec = _k4_check("4 slots", q, cache, deq, lens, lengths)
@@ -821,7 +870,11 @@ def phase_k4(gen) -> dict:
                               for c in caches])
         rec["call_ms"] = time_ms(lambda: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
         rec["plain_ms"] = time_ms(lambda: decode_attention_plain(q, kc, vc, lengths, ks, vs), iters=5)
-        if ks is None:
+        if kind == "f16":
+            # The fp16 products' query conversion (kernel_query), one launch
+            # of its own, timed apart.
+            rec["query_convert_ms"] = graph_ms(lambda: kernel_query(q, KINDS["f16"]))
+        if kind == "bf16":
             # The library call for a bf16 cache: SDPA over the same rows
             # with a length mask (the empty slot 0 left out: SDPA gives NaN
             # for a row that sees no key), timed over the same cold copies.
@@ -853,13 +906,117 @@ def phase_k4(gen) -> dict:
     for dw in ANY_WIDTHS:
         hq_w, hkv_w = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if dw == 96
                        else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
-        kinds = ("int8", "bf16", "int4", "e4m3") if dw in LOWBIT_WIDTHS else ("int8", "bf16")
+        kinds = VERIFY_KINDS if dw in LOWBIT_WIDTHS else ("int8", "bf16")
         worst = max(worst, _k4_width(gen, dw, hq_w, hkv_w, "k4_width", kinds))
     worst = max(worst, _k4_width(gen, 128, 32, 1, "k4_group", ("int8", "bf16", "int4")))
+    # The draft's steps in phase_speculative: head dim 64 at Llama-3.2-1B's
+    # heads, over the draft's int8 and fp16 caches (and int4).
+    worst = max(worst, _k4_width(gen, DRAFT_1B["head_dim"], DRAFT_1B["num_q_heads"], DRAFT_1B["num_kv_heads"],
+                                 "k4_draft", ("int8", "int4", "f16")))
+    vworst, verify = _k4_verify(gen)
     # The JSON line: the int8 cache. No PyTorch call reads an int8 cache
-    # with token-wise scales (the bf16 cache's SDPA time is on its k4 line).
-    return {"max_abs_err": worst, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None}
+    # with token-wise scales (the bf16 cache's SDPA time is on its k4 line,
+    # the masked SDPA beside verify mode on its k4_verify_time line).
+    return {"max_abs_err": max(worst, vworst), "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None,
+            **verify}
+
+
+def _verify_mask(lengths: torch.Tensor, t: int, hq: int, s_max: int) -> torch.Tensor:
+    """The (B, Hq, T, S) boolean mask of verify mode: candidate i of slot b
+    sees the columns below lengths[b] - (T - 1 - i)."""
+    lim = lengths[:, None] - (t - 1 - torch.arange(t, device=lengths.device))[None, :]
+    mask = torch.arange(s_max, device=lengths.device)[None, None, :] < lim[:, :, None]
+    return mask[:, None].expand(-1, hq, -1, -1)
+
+
+def _verify_check(label: str, rec: dict, out, plain, lens, launched: int) -> dict:
+    """A verify-mode call against its plain version (every non-empty slot
+    at least T long): one verify launch, finite, the decode bars, exact
+    zeros for the empty slot 0.  Raises where it misses."""
+    rec.update(decode_vs_plain(out, plain, lens), verify_launches=launched,
+               zero_row_exact=bool((out[0] == 0).all()))
+    if (launched != 1 or not bool(torch.isfinite(out.float()).all()) or not decode_close(rec)
+            or not rec["zero_row_exact"]):
+        raise RuntimeError(f"{label} disagrees: {rec}")
+    log(f"{label} " + json.dumps(rec))
+    return rec
+
+
+def _verify_timing(label: str, call, plain_call, copies: list, valid_bytes: int, library) -> dict:
+    """Device time of a verify-mode call, cold (``profiling.chain_bench``
+    over copies of the cache or pool cycled past COLD_BYTES, one CUDA
+    graph), its plain version's, the bound (``valid_bytes``), and the
+    library call's over the same copies (``library``: None, or a callable
+    of one copy)."""
+    iters = 8 * len(copies)
+    rec = {"copies": len(copies),
+           "ms": 1e3 * profiling.chain_bench(call, copies, iters=iters, reps=5),
+           "plain_ms": time_ms(lambda: plain_call(*copies[0]), iters=3, warmup=1),
+           "library_ms": None, **bound(valid_bytes)}
+    if library is not None:
+        rec["library_ms"] = 1e3 * profiling.chain_bench(library, copies, iters=iters, reps=5)
+    log(f"{label} " + json.dumps(rec))
+    return rec
+
+
+def _k4_verify(gen) -> tuple:
+    """K4 in verify mode (ops/decode.py:359-363 of the JAX package): 4 slots
+    of 0/57/900/2047 rows, T candidates a head (``VERIFY_T``), GQA groups
+    ``VERIFY_G`` over 8 KV heads, every cache kind, against its plain
+    version; then at T = 5 over Llama-3-8B's heads the device time, cold,
+    by graph replay (int8 and bf16; for bf16 SDPA with the (B, Hq, T, S)
+    mask over the same rows, the empty slot left out).  Returns (worst
+    error, the JSON line's verify keys)."""
+    b, hkv, s_max, d = 4, 8, 2048, 128
+    lens = [0, 57, 900, 2047]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for t in VERIFY_T:
+        for g in VERIFY_G:
+            for kind in VERIFY_KINDS:
+                q = _randn((b, hkv * g, t, d), gen)
+                (kc, vc, ks, vs), _ = _k4_cache(gen, b, hkv, s_max, d, kind)
+                before = decode_attention.verify_launches
+                out = decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs)
+                launched = decode_attention.verify_launches - before
+                plain = decode_attention_plain(q, kc, vc, lengths, ks, vs)
+                torch.cuda.synchronize()
+                rec = _verify_check("k4_verify", {"cache": kind, "T": t, "G": g}, out, plain, lens,
+                                    launched)
+                worst = max(worst, rec["max_abs_vs_plain"])
+                del q, kc, vc, ks, vs, out, plain
+    torch.cuda.empty_cache()
+    t, hq = VERIFY_TIMED_T, 32
+    times = {}
+    for kind in ("int8", "bf16"):
+        q = _randn((b, hq, t, d), gen)
+        cache, _ = _k4_cache(gen, b, hkv, s_max, d, kind)
+        nbytes = sum(x.numel() * x.element_size() for x in cache if x is not None)
+        copies = [cache] + [tuple(None if x is None else x.clone() for x in cache)
+                            for _ in range(max(1, math.ceil(COLD_BYTES / nbytes)) - 1)]
+        library = None
+        if kind == "bf16":
+            mask = _verify_mask(lengths[1:], t, hq, s_max)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ref = sdpa(q[1:], cache[0][1:], cache[1][1:], attn_mask=mask, enable_gqa=True)
+            got = decode_attention(q, cache[0], cache[1], lengths)[1:]
+            log(f"k4_verify_library max_abs_vs_k4={max_abs(got, ref)}")
+
+            def library(kc, vc, _ks, _vs):
+                return sdpa(q[1:], kc[1:], vc[1:], attn_mask=mask, enable_gqa=True)
+        row_bytes = cache[0].shape[-1] * cache[0].element_size() + (4 if cache[2] is not None else 0)
+        valid = sum(lens) * hkv * 2 * row_bytes + 2 * q.numel() * 2
+        times[kind] = _verify_timing(
+            f"k4_verify_time cache={kind} T={t} G={hq // hkv}",
+            lambda kc, vc, ks, vs: decode_attention(q, kc, vc, lengths, k_scale=ks, v_scale=vs),
+            lambda kc, vc, ks, vs: decode_attention_plain(q, kc, vc, lengths, ks, vs),
+            copies, valid, library)
+        del copies, cache, q
+    torch.cuda.empty_cache()
+    return worst, {"verify_ms": times["int8"]["ms"], "verify_plain_ms": times["int8"]["plain_ms"],
+                   "verify_bound_ms": times["int8"]["bound_ms"],
+                   "verify_library_ms": times["bf16"]["library_ms"], "verify_bf16_ms": times["bf16"]["ms"]}
 
 
 def _k4_width(gen, d: int, hq: int, hkv: int, label: str, kinds=("int8", "bf16")) -> float:
@@ -1113,6 +1270,8 @@ def _k23_protocol(gen) -> None:
 def _reset_counts() -> None:
     flash_attention.launches = 0
     decode_attention.launches = 0
+    decode_attention.verify_launches = 0
+    paged_decode_attention.verify_launches = 0
     qmm.quantized_matmul.launches = 0
     qmm.quantized_matmul.splitk_launches = 0
     qmm.quantized_matmul4.launches = 0
@@ -1127,6 +1286,8 @@ def _counts() -> dict:
             "k5": qmm.quantized_matmul.launches, "k6": qmm.quantized_matmul.splitk_launches,
             "k7": qmm.quantized_matmul4.launches, "k8": qmlp.fused_layer_tail.launches,
             "k9": megastep.fused_decode_layer.launches, "k10": paged_decode_attention.launches,
+            "k4_verify": decode_attention.verify_launches,
+            "k10_verify": paged_decode_attention.verify_launches,
             "sdpa_fallback": dispatch.sdpa_fallback.calls}
 
 
@@ -1411,6 +1572,248 @@ def phase_serve_lowbit(params) -> dict:
         got = _serve_paged(label, params, LOWBIT_PAGED, dtype, int4, plain_flags={})
         for k, v in got.items():
             total[k] += v
+    return total
+
+
+class _SpecRecorder:
+    """Wraps an engine's speculative round and its backend's ``verify``:
+    each round's time (synchronised), the argmax of its verify logits and
+    the tokens each slot emitted in it.  With ``check_steps`` the verify
+    logits of the first round with ``full`` slots active (the 4 slots of
+    (a); 4 of (d)'s 16, whose requests prefill a chunk a step) are also held
+    against single decode steps through the attention's plain version
+    (``_verify_vs_steps``); that round is left out of the times."""
+
+    def __init__(self, label: str, eng, check_steps: bool, full: int):
+        self.label, self.eng, self.rounds, self.step_rel = label, eng, [], None
+        self.check_steps, self.full = check_steps, full
+        self.orig_verify, self.orig_round = eng._backend.verify, eng._speculative_round
+        eng._backend.verify, eng._speculative_round = self._verify, self._round
+
+    def _verify(self, params, cand, positions, active):
+        logits = self.orig_verify(params, cand, positions, active)
+        self.rounds[-1]["argmax"] = logits.argmax(-1).cpu().numpy()
+        if self.check_steps and self.step_rel is None and int(np.sum(active)) >= self.full:
+            self.step_rel = _verify_vs_steps(self.label, self.eng, params, cand, positions, active, logits)
+            self.rounds[-1]["checked"] = True
+        return logits
+
+    def _round(self):
+        before = {s: (r, len(r.output)) for s, r in self.eng.active.items()}
+        self.rounds.append({})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.orig_round()
+        torch.cuda.synchronize()
+        rd = self.rounds[-1]
+        rd["s"] = time.perf_counter() - t
+        rd["emitted"] = {s: r.output[n0:] for s, (r, n0) in before.items()}
+        return out
+
+    def restore(self) -> None:
+        del self.eng._backend.verify, self.eng._speculative_round
+
+    def summary(self) -> dict:
+        """Checks every emitted token against its round's verify argmax
+        (raises where one differs) and returns the rounds' times."""
+        if self.check_steps and self.step_rel is None:
+            raise RuntimeError(f"{self.label}: no round had {self.full} slots active to check")
+        for i, rd in enumerate(self.rounds):
+            for slot, emitted in rd["emitted"].items():
+                if not emitted or emitted != rd["argmax"][slot, : len(emitted)].tolist():
+                    raise RuntimeError(f"{self.label}: round {i}, slot {slot} emitted {emitted}, "
+                                       f"not the verify argmax {rd['argmax'][slot].tolist()}")
+        timed = [rd for rd in self.rounds if not rd.get("checked")]
+        secs = sum(rd["s"] for rd in timed)
+        toks = sum(len(e) for rd in timed for e in rd["emitted"].values())
+        return {"rounds_timed": len(timed), "ms_per_round": 1e3 * secs / max(1, len(timed)),
+                "decode_tok_s": toks / secs if secs else None,
+                "tokens_per_round": toks / max(1, len(timed)),
+                "verify_vs_steps_rel_err": self.step_rel}
+
+
+def _verify_vs_steps(label: str, eng, params, cand, positions, active, vlogits) -> float:
+    """The verify logits of every active slot at each position t against
+    one decode step at that position through the attention's plain version
+    (K4's or K10's), on the cache the verify pass wrote (each step rewrites
+    its own row); the lengths are put back after.  Raises past the 5% bar
+    of the K8, K9 and K10 steps; returns the worst relative error."""
+    backend = eng._backend
+    slots = np.flatnonzero(active)
+    paged = backend.name == "paged"
+    if paged:
+        attr = "paged_decode_attention"
+
+        def plain(q, k, v, lengths, table, *, k_scale_pages, v_scale_pages, pages_per_block):
+            return paged_decode_attention_plain(q, k, v, lengths, table, k_scale_pages, v_scale_pages)
+    else:
+        attr = "decode_attention"
+
+        def plain(q, k, v, lengths, *, k_scale, v_scale):
+            return decode_attention_plain(q, k, v, lengths, k_scale, v_scale)
+
+    def set_lengths(n):
+        if paged:
+            backend.alloc.lengths[slots] = n
+        else:
+            for cache in backend.caches:
+                cache.lengths[torch.as_tensor(slots, device="cuda")] = torch.as_tensor(
+                    n, dtype=torch.int32, device="cuda")
+
+    kernel = getattr(backends, attr)
+    worst = 0.0
+    rels = []
+    for t in range(cand.shape[1]):
+        set_lengths(positions[slots] + t)
+        setattr(backends, attr, plain)
+        try:
+            step = backend.decode(params, cand[:, t], active)
+        finally:
+            setattr(backends, attr, kernel)
+        ref = vlogits[slots, t]
+        rel = torch.linalg.vector_norm(step[slots] - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+        rels.append(rel.tolist())
+        worst = max(worst, float(rel.max()))
+        if not bool(torch.isfinite(ref).all()):
+            raise RuntimeError(f"{label}: verify logits are not finite")
+    set_lengths(positions[slots] if paged else positions[slots] + cand.shape[1])
+    log(f"{label} verify_vs_steps rel_err={rels} bound={DECODE_K8_REL_BOUND}")
+    if not worst < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"{label}: verify logits off single steps by {worst} relative")
+    return worst
+
+
+def _spec_prompts(cfg, lens, seed: int, shared: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, cfg.vocab_size, shared).tolist()
+    return [head + rng.integers(0, cfg.vocab_size, n - shared).tolist() for n in lens]
+
+
+def _spec_run(label: str, tree, cfg, prompts, new: int, engine_kw: dict, draft, check_steps: bool) -> dict:
+    """Serve ``prompts`` greedily (``new`` tokens each) on an engine of
+    ``engine_kw`` with the draft ``draft`` (or none), the launch counts
+    reset just before and read just after.  With a draft: rounds timed and
+    checked by ``_SpecRecorder``; without: the single-step path's decode
+    steps timed.  Checks every request's length.  Returns the record."""
+    spec = {} if draft is None else {"draft": draft, "spec_tokens": SPEC["gamma"]}
+    eng = Engine(tree, cfg, device="cuda", **engine_kw, **spec)
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    rec_spec = None if draft is None else _SpecRecorder(label, eng, check_steps,
+                                                         min(SPEC["slots"], len(reqs)))
+    backend = eng._backend
+    timer = {"s": 0.0}
+    orig_decode = backend.decode
+
+    def timed_decode(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_decode(*args)
+        torch.cuda.synchronize()
+        timer["s"] += time.perf_counter() - t
+        return out
+
+    backend.decode = timed_decode
+    _reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    del backend.decode
+    stats = dict(eng.stats)
+    rec = {"stats": stats, "launches": launches, "wall_s": wall}
+    if rec_spec is not None:
+        rec_spec.restore()
+        rec.update(rec_spec.summary())
+        rec["acceptance"] = stats["spec_accepted"] / max(1, stats["spec_proposed"])
+    else:
+        rec["decode_ms_per_step"] = 1e3 * timer["s"] / max(1, stats["decode_steps"])
+        rec["decode_tok_s"] = (stats["generated_tokens"] - len(reqs)) / timer["s"] if timer["s"] else None
+    for r in reqs:
+        if not r.done or len(r.output) != new:
+            raise RuntimeError(f"{label}: request {r.id} ended with {len(r.output)} of {new} tokens")
+    if backend.name == "paged":
+        pool = backend.alloc
+        rec["pages_in_use_after"] = pool.num_pages - pool.free_pages - pool.evictable_pages
+        if rec["pages_in_use_after"] != 0:
+            raise RuntimeError(f"{label}: {rec['pages_in_use_after']} pages in use after the last release")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_speculative(params) -> dict:
+    """Speculative decoding end to end on Llama-3-8B (the bf16 tree, and
+    its int8 fused tree on the paged backend) with a draft at
+    Llama-3.2-1B's widths (``DRAFT_1B``), greedy, spec_tokens = 4:
+    (a) the slots backend, int8 cache, the engine phase's 4 slots and 6
+    prompts, 64 new tokens: K1, K4 verify (T = 5), K4 T = 1 at D = 64 for
+    the draft; (b) the target as its own draft, 2 requests; (c) (a) with
+    ``kv_int4`` and with a float16 cache, 2 requests each; (d) the int8
+    fused tree on the paged backend at serve_paged_prefix_16's geometry,
+    33 new tokens: K10 verify, K5, K6 and K8 at 80 rows; (e) (d)'s tree as
+    its own draft, 2 requests: rounds with accepted proposals over K10.
+    Each run beside the same engine without a draft (its single-step
+    path).  Checks: every request's length, every emitted token the argmax
+    of its round's verify logits, (a) and (d)'s first-round verify logits
+    within 5% of single steps through the plain attention, (d) and (e)'s
+    pages all released, (e) accepting proposals, and verify launches of K4
+    and K10.  Returns the launches of the draft runs."""
+    t_phase = time.perf_counter()
+    cfg = llama.llama3_8b()
+    dcfg = llama.LlamaConfig(**DRAFT_1B)
+    draft = llama.init_params(torch.Generator("cuda").manual_seed(1), dcfg, "cuda")
+    slots_kw = {"num_slots": SPEC["slots"], "max_len": SPEC["max_len"], "cache_dtype": torch.int8}
+    prompts = _spec_prompts(cfg, SERVE_PROMPTS, seed=0)
+    few = prompts[: SPEC["few"]]
+    runs = [("spec_slots", params, prompts, slots_kw, (draft, dcfg), True),
+            ("spec_self_draft", params, few, slots_kw, (params, cfg), False),
+            ("spec_kv_int4", params, few, dict(slots_kw, kv_int4=True), (draft, dcfg), False),
+            ("spec_f16_cache", params, few, dict(slots_kw, cache_dtype=torch.float16), (draft, dcfg), False)]
+    total = {}
+    for label, tree, ps_, kw, drf, check in runs:
+        base = _spec_run(label + "_base", tree, cfg, ps_, SPEC["new"], kw, None, False)
+        got = _spec_run(label, tree, cfg, ps_, SPEC["new"], kw, drf, check)
+        got["no_draft"] = {k: base[k] for k in ("decode_ms_per_step", "decode_tok_s", "wall_s")}
+        log(f"{label} " + json.dumps(got))
+        if got["launches"]["k4_verify"] < cfg.num_layers * got["stats"]["spec_rounds"]:
+            raise RuntimeError(f"{label}: K4 verify ran {got['launches']['k4_verify']} times")
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree = quantized.fuse_projections(quantized.quantize_params(params))
+    shape = SPEC_PAGED
+    paged_kw = {"num_slots": shape["slots"], "max_len": shape["max_len"], "cache_dtype": torch.int8,
+                "cache_backend": "paged", "page_size": shape["page_size"], "num_pages": shape["num_pages"],
+                "prefill_chunk": shape["chunk"], "prefix_cache": True}
+    pprompts = _spec_prompts(cfg, [shape["prompt"]] * shape["slots"], seed=16, shared=shape["shared"])
+    base = _spec_run("spec_paged_base", tree, cfg, pprompts, shape["new"], paged_kw, None, False)
+    got = _spec_run("spec_paged", tree, cfg, pprompts, shape["new"], paged_kw, (draft, dcfg), True)
+    got["no_draft"] = {k: base[k] for k in ("decode_ms_per_step", "decode_tok_s", "wall_s")}
+    log("spec_paged " + json.dumps(got))
+    lp = got["launches"]
+    if lp["k10_verify"] < cfg.num_layers * got["stats"]["spec_rounds"] or not (lp["k8"] and lp["k5"] + lp["k6"]):
+        raise RuntimeError(f"spec_paged: verify did not run K10, K5/K6 and K8: {lp}")
+    for k, v in lp.items():
+        total[k] = total.get(k, 0) + v
+    # (e) The int8 tree as its own draft on the paged backend, 2 requests:
+    # rounds with accepted proposals, which the pages roll back past.
+    few = pprompts[: SPEC["few"]]
+    base = _spec_run("spec_paged_self_draft_base", tree, cfg, few, shape["new"], paged_kw, None, False)
+    got = _spec_run("spec_paged_self_draft", tree, cfg, few, shape["new"], paged_kw, (tree, cfg), False)
+    got["no_draft"] = {k: base[k] for k in ("decode_ms_per_step", "decode_tok_s", "wall_s")}
+    log("spec_paged_self_draft " + json.dumps(got))
+    lp = got["launches"]
+    if lp["k10_verify"] < cfg.num_layers * got["stats"]["spec_rounds"] or not got["stats"]["spec_accepted"]:
+        raise RuntimeError(f"spec_paged_self_draft: no accepted round over K10: {got['stats']}, {lp}")
+    for k, v in lp.items():
+        total[k] = total.get(k, 0) + v
+    del tree, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"spec_phase wall_s={time.perf_counter() - t_phase:.1f}")
     return total
 
 
@@ -2247,11 +2650,12 @@ def phase_serve_int8_64(params) -> dict:
 
 def _paged_pool(gen, kind: str, ps: int, pool: int, hkv: int, d: int):
     """K and V pages of a pool: int8 or e4m3 with token scales, token-packed
-    int4 (pages of ps/2 byte rows) with token scales, or bf16."""
+    int4 (pages of ps/2 byte rows) with token scales, or bf16, fp16 or
+    fp32."""
     kf = _randn((hkv, pool, ps, d), gen, torch.float32)
     vf = _randn((hkv, pool, ps, d), gen, torch.float32)
-    if kind == "bf16":
-        return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    if kind in FLOAT_CACHES:
+        return kf.to(FLOAT_CACHES[kind]), vf.to(FLOAT_CACHES[kind]), None, None
     if kind == "int4":
         (k, ks), (v, vs) = (quant.quantize_int4_values(x, reduction_dim=-1) for x in (kf, vf))
         return quant.pack_int4(k, axis=2), quant.pack_int4(v, axis=2), ks, vs
@@ -2321,7 +2725,7 @@ def phase_k10(gen) -> dict:
         pps = K10_MAX_LEN // ps
         pool = b * pps + K10_SPARE_PAGES
         table = torch.from_numpy(rng.permutation(pool)[: b * pps].reshape(b, pps).astype(np.int32)).cuda()
-        kinds = ("int8", "bf16", "int4", "e4m3") if ps == PAGED16["page_size"] else ("int8", "bf16")
+        kinds = VERIFY_KINDS if ps == PAGED16["page_size"] else ("int8", "bf16")
         for kind in kinds:
             k, v, ks, vs = _paged_pool(gen, kind, ps, pool, hkv, d)
             args = (q, k, v, lens, table)
@@ -2378,13 +2782,86 @@ def phase_k10(gen) -> dict:
     for dw in ANY_WIDTHS:
         hq_w, hkv_w = ((D96_MODEL["num_q_heads"], D96_MODEL["num_kv_heads"]) if dw == 96
                        else (D256_MODEL["num_q_heads"], D256_MODEL["num_kv_heads"]))
-        kinds = ("int8", "bf16", "int4", "e4m3") if dw in LOWBIT_WIDTHS else ("int8", "bf16")
+        kinds = VERIFY_KINDS if dw in LOWBIT_WIDTHS else ("int8", "bf16")
         worst = max(worst, _k10_case(gen, dw, hq_w, hkv_w, 128, "k10_width", kinds))
+    vworst, verify = _k10_verify(gen)
     # The JSON line: the serving point's pages (int8, 128 tokens). No
     # PyTorch call reads an int8 page pool through a table.
     pick = recs[PAGED16["page_size"], "int8"]
-    return {"max_abs_err": worst, "ms": pick["ms"], "plain_ms": pick["plain_ms"],
-            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None}
+    return {"max_abs_err": max(worst, vworst), "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None,
+            **verify}
+
+
+def _k10_verify(gen) -> tuple:
+    """K10 in verify mode (ops/paged.py:459-463 of the JAX package): 16
+    slots up to 1024 rows (one empty, one full, every other at least T)
+    over a shuffled pool of 128-token pages, T candidates a head, GQA
+    groups ``VERIFY_G`` over 8 KV heads, every page kind, against its plain
+    version; then at T = 5 over Llama-3-8B's heads the device time, cold,
+    by graph replay (int8 and bf16 pages; for bf16 SDPA with the (B, Hq, T,
+    S) mask over the same rows gathered contiguous, the gather untimed).
+    Returns (worst error, the JSON line's verify keys)."""
+    b, hkv, d, ps = K10_SLOTS, 8, 128, PAGED16["page_size"]
+    pps = K10_MAX_LEN // ps
+    pool = b * pps + K10_SPARE_PAGES
+    rng = np.random.default_rng(12)
+    lens_np = rng.integers(max(VERIFY_T), K10_MAX_LEN + 1, b)
+    lens_np[0], lens_np[1] = 0, K10_MAX_LEN
+    lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
+    table = torch.from_numpy(rng.permutation(pool)[: b * pps].reshape(b, pps).astype(np.int32)).cuda()
+    worst = 0.0
+    for t in VERIFY_T:
+        for g in VERIFY_G:
+            for kind in VERIFY_KINDS:
+                q = _randn((b, hkv * g, t, d), gen)
+                k, v, ks, vs = _paged_pool(gen, kind, ps, pool, hkv, d)
+                before = paged_decode_attention.verify_launches
+                out = paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
+                                             pages_per_block=1)
+                launched = paged_decode_attention.verify_launches - before
+                plain = paged_decode_attention_plain(q, k, v, lens, table, ks, vs)
+                torch.cuda.synchronize()
+                rec = _verify_check("k10_verify", {"pages": kind, "T": t, "G": g}, out, plain,
+                                    lens_np.tolist(), launched)
+                worst = max(worst, rec["max_abs_vs_plain"])
+                del q, k, v, ks, vs, out, plain
+    torch.cuda.empty_cache()
+    t, hq = VERIFY_TIMED_T, 32
+    times = {}
+    for kind in ("int8", "bf16"):
+        q = _randn((b, hq, t, d), gen)
+        pages = _paged_pool(gen, kind, ps, pool, hkv, d)
+        nbytes = sum(x.numel() * x.element_size() for x in pages if x is not None)
+        copies = [pages] + [tuple(None if x is None else x.clone() for x in pages)
+                            for _ in range(max(1, math.ceil(COLD_BYTES / nbytes)) - 1)]
+        library = None
+        if kind == "bf16":
+            rows = [(_gathered_rows(p[0], None, table)[0][1:], _gathered_rows(p[1], None, table)[0][1:])
+                    for p in copies]
+            mask = _verify_mask(lens[1:], t, hq, pps * ps)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ref = sdpa(q[1:], rows[0][0], rows[0][1], attn_mask=mask, enable_gqa=True)
+            got = paged_decode_attention(q, pages[0], pages[1], lens, table, pages_per_block=1)[1:]
+            log(f"k10_verify_library max_abs_vs_k10={max_abs(got, ref)}")
+            by_pool = {id(p[0]): r for p, r in zip(copies, rows)}
+
+            def library(kp, _vp, _ks, _vs):
+                kr, vr = by_pool[id(kp)]
+                return sdpa(q[1:], kr, vr, attn_mask=mask, enable_gqa=True)
+        row_bytes = d * pages[0].element_size() + (4 if pages[2] is not None else 0)
+        valid = int(lens_np.sum()) * hkv * 2 * row_bytes + 2 * q.numel() * 2 + table.numel() * 4
+        times[kind] = _verify_timing(
+            f"k10_verify_time pages={kind} T={t} G={hq // hkv}",
+            lambda kp, vp, ks, vs: paged_decode_attention(q, kp, vp, lens, table, k_scale_pages=ks,
+                                                          v_scale_pages=vs, pages_per_block=1),
+            lambda kp, vp, ks, vs: paged_decode_attention_plain(q, kp, vp, lens, table, ks, vs),
+            copies, valid, library)
+        del copies, pages, q
+    torch.cuda.empty_cache()
+    return worst, {"verify_ms": times["int8"]["ms"], "verify_plain_ms": times["int8"]["plain_ms"],
+                   "verify_bound_ms": times["int8"]["bound_ms"],
+                   "verify_library_ms": times["bf16"]["library_ms"], "verify_bf16_ms": times["bf16"]["ms"]}
 
 
 def _k10_case(gen, d: int, hq: int, hkv: int, ps: int, label: str, kinds=("int8", "bf16")) -> float:
@@ -2926,6 +3403,7 @@ def main() -> int:
     s64 = phase_serve_int8_64(params)
     paged = phase_serve_paged_prefix_16(params)
     phase_serve_lowbit(params)
+    spec = phase_speculative(params)
     phase_serve_d256()
     phase_d96()
     train = phase_train(params)
@@ -2935,7 +3413,7 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], **k1},
         {"name": "decode", "route": "cuda", "source": K4_SOURCE,
-         "replaces": K4_REPLACES, "launches": launches["k4"], **k4},
+         "replaces": K4_REPLACES, "launches": launches["k4"], "launches_verify": spec["k4_verify"], **k4},
         {"name": "flash_bwd_dq", "route": "cuda", "source": K23_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2"], **k23["dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
@@ -2951,9 +3429,9 @@ def main() -> int:
         {"name": "fused_decode_layer", "route": "cuda", "source": K9_SOURCE,
          "replaces": K9_REPLACES, "launches": s64["k9"], **k9},
         {"name": "paged_decode", "route": "cuda", "source": K10_SOURCE,
-         "replaces": K10_REPLACES, "launches": paged["k10"], **k10},
+         "replaces": K10_REPLACES, "launches": paged["k10"], "launches_verify": spec["k10_verify"], **k10},
     ]
-    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0 or k.get("launches_verify", 1) <= 0]
     if idle:
         raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

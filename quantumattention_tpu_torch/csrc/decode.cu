@@ -1,4 +1,5 @@
-// K4: one-token GQA decode attention over a ragged slot cache (sm_90a).
+// K4: GQA decode attention over a ragged slot cache, one query token a head
+// or T speculative candidates (sm_90a).
 //
 // Replaces the Pallas kernel quantumattention_tpu/ops/decode.py::_decode_kernel
 // (decode.py:56; host entry decode_attention, decode.py:321). Same math:
@@ -7,7 +8,12 @@
 // in fp32, P times the token's V scale rounded to bf16 for P.V with fp32
 // accumulation, a bf16 output, and exact zeros for a slot of length 0 (the
 // engine decodes over every slot, active or not). Queries are bf16 (the
-// wrapper rounds float32 and float16 ones, as K1 does).
+// wrapper rounds float32 and float16 ones, as K1 does; over an fp16 cache
+// it passes them as fp16, exactly). Multi-query mode (decode.py:359-363,
+// mask :176-200): T candidates a head, rows packed t-fastest, candidate t
+// seeing the rows below lengths[b] - (T - 1 - t). fp16 and fp32 caches
+// enter as JAX's kernel takes them (no scales): fp16 products with P
+// rounded to fp16, fp32 rows rounded to bf16 for bf16 products.
 //
 // What bounds it on the H100: bytes (each valid cache row of K and V read
 // once, 4 * G * D flops a row). It runs on the split-KV decode-attention
@@ -21,29 +27,31 @@
 // nibbles meet the query's columns [0, D/2), the high ones [D/2, D), and
 // give the output's columns in the same halves. Head dims: any multiple of
 // 8 up to 512, at the instantiated width 64/128/256/512; any GQA group
-// (more than 16 query heads a KV head are split over segments). The e4m3
-// and int4 instantiations are in decode_e4m3.cu and decode_int4.cu.
+// (more than 16 query rows a KV head are split over segments). The e4m3
+// and int4 instantiations are in decode_e4m3.cu and decode_int4.cu, the
+// fp16 and fp32 ones (shared with K10) in decode_f16.cu and decode_f32.cu.
 #include "decode_attn.cuh"
 
-// q (B, Hq, D) bf16; k, v (B, Hkv, Smax, D) of element kind `kind` (0 int8,
-// 1 e4m3, with fp32 token scales (B, Hkv, Smax); 2 bf16, scales null; 3
-// int4, rows of D/2 packed bytes, with token scales); lengths (B,) int32;
-// out (B, Hq, D) bf16; part_acc and part_ml fp32 scratch of the sizes
+// q (B, Hq, T, D) bf16 (fp16 for an fp16 cache); k, v (B, Hkv, Smax, D) of
+// element kind `kind` (0 int8, 1 e4m3, with fp32 token scales (B, Hkv,
+// Smax); 2 bf16, 5 fp16, 6 fp32, scales null; 3 int4, rows of D/2 packed
+// bytes, with token scales); lengths (B,) int32, counting the T candidates;
+// out (B, Hq, T, D) bf16; part_acc and part_ml fp32 scratch of the sizes
 // qa_decode_attn_plan gives. score_scale = sm_scale * log2(e).
 extern "C" int qa_decode(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* lengths, void* out, void* part_acc,
-                         void* part_ml, int B, int Hq, int Hkv, int Smax, int D, int kind,
+                         void* part_ml, int B, int Hq, int Hkv, int Smax, int D, int T, int kind,
                          float score_scale, void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
-  const bool scaled = kind != kKindBF16;
+  const bool scaled = kind != kKindBF16 && kind != kKindF16 && kind != kKindF32;
   if (kind == kKindI4T || scaled != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  cudaError_t err = plan(kind, B, Hq, Hkv, D, Smax, 0, &pl);
+  cudaError_t err = plan(kind, B, Hq, Hkv, D, T, Smax, 0, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q = q;
   p.ks = static_cast<const float*>(k_scale);
   p.vs = static_cast<const float*>(v_scale);
   p.lengths = static_cast<const int*>(lengths);
@@ -54,6 +62,7 @@ extern "C" int qa_decode(const void* q, const void* k, const void* v, const void
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.D = D;
+  p.T = T;
   p.smax = Smax;
   p.score_scale = score_scale;
   const int rows = B * Hkv * Smax;
@@ -63,6 +72,8 @@ extern "C" int qa_decode(const void* q, const void* k, const void* v, const void
     case kKindI8: err = run<kScoreScale, kKindI8>(pl, p, k, v, rows, o, s); break;
     case kKindF8: err = run_k4_e4m3(pl, p, k, v, rows, o, s); break;
     case kKindI4D: err = run_k4_int4(pl, p, k, v, rows, o, s); break;
+    case kKindF16: err = run_f16(pl, p, k, v, rows, o, s); break;
+    case kKindF32: err = run_f32(pl, p, k, v, rows, o, s); break;
     default: err = run_plain16(pl, p, k, v, rows, o, s); break;
   }
   return static_cast<int>(err);

@@ -1,5 +1,6 @@
 // The decode-attention core's merge kernel, its plan as a C entry point,
-// and its bf16 instantiations (csrc/decode_attn.cuh; K4 and K10 share them).
+// and its bf16 instantiations (csrc/decode_attn.cuh; K4 and K10 share them,
+// as they share the fp16 and fp32 ones of decode_f16.cu and decode_f32.cu).
 #include "decode_attn.cuh"
 
 namespace qa {
@@ -12,9 +13,11 @@ constexpr int kMergeCols = 32;  // output columns of a merge CTA
 // One CTA per (segment blockIdx.x of slot blockIdx.y, 32 output columns
 // blockIdx.z): the partials of the CTAs whose shares hold the segment's
 // tiles, in CTA order, O = sum_c 2^(m_c - M) acc_c / sum_c 2^(m_c - M) l_c;
-// zeros for an empty slot. A warp forms the weights 2^(m_c - M) of its
-// query rows in shared memory; then each thread sums its column of up to
-// four rows over the partials, the loads of all four issued together.
+// zeros for an empty slot; the segment's query rows are among its KV
+// head's G * T rows of the (B, Hq, T, D) output. A warp forms the weights
+// 2^(m_c - M) of its query rows in shared memory; then each thread sums its
+// column of up to four rows over the partials, the loads of all four
+// issued together.
 // Head-dim-packed int4 (p.half = W / 2) writes column f of its W-wide frame
 // to output column f (f < W/2) or D/2 + f - W/2, dropping the frame's
 // columns past D/2 in each half.
@@ -49,9 +52,9 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
     total += red[0][w];
     before += red[1][w];
   }
-  const int G = p.Hq / p.Hkv;
+  const int GT = p.Hq / p.Hkv * p.T;
   const int h = j / splits, qs = (j / p.csplits) % p.qsplits, cs = j % p.csplits;
-  const int rows = min(kMaxQRows, G - qs * kMaxQRows);
+  const int rows = min(kMaxQRows, GT - qs * kMaxQRows);
   const int cols = p.half ? p.vw : min(p.vw, p.D - cs * p.vw);
   const int col = blockIdx.z * kMergeCols + lane;
   if (blockIdx.z * kMergeCols >= cols) return;
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
     const int dh = p.D / 2, byte = ocol % p.half;
     ocol = byte < dh ? byte + (ocol >= p.half ? dh : 0) : -1;
   }
-  __nv_bfloat16* dst = out + (static_cast<size_t>(b) * p.Hq + h * G + qs * kMaxQRows) * p.D + ocol;
+  __nv_bfloat16* dst = out + (head_row(p, b, h) + qs * kMaxQRows) * p.D + ocol;
   const int tiles = len_tiles(slot_len(p, b));
   if (tiles == 0) {
     for (int q = warp; q < rows; q += kWarps)
@@ -144,16 +147,17 @@ cudaError_t run_plain16(const Plan& pl, const Params& p, const void* k, const vo
 }  // namespace qa
 
 // The plan of a decode-attention call (K4: smax = Smax, ps = 0; K10: smax =
-// pages_per_seq * page_size, ps = page_size) over a cache of element kind
-// `kind` (qa::dattn::Kind: 0 int8, 1 e4m3, 2 bf16, 3 head-dim-packed int4,
-// 4 token-packed int4): out[8] = CTAs, query splits, column splits, rows
+// pages_per_seq * page_size, ps = page_size) of T query tokens a head over
+// a cache of element kind `kind` (qa::dattn::Kind: 0 int8, 1 e4m3, 2 bf16,
+// 3 head-dim-packed int4, 4 token-packed int4, 5 fp16, 6 fp32): out[8] =
+// CTAs, query splits, column splits, rows
 // and columns of a split, segments a slot, TMA (1) or cp.async rows (0),
 // the instantiated width. The partials take (CTAs + B * segments) x rows x
 // columns fp32 (and x 2 for m, l). Returns a CUDA error code.
-extern "C" int qa_decode_attn_plan(int kind, int B, int Hq, int Hkv, int D, int smax, int ps,
+extern "C" int qa_decode_attn_plan(int kind, int B, int Hq, int Hkv, int D, int T, int smax, int ps,
                                    int* out) {
   qa::dattn::Plan pl;
-  const cudaError_t err = qa::dattn::plan(kind, B, Hq, Hkv, D, smax, ps, &pl);
+  const cudaError_t err = qa::dattn::plan(kind, B, Hq, Hkv, D, T, smax, ps, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = pl.ctas;
   out[1] = pl.qsplits;

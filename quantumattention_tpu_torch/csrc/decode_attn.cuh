@@ -2,13 +2,16 @@
 // slot cache) and K10 (csrc/paged.cu, KV pages through a page table),
 // sm_90a.
 //
-// Both compute one-token GQA decode attention: per (slot b, KV head h) the
-// G query heads of the group against the cache rows [0, lengths[b]), an
-// exp2 online softmax in fp32, P.V with fp32 accumulation, a bf16 output,
-// and exact zeros for a slot of length 0. They differ in the row source
-// (locate below) and in where a token scale enters (Mode). The cache
-// elements (Kind): int8 or e4m3 codes with fp32 token scales, bf16, or
-// int4 codes packed two a byte with token scales, in K4's slot cache along
+// Both compute GQA decode attention: per (slot b, KV head h) the G query
+// heads of the group, each with T query tokens (T = 1 for a decode step;
+// T > 1 verifies T speculative candidates, whose rows are packed
+// t-fastest, G * T rows, and candidate t sees the rows
+// [0, lengths[b] - (T - 1 - t))), against the cache rows [0, lengths[b]),
+// an exp2 online softmax in fp32, P.V with fp32 accumulation, a bf16
+// output, and exact zeros for a slot of length 0. They differ in the row
+// source (locate below) and in where a token scale enters (Mode). The cache
+// elements (Kind): int8 or e4m3 codes with fp32 token scales, bf16, fp16 or
+// fp32 rows, or int4 codes packed two a byte with token scales, in K4's slot cache along
 // the head dim (byte d: element d low, d + D/2 high; the S product splits
 // its depth in halves, the output columns of P.V come in the same halves)
 // and in K10's pages along a page's tokens (byte row i of a page of ps
@@ -17,7 +20,8 @@
 //
 // What bounds it on the H100: bytes. Every valid row of K and V is read
 // once (1 byte an element for int8 and e4m3, half a byte for int4, plus a
-// 4-byte scale) for 4 * G * D flops, far below the card's ~295 flops/byte.
+// 4-byte scale; 2 or 4 bytes for fp16 and fp32) for 4 * G * T * D flops,
+// far below the card's ~295 flops/byte.
 // The design:
 //  - a persistent grid, sized from the SM count and the kernel's occupancy
 //    (never from the lengths, so nothing is read back to the host and a
@@ -45,7 +49,10 @@
 //    columns are M). int8 and int4 codes become bf16 four at a time from
 //    32-bit shared loads on the integer and fp32 pipes (a nibble masked
 //    once a word), e4m3 codes by cvt.rn.f16x2.e4m3x2, exactly in every
-//    case; P's accumulators become P^T's B fragments by movmatrix.
+//    case; fp16 rows enter fp16 products (the query rounded to fp16 by the
+//    wrapper, exactly: it is bf16 already, and P rounded to fp16); fp32
+//    rows are rounded to bf16 in registers for the bf16 products; P's
+//    accumulators become P^T's B fragments by movmatrix.
 //    Rows past the length may hold any bits (NaN codes of e4m3 or bf16
 //    included): their scores are replaced by the mask value and their V
 //    words by zeros. Each warp keeps
@@ -56,8 +63,10 @@
 //    dependent launch sums each segment's partials in CTA order (bitwise
 //    repeatable) and writes the bf16 output, zeros for an empty slot.
 // The query rows of a segment are a runtime count up to 16 (more are split
-// over segments) and the mask is one column limit per query row, so a
-// multi-query or windowed mode changes only row_limit.
+// over segments: G * T rows give ceil(G * T / 16) query splits, each
+// reading the slot's rows once) and the mask is one column limit per query
+// row (row_shift), so the multi-query mode changes only the row count, the
+// q and output offsets and each row's shift.
 #pragma once
 
 #include <cstring>
@@ -85,13 +94,13 @@ constexpr int kMaxCtas = 256;          // CTAs of a call (the merge's weights a 
 enum Mode { kScoreScale = 0, kElemScale = 1, kPlain16 = 2 };
 
 // The cache elements (the kind codes of ops/decode.py): int8 and e4m3 rows
-// of D codes, bf16 rows of D values, int4 packed along the head dim (K4:
-// rows of D/2 bytes) or along a page's tokens (K10: byte rows of D, two
-// tokens each).
-enum Kind { kKindI8 = 0, kKindF8 = 1, kKindBF16 = 2, kKindI4D = 3, kKindI4T = 4 };
+// of D codes, bf16, fp16 and fp32 rows of D values, int4 packed along the
+// head dim (K4: rows of D/2 bytes) or along a page's tokens (K10: byte rows
+// of D, two tokens each).
+enum Kind { kKindI8 = 0, kKindF8 = 1, kKindBF16 = 2, kKindI4D = 3, kKindI4T = 4, kKindF16 = 5, kKindF32 = 6 };
 
 struct Params {
-  const __nv_bfloat16* q;  // (B, Hq, D)
+  const void* q;           // (B, Hq, T, D): bf16 (fp16 for kKindF16)
   const float* ks;         // token scales, or null
   const float* vs;
   const int* lengths;      // (B,)
@@ -101,6 +110,7 @@ struct Params {
   float* part_acc;         // (ctas + B * segs, qrows, ccols)
   float* part_ml;          // (ctas + B * segs, qrows, 2)
   int B, Hq, Hkv, D;
+  int T;                   // query tokens a head (1: decode; > 1: verify)
   int smax;                // rows a slot can hold (K4: Smax; K10: pps * ps)
   int P, ps, pps;          // K10's pool (ps in tokens)
   int qsplits, csplits;    // query-row splits of 16 and column splits of VW
@@ -113,16 +123,24 @@ struct Params {
   float score_scale;       // sm_scale * log2(e)
 };
 
-__host__ __device__ constexpr int elem_bytes(int kind) { return kind == kKindBF16 ? 2 : 1; }
+__host__ __device__ constexpr int elem_bytes(int kind) {
+  return kind == kKindF32 ? 4 : (kind == kKindBF16 || kind == kKindF16) ? 2 : 1;
+}
 
 // The columns a CTA of width W owns (V and the output): all of W up to 256
-// columns; at 512, 256 for 1-byte codes and 64 for bf16 (two or eight
-// column splits, each scoring the full width), so two stages of K and V
-// tiles fit the shared memory. Head-dim-packed int4 splits its output
-// columns in its two halves (low and high nibbles) at 512.
+// columns (fp32: up to 128); above, 256 for 1-byte codes and 64 for 2- and
+// 4-byte rows (two to eight column splits, each scoring the full width), so
+// two stages of K and V tiles fit the shared memory (fp32 at 512: one
+// stage, see ring_stages). Head-dim-packed int4 splits its output columns
+// in its two halves (low and high nibbles) at 512.
 __host__ __device__ constexpr int v_cols(int W, int kind) {
-  return W <= 256 ? W : (kind == kKindBF16 ? 64 : 256);
+  return kind == kKindF32 ? (W <= 128 ? W : 64) : W <= 256 ? W : (elem_bytes(kind) == 2 ? 64 : 256);
 }
+
+// The least stages a ring may have: two, so that a tile's copy overlaps
+// the one before's products; one for fp32 rows at 512, whose 64-row K tile
+// alone takes 128 KB.
+__host__ __device__ constexpr int min_stages(int W, int kind) { return kind == kKindF32 && W == 512 ? 1 : 2; }
 
 // Bytes of a cache row at width W, and of a K / V tile row in shared
 // memory (whole 128-byte swizzle spans). Head-dim-packed int4 stages the
@@ -173,7 +191,7 @@ struct Layout {
   static constexpr int kStages = ring_stages(W, KIND, NG);
   static constexpr int kSmem = smem_bytes(W, KIND, NG);
   static constexpr int kPerSm = kSmem <= kTwoPerSm ? 2 : 1;
-  static_assert(kStages >= 2 && kSmem <= kSmemCap, "two stages in the shared memory of one CTA");
+  static_assert(kStages >= min_stages(W, KIND) && kSmem <= kSmemCap, "the stages fit one CTA's shared memory");
 };
 
 // Tiles of slot b (rows [0, min(lengths[b], smax)) in 64-row tiles).
@@ -183,9 +201,23 @@ __device__ __forceinline__ int slot_len(const Params& p, int b) {
 
 __device__ __forceinline__ int len_tiles(int len) { return (len + kRows - 1) / kRows; }
 
-// The query rows' column limit: every row of a one-token decode sees the
-// slot's rows [0, len).
-__device__ __forceinline__ int row_limit(int len, int /*qrow*/) { return len; }
+// How far query row `qrow` of a KV head (rows packed t-fastest over the
+// G * T rows of every split) sits before the last candidate: candidate
+// t = qrow % T sees the slot's rows [0, len - (T - 1 - t)), so its column
+// limit is len minus this shift; a one-token decode (T = 1) has shift 0.
+// A limit <= 0 (only in an inactive slot shorter than T) masks every
+// column of its row, whose output is then an average of V rows that no
+// caller reads (JAX's kernel gives another average there; the tests leave
+// such rows out). Only verify mode's kernels (MULTI) take it, once a
+// segment: computed in the tile loop of every kernel it slowed the
+// one-token step (K10 by 4% on an H100).
+__device__ __forceinline__ int row_shift(const Params& p, int qrow) { return p.T - 1 - qrow % p.T; }
+
+// The first of KV head h's G * T query rows of slot b (rows of D), in the
+// (B, Hq, T, D) q and output.
+__device__ __forceinline__ size_t head_row(const Params& p, int b, int h) {
+  return (static_cast<size_t>(b) * p.Hq + static_cast<size_t>(h) * (p.Hq / p.Hkv)) * p.T;
+}
 
 // Where slot b's token r of KV head h lives: .x its row of the (rows, row
 // bytes) view of the cache or pool, .y its token scale's index. K4: row
@@ -358,6 +390,25 @@ __device__ __forceinline__ void codes_to_bf16(uint32_t v, float sa, float sb, ui
   }
 }
 
+// The 16-bit products of kind KIND: fp16 for fp16 rows, bf16 for the rest
+// (codes converted exactly, fp32 rows rounded).
+template <int KIND>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (KIND == kKindF16) {
+    mma_f16(c, a, b0, b1);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+template <int KIND>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (KIND == kKindF16) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
 // The nibbles of a packed int4 word at shift `sh` (0 low, 4 high), one a byte.
 __device__ __forceinline__ uint32_t nibbles(uint32_t v, int sh) { return (v >> sh) & 0x0F0F0F0Fu; }
 
@@ -402,15 +453,17 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // ---------------------------------------------------------------------------
 // The kernel. Grid: p.ctas CTAs of kThreads; warps 0-3 consume, warp 4
 // produces. W: the instantiated width; NG: query rows of a segment rounded
-// up to 8 or 16; MODE and KIND above.
+// up to 8 or 16; MODE and KIND above; MULTI: T > 1 (verify mode, the
+// per-row shifts), so that a one-token step runs no code of that mode.
 // ---------------------------------------------------------------------------
 
-template <int W, int NG, int MODE, int KIND>
+template <int W, int NG, int MODE, int KIND, bool MULTI>
 __global__ void __launch_bounds__(kThreads, Layout<W, KIND, NG>::kPerSm)
 decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                    const Params p) {
   constexpr int E = elem_bytes(KIND);
-  constexpr bool kFloatCodes = KIND == kKindF8 || KIND == kKindBF16;  // rows may hold NaN bits
+  constexpr int kMapE = KIND == kKindBF16 ? 2 : 1;  // bytes of a tensor-map element (fp16, fp32: bytes)
+  constexpr bool kFloatCodes = KIND == kKindF8;     // 1-byte codes that may hold NaN bits
   using L = Layout<W, KIND, NG>;
   constexpr int kVW = L::kVW;
   constexpr int kNT = NG / 8;    // query n-tiles of 8
@@ -497,12 +550,12 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
             for (int bx = 0; bx < nbox; ++bx) {
 #pragma unroll
               for (int c = 0; c < L::kKRow / 128; ++c)
-                tma_load_2d(kt + c * kRows * 128 + bx * kBox * 128, &tm_k, &full[s], c * (128 / E),
+                tma_load_2d(kt + c * kRows * 128 + bx * kBox * 128, &tm_k, &full[s], c * (128 / kMapE),
                             rows[bx]);
 #pragma unroll
               for (int c = 0; c < L::kVRow / 128; ++c)
                 tma_load_2d(vt + c * kRows * 128 + bx * kBox * 128, &tm_v, &full[s],
-                            vcol * cs * kVW + c * (128 / E), rows[bx]);
+                            vcol * cs * kVW * E / kMapE + c * (128 / kMapE), rows[bx]);
               if constexpr (MODE == kElemScale) {
                 bulk_load(st + bx * kBox, p.ks + srows[bx], kBox * 4, &full[s]);
                 bulk_load(st + kRows + bx * kBox, p.vs + srows[bx], kBox * 4, &full[s]);
@@ -536,7 +589,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   // rows wrow + 2t, +1, +8, +9.
   const int g = lane >> 2, t = lane & 3;
   const int wrow = warp * kBox;
-  const int G = p.Hq / p.Hkv;
+  const int GT = p.Hq / p.Hkv * p.T;  // query rows of a KV head
 
   // A segment's query rows into query buffer `buf` by cp.asyncs: zero rows
   // up to NG, zero columns past D. Head-dim-packed int4 meets the low
@@ -545,8 +598,9 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   // second, 4 at a time (D/2 is a multiple of 4).
   auto load_q = [&](const TileIt& x, int buf) {
     const int h = x.j / splits, qs = (x.j / p.csplits) % p.qsplits;
-    const int rows = min(kMaxQRows, G - qs * kMaxQRows);
-    const __nv_bfloat16* src = p.q + (static_cast<size_t>(x.b) * p.Hq + h * G + qs * kMaxQRows) * p.D;
+    const int rows = min(kMaxQRows, GT - qs * kMaxQRows);
+    const __nv_bfloat16* src =
+        static_cast<const __nv_bfloat16*>(p.q) + (head_row(p, x.b, h) + qs * kMaxQRows) * p.D;
     unsigned char* dst = qbuf + buf * L::kQBytes;
     if constexpr (KIND == kKindI4D) {
       const int dh = p.D / 2;
@@ -594,6 +648,19 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
     }
   };
   reset();
+  // Verify mode: this lane's query rows' shifts (row_shift) in the current
+  // segment.
+  int shift[kNT][2];
+  auto set_shift = [&](const TileIt& x) {
+    if constexpr (MULTI) {
+      const int qs = (x.j / p.csplits) % p.qsplits;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) shift[j][e] = row_shift(p, qs * kMaxQRows + 8 * j + 2 * t + e);
+    }
+  };
+  set_shift(it);
   int qcur = 0;
   load_q(it, 0);
   float sc[4] = {0.f, 0.f, 0.f, 0.f}, sc_next[4] = {0.f, 0.f, 0.f, 0.f};
@@ -618,7 +685,6 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       const unsigned char* kt = ring + s * L::kStage;
       const unsigned char* vt = kt + L::kKTile;
       const unsigned char* qsm = qbuf + qcur * L::kQBytes;
-      const int qs = (it.j / p.csplits) % p.qsplits;
       const int cs = it.j % p.csplits;
       // K10's scales of rows g, g + 8 (K) and 2t, 2t + 1, 2t + 8, 2t + 9
       // (V), zero past the length (the box's rows there may hold any bits).
@@ -685,6 +751,14 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
             }
             codes_to_bf16<KIND, MODE == kElemScale>(wa, ksa, ksa, a[0], a[2]);
             codes_to_bf16<KIND, MODE == kElemScale>(wb, ksb, ksb, a[1], a[3]);
+          } else if constexpr (E == 4) {
+            // fp32 rows: depth 4t .. 4t + 3 of the step, rounded to bf16.
+            const float4 xa = *reinterpret_cast<const float4*>(kt + tile_off(ra, kk * 64 + 16 * t));
+            const float4 xb = *reinterpret_cast<const float4*>(kt + tile_off(rb, kk * 64 + 16 * t));
+            a[0] = pack_bf16(xa.x, xa.y);
+            a[2] = pack_bf16(xa.z, xa.w);
+            a[1] = pack_bf16(xb.x, xb.y);
+            a[3] = pack_bf16(xb.z, xb.w);
           } else {
             const uint2 xa = *reinterpret_cast<const uint2*>(kt + tile_off(ra, kk * 32 + 8 * t));
             const uint2 xb = *reinterpret_cast<const uint2*>(kt + tile_off(rb, kk * 32 + 8 * t));
@@ -696,7 +770,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
 #pragma unroll
           for (int j = 0; j < kNT; ++j) {
             const uint2 qv = *reinterpret_cast<const uint2*>(qsm + (8 * j + g) * L::kQStride + (kk * 16 + 4 * t) * 2);
-            mma_bf16(kk & 1 ? sodd[j] : sacc[j], a, qv.x, qv.y);
+            mma16<KIND>(kk & 1 ? sodd[j] : sacc[j], a, qv.x, qv.y);
           }
         }
       }
@@ -714,7 +788,8 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
         float pv[2][2];  // [row a / b][query e]
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int lim = row_limit(it.len, qs * kMaxQRows + 8 * j + 2 * t + e);
+          int lim = it.len;
+          if constexpr (MULTI) lim -= shift[j][e];
           float x0 = sacc[j][e] * p.score_scale, x1 = sacc[j][2 + e] * p.score_scale;
           if constexpr (MODE == kScoreScale) {
             x0 *= sc[0];
@@ -744,8 +819,8 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
             pv[1][e] = p1;
           }
         }
-        pb[j][0] = movmatrix_trans(pack_bf16(pv[0][0], pv[0][1]));
-        pb[j][1] = movmatrix_trans(pack_bf16(pv[1][0], pv[1][1]));
+        pb[j][0] = movmatrix_trans(pack16<KIND>(pv[0][0], pv[0][1]));
+        pb[j][1] = movmatrix_trans(pack16<KIND>(pv[1][0], pv[1][1]));
       }
 
       // O^T += V^T . P^T: output columns 32cb + 4g .. +3 of the split are
@@ -795,6 +870,29 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
           codes_to_bf16<KIND, kScaled>(y1, vs0, vs1, a1[0], a1[1]);
           codes_to_bf16<KIND, kScaled>(y8, vs8, vs9, a0[2], a0[3]);
           codes_to_bf16<KIND, kScaled>(y9, vs8, vs9, a1[2], a1[3]);
+        } else if constexpr (E == 4) {
+          // fp32 rows: columns 4g .. 4g + 3 of the 32, rounded to bf16 (rows
+          // past the length may hold any bits: zeroed).
+          const int col = 128 * cb + 16 * g;
+          float4 x0 = *reinterpret_cast<const float4*>(vt + tile_off(v0, col));
+          float4 x1 = *reinterpret_cast<const float4*>(vt + tile_off(v0 + 1, col));
+          float4 x8 = *reinterpret_cast<const float4*>(vt + tile_off(v0 + 8, col));
+          float4 x9 = *reinterpret_cast<const float4*>(vt + tile_off(v0 + 9, col));
+          if (partial) {
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            x0 = 2 * t < nvalid ? x0 : z;
+            x1 = 2 * t + 1 < nvalid ? x1 : z;
+            x8 = 2 * t + 8 < nvalid ? x8 : z;
+            x9 = 2 * t + 9 < nvalid ? x9 : z;
+          }
+          a0[0] = pack_bf16(x0.x, x1.x);
+          a0[1] = pack_bf16(x0.y, x1.y);
+          a0[2] = pack_bf16(x8.x, x9.x);
+          a0[3] = pack_bf16(x8.y, x9.y);
+          a1[0] = pack_bf16(x0.z, x1.z);
+          a1[1] = pack_bf16(x0.w, x1.w);
+          a1[2] = pack_bf16(x8.z, x9.z);
+          a1[3] = pack_bf16(x8.w, x9.w);
         } else {
           const int col = 64 * cb + 8 * g;
           uint2 x0 = *reinterpret_cast<const uint2*>(vt + tile_off(v0, col));
@@ -819,8 +917,8 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
         }
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
-          mma_bf16(o[2 * cb][j], a0, pb[j][0], pb[j][1]);
-          mma_bf16(o[2 * cb + 1][j], a1, pb[j][0], pb[j][1]);
+          mma16<KIND>(o[2 * cb][j], a0, pb[j][0], pb[j][1]);
+          mma16<KIND>(o[2 * cb + 1][j], a1, pb[j][0], pb[j][1]);
         }
       }
     }
@@ -854,7 +952,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       }
       named_barrier(1, kConsumers * 32);
       const int qs = (it.j / p.csplits) % p.qsplits, cs = it.j % p.csplits;
-      const int rows = min(kMaxQRows, G - qs * kMaxQRows);
+      const int rows = min(kMaxQRows, GT - qs * kMaxQRows);
       const int cols = KIND == kKindI4D ? kVW : min(kVW, p.D - cs * kVW);
       const size_t piece = blockIdx.x + static_cast<size_t>(it.b) * segs + it.j;
       for (int i = threadIdx.x; i < rows * cols; i += kConsumers * 32) {
@@ -879,6 +977,7 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       named_barrier(1, kConsumers * 32);
       qcur ^= 1;
       reset();
+      set_shift(nx);
     }
     it = nx;
 #pragma unroll
@@ -897,19 +996,21 @@ struct Plan {
 };
 
 // Fills *pl for a call over B slots of Hq / Hkv heads, head dim D (a
-// multiple of 8 up to 512), elements of `kind`, `smax` rows a slot, and
-// (K10) pages of `ps` tokens (0 for K4). The grid: as many CTAs as the card
-// holds at once (two an SM where the shared memory allows), at most
-// kMaxCtas and one a tile of the most the slots can hold.
-inline cudaError_t plan(int kind, int B, int Hq, int Hkv, int D, int smax, int ps, Plan* pl) {
+// multiple of 8 up to 512), T query tokens a head, elements of `kind`,
+// `smax` rows a slot, and (K10) pages of `ps` tokens (0 for K4). A KV
+// head's G * T query rows are split into ceil(G * T / 16) query splits. The
+// grid: as many CTAs as the card holds at once (two an SM where the shared
+// memory allows), at most kMaxCtas and one a tile of the most the slots
+// can hold.
+inline cudaError_t plan(int kind, int B, int Hq, int Hkv, int D, int T, int smax, int ps, Plan* pl) {
   const int W = kernel_width(D);
-  if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || smax <= 0 || kind < kKindI8 || kind > kKindI4T ||
-      (kind == kKindI4T && (ps <= 0 || ps % 2 != 0)))
+  if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || T <= 0 || smax <= 0 || kind < kKindI8 ||
+      kind > kKindF32 || (kind == kKindI4T && (ps <= 0 || ps % 2 != 0)))
     return cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
+  const int GT = Hq / Hkv * T;
   pl->W = W;
-  pl->qsplits = (G + kMaxQRows - 1) / kMaxQRows;
-  pl->qrows = G < kMaxQRows ? G : kMaxQRows;
+  pl->qsplits = (GT + kMaxQRows - 1) / kMaxQRows;
+  pl->qrows = GT < kMaxQRows ? GT : kMaxQRows;
   pl->NG = pl->qrows <= 8 ? 8 : 16;
   pl->vw = v_cols(W, kind);
   pl->half = kind == kKindI4D ? W / 2 : 0;
@@ -933,10 +1034,11 @@ inline cudaError_t plan(int kind, int B, int Hq, int Hkv, int D, int smax, int p
 
 // Launches the kernel of plan `pl` and the merge. k, v: the cache or pool as
 // a (rows, row bytes) matrix.
-template <int W, int NG, int MODE, int KIND>
+template <int W, int NG, int MODE, int KIND, bool MULTI>
 cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat16* out,
                    cudaStream_t stream) {
   constexpr int E = elem_bytes(KIND);
+  constexpr int kMapE = KIND == kKindBF16 ? 2 : 1;  // fp16 and fp32 rows are mapped as bytes
   using L = Layout<W, KIND, NG>;
   constexpr int kMaxDevices = 64;
   // Raise the dynamic shared-memory limit once per device (not on every
@@ -946,26 +1048,36 @@ cudaError_t launch(Params p, const void* k, const void* v, int rows, __nv_bfloat
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
   if (err == cudaSuccess && !configured[dev]) {
-    err = cudaFuncSetAttribute(decode_attn_kernel<W, NG, MODE, KIND>,
+    err = cudaFuncSetAttribute(decode_attn_kernel<W, NG, MODE, KIND, MULTI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     configured[dev] = err == cudaSuccess;
   }
   CUtensorMap tm_k, tm_v;
   std::memset(&tm_k, 0, sizeof(tm_k));
   std::memset(&tm_v, 0, sizeof(tm_v));
-  const int code = E == 1 ? kI8 : kBF16;
-  const int cols = KIND == kKindI4D ? p.D / 2 : p.D;  // elements of a row
+  const int code = kMapE == 1 ? kI8 : kBF16;
+  const int cols = KIND == kKindI4D ? p.D / 2 : p.D * E / kMapE;  // map elements of a row
   if (err == cudaSuccess && p.tma)
-    err = tensor_map_2d(&tm_k, k, code, cols, rows, static_cast<size_t>(cols) * E, 128 / E, kBox, true);
+    err = tensor_map_2d(&tm_k, k, code, cols, rows, static_cast<size_t>(cols) * kMapE, 128 / kMapE, kBox,
+                        true);
   if (err == cudaSuccess && p.tma)
-    err = tensor_map_2d(&tm_v, v, code, cols, rows, static_cast<size_t>(cols) * E, 128 / E, kBox, true);
+    err = tensor_map_2d(&tm_v, v, code, cols, rows, static_cast<size_t>(cols) * kMapE, 128 / kMapE, kBox,
+                        true);
   if (err != cudaSuccess) return err;
   p.k = static_cast<const unsigned char*>(k);
   p.v = static_cast<const unsigned char*>(v);
-  decode_attn_kernel<W, NG, MODE, KIND><<<p.ctas, kThreads, L::kSmem, stream>>>(tm_k, tm_v, p);
+  decode_attn_kernel<W, NG, MODE, KIND, MULTI><<<p.ctas, kThreads, L::kSmem, stream>>>(tm_k, tm_v, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge(p, out, stream);
+}
+
+// The one-token or the verify-mode kernel, by T.
+template <int W, int NG, int MODE, int KIND>
+cudaError_t launch_t(const Params& p, const void* k, const void* v, int rows, __nv_bfloat16* out,
+                     cudaStream_t stream) {
+  return p.T > 1 ? launch<W, NG, MODE, KIND, true>(p, k, v, rows, out, stream)
+                 : launch<W, NG, MODE, KIND, false>(p, k, v, rows, out, stream);
 }
 
 // The kernel of `mode` and `kind` at the plan's width and query rows.
@@ -984,26 +1096,31 @@ cudaError_t run(const Plan& pl, Params p, const void* k, const void* v, int rows
   const bool wide = pl.NG == 16;
   switch (pl.W) {
     case 64:
-      return wide ? launch<64, 16, MODE, KIND>(p, k, v, rows, out, stream)
-                  : launch<64, 8, MODE, KIND>(p, k, v, rows, out, stream);
+      return wide ? launch_t<64, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch_t<64, 8, MODE, KIND>(p, k, v, rows, out, stream);
     case 128:
-      return wide ? launch<128, 16, MODE, KIND>(p, k, v, rows, out, stream)
-                  : launch<128, 8, MODE, KIND>(p, k, v, rows, out, stream);
+      return wide ? launch_t<128, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch_t<128, 8, MODE, KIND>(p, k, v, rows, out, stream);
     case 256:
-      return wide ? launch<256, 16, MODE, KIND>(p, k, v, rows, out, stream)
-                  : launch<256, 8, MODE, KIND>(p, k, v, rows, out, stream);
+      return wide ? launch_t<256, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch_t<256, 8, MODE, KIND>(p, k, v, rows, out, stream);
     default:
-      return wide ? launch<512, 16, MODE, KIND>(p, k, v, rows, out, stream)
-                  : launch<512, 8, MODE, KIND>(p, k, v, rows, out, stream);
+      return wide ? launch_t<512, 16, MODE, KIND>(p, k, v, rows, out, stream)
+                  : launch_t<512, 8, MODE, KIND>(p, k, v, rows, out, stream);
   }
 }
 
 // The instantiations, one source each so that nvcc builds them in
-// parallel: the bf16 caches of K4 and K10 (csrc/decode_attn.cu); K4's
-// int8, e4m3 and int4 (csrc/decode.cu, decode_e4m3.cu, decode_int4.cu);
-// K10's (csrc/paged.cu, paged_e4m3.cu, paged_int4.cu).
+// parallel: the bf16, fp16 and fp32 caches of K4 and K10 (csrc/decode_attn.cu,
+// decode_f16.cu, decode_f32.cu: the two kernels share them); K4's int8,
+// e4m3 and int4 (csrc/decode.cu, decode_e4m3.cu, decode_int4.cu); K10's
+// (csrc/paged.cu, paged_e4m3.cu, paged_int4.cu).
 cudaError_t run_plain16(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
                         __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_f16(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                    __nv_bfloat16* out, cudaStream_t stream);
+cudaError_t run_f32(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
+                    __nv_bfloat16* out, cudaStream_t stream);
 cudaError_t run_k4_e4m3(const Plan& pl, const Params& p, const void* k, const void* v, int rows,
                         __nv_bfloat16* out, cudaStream_t stream);
 cudaError_t run_k4_int4(const Plan& pl, const Params& p, const void* k, const void* v, int rows,

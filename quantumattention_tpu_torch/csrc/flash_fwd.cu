@@ -186,11 +186,6 @@ __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // scaling: 0 none, 1 head-wise (B, H), 2 token-wise (B, H, S). v8: an e4m3
 // V (B, Hkv, Skv, D) that the producer widens, or null when tm_v maps a
 // 16-bit V. pv_f16: P.V in fp16 (V is fp16), else bf16. m_out / l_out
@@ -398,7 +393,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
-            pa[kk][r] = pv_f16 ? pack_f16(x0, x1) : qa::pack_bf16(x0, x1);
+            pa[kk][r] = pv_f16 ? qa::pack_f16(x0, x1) : qa::pack_bf16(x0, x1);
           }
         }
         qa::mbar_wait(&full_v[s], ph);

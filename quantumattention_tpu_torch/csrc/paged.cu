@@ -1,5 +1,5 @@
-// K10: one-token GQA decode attention over KV pages gathered through a
-// page table (sm_90a).
+// K10: GQA decode attention over KV pages gathered through a page table,
+// one query token a head or T speculative candidates (sm_90a).
 //
 // Replaces the Pallas kernel quantumattention_tpu/ops/paged.py::_paged_kernel
 // (paged.py:77; host entry paged_decode_attention, paged.py:413). Same math
@@ -7,7 +7,9 @@
 // bf16 (int8, e4m3 or int4 code times the row's fp32 scale, rounded once;
 // bf16 pages as they are), scores q.k in fp32 times sm_scale * log2(e)
 // (queries rounded to bf16 by the wrapper), rows at or past
-// lengths[slot] masked with MASK_VALUE, an exp2 online softmax with fp32
+// lengths[slot] masked with MASK_VALUE (in multi-query mode, paged.py:459-463,
+// mask :261-271, candidate t of T, rows packed t-fastest, also the rows at
+// or past lengths[slot] - (T - 1 - t)), an exp2 online softmax with fp32
 // m, l and accumulator, the unnormalized P rounded to bf16 for P.V, the
 // division by l at the end, and exact zeros for a slot of length 0.
 //
@@ -27,34 +29,37 @@
 // token taking its nibble. Page sizes: any (even for int4); a 16-token box
 // that stays inside a page (and inside its half, for int4: ps % 32 == 0)
 // goes by TMA, other sizes row by row by cp.async. Head dims: any multiple
-// of 8 up to 512; any GQA group (more than 16 query heads a KV head are
+// of 8 up to 512; any GQA group (more than 16 query rows a KV head are
 // split over segments). The e4m3 and int4 instantiations are in
-// paged_e4m3.cu and paged_int4.cu.
+// paged_e4m3.cu and paged_int4.cu; fp16 and fp32 pages (no scales, as the
+// JAX kernel takes unquantized pages) run the instantiations of
+// decode_f16.cu and decode_f32.cu, which K4 shares.
 #include "decode_attn.cuh"
 
-// q (B, Hq, D) bf16; k, v (Hkv, P, ps, D) of element kind `kind` (0 int8, 1
-// e4m3, with fp32 token scales (Hkv, P, ps); 2 bf16, scales null; 4 int4,
-// pages (Hkv, P, ps/2, D) token-packed, scales (Hkv, P, ps)); lengths (B,)
-// int32; table (B, pps) int32 page ids; out (B, Hq, D) bf16; part_acc and
-// part_ml fp32 scratch of the sizes qa_decode_attn_plan gives for smax =
-// pps * ps. score_scale = sm_scale * log2(e).
+// q (B, Hq, T, D) bf16 (fp16 for fp16 pages); k, v (Hkv, P, ps, D) of
+// element kind `kind` (0 int8, 1 e4m3, with fp32 token scales (Hkv, P, ps);
+// 2 bf16, 5 fp16, 6 fp32, scales null; 4 int4, pages (Hkv, P, ps/2, D)
+// token-packed, scales (Hkv, P, ps)); lengths (B,) int32, counting the T
+// candidates; table (B, pps) int32 page ids; out (B, Hq, T, D) bf16;
+// part_acc and part_ml fp32 scratch of the sizes qa_decode_attn_plan gives
+// for smax = pps * ps. score_scale = sm_scale * log2(e).
 extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* lengths, const void* table,
                                void* out, void* part_acc, void* part_ml, int B, int Hq, int Hkv,
-                               int P, int ps, int pps, int D, int kind, float score_scale,
+                               int P, int ps, int pps, int D, int T, int kind, float score_scale,
                                void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
-  const bool scaled = kind != kKindBF16;
+  const bool scaled = kind != kKindBF16 && kind != kKindF16 && kind != kKindF32;
   if (Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || pps <= 0 || P <= 0 || kind == kKindI4D ||
       scaled != (k_scale != nullptr && v_scale != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Plan pl;
-  cudaError_t err = plan(kind, B, Hq, Hkv, D, pps * ps, ps, &pl);
+  cudaError_t err = plan(kind, B, Hq, Hkv, D, T, pps * ps, ps, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q = q;
   p.ks = static_cast<const float*>(k_scale);
   p.vs = static_cast<const float*>(v_scale);
   p.lengths = static_cast<const int*>(lengths);
@@ -65,6 +70,7 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.D = D;
+  p.T = T;
   p.smax = pps * ps;
   p.P = P;
   p.ps = ps;
@@ -77,6 +83,8 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
     case kKindI8: err = run<kElemScale, kKindI8>(pl, p, k, v, rows, o, s); break;
     case kKindF8: err = run_k10_e4m3(pl, p, k, v, rows, o, s); break;
     case kKindI4T: err = run_k10_int4(pl, p, k, v, rows, o, s); break;
+    case kKindF16: err = run_f16(pl, p, k, v, rows, o, s); break;
+    case kKindF32: err = run_f32(pl, p, k, v, rows, o, s); break;
     default: err = run_plain16(pl, p, k, v, rows, o, s); break;
   }
   return static_cast<int>(err);

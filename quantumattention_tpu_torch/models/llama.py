@@ -366,11 +366,15 @@ def forward_chunk(
     params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     cfg: LlamaConfig, attend_fn: Callable,
 ) -> torch.Tensor:
-    """Chunked-prefill forward: a (B, T) token chunk at ``positions`` (T,).
-    ``attend_fn(layer_idx, q, k_new, v_new)`` takes (B, H, T, D) post-RoPE
-    tensors and returns the chunk's attention output (the serving
-    backends: attention over the cached prefix and the chunk, K1 with
-    ``q_offset`` = the chunk's start).  Returns (B, T, vocab) fp32 logits."""
+    """Chunked forward of a (B, T) token chunk at ``positions``: (T,), one
+    chunk's positions for every row, or (B, T), each row's own (speculative
+    verification: slot b's candidates start at its length; JAX
+    llama.py:559-570).  ``attend_fn(layer_idx, q, k_new, v_new)`` takes
+    (B, H, T, D) post-RoPE tensors and returns the chunk's attention output
+    (the serving backends: attention over the cached prefix and the chunk,
+    K1 with ``q_offset`` = the chunk's start; or K4's / K10's multi-query
+    mode over the cache with the chunk appended).  Returns (B, T, vocab)
+    fp32 logits."""
     return _decoder(params, tokens, positions, cfg, attend_fn)
 
 

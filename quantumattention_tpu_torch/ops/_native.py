@@ -53,14 +53,14 @@ _SIGNATURES = {
     "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _F, _P],
     # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
-    # B, Hq, Hkv, Smax, D, kind (ops/decode.KINDS), score_scale, stream (K4)
+    # B, Hq, Hkv, Smax, D, T, kind (ops/decode.KINDS), score_scale, stream (K4)
     "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  _I, _F, _P],
-    # kind, B, Hq, Hkv, D, smax, ps (0 for K4), out (int[8]: CTAs, query
+                  _I, _I, _F, _P],
+    # kind, B, Hq, Hkv, D, T, smax, ps (0 for K4), out (int[8]: CTAs, query
     # splits, column splits, rows and columns of a split, segments a slot,
     # TMA, width) -> the plan of qa_decode / qa_paged_decode (the split-KV
     # core, csrc/decode_attn.cuh)
-    "qa_decode_attn_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "qa_decode_attn_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # M, N, K, requested (0 = the card's rule) -> K ranges of qa_qmm_f32
     "qa_qmm_splits": [_I, _I, _I, _I],
     # x (fp32), w, scale, out (fp32), partial, M, N, K, int4, splits, stream
@@ -98,9 +98,9 @@ _SIGNATURES = {
     "qa_tail_matmul": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
     # part_acc, part_ml, B, Hq, Hkv, num_pages, page_size, pages_per_seq, D,
-    # kind (ops/decode.KINDS), score_scale, stream
+    # T, kind (ops/decode.KINDS), score_scale, stream
     "qa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _F, _P],
+                        _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -15,16 +15,22 @@ in Python; :func:`card_plan` reads the card's plan of a call (CTAs, and how
 its query heads and columns are split into segments).
 
 Covered: (B, Hq, D) float queries (bf16; float32 and float16 enter the
-kernel rounded to bf16, as K1's do), caches of int8 or e4m3 with
-token-wise fp32 scales, packed int4 (minor dim D/2, element d in the low
-nibble and d + D/2 in the high nibble of byte d, ``quant.pack_int4``) with
-the same scales, or bf16; ragged lengths including 0 (zero output rows),
-any GQA group, any head dim JAX takes (a multiple of 8 up to 512, run at
-an instantiated width of 64, 128, 256 or 512 with zero columns), bf16
-output as JAX returns.  8-bit queries are refused, as in JAX.  Not yet
-(ROADMAP queue 1, items 12b-c): the 4-D multi-query q of speculative
-verification, ``window``, and the ``decode_int8_qk``/``decode_int8_pv``
-variants.
+kernel rounded to bf16, as K1's do), and the (B, Hq, T, D) queries of
+speculative verification (decode.py:359-363): T candidates a head whose
+``lengths`` already count all T, candidate t seeing the rows below
+``lengths - (T - 1 - t)``, each KV head's G * T rows packed t-fastest as
+in JAX (decode.py:433-440); caches of int8 or e4m3 with token-wise fp32
+scales, packed int4 (minor dim D/2, element d in the low nibble and
+d + D/2 in the high nibble of byte d, ``quant.pack_int4``) with the same
+scales, or bf16, float16 or float32 without; ragged lengths including 0
+(zero output rows), any GQA group, any head dim JAX takes (a multiple of 8
+up to 512, run at an instantiated width of 64, 128, 256 or 512 with zero
+columns), bf16 output as JAX returns.  8-bit queries are refused, as in
+JAX.  Not yet (ROADMAP queue 1, item 12c): ``window``; nor the
+``decode_int8_qk``/``decode_int8_pv`` variants.
+
+``decode_attention.verify_launches`` counts the launches of T > 1 calls
+(they are in ``launches`` too).
 """
 
 from __future__ import annotations
@@ -51,27 +57,49 @@ MAX_QUERY_ROWS = 16
 MIN_TILES = 2
 #: The core's element kinds (csrc/decode_attn.cuh, Kind): int4 is packed
 #: along the head dim in K4's slot cache, along a page's tokens in K10's.
-KINDS = {"int8": 0, "e4m3": 1, "bf16": 2, "int4": 3, "int4_pages": 4}
+KINDS = {"int8": 0, "e4m3": 1, "bf16": 2, "int4": 3, "int4_pages": 4, "f16": 5, "f32": 6}
+#: The kinds whose rows carry no token scales.
+FLOAT_KINDS = (KINDS["bf16"], KINDS["f16"], KINDS["f32"])
 
 
 def cache_kind(dtype, int4: bool = False, pages: bool = False) -> int:
     """The core's element kind of a cache or page pool."""
     if int4:
         return KINDS["int4_pages" if pages else "int4"]
-    names = {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16"}
+    names = {torch.int8: "int8", torch.float8_e4m3fn: "e4m3", torch.bfloat16: "bf16",
+             torch.float16: "f16", torch.float32: "f32"}
     if dtype not in names:
-        raise ValueError(f"the decode kernels take int8, e4m3, int4 or bf16 caches, got {dtype}")
+        raise ValueError(
+            f"the decode kernels take int8, e4m3, int4, bf16, float16 or float32 caches, got {dtype}"
+        )
     return KINDS[names[dtype]]
 
 
-def core_segments(hq: int, hkv: int, d: int, kind: int) -> int:
+def kernel_query(q: torch.Tensor, kind: int) -> torch.Tensor:
+    """The query as the core reads it: rounded to bf16 (the plain
+    versions' input), then for an fp16 cache converted to fp16 for the
+    fp16 products, one more launch.  That conversion is exact only in
+    fp16's normal range: a |q| above 65504 becomes inf (and the output NaN)
+    and one below 2^-14 loses bits, where the plain version and JAX's
+    kernel keep the bf16 value."""
+    q = q.to(torch.bfloat16)
+    return (q.to(torch.float16) if kind == KINDS["f16"] else q).contiguous()
+
+
+def core_segments(hq: int, hkv: int, d: int, kind: int, qtokens: int = 1) -> int:
     """Segments a slot in the core's schedule (``plan``): KV heads x query
-    splits of MAX_QUERY_ROWS x column splits of the output width a CTA
-    owns.  Used with :func:`decode_schedule` for K4 and K10 alike."""
+    splits (a KV head's G * T query rows in splits of MAX_QUERY_ROWS) x
+    column splits of the output width a CTA owns (``v_cols``).  Used with
+    :func:`decode_schedule` for K4 and K10 alike."""
     w = shapes.kernel_width(d)
-    vw = w if w <= 256 else (64 if kind == KINDS["bf16"] else 256)
+    if kind == KINDS["f32"]:
+        vw = w if w <= 128 else 64
+    elif w <= 256:
+        vw = w
+    else:
+        vw = 64 if kind in (KINDS["bf16"], KINDS["f16"]) else 256
     csplits = w // vw if kind == KINDS["int4"] else -(-d // vw)
-    return hkv * -(-(hq // hkv) // MAX_QUERY_ROWS) * csplits
+    return hkv * -(-(hq // hkv * qtokens) // MAX_QUERY_ROWS) * csplits
 
 
 @dataclass(frozen=True)
@@ -162,12 +190,14 @@ def decode_schedule(lengths, segments: int, rows_per_tile: int, ctas: int,
     return DecodeSchedule(ctas, segments, tiles, sum(tiles) * segments)
 
 
-def card_plan(kind: int, batch: int, hq: int, hkv: int, d: int, smax: int, ps: int = 0) -> dict:
-    """The plan the card computes for a call (``qa_decode_attn_plan``):
-    CTAs, splits, partial sizes, and whether rows go by TMA boxes (K10:
-    ``ps`` its page size; 0 for K4)."""
+def card_plan(kind: int, batch: int, hq: int, hkv: int, d: int, smax: int, ps: int = 0,
+              qtokens: int = 1) -> dict:
+    """The plan the card computes for a call of ``qtokens`` query tokens a
+    head (``qa_decode_attn_plan``): CTAs, splits, partial sizes, and
+    whether rows go by TMA boxes (K10: ``ps`` its page size; 0 for K4)."""
     out = (ctypes.c_int * 8)()
-    _native.check(_native.library().qa_decode_attn_plan(kind, batch, hq, hkv, d, smax, ps, out),
+    _native.check(_native.library().qa_decode_attn_plan(kind, batch, hq, hkv, d, qtokens, smax, ps,
+                                                        out),
                   "qa_decode_attn_plan")
     ctas, qsplits, csplits, qrows, ccols, segs, tma, width = list(out)
     return {"ctas": ctas, "qsplits": qsplits, "csplits": csplits, "qrows": qrows,
@@ -186,11 +216,16 @@ def decode_attention_plain(
     q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, sm_scale=None
 ) -> torch.Tensor:
     """K4's plain version in fp32: q rounded to bf16 (the kernel's input),
-    the cache's exact codes (a packed int4 cache unpacked as
+    the cache's exact values (a packed int4 cache unpacked as
     ``quant.unpack_int4``), mask rows >= lengths[b], exp2 softmax with
     sm_scale * log2(e) and the K scale folded into the scores, the
     unnormalized P (times the V scale) rounded to bf16 as the kernel does,
-    P.V divided by the softmax sum, zeros for empty slots."""
+    P.V divided by the softmax sum, zeros for empty slots.  A (B, Hq, T, D)
+    q gives (B, Hq, T, D): candidate t is the one-query call at lengths -
+    (T - 1 - t)."""
+    if q.ndim == 4:
+        return candidates(lambda qt, lens: decode_attention_plain(
+            qt, k_cache, v_cache, lens, k_scale, v_scale, sm_scale), q, lengths)
     batch, hq, d = q.shape
     hkv, s_max = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -217,6 +252,16 @@ def decode_attention_plain(
     return o.reshape(batch, hq, d).to(torch.bfloat16)
 
 
+def candidates(one_query, q, lengths) -> torch.Tensor:
+    """A plain version's multi-query call: candidate t of the (B, Hq, T, D)
+    q is ``one_query(q[:, :, t], lengths - (T - 1 - t))`` (the rows it may
+    see), stacked along T.  A slot shorter than T leaves its first
+    candidates no row: they come out as zeros, where the kernels and JAX
+    give some average of V (no caller reads them)."""
+    t_max = q.shape[2]
+    return torch.stack([one_query(q[:, :, t], lengths - (t_max - 1 - t)) for t in range(t_max)], dim=2)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -228,24 +273,24 @@ def decode_attention(
     sm_scale: Optional[float] = None,
     window=None,
 ) -> torch.Tensor:
-    """Single-step GQA decode attention; returns (B, Hq, D) in bf16.
+    """GQA decode attention; returns (B, Hq, D), or (B, Hq, T, D), in bf16.
 
-    q (B, Hq, D) float; k_cache/v_cache (B, Hkv, Smax, D) int8 or e4m3, or
-    (B, Hkv, Smax, D/2) packed int4 in an int8 container, with
-    ``k_scale``/``v_scale`` (B, Hkv, Smax) fp32, or bf16 without scales;
-    lengths (B,) int32 valid rows per slot (0 = empty slot, zero output).
+    q (B, Hq, D) float, or (B, Hq, T, D): T candidate tokens a slot
+    (speculative verification), ``lengths`` counting all T and candidate t
+    seeing the rows below ``lengths - (T - 1 - t)``; k_cache/v_cache (B,
+    Hkv, Smax, D) int8 or e4m3, or (B, Hkv, Smax, D/2) packed int4 in an
+    int8 container, with ``k_scale``/``v_scale`` (B, Hkv, Smax) fp32, or
+    bf16, float16 or float32 without scales; lengths (B,) int32 valid rows
+    per slot (0 = empty slot, zero output).
     """
     if window is not None:
         raise NotImplementedError(
             "decode_attention: sliding windows are not ported yet "
             "(ROADMAP queue 1, item 12c)"
         )
-    if q.ndim != 3:
-        raise NotImplementedError(
-            "decode_attention: only (B, Hq, D) queries; the multi-query "
-            "verify mode is not ported yet (ROADMAP queue 1, item 12b)"
-        )
-    batch, hq, d = q.shape
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be (B, Hq, D) or (B, Hq, T, D), got {tuple(q.shape)}")
+    batch, hq, d = q.shape[0], q.shape[1], q.shape[-1]
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError("k_cache and v_cache must be equal (B, Hkv, Smax, D)")
     _, hkv, s_max, cache_dim = k_cache.shape
@@ -279,6 +324,7 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+decode_attention.verify_launches = 0
 
 
 def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
@@ -287,9 +333,11 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
     kind = cache_kind(k_cache.dtype, int4=k_cache.shape[-1] * 2 == q.shape[-1])
     if v_cache.dtype != k_cache.dtype:
         raise ValueError("K4's k and v caches must share a type")
-    if (kind == KINDS["bf16"]) != (k_scale is None):
-        raise ValueError("K4 takes token scales with int8, e4m3 and int4 caches, none with bf16")
-    q = q.to(torch.bfloat16).contiguous()  # float32 / float16 queries enter rounded
+    if (kind in FLOAT_KINDS) != (k_scale is None):
+        raise ValueError(
+            "K4 takes token scales with int8, e4m3 and int4 caches, none with bf16, float16 or float32"
+        )
+    q = kernel_query(q, kind)  # float32 / float16 queries enter rounded
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     if k_scale is not None and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
@@ -304,20 +352,22 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
             raise ValueError("K4 operands must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("K4's q and caches must be 16-byte aligned")
-    batch, hq, d = q.shape
+    batch, hq, d = q.shape[0], q.shape[1], q.shape[-1]
+    qtokens = q.shape[2] if q.ndim == 4 else 1
     _, hkv, s_max, _ = k_cache.shape
     shapes.check_kernel_head_dim("K4", d)
-    plan = card_plan(kind, batch, hq, hkv, d, s_max)
+    plan = card_plan(kind, batch, hq, hkv, d, s_max, qtokens=qtokens)
     part_acc, part_ml = core_scratch(plan, batch, q.device)
-    out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, s_max, d, kind, float(sm_scale * LOG2E),
+        part_ml.data_ptr(), batch, hq, hkv, s_max, d, qtokens, kind, float(sm_scale * LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_decode")
     decode_attention.launches += 1
+    decode_attention.verify_launches += qtokens > 1
     return out

@@ -1,9 +1,9 @@
 """Paged decode attention (counterpart of quantumattention_tpu/ops/paged.py).
 
 ``paged_decode_attention`` is the wrapper of kernel K10 (``csrc/paged.cu``,
-the port of the Pallas ``_paged_kernel``, paged.py:77): one-token GQA decode
-over a pool of KV pages, each sequence's pages named by its row of a page
-table.  A CPU tensor runs the kernel's plain version,
+the port of the Pallas ``_paged_kernel``, paged.py:77): GQA decode over a
+pool of KV pages, each sequence's pages named by its row of a page table,
+one query token a head or the T candidates of speculative verification.  A CPU tensor runs the kernel's plain version,
 :func:`paged_decode_attention_plain`; a CUDA tensor runs the kernel or
 raises.  ``paged_decode_attention.launches`` counts launches.
 
@@ -24,17 +24,21 @@ package (a Mosaic DMA rule, serving/paged_cache.py) as a view of the flat
 (Hkv, P, ps) one.
 
 Covered: (B, Hq, D) float queries (float32 and float16 enter the kernel
-rounded to bf16), int8 or e4m3 pages with token-wise fp32 scales,
+rounded to bf16) and the multi-query (B, Hq, T, D) of speculative
+verification (paged.py:459-463: ``lengths`` count all T candidates,
+candidate t sees the rows below ``lengths - (T - 1 - t)``, rows packed
+t-fastest as in K4), int8 or e4m3 pages with token-wise fp32 scales,
 token-packed int4 pages (``serving/paged_cache``: (Hkv, P, ps/2, D) bytes,
 byte row i of a page holding token i in its low nibble and i + ps/2 in its
-high nibble, scales (Hkv, P, ps) per real token) and bf16 pages; any GQA
-group, any page size (even for int4), any head dim JAX takes (a multiple
-of 8 up to 512, run at an instantiated width of 64, 128, 256 or 512 with
-zero columns).  8-bit queries are refused, as in JAX.
-Not yet: the multi-query q (B, Hq, T, D) of speculative verification
-(ROADMAP queue 1, item 12b) and ``window`` (item 12c).  ``side`` (the burst
-side buffer, paged.py:446-457) exists for XLA's scatter copy and is not
-ported (ROADMAP, "Do not port these TPU workarounds").
+high nibble, scales (Hkv, P, ps) per real token) and bf16, float16 or
+float32 pages; any GQA group, any page size (even for int4), any head dim
+JAX takes (a multiple of 8 up to 512, run at an instantiated width of 64,
+128, 256 or 512 with zero columns).  8-bit queries are refused, as in JAX.
+Not yet: ``window`` (ROADMAP queue 1, item 12c).  ``side`` (the burst side
+buffer, paged.py:446-457) exists for XLA's scatter copy and is not ported
+(ROADMAP, "Do not port these TPU workarounds").
+``paged_decode_attention.verify_launches`` counts the launches of T > 1
+calls (they are in ``launches`` too).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 
 from ..utils import checks, shapes
 from . import _native, quant
-from .decode import cache_kind, card_plan, core_scratch
+from .decode import FLOAT_KINDS, cache_kind, candidates, card_plan, core_scratch, kernel_query
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
@@ -80,7 +84,13 @@ def paged_decode_attention_plain(
     K and V per element to bf16, q rounded to bf16, fp32 scores times
     sm_scale * log2(e), rows at or past the length masked, exp2 softmax with
     the unnormalized P rounded to bf16 before P.V, division by the sum at
-    the end, zeros for an empty slot.  Returns (B, Hq, D) bf16."""
+    the end, zeros for an empty slot.  Returns (B, Hq, D) bf16; a (B, Hq,
+    T, D) q gives (B, Hq, T, D), candidate t the one-query call at lengths
+    - (T - 1 - t)."""
+    if q.ndim == 4:
+        return candidates(lambda qt, lens: paged_decode_attention_plain(
+            qt, k_pages, v_pages, lens, page_indices, k_scale_pages, v_scale_pages, sm_scale),
+            q, lengths)
     batch, hq, d = q.shape
     if k_scale_pages is not None and k_scale_pages.shape[2] == 2 * k_pages.shape[2]:
         k_pages = quant.unpack_int4(k_pages, axis=2)
@@ -128,24 +138,23 @@ def paged_decode_attention(
     window=None,
     side: Optional[dict] = None,
 ) -> torch.Tensor:
-    """Decode attention over paged KV; returns (B, Hq, D) bf16.
+    """Decode attention over paged KV; returns bf16 of q's shape.
 
-    q (B, Hq, D) float; k_pages/v_pages (Hkv, num_pages, page_size, D) int8
-    or e4m3, or token-packed int4 (Hkv, num_pages, page_size/2, D), with
-    ``k_scale_pages``/``v_scale_pages`` (Hkv, num_pages, page_size) fp32 (or
-    the folded (Hkv, num_pages, page_size/128, 128)), or bf16 without;
+    q (B, Hq, D) float, or (B, Hq, T, D): T candidates a sequence,
+    ``lengths`` counting all T; k_pages/v_pages (Hkv, num_pages, page_size,
+    D) int8 or e4m3, or token-packed int4 (Hkv, num_pages, page_size/2, D),
+    with ``k_scale_pages``/``v_scale_pages`` (Hkv, num_pages, page_size)
+    fp32 (or the folded (Hkv, num_pages, page_size/128, 128)), or bf16,
+    float16 or float32 without;
     lengths (B,) int32 valid tokens per sequence (0 = empty, zero
     output); page_indices (B, pages_per_seq) int32, entries past a
     sequence's pages ignored.  ``pages_per_block`` must divide
     pages_per_seq, as in JAX; it sizes the TPU's DMA blocks, and the card's
     kernel tiles the pages its own way.
     """
-    if q.ndim == 4:
-        raise NotImplementedError(
-            "paged_decode_attention: the multi-query q (B, Hq, T, D) of "
-            "speculative verification is not ported yet (ROADMAP queue 1, item 12b)"
-        )
-    batch, num_q_heads, head_dim = q.shape
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be (B, Hq, D) or (B, Hq, T, D), got {tuple(q.shape)}")
+    batch, num_q_heads, head_dim = q.shape[0], q.shape[1], q.shape[-1]
     num_kv_heads, _, page_rows, _ = k_pages.shape
     pages_per_seq = page_indices.shape[1]
     if num_q_heads % num_kv_heads != 0:
@@ -212,19 +221,25 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.verify_launches = 0
 
 
 def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
-    batch, hq, d = q.shape
+    batch, hq, d = q.shape[0], q.shape[1], q.shape[-1]
+    qtokens = q.shape[2] if q.ndim == 4 else 1
     hkv, num_pages, rows, _ = k_pages.shape
     ps = 2 * rows if int4 else rows
     pps = page_indices.shape[1]
     kind = cache_kind(k_pages.dtype, int4=int4, pages=True)
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("K10's k and v pages must share a type")
-    q = q.to(torch.bfloat16).contiguous()  # float32 / float16 queries enter rounded
+    if (kind in FLOAT_KINDS) != (ks is None):
+        raise ValueError(
+            "K10 takes scale pages with int8, e4m3 and int4 pages, none with bf16, float16 or float32"
+        )
+    q = kernel_query(q, kind)  # float32 / float16 queries enter rounded
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise ValueError("K10's lengths and page_indices must be int32")
     if ks is not None and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
@@ -244,16 +259,17 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, in
             raise ValueError("K10 operands must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("K10's operands must be 16-byte aligned")
-    plan = card_plan(kind, batch, hq, hkv, d, pps * ps, ps)
+    plan = card_plan(kind, batch, hq, hkv, d, pps * ps, ps, qtokens=qtokens)
     part_acc, part_ml = core_scratch(plan, batch, q.device)
-    out = torch.empty((batch, hq, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     err = _native.library().qa_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, kind,
+        part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, qtokens, kind,
         float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_paged_decode")
     paged_decode_attention.launches += 1
+    paged_decode_attention.verify_launches += qtokens > 1
     return out

@@ -34,8 +34,17 @@ slot's cached prefix, dequantized to bf16, and the chunk itself through K1
 with ``q_offset`` = the chunk's start (``_chunk_prefix_attend``,
 backends.py:66-108), then writes the chunk.
 
-Not ported: speculative verification and rollback and tensor-parallel
-meshes (ROADMAP queue 1, items 12b and 19), the paged burst's side buffers
+Speculative decoding (``verify``, ``rollback``, ``can_speculate`` on both
+backends, backends.py:173, :678-736, :882-894, :1572-1611): ``verify``
+appends T candidate tokens to every active slot and scores all T in one
+``llama.forward_chunk``, whose attention is K4's or K10's multi-query mode
+(on every route: a fused int8 tree's layers run K5/K6 and K8 at B * T rows
+there, K9 stays a T = 1 kernel); ``rollback`` sets the slots' lengths back
+to what was accepted (rows past a length are garbage by contract and the
+next write overwrites them).
+
+Not ported: tensor-parallel meshes (ROADMAP queue 1, item 19), the paged
+burst's side buffers
 (``_burst_impl_side``, ``_flush_side_pages``: a TPU workaround; the port
 writes pages in place every step).  Buffer donation is not ported either:
 it exists for JAX's immutable arrays, and the PyTorch caches are updated in
@@ -73,6 +82,13 @@ def _launch_counters():
         (megastep.fused_decode_layer, "launches"),
         (paged_decode_attention, "launches"),
     ]
+
+
+def _device_tokens(tokens, device) -> torch.Tensor:
+    """Token ids (host array or device tensor) as an int64 device tensor."""
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device)
 
 
 def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int) -> torch.Tensor:
@@ -233,6 +249,9 @@ class SlotsBackend:
     def register_prefix(self, req) -> None:
         pass
 
+    def can_speculate(self, active_slots, t_width: int) -> bool:
+        return True  # slot rows are pre-sized to max_len
+
     # -- prefill ---------------------------------------------------------------
 
     def _tensor(self, values, dtype=torch.int64) -> torch.Tensor:
@@ -355,9 +374,10 @@ class SlotsBackend:
 
     @torch.no_grad()
     def decode(self, params, tokens, active_mask, active_slots=None) -> torch.Tensor:
-        """One decode step over all slots (host inputs).  Returns
-        (num_slots, vocab) fp32 logits."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=self.device)
+        """One decode step over all slots (host inputs; ``tokens`` may be a
+        device tensor, as a draft's proposals are).  Returns (num_slots,
+        vocab) fp32 logits."""
+        tokens = _device_tokens(tokens, self.device)
         active = torch.as_tensor(np.asarray(active_mask), device=self.device).to(torch.bool)
         return self._step(params, tokens, active)
 
@@ -374,10 +394,45 @@ class SlotsBackend:
         return _run_burst(self, key, params, tokens, active, remaining, eos_ids, generator,
                           n_steps, sp, want_lp)
 
+    # -- speculative decoding --------------------------------------------------
+
+    @torch.no_grad()
+    def verify(self, params, cand, positions, active_mask) -> torch.Tensor:
+        """Append the (num_slots, T) candidate tokens ``cand`` (a device
+        tensor) to every active slot at its ``positions`` (host, the
+        pre-append lengths) and score all T positions in one forward
+        (``_verify_impl``, backends.py:678-716): attention is K4's
+        multi-query mode over the post-append lengths.  Inactive slots are
+        neither written nor grown.  Returns (num_slots, T, vocab) fp32
+        logits."""
+        tokens = _device_tokens(cand, self.device)
+        t_width = tokens.shape[1]
+        pos = torch.as_tensor(np.asarray(positions), dtype=torch.int32, device=self.device)
+        ids = self._tensor(np.flatnonzero(np.asarray(active_mask, bool)))
+        pos2d = pos[:, None] + torch.arange(t_width, dtype=torch.int32, device=self.device)
+
+        def attend(idx, q, k_new, v_new):
+            cache = kvc.append(self.caches[idx], ids, k_new[ids].float(), v_new[ids].float(), pos[ids])
+            return decode_attention(
+                q.to(torch.bfloat16).contiguous(), cache.k, cache.v, cache.lengths,
+                k_scale=cache.k_scale, v_scale=cache.v_scale,
+            )
+
+        return llama.forward_chunk(params, tokens, pos2d, self.cfg, attend)
+
+    def rollback(self, rollback_mask, new_lengths) -> None:
+        """Set the masked slots' lengths to ``new_lengths`` in every layer."""
+        rb = torch.as_tensor(np.asarray(rollback_mask, bool), device=self.device)
+        nl = torch.as_tensor(np.asarray(new_lengths), dtype=torch.int32, device=self.device)
+        for cache in self.caches:
+            cache.lengths.copy_(torch.where(rb, nl, cache.lengths))
+
     # -- bookkeeping -------------------------------------------------------------
 
     def host_lengths(self) -> np.ndarray:
-        return self.caches[0].lengths.cpu().numpy()
+        """A host copy of the slots' lengths (on the CPU, ``.numpy()`` of the
+        tensor would share its memory, which the next append moves)."""
+        return self.caches[0].lengths.cpu().numpy().copy()
 
     def release(self, slot: int) -> None:
         """Return the slot's rows (lengths 0) in every layer."""
@@ -484,6 +539,18 @@ class PagedBackend:
         hashes = self._prompt_hashes(req)
         if hashes:
             self.alloc.register(req.slot, hashes)
+
+    def can_speculate(self, active_slots, t_width: int) -> bool:
+        """Verification appends ``t_width`` rows to every active slot before
+        acceptance, possibly past the admission reservation when a request's
+        budget is nearly spent: run a round only when the pool can cover
+        every slot's growth (backends.py:882-894); else the engine decodes
+        a token at a time."""
+        need = 0
+        for s in active_slots:
+            want = self.alloc.pages_for(int(self.alloc.lengths[s]) + t_width, self.page_size)
+            need += max(0, want - int(self.alloc.allocated[s]))
+        return need <= self.alloc.free_pages + self.alloc.evictable_pages
 
     # -- prefill ---------------------------------------------------------------
 
@@ -618,7 +685,7 @@ class PagedBackend:
             # Admission reserved the full footprint: a guard, no growth.
             self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + 1, self.page_size)
         self._load_tables()
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=self.device)
+        tokens = _device_tokens(tokens, self.device)
         active = torch.as_tensor(mask, device=self.device)
         logits = self._step(params, tokens, active)
         self.alloc.lengths[mask] += 1
@@ -642,6 +709,49 @@ class PagedBackend:
         emits = packed[1] != 0.0 if want_lp else packed[1].astype(bool)
         self.alloc.lengths += emits.sum(axis=0).astype(np.int32)
         return packed
+
+    # -- speculative decoding --------------------------------------------------
+
+    @torch.no_grad()
+    def verify(self, params, cand, positions, active_mask) -> torch.Tensor:
+        """Grow every active slot's pages by the T candidates (pages drawn
+        from the pool where the reservation does not cover them), write the
+        candidates into them and score all T positions in one forward
+        through K10's multi-query mode (``verify``, backends.py:1572-1605);
+        inactive lanes write the trash page.  The host lengths stay as they
+        were until ``rollback``.  Returns (num_slots, T, vocab) fp32
+        logits."""
+        tokens = _device_tokens(cand, self.device)
+        t_width = tokens.shape[1]
+        mask = np.asarray(active_mask, bool)
+        for slot in np.flatnonzero(mask):
+            self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + t_width, self.page_size)
+        self._load_tables()
+        ps = self.page_size
+        pos = torch.as_tensor(np.asarray(positions), dtype=torch.int32, device=self.device)
+        active = torch.as_tensor(mask, device=self.device)
+        lengths = pos + active.to(torch.int32) * t_width  # post-append
+        pos2d = pos[:, None] + torch.arange(t_width, dtype=torch.int32, device=self.device)
+        col = torch.clamp(pos2d.long() // ps, max=self._tables.shape[1] - 1)
+        page = torch.where(active[:, None], self._tables.gather(1, col).long(), self._trash_page)
+        row = pos2d.long() % ps
+
+        def attend(idx, q, k_new, v_new):
+            lp = self.pages[idx]
+            pgc.write_block(lp, page, row, k_new, v_new)
+            return paged_decode_attention(
+                q.to(torch.bfloat16).contiguous(), lp.k, lp.v, lengths, self._tables,
+                k_scale_pages=lp.k_scale, v_scale_pages=lp.v_scale,
+                pages_per_block=self._pages_per_block,
+            )
+
+        return llama.forward_chunk(params, tokens, pos2d, self.cfg, attend)
+
+    def rollback(self, rollback_mask, new_lengths) -> None:
+        """Set the masked slots' host lengths to ``new_lengths``."""
+        self.alloc.lengths = np.where(
+            np.asarray(rollback_mask, bool), np.asarray(new_lengths, np.int32), self.alloc.lengths,
+        ).astype(np.int32)
 
     # -- bookkeeping -------------------------------------------------------------
 

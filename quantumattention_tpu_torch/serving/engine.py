@@ -31,10 +31,21 @@ request passes its budget or ``max_len`` (engine.py:426-441).
 packed along the head dim in the slots backend, along each page's tokens
 in the paged backend.
 
-Not ported (each raises ``NotImplementedError``): speculative decoding
-(ROADMAP queue 1, item 12b), tensor-parallel meshes (item 19), and
-``from_hf`` (it needs checkpoint files the repository does
-not hold).
+Speculative decoding (``draft=(draft_params, draft_cfg)``, ``spec_tokens``;
+engine.py:876-1041): while every active request shares one sampling
+setting, asks for no logprobs and has room for the block, a step runs a
+round instead of a decode step.  The draft, on a private slots backend
+mirror-prefilled at a slot's first round, proposes ``spec_tokens`` tokens
+(one more draft step writes the last one into its cache); the proposals
+stay on the device.  The target scores the current token and the proposals
+in one ``verify`` pass; greedy rounds accept by argmax equality, stochastic
+ones by ``speculative.speculative_accept``; one host fetch a round; both
+backends roll back to what was accepted.  Under a draft the engine runs no
+decode bursts: a round already yields several tokens a dispatch.
+
+Not ported (each raises ``NotImplementedError``): tensor-parallel meshes
+(ROADMAP queue 1, item 19) and ``from_hf`` (it needs checkpoint files the
+repository does not hold).
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ from ..models import llama
 from ..utils import checks
 from ..utils.shapes import round_up
 from .backends import PagedBackend, SlotsBackend
-from .sampling import SamplingParams, sample, sample_with_logprob
+from .sampling import SamplingParams, categorical, filtered_probs, sample, sample_with_logprob
+from .speculative import speculative_accept
 
 
 @dataclasses.dataclass(eq=False)
@@ -75,14 +87,12 @@ class Request:
 
 
 _NOT_PORTED = {
-    "draft": "speculative decoding (ROADMAP queue 1, item 12b)",
-    "spec_tokens": "speculative decoding (ROADMAP queue 1, item 12b)",
     "mesh": "tensor-parallel serving (ROADMAP queue 1, item 19)",
     "tp_axis": "tensor-parallel serving (ROADMAP queue 1, item 19)",
     "decode_block_kv": "decode block tuning (ROADMAP queue 1, item 10)",
 }
 #: The JAX engine's defaults of those arguments: passing them changes nothing.
-_DEFAULTS = {"spec_tokens": 4, "tp_axis": "tp", "decode_block_kv": 2048}
+_DEFAULTS = {"tp_axis": "tp", "decode_block_kv": 2048}
 
 
 class Engine:
@@ -104,6 +114,8 @@ class Engine:
         num_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
         prefix_cache: bool = False,
+        draft: Optional[tuple] = None,
+        spec_tokens: int = 4,
         device=None,
         **not_ported,
     ) -> None:
@@ -143,6 +155,15 @@ class Engine:
                 raise ValueError("prefix_cache requires the paged backend")
             if prefill_chunk is None:
                 raise ValueError("prefix_cache requires prefill_chunk")
+        if draft is not None:
+            draft_params, draft_cfg = draft
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary "
+                    f"({draft_cfg.vocab_size} vs {cfg.vocab_size})"
+                )
+            if spec_tokens < 1:
+                raise ValueError("spec_tokens must be >= 1")
         if device is None:
             # The first tensor leaf: a quantized embedding is a dict.
             embed = params["embed"]
@@ -167,6 +188,18 @@ class Engine:
                 kv_int4=kv_int4, page_size=page_size, num_pages=num_pages, prefix_cache=prefix_cache,
                 device=self.device,
             )
+        self.draft_params = self.draft_cfg = None
+        if draft is not None:
+            # The draft runs on a private slots cache whatever the target's
+            # backend (engine.py:248-258).
+            self.draft_params, self.draft_cfg = draft
+            self.spec_tokens = int(spec_tokens)
+            self._draft_prefilled: set = set()
+            self._draft_backend = SlotsBackend(
+                self.draft_cfg, num_slots=num_slots, max_len=max_len, cache_dtype=cache_dtype,
+                device=self.device,
+            )
+            self._draft_prefill_fn = functools.partial(llama.forward_prefill, cfg=self.draft_cfg)
         self.free_slots = list(range(num_slots))
         self.active: Dict[int, Request] = {}  # slot -> request
         self.waiting: List[Request] = []
@@ -179,6 +212,9 @@ class Engine:
             "prefill_forwards": 0,
             "decode_steps": 0,
             "generated_tokens": 0,
+            "spec_rounds": 0,
+            "spec_proposed": 0,
+            "spec_accepted": 0,
             "prefix_hits": 0,
             "prefix_tokens_reused": 0,
         }
@@ -236,13 +272,14 @@ class Engine:
 
     def step(self) -> List[Request]:
         """Admit, advance prefill by one batched forward, then one decode
-        step over every active slot.  Returns requests finished this step."""
+        step (or, with a draft, one speculative round where it applies)
+        over every active slot.  Returns requests finished this step."""
         self._admit()
         finished: List[Request] = []
         if self.prefilling:
             finished = self._prefill_advance_group()
         if self.active:
-            finished += self._decode()
+            finished += self._speculative_round() if self._spec_applicable() else self._decode()
         return finished
 
     def run_to_completion(self, decode_burst: Optional[int] = None) -> List[Request]:
@@ -266,6 +303,8 @@ class Engine:
         """Largest safe decode burst right now (1 = use the per-step path)."""
         if not decode_burst or decode_burst <= 1:
             return 1
+        if self.draft_params is not None:
+            return 1  # speculative rounds already yield several tokens a dispatch
         if self.waiting or self.prefilling or not self.active:
             return 1  # mixed prefill/decode must interleave per step
         reqs = list(self.active.values())
@@ -436,6 +475,11 @@ class Engine:
 
     def _decode(self) -> List[Request]:
         self.stats["decode_steps"] += 1
+        if self.draft_params is not None:
+            # A step advances the target's cache only: a slot it touches
+            # has a stale draft cache, which its next round prefills again.
+            for slot in self.active:
+                self._draft_prefilled.discard(slot)
         logits = self._backend.decode(
             self.params, self.last_token, self._active_mask(), list(self.active)
         )
@@ -482,6 +526,127 @@ class Engine:
                 if self._emit(req, int(toks[t, slot]), lp=lp):
                     finished.append(req)
                     break
+        return finished
+
+    # ------------------------------------------------------------------
+    # Speculative decoding
+    # ------------------------------------------------------------------
+
+    def _draft_prefill(self, req: Request) -> None:
+        """Prefill a request's context into the draft's cache (at the first
+        round its slot takes part in): the prompt and every output token
+        but the last, which is the pending input of both models."""
+        ctx = list(req.prompt) + req.output[:-1]
+        n = len(ctx)
+        padded = min(round_up(n, self.prefill_bucket), self.max_len)
+        tokens = np.zeros((1, padded), np.int64)
+        tokens[0, :n] = ctx
+        self._draft_backend.prefill_and_write(
+            self._draft_prefill_fn, self.draft_params, torch.from_numpy(tokens).to(self.device),
+            [n - 1], [req.slot], [n], padded,
+        )
+
+    def _spec_applicable(self) -> bool:
+        """A round needs a draft, one sampling setting shared by every
+        active request, no request asking for logprobs (a round keeps no
+        per-position distribution), room below max_len for the block of
+        spec_tokens + 1 rows that verification writes before acceptance, and
+        (paged) pages for it; else the step decodes one token."""
+        if self.draft_params is None or not self.active:
+            return False
+        reqs = list(self.active.values())
+        if len({r.sampling for r in reqs}) != 1 or any(r.logprobs for r in reqs):
+            return False
+        room = self.spec_tokens + 1
+        if not all(len(r.prompt) + len(r.output) - 1 + room <= self.max_len for r in reqs):
+            return False
+        return self._backend.can_speculate(list(self.active), room)
+
+    def _speculative_round(self) -> List[Request]:
+        """One round over every active slot: the draft proposes spec_tokens
+        tokens (greedy: its argmax; stochastic: a draw from its filtered
+        distribution), the target scores [current, proposals] in one
+        verify pass, and each slot emits 1 .. spec_tokens + 1 tokens: for
+        greedy requests the target's argmax up to and including the first
+        disagreement (so the stream is plain greedy decoding's), for
+        stochastic ones the accepted proposals and the rejection scheme's
+        final token."""
+        for slot, req in self.active.items():
+            if slot not in self._draft_prefilled:
+                self._draft_prefill(req)
+                self._draft_prefilled.add(slot)
+        gamma = self.spec_tokens
+        self.stats["spec_rounds"] += 1
+        sp = next(iter(self.active.values())).sampling
+        greedy = sp.temperature == 0.0
+        active = self._active_mask()
+        slots = list(self.active)
+        cur = torch.as_tensor(self.last_token, dtype=torch.int64, device=self.device)
+        proposals, q_probs = [cur], []
+        # gamma + 1 draft steps: the last writes the last proposal into the
+        # draft's cache, so an all-accepted round leaves it the whole
+        # accepted prefix (rollback only shrinks).
+        for g in range(gamma + 1):
+            dlogits = self._draft_backend.decode(self.draft_params, cur, active, slots)
+            if g == gamma:
+                break
+            if greedy:
+                cur = torch.argmax(dlogits, dim=-1)
+            else:
+                qp = filtered_probs(dlogits, sp)
+                q_probs.append(qp)
+                cur = categorical(qp, self._generator)
+            proposals.append(cur)
+        cand = torch.stack(proposals, dim=1)  # (num_slots, gamma + 1), on the device
+        # Each active slot's current token sits at its cache length, which
+        # the host knows without a fetch: the prompt and every output token
+        # but the pending last one.
+        positions = np.zeros((self.num_slots,), np.int32)
+        for slot, req in self.active.items():
+            positions[slot] = len(req.prompt) + len(req.output) - 1
+        vlogits = self._backend.verify(self.params, cand, positions, active)
+        # The round's one host fetch.
+        if greedy:
+            fetched = torch.cat([torch.argmax(vlogits, dim=-1), cand], dim=1).cpu().numpy()
+            tgt, cand_h = fetched[:, : gamma + 1], fetched[:, gamma + 1 :]
+        else:
+            p_probs = filtered_probs(vlogits.reshape(-1, vlogits.shape[-1]), sp).reshape(vlogits.shape)
+            n_acc_d, final_d = speculative_accept(self._generator, torch.stack(q_probs, dim=1),
+                                                  p_probs, cand[:, 1:])
+            fetched = torch.cat([n_acc_d[:, None].long(), final_d[:, None].long(), cand], dim=1).cpu().numpy()
+            n_acc_h, final_h, cand_h = fetched[:, 0], fetched[:, 1], fetched[:, 2:]
+
+        finished: List[Request] = []
+        new_len = positions.copy()
+        rollback = np.zeros((self.num_slots,), bool)
+        for slot, req in list(self.active.items()):
+            done = False
+            if greedy:
+                n_acc = 0
+                for i in range(gamma + 1):
+                    # The target's token either way: on acceptance it is the
+                    # proposal, on a mismatch the correction that ends the round.
+                    done = self._emit(req, int(tgt[slot, i]))
+                    accepted = i < gamma and tgt[slot, i] == cand_h[slot, i + 1]
+                    n_acc += int(accepted)
+                    if done or not accepted:
+                        break
+            else:
+                n_acc = int(n_acc_h[slot])
+                for i in range(n_acc):
+                    done = self._emit(req, int(cand_h[slot, i + 1]))
+                    if done:
+                        break
+                if not done:
+                    done = self._emit(req, int(final_h[slot]))
+            if done:
+                finished.append(req)
+            self.stats["spec_proposed"] += gamma
+            self.stats["spec_accepted"] += n_acc
+            new_len[slot] = positions[slot] + 1 + n_acc
+            rollback[slot] = not done  # a finished slot was released
+        self._backend.rollback(rollback, new_len)
+        self._draft_backend.rollback(rollback, new_len)
         return finished
 
     # ------------------------------------------------------------------
@@ -533,5 +698,8 @@ class Engine:
         if req.slot is not None:
             self.active.pop(req.slot, None)
             self._backend.release(req.slot)
+            if self.draft_params is not None:
+                self._draft_backend.release(req.slot)
+                self._draft_prefilled.discard(req.slot)
             self.free_slots.append(req.slot)
         self.finished.append(req)

@@ -1,7 +1,8 @@
 """Quantized ragged KV cache for decode serving (counterpart of
 quantumattention_tpu/serving/kv_cache.py).
 
-  k / v:            (num_slots, Hkv, Smax, D)   int8 (default), e4m3 or bf16;
+  k / v:            (num_slots, Hkv, Smax, D)   int8 (default), e4m3, bf16,
+                    float16 or float32;
                     (num_slots, Hkv, Smax, D/2) packed int4 (int8 container)
   k_scale/v_scale:  (num_slots, Hkv, Smax)      fp32 (8-bit caches only)
   lengths:          (num_slots,)                int32 valid lengths
@@ -92,27 +93,38 @@ def append(
     k_new: torch.Tensor,
     v_new: torch.Tensor,
     offsets: torch.Tensor,
-    n_valid: torch.Tensor,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> KVCache:
     """Write n_valid[i] new tokens for each slot and bump its length, in place.
 
-    slot_ids (N,) cache slots; k_new/v_new (N, Hkv, T, D) float tokens
-    (T = 1 for decode, a padded prompt width for prefill); offsets (N,)
-    write positions; n_valid (N,) how many of the T tokens are real.  All
-    T rows are written (rows past n_valid hold garbage that the lengths
-    mask); a write is clipped at max_len.
+    slot_ids (N,) distinct cache slots; k_new/v_new (N, Hkv, T, D) float
+    tokens (T = 1 for decode, a padded prompt width for prefill, the T
+    candidates of speculative verification); offsets (N,) write positions;
+    n_valid (N,) how many of the T tokens are real, or None: all T
+    (verification's block, ``_verify_impl``, backends.py:698-705).
+
+    At T = 1, or with n_valid None, every row must lie below max_len (the
+    engine decodes and verifies only with room for them): one indexed
+    write per tensor, with no host synchronisation, and a row past max_len
+    is an index error where the JAX package clamps the write.  A padded
+    prefill (T > 1 with n_valid) writes slot by slot, all T rows clipped at
+    max_len (rows past n_valid hold garbage that the lengths mask).
     """
     int4 = cache.k.shape[-1] * 2 == k_new.shape[-1]  # the packed layout
     kq, ks = quantize_tokens(k_new, cache.k.dtype, int4)
     vq, vs = quantize_tokens(v_new, cache.v.dtype, int4)
     t = k_new.shape[2]
-    if t == 1:
-        # One indexed write per tensor for all slots (distinct rows).
-        cache.k[slot_ids, :, offsets] = kq[:, :, 0]
-        cache.v[slot_ids, :, offsets] = vq[:, :, 0]
+    if t == 1 or n_valid is None:
+        slots = slot_ids.to(torch.int64)[:, None]
+        rows = offsets.to(torch.int64)[:, None]
+        if t > 1:
+            rows = rows + torch.arange(t, device=offsets.device)[None, :]
+        # [slots, :, rows] indexes (N, T, Hkv, ...): the blocks' T axis first.
+        cache.k[slots, :, rows] = kq.transpose(1, 2)
+        cache.v[slots, :, rows] = vq.transpose(1, 2)
         if ks is not None:
-            cache.k_scale[slot_ids, :, offsets] = ks[:, :, 0]
-            cache.v_scale[slot_ids, :, offsets] = vs[:, :, 0]
+            cache.k_scale[slots, :, rows] = ks.transpose(1, 2)
+            cache.v_scale[slots, :, rows] = vs.transpose(1, 2)
     else:
         for i, (slot, off) in enumerate(zip(slot_ids.tolist(), offsets.tolist())):
             n = min(t, cache.max_len - off)
@@ -121,7 +133,7 @@ def append(
             if ks is not None:
                 cache.k_scale[slot, :, off : off + n] = ks[i, :, :n]
                 cache.v_scale[slot, :, off : off + n] = vs[i, :, :n]
-    cache.lengths[slot_ids] = (offsets + n_valid).to(torch.int32)
+    cache.lengths[slot_ids] = (offsets + (t if n_valid is None else n_valid)).to(torch.int32)
     return cache
 
 

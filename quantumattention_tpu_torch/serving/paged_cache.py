@@ -5,7 +5,8 @@ One logical page id addresses the same page in every layer's pool, so the
 allocator and the page tables are shared across layers while each layer
 owns its page tensors:
 
-  k / v:               (Hkv, num_pages, page_size, D)  int8, e4m3 or bf16;
+  k / v:               (Hkv, num_pages, page_size, D)  int8, e4m3, bf16,
+                       float16 or float32;
                        (Hkv, num_pages, page_size/2, D) token-packed int4
   k_scale / v_scale:   (Hkv, num_pages, page_size)     fp32 (8-bit pages)
 
@@ -26,7 +27,7 @@ tokens a byte along the page's token axis, split halves within each page
 token i + page_size/2 in its high nibble; the scales stay one per real
 token, and a scale extent twice the byte rows marks the layout.  Writes
 into them read, modify and write the bytes (:func:`write_tokens`,
-:func:`write_lanes`).
+:func:`write_lanes`, :func:`write_block`).
 """
 
 from __future__ import annotations
@@ -132,6 +133,29 @@ def write_lanes(pages: LayerPages, page: torch.Tensor, off: torch.Tensor,
     if ks is not None:
         pages.k_scale[:, page, off] = ks.transpose(0, 1)
         pages.v_scale[:, page, off] = vs.transpose(0, 1)
+
+
+def write_block(pages: LayerPages, page: torch.Tensor, off: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """T tokens a lane, in place (the ``t_width`` lanes of the JAX
+    package's ``_write_quantized``, backends.py:1077-1207): lane b's token t,
+    (Hkv, D) rows of the (B, Hkv, T, D) ``k_new``/``v_new``, goes to token
+    ``off[b, t]`` of page ``page[b, t]`` (int64 (B, T) each).  Token-packed
+    int4 pages take one :func:`write_lanes` a token position, so that two
+    tokens of one byte row (i and i + ps/2, both in a block where the page
+    is shorter than 2T) are read and written in turn; other pages take all
+    B * T lanes in one write."""
+    t = k_new.shape[2]
+    if is_int4(pages):
+        for i in range(t):
+            write_lanes(pages, page[:, i], off[:, i], k_new[:, :, i], v_new[:, :, i])
+        return
+    lanes = k_new.shape[0] * t
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(lanes, x.shape[1], x.shape[3])
+
+    write_lanes(pages, page.reshape(-1), off.reshape(-1), flat(k_new), flat(v_new))
 
 
 def write_tokens(

@@ -44,6 +44,21 @@ def filtered_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tenso
     return logits
 
 
+def filtered_probs(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
+    """(B, V) fp32 logits -> the post-filter probability distribution."""
+    return torch.softmax(filtered_logits(logits, params), dim=-1)
+
+
+def categorical(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw a row of (B, V) probabilities, as int64, on the device.
+
+    argmax(p / E), E ~ Exp(1): the draw torch.multinomial makes for one
+    sample, without its host-side check of the probabilities, so a decode
+    step that samples can be captured in a CUDA graph."""
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / race, dim=-1)
+
+
 def sample(
     logits: torch.Tensor, params: SamplingParams,
     generator: Optional[torch.Generator] = None,
@@ -53,13 +68,7 @@ def sample(
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
         raise ValueError("stochastic sampling requires a torch.Generator")
-    probs = torch.softmax(filtered_logits(logits, params), dim=-1)
-    # One categorical draw per row as argmax(p / E), E ~ Exp(1): the draw
-    # torch.multinomial makes for one sample, without its host-side check
-    # of the probabilities, so a decode step that samples can be captured
-    # in a CUDA graph.
-    race = torch.empty_like(probs).exponential_(generator=generator)
-    return torch.argmax(probs / race, dim=-1).to(torch.int32)
+    return categorical(filtered_probs(logits, params), generator).to(torch.int32)
 
 
 def sample_with_logprob(

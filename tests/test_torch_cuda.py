@@ -205,22 +205,29 @@ DECODE_CASES = [(1, 64), (4, 128), (8, 64), (16, 128), (32, 128), (4, 72), (1, 9
 DECODE_LENGTHS = [0, 1, 63, 64, 65, 256, 257, 600]
 
 
-def _decode_case(cuda, cache, group, d, hkv=2, s_max=600):
-    b = len(DECODE_LENGTHS)
-    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=cuda)
-    q = _randn((b, hkv * group, d), 4, torch.bfloat16, cuda)
+FLOAT_CACHES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def _decode_case(cuda, cache, group, d, hkv=2, s_max=600, qtokens=None, lengths=DECODE_LENGTHS):
+    """K4's inputs: a (B, Hq, D) query, or (B, Hq, T, D) with ``qtokens``,
+    over a cache of ``cache`` (token scales for the quantized kinds)."""
+    b = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    qshape = (b, hkv * group, d) if qtokens is None else (b, hkv * group, qtokens, d)
+    q = _randn(qshape, 4, torch.bfloat16, cuda)
     kf = _randn((b, hkv, s_max, d), 5, torch.float32, cuda)
     vf = _randn((b, hkv, s_max, d), 6, torch.float32, cuda)
-    if cache == "bf16":
-        return q, kf.bfloat16(), vf.bfloat16(), lens, None, None
+    if cache in FLOAT_CACHES:
+        return q, kf.to(FLOAT_CACHES[cache]), vf.to(FLOAT_CACHES[cache]), lens, None, None
     fn = {"int8": quant.dynamically_quantize_int8, "e4m3": quant.dynamically_quantize_fp8,
           "int4": quant.dynamically_quantize_int4}[cache]
     (kc, ks), (vc, vs) = fn(kf, reduction_dim=-1), fn(vf, reduction_dim=-1)
     return q, kc, vc, lens, ks, vs
 
 
-#: The cache types K4 and K10 take (fault 12: int4 and e4m3).
-CACHE_KINDS = ["int8", "bf16", "int4", "e4m3"]
+#: The cache types K4 and K10 take (fault 12: int4 and e4m3; fault 13:
+#: float16 and float32).
+CACHE_KINDS = ["int8", "bf16", "int4", "e4m3", "f16", "f32"]
 
 
 @pytest.mark.parametrize("cache", CACHE_KINDS)
@@ -265,30 +272,32 @@ def test_decode_kernels_take_float_queries(cuda, kernel, cache, qtype):
     _assert_decode_close(out, plain, lens)
 
 
-def _paged_case(cuda, shape, kind):
+def _paged_case(cuda, shape, kind, qtokens=None):
     """K10's inputs over a shuffled pool: ragged lengths with an empty and
     a full slot, table entries past each sequence's pages out of range;
     int8 and e4m3 pages with token scales, token-packed int4 pages (ps/2
-    byte rows) with token scales, or bf16 pages."""
+    byte rows) with token scales, or bf16, fp16 or fp32 pages.  With
+    ``qtokens`` a (B, Hq, T, D) query and every non-empty slot at least T
+    long."""
     b, hq, hkv, ps, pps, d = shape
     pool = b * pps + 3
     g = torch.Generator().manual_seed(ps + d)
     table = torch.randperm(pool, generator=g)[: b * pps].reshape(b, pps).to(torch.int32)
-    lens = torch.randint(1, pps * ps + 1, (b,), generator=g, dtype=torch.int32)
+    lens = torch.randint(qtokens or 1, pps * ps + 1, (b,), generator=g, dtype=torch.int32)
     lens[0], lens[1] = 0, pps * ps
     pages_of = (lens + ps - 1) // ps
     table = torch.where(torch.arange(pps)[None] < pages_of[:, None], table, 99_999)
     kf = _randn((hkv, pool, ps, d), 1, torch.float32, cuda)
     vf = _randn((hkv, pool, ps, d), 2, torch.float32, cuda)
-    if kind == "bf16":
-        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    if kind in FLOAT_CACHES:
+        k, v, ks, vs = kf.to(FLOAT_CACHES[kind]), vf.to(FLOAT_CACHES[kind]), None, None
     elif kind == "int4":
         (k, ks), (v, vs) = (quant.quantize_int4_values(x, reduction_dim=-1) for x in (kf, vf))
         k, v = quant.pack_int4(k, axis=2), quant.pack_int4(v, axis=2)
     else:
         fn = quant.dynamically_quantize_int8 if kind == "int8" else quant.dynamically_quantize_fp8
         (k, ks), (v, vs) = fn(kf, reduction_dim=-1), fn(vf, reduction_dim=-1)
-    q = _randn((b, hq, d), 3, torch.bfloat16, cuda)
+    q = _randn((b, hq, d) if qtokens is None else (b, hq, qtokens, d), 3, torch.bfloat16, cuda)
     return q, k, v, lens.to(cuda), table.to(cuda), ks, vs
 
 
@@ -313,7 +322,7 @@ def _core_calls(cuda, kernel, kind):
             out = torch.empty_like(q)
             _native.check(lib.qa_decode(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr(ks), ptr(vs),
                                         lens.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
-                                        b, hq, hkv, smax, 128, code, float(scale * decode.LOG2E),
+                                        b, hq, hkv, smax, 128, 1, code, float(scale * decode.LOG2E),
                                         stream), "qa_decode")
     else:
         # k10: Llama-3-8B's heads; k10_g32: a GQA group of 32 (fault 11).
@@ -330,7 +339,7 @@ def _core_calls(cuda, kernel, kind):
             _native.check(lib.qa_paged_decode(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), lens.data_ptr(),
                 table.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(), b, hq, hkv,
-                k.shape[1], ps, table.shape[1], 128, code, float(scale * decode.LOG2E),
+                k.shape[1], ps, table.shape[1], 128, 1, code, float(scale * decode.LOG2E),
                 stream), "qa_paged_decode")
     plan = decode.card_plan(code, b, hq, hkv, 128, smax, 0 if kernel == "k4" else ps)
     return call, raw, lens, plan, smax
@@ -372,6 +381,10 @@ def test_decode_core_split_is_the_schedule(cuda, kernel, kind):
     (32, 8, 128, "int4", (1, 1, 4, 128)),     # head-dim-packed int4: one frame of W
     (16, 8, 320, "int4", (1, 2, 2, 256)),     # at 512: the low and the high nibbles
     (32, 8, 128, "e4m3", (1, 1, 4, 128)),
+    (8, 2, 512, "f16", (1, 8, 4, 64)),        # fp16 as bf16: eight of 64
+    (32, 8, 128, "f32", (1, 1, 4, 128)),      # fp32 up to 128: one split
+    (16, 8, 256, "f32", (1, 4, 2, 64)),       # fp32 above: 64 columns a split
+    (8, 2, 512, "f32", (1, 8, 4, 64)),
 ])
 def test_decode_core_plan(cuda, hq, hkv, d, kind, want):
     """The card's plan splits a (slot, KV head) into (query splits, column
@@ -407,6 +420,139 @@ def test_decode_core_is_deterministic_and_capturable(cuda, kernel, kind):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+#: Verification lengths: every non-empty slot holds at least T = 5 rows
+#: (a shorter one has candidates that see no row, which no kernel defines).
+VERIFY_LENGTHS = [0, 5, 6, 63, 64, 65, 257, 600]
+
+
+def _verify_call(cuda, kernel, kind, t, group):
+    """(kernel call, plain call, lengths, verify-launch counter's owner) of
+    one multi-query call of K4 or K10 with T = t candidates a head."""
+    from quantumattention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    if kernel == "k4":
+        q, kc, vc, lens, ks, vs = _decode_case(cuda, kind, group, 128, qtokens=t, lengths=VERIFY_LENGTHS)
+        return (lambda: decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs),
+                lambda: decode_attention_plain(q, kc, vc, lens, ks, vs), lens, decode_attention)
+    q, k, v, lens, table, ks, vs = _paged_case(cuda, (6, 8 * group, 8, 128, 5, 128), kind, qtokens=t)
+    return (lambda: paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks, v_scale_pages=vs,
+                                           pages_per_block=1),
+            lambda: paged_decode_attention_plain(q, k, v, lens, table, ks, vs), lens,
+            paged_decode_attention)
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("t", [2, 5])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_verify_kernels_match_plain(cuda, kernel, t, group, kind):
+    """K4 and K10 in multi-query mode (T candidates a head, the G * T query
+    rows packed t-fastest and split in sixteens) against their plain
+    versions within the decode bars, over every cache kind; an empty slot
+    gives exact zeros; the call counts as a verify launch."""
+    call, plain_call, lens, wrapper = _verify_call(cuda, kernel, kind, t, group)
+    before = wrapper.verify_launches
+    out = call()
+    torch.cuda.synchronize()
+    assert wrapper.verify_launches == before + 1
+    plain = plain_call()
+    assert out.shape == plain.shape and out.shape[2] == t
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    _assert_decode_close(out, plain, lens)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int4", "f32"])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_verify_kernels_replay_bitwise(cuda, kernel, kind):
+    """One verify call (T = 5, G = 4: two query splits) captured in a CUDA
+    graph: two replays give the eager call's bits."""
+    call, _, _, _ = _verify_call(cuda, kernel, kind, 5, 4)
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _spec_model(dev):
+    """A bf16 target of 2 layers at head dim 128 and a 1-layer draft of the
+    same vocabulary, seeded."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                            num_q_heads=8, num_kv_heads=2, head_dim=128)
+    dcfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=1,
+                             num_q_heads=4, num_kv_heads=2, head_dim=64)
+    return (llama.init_params(torch.Generator(dev).manual_seed(1), cfg, dev), cfg,
+            llama.init_params(torch.Generator(dev).manual_seed(2), dcfg, dev), dcfg)
+
+
+@pytest.mark.parametrize("draft", ["small", "self"])
+@pytest.mark.parametrize("backend", ["slots", "paged"])
+def test_speculative_engine_on_card_emits_verify_argmax(cuda, backend, draft):
+    """A greedy engine with a draft on the card: K4 or K10 verify in every
+    round, and each round's emitted tokens are the argmax of its verify
+    logits at their positions (up to and including the first mismatch).
+    The target as its own draft has proposals accepted, so the backends
+    roll back past accepted tokens; a paged engine returns every page."""
+    from quantumattention_tpu_torch.ops.paged import paged_decode_attention
+
+    params, cfg, dparams, dcfg = _spec_model(cuda)
+    if draft == "self":
+        dparams, dcfg = params, cfg
+    kw = dict(cache_backend="paged", page_size=64) if backend == "paged" else {}
+    eng = Engine(params, cfg, num_slots=2, max_len=256, draft=(dparams, dcfg), spec_tokens=4, **kw)
+    reqs = [eng.submit([3, 5, 7, 11, 13], max_new_tokens=20), eng.submit(list(range(40)), max_new_tokens=17)]
+    rounds, verify, round_fn = [], eng._backend.verify, eng._speculative_round
+
+    def recorded_verify(*args):
+        logits = verify(*args)
+        rounds[-1]["argmax"] = logits.argmax(-1).cpu().numpy()
+        return logits
+
+    def recorded_round():
+        before = {s: (r, len(r.output)) for s, r in eng.active.items()}
+        rounds.append({})
+        out = round_fn()
+        rounds[-1]["emitted"] = {s: r.output[n0:] for s, (r, n0) in before.items()}
+        return out
+
+    eng._backend.verify, eng._speculative_round = recorded_verify, recorded_round
+    wrapper = decode_attention if backend == "slots" else paged_decode_attention
+    before = wrapper.verify_launches
+    eng.run_to_completion()
+    assert all(r.done and len(r.output) == r.max_new_tokens for r in reqs)
+    assert rounds and wrapper.verify_launches - before == cfg.num_layers * len(rounds)
+    for rd in rounds:
+        for slot, emitted in rd["emitted"].items():
+            assert emitted and emitted == rd["argmax"][slot, : len(emitted)].tolist()
+    if draft == "self":
+        assert eng.stats["spec_accepted"] > 0
+    if backend == "paged":
+        assert int(eng.alloc.allocated.sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32], ids=["f16", "f32"])
+@pytest.mark.parametrize("backend", ["slots", "paged"])
+def test_float_caches_serve_on_card(cuda, backend, dtype):
+    """Fault 13: an engine over a float16 or float32 cache serves two
+    requests through K4 or K10 on the card (they raised before)."""
+    params, cfg, _, _ = _spec_model(cuda)
+    kw = dict(cache_backend="paged", page_size=64) if backend == "paged" else {}
+    eng = Engine(params, cfg, num_slots=2, max_len=256, cache_dtype=dtype, **kw)
+    reqs = [eng.submit([3, 5, 7], max_new_tokens=6), eng.submit(list(range(30)), max_new_tokens=4)]
+    eng.run_to_completion()
+    assert all(r.done and len(r.output) == r.max_new_tokens for r in reqs)
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
@@ -1148,8 +1294,10 @@ def test_paged_kernel_refuses_on_card(cuda):
         paged_decode_attention(q, kp, kp, lens.long(), table)
     with pytest.raises(ValueError, match="float queries"):
         paged_decode_attention(q.to(torch.int8), kp, kp, lens, table)
-    with pytest.raises(ValueError, match="take int8, e4m3, int4 or bf16"):
-        paged_decode_attention(q, kp.half(), kp.half(), lens, table)
+    # fp16 pages are taken now (fault 13); float64 ones are not.
+    assert paged_decode_attention(q, kp.half(), kp.half(), lens, table).shape == q.shape
+    with pytest.raises(ValueError, match="take int8, e4m3, int4, bf16, float16 or float32"):
+        paged_decode_attention(q, kp.double(), kp.double(), lens, table)
 
 
 @pytest.mark.parametrize("sq,skv,off,d", [(256, 640, 384, 128), (100, 357, 257, 64),

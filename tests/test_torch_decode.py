@@ -76,8 +76,10 @@ def test_decode_rejects_what_is_not_ported():
     lengths = torch.tensor(LENGTHS, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdecode(q, kc, vc, lengths, k_scale=ks, v_scale=vs, window=(16, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecode(q[:, :, None, :], kc, vc, lengths, k_scale=ks, v_scale=vs)
+    # The multi-query verify mode is ported (tests/test_torch_verify.py):
+    # the 4-D call that used to be refused now runs.
+    one = tdecode(q[:, :, None, :], kc, vc, lengths, k_scale=ks, v_scale=vs)
+    assert torch.equal(one[:, :, 0], tdecode(q, kc, vc, lengths, k_scale=ks, v_scale=vs))
     with pytest.raises(ValueError, match="requires k_scale"):
         tdecode(q, kc, vc, lengths)
 

@@ -146,3 +146,33 @@ def test_k10_group_split_schedule(ctas, ps):
     segs = decode.core_segments(64, 2, 128, decode.KINDS["int8"])
     _check(decode.decode_schedule(lens, segs, decode.ROWS_PER_TILE, ctas, 4 * ps), lens,
            decode.ROWS_PER_TILE, 4 * ps)
+
+
+@pytest.mark.parametrize("hq,hkv,d,kind,t,want", [
+    (32, 8, 128, "int8", 5, 8 * 2),    # Llama-3-8B verifying 5: 20 rows, two query splits
+    (32, 8, 128, "int8", 4, 8),        # 16 rows: one split
+    (32, 8, 128, "int4", 2, 8),        # 8 rows
+    (64, 8, 128, "bf16", 5, 8 * 3),    # G = 8, T = 5: 40 rows, three splits
+    (8, 8, 64, "f16", 2, 8),           # G = 1
+    (16, 8, 320, "f16", 1, 8 * 5),     # fp16 at 512 wide: 64 columns a split, as bf16
+    (32, 8, 128, "f32", 1, 8),         # fp32 up to 128 wide: one column split
+    (16, 8, 256, "f32", 5, 8 * 4),     # fp32 at 256: 64 columns a split
+    (8, 2, 512, "f32", 2, 2 * 8),      # fp32 at 512: 64 columns a split
+    (64, 2, 128, "int4_pages", 3, 2 * 6),  # G = 32, T = 3 over token-packed pages
+])
+def test_core_segments_verify(hq, hkv, d, kind, t, want):
+    """A KV head's G * T query rows take ceil(G * T / 16) query splits."""
+    assert decode.core_segments(hq, hkv, d, decode.KINDS[kind], t) == want
+
+
+@pytest.mark.parametrize("ctas", [1, 132, 256])
+@pytest.mark.parametrize("t", [2, 5])
+def test_verify_schedule(ctas, t):
+    """Verification lengths (each active slot at least T, an empty slot)
+    over Llama-3-8B's heads: the schedule with the T-wide query splits
+    covers each tile once, balanced, in a fixed merge order."""
+    lens = np.random.default_rng(t).integers(t, 1025, 16)
+    lens[0] = 0
+    segs = decode.core_segments(32, 8, 128, decode.KINDS["int8"], t)
+    _check(decode.decode_schedule(lens, segs, decode.ROWS_PER_TILE, ctas, 1024), lens,
+           decode.ROWS_PER_TILE, 1024)

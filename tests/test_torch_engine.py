@@ -146,8 +146,12 @@ def test_engine_rejects_what_is_not_ported(params):
         Engine(params, CFG, num_slots=1, max_len=64, cache_dtype=torch.bfloat16, kv_int4=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(params, CFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, draft=params)
+    # Speculative decoding is ported (tests/test_torch_speculative.py): the
+    # draft that used to be refused now serves.
+    spec = Engine(params, CFG, num_slots=1, max_len=64, draft=(params, CFG), spec_tokens=2)
+    req = spec.submit([1, 2, 3], max_new_tokens=4)
+    spec.run_to_completion()
+    assert req.done and len(req.output) == 4 and spec.stats["spec_rounds"] > 0
     # The paged backend, chunked prefill and the prefix cache are ported:
     # the calls that used to be refused now construct.
     eng = Engine(params, CFG, num_slots=1, max_len=256, cache_backend="paged", page_size=64,

@@ -183,16 +183,20 @@ def test_paged_validation_matches_jax():
 
 
 def test_paged_not_ported_modes_raise():
-    """The multi-query q, windows and the side buffer: each valid in JAX,
-    each NotImplementedError naming ROADMAP.  (Token-packed int4 pages are
-    ported: tests/test_torch_kv_int4.py holds them against JAX.)"""
+    """Windows and the side buffer: each valid in JAX, each
+    NotImplementedError naming ROADMAP.  (Token-packed int4 pages are
+    ported: tests/test_torch_kv_int4.py holds them against JAX; so is the
+    multi-query q, tests/test_torch_verify.py: the 4-D call that used to be
+    refused now runs.)"""
     q = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
     kp = torch.zeros((2, 8, 32, 64), dtype=torch.int8)
     lengths, table = torch.tensor([5], dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32)
     s32 = torch.ones((2, 8, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
-        paged_decode_attention(q[:, :, None], kp, kp, lengths, table, k_scale_pages=s32,
-                               v_scale_pages=s32)
+    one = paged_decode_attention(q[:, :, None], kp, kp, lengths, table, k_scale_pages=s32,
+                                 v_scale_pages=s32)
+    assert one.shape == (1, 4, 1, 64)
+    assert torch.equal(one[:, :, 0], paged_decode_attention(q, kp, kp, lengths, table,
+                                                            k_scale_pages=s32, v_scale_pages=s32))
     with pytest.raises(NotImplementedError, match="ROADMAP.*12c"):
         paged_decode_attention(q, kp, kp, lengths, table, k_scale_pages=s32, v_scale_pages=s32,
                                window=(16, 0))
