@@ -11,7 +11,9 @@
 // wrapper rounds float32 and float16 ones, as K1 does; over an fp16 cache
 // it passes them as fp16, exactly). Multi-query mode (decode.py:359-363,
 // mask :176-200): T candidates a head, rows packed t-fastest, candidate t
-// seeing the rows below lengths[b] - (T - 1 - t). fp16 and fp32 caches
+// seeing the rows below lengths[b] - (T - 1 - t). A sliding window
+// (decode.py:200-207) also masks the rows below lengths[b] - 1 - window_left
+// - (T - 1 - t), and the tiles wholly below candidate 0's are skipped. fp16 and fp32 caches
 // enter as JAX's kernel takes them (no scales): fp16 products with P
 // rounded to fp16, fp32 rows rounded to bf16 for bf16 products.
 //
@@ -37,11 +39,14 @@
 // Smax); 2 bf16, 5 fp16, 6 fp32, scales null; 3 int4, rows of D/2 packed
 // bytes, with token scales); lengths (B,) int32, counting the T candidates;
 // out (B, Hq, T, D) bf16; part_acc and part_ml fp32 scratch of the sizes
-// qa_decode_attn_plan gives. score_scale = sm_scale * log2(e).
+// qa_decode_attn_plan gives. window_left: a sliding window's left extent
+// (candidate t sees the rows from lengths[b] - 1 - window_left - (T - 1 - t)
+// on; the tiles below candidate 0's first row are never fetched), or -1 for
+// none. score_scale = sm_scale * log2(e).
 extern "C" int qa_decode(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* lengths, void* out, void* part_acc,
                          void* part_ml, int B, int Hq, int Hkv, int Smax, int D, int T, int kind,
-                         float score_scale, void* stream) {
+                         int window_left, float score_scale, void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
   const bool scaled = kind != kKindBF16 && kind != kKindF16 && kind != kKindF32;
@@ -64,6 +69,7 @@ extern "C" int qa_decode(const void* q, const void* k, const void* v, const void
   p.D = D;
   p.T = T;
   p.smax = Smax;
+  p.window_left = window_left < 0 ? -1 : window_left;
   p.score_scale = score_scale;
   const int rows = B * Hkv * Smax;
   auto* o = static_cast<__nv_bfloat16*>(out);

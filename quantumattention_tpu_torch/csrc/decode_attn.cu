@@ -32,7 +32,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
   const int splits = p.qsplits * p.csplits, segs = p.Hkv * splits;
   int before = 0, total = 0;
   for (int x = threadIdx.x; x < p.B; x += kMergeThreads) {
-    const int tiles = len_tiles(slot_len(p, x));
+    const int tiles = slot_tiles(p, slot_len(p, x));
     total += tiles;
     before += x < b ? tiles : 0;
   }
@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(const Params p, __
     ocol = byte < dh ? byte + (ocol >= p.half ? dh : 0) : -1;
   }
   __nv_bfloat16* dst = out + (head_row(p, b, h) + qs * kMaxQRows) * p.D + ocol;
-  const int tiles = len_tiles(slot_len(p, b));
+  const int tiles = slot_tiles(p, slot_len(p, b));
   if (tiles == 0) {
     for (int q = warp; q < rows; q += kWarps)
       if (col < cols && ocol >= 0) dst[static_cast<size_t>(q) * p.D] = __float2bfloat16_rn(0.f);

@@ -6,7 +6,9 @@
 // heads of the group, each with T query tokens (T = 1 for a decode step;
 // T > 1 verifies T speculative candidates, whose rows are packed
 // t-fastest, G * T rows, and candidate t sees the rows
-// [0, lengths[b] - (T - 1 - t))), against the cache rows [0, lengths[b]),
+// [0, lengths[b] - (T - 1 - t))), against the cache rows [0, lengths[b])
+// (with a sliding window of left extent window_left, only the rows from
+// lengths[b] - 1 - window_left - (T - 1 - t) on, decode.py:200-207),
 // an exp2 online softmax in fp32, P.V with fp32 accumulation, a bf16
 // output, and exact zeros for a slot of length 0. They differ in the row
 // source (locate below) and in where a token scale enters (Mode). The cache
@@ -27,7 +29,13 @@
 //    (never from the lengths, so nothing is read back to the host and a
 //    call can be captured in a CUDA graph). The work is the 64-row tiles of
 //    every segment, a segment being (slot, KV head, query split, column
-//    split), in that order. Each CTA sums the tiles of the B lengths itself
+//    split), in that order. A slot's tiles start at the first that its
+//    lowest query row can see (tile 0 without a window; with one,
+//    (lengths[b] - T - window_left) / 64, candidate 0's first row), so the
+//    boxes and pages below a window are never fetched nor looked up: a
+//    window model streams about a window of rows a step, not the whole
+//    cache (the port of JAX's block skip, decode.py:110-121, :464-477).
+//    Each CTA sums the tiles of the B lengths itself
 //    and takes an equal contiguous share of them (shares differ by at most
 //    one tile; at least kMinTiles a CTA where there are enough, so fewer
 //    CTAs take part in a short call), which may span segments.
@@ -120,6 +128,7 @@ struct Params {
   int tma;                 // 1: TMA boxes; 0: cp.async rows of `chunk` bytes
   int chunk;
   int half;                // head-dim-packed int4: W / 2 (the output halves); else 0
+  int window_left;         // the window's left extent, -1 for none
   float score_scale;       // sm_scale * log2(e)
 };
 
@@ -194,12 +203,23 @@ struct Layout {
   static_assert(kStages >= min_stages(W, KIND) && kSmem <= kSmemCap, "the stages fit one CTA's shared memory");
 };
 
-// Tiles of slot b (rows [0, min(lengths[b], smax)) in 64-row tiles).
+// The rows of slot b: [0, min(lengths[b], smax)).
 __device__ __forceinline__ int slot_len(const Params& p, int b) {
   return min(max(__ldg(p.lengths + b), 0), p.smax);
 }
 
 __device__ __forceinline__ int len_tiles(int len) { return (len + kRows - 1) / kRows; }
+
+// The first 64-row tile of a slot of length len that any of its query rows
+// can see: 0, or with a window the tile of candidate 0's first row.
+__device__ __forceinline__ int first_tile(const Params& p, int len) {
+  return p.window_left < 0 ? 0 : max(0, len - p.T - p.window_left) / kRows;
+}
+
+// The tiles a slot of length len runs: from first_tile to its last row's.
+__device__ __forceinline__ int slot_tiles(const Params& p, int len) {
+  return len_tiles(len) - first_tile(p, len);
+}
 
 // How far query row `qrow` of a KV head (rows packed t-fastest over the
 // G * T rows of every split) sits before the last candidate: candidate
@@ -251,23 +271,26 @@ __device__ __forceinline__ int tile_off(int row, int col) {
   return (col >> 7) * (kRows * 128) + row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
 }
 
-// The current tile of a CTA's share: slot b (length len, `tiles` tiles),
-// segment j of the slot, tile i of the segment.
+// The current tile of a CTA's share: slot b (length len, tiles i0 ..
+// end - 1), segment j of the slot, tile i of the slot (its rows from
+// i * 64 on).
 struct TileIt {
-  int b, j, i, len, tiles;
+  int b, j, i, len, i0, end;
 };
 
 // The share's tile after `it` (segments in order, empty slots skipped).
 __device__ __forceinline__ void advance(const Params& p, int segs, TileIt& it) {
-  if (++it.i < it.tiles) return;
-  it.i = 0;
+  if (++it.i < it.end) return;
+  it.i = it.i0;
   if (++it.j < segs) return;
   it.j = 0;
   do {
     ++it.b;
     it.len = it.b < p.B ? slot_len(p, it.b) : 0;
-    it.tiles = len_tiles(it.len);
-  } while (it.b < p.B && it.tiles == 0);
+    it.i0 = first_tile(p, it.len);
+    it.end = len_tiles(it.len);
+  } while (it.b < p.B && it.end == it.i0);
+  it.i = it.i0;
 }
 
 // The CTAs that take part in a call of n tiles: each takes at least
@@ -305,7 +328,7 @@ __device__ __forceinline__ void find_share(const Params& p, int segs, int c, Til
   auto slot = [&](int b0) { return b0 == 0 ? len0 : (b0 + lane < p.B ? slot_len(p, b0 + lane) : 0); };
   int total = 0;
   for (int b0 = 0; b0 < p.B; b0 += 32) {
-    int x = len_tiles(slot(b0)) * segs;
+    int x = slot_tiles(p, slot(b0)) * segs;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
     total += x;
@@ -316,7 +339,7 @@ __device__ __forceinline__ void find_share(const Params& p, int segs, int c, Til
   int before = 0;
   for (int b0 = 0; b0 < p.B; b0 += 32) {
     const int len = slot(b0);
-    const int x = len_tiles(len) * segs;
+    const int x = slot_tiles(p, len) * segs;
     int inc = x;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -327,11 +350,13 @@ __device__ __forceinline__ void find_share(const Params& p, int segs, int c, Til
       const int L = __ffs(__ballot_sync(0xffffffffu, u < before + inc)) - 1;
       const int start = before + __shfl_sync(0xffffffffu, inc - x, L);
       const int lb = __shfl_sync(0xffffffffu, len, L);
+      const int n = slot_tiles(p, lb);
       it.b = b0 + L;
       it.len = lb;
-      it.tiles = len_tiles(lb);
-      it.j = (u - start) / it.tiles;
-      it.i = (u - start) % it.tiles;
+      it.i0 = first_tile(p, lb);
+      it.end = it.i0 + n;
+      it.j = (u - start) / n;
+      it.i = it.i0 + (u - start) % n;
       return;
     }
     before += __shfl_sync(0xffffffffu, inc, 31);
@@ -779,24 +804,30 @@ decode_attn_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
 #pragma unroll
         for (int e = 0; e < 4; ++e) sacc[j][e] += sodd[j][e];
 
-      // Scale, mask (a slot row at or past its query row's limit), online
-      // softmax per query; P (times K4's V scale) as P^T's B fragments.
+      // Scale, mask (a slot row at or past its query row's limit, or below
+      // its window), online softmax per query; P (times K4's V scale) as
+      // P^T's B fragments.
       const int sa = it.i * kRows + ra, sb = sa + 8;  // slot rows of the accumulators
+      // The first row the last candidate sees (-1: every row, no window).
+      const int lo_last = p.window_left < 0 ? -1 : it.len - 1 - p.window_left;
       uint32_t pb[kNT][2];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         float pv[2][2];  // [row a / b][query e]
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          int lim = it.len;
-          if constexpr (MULTI) lim -= shift[j][e];
+          int lim = it.len, lo = lo_last;
+          if constexpr (MULTI) {
+            lim -= shift[j][e];
+            lo -= shift[j][e];
+          }
           float x0 = sacc[j][e] * p.score_scale, x1 = sacc[j][2 + e] * p.score_scale;
           if constexpr (MODE == kScoreScale) {
             x0 *= sc[0];
             x1 *= sc[1];
           }
-          x0 = sa < lim ? x0 : kMaskValue;
-          x1 = sb < lim ? x1 : kMaskValue;
+          x0 = sa < lim && sa >= lo ? x0 : kMaskValue;
+          x1 = sb < lim && sb >= lo ? x1 : kMaskValue;
           float mx = fmaxf(x0, x1);
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
@@ -1003,6 +1034,8 @@ struct Plan {
 // memory allows), at most kMaxCtas and one a tile of the most the slots
 // can hold.
 inline cudaError_t plan(int kind, int B, int Hq, int Hkv, int D, int T, int smax, int ps, Plan* pl) {
+  // The grid is sized from the most tiles the slots can hold, never from
+  // their lengths (or window), so a call can be captured in a CUDA graph.
   const int W = kernel_width(D);
   if (W == 0 || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || T <= 0 || smax <= 0 || kind < kKindI8 ||
       kind > kKindF32 || (kind == kKindI4T && (ps <= 0 || ps % 2 != 0)))

@@ -12,7 +12,9 @@
 //   dP = dO.V^T,  dS = P o (dP - D),  D = rowsum(dO o O) (given)
 //   dQ = sm_scale * dS.K      dK = sm_scale * dS^T.Q      dV = P^T.dO
 //
-// with top-left causal and ragged-tail masks (masked P = 0), GQA by KV-head
+// with top-left causal, sliding-window and ragged-tail masks (masked P = 0;
+// a window (left, right) keeps the keys [i - left, i + right] of row i, the
+// right extent inactive under the causal mask, flash_bwd.py:225-226), GQA by KV-head
 // index, P and dS rounded to the inputs' 16-bit type (bf16, as the TPU
 // kernels round them, or fp16 for fp16 inputs) as product operands, and
 // fp32 accumulation.
@@ -37,7 +39,8 @@
 //    (the wrapper packs them), so that K3's tile of them is one bulk copy;
 //  - K2: one CTA per (q head, batch, 64 rows a consumer of Q), the heaviest
 //    causal blocks first. Q and dO load once; the K and V tiles of KV head
-//    hq / G stream through the ring. Each consumer runs S = Q.K^T and
+//    hq / G that the block's rows can see (from the lowest row's window edge
+//    to the highest row's diagonal or right edge) stream through the ring. Each consumer runs S = Q.K^T and
 //    dP = dO.V^T as SS wgmma (both K-major), P and dS in registers (masks
 //    only on diagonal and ragged tiles), then dS packed to 16 bits is the
 //    register A operand of dQ += dS.K, whose B is the K tile read MN-major
@@ -46,8 +49,10 @@
 //    128 KV rows at B = 1, Hq = 32, S = 1536, heaviest causal blocks first,
 //    where one CTA per 64-row KV block walking its G = 4 q heads gave 192
 //    and at most 76% of the SMs under the causal triangle). The KV block's K
-//    and V load once; Q and dO tiles and their rows' statistics stream
-//    through the ring. Each consumer owns 64 KV rows and computes
+//    and V load once; Q and dO tiles of the rows that can see the block
+//    (down to the diagonal or the right window edge, up to the last row
+//    whose window reaches the block) and their statistics stream through
+//    the ring. Each consumer owns 64 KV rows and computes
 //    S^T = K.Q^T and dP^T = V.dO^T directly, so that the accumulators have
 //    KV rows as M and P^T and dS^T are the register A operands of
 //    dV += P^T.dO and dK += dS^T.Q (dO and Q read MN-major);
@@ -75,9 +80,9 @@
 //    columns over two CTAs at W = 512 (256 each); K3 splits dK and dV into
 //    128-column parts above W = 128 (two CTAs at 256, four at 512). Each CTA
 //    of a split recomputes the score products over the full D.
-// Not here: the window of the TPU kernels (the wrapper refuses it), fp8
-// products, and one fused pass with dQ summed by atomics (FA3's design,
-// which would make dQ nondeterministic).
+// Not here: position offsets (nor has the TPU kernel them), fp8 products,
+// and one fused pass with dQ summed by atomics (FA3's design, which would
+// make dQ nondeterministic).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -229,8 +234,8 @@ __global__ void __launch_bounds__(DqCfg<W>::kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float4* __restrict__ stats, void* __restrict__ dq, int Hq, int Hkv,
-                    int Sq, int Sq_pad, int Skv, int D, int causal, float score_scale,
-                    float sm_scale) {
+                    int Sq, int Sq_pad, int Skv, int D, int causal, int left, int right,
+                    float score_scale, float sm_scale) {
   using C = DqCfg<W>;
   constexpr int kBN = C::kBN, kOD = C::kOD;
   constexpr int kBlocks = Rows<W>::kBlocks;
@@ -251,18 +256,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   const int hk = hq / (Hq / Hkv);
   const int q0 = mb * C::kBM;
   const int bh_q = b * Hq + hq, bh_k = b * Hkv + hk;
-  const int kv_end = causal ? min(Skv, q0 + C::kBM) : Skv;
-  const int ntiles = (kv_end + kBN - 1) / kBN;
+  // The KV rows the block's rows can see: [kv_begin, kv_end).
+  const int up = causal ? 0 : right;
+  const int kv_begin = max(0, q0 - left);
+  const int kv_end = min(Skv, max(0, q0 + C::kBM + up));
+  const int tile0 = kv_begin / kBN;
+  const int ntiles = max(0, (kv_end + kBN - 1) / kBN - tile0);
 
-  // Thread 0 loads tile i into stage i % kStages once the consumers have
-  // released the tile that used it before.
+  // Thread 0 loads tile i (KV rows from (tile0 + i) * kBN) into stage
+  // i % kStages once the consumers have released the tile that used it before.
   auto load_tile = [&](int i) {
     const int s = i % kStages;
+    const int n0 = (tile0 + i) * kBN;
     qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
     qa::mbar_expect_tx(&full[s], 2 * kBlocks * kBN * 128);
     for (int c = 0; c < kBlocks; ++c) {
-      qa::tma_load_3d(Ks + s * C::kKBytes + c * kBN * 128, &tm_k, &full[s], c * 64, i * kBN, bh_k);
-      qa::tma_load_3d(Vs + s * C::kKBytes + c * kBN * 128, &tm_v, &full[s], c * 64, i * kBN, bh_k);
+      qa::tma_load_3d(Ks + s * C::kKBytes + c * kBN * 128, &tm_k, &full[s], c * 64, n0, bh_k);
+      qa::tma_load_3d(Vs + s * C::kKBytes + c * kBN * 128, &tm_v, &full[s], c * 64, n0, bh_k);
     }
     qa::mbar_arrive(&full[s]);
   };
@@ -315,9 +325,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   qa::mbar_wait(full_q, 0);
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % kStages;
-    const int n0 = i * kBN;
-    const bool skip = !active || (causal && n0 > p_hi);
-    const bool unmasked = (!causal || n0 + kBN - 1 <= p_lo) && n0 + kBN <= Skv;
+    const int n0 = (tile0 + i) * kBN;
+    const bool skip = !active || n0 > p_hi + up || n0 + kBN - 1 < p_lo - left;
+    const bool unmasked = n0 + kBN - 1 <= p_lo + up && n0 >= p_hi - left && n0 + kBN <= Skv;
     qa::mbar_wait(&full[s], (i / kStages) & 1);
     if (!skip) {
       const uint32_t k_addr = qa::smem_addr(Ks + s * C::kKBytes);
@@ -334,8 +344,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
           if (!unmasked) {
             const int col = n0 + j * 8 + t * 2 + e;
             const bool in = col < Skv;
-            p0 = in && (!causal || col <= row0) && st0.y != 0.f ? p0 : 0.f;
-            p1 = in && (!causal || col <= row1) && st1.y != 0.f ? p1 : 0.f;
+            p0 = in && col <= row0 + up && col >= row0 - left && st0.y != 0.f ? p0 : 0.f;
+            p1 = in && col <= row1 + up && col >= row1 - left && st1.y != 0.f ? p1 : 0.f;
           }
           sc[4 * j + e] = p0 * (dp[4 * j + e] - st0.z);
           sc[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - st1.z);
@@ -376,8 +386,8 @@ __global__ void __launch_bounds__(DkvCfg<W>::kThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float4* __restrict__ stats, void* __restrict__ dk, void* __restrict__ dv,
-                     int Hq, int Hkv, int Sq, int Sq_pad, int Skv, int D, int causal,
-                     float score_scale, float sm_scale, int heads) {
+                     int Hq, int Hkv, int Sq, int Sq_pad, int Skv, int D, int causal, int left,
+                     int right, float score_scale, float sm_scale, int heads) {
   using C = DkvCfg<W>;
   constexpr int kBQ = C::kBQ, kOD = C::kOD;
   constexpr int kBlocks = Rows<W>::kBlocks;
@@ -401,9 +411,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   const int h_first = hk * (Hq / Hkv) + rank * heads;
   const int n0 = nb * C::kBM;
   const int bh_k = b * Hkv + hk;
-  // Top-left causal: Q rows above n0 see none of this block's columns.
-  const int q_begin = causal ? n0 / kBQ * kBQ : 0;
-  const int nq = Sq > q_begin ? (Sq - q_begin + kBQ - 1) / kBQ : 0;
+  // The Q rows that can see this block's columns: from the diagonal (top-left
+  // causal) or the right window edge down to the last row whose window
+  // reaches the block's last column.
+  const int up = causal ? 0 : right;
+  const int q_begin = max(0, n0 - up) / kBQ * kBQ;
+  const int q_end = min(Sq, n0 + C::kBM + left);
+  const int nq = q_end > q_begin ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
   const int ntiles = heads * nq;
 
   // Thread 0 loads tile i (q head h_first + i / nq, Q rows from
@@ -467,8 +481,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     const int s = i % kStages;
     const int q0 = q_begin + i % nq * kBQ;
     // Warpgroup-uniform classes: every (kv, q) of the tile masked, or none.
-    const bool skip = !active || (causal && q0 + kBQ - 1 < k_lo);
-    const bool unmasked = (!causal || q0 >= k_lo + 63) && k_lo + 64 <= Skv && q0 + kBQ <= Sq;
+    const bool skip = !active || q0 + kBQ - 1 + up < k_lo || q0 - left > k_lo + 63;
+    const bool unmasked = q0 + up >= k_lo + 63 && q0 + kBQ - 1 - left <= k_lo && k_lo + 64 <= Skv &&
+                          q0 + kBQ <= Sq;
     qa::mbar_wait(&full[s], (i / kStages) & 1);
     if (!skip) {
       const uint32_t qt_addr = qa::smem_addr(Qs + s * C::kQBytes);
@@ -487,8 +502,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
           float p1 = exp2f(st[4 * j + 2 + e] * score_scale - sq.x) * sq.y;
           if (!unmasked) {
             const int qc = q0 + cl;
-            p0 = sq.y != 0.f && kv0 < Skv && (!causal || kv0 <= qc) ? p0 : 0.f;
-            p1 = sq.y != 0.f && kv1 < Skv && (!causal || kv1 <= qc) ? p1 : 0.f;
+            p0 = sq.y != 0.f && kv0 < Skv && kv0 <= qc + up && kv0 >= qc - left ? p0 : 0.f;
+            p1 = sq.y != 0.f && kv1 < Skv && kv1 <= qc + up && kv1 >= qc - left ? p1 : 0.f;
           }
           st[4 * j + e] = p0;
           st[4 * j + 2 + e] = p1;
@@ -586,7 +601,7 @@ cudaError_t encode_maps(CUtensorMap (&tm)[4], const void* q, const void* k, cons
 struct Args {
   const void *q, *k, *v, *dout;
   const float4* stats;
-  int B, Hq, Hkv, Sq, Sq_pad, Skv, D, causal;
+  int B, Hq, Hkv, Sq, Sq_pad, Skv, D, causal, left, right;
   float score_scale, sm_scale;
   cudaStream_t stream;
 };
@@ -602,7 +617,7 @@ int launch_dq(const Args& a, void* dq) {
   dim3 grid(a.Hq * C::kSplits, a.B, (a.Sq + C::kBM - 1) / C::kBM);
   flash_bwd_dq_kernel<W, T><<<grid, C::kThreads, C::kSmem, a.stream>>>(
       tm[0], tm[1], tm[2], tm[3], a.stats, dq, a.Hq, a.Hkv, a.Sq, a.Sq_pad, a.Skv, a.D, a.causal,
-      a.score_scale, a.sm_scale);
+      a.left, a.right, a.score_scale, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,7 +654,7 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   launch.numAttrs = 1;
   err = cudaLaunchKernelEx(&launch, flash_bwd_dkv_kernel<W, T>, tm[0], tm[1], tm[2], tm[3],
                            a.stats, dk, dv, a.Hq, a.Hkv, a.Sq, a.Sq_pad, a.Skv, a.D, a.causal,
-                           a.score_scale, a.sm_scale, G / ranks);
+                           a.left, a.right, a.score_scale, a.sm_scale, G / ranks);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -668,16 +683,18 @@ bool bad_args(int code, int D, int Hq, int Hkv, int Sq, int Sq_pad) {
 // past Sq, Sq_pad a multiple of 64 at least Sq: the forward's residuals in
 // the exp2 domain of score_scale = sm_scale * log2(e), 1/l = 0 where l = 0,
 // and D = rowsum(dO o O). D (the head dim) is a multiple of 8 up to 512.
+// left, right: the window's extents (row i sees keys [i - left, i + right]),
+// 1 << 30 for an unbounded side; the causal mask ignores right.
 extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* stats, void* dq, int B, int Hq, int Hkv, int Sq,
-                               int Sq_pad, int Skv, int D, int code, int causal, float score_scale,
-                               float sm_scale, void* stream) {
+                               int Sq_pad, int Skv, int D, int code, int causal, int left,
+                               int right, float score_scale, float sm_scale, void* stream) {
   if (Sq == 0 || B == 0) return 0;
   if (bad_args(code, D, Hq, Hkv, Sq, Sq_pad) || Skv <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, dout, static_cast<const float4*>(stats), B, Hq, Hkv, Sq, Sq_pad, Skv, D,
-               causal, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
+               causal, left, right, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
   switch (qa::kernel_width(D)) {
     case 64:
       return launch_dq_t<64>(code, a, dq);
@@ -693,11 +710,12 @@ extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
 extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* stats, void* dk, void* dv, int B, int Hq, int Hkv,
                                 int Sq, int Sq_pad, int Skv, int D, int code, int causal,
-                                float score_scale, float sm_scale, void* stream) {
+                                int left, int right, float score_scale, float sm_scale,
+                                void* stream) {
   if (Skv == 0 || B == 0) return 0;
   if (bad_args(code, D, Hq, Hkv, Sq, Sq_pad)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float4*>(stats), B, Hq, Hkv, Sq, Sq_pad, Skv, D,
-               causal, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
+               causal, left, right, score_scale, sm_scale, static_cast<cudaStream_t>(stream)};
   switch (qa::kernel_width(D)) {
     case 64:
       return launch_dkv_t<64>(code, a, dk, dv);

@@ -7,9 +7,14 @@
 // accumulator, P rounded to bf16 (fp16 when V is fp16) for P.V with fp32
 // accumulation, top-left causal and ragged-KV-tail masks with MASK_VALUE
 // (not -inf), GQA by KV-head index (q head hq reads KV head hq / G). With a
-// position offset (chunked prefill: q's row 0 sits at global position
-// q_offset over a longer K/V) the causal mask is q_offset + i >= j
-// (flash.py:862-870).
+// position offsets (chunked prefill: q's row 0 sits at global position
+// q_offset, K's row 0 at kv_offset) every mask compares global positions,
+// q_offset + i >= kv_offset + j under the causal mask (flash.py:862-875).
+// A sliding window (left, right) keeps the keys at positions
+// [p - left, p + right] of query position p (flash.py:398-409; the right
+// extent is inactive under the causal mask, where the wrapper passes it
+// unbounded, 1 << 30). A row that sees no key stores zeros, as JAX's kernel
+// does by its running max (flash.py:573-578).
 //
 // What bounds it on the H100: operations. Q.K^T runs at the tensor cores'
 // fp8 (or int8) peak of 1979 TFLOP/s when Q and K are 8-bit, P.V at bf16's
@@ -26,12 +31,15 @@
 //    next head's rows, and only the ragged last tile needs a column mask.
 //    128-byte swizzled boxes (64 bytes for an 8-bit D = 64) match the wgmma
 //    descriptors. KV tiles wholly above the causal diagonal (shifted by
-//    q_offset) are never loaded;
+//    the offsets) or outside the window of every row of the CTA are never
+//    loaded: a Q block's KV range starts at the first tile that its lowest
+//    row can see and ends after the last that its highest row can;
 //  - Q.K^T is wgmma on the operands' own type, both K-major in shared
 //    memory: e4m3 x e4m3 and int8 x int8 (exact int32) at k32, bf16 and
 //    fp16 at k16. No 8-bit operand is widened;
-//  - the scores stay in registers: scales, masks (only on diagonal and
-//    ragged tiles; tiles wholly below the diagonal run without them) and
+//  - the scores stay in registers: scales, masks (only on diagonal,
+//    window-edge and ragged tiles; tiles wholly inside every row's range
+//    run without them) and
 //    the online softmax, then P packed to 16 bits is the register A operand
 //    of P.V, whose B is the V tile read MN-major through the transpose bit;
 //  - an e4m3 V (fp8 wgmma takes K-major B only) is widened to bf16 in
@@ -158,11 +166,12 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
 // This thread's scores of one tile in the exp2 domain: times the row scale
 // (and the token-wise column scale `cs`, or none), masked entries at
 // MASK_VALUE when kMask; returns each row's maximum over the thread's
-// columns. Column cl of the tile is masked when cl >= valid or (causal)
-// c0 + cl > row, c0 = n0 - q_offset.
+// columns. Column cl of the tile is kept when cl < valid and
+// row - left <= c0 + cl <= row + up, c0 = kv_offset + n0 - q_offset (up 0
+// under the causal mask, else the window's right extent).
 template <int BN, bool kMask>
 __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs, float rs0,
-                                            float rs1, int t, int valid, bool causal, int c0,
+                                            float rs1, int t, int valid, int c0, int up, int left,
                                             int row0, int row1, float& mx0, float& mx1) {
   mx0 = qa::kMaskValue;
   mx1 = qa::kMaskValue;
@@ -174,9 +183,10 @@ __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs,
       const float c = cs != nullptr ? cs[cl] : 1.f;
       float x0 = s[4 * j + e] * rs0 * c, x1 = s[4 * j + 2 + e] * rs1 * c;
       if (kMask) {
+        const int c = c0 + cl;
         const bool in = cl < valid;
-        x0 = in && (!causal || c0 + cl <= row0) ? x0 : qa::kMaskValue;
-        x1 = in && (!causal || c0 + cl <= row1) ? x1 : qa::kMaskValue;
+        x0 = in && c <= row0 + up && c >= row0 - left ? x0 : qa::kMaskValue;
+        x1 = in && c <= row1 + up && c >= row1 - left ? x1 : qa::kMaskValue;
       }
       s[4 * j + e] = x0;
       s[4 * j + 2 + e] = x1;
@@ -192,6 +202,8 @@ __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs,
 // (B, Hq, Sq) fp32, both or neither: the residuals of the backward (K2/K3),
 // each row's final running max and softmax sum in the exp2 domain of the
 // folded scores (flash.py:586-588). D <= W is the tensors' head dim.
+// left / right: the window's extents, 1 << 30 for an unbounded side (right
+// unbounded under the causal mask).
 template <int W, int QK>
 __global__ void __launch_bounds__(Cfg<W, QK>::kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -199,7 +211,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  const float* __restrict__ scale_q, const float* __restrict__ scale_k,
                  void* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int D, int pv_f16,
                  int out_code, int scaling, int causal, float score_scale, int q_offset,
-                 float* __restrict__ m_out, float* __restrict__ l_out) {
+                 int kv_offset, int left, int right, float* __restrict__ m_out,
+                 float* __restrict__ l_out) {
   using C = Cfg<W, QK>;
   constexpr int kBN = C::kBN;
   constexpr int kOD = C::kOD;
@@ -221,9 +234,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int hk = hq / (Hq / Hkv);
   const int q0 = mb * C::kBM;
   const int bh_q = b * Hq + hq, bh_k = b * Hkv + hk;
-  // Causal: rows q0 .. q0 + kBM - 1 see columns < q_offset + q0 + kBM at most.
-  const int kv_end = causal ? min(Skv, q_offset + q0 + C::kBM) : Skv;
-  const int ntiles = (kv_end + kBN - 1) / kBN;
+  // Rows q0 .. q0 + kBM - 1 (positions q_offset + q0 ..) see the K rows
+  // [kv_begin, kv_end) at most: from the lowest row's window edge to the
+  // highest row's diagonal (causal) or right window edge.
+  const int up = causal ? 0 : right;
+  const int kv_begin = max(0, q_offset + q0 - left - kv_offset);
+  const int kv_end = min(Skv, max(0, q_offset + q0 + C::kBM + up - kv_offset));
+  const int tile0 = kv_begin / kBN;
+  const int ntiles = max(0, (kv_end + kBN - 1) / kBN - tile0);
 
   if (threadIdx.x == 0) {
     qa::mbar_init(full_q, 1);
@@ -257,7 +275,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages;
-      const int n0 = i * kBN;
+      const int n0 = (tile0 + i) * kBN;
       qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
       if (tid == 0) {
         qa::mbar_expect_tx(&full_k[s], C::kKBytes);
@@ -321,7 +339,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       rs1 *= row1 < Sq ? scale_q[sb + row1] : 0.f;
     }
     // Warpgroup-uniform tile classes: this warpgroup's rows sit at global
-    // positions p_lo .. p_hi.
+    // positions p_lo .. p_hi, a tile's columns at kv_offset + n0 ...
     const bool active = r_base < Sq;
     const int p_lo = q_offset + r_base;
     const int p_hi = q_offset + min(r_base + 63, Sq - 1);
@@ -336,9 +354,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages;
       const uint32_t ph = (i / kStages) & 1;
-      const int n0 = i * kBN;
-      const bool skip = !active || (causal && n0 > p_hi);
-      const bool unmasked = (!causal || n0 + kBN - 1 <= p_lo) && n0 + kBN <= Skv;
+      const int n0 = (tile0 + i) * kBN;
+      const int c_lo = kv_offset + n0, c_hi = c_lo + kBN - 1;
+      const bool skip = !active || c_lo > p_hi + up || c_hi < p_lo - left;
+      const bool unmasked = c_hi <= p_lo + up && c_lo >= p_hi - left && n0 + kBN <= Skv;
       qa::mbar_wait(&full_k[s], ph);
       if (!skip) {
         float sc[kBN / 2];
@@ -353,9 +372,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const float* cs = scaling == 2 ? col_scale + s * kBN : nullptr;
         float mx0, mx1;
         if (unmasked) {
-          fold_scores<kBN, false>(sc, cs, rs0, rs1, t, 0, false, 0, 0, 0, mx0, mx1);
+          fold_scores<kBN, false>(sc, cs, rs0, rs1, t, 0, 0, 0, 0, 0, 0, mx0, mx1);
         } else {
-          fold_scores<kBN, true>(sc, cs, rs0, rs1, t, Skv - n0, causal, n0 - q_offset, row0,
+          fold_scores<kBN, true>(sc, cs, rs0, rs1, t, Skv - n0, c_lo - q_offset, up, left, row0,
                                  row1, mx0, mx1);
         }
 #pragma unroll
@@ -411,13 +430,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
     // Epilogue: full row sums, normalise, store; padded Q rows and columns
     // past D are never stored, and the residuals by the first split only.
+    // A row that saw no key (no tile ran, or every score it met was
+    // masked: its running max is at most half MASK_VALUE) stores zeros.
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const float inv0 = l0 == 0.f || m0 <= 0.5f * qa::kMaskValue ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f || m1 <= 0.5f * qa::kMaskValue ? 0.f : 1.f / l1;
     const size_t rb = static_cast<size_t>(bh_q) * Sq;
     if (m_out != nullptr && t == 0 && col0 == 0) {  // the four lanes of a row hold equal m, l
       if (row0 < Sq) {
@@ -453,52 +474,55 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// The arguments of one launch.
+struct Args {
+  const void *q, *k, *v;
+  const float *sq, *sk;
+  void* out;
+  int B, Hq, Hkv, Sq, Skv, D, v_code, out_code, scaling, causal;
+  float score_scale;
+  int q_offset, kv_offset, left, right;
+  float *m_out, *l_out;
+  cudaStream_t stream;
+};
+
 template <int W, int QK>
-int launch(const void* q, const void* k, const void* v, const float* sq, const float* sk,
-           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D, int v_code, int out_code,
-           int scaling, int causal, float score_scale, int q_offset, float* m_out, float* l_out,
-           cudaStream_t stream) {
+int launch(const Args& a) {
   using C = Cfg<W, QK>;
   CUtensorMap tm_q, tm_k, tm_v = {};
   cudaError_t err =
-      qa::encode_tensor_map(&tm_q, q, QK, D, Sq, B * Hq, C::kSpanElems, 64, C::kSpan);
+      qa::encode_tensor_map(&tm_q, a.q, QK, a.D, a.Sq, a.B * a.Hq, C::kSpanElems, 64, C::kSpan);
   if (err == cudaSuccess) {
-    err = qa::encode_tensor_map(&tm_k, k, QK, D, Skv, B * Hkv, C::kSpanElems, C::kBN, C::kSpan);
+    err = qa::encode_tensor_map(&tm_k, a.k, QK, a.D, a.Skv, a.B * a.Hkv, C::kSpanElems, C::kBN,
+                                C::kSpan);
   }
-  const bool v_e4m3 = v_code == qa::kE4M3;
+  const bool v_e4m3 = a.v_code == qa::kE4M3;
   if (err == cudaSuccess && !v_e4m3) {
-    err = qa::encode_tensor_map(&tm_v, v, v_code, D, Skv, B * Hkv, 64, C::kBN, 128);
+    err = qa::encode_tensor_map(&tm_v, a.v, a.v_code, a.D, a.Skv, a.B * a.Hkv, 64, C::kBN, 128);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_fwd_kernel<W, QK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Hq * C::kSplits, B, (Sq + C::kBM - 1) / C::kBM);
-  flash_fwd_kernel<W, QK><<<grid, C::kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, v_e4m3 ? static_cast<const unsigned char*>(v) : nullptr, sq, sk, out, Hq,
-      Hkv, Sq, Skv, D, v_code == qa::kF16, out_code, scaling, causal, score_scale, q_offset, m_out,
-      l_out);
+  dim3 grid(a.Hq * C::kSplits, a.B, (a.Sq + C::kBM - 1) / C::kBM);
+  flash_fwd_kernel<W, QK><<<grid, C::kThreads, C::kSmem, a.stream>>>(
+      tm_q, tm_k, tm_v, v_e4m3 ? static_cast<const unsigned char*>(a.v) : nullptr, a.sq, a.sk,
+      a.out, a.Hq, a.Hkv, a.Sq, a.Skv, a.D, a.v_code == qa::kF16, a.out_code, a.scaling, a.causal,
+      a.score_scale, a.q_offset, a.kv_offset, a.left, a.right, a.m_out, a.l_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int W>
-int launch_w(int qk_code, const void* q, const void* k, const void* v, const float* sq,
-             const float* sk, void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-             int v_code, int out_code, int scaling, int causal, float score_scale, int q_offset,
-             float* m_out, float* l_out, cudaStream_t stream) {
+int launch_w(int qk_code, const Args& a) {
   switch (qk_code) {
     case qa::kBF16:
-      return launch<W, qa::kBF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
-                                  scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+      return launch<W, qa::kBF16>(a);
     case qa::kF16:
-      return launch<W, qa::kF16>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
-                                 scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+      return launch<W, qa::kF16>(a);
     case qa::kE4M3:
-      return launch<W, qa::kE4M3>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
-                                  scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+      return launch<W, qa::kE4M3>(a);
     default:
-      return launch<W, qa::kI8>(q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
-                                scaling, causal, score_scale, q_offset, m_out, l_out, stream);
+      return launch<W, qa::kI8>(a);
   }
 }
 
@@ -506,8 +530,11 @@ int launch_w(int qk_code, const void* q, const void* k, const void* v, const flo
 
 // score_scale = sm_scale * log2(e). Tensors are contiguous (B, H, S, D) and
 // 16-byte aligned; q and k of one element code, v bf16, fp16 or e4m3, out
-// bf16, fp16 or fp32. q_offset >= 0: the global position of q's row 0 (the
-// causal mask is q_offset + i >= j). m_out / l_out: (B, Hq, Sq) fp32
+// bf16, fp16 or fp32. q_offset, kv_offset >= 0: the global positions of q's
+// and k's row 0 (the causal mask is q_offset + i >= kv_offset + j). left,
+// right: the window's extents (query position p sees keys at
+// [p - left, p + right]), 1 << 30 for an unbounded side; the causal mask
+// ignores right. m_out / l_out: (B, Hq, Sq) fp32
 // residuals, or both null. D is a multiple of 8 up to 512, and of 16 for
 // 8-bit Q/K (a tensor map's row stride is a multiple of 16 bytes).
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
@@ -515,33 +542,29 @@ extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v,
                             int B, int Hq, int Hkv, int Sq, int Skv, int D,
                             int q_code, int k_code, int v_code, int out_code,
                             int scaling, int causal, float score_scale,
-                            int q_offset, void* m_out, void* l_out, void* stream) {
-  const float* sq = static_cast<const float*>(scale_q);
-  const float* sk = static_cast<const float*>(scale_k);
-  float* mo = static_cast<float*>(m_out);
-  float* lo = static_cast<float*>(l_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                            int q_offset, int kv_offset, int left, int right, void* m_out,
+                            void* l_out, void* stream) {
   if (Sq == 0 || B == 0) return 0;
   const bool qk8 = q_code == qa::kE4M3 || q_code == qa::kI8;
-  if (q_offset < 0 || Skv <= 0 || q_code != k_code || q_code < qa::kBF16 || q_code > qa::kI8 ||
-      (v_code != qa::kBF16 && v_code != qa::kF16 && v_code != qa::kE4M3) ||
+  if (q_offset < 0 || kv_offset < 0 || Skv <= 0 || q_code != k_code || q_code < qa::kBF16 ||
+      q_code > qa::kI8 || (v_code != qa::kBF16 && v_code != qa::kF16 && v_code != qa::kE4M3) ||
       (out_code != qa::kBF16 && out_code != qa::kF16 && out_code != qa::kF32) ||
       (qk8 && D % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Args a{q, k, v, static_cast<const float*>(scale_q), static_cast<const float*>(scale_k),
+               out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code, scaling, causal, score_scale,
+               q_offset, kv_offset, left, right, static_cast<float*>(m_out),
+               static_cast<float*>(l_out), static_cast<cudaStream_t>(stream)};
   switch (qa::kernel_width(D)) {
     case 64:
-      return launch_w<64>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code, out_code,
-                          scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<64>(q_code, a);
     case 128:
-      return launch_w<128>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
-                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<128>(q_code, a);
     case 256:
-      return launch_w<256>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
-                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<256>(q_code, a);
     case 512:
-      return launch_w<512>(q_code, q, k, v, sq, sk, out, B, Hq, Hkv, Sq, Skv, D, v_code,
-                           out_code, scaling, causal, score_scale, q_offset, mo, lo, s);
+      return launch_w<512>(q_code, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

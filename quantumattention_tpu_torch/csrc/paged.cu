@@ -9,7 +9,9 @@
 // (queries rounded to bf16 by the wrapper), rows at or past
 // lengths[slot] masked with MASK_VALUE (in multi-query mode, paged.py:459-463,
 // mask :261-271, candidate t of T, rows packed t-fastest, also the rows at
-// or past lengths[slot] - (T - 1 - t)), an exp2 online softmax with fp32
+// or past lengths[slot] - (T - 1 - t); with a sliding window, paged.py:272-276,
+// also the rows below lengths[slot] - 1 - window_left - (T - 1 - t)), an
+// exp2 online softmax with fp32
 // m, l and accumulator, the unnormalized P rounded to bf16 for P.V, the
 // division by l at the end, and exact zeros for a slot of length 0.
 //
@@ -42,12 +44,14 @@
 // token-packed, scales (Hkv, P, ps)); lengths (B,) int32, counting the T
 // candidates; table (B, pps) int32 page ids; out (B, Hq, T, D) bf16;
 // part_acc and part_ml fp32 scratch of the sizes qa_decode_attn_plan gives
-// for smax = pps * ps. score_scale = sm_scale * log2(e).
+// for smax = pps * ps. window_left: a sliding window's left extent, as K4's
+// (pages below candidate 0's first in-window tile are never looked up), or
+// -1 for none. score_scale = sm_scale * log2(e).
 extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* lengths, const void* table,
                                void* out, void* part_acc, void* part_ml, int B, int Hq, int Hkv,
-                               int P, int ps, int pps, int D, int T, int kind, float score_scale,
-                               void* stream) {
+                               int P, int ps, int pps, int D, int T, int kind, int window_left,
+                               float score_scale, void* stream) {
   using namespace qa::dattn;
   if (B == 0) return 0;
   const bool scaled = kind != kKindBF16 && kind != kKindF16 && kind != kKindF32;
@@ -75,6 +79,7 @@ extern "C" int qa_paged_decode(const void* q, const void* k, const void* v, cons
   p.P = P;
   p.ps = ps;
   p.pps = pps;
+  p.window_left = window_left < 0 ? -1 : window_left;
   p.score_scale = score_scale;
   const int rows = Hkv * P * (kind == kKindI4T ? ps / 2 : ps);
   auto* o = static_cast<__nv_bfloat16*>(out);

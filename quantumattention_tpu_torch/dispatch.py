@@ -12,8 +12,10 @@ Gradients: float inputs to ``attention`` go through
 float path of ``fp8_attention`` through a straight-through Function
 (``_Fp8Attention``, dispatch.py:501-548): its backward is the gradient of
 exact bf16 attention at the float inputs.  Pre-quantized inputs are
-forward-only, as in JAX.  ``"per-block"`` and ``"auto"`` scaling raise
-``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
+forward-only, as in JAX.  ``window = (left, right)`` (sliding windows) runs
+through every entry point, the kernels' and the fallback's, with JAX's
+validation (dispatch.py:103-104).  ``"per-block"`` and ``"auto"`` scaling
+raise ``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
 """
 
 from __future__ import annotations
@@ -40,13 +42,6 @@ def _dtype_ok_qk(dtype) -> bool:
     return dtype in _FLOAT_QK_DTYPES or dtype in _FP8_QK_DTYPES or dtype == torch.int8
 
 
-def _refuse_window(window) -> None:
-    if window is not None:
-        raise NotImplementedError(
-            "sliding windows are not ported yet (ROADMAP queue 1, item 6b)"
-        )
-
-
 def validate_flash_input(
     query: Any,
     key: Any,
@@ -59,6 +54,7 @@ def validate_flash_input(
     scale_q: Any = None,
     scale_k: Any = None,
     scaling_method: Optional[str] = None,
+    window: Optional[Tuple[Optional[int], Optional[int]]] = None,
 ) -> Tuple[bool, str]:
     """Shape/dtype/feature validation for the fused kernel; ``(ok, reason)``.
 
@@ -93,6 +89,8 @@ def validate_flash_input(
         return False, f"query/value head_dim mismatch: {d_q} vs {d_v}"
     if not shapes.head_dim_supported(d_q):
         return False, shapes.head_dim_reason(d_q)
+    if is_causal and window is not None and window[1] not in (None, 0):
+        return False, "is_causal with a right window extent is contradictory"
     if not _dtype_ok_qk(query.dtype):
         return False, f"query dtype {query.dtype} unsupported"
     if not _dtype_ok_qk(key.dtype):
@@ -152,7 +150,6 @@ def can_use_attention(
     window=None,
 ) -> Tuple[bool, str]:
     """Aggregate capability check with self-explaining reason strings."""
-    _refuse_window(window)
     if config.attention.skip_supported_check:
         return True, ""
     if config.attention.force_fallback:
@@ -162,7 +159,7 @@ def can_use_attention(
     ok, reason = validate_flash_input(
         query, key, value, attn_mask, dropout_p, is_causal,
         scale=scale, scale_q=scale_q, scale_k=scale_k,
-        scaling_method=scaling_method,
+        scaling_method=scaling_method, window=window,
     )
     return (True, "") if ok else (False, f"[cuda: {reason}]")
 
@@ -173,16 +170,15 @@ def attention(
 ):
     """bf16/fp16 fused attention dispatch; raises ``ValueError`` with the
     aggregated reason when the fused kernel cannot serve the inputs."""
-    _refuse_window(window)
     supported, reason = can_use_attention(
-        query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+        query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
     )
     if not supported:
         raise ValueError(f"attention is not supported for the input: {reason}")
     if checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
         # Pre-quantized operands are not differentiable: the raw kernel.
-        return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale)
-    return attention_with_vjp(query, key, value, is_causal=is_causal, sm_scale=scale)
+        return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale, window=window)
+    return attention_with_vjp(query, key, value, is_causal=is_causal, sm_scale=scale, window=window)
 
 
 def _quantize_for(t, scaling_method: str):
@@ -203,23 +199,24 @@ class _Fp8Attention(torch.autograd.Function):
     float inputs, the standard STE treatment of the quantization casts."""
 
     @staticmethod
-    def forward(ctx, query, key, value, scaling_method, is_causal, scale):
-        ctx.is_causal, ctx.scale = is_causal, scale
+    def forward(ctx, query, key, value, scaling_method, is_causal, scale, window):
+        ctx.is_causal, ctx.scale, ctx.window = is_causal, scale, window
         ctx.save_for_backward(query, key, value)
-        return _fp8_forward(query, key, value, scaling_method, is_causal, scale)
+        return _fp8_forward(query, key, value, scaling_method, is_causal, scale, window)
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = exact_attention_bwd(*ctx.saved_tensors, grad_out, ctx.is_causal, ctx.scale)
-        return (*grads, None, None, None)
+        grads = exact_attention_bwd(*ctx.saved_tensors, grad_out, ctx.is_causal, ctx.scale,
+                                    ctx.window)
+        return (*grads, None, None, None, None)
 
 
-def _fp8_forward(query, key, value, scaling_method, is_causal, scale):
+def _fp8_forward(query, key, value, scaling_method, is_causal, scale, window=None):
     q8, scale_q = _quantize_for(query, scaling_method)
     k8, scale_k = _quantize_for(key, scaling_method)
     return flash_attention(
         q8, k8, value, scale_q=scale_q, scale_k=scale_k,
-        is_causal=is_causal, sm_scale=scale,
+        is_causal=is_causal, sm_scale=scale, window=window,
     )
 
 
@@ -235,7 +232,6 @@ def fp8_attention(
     (default head-wise), with straight-through gradients; pre-quantized
     inputs come with their scales and are forward-only.
     """
-    _refuse_window(window)
     if scaling_method is None:
         scaling_method = "head-wise"
     if scaling_method in ("per-block", "auto"):
@@ -250,26 +246,26 @@ def fp8_attention(
 
     if scale_q is None and not checks.is_8bit_dtype(query.dtype):
         supported, reason = can_use_attention(
-            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
         )
         if not supported:
             raise ValueError(
                 f"fp8_attention is not supported for the input: {reason}"
             )
         if not needs_grad(query, key, value):
-            return _fp8_forward(query, key, value, scaling_method, is_causal, scale)
-        return _Fp8Attention.apply(query, key, value, scaling_method, is_causal, scale)
+            return _fp8_forward(query, key, value, scaling_method, is_causal, scale, window)
+        return _Fp8Attention.apply(query, key, value, scaling_method, is_causal, scale, window)
 
     supported, reason = can_use_attention(
         query, key, value, attn_mask, dropout_p, is_causal,
         scale=scale, scale_q=scale_q, scale_k=scale_k,
-        scaling_method=scaling_method,
+        scaling_method=scaling_method, window=window,
     )
     if not supported:
         raise ValueError(f"fp8_attention is not supported for the input: {reason}")
     return flash_attention(
         query, key, value, scale_q=scale_q, scale_k=scale_k,
-        is_causal=is_causal, sm_scale=scale,
+        is_causal=is_causal, sm_scale=scale, window=window,
     )
 
 
@@ -281,7 +277,6 @@ def sdpa_fallback(
 ):
     """The always-correct PyTorch path.  ``sdpa_fallback.calls`` counts
     its uses, so a run can show that its attention took the kernel."""
-    _refuse_window(window)
     sdpa_fallback.calls += 1
     out_dtype = value.dtype
     if checks.is_8bit_dtype(out_dtype):
@@ -289,7 +284,7 @@ def sdpa_fallback(
     return sdpa_reference(
         query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
         is_causal=is_causal, scale=scale, scale_q=scale_q, scale_k=scale_k,
-        generator=generator, out_dtype=out_dtype,
+        window=window, generator=generator, out_dtype=out_dtype,
     )
 
 

@@ -8,10 +8,12 @@ The ``*_with_fallback`` variants run the fused kernel when
 ``can_use_attention`` accepts the inputs and the PyTorch SDPA reference
 otherwise.  Float inputs are differentiable (dispatch.py: the backward
 kernels K2/K3, straight-through for the fp8 quantization); pre-quantized
-inputs are forward-only.  ``window`` is accepted for signature parity and raises
-``NotImplementedError`` until sliding windows are ported (ROADMAP queue 1,
-item 6b); the segment-id and block-mask arguments of ``attn_func`` likewise
-(item 6d).
+inputs are forward-only.  ``window = (left, right)`` is a sliding window:
+query position i sees the keys at [i - left, i + right] (``None`` an
+unbounded side; with ``is_causal`` a right extent other than 0 or None is
+refused with JAX's reason), on the kernels and the fallback alike.  The
+segment-id and block-mask arguments of ``attn_func`` raise
+``NotImplementedError`` until they are ported (ROADMAP queue 1, item 6d).
 """
 
 from __future__ import annotations
@@ -62,11 +64,11 @@ def attn_func_with_fallback(
     )
     if supported:
         return attn_func(
-            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
         )
     return dispatch.sdpa_fallback(
         query, key, value, attn_mask, dropout_p, is_causal,
-        scale=scale, generator=generator,
+        scale=scale, window=window, generator=generator,
     )
 
 
@@ -106,17 +108,17 @@ def fp8_attn_func_with_fallback(
     if supported or (
         scale_q is None
         and dispatch.can_use_attention(
-            query, key, value, attn_mask, dropout_p, is_causal, scale=scale
+            query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
         )[0]
     ):
         return fp8_attn_func(
             query, key, value, attn_mask, dropout_p, is_causal,
             scale=scale, scale_q=scale_q, scale_k=scale_k,
-            scaling_method=scaling_method,
+            scaling_method=scaling_method, window=window,
         )
     return dispatch.sdpa_fallback(
         query, key, value, attn_mask, dropout_p, is_causal,
-        scale=scale, scale_q=scale_q, scale_k=scale_k, generator=generator,
+        scale=scale, scale_q=scale_q, scale_k=scale_k, window=window, generator=generator,
     )
 
 

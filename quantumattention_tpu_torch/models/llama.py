@@ -18,8 +18,10 @@ fused into ``w_qkv``/``w_gate_up``) serve through the weight kernels
 K5/K6/K7 (ops/qmm.py); on a fused quantized tree each layer tail of at
 most 256 rows is kernel K8 (ops/qmlp.py), which also emits the next
 layer's QKV, and ``forward_decode`` takes the lean T=1 decode path
-(llama.py:573-637 of the JAX package).  Not yet: sliding windows (ROADMAP
-queue 1, item 6b) and MoE FFNs (item 18).
+(llama.py:573-637 of the JAX package).  ``LlamaConfig.window`` is a
+sliding window in HF's convention (``window = w``: each query sees w keys,
+itself included, the left extent w - 1; JAX llama.py:283-299), as Mistral
+has it (:func:`mistral_7b`).  Not yet: MoE FFNs (ROADMAP queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ class LlamaConfig:
     #: attn_func_with_fallback, "sdpa" forces the reference path.
     attention_impl: str = "fp8"
     scaling_method: str = "head-wise"
-    #: Sliding-window extent: not ported yet, must stay None.
+    #: Sliding window (HF's ``sliding_window``): each query sees the last
+    #: ``window`` keys, itself included; None for full causal attention.
     window: Optional[int] = None
     tie_embeddings: bool = False
     qkv_bias: bool = False
@@ -63,10 +66,8 @@ class LlamaConfig:
     num_experts: int = 0
 
     def __post_init__(self):
-        if self.window is not None:
-            raise NotImplementedError(
-                "sliding-window models are not ported yet (ROADMAP queue 1, item 6b)"
-            )
+        if self.window is not None and self.window < 1:
+            raise ValueError(f"window must be >= 1 keys or None, got {self.window}")
         if self.num_experts:
             raise NotImplementedError(
                 "MoE models are not ported yet (ROADMAP queue 1, item 18)"
@@ -93,6 +94,25 @@ def llama3_8b(**overrides) -> LlamaConfig:
             num_kv_heads=8,
             head_dim=128,
             rope_theta=500000.0,
+        ),
+        **overrides,
+    )
+
+
+def mistral_7b(**overrides) -> LlamaConfig:
+    """Mistral-7B's published shapes (``mistralai/Mistral-7B-v0.1``): the
+    Llama block with a 4096-token sliding window."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_q_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=10000.0,
+            window=4096,
         ),
         **overrides,
     )
@@ -205,17 +225,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def window_of(cfg: LlamaConfig) -> Optional[Tuple[int, int]]:
+    """The attention window of a config: ``(window - 1, 0)`` (HF's
+    ``sliding_window = w`` sees w keys including itself), or None."""
+    return (cfg.window - 1, 0) if cfg.window is not None else None
+
+
 def _attend(cfg: LlamaConfig, q, k, v, *, is_causal: bool):
+    window = window_of(cfg)
     if cfg.attention_impl == "fp8":
         return interface.fp8_attn_func_with_fallback(
-            q, k, v, is_causal=is_causal, scaling_method=cfg.scaling_method
+            q, k, v, is_causal=is_causal, scaling_method=cfg.scaling_method, window=window
         )
     if cfg.attention_impl == "bf16":
-        return interface.attn_func_with_fallback(q, k, v, is_causal=is_causal)
+        return interface.attn_func_with_fallback(q, k, v, is_causal=is_causal, window=window)
     if cfg.attention_impl == "sdpa":
         from ..dispatch import sdpa_fallback
 
-        return sdpa_fallback(q, k, v, is_causal=is_causal)
+        return sdpa_fallback(q, k, v, is_causal=is_causal, window=window)
     raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
 
 

@@ -41,21 +41,24 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, scale_q, scale_k, out, B, Hq, Hkv, Sq, Skv, D,
     # q_code, k_code, v_code, out_code, scaling, causal, score_scale,
-    # q_offset, m_out, l_out, stream
+    # q_offset, kv_offset, window left, window right (1 << 30: unbounded),
+    # m_out, l_out, stream
     "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _P],
     # q, k, v, dout, stats, dq, B, Hq, Hkv, Sq, Sq_pad, Skv, D, code, causal,
-    # score_scale, sm_scale, stream
+    # window left, window right (1 << 30: unbounded), score_scale, sm_scale,
+    # stream
     "qa_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _F, _P],
+                        _I, _I, _I, _I, _F, _F, _P],
     # q, k, v, dout, stats, dk, dv, B, Hq, Hkv, Sq, Sq_pad, Skv, D, code,
-    # causal, score_scale, sm_scale, stream
+    # causal, window left, window right, score_scale, sm_scale, stream
     "qa_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _F, _P],
+                         _I, _I, _I, _I, _I, _F, _F, _P],
     # q, k, v, k_scale, v_scale, lengths, out, part_acc, part_ml,
-    # B, Hq, Hkv, Smax, D, T, kind (ops/decode.KINDS), score_scale, stream (K4)
+    # B, Hq, Hkv, Smax, D, T, kind (ops/decode.KINDS), window_left (-1:
+    # none), score_scale, stream (K4)
     "qa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  _I, _I, _F, _P],
+                  _I, _I, _I, _F, _P],
     # kind, B, Hq, Hkv, D, T, smax, ps (0 for K4), out (int[8]: CTAs, query
     # splits, column splits, rows and columns of a split, segments a slot,
     # TMA, width) -> the plan of qa_decode / qa_paged_decode (the split-KV
@@ -98,9 +101,9 @@ _SIGNATURES = {
     "qa_tail_matmul": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, lengths, page_indices, out,
     # part_acc, part_ml, B, Hq, Hkv, num_pages, page_size, pages_per_seq, D,
-    # T, kind (ops/decode.KINDS), score_scale, stream
+    # T, kind (ops/decode.KINDS), window_left (-1: none), score_scale, stream
     "qa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _F, _P],
+                        _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

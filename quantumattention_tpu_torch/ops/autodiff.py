@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from .. import config
-from .flash import flash_attention
+from .flash import flash_attention, kernel_window
 from .flash_bwd import flash_attention_bwd
 from .sdpa import sdpa_reference
 
@@ -31,25 +31,30 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def oracle_vjp(q, k, v, grad_out, is_causal: bool, sm_scale: Optional[float]):
+def oracle_vjp(q, k, v, grad_out, is_causal: bool, sm_scale: Optional[float], window=None):
     """(dq, dk, dv) of exact attention at (q, k, v): autograd through the
-    fp32 oracle.  GQA gradients sum over each group through its repeat."""
+    fp32 oracle, the right window extent dropped under ``is_causal`` as the
+    kernels drop it (autodiff.py:73-87).  GQA gradients sum over each group
+    through its repeat."""
     with torch.enable_grad():
         qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-        out = sdpa_reference(qd, kd, vd, is_causal=is_causal, scale=sm_scale, out_dtype=v.dtype)
+        out = sdpa_reference(qd, kd, vd, is_causal=is_causal, scale=sm_scale,
+                             window=kernel_window(window, is_causal), out_dtype=v.dtype)
         return torch.autograd.grad(out, (qd, kd, vd), grad_out.to(out.dtype))
 
 
-def exact_attention_bwd(q, k, v, grad_out, is_causal: bool, sm_scale: Optional[float]):
+def exact_attention_bwd(q, k, v, grad_out, is_causal: bool, sm_scale: Optional[float],
+                        window=None):
     """Gradient of exact attention at (q, k, v), recomputing the forward:
     K1 with residuals, then K2/K3, or the oracle VJP without cuda_bwd."""
     if not config.kernel.cuda_bwd:
-        return oracle_vjp(q, k, v, grad_out, is_causal, sm_scale)
+        return oracle_vjp(q, k, v, grad_out, is_causal, sm_scale, window)
     out, (m, l) = flash_attention(
-        q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_residuals=True
+        q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_residuals=True, window=window
     )
     return flash_attention_bwd(
-        q, k, v, out, grad_out.to(out.dtype), m, l, is_causal=is_causal, sm_scale=sm_scale
+        q, k, v, out, grad_out.to(out.dtype), m, l, is_causal=is_causal, sm_scale=sm_scale,
+        window=window,
     )
 
 
@@ -57,15 +62,16 @@ class FlashAttention(torch.autograd.Function):
     """K1 forward; K2/K3 (or oracle) backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale):
-        ctx.is_causal, ctx.sm_scale = is_causal, sm_scale
+    def forward(ctx, q, k, v, is_causal, sm_scale, window):
+        ctx.is_causal, ctx.sm_scale, ctx.window = is_causal, sm_scale, window
         if config.kernel.cuda_bwd:
             out, (m, l) = flash_attention(
-                q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_residuals=True
+                q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_residuals=True,
+                window=window,
             )
             ctx.save_for_backward(q, k, v, out, m, l)
         else:
-            out = flash_attention(q, k, v, is_causal=is_causal, sm_scale=sm_scale)
+            out = flash_attention(q, k, v, is_causal=is_causal, sm_scale=sm_scale, window=window)
             ctx.save_for_backward(q, k, v)
         return out
 
@@ -76,11 +82,11 @@ class FlashAttention(torch.autograd.Function):
             q, k, v, out, m, l = saved
             grads = flash_attention_bwd(
                 q, k, v, out, grad_out.to(out.dtype), m, l,
-                is_causal=ctx.is_causal, sm_scale=ctx.sm_scale,
+                is_causal=ctx.is_causal, sm_scale=ctx.sm_scale, window=ctx.window,
             )
         else:
-            grads = oracle_vjp(*saved, grad_out, ctx.is_causal, ctx.sm_scale)
-        return (*grads, None, None)
+            grads = oracle_vjp(*saved, grad_out, ctx.is_causal, ctx.sm_scale, ctx.window)
+        return (*grads, None, None, None)
 
 
 def attention_with_vjp(
@@ -88,14 +94,10 @@ def attention_with_vjp(
 ):
     """Fused-forward attention with gradients to q, k and v (GQA gradients
     summed over each group).  Same contract as ``flash_attention`` for
-    bf16/fp16 inputs."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding windows are not ported yet (ROADMAP queue 1, item 6b)"
-        )
+    bf16/fp16 inputs, ``window`` included."""
     if not needs_grad(q, k, v):
-        return flash_attention(q, k, v, is_causal=is_causal, sm_scale=sm_scale)
-    return FlashAttention.apply(q, k, v, is_causal, sm_scale)
+        return flash_attention(q, k, v, is_causal=is_causal, sm_scale=sm_scale, window=window)
+    return FlashAttention.apply(q, k, v, is_causal, sm_scale, window)
 
 
 class _QuantizeSTE(torch.autograd.Function):

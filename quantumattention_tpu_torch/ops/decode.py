@@ -25,12 +25,19 @@ d + D/2 in the high nibble of byte d, ``quant.pack_int4``) with the same
 scales, or bf16, float16 or float32 without; ragged lengths including 0
 (zero output rows), any GQA group, any head dim JAX takes (a multiple of 8
 up to 512, run at an instantiated width of 64, 128, 256 or 512 with zero
-columns), bf16 output as JAX returns.  8-bit queries are refused, as in
-JAX.  Not yet (ROADMAP queue 1, item 12c): ``window``; nor the
-``decode_int8_qk``/``decode_int8_pv`` variants.
+columns), bf16 output as JAX returns, and sliding windows ``window = (left,
+0)`` (or ``(left, None)``): candidate t also skips the rows below ``lengths
+- 1 - left - (T - 1 - t)`` (decode.py:200-207), and the kernel starts each
+slot at the first 64-row tile that candidate 0 can see, so a window model
+reads about a window of rows a step (``decode_schedule``'s ``window_left``
+mirrors that).  8-bit queries are refused, as in JAX.  Not ported: the
+``decode_int8_qk``/``decode_int8_pv`` variants (int8 MXU experiments, off
+by default in JAX) and ``_auto_window_block_kv`` (TPU block sizing); see
+ROADMAP, "Do not port these TPU workarounds".
 
 ``decode_attention.verify_launches`` counts the launches of T > 1 calls
-(they are in ``launches`` too).
+and ``.window_launches`` those with a window (both are in ``launches``
+too).
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ def core_segments(hq: int, hkv: int, d: int, kind: int, qtokens: int = 1) -> int
 class DecodeSchedule:
     """The core's persistent schedule over one call's lengths.
 
-    Tiles are numbered slot by slot, segment by segment, row by row.  The
+    Tiles are numbered slot by slot, segment by segment, row by row; a
+    slot's ``tiles`` start at its tile ``first`` (0 without a window).  The
     first ``active`` CTAs (at most ``ctas``, each with at least MIN_TILES
     tiles where there are that many) share them: CTA c takes ``base``
     tiles, one more when c < ``rem``, from c * base + min(c, rem) on.  A
@@ -118,6 +126,7 @@ class DecodeSchedule:
     segments: int     # segments a slot
     tiles: tuple      # tiles of each slot's segments
     total: int        # tiles of the call
+    first: tuple = () # each slot's first tile (its rows from first * rows_per_tile on)
 
     @property
     def active(self) -> int:
@@ -155,7 +164,8 @@ class DecodeSchedule:
 
     def runs(self, c: int) -> list:
         """CTA c's runs in order: (segment, first tile, stop tile) of each
-        segment its share touches, tiles numbered within the segment."""
+        segment its share touches, tiles numbered within the segment (its
+        tile i holds the slot's tile ``first[slot] + i``)."""
         u0, u1 = self.cta_tiles(c)
         out = []
         if u0 == u1:
@@ -181,13 +191,21 @@ class DecodeSchedule:
 
 
 def decode_schedule(lengths, segments: int, rows_per_tile: int, ctas: int,
-                    max_rows: Optional[int] = None) -> DecodeSchedule:
+                    max_rows: Optional[int] = None, window_left: Optional[int] = None,
+                    qtokens: int = 1) -> DecodeSchedule:
     """The schedule of ``ctas`` CTAs over slots of these lengths (clamped to
-    [0, max_rows]), each slot ``segments`` segments of ceil(length /
-    rows_per_tile) tiles (csrc/decode_attn.cuh: find_share, share, owner)."""
+    [0, max_rows]), each slot ``segments`` segments of its tiles
+    (csrc/decode_attn.cuh: find_share, share, owner, first_tile): ceil(length
+    / rows_per_tile) of them, or with a window those from the first tile
+    that candidate 0 of ``qtokens`` sees, (length - qtokens - window_left)
+    // rows_per_tile."""
     lens = np.clip(np.asarray(lengths, np.int64), 0, max_rows)
-    tiles = tuple(int(t) for t in -(-lens // rows_per_tile))
-    return DecodeSchedule(ctas, segments, tiles, sum(tiles) * segments)
+    first = np.zeros_like(lens)
+    if window_left is not None:
+        first = np.maximum(lens - qtokens - window_left, 0) // rows_per_tile
+    tiles = tuple(int(t) for t in -(-lens // rows_per_tile) - first)
+    return DecodeSchedule(ctas, segments, tiles, sum(tiles) * segments,
+                          tuple(int(f) for f in first))
 
 
 def card_plan(kind: int, batch: int, hq: int, hkv: int, d: int, smax: int, ps: int = 0,
@@ -212,20 +230,49 @@ def core_scratch(plan: dict, batch: int, device) -> tuple:
     return acc, ml
 
 
+def window_left_of(window, name: str) -> Optional[int]:
+    """The left extent of a decode ``window`` (None for none), with JAX's
+    rule that the right extent is 0 or None (decode.py:399-408)."""
+    if window is None:
+        return None
+    left, right = window
+    if right not in (None, 0):
+        raise ValueError(
+            f"{name} window must be (left, 0) or (left, None): queries are "
+            f"the newest tokens, got right={right}"
+        )
+    if left is None:
+        return None
+    if int(left) < 0:
+        raise ValueError(f"{name} window's left extent must be >= 0, got {left}")
+    return int(left)
+
+
+def window_valid(lengths: torch.Tensor, rows: int, window_left: Optional[int]) -> torch.Tensor:
+    """(B, rows) bool: the rows a one-token query at position lengths - 1
+    sees, [0, lengths) or with a window [lengths - 1 - window_left, lengths)."""
+    pos = torch.arange(rows, device=lengths.device)[None, :]
+    valid = pos < lengths[:, None]
+    if window_left is not None:
+        valid &= pos >= (lengths - 1 - window_left)[:, None]
+    return valid
+
+
 def decode_attention_plain(
-    q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, sm_scale=None
+    q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, sm_scale=None, window_left=None,
 ) -> torch.Tensor:
     """K4's plain version in fp32: q rounded to bf16 (the kernel's input),
     the cache's exact values (a packed int4 cache unpacked as
     ``quant.unpack_int4``), mask rows >= lengths[b], exp2 softmax with
     sm_scale * log2(e) and the K scale folded into the scores, the
     unnormalized P (times the V scale) rounded to bf16 as the kernel does,
-    P.V divided by the softmax sum, zeros for empty slots.  A (B, Hq, T, D)
-    q gives (B, Hq, T, D): candidate t is the one-query call at lengths -
-    (T - 1 - t)."""
+    P.V divided by the softmax sum, zeros for empty slots.  With
+    ``window_left`` also the rows below lengths - 1 - window_left masked.  A
+    (B, Hq, T, D) q gives (B, Hq, T, D): candidate t is the one-query call
+    at lengths - (T - 1 - t)."""
     if q.ndim == 4:
         return candidates(lambda qt, lens: decode_attention_plain(
-            qt, k_cache, v_cache, lens, k_scale, v_scale, sm_scale), q, lengths)
+            qt, k_cache, v_cache, lens, k_scale, v_scale, sm_scale, window_left), q, lengths)
     batch, hq, d = q.shape
     hkv, s_max = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
@@ -240,7 +287,7 @@ def decode_attention_plain(
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * (sm_scale * LOG2E)
     if k_scale is not None:
         s = s * k_scale.float()[:, :, None, :]
-    valid = torch.arange(s_max, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    valid = window_valid(lengths.to(q.device), s_max, window_left)
     s = s.masked_fill(~valid[:, None, None, :], DEFAULT_MASK_VALUE)
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
@@ -281,13 +328,11 @@ def decode_attention(
     Hkv, Smax, D) int8 or e4m3, or (B, Hkv, Smax, D/2) packed int4 in an
     int8 container, with ``k_scale``/``v_scale`` (B, Hkv, Smax) fp32, or
     bf16, float16 or float32 without scales; lengths (B,) int32 valid rows
-    per slot (0 = empty slot, zero output).
+    per slot (0 = empty slot, zero output); ``window`` (left, 0) or (left,
+    None): the query at position lengths - 1 sees the rows from
+    lengths - 1 - left on (HF's window w is left = w - 1).
     """
-    if window is not None:
-        raise NotImplementedError(
-            "decode_attention: sliding windows are not ported yet "
-            "(ROADMAP queue 1, item 12c)"
-        )
+    window_left = window_left_of(window, "decode_attention")
     if q.ndim not in (3, 4):
         raise ValueError(f"q must be (B, Hq, D) or (B, Hq, T, D), got {tuple(q.shape)}")
     batch, hq, d = q.shape[0], q.shape[1], q.shape[-1]
@@ -319,15 +364,17 @@ def decode_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale)
-    return _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale,
+                                      window_left)
+    return _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale, window_left)
 
 
 decode_attention.launches = 0
 decode_attention.verify_launches = 0
+decode_attention.window_launches = 0
 
 
-def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
+def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale, window_left=None):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     kind = cache_kind(k_cache.dtype, int4=k_cache.shape[-1] * 2 == q.shape[-1])
@@ -364,10 +411,12 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, sm_scale):
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, hq, hkv, s_max, d, qtokens, kind, float(sm_scale * LOG2E),
+        part_ml.data_ptr(), batch, hq, hkv, s_max, d, qtokens, kind,
+        -1 if window_left is None else window_left, float(sm_scale * LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_decode")
     decode_attention.launches += 1
     decode_attention.verify_launches += qtokens > 1
+    decode_attention.window_launches += window_left is not None
     return out

@@ -10,16 +10,22 @@ Covered: no scaling (bf16/fp16/fp32), head-wise (B, H) and token-wise
 masking, any head dim JAX takes (a multiple of 8 up to 512; the kernel
 runs it at an instantiated width of 64, 128, 256 or 512 with zero columns),
 ``return_residuals`` (the backward's (m, l),
-as (B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), and
-``q_offset``, the global position of q's row 0 (chunked prefill: the causal
-mask becomes ``q_offset + i >= j``, and causal tile skipping follows it).
+as (B, Hq, Sq) fp32 rather than the TPU's 128-lane replication), sliding
+windows ``window = (left, right)`` (query position p sees the keys at
+[p - left, p + right], ``None`` an unbounded side; under ``is_causal`` the
+right extent is inactive, flash.py:398-409), and the position offsets
+``q_offset`` and ``kv_offset``, the global positions of q's and k's row 0
+(chunked prefill: every mask compares global positions, and the kernel's
+tile skipping follows them, flash.py:712-736, :862-875).  A query row that
+sees no key comes out as zeros, as JAX's kernel gives it (flash.py:573-578;
+the fp32 oracle would give the mean of V there).
 The kernel's products take 8- and 16-bit operands: on the card fp32 Q/K/V
 enter rounded to bf16, and the kernel stores the fp32 output unrounded.
 8-bit Q/K whose rows are not a multiple of 16 bytes (D % 16 == 8) go to the
 kernel zero-padded to D + 8 columns (:func:`pad_8bit_columns`: a TMA tensor
 map's row stride is a multiple of 16 bytes), and the output is cut back.
-Not yet (ROADMAP queue 1, item 6 b-e): ``window``, ``kv_offset``, segment
-ids, ``block_mask``, ``fused_block_quant`` and int8 V with ``scale_v``.
+Not yet (ROADMAP queue 1, item 6 c-e): segment ids, ``block_mask``,
+``fused_block_quant`` and int8 V with ``scale_v``.
 """
 
 from __future__ import annotations
@@ -31,13 +37,13 @@ import torch
 
 from ..utils import checks, shapes
 from . import _native, quant
-from .sdpa import DEFAULT_MASK_VALUE, sdpa_reference
+from .sdpa import DEFAULT_MASK_VALUE, position_keep, sdpa_reference
 
 LOG2E = math.log2(math.e)
+#: The kernel's extent of an unbounded window side (csrc/flash_fwd.cu).
+NO_EXTENT = 1 << 30
 
 _NOT_YET = {
-    "window": "sliding windows",
-    "kv_offset": "position offsets",
     "q_segment_ids": "segment ids",
     "kv_segment_ids": "segment ids",
     "block_mask": "block-sparse masks",
@@ -63,52 +69,86 @@ def out_dtype_for(v_dtype) -> torch.dtype:
     return torch.bfloat16 if checks.is_8bit_dtype(v_dtype) else v_dtype
 
 
-def causal_keep(sq: int, skv: int, q_offset: int, device) -> torch.Tensor:
-    """(Sq, Skv) bool: query row i (global position q_offset + i) sees
-    key j iff q_offset + i >= j."""
-    rows = torch.arange(sq, device=device)[:, None] + q_offset
-    return torch.arange(skv, device=device)[None, :] <= rows
+def kernel_window(window, is_causal: bool):
+    """``window`` as the masks read it: ``None``, or ``(left, right)`` with
+    the right extent dropped under ``is_causal`` (JAX flash.py:398-409,
+    flash_bwd.py:225-226).  Raises on what is not a pair of ints or None."""
+    if window is None:
+        return None
+    if len(window) != 2:
+        raise ValueError(f"window must be (left, right), got {window!r}")
+    left, right = (None if e is None else int(e) for e in window)
+    if is_causal:
+        right = None
+    return None if left is None and right is None else (left, right)
+
+
+def extents(window) -> tuple:
+    """(left, right) ints for the kernels, NO_EXTENT for an unbounded side."""
+    if window is None:
+        return NO_EXTENT, NO_EXTENT
+    return tuple(NO_EXTENT if e is None else e for e in window)
+
+
+def keep_mask(sq, skv, is_causal, window, q_offset, kv_offset, device):
+    """(Sq, Skv) bool of the keys each query row sees, or None for all."""
+    return position_keep(sq, skv, is_causal, kernel_window(window, is_causal),
+                         q_offset, kv_offset, device)
 
 
 def flash_attention_plain(
     q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None,
-    return_residuals=False, q_offset: int = 0,
+    return_residuals=False, q_offset: int = 0, window=None, kv_offset: int = 0,
 ):
-    """K1's plain version: dequantize, then the fp32 oracle.  With
-    ``return_residuals`` also (m, l) from the fp32 logits."""
-    mask = causal_keep(q.shape[2], k.shape[2], q_offset, q.device) if is_causal else None
+    """K1's plain version: dequantize, then the fp32 oracle, with zeros in
+    the rows that see no key.  With ``return_residuals`` also (m, l) from
+    the fp32 logits."""
+    keep = keep_mask(q.shape[2], k.shape[2], is_causal, window, q_offset, kv_offset, q.device)
     out = sdpa_reference(
-        q, k, v, attn_mask=mask, scale=sm_scale, scale_q=scale_q, scale_k=scale_k,
+        q, k, v, attn_mask=keep, scale=sm_scale, scale_q=scale_q, scale_k=scale_k,
         out_dtype=out_dtype_for(v.dtype),
     )
+    if keep is not None:
+        out = torch.where(keep.any(dim=-1)[:, None], out, torch.zeros((), dtype=out.dtype))
     if not return_residuals:
         return out
-    return out, residuals_plain(q, k, scale_q, scale_k, is_causal, sm_scale, q_offset)
+    return out, residuals_plain(q, k, scale_q, scale_k, is_causal, sm_scale, q_offset, window,
+                                kv_offset)
 
 
-def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None, q_offset: int = 0):
+def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None, q_offset: int = 0,
+                  window=None, kv_offset: int = 0):
     """(B, Hq, Sq, Skv) fp32 scores in K1's exp2 domain (times
     sm_scale * log2 e), masked entries at MASK_VALUE."""
     qf = q.float() if scale_q is None else quant.dequantize(q, scale_q)
     kf = k.float() if scale_k is None else quant.dequantize(k, scale_k)
     kf = kf.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (sm_scale * LOG2E)
-    if is_causal:
-        keep = causal_keep(q.shape[2], k.shape[2], q_offset, q.device)
+    keep = keep_mask(q.shape[2], k.shape[2], is_causal, window, q_offset, kv_offset, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
     return s
 
 
 def residuals_plain(
-    q, k, scale_q=None, scale_k=None, is_causal=False, sm_scale=None, q_offset: int = 0
+    q, k, scale_q=None, scale_k=None, is_causal=False, sm_scale=None, q_offset: int = 0,
+    window=None, kv_offset: int = 0,
 ):
     """Row max m and row sum l = sum(exp2(s - m)) of the exp2-domain
-    scores, each (B, Hq, Sq) fp32, as K1 saves them."""
+    scores, each (B, Hq, Sq) fp32, as K1 saves them (a row that sees no
+    key has no meaningful pair; the kernel's may differ there)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = masked_scores(q, k, is_causal, sm_scale, scale_q, scale_k, q_offset)
+    s = masked_scores(q, k, is_causal, sm_scale, scale_q, scale_k, q_offset, window, kv_offset)
     m = s.amax(dim=-1)
     return m, torch.exp2(s - m[..., None]).sum(dim=-1)
+
+
+def _offset(name: str, value) -> int:
+    value = 0 if value is None else int(value)
+    if value < 0:
+        raise ValueError(f"{name} must be >= 0, got {value}")
+    return value
 
 
 def flash_attention(
@@ -121,7 +161,9 @@ def flash_attention(
     is_causal: bool = False,
     sm_scale: Optional[float] = None,
     return_residuals: bool = False,
+    window=None,
     q_offset=None,
+    kv_offset=None,
     **not_yet,
 ):
     """Fused attention forward over (B, H, S, D) tensors.
@@ -135,9 +177,14 @@ def flash_attention(
     ``return_residuals`` ``(out, (m, l))``, the row max and row sum of the
     online softmax in the exp2 domain of the scores times
     ``sm_scale * log2 e`` (and the scales), each (B, Hq, Sq) fp32.
-    ``q_offset`` (an int or a 0-d int tensor, read once on the host) is
-    the global position of q's row 0: with ``is_causal`` row i sees the
-    keys j <= q_offset + i, so Sq may be shorter than Skv (chunked prefill).
+    ``window = (left, right)``: query position p sees the keys at
+    positions [p - left, p + right] (``None`` an unbounded side; the right
+    extent is inactive under ``is_causal``).  ``q_offset`` and
+    ``kv_offset`` (ints or 0-d int tensors, read once on the host) are the
+    global positions of q's and k's row 0: with ``is_causal`` row i sees
+    the keys at positions <= q_offset + i, so Sq may be shorter than Skv
+    (chunked prefill), and K may start past position 0 (a prefix cut to
+    the window).  A query row that sees no key gives zeros.
     """
     for name, val in not_yet.items():
         if name not in _NOT_YET:
@@ -161,12 +208,13 @@ def flash_attention(
         )
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    q_offset = 0 if q_offset is None else int(q_offset)
-    if q_offset < 0:
-        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    q_offset = _offset("q_offset", q_offset)
+    kv_offset = _offset("kv_offset", kv_offset)
+    window = kernel_window(window, is_causal)
     if q.device.type == "cpu":
         return flash_attention_plain(
-            q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset
+            q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset, window,
+            kv_offset,
         )
     out_dtype = out_dtype_for(v.dtype)
     d = q.shape[-1]
@@ -176,7 +224,7 @@ def flash_attention(
         dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
-        scaling, is_causal, sm_scale, return_residuals, q_offset, out_dtype,
+        scaling, is_causal, sm_scale, return_residuals, q_offset, out_dtype, window, kv_offset,
     )
     if q.shape[-1] == d:
         return res
@@ -212,12 +260,13 @@ def dense(t: torch.Tensor) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+flash_attention.window_launches = 0
 
 _SCALING_CODES = {"none": 0, "head": 1, "token": 2}
 
 
 def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals,
-                    q_offset, out_dtype):
+                    q_offset, out_dtype, window=None, kv_offset=0):
     """Check what the kernel takes, launch it on the current stream; the
     output in ``out_dtype`` (v's before fp32 was rounded to bf16)."""
     checks.require_hopper(q.device)
@@ -254,6 +303,7 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
     if return_residuals:
         m = torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
+    left, right = extents(window)
     lib = _native.library()
     err = lib.qa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -264,10 +314,11 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         _native.dtype_code(v.dtype),
         _native.F32_OUT_CODE if out_dtype == torch.float32 else _native.dtype_code(out_dtype),
         _SCALING_CODES[scaling], int(bool(is_causal)),
-        float(sm_scale * LOG2E), q_offset,
+        float(sm_scale * LOG2E), q_offset, kv_offset, left, right,
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_flash_fwd")
     flash_attention.launches += 1
+    flash_attention.window_launches += window is not None
     return (out, (m, l)) if return_residuals else out

@@ -23,8 +23,12 @@ A CPU tensor runs each kernel's plain version (the same formulas on whole
 Covered: bf16/fp16 (fp32 inputs enter the kernels rounded to bf16 and
 their gradients return in fp32), GQA, ragged Sq/Skv, top-left causal, any
 head dim JAX takes (a multiple of 8 up to 512, run at an instantiated width
-of 64, 128, 256 or 512 with zero columns).
-The window mode waits for K1's (ROADMAP queue 1, item 6b) and raises.
+of 64, 128, 256 or 512 with zero columns), and sliding windows as K1 takes
+them (the right extent inactive under ``is_causal``, flash_bwd.py:225-226):
+K2 walks only the KV tiles a Q block's rows can see, K3 only the Q rows
+that can see a KV block, and P is 0 outside every row's window.  Neither
+takes position offsets, as in JAX.  ``.window_launches`` counts each
+kernel's launches with a window.
 """
 
 from __future__ import annotations
@@ -36,16 +40,19 @@ import torch
 
 from ..utils import checks, shapes
 from . import _native
-from .flash import LOG2E, dense, masked_scores, to_16bit
+from .flash import LOG2E, dense, extents, kernel_window, keep_mask, masked_scores, to_16bit
 
 _FLOAT_DTYPES = (torch.bfloat16, torch.float16)
 
 
-def _probs(q, k, m, l, is_causal, sm_scale) -> torch.Tensor:
-    """P (B, Hq, Sq, Skv) fp32 from the saved (m, l); masked entries 0."""
-    s = masked_scores(q, k, is_causal, sm_scale)
+def _probs(q, k, m, l, is_causal, sm_scale, window=None) -> torch.Tensor:
+    """P (B, Hq, Sq, Skv) fp32 from the saved (m, l); masked entries 0
+    (also in a row that sees no key, whatever its m and l)."""
+    s = masked_scores(q, k, is_causal, sm_scale, window=window)
     l_inv = torch.where(l == 0, 0.0, 1.0 / l)
-    return torch.exp2(s - m[..., None]) * l_inv[..., None]
+    p = torch.exp2(s - m[..., None]) * l_inv[..., None]
+    keep = keep_mask(q.shape[2], k.shape[2], is_causal, window, 0, 0, q.device)
+    return p if keep is None else torch.where(keep, p, 0.0)
 
 
 def _group_sum(t: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
@@ -54,27 +61,27 @@ def _group_sum(t: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     return t.reshape(b, num_kv_heads, hq // num_kv_heads, s, d).sum(dim=2)
 
 
-def _ds(q, k, v, do, m, l, delta, is_causal, sm_scale):
+def _ds(q, k, v, do, m, l, delta, is_causal, sm_scale, window=None):
     """(P, dS) of the whole problem, fp32."""
-    p = _probs(q, k, m, l, is_causal, sm_scale)
+    p = _probs(q, k, m, l, is_causal, sm_scale, window)
     vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     dp = torch.matmul(do.float(), vf.transpose(-1, -2))
     return p, p * (dp - delta[..., None])
 
 
-def flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None):
+def flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None, window=None):
     """K2's plain version: dQ = sm_scale * dS.K, in q's dtype."""
     sm_scale = _default_scale(q, sm_scale)
-    _, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    _, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
     kf = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None):
+def flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal=False, sm_scale=None, window=None):
     """K3's plain version: dK = sm_scale * dS^T.Q and dV = P^T.dO, summed
     over each GQA group, in k's and v's dtypes."""
     sm_scale = _default_scale(q, sm_scale)
-    p, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    p, ds = _ds(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), k.shape[1])
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), k.shape[1])
     return (dk * sm_scale).to(k.dtype), dv.to(v.dtype)
@@ -89,11 +96,11 @@ def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1)
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, m, l, is_causal=False, sm_scale=None):
+def flash_attention_bwd_plain(q, k, v, o, do, m, l, is_causal=False, sm_scale=None, window=None):
     """The plain version of the whole backward: (dq, dk, dv)."""
     delta = row_delta(o, do)
-    dq = flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+    dq = flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
     return dq, dk, dv
 
 
@@ -113,13 +120,10 @@ def flash_attention_bwd(
     """Blockwise backward; returns (dq, dk, dv) in the input dtypes.
 
     q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), bf16, fp16 or fp32, one
-    dtype; m, l the forward's (B, Hq, Sq) fp32 residuals.
+    dtype; m, l the forward's (B, Hq, Sq) fp32 residuals; ``window`` the
+    forward's (left, right), the right extent inactive under ``is_causal``.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "flash_attention_bwd: sliding windows are not ported yet "
-            "(ROADMAP queue 1, item 6b)"
-        )
+    window = kernel_window(window, is_causal)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, D)")
     batch, hq, sq, d = q.shape
@@ -139,8 +143,9 @@ def flash_attention_bwd(
     if q.device.type != "cpu":
         args = [dense(to_16bit(t)) for t in args[:4]] + [t.float().contiguous() for t in args[4:]]
         stats = pack_stats(*args[4:])
-    dq = flash_bwd_dq(*args, is_causal=is_causal, sm_scale=sm_scale, stats=stats)
-    dk, dv = flash_bwd_dkv(*args, is_causal=is_causal, sm_scale=sm_scale, stats=stats)
+    kw = dict(is_causal=is_causal, sm_scale=sm_scale, stats=stats, window=window)
+    dq = flash_bwd_dq(*args, **kw)
+    dk, dv = flash_bwd_dkv(*args, **kw)
     return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
 
 
@@ -181,11 +186,13 @@ def _dims(q, k, stats):
     return batch, hq, k.shape[1], sq, stats.shape[2], k.shape[2], d
 
 
-def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None):
+def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None,
+                 window=None):
     """Kernel K2 on CUDA tensors: dQ (B, Hq, Sq, D) in q's dtype.  ``stats``
     is ``pack_stats(m, l, delta)`` where the caller has it already."""
+    window = kernel_window(window, is_causal)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+        return flash_bwd_dq_plain(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
     _check_cuda("K2", q, k, v, do, m, l, delta)
     sm_scale = _default_scale(q, sm_scale)
     dq = torch.empty_like(q)
@@ -193,19 +200,22 @@ def flash_bwd_dq(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, st
     err = _native.library().qa_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(), dq.data_ptr(),
         *_dims(q, k, stats), _native.dtype_code(q.dtype), int(bool(is_causal)),
-        float(sm_scale * LOG2E), float(sm_scale),
+        *extents(window), float(sm_scale * LOG2E), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.window_launches += window is not None
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None):
+def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, stats=None,
+                  window=None):
     """Kernel K3 on CUDA tensors: (dK, dV), each (B, Hkv, Skv, D).  ``stats``
     as K2's."""
+    window = kernel_window(window, is_causal)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale)
+        return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, is_causal, sm_scale, window)
     _check_cuda("K3", q, k, v, do, m, l, delta)
     sm_scale = _default_scale(q, sm_scale)
     dk = torch.empty_like(k)
@@ -215,13 +225,16 @@ def flash_bwd_dkv(q, k, v, do, m, l, delta, *, is_causal=False, sm_scale=None, s
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
         *_dims(q, k, stats), _native.dtype_code(q.dtype), int(bool(is_causal)),
-        float(sm_scale * LOG2E), float(sm_scale),
+        *extents(window), float(sm_scale * LOG2E), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.window_launches += window is not None
     return dk, dv
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dq.window_launches = 0
+flash_bwd_dkv.window_launches = 0

@@ -9,8 +9,9 @@ optionally, the next layer's RMSNorm + QKV projection -- as a fixed
 sequence of hand-written kernels with no PyTorch op between them.  A CPU
 tensor runs the plain version, :func:`fused_decode_layer_plain`; a CUDA
 tensor runs the kernel or raises.  ``fused_decode_layer.launches`` counts
-calls, ``fused_decode_layer.last_kernels`` the kernels the last call
-launched on the card.
+calls (``.window_launches`` those with a window),
+``fused_decode_layer.last_kernels`` the kernels the last call launched on
+the card.
 
 The kernel attends over the POST-append cache: the caller writes the
 current token first (``serving/kv_cache.append_quantized_token``), and the
@@ -209,6 +210,7 @@ def fused_decode_layer(
 
 
 fused_decode_layer.launches = 0
+fused_decode_layer.window_launches = 0
 fused_decode_layer.last_kernels = 0
 
 
@@ -283,5 +285,6 @@ def _mega_cuda(x, q, cache_k, cache_v, cache_ks, cache_vs, step_ctx, layer,
     )
     _native.check(err, "qa_decode_layer")
     fused_decode_layer.launches += 1
+    fused_decode_layer.window_launches += window is not None
     fused_decode_layer.last_kernels = kernels.value
     return out if qkv is None else (out, qkv)

@@ -33,12 +33,15 @@ byte row i of a page holding token i in its low nibble and i + ps/2 in its
 high nibble, scales (Hkv, P, ps) per real token) and bf16, float16 or
 float32 pages; any GQA group, any page size (even for int4), any head dim
 JAX takes (a multiple of 8 up to 512, run at an instantiated width of 64,
-128, 256 or 512 with zero columns).  8-bit queries are refused, as in JAX.
-Not yet: ``window`` (ROADMAP queue 1, item 12c).  ``side`` (the burst side
-buffer, paged.py:446-457) exists for XLA's scatter copy and is not ported
-(ROADMAP, "Do not port these TPU workarounds").
-``paged_decode_attention.verify_launches`` counts the launches of T > 1
-calls (they are in ``launches`` too).
+128, 256 or 512 with zero columns), and sliding windows ``window = (left,
+0)`` as K4 takes them (paged.py:272-276): the kernel starts each sequence
+at the first 64-token tile that candidate 0 can see, so the pages below a
+window are never looked up.  8-bit queries are refused, as in JAX.
+``side`` (the burst side buffer, paged.py:446-457) exists for XLA's
+scatter copy and is not ported (ROADMAP, "Do not port these TPU
+workarounds").  ``paged_decode_attention.verify_launches`` counts the
+launches of T > 1 calls and ``.window_launches`` those with a window (both
+are in ``launches`` too).
 """
 
 from __future__ import annotations
@@ -50,7 +53,16 @@ import torch
 
 from ..utils import checks, shapes
 from . import _native, quant
-from .decode import FLOAT_KINDS, cache_kind, candidates, card_plan, core_scratch, kernel_query
+from .decode import (
+    FLOAT_KINDS,
+    cache_kind,
+    candidates,
+    card_plan,
+    core_scratch,
+    kernel_query,
+    window_left_of,
+    window_valid,
+)
 from .sdpa import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
@@ -75,7 +87,7 @@ def _flat_scales(sp: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def paged_decode_attention_plain(
     q, k_pages, v_pages, lengths, page_indices, k_scale_pages=None, v_scale_pages=None,
-    sm_scale=None,
+    sm_scale=None, window_left=None,
 ) -> torch.Tensor:
     """K10's plain version, on (Hkv, P, ps) scale pages: gather each
     sequence's pages through its table row (entries past its pages are
@@ -84,13 +96,14 @@ def paged_decode_attention_plain(
     K and V per element to bf16, q rounded to bf16, fp32 scores times
     sm_scale * log2(e), rows at or past the length masked, exp2 softmax with
     the unnormalized P rounded to bf16 before P.V, division by the sum at
-    the end, zeros for an empty slot.  Returns (B, Hq, D) bf16; a (B, Hq,
-    T, D) q gives (B, Hq, T, D), candidate t the one-query call at lengths
-    - (T - 1 - t)."""
+    the end, zeros for an empty slot; with ``window_left`` also the rows
+    below lengths - 1 - window_left masked.  Returns (B, Hq, D) bf16; a
+    (B, Hq, T, D) q gives (B, Hq, T, D), candidate t the one-query call at
+    lengths - (T - 1 - t)."""
     if q.ndim == 4:
         return candidates(lambda qt, lens: paged_decode_attention_plain(
-            qt, k_pages, v_pages, lens, page_indices, k_scale_pages, v_scale_pages, sm_scale),
-            q, lengths)
+            qt, k_pages, v_pages, lens, page_indices, k_scale_pages, v_scale_pages, sm_scale,
+            window_left), q, lengths)
     batch, hq, d = q.shape
     if k_scale_pages is not None and k_scale_pages.shape[2] == 2 * k_pages.shape[2]:
         k_pages = quant.unpack_int4(k_pages, axis=2)
@@ -115,7 +128,7 @@ def paged_decode_attention_plain(
     k, v = gather(k_pages, k_scale_pages), gather(v_pages, v_scale_pages)
     qg = q.to(torch.bfloat16).float().reshape(batch, hkv, group, d)
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * (sm_scale * LOG2E)
-    valid = torch.arange(pps * ps, device=dev)[None, :] < lengths[:, None]
+    valid = window_valid(lengths, pps * ps, window_left)
     s = s.masked_fill(~valid[:, None, None, :], DEFAULT_MASK_VALUE)
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
@@ -150,7 +163,8 @@ def paged_decode_attention(
     output); page_indices (B, pages_per_seq) int32, entries past a
     sequence's pages ignored.  ``pages_per_block`` must divide
     pages_per_seq, as in JAX; it sizes the TPU's DMA blocks, and the card's
-    kernel tiles the pages its own way.
+    kernel tiles the pages its own way.  ``window`` (left, 0) or (left,
+    None): the newest query sees the tokens from lengths - 1 - left on.
     """
     if q.ndim not in (3, 4):
         raise ValueError(f"q must be (B, Hq, D) or (B, Hq, T, D), got {tuple(q.shape)}")
@@ -193,17 +207,7 @@ def paged_decode_attention(
             f"pages_per_seq ({pages_per_seq}) must be a multiple of "
             f"pages_per_block ({pages_per_block})"
         )
-    if window is not None:
-        _, right = window
-        if right not in (None, 0):
-            raise ValueError(
-                "paged_decode_attention window must be (left, 0) or "
-                f"(left, None): queries are the newest tokens, got right={right}"
-            )
-        raise NotImplementedError(
-            "paged_decode_attention: sliding windows are not ported yet "
-            "(ROADMAP queue 1, item 12c)"
-        )
+    window_left = window_left_of(window, "paged_decode_attention")
     if side is not None:
         raise NotImplementedError(
             "paged_decode_attention: the burst side buffer is a TPU workaround "
@@ -215,16 +219,19 @@ def paged_decode_attention(
     ks, vs = _flat_scales(k_scale_pages), _flat_scales(v_scale_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale
+            q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, window_left
         )
-    return _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4)
+    return _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4,
+                       window_left)
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.verify_launches = 0
+paged_decode_attention.window_launches = 0
 
 
-def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4):
+def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, int4,
+                window_left=None):
     """Check what the kernel takes, launch it on the current stream."""
     checks.require_hopper(q.device)
     batch, hq, d = q.shape[0], q.shape[1], q.shape[-1]
@@ -267,9 +274,11 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, ks, vs, sm_scale, in
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), batch, hq, hkv, num_pages, ps, pps, d, qtokens, kind,
-        float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+        -1 if window_left is None else window_left, float(sm_scale * LOG2E),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_paged_decode")
     paged_decode_attention.launches += 1
     paged_decode_attention.verify_launches += qtokens > 1
+    paged_decode_attention.window_launches += window_left is not None
     return out

@@ -30,6 +30,31 @@ def _dequantize(t: torch.Tensor, scale: Optional[torch.Tensor], dtype):
     return t
 
 
+def position_keep(
+    q_len: int, kv_len: int, is_causal: bool, window: Optional[tuple],
+    q_offset: int = 0, kv_offset: int = 0, device=None,
+) -> Optional[torch.Tensor]:
+    """(Sq, Skv) bool of the keys each query sees by position, or None
+    when every query sees every key.  Query row i sits at global position
+    ``q_offset + i``, key row j at ``kv_offset + j``; with ``is_causal``
+    position p sees keys at p and below, and ``window = (left, right)``
+    bounds them to [p - left, p + right] (``None`` an unbounded side)."""
+    if not is_causal and (window is None or window == (None, None)):
+        return None
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :] + kv_offset
+    keep = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if is_causal:
+        keep &= kv_pos <= q_pos
+    if window is not None:
+        left, right = window
+        if left is not None:
+            keep &= kv_pos >= q_pos - left
+        if right is not None:
+            keep &= kv_pos <= q_pos + right
+    return keep
+
+
 def sdpa_reference(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -41,6 +66,7 @@ def sdpa_reference(
     scale: Optional[float] = None,
     scale_q: Optional[torch.Tensor] = None,
     scale_k: Optional[torch.Tensor] = None,
+    window: Optional[tuple] = None,
     generator: Optional[torch.Generator] = None,
     compute_dtype=torch.float32,
     out_dtype=None,
@@ -50,7 +76,10 @@ def sdpa_reference(
     GQA when ``num_q_heads % num_kv_heads == 0`` (K/V heads repeated).
     Causal masking is top-left aligned: query i sees key j iff j <= i.
     ``scale_q``/``scale_k`` dequantize pre-quantized inputs first.
-    ``dropout_p > 0`` draws its keep mask from ``generator``.
+    ``window`` is ``(left, right)``: query i sees key j when
+    ``i - left <= j <= i + right``, ``None`` an unbounded side (JAX
+    sdpa.py:59-110).  ``dropout_p > 0`` draws its keep mask from
+    ``generator``.
     """
     if out_dtype is None:
         out_dtype = value.dtype
@@ -71,10 +100,9 @@ def sdpa_reference(
 
     sm_scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
     logits = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
-    if is_causal:
-        q_pos = torch.arange(q_len, device=q.device)[:, None]
-        kv_pos = torch.arange(kv_len, device=q.device)[None, :]
-        logits = logits.masked_fill(kv_pos > q_pos, DEFAULT_MASK_VALUE)
+    keep = position_keep(q_len, kv_len, is_causal, window, device=q.device)
+    if keep is not None:
+        logits = logits.masked_fill(~keep, DEFAULT_MASK_VALUE)
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
             logits = logits.masked_fill(~attn_mask, DEFAULT_MASK_VALUE)

@@ -32,7 +32,10 @@ every step, so the JAX burst's side buffers and once-per-burst flush
 A prefill chunk (``prefill_chunk``, both backends) attends over the
 slot's cached prefix, dequantized to bf16, and the chunk itself through K1
 with ``q_offset`` = the chunk's start (``_chunk_prefix_attend``,
-backends.py:66-108), then writes the chunk.
+backends.py:66-108), then writes the chunk.  Under a sliding window
+(``window_of(cfg)``, passed to every attention call: prefill, chunks, K4,
+K9, K10 and both verify passes) only the prefix rows inside the chunk's
+window are gathered, and K1 takes their start as ``kv_offset``.
 
 Speculative decoding (``verify``, ``rollback``, ``can_speculate`` on both
 backends, backends.py:173, :678-736, :882-894, :1572-1611): ``verify``
@@ -59,6 +62,7 @@ import numpy as np
 import torch
 
 from ..models import llama, quantized
+from ..models.llama import window_of
 from ..ops import megastep, qmlp, qmm, quant
 from ..ops.decode import decode_attention
 from ..ops.flash import flash_attention
@@ -75,12 +79,15 @@ def _launch_counters():
     replay adds the capture's counts to these."""
     return [
         (decode_attention, "launches"),
+        (decode_attention, "window_launches"),
         (qmm.quantized_matmul, "launches"),
         (qmm.quantized_matmul, "splitk_launches"),
         (qmm.quantized_matmul4, "launches"),
         (qmlp.fused_layer_tail, "launches"),
         (megastep.fused_decode_layer, "launches"),
+        (megastep.fused_decode_layer, "window_launches"),
         (paged_decode_attention, "launches"),
+        (paged_decode_attention, "window_launches"),
     ]
 
 
@@ -91,17 +98,28 @@ def _device_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device)
 
 
-def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int) -> torch.Tensor:
-    """Attention of a prefill chunk over the slot's first ``off`` cached
-    rows and itself (``_chunk_prefix_attend``, backends.py:66-108): the
-    prefix (``prefix()`` -> (k, v), (1, Hkv, off, D) bf16, dequantized per
-    element) is concatenated with the chunk's K/V, then K1 runs causal with
-    ``q_offset = off``."""
-    if off > 0:
-        k_pre, v_pre = prefix()
+def prefix_start(off: int, window) -> int:
+    """The first cached row a chunk starting at ``off`` can see: 0, or the
+    left window edge of its first query."""
+    return 0 if window is None else max(0, off - window[0])
+
+
+def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int, window=None) -> torch.Tensor:
+    """Attention of a prefill chunk over the slot's cached rows before
+    ``off`` and itself (``_chunk_prefix_attend``, backends.py:66-108): the
+    prefix rows from ``start = prefix_start(off, window)`` on (``prefix(start)``
+    -> (k, v), (1, Hkv, off - start, D) bf16, dequantized per element) are
+    concatenated with the chunk's K/V, then K1 runs causal with ``q_offset =
+    off``, ``kv_offset = start`` and the window."""
+    start = prefix_start(off, window)
+    if off > start:
+        k_pre, v_pre = prefix(start)
         k_new = torch.cat([k_pre, k_new.to(torch.bfloat16)], dim=2)
         v_new = torch.cat([v_pre, v_new.to(torch.bfloat16)], dim=2)
-    return flash_attention(q, k_new, v_new, is_causal=True, q_offset=off)
+    else:
+        start = off
+    return flash_attention(q, k_new, v_new, is_causal=True, q_offset=off, kv_offset=start,
+                           window=window)
 
 
 def _dequantize_rows(values: torch.Tensor, scales, int4_axis: Optional[int] = None) -> torch.Tensor:
@@ -294,15 +312,15 @@ class SlotsBackend:
             recorded[idx] = (k_new, v_new)
             c = self.caches[idx]
 
-            def prefix():
+            def prefix(start):
                 return tuple(
-                    _dequantize_rows(vals[slot : slot + 1, :, :off],
-                                     None if sc is None else sc[slot : slot + 1, :, :off],
+                    _dequantize_rows(vals[slot : slot + 1, :, start:off],
+                                     None if sc is None else sc[slot : slot + 1, :, start:off],
                                      -1 if self.kv_int4 else None)
                     for vals, sc in ((c.k, c.k_scale), (c.v, c.v_scale))
                 )
 
-            return _chunk_prefix_attend(q, k_new, v_new, prefix, off)
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window_of(self.cfg))
 
         logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
         ids, offs, nval = self._tensor([slot]), self._tensor([off]), self._tensor([tc])
@@ -339,6 +357,7 @@ class SlotsBackend:
             return decode_attention(
                 q.to(torch.bfloat16).contiguous(), cache.k, cache.v,
                 cache.lengths, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                window=window_of(self.cfg),
             )
 
         return llama.forward_decode(params, tokens, positions, self.cfg, attend)
@@ -352,7 +371,9 @@ class SlotsBackend:
         cfg = self.cfg
         positions = self.caches[0].lengths.clone()  # pre-append lengths
         nval = active.to(torch.int32)
-        ctx = megastep.build_decode_ctx(positions, active, self.max_len)
+        window = window_of(cfg)
+        ctx = megastep.build_decode_ctx(positions, active, self.max_len,
+                                        window_left=None if window is None else window[0])
         cos, sin = llama.decode_rope_tables(positions, cfg)
         x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
         layers = params["layers"]
@@ -415,7 +436,7 @@ class SlotsBackend:
             cache = kvc.append(self.caches[idx], ids, k_new[ids].float(), v_new[ids].float(), pos[ids])
             return decode_attention(
                 q.to(torch.bfloat16).contiguous(), cache.k, cache.v, cache.lengths,
-                k_scale=cache.k_scale, v_scale=cache.v_scale,
+                k_scale=cache.k_scale, v_scale=cache.v_scale, window=window_of(self.cfg),
             )
 
         return llama.forward_chunk(params, tokens, pos2d, self.cfg, attend)
@@ -607,22 +628,26 @@ class PagedBackend:
         ps = self.page_size
         row = self.alloc.tables[req.slot]
         positions = off + torch.arange(tokens.shape[1], dtype=torch.int32, device=self.device)
-        prefix_ids = self._ids(row[: off // ps])
+        window = window_of(self.cfg)
+        first_page = prefix_start(off, window) // ps
+        prefix_ids = self._ids(row[first_page : off // ps])
         recorded = {}
 
         def attend(idx, q, k_new, v_new):
             recorded[idx] = (k_new, v_new)
             lp = self.pages[idx]
 
-            def prefix():
+            def prefix(start):
+                # The pages from start's on, cut to the rows from start.
+                cut = start - first_page * ps
                 return tuple(
                     _dequantize_rows(vals[:, prefix_ids], None if sc is None else sc[:, prefix_ids],
                                      2 if self.kv_int4 else None)
-                    .reshape(vals.shape[0], off, vals.shape[3])[None]
+                    .reshape(vals.shape[0], off - first_page * ps, vals.shape[3])[None, :, cut:]
                     for vals, sc in ((lp.k, lp.k_scale), (lp.v, lp.v_scale))
                 )
 
-            return _chunk_prefix_attend(q, k_new, v_new, prefix, off)
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window)
 
         logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
         n_pg = -(-tc // ps)
@@ -669,7 +694,7 @@ class PagedBackend:
             return paged_decode_attention(
                 q.to(torch.bfloat16).contiguous(), lp.k, lp.v, lengths, self._tables,
                 k_scale_pages=lp.k_scale, v_scale_pages=lp.v_scale,
-                pages_per_block=self._pages_per_block,
+                pages_per_block=self._pages_per_block, window=window_of(self.cfg),
             )
 
         logits = llama.forward_decode(params, tokens, positions, self.cfg, attend)
@@ -742,7 +767,7 @@ class PagedBackend:
             return paged_decode_attention(
                 q.to(torch.bfloat16).contiguous(), lp.k, lp.v, lengths, self._tables,
                 k_scale_pages=lp.k_scale, v_scale_pages=lp.v_scale,
-                pages_per_block=self._pages_per_block,
+                pages_per_block=self._pages_per_block, window=window_of(self.cfg),
             )
 
         return llama.forward_chunk(params, tokens, pos2d, self.cfg, attend)

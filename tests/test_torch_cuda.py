@@ -301,29 +301,31 @@ def _paged_case(cuda, shape, kind, qtokens=None):
     return q, k, v, lens.to(cuda), table.to(cuda), ks, vs
 
 
-def _core_calls(cuda, kernel, kind):
+def _core_calls(cuda, kernel, kind, window_left=None):
     """One K4 or K10 call of the decode-attention core: (call(), raw(acc,
     ml), lengths, plan, rows a slot); raw launches the same call through the
-    library's entry point into the partial buffers it is given."""
+    library's entry point into the partial buffers it is given.  With
+    ``window_left`` both calls take that window."""
     from quantumattention_tpu_torch.ops import _native, decode, paged
 
     lib, scale = _native.library(), 128 ** -0.5
     code = decode.KINDS["int4_pages" if kind == "int4" and kernel != "k4" else kind]
     stream = torch.cuda.current_stream(cuda).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    wl = -1 if window_left is None else window_left
     if kernel == "k4":
         q, kc, vc, lens, ks, vs = _decode_case(cuda, kind, 4, 128)
         b, hq, hkv, smax = q.shape[0], q.shape[1], kc.shape[1], kc.shape[2]
 
         def call():
-            return decode._decode_cuda(q, kc, vc, lens, ks, vs, scale)
+            return decode._decode_cuda(q, kc, vc, lens, ks, vs, scale, window_left)
 
         def raw(acc, ml):
             out = torch.empty_like(q)
             _native.check(lib.qa_decode(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr(ks), ptr(vs),
                                         lens.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
-                                        b, hq, hkv, smax, 128, 1, code, float(scale * decode.LOG2E),
-                                        stream), "qa_decode")
+                                        b, hq, hkv, smax, 128, 1, code, wl,
+                                        float(scale * decode.LOG2E), stream), "qa_decode")
     else:
         # k10: Llama-3-8B's heads; k10_g32: a GQA group of 32 (fault 11).
         shape = (16, 32, 8, 128, 8, 128) if kernel == "k10" else (6, 64, 2, 128, 8, 128)
@@ -332,14 +334,15 @@ def _core_calls(cuda, kernel, kind):
         b, hq, hkv, smax = q.shape[0], q.shape[1], k.shape[0], table.shape[1] * ps
 
         def call():
-            return paged._paged_cuda(q, k, v, lens, table, ks, vs, scale, kind == "int4")
+            return paged._paged_cuda(q, k, v, lens, table, ks, vs, scale, kind == "int4",
+                                     window_left)
 
         def raw(acc, ml):
             out = torch.empty_like(q)
             _native.check(lib.qa_paged_decode(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs), lens.data_ptr(),
                 table.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(), b, hq, hkv,
-                k.shape[1], ps, table.shape[1], 128, 1, code, float(scale * decode.LOG2E),
+                k.shape[1], ps, table.shape[1], 128, 1, code, wl, float(scale * decode.LOG2E),
                 stream), "qa_paged_decode")
     plan = decode.card_plan(code, b, hq, hkv, 128, smax, 0 if kernel == "k4" else ps)
     return call, raw, lens, plan, smax
@@ -1404,3 +1407,183 @@ def test_default_device_is_the_card_on_card(cuda):
     tree = {"embed": np.zeros((4, 2), np.float32), "final_norm": np.ones(2, np.float32),
             "layers": [{"attn_norm": np.ones(2, np.float32)} for _ in range(cfg.num_layers)]}
     assert convert.params_from_numpy(tree, cfg)["embed"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# Sliding windows and position offsets (K1-K4, K10)
+# ---------------------------------------------------------------------------
+
+K1_WINDOW_CASES = [  # (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_offset)
+    (1, 8, 2, 300, 300, 128, True, (63, 0), 0, 0),
+    (1, 8, 2, 300, 300, 64, True, (200, 0), 0, 0),
+    (1, 4, 4, 257, 257, 256, True, (100, 0), 0, 0),
+    (1, 4, 1, 200, 200, 512, True, (77, 0), 0, 0),
+    (1, 8, 2, 200, 200, 128, False, (30, 17), 0, 0),
+    (1, 8, 2, 100, 357, 128, True, (90, 0), 300, 43),
+    (1, 4, 2, 96, 160, 64, False, (None, 20), 10, 60),   # rows 0-29 see no key
+]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp16", "e4m3-head", "e4m3-token", "int8-head"])
+@pytest.mark.parametrize("case", K1_WINDOW_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_window_kernel_matches_plain(cuda, case, mode):
+    """K1 with a window and position offsets against its plain version and
+    the fp32 oracle (on the rows that see a key); rows that see no key are
+    exact zeros, as JAX's kernel gives them."""
+    b, hq, hkv, sq, skv, d, causal, window, q_off, kv_off = case
+    fdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    q = _randn((b, hq, sq, d), 21, fdt, cuda)
+    k = _randn((b, hkv, skv, d), 22, fdt, cuda)
+    v = _randn((b, hkv, skv, d), 23, fdt, cuda)
+    scales = {}
+    if mode not in ("bf16", "fp16"):
+        qdt = torch.float8_e4m3fn if mode.startswith("e4m3") else torch.int8
+        fn = quant.quantize_head_wise if mode.endswith("head") else quant.quantize_token_wise
+        (q, sq_), (k, sk_) = fn(q, qdt), fn(k, qdt)
+        scales = {"scale_q": sq_, "scale_k": sk_}
+    kw = dict(is_causal=causal, window=window, q_offset=q_off, kv_offset=kv_off, **scales)
+    before = (flash_attention.launches, flash_attention.window_launches)
+    out = flash_attention(q, k, v, **kw)
+    assert (flash_attention.launches, flash_attention.window_launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    plain = flash_attention_plain(q, k, v, kw["scale_q"] if scales else None,
+                                  kw["scale_k"] if scales else None, causal, None, False, q_off,
+                                  window, kv_off)
+    torch.cuda.synchronize()
+    from quantumattention_tpu_torch.ops.flash import keep_mask
+
+    seen = keep_mask(sq, skv, causal, window, q_off, kv_off, cuda).any(-1)
+    oracle = sdpa_reference(q, k, v, attn_mask=keep_mask(sq, skv, causal, window, q_off, kv_off,
+                                                         cuda),
+                            out_dtype=torch.float32, **scales)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+    assert bool((out[:, :, ~seen] == 0).all())
+    rows = out.float()[:, :, seen] - oracle[:, :, seen]
+    assert float(rows.pow(2).mean().sqrt()) < RMSE_BAR
+
+
+WINDOW_BWD_SHAPES = [  # (B, Hq, Hkv, S, D, causal, window)
+    (1, 8, 2, 300, 128, True, (63, 0)),
+    (1, 4, 4, 257, 64, True, (150, 0)),
+    (1, 4, 1, 200, 256, True, (40, 0)),
+    (1, 8, 2, 200, 128, False, (30, 17)),
+    (2, 4, 2, 130, 64, False, (None, 9)),
+    (1, 4, 4, 100, 512, True, (33, 0)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", WINDOW_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_window_bwd_kernels_match_plain(cuda, shape, dtype):
+    """K1's residuals, then K2 and K3 with a window, against their plain
+    versions; each call counts as a window launch."""
+    b, hq, hkv, s, d, causal, window = shape
+    q = _randn((b, hq, s, d), 31, dtype, cuda)
+    k = _randn((b, hkv, s, d), 32, dtype, cuda)
+    v = _randn((b, hkv, s, d), 33, dtype, cuda)
+    do = _randn((b, hq, s, d), 34, dtype, cuda)
+    out, (m, l) = flash_attention(q, k, v, is_causal=causal, window=window, return_residuals=True)
+    _, (pm, pl) = flash_attention_plain(q, k, v, is_causal=causal, window=window,
+                                        return_residuals=True)
+    before = (flash_bwd_dq.window_launches, flash_bwd_dkv.window_launches)
+    grads = flash_attention_bwd(q, k, v, out, do, m, l, is_causal=causal, window=window)
+    assert (flash_bwd_dq.window_launches, flash_bwd_dkv.window_launches) == (before[0] + 1,
+                                                                             before[1] + 1)
+    plain = flash_attention_bwd_plain(q, k, v, out, do, m, l, is_causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 1e-3 if dtype == torch.bfloat16 else 3e-2
+    assert float((m - pm).abs().max()) <= tol
+    assert float(((l - pl).abs() / pl).max()) <= tol
+    for g, p, t in zip(grads, plain, (q, k, v)):
+        assert g.shape == t.shape and bool(torch.isfinite(g).all())
+        assert _max_rel(g, p) < GRAD_BAR
+
+
+def _window_call(cuda, kernel, kind, t, left):
+    """(kernel call, plain call, lengths, wrapper) of one K4 or K10 call
+    with window (left, 0), T = t query tokens a head (None: a 3-D query)."""
+    from quantumattention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    if kernel == "k4":
+        lengths = VERIFY_LENGTHS if t else DECODE_LENGTHS
+        q, kc, vc, lens, ks, vs = _decode_case(cuda, kind, 4, 128, qtokens=t, lengths=lengths)
+        return (lambda: decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs, window=(left, 0)),
+                lambda: decode_attention_plain(q, kc, vc, lens, ks, vs, window_left=left), lens,
+                decode_attention)
+    q, k, v, lens, table, ks, vs = _paged_case(cuda, (16, 32, 8, 128, 8, 128), kind, qtokens=t)
+    return (lambda: paged_decode_attention(q, k, v, lens, table, k_scale_pages=ks,
+                                           v_scale_pages=vs, pages_per_block=1, window=(left, 0)),
+            lambda: paged_decode_attention_plain(q, k, v, lens, table, ks, vs, window_left=left),
+            lens, paged_decode_attention)
+
+
+@pytest.mark.parametrize("left", [0, 63, 300])
+@pytest.mark.parametrize("t", [None, 5], ids=["t1", "t5"])
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_decode_window_kernels_match_plain(cuda, kernel, kind, t, left):
+    """K4 and K10 with a window (a row's first visible row inside a tile,
+    on a tile edge, or lower), one token a head and verify mode, over
+    every cache kind, against their plain versions within the decode bars;
+    an empty slot gives zeros; the call counts as a window launch."""
+    call, plain_call, lens, wrapper = _window_call(cuda, kernel, kind, t, left)
+    before = wrapper.window_launches
+    out = call()
+    torch.cuda.synchronize()
+    assert wrapper.window_launches == before + 1
+    plain = plain_call()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    _assert_decode_close(out, plain, lens)
+    assert torch.equal(call(), out)
+
+
+@pytest.mark.parametrize("left", [0, 100, 4095])
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("kernel", ["k4", "k10"])
+def test_decode_core_window_split_is_the_schedule(cuda, kernel, kind, left):
+    """With a window the card's partials are exactly the runs of
+    ``decode_schedule(..., window_left=left)``: every slot's tiles start at
+    the first that its query sees, so no tile below it is fetched."""
+    from quantumattention_tpu_torch.ops import decode
+
+    _, raw, lens, plan, smax = _core_calls(cuda, kernel, kind, window_left=left)
+    acc, ml = decode.core_scratch(plan, lens.shape[0], cuda)
+    ml.fill_(float("nan"))
+    raw(acc, ml)
+    torch.cuda.synchronize()
+    written = set(torch.nonzero(torch.isfinite(ml[:, 0, 0])).flatten().tolist())
+    sched = decode.decode_schedule(lens.cpu().numpy(), plan["segments"], decode.ROWS_PER_TILE,
+                                   plan["ctas"], smax, window_left=left)
+    assert written == {c + seg for c in range(sched.ctas) for seg, _, _ in sched.runs(c)}
+
+
+@pytest.mark.parametrize("backend", ["slots", "paged"])
+def test_window_engine_on_card(cuda, backend):
+    """A ``tiny(window=16)`` model serves prompts longer than its window on
+    the card through K1 (chunked, with kv_offset past the window) and K4 or
+    K10 with the window; the first tokens equal the CPU engine's."""
+    from quantumattention_tpu_torch.ops.paged import paged_decode_attention
+
+    cfg = llama.tiny(window=16)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    prompts = [list(range(3, 40)), list(range(5, 75)), [7, 8, 9]]
+    kw = dict(prefill_chunk=32)
+    if backend == "paged":
+        kw.update(cache_backend="paged", page_size=32)
+    wrapper = paged_decode_attention if backend == "paged" else decode_attention
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(_params_on(params, dev), cfg, num_slots=2, max_len=256,
+                     cache_dtype=torch.int8, **kw)
+        k1, dec = flash_attention.window_launches, wrapper.window_launches
+        reqs = [eng.submit(pr, max_new_tokens=6) for pr in prompts]
+        eng.run_to_completion()
+        assert all(r.done and len(r.output) == 6 for r in reqs)
+        if dev == "cuda":
+            assert flash_attention.window_launches - k1 == cfg.num_layers * eng.stats["prefill_forwards"]
+            assert wrapper.window_launches - dec == cfg.num_layers * eng.stats["decode_steps"]
+        outs[dev] = [r.output[0] for r in reqs]
+    assert outs["cpu"] == outs["cuda"]

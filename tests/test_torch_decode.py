@@ -74,8 +74,14 @@ def test_decode_ignores_rows_past_length():
 def test_decode_rejects_what_is_not_ported():
     q, kc, vc, ks, vs = _caches("int8")
     lengths = torch.tensor(LENGTHS, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecode(q, kc, vc, lengths, k_scale=ks, v_scale=vs, window=(16, 0))
+    # The window, refused here before it was ported, now matches JAX's
+    # kernel (every cache kind: tests/test_torch_window.py).
+    got = tdecode(q, kc, vc, lengths, k_scale=ks, v_scale=vs, window=(16, 0))
+    want = jdecode(_j(q), _j(kc), _j(vc), jnp.asarray(LENGTHS, jnp.int32), k_scale=_j(ks),
+                   v_scale=_j(vs), window=(16, 0))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(got[0].float().numpy(), 0.0)
     # The multi-query verify mode is ported (tests/test_torch_verify.py):
     # the 4-D call that used to be refused now runs.
     one = tdecode(q[:, :, None, :], kc, vc, lengths, k_scale=ks, v_scale=vs)

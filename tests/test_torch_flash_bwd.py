@@ -99,9 +99,14 @@ def test_bwd_plain_parts_agree_with_whole():
 
 
 def test_bwd_refuses_what_is_not_ported():
-    targs, _ = _problem(6, 2, 2, 64, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfb.flash_attention_bwd(*targs, is_causal=True, window=(16, 0))
+    """Mismatched residuals raise.  A window, refused here before it was
+    ported, now gives JAX's gradients (on the forward's residuals without
+    the window, the backward's own mask is what is compared)."""
+    targs, jargs = _problem(6, 2, 2, 64, True)
+    jgrads = jbwd(*jargs, is_causal=True, window=(16, 0))
+    tgrads = tfb.flash_attention_bwd(*targs, is_causal=True, window=(16, 0))
+    for tg, jg, name in zip(tgrads, jgrads, "qkv"):
+        assert rel_err(_f32(tg), _f32(jg)) < GRAD_BAR, f"d{name}"
     q, k, v, o, do, m, l = targs
     with pytest.raises(ValueError, match="m and l"):
         tfb.flash_attention_bwd(q, k, v, o, do, m[..., :-1], l, is_causal=True)

@@ -119,9 +119,15 @@ def test_forward_decode_matches_jax(jax_params, impl):
     np.testing.assert_array_equal(tb.host_lengths(), [42, 23])
 
 
-def test_not_ported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.tiny(window=16)
+def test_not_ported_configs_raise(jax_params):
+    """MoE configs still raise.  A window, refused here before it was
+    ported, now builds and its prefill logits match JAX's (more in
+    tests/test_torch_window.py)."""
+    jcfg, tcfg = jl.tiny(window=16), tl.tiny(window=16)
+    tokens = np.random.default_rng(1).integers(0, 256, (1, 40)).astype(np.int32)
+    want = np.asarray(jl.forward(jax_params, jnp.asarray(tokens), jcfg), np.float32)
+    got = tl.forward(_torch_params(jax_params, tcfg), torch.from_numpy(tokens).long(), tcfg)
+    assert np.linalg.norm(got.numpy() - want) / np.linalg.norm(want) < LOGIT_REL
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.tiny(num_experts=4)
     # Quantized trees serve; what the JAX package still refuses is training

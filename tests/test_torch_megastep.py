@@ -190,8 +190,8 @@ def test_fused_decode_layer_refuses_what_it_does_not_take(trees):
 
 
 def _port_cfg(tcfg, **kw):
-    """The port's config fields with overrides (a window, which the port's
-    LlamaConfig refuses, only reaches the gate this way)."""
+    """The port's config fields with overrides, as a plain namespace (the
+    gate reads fields only)."""
     fields = {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)}
     fields.update(kw)
     return types.SimpleNamespace(**fields, q_dim=fields["num_q_heads"] * fields["head_dim"])

@@ -183,11 +183,11 @@ def test_paged_validation_matches_jax():
 
 
 def test_paged_not_ported_modes_raise():
-    """Windows and the side buffer: each valid in JAX, each
-    NotImplementedError naming ROADMAP.  (Token-packed int4 pages are
-    ported: tests/test_torch_kv_int4.py holds them against JAX; so is the
-    multi-query q, tests/test_torch_verify.py: the 4-D call that used to be
-    refused now runs.)"""
+    """The side buffer: valid in JAX, NotImplementedError naming ROADMAP.
+    (Token-packed int4 pages are ported: tests/test_torch_kv_int4.py holds
+    them against JAX; so is the multi-query q, tests/test_torch_verify.py,
+    and the window: the 4-D call and the windowed call that used to be
+    refused now run, the latter held here to JAX's DMA kernel.)"""
     q = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
     kp = torch.zeros((2, 8, 32, 64), dtype=torch.int8)
     lengths, table = torch.tensor([5], dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32)
@@ -197,9 +197,15 @@ def test_paged_not_ported_modes_raise():
     assert one.shape == (1, 4, 1, 64)
     assert torch.equal(one[:, :, 0], paged_decode_attention(q, kp, kp, lengths, table,
                                                             k_scale_pages=s32, v_scale_pages=s32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12c"):
-        paged_decode_attention(q, kp, kp, lengths, table, k_scale_pages=s32, v_scale_pages=s32,
-                               window=(16, 0))
+    tin, jin = _paged_inputs(16, 2, 2, 2, 32, 4, 64, "int8", [100, 0])
+    tq_, tk, tv, tks, tvs, tl_, tt = tin
+    jq_, jk, jv, jks, jvs, jl_, jt = jin
+    got = paged_decode_attention(tq_, tk, tv, tl_, tt, k_scale_pages=tks, v_scale_pages=tvs,
+                                 pages_per_block=2, window=(16, 0))
+    want = jpaged(jq_, jk, jv, jl_, jt, k_scale_pages=jks, v_scale_pages=jvs, pages_per_block=2,
+                  window=(16, 0), use_dma=True, interpret=True)
+    assert float((got.float() - torch.from_numpy(np.array(want.astype(jnp.float32)))).abs().max()) <= ATOL
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         paged_decode_attention(q, kp, kp, lengths, table, k_scale_pages=s32, v_scale_pages=s32,
                                side={"k": kp})
@@ -345,5 +351,10 @@ def test_flash_q_offset_equals_the_rows_of_a_longer_query():
     part = tflash(q[:, :, 40:], k, v, is_causal=True, q_offset=40)
     # fp32 products of other shapes may round differently: a bf16 ulp at most.
     assert float((part.float() - full[:, :, 40:].float()).abs().max()) <= 1.0 / 64
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflash(q, k, v, kv_offset=3)
+    # kv_offset (refused here before it was ported): K from row 3 on with
+    # kv_offset = 3 under a window that hides rows 0-2 from rows 40.. gives
+    # the same rows.
+    windowed = tflash(q[:, :, 40:], k, v, is_causal=True, q_offset=40, window=(37, 0))
+    cut = tflash(q[:, :, 40:], k[:, :, 3:], v[:, :, 3:], is_causal=True, q_offset=40,
+                 kv_offset=3, window=(37, 0))
+    assert float((cut.float() - windowed.float()).abs().max()) <= 1.0 / 64

@@ -1,6 +1,6 @@
 """Speculative decoding in the port, case for case with the JAX package's
-tests/test_speculative.py (its sliding-window case waits for windows,
-ROADMAP queue 1, item 12c), on the CPU.
+tests/test_speculative.py (its sliding-window case is in
+tests/test_torch_window_serving.py), on the CPU.
 
 Greedy speculative output must equal plain greedy decoding bit for bit:
 the target's argmax decides every emitted token, the draft only how many
