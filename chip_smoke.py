@@ -187,11 +187,29 @@ one step against the unfused step) and ``mistral_train`` (one SGD step of
 against the SDPA path's). The kernels line's ``launches_window`` counts
 each of K1, K2, K3, K4, K9 and K10 on these paths; none may be 0.
 
+Per-block scaling and the autotuner (after K1): the quantizer kernel
+against its plain version bit for bit at the timed and protocol shapes
+with its bytes bound (``block_quant``); K1 per-block against its plain
+version and the fp32 oracle, each tile configuration within 1/32 of the
+plain version and repeatable over two graph replays (``k1_block``), its
+pre-pass and K1 timed apart (``k1_block_timing``, and per-block rows in
+``k1_protocol``); the autotuner's sweeps of K1's tile configurations and
+each configuration against the plain version, and of the "auto" path,
+cache hits on second calls and nothing swept under graph capture
+(``autotune`` lines); after the speculative runs, the engine phase's tree
+served with "head-wise", "per-block" and "auto" (``serve_*_summary``,
+``serve_prefill_forward``), then ``train_per_block`` after training and
+``serve_mistral_per_block`` among the Mistral paths.  Each run sweeps from
+an empty cache in a temporary directory and prints it at the end.
+
 ``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
 timing (``engine_burst``, phase 9), and ``--quant-prefill-only`` only the
 quantized prefill timing (``quant_prefill``, phase 10), also over an
 earlier tree of the port (a copy of this script beside that tree's
-package).
+package); ``--serve-order-only`` serves the engine phase's tree with
+"per-block" and "head-wise" in a fixed interleaved order
+(``serve_order_*``: prefill tokens/s, each prefill's ms, the allocator's
+and garbage collector's counters around each run).
 
 Each model path resets the launch counts just before it runs and reads
 them just after; the kernel phases' own launches do not count.
@@ -207,20 +225,24 @@ non-zero.  It needs one CUDA card and refuses to run without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from quantumattention_tpu_torch import config, dispatch
+from quantumattention_tpu_torch import autotune, config, dispatch
 from quantumattention_tpu_torch.models import llama, quantized
 from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
 from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
@@ -235,7 +257,13 @@ from quantumattention_tpu_torch.ops.decode import (
     kernel_query,
     window_left_of,
 )
-from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain, keep_mask
+from quantumattention_tpu_torch.ops import flash as flash_mod
+from quantumattention_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_plain,
+    kernel_window,
+    keep_mask,
+)
 from quantumattention_tpu_torch.ops.paged import paged_decode_attention, paged_decode_attention_plain
 from quantumattention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd,
@@ -465,6 +493,20 @@ WINDOW_K1 = ((True, (255, 0), 0, 0), (True, (1023, 0), 0, 0), (False, (128, 64),
 WINDOW_LEFTS = (255, 1023)
 WINDOW_PROTOCOL_LEFT = 4095
 K9_WINDOW = 256
+#: Per-block quantization and the autotuner: the quantizer (the
+#: pre-pass of K1's per-block mode) and its cases (B, H, S, D, block rows).
+BLOCK_QUANT_SOURCE = "quantumattention_tpu_torch/csrc/block_quant.cu"
+BLOCK_QUANT_REPLACES = "quantumattention_tpu/ops/flash.py:227"
+BLOCK_QUANT_CASES = ((1, 32, 1536, 128, 1024), (1, 8, 1536, 128, 1536), (1, 32, 1536, 96, 1024),
+                     (1, 32, 1000, 128, 1024), (2, 8, 777, 72, 128),
+                     *((16, 16, 8192, d, b) for d in (64, 128, 256) for b in (1024, 2048)))
+#: k1_block cases at B = 1, 32/8 heads: (Sq, Skv, D, causal, window, q_offset, kv_offset).
+K1_BLOCK_CASES = ((1536, 1536, 128, True, None, 0, 0), (1536, 1536, 128, True, (255, 0), 0, 0),
+                  (512, 712, 128, True, None, 3000, 2800), (1000, 1000, 128, True, None, 0, 0),
+                  (1536, 1536, 128, False, None, 0, 0),
+                  *((512, 512, d, True, None, 0, 0) for d in (72, 96, 320, 512)))
+#: The shapes the autotune lines sweep: (B, Hq, Hkv, S, D).
+AUTOTUNE_SHAPES = ((1, 32, 8, 1536, 128), (16, 16, 16, 8192, 64), (16, 16, 16, 8192, 128))
 
 
 def log(msg: str) -> None:
@@ -689,7 +731,7 @@ def phase_k1(gen) -> dict:
     shapes, head dims 64/128/256 and every operand type; device times by
     graph replay at the timed shape (fp8 head-wise, bf16, q_offset 0 and
     130, B = 4); then the original library's benchmark protocol."""
-    for row in _ptxas("flash_fwd_kernel"):
+    for row in _ptxas("flash_fwd_kernel", ("W", "code", "tiles")):
         log("k1_ptxas " + json.dumps(row))
     cases = [
         (b, s, mode, True, 128)
@@ -777,11 +819,13 @@ def _k1_offset_timing(gen) -> None:
 
 def _k1_protocol(gen) -> None:
     """The original library's benchmark protocol: B = 16, H = 16 (MHA),
-    S = 8192, D 64/128/256, causal and not, K1 in bf16, fp8 head-wise and
-    fp8 token-wise, beside SDPA's flash and cuDNN back ends timed apart
+    S = 8192, D 64/128/256, causal and not, K1 in bf16, fp8 head-wise,
+    fp8 token-wise and fp8 per-block (the whole call, and its pre-pass and
+    K1 timed apart), beside SDPA's flash and cuDNN back ends timed apart
     (cuDNN only where it takes D). TFLOP/s = 4 B H S^2 D, halved under the
     causal mask. The plain version would need 68 GB of fp32 scores here:
-    one batch entry and two heads are held against the fp32 oracle."""
+    one batch entry and two heads are held against the fp32 oracle (on
+    the float inputs for per-block)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     b, h, s = PROTOCOL["B"], PROTOCOL["H"], PROTOCOL["S"]
@@ -809,6 +853,7 @@ def _k1_protocol(gen) -> None:
                 ms = time_ms(functools.partial(flash_attention, *args, is_causal=causal, **scales),
                              iters=3, warmup=1)
                 rec[f"{name}_ms"], rec[f"{name}_tflops"] = ms, flops / ms / 1e9
+            rec.update(_k1_block_protocol(q, k, v, causal, flops))
             for name, backend in (("sdpa_flash", SDPBackend.FLASH_ATTENTION),
                                   ("sdpa_cudnn", SDPBackend.CUDNN_ATTENTION)):
                 try:
@@ -824,6 +869,42 @@ def _k1_protocol(gen) -> None:
             log("k1_protocol " + json.dumps(rec))
         del q, k, v, qh, kh, qt, kt, runs
         torch.cuda.empty_cache()
+
+
+def _k1_block_protocol(q, k, v, causal: bool, flops: float) -> dict:
+    """K1 per-block at the protocol shape: one batch entry and two heads
+    against the fp32 oracle on the float inputs (the blocks are per head,
+    so the cut's quantization is the whole call's), the whole call's time
+    (its tile sweep untimed), the pre-pass and K1 apart."""
+    bq, bkv = flash_mod.block_sizes(q.shape[2], k.shape[2], q.shape[-1])
+    call = functools.partial(flash_attention, q, k, v, fused_block_quant=True, is_causal=causal)
+    out = call()
+    oracle = sdpa_reference(q[:1, :2], k[:1, :2], v[:1, :2], is_causal=causal,
+                            out_dtype=torch.float32)
+    # Head-wise e4m3 on the same float inputs, beside it (its own line holds
+    # it against the oracle on its quantized inputs).
+    head = dispatch.fp8_attention(q[:1, :2], k[:1, :2], v[:1, :2], is_causal=causal)
+    rec = {"fp8_block_rmse_vs_oracle": rmse(out[:1, :2], oracle),
+           "fp8_head_rmse_vs_float_oracle": rmse(head, oracle)}
+    if not bool(torch.isfinite(out).all()) or not rec["fp8_block_rmse_vs_oracle"] < RMSE_BAR:
+        raise RuntimeError(f"K1 per-block disagrees at the protocol shape: {rec}")
+    del out, oracle
+    key = flash_mod._tile_key(q, k, None, True, causal, None)
+    hit = autotune.lookup(key) if key else None
+    tiles = autotune.K1_TILES[shapes.kernel_width(q.shape[-1])].index(hit) if hit else 0
+    q8, _, rq = quant.block_quant(q, bq)
+    k8, _, rk = quant.block_quant(k, bkv)
+    ms = time_ms(call, iters=3, warmup=1)
+    prepass = time_ms(lambda: (quant.block_quant(q, bq), quant.block_quant(k, bkv)), iters=3, warmup=1)
+    with _tiles_forced(tiles):
+        k1_ms = time_ms(functools.partial(flash_attention, q8, k8, v, scale_q=rq, scale_k=rk,
+                                          is_causal=causal), iters=3, warmup=1)
+    del q8, k8, rq, rk
+    rec.update({"fp8_block_ms": ms, "fp8_block_tflops": flops / ms / 1e9, "fp8_block_blocks": [bq, bkv],
+                "fp8_block_tiles": list(autotune.K1_TILES[shapes.kernel_width(q.shape[-1])][tiles]),
+                "fp8_block_prepass_ms": prepass, "fp8_block_k1_ms": k1_ms,
+                "fp8_block_prepass_share": prepass / ms})
+    return rec
 
 
 def _graph_equal(fn) -> bool:
@@ -1355,6 +1436,7 @@ def _reset_counts() -> None:
     megastep.fused_decode_layer.launches = 0
     paged_decode_attention.launches = 0
     dispatch.sdpa_fallback.calls = 0
+    quant.block_quant.launches = 0
 
 
 def _counts() -> dict:
@@ -1367,6 +1449,7 @@ def _counts() -> dict:
             "k1_window": flash_attention.window_launches, "k4_window": decode_attention.window_launches,
             "k9_window": megastep.fused_decode_layer.window_launches,
             "k10_window": paged_decode_attention.window_launches,
+            "block_quant": quant.block_quant.launches,
             "sdpa_fallback": dispatch.sdpa_fallback.calls}
 
 
@@ -1386,7 +1469,7 @@ def _timed_engine(eng, burst=None) -> dict:
     ``burst_ms_per_step``)."""
     backend = eng._backend
     timers = {"prefill_s": 0.0, "decode_s": 0.0, "steps": 0, "burst_s": 0.0, "burst_steps": 0,
-              "bursts": 0, "captured": 0}
+              "bursts": 0, "captured": 0, "prefill_ms": []}
     prefills = []
     orig = {name: getattr(backend, name) for name in ("prefill_and_write", "decode", "burst")}
 
@@ -1396,6 +1479,7 @@ def _timed_engine(eng, burst=None) -> dict:
         logits = orig["prefill_and_write"](prefill_fn, params_, tokens, last_pos, *rest)
         torch.cuda.synchronize()
         timers["prefill_s"] += time.perf_counter() - t
+        timers["prefill_ms"].append(1e3 * (time.perf_counter() - t))
         prefills.append((tokens.clone(), list(last_pos), logits.clone()))
         return logits
 
@@ -1439,6 +1523,7 @@ def _timed_engine(eng, burst=None) -> dict:
     stats = dict(eng.stats)
     return {"launches": launches, "stats": stats, "wall_s": wall, "prefills": prefills,
             "prefill_s": timers["prefill_s"], "decode_s": timers["decode_s"],
+            "prefill_ms": timers["prefill_ms"],
             "decode_ms_per_step": 1e3 * timers["decode_s"] / max(1, timers["steps"]),
             "burst_ms_per_step": (1e3 * timers["burst_s"] / timers["burst_steps"]
                                   if timers["burst_steps"] else None),
@@ -1473,14 +1558,58 @@ def _prefill_vs_sdpa(label: str, params, cfg, prefills, plain_flags=None) -> flo
     return worst
 
 
-def serve(label: str, params, prompt_lens, seed: int, plain_flags=None, kv_int4: bool = False):
-    """Llama-3-8B serves greedy requests on 4 slots (max_len 2048, int8
-    cache, packed int4 with ``kv_int4``) through the Engine, with the launch
-    counts reset just before and read just after.  Checks completion, K1
-    and K4 on every layer, no SDPA fallback, and each prefill's
+#: Each ``serve`` run's record by label.
+SERVE_RECS = {}
+
+
+#: The caching allocator's counters that ``serve`` reads around a run:
+#: device allocations and frees (cudaMalloc / cudaFree), retries after a
+#: failed allocation (which free every cached block and synchronize).
+ALLOCATOR_COUNTERS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+                      "num_sync_all_streams")
+
+
+def _host_stats() -> dict:
+    """The allocator's counters, Python's garbage collections and the
+    process's CPU seconds, read around a served run."""
+    mem = torch.cuda.memory_stats()
+    out = {k: mem.get(k, 0) for k in ALLOCATOR_COUNTERS}
+    out["gc_collections"] = sum(g["collections"] for g in gc.get_stats())
+    out["process_cpu_s"] = time.process_time()
+    return out
+
+
+def _auto_winners() -> dict:
+    """The "auto" path winners in the autotune cache, by shape key."""
+    return {k: v for k, v in autotune._load_cache().items() if "|path|" in k}
+
+
+def _auto_path(cfg, tokens) -> "str | None":
+    """The cached "auto" winner of a causal prefill of ``tokens`` (B, S)
+    under ``cfg``, or None (another scaling method, or no entry)."""
+    if cfg.scaling_method != "auto":
+        return None
+    b, s = tokens.shape
+    key = autotune.shape_key("path", b, cfg.num_q_heads, cfg.num_kv_heads, s, s, cfg.head_dim,
+                             True, cfg.dtype, tokens.device)
+    window = llama.window_of(cfg)
+    if window is not None:
+        key += f"|w{window[0]}_{window[1]}"
+    return autotune._load_cache().get(key)
+
+
+def serve(label: str, params, prompt_lens, seed: int, plain_flags=None, kv_int4: bool = False,
+          cfg=None, check: bool = True):
+    """Llama-3-8B (or ``cfg``) serves greedy requests on 4 slots (max_len
+    2048, int8 cache, packed int4 with ``kv_int4``) through the Engine, with
+    the launch counts reset just before and read just after.  Checks
+    completion, K1 and K4 on every layer, SDPA only in the prefills where
+    "auto" cached it as the winner, and with ``check`` each prefill's
     last-position logits against the same tree run with plain attention
-    (and ``plain_flags``).  Returns (engine, launches, stats)."""
-    cfg = llama.llama3_8b()
+    (and ``plain_flags``).  The record holds each prefill's ms and the
+    host counters read around the run (``_host_stats``).
+    Returns (engine, launches, stats)."""
+    cfg = llama.llama3_8b() if cfg is None else cfg
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(params, cfg, num_slots=4, max_len=2048, cache_dtype=torch.int8,
                  kv_int4=kv_int4, device="cuda")
@@ -1490,16 +1619,21 @@ def serve(label: str, params, prompt_lens, seed: int, plain_flags=None, kv_int4:
                    max_new_tokens=int(rng.integers(16, 33)))
         for n in prompt_lens
     ]
+    before = _host_stats()
     run = _timed_engine(eng)
+    after = _host_stats()
     launches, stats = run["launches"], run["stats"]
     decode_tokens = stats["generated_tokens"] - len(reqs)
     rec = {
         "stats": stats, "launches": launches, "wall_s": run["wall_s"],
         "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"],
+        "prefill_ms": run["prefill_ms"],
+        "host_stats": {k: after[k] - before[k] for k in before},
         "decode_tok_s": decode_tokens / run["decode_s"],
         "decode_ms_per_step": run["decode_ms_per_step"],
         "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
     }
+    SERVE_RECS[label] = rec
     log(f"{label} " + json.dumps(rec))
 
     for r in reqs:
@@ -1508,13 +1642,18 @@ def serve(label: str, params, prompt_lens, seed: int, plain_flags=None, kv_int4:
         if not all(0 <= t < cfg.vocab_size for t in r.output):
             raise RuntimeError(f"{label}: request {r.id} produced out-of-vocabulary tokens")
     L = cfg.num_layers
-    if launches["k1"] < L * stats["prefill_forwards"]:
+    # "auto" runs SDPA exactly in the prefills whose cached winner is "sdpa"
+    # and K1 in every other one.
+    sdpa = L * sum(_auto_path(cfg, tokens) == "sdpa" for tokens, _, _ in run["prefills"])
+    if launches["k1"] + sdpa < L * stats["prefill_forwards"]:
         raise RuntimeError(f"{label}: K1 ran {launches['k1']} times for {stats['prefill_forwards']} prefills")
     if launches["k4"] < L * stats["decode_steps"]:
         raise RuntimeError(f"{label}: K4 ran {launches['k4']} times for {stats['decode_steps']} decode steps")
-    if launches["sdpa_fallback"] != 0:
-        raise RuntimeError(f"{label}: the main path fell back to SDPA")
-    _prefill_vs_sdpa(label, params, cfg, run["prefills"], plain_flags)
+    if launches["sdpa_fallback"] != sdpa:
+        raise RuntimeError(f"{label}: SDPA ran {launches['sdpa_fallback']} times where the cache "
+                           f"routes {sdpa} attention calls to it")
+    if check:
+        _prefill_vs_sdpa(label, params, cfg, run["prefills"], plain_flags)
     return eng, launches, stats
 
 
@@ -3394,11 +3533,12 @@ def _grad_leaves(grads) -> dict:
             "layers.0.wv": first["wv"], f"layers.{len(grads['layers']) - 1}.w_down": last["w_down"]}
 
 
-def _checked_grads(params, tokens, impl):
+def _checked_grads(params, tokens, impl, scaling_method="head-wise"):
     """Gradients of the leaves the training phase compares, at
     GRAD_CHECK_LAYERS layers."""
     cut = {**params, "layers": params["layers"][:GRAD_CHECK_LAYERS]}
-    cfg = llama.llama3_8b(num_layers=GRAD_CHECK_LAYERS, attention_impl=impl)
+    cfg = llama.llama3_8b(num_layers=GRAD_CHECK_LAYERS, attention_impl=impl,
+                          scaling_method=scaling_method)
     _, grads = llama.loss_and_grads(cut, tokens, cfg)
     return _grad_leaves(grads)
 
@@ -4038,6 +4178,7 @@ def phase_mistral() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     paged = phase_serve_mistral_paged(tree, cfg)
+    phase_serve_mistral_per_block(tree, cfg)
     mega = phase_serve_mistral_mega(tree, cfg)
     del tree
     gc.collect()
@@ -4048,10 +4189,407 @@ def phase_mistral() -> dict:
             "k9": mega["k9_window"], "k10": paged["k10_window"]}
 
 
+# ---------------------------------------------------------------------------
+# Per-block quantization (the quantizer kernel and K1's per-block mode), K1's
+# tile configurations and the autotuner
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _tiles_forced(tiles: int):
+    """K1 runs tile configuration ``tiles`` whatever the autotuner's cache
+    says, and no sweep runs (the forced runs leave the cache alone)."""
+    orig = flash_mod._k1_tiles
+    flash_mod._k1_tiles = lambda *args, **kw: tiles
+    try:
+        yield
+    finally:
+        flash_mod._k1_tiles = orig
+
+
+def _block_quant_bytes(b: int, h: int, s: int, d: int, rows: int, in_bytes: int = 2) -> int:
+    """The quantizer's bytes: each element read once (``in_bytes``) and its
+    code written once (the row width rounded up to 16), the block and row
+    scales written once."""
+    return b * h * (s * d * in_bytes + s * shapes.round_up(d, 16) + 4 * shapes.cdiv(s, rows) + 4 * s)
+
+
+def phase_block_quant(gen) -> dict:
+    """The quantizer kernel against ``quant.quantize_block_wise`` on the
+    same card tensors, codes and scales bit for bit, at the timed shape,
+    D = 96 (zero-padded codes), a ragged S and the protocol shape (D 64,
+    128, 256, Q's 1024-row and K's 2048-row blocks); device time by graph
+    replay beside the bytes bound and the plain version's time.  Returns
+    the kernels line's entry: the protocol's Q + K pair at D = 128."""
+    for row in _ptxas("block_(?:amax|cast)_kernel", ("code",)):
+        log("block_quant_ptxas " + json.dumps(row))
+    protocol = {}
+    for b, h, s, d, rows in BLOCK_QUANT_CASES:
+        x = _randn((b, h, s, d), gen) * 3
+        x[:, :, 0] *= 40  # an outlier row in each head's first block
+        codes, scales, row_scales = quant.block_quant(x, rows)
+        want, want_scales = quant.quantize_block_wise(x, rows)
+        torch.cuda.synchronize()
+        rec = {"B": b, "H": h, "S": s, "D": d, "block_rows": rows,
+               "codes_equal": torch.equal(codes[..., :d].view(torch.uint8), want.view(torch.uint8)),
+               "pad_zero": not bool(codes[..., d:].view(torch.uint8).any()),
+               "scales_equal": torch.equal(scales, want_scales),
+               "row_scales_equal": torch.equal(row_scales,
+                                               quant.expand_block_scales(want_scales, rows, s))}
+        del codes, scales, row_scales, want, want_scales
+        rec["ms"] = graph_ms(functools.partial(quant.block_quant, x, rows), reps=4, iters=10)
+        rec["plain_ms"] = time_ms(functools.partial(quant.quantize_block_wise, x, rows),
+                                  iters=3, warmup=1)
+        rec.update(bound(_block_quant_bytes(b, h, s, d, rows)))
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        log("block_quant " + json.dumps(rec))
+        if not all(rec[k] for k in ("codes_equal", "pad_zero", "scales_equal", "row_scales_equal")):
+            raise RuntimeError(f"the quantizer kernel disagrees with its plain version: {rec}")
+        if (b, s, d) == (16, 8192, 128):
+            protocol[rows] = rec
+        del x
+        torch.cuda.empty_cache()
+    q_rec, k_rec = protocol[1024], protocol[2048]
+    return {"max_abs_err": 0.0, "ms": q_rec["ms"] + k_rec["ms"],
+            "plain_ms": q_rec["plain_ms"] + k_rec["plain_ms"],
+            **bound(_block_quant_bytes(16, 16, 8192, 128, 1024)
+                    + _block_quant_bytes(16, 16, 8192, 128, 2048)),
+            "library_ms": None}
+
+
+def _graph_replays_equal(fn) -> bool:
+    """Two replays of one CUDA graph of ``fn`` give the same bits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = torch.equal(first, out)
+    del graph
+    return equal
+
+
+def _tiles_vs_plain(call, plain, d: int) -> dict:
+    """max|out - plain| of ``call()`` with each of K1's tile configurations
+    at width ``d`` forced, by configuration."""
+    errs = {}
+    for i, pair in enumerate(autotune.K1_TILES[shapes.kernel_width(d)]):
+        with _tiles_forced(i):
+            errs[str(list(pair))] = max_abs(call(), plain)
+    return errs
+
+
+def _k1_block_case(gen, sq, skv, d, causal, window, q_off, kv_off) -> dict:
+    """K1 per-block (the quantizer on Q and K, then K1) at B = 1, 32/8
+    heads against its plain version (1/32) and the fp32 oracle (RMSE < 1e-2:
+    on the float inputs from 256 query rows, on the quantized inputs below);
+    each tile configuration at the width, forced, within 1/32 of the plain
+    version and repeatable over two graph replays."""
+    q, k, v = _randn((1, 32, sq, d), gen), _randn((1, 8, skv, d), gen), _randn((1, 8, skv, d), gen)
+    kw = dict(is_causal=causal, window=window, q_offset=q_off, kv_offset=kv_off)
+    out = flash_attention(q, k, v, fused_block_quant=True, **kw)
+    plain = flash_attention_plain(q, k, v, None, None, causal, None, False, q_off,
+                                  kernel_window(window, causal), kv_off, True)
+    keep = keep_mask(sq, skv, causal, window, q_off, kv_off, "cuda")
+    seen = keep.any(-1) if keep is not None else torch.ones(sq, dtype=torch.bool, device="cuda")
+    bq, bkv = flash_mod.block_sizes(sq, skv, d)
+    if sq >= FLOAT_BAR_MIN_SEQ:
+        oracle = sdpa_reference(q, k, v, attn_mask=keep, out_dtype=torch.float32)
+    else:  # the fp8 format's own error exceeds the bar on few rows: the quantized inputs
+        (q8, sq8), (k8, sk8) = quant.quantize_block_wise(q, bq), quant.quantize_block_wise(k, bkv)
+        oracle = sdpa_reference(q8, k8, v, attn_mask=keep, out_dtype=torch.float32,
+                                scale_q=quant.expand_block_scales(sq8, bq, sq),
+                                scale_k=quant.expand_block_scales(sk8, bkv, skv))
+    torch.cuda.synchronize()
+    rec = {"Sq": sq, "Skv": skv, "D": d, "causal": causal, "window": window, "q_offset": q_off,
+           "kv_offset": kv_off, "blocks": [bq, bkv], "max_abs_vs_plain": max_abs(out, plain),
+           "rmse_vs_oracle": rmse(out[:, :, seen], oracle[:, :, seen]),
+           "oracle_on": "float inputs" if sq >= FLOAT_BAR_MIN_SEQ else "quantized inputs"}
+    del oracle
+    call = functools.partial(flash_attention, q, k, v, fused_block_quant=True, **kw)
+    rec["max_abs_vs_plain_by_tiles"] = _tiles_vs_plain(call, plain, d)
+    del plain
+    tiles = autotune.K1_TILES[shapes.kernel_width(d)]
+    rec["repeatable"] = {}
+    for i, pair in enumerate(tiles):
+        with _tiles_forced(i):
+            rec["repeatable"][str(list(pair))] = _graph_replays_equal(call)
+    log("k1_block " + json.dumps(rec))
+    if (not bool(torch.isfinite(out).all()) or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL
+            or max(rec["max_abs_vs_plain_by_tiles"].values()) > KERNEL_VS_PLAIN_ATOL
+            or not rec["rmse_vs_oracle"] < RMSE_BAR or not all(rec["repeatable"].values())):
+        raise RuntimeError(f"K1 per-block disagrees: {rec}")
+    return rec
+
+
+def phase_k1_block(gen) -> dict:
+    """K1's per-block mode: the k1_block cases, then at the timed shape
+    (B = 1, 32/8 heads, S = 1536, D = 128, causal) the whole call, the
+    pre-pass (the quantizer on Q and K) and K1 alone by graph replay, and
+    the plain version's time.  Returns the K1 entry's per-block keys."""
+    for case in K1_BLOCK_CASES:
+        _k1_block_case(gen, *case)
+    s, d = 1536, 128
+    q, k, v = _randn((1, 32, s, d), gen), _randn((1, 8, s, d), gen), _randn((1, 8, s, d), gen)
+    bq, bkv = flash_mod.block_sizes(s, s, d)
+    call = functools.partial(flash_attention, q, k, v, fused_block_quant=True, is_causal=True)
+    call()  # the tile sweep of this shape class, untimed
+    q8, _, rq = quant.block_quant(q, bq)
+    k8, _, rk = quant.block_quant(k, bkv)
+    key = flash_mod._tile_key(q, k, None, True, True, None)
+    tiles = autotune.K1_TILES[shapes.kernel_width(d)].index(autotune.lookup(key) or
+                                                             autotune.K1_TILES[128][0])
+    rec = {"B": 1, "Hq": 32, "Hkv": 8, "S": s, "D": d, "blocks": [bq, bkv],
+           "tiles": list(autotune.K1_TILES[128][tiles]), "ms": graph_ms(call),
+           "prepass_ms": graph_ms(lambda: (quant.block_quant(q, bq), quant.block_quant(k, bkv)))}
+    with _tiles_forced(tiles):
+        rec["k1_ms"] = graph_ms(functools.partial(flash_attention, q8, k8, v, scale_q=rq,
+                                                  scale_k=rk, is_causal=True))
+    rec["prepass_share"] = rec["prepass_ms"] / rec["ms"]
+    rec["plain_ms"] = time_ms(lambda: flash_attention_plain(
+        q, k, v, is_causal=True, fused_block_quant=True), iters=5)
+    rec["kernel_tflops"] = 4 * 32 * _visible_pairs(s, s, True) * d / rec["ms"] / 1e9
+    log("k1_block_timing " + json.dumps(rec))
+    return {"per_block_ms": rec["ms"], "per_block_prepass_ms": rec["prepass_ms"],
+            "per_block_k1_ms": rec["k1_ms"], "per_block_plain_ms": rec["plain_ms"]}
+
+
+def phase_autotune(gen) -> None:
+    """The autotuner on the card: for K1 at AUTOTUNE_SHAPES each tile
+    configuration's time and the winner (per-block, bf16 and head-wise
+    e4m3 kinds), each configuration forced within 1/32 of the plain version
+    (on two heads of the first batch row where B > 1: every head is its own
+    CTAs, and the plain version's logits at full size would not fit), the
+    ptxas registers and spills of configuration 1; for
+    "auto" each path's time, the pruned ones and the winner; a second call
+    of each shape class times nothing (the ``timed`` counter); a call
+    inside a graph capture sweeps nothing."""
+    for row in _ptxas("flash_fwd_kernel", ("W", "code", "tiles")):
+        if row["tiles"] == 1:
+            log("autotune k1_config1_ptxas " + json.dumps(row))
+    for b, hq, hkv, s, d in AUTOTUNE_SHAPES:
+        q, k, v = _randn((b, hq, s, d), gen), _randn((b, hkv, s, d), gen), _randn((b, hkv, s, d), gen)
+        (qh, sqh), (kh, skh) = (quant.quantize_head_wise(t, torch.float8_e4m3fn) for t in (q, k))
+        calls = {
+            "flash-block": lambda: flash_attention(q, k, v, fused_block_quant=True, is_causal=True),
+            "flash": lambda: flash_attention(q, k, v, is_causal=True),
+            "flash-q2": lambda: flash_attention(qh, kh, v, scale_q=sqh, scale_k=skh, is_causal=True),
+        }
+        n = slice(None) if b == 1 else slice(0, 2)
+        assert b == 1 or hq == hkv, "heads are sliced only without GQA"
+        q1, k1, v1, qh1, kh1 = (t[n, n].contiguous() for t in (q, k, v, qh, kh))
+        sqh1, skh1 = sqh[n, n].contiguous(), skh[n, n].contiguous()
+        checks_ = {
+            "flash-block": (lambda: flash_attention(q1, k1, v1, fused_block_quant=True, is_causal=True),
+                            lambda: flash_attention_plain(q1, k1, v1, is_causal=True,
+                                                          fused_block_quant=True)),
+            "flash": (lambda: flash_attention(q1, k1, v1, is_causal=True),
+                      lambda: flash_attention_plain(q1, k1, v1, is_causal=True)),
+            "flash-q2": (lambda: flash_attention(qh1, kh1, v1, scale_q=sqh1, scale_k=skh1,
+                                                 is_causal=True),
+                         lambda: flash_attention_plain(qh1, kh1, v1, sqh1, skh1, is_causal=True)),
+        }
+        for kind, fn in calls.items():
+            key = autotune.shape_key(kind, b, hq, hkv, s, s, d, True, q.dtype if kind != "flash-q2"
+                                     else qh.dtype, q.device)
+            with autotune.tuning():
+                fn()
+            timed = autotune.timed
+            with autotune.tuning():
+                fn()
+            torch.cuda.synchronize()
+            rec = {"kind": kind, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                   "times_s": autotune.last_sweeps.get(key), "winner": autotune.lookup(key),
+                   "second_call_timed": autotune.timed - timed}
+            call, plain_call = checks_[kind]
+            rec["max_abs_vs_plain_by_tiles"] = _tiles_vs_plain(call, plain_call(), d)
+            log("autotune k1 " + json.dumps(rec))
+            if rec["second_call_timed"] or rec["winner"] is None:
+                raise RuntimeError(f"K1's tile sweep did not cache its winner: {rec}")
+            if max(rec["max_abs_vs_plain_by_tiles"].values()) > KERNEL_VS_PLAIN_ATOL:
+                raise RuntimeError(f"a K1 tile configuration disagrees with its plain version: {rec}")
+        key = autotune.shape_key("path", b, hq, hkv, s, s, d, True, q.dtype, q.device)
+        dispatch.fp8_attention(q, k, v, is_causal=True, scaling_method="auto")
+        timed = autotune.timed
+        dispatch.fp8_attention(q, k, v, is_causal=True, scaling_method="auto")
+        torch.cuda.synchronize()
+        rec = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "times_s": autotune.last_sweeps.get(key),
+               "winner": autotune.lookup_value(key), "second_call_timed": autotune.timed - timed,
+               "hits": autotune.hits}
+        log("autotune auto " + json.dumps(rec))
+        if rec["second_call_timed"] or rec["winner"] not in dispatch.AUTO_PATHS:
+            raise RuntimeError(f"the path sweep did not cache its winner: {rec}")
+        del q, k, v, qh, kh, q1, k1, v1, qh1, kh1
+        torch.cuda.empty_cache()
+    # A call inside a graph capture sweeps nothing and takes the defaults.
+    q, k, v = _randn((1, 32, 700, 128), gen), _randn((1, 8, 700, 128), gen), _randn((1, 8, 700, 128), gen)
+    flash_attention(q[:, :, :64], k[:, :, :64], v[:, :, :64], fused_block_quant=True)  # warm
+    sweeps, misses = autotune.sweeps, autotune.misses_in_capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        out = dispatch.fp8_attention(q, k, v, is_causal=True, scaling_method="auto")
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    with _tiles_forced(0):
+        want = flash_attention(q, k, v, fused_block_quant=True, is_causal=True)
+    rec = {"sweeps_in_capture": autotune.sweeps - sweeps,
+           "misses_in_capture": autotune.misses_in_capture - misses,
+           "output_is_default_path": torch.equal(out, want)}
+    log("autotune capture " + json.dumps(rec))
+    if rec["sweeps_in_capture"] or not rec["misses_in_capture"] or not rec["output_is_default_path"]:
+        raise RuntimeError(f"a sweep ran under graph capture: {rec}")
+    del graph
+
+
+def phase_serve_per_block(params) -> dict:
+    """The engine phase's tree, slots and prompts with ``scaling_method``
+    "head-wise" (the default, again), "per-block" and "auto": each served
+    once to run its sweeps and first-call costs (untimed), then again with
+    the launch counts reset (the timed run may sweep nothing); prefill
+    logits against plain attention (``serve``'s checks; the engine phase
+    holds head-wise's), prefill tokens/s beside head-wise's second run.
+    Returns the per-block run's launches."""
+    base = llama.llama3_8b()
+    out = {}
+    for method, label in (("head-wise", "serve_head_wise"), ("per-block", "serve_per_block"),
+                          ("auto", "serve_auto")):
+        cfg = dataclasses.replace(base, scaling_method=method)
+        serve(label + "_sweeps", params, SERVE_PROMPTS, seed=0, cfg=cfg, check=False)
+        timed = autotune.timed
+        _, launches, _ = serve(label, params, SERVE_PROMPTS, seed=0, cfg=cfg,
+                               check=method != "head-wise")
+        rec = {"scaling_method": method, "prefill_tok_s": SERVE_RECS[label]["prefill_tok_s"],
+               "head_wise_prefill_tok_s": SERVE_RECS["serve_head_wise"]["prefill_tok_s"],
+               "block_quant": launches["block_quant"], "sdpa_fallback": launches["sdpa_fallback"],
+               "timed_in_served_run": autotune.timed - timed}
+        if method == "auto":
+            rec["winners"] = _auto_winners()
+        log(f"{label}_summary " + json.dumps(rec))
+        if rec["timed_in_served_run"]:
+            raise RuntimeError(f"{label}: the served run swept: {rec}")
+        if method == "per-block" and launches["block_quant"] < 2 * base.num_layers:
+            raise RuntimeError(f"{label}: the quantizer ran {launches['block_quant']} times")
+        out[method] = launches
+    _prefill_by_method(params, base)
+    return out["per-block"]
+
+
+def phase_serve_order(params) -> None:
+    """``serve_per_block``'s runs in another order in one process
+    (``--serve-order-only``): per-block first (its K1 tile sweeps, then a
+    run with none), head-wise twice, then per-block, head-wise and
+    per-block again.  Each ``serve_order_*`` line holds the host-timed
+    prefill tokens/s, each prefill's ms and the host counters read around
+    the run (``_host_stats``), to tell an order effect from the method."""
+    base = llama.llama3_8b()
+    order = ("per-block", "per-block", "head-wise", "head-wise", "per-block", "head-wise",
+             "per-block")
+    for i, method in enumerate(order):
+        cfg = dataclasses.replace(base, scaling_method=method)
+        serve(f"serve_order_{i}_{method}", params, SERVE_PROMPTS, seed=0, cfg=cfg, check=False)
+
+
+def _prefill_by_method(params, base) -> None:
+    """One prefill forward of the longest serving prompt (1500 tokens) with
+    each scaling method, by CUDA events over 3 forwards after a warm-up, in
+    two rounds of opposite order (the serving runs' host-timed prefill
+    tokens/s spread from call to call)."""
+    rng = np.random.default_rng(3)
+    n = max(SERVE_PROMPTS)
+    tokens = torch.from_numpy(rng.integers(0, base.vocab_size, (1, n))).to("cuda")
+    last = torch.tensor([n - 1], device="cuda")
+    methods = ["head-wise", "per-block", "auto"]
+    rec, timed = {m: [] for m in methods}, autotune.timed
+    for order in (methods, methods[::-1]):
+        for method in order:
+            cfg = dataclasses.replace(base, scaling_method=method)
+            rec[method].append(time_ms(lambda: llama.forward_prefill(params, tokens, cfg, last_pos=last),
+                                       iters=3, warmup=1))
+    log("serve_prefill_forward " + json.dumps({"tokens": n, "ms": rec,
+                                               "timed_candidates": autotune.timed - timed}))
+
+
+def phase_train_per_block(params) -> dict:
+    """One training step of the train phase's model with
+    ``scaling_method="per-block"``: 4-layer gradients against plain
+    attention's (the fp8 bar), the first loss against the plain path's,
+    the quantizer, K1, K2 and K3 launched."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama3_8b(scaling_method="per-block")
+    L = cfg.num_layers
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_POSITIONS + 1))).to("cuda")
+    with torch.no_grad():
+        plain_loss = float(llama.loss_fn(params, tokens, llama.llama3_8b(attention_impl="sdpa")))
+    ref = _checked_grads(params, tokens, "sdpa")
+    grads = _checked_grads(params, tokens, "fp8", scaling_method="per-block")
+    errs = {name: rel_fro(g, ref[name]) for name, g in grads.items()}
+    del grads, ref
+    _reset_train_counts()
+    quant.block_quant.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = llama.train_step(params, tokens, cfg)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    launches = {**_train_counts(), "block_quant": quant.block_quant.launches}
+    rec = {"layers": L, "positions": TRAIN_POSITIONS, "loss": loss, "plain_loss": plain_loss,
+           "first_loss_rel_err": abs(loss - plain_loss) / abs(plain_loss),
+           "ms": 1e3 * (time.perf_counter() - t0), "grad_rel_fro_vs_plain": errs,
+           "launches": launches}
+    log("train_per_block " + json.dumps(rec))
+    if not all(e < TRAIN_GRAD_BOUND["fp8"] for e in errs.values()):
+        raise RuntimeError(f"per-block gradients off: {errs}")
+    if not np.isfinite(loss) or not rec["first_loss_rel_err"] < LOSS_REL_BOUND:
+        raise RuntimeError(f"per-block training loss {loss} vs plain {plain_loss}")
+    if launches["k2"] < L or launches["k3"] < L or launches["block_quant"] < 2 * L:
+        raise RuntimeError(f"per-block training launches: {launches}")
+    if launches["sdpa_fallback"]:
+        raise RuntimeError("per-block training fell back to SDPA")
+    return launches
+
+
+def phase_serve_mistral_per_block(tree, cfg) -> dict:
+    """``serve_mistral_paged``'s geometry (chunks of 1024 over the prefix
+    cut to the window, kv_offset) once with ``scaling_method="per-block"``:
+    every chunk quantizes its Q and gathered K per block.  The autotuner is
+    off here, so no sweep lands in the served run.  ``_serve_paged``'s
+    checks, logits against plain attention among them."""
+    with config.patch({"kernel.autotune": False}):
+        total = _serve_paged("serve_mistral_per_block", tree, MISTRAL_PAGED, torch.int8, False,
+                             plain_flags={"kernel.qmm": False, "kernel.qmlp": False},
+                             cfg=dataclasses.replace(cfg, scaling_method="per-block"))
+    if total["block_quant"] <= 0 or total["k1_window"] <= 0:
+        raise RuntimeError(f"serve_mistral_per_block: launches {total}")
+    return total
+
+
 def main() -> int:
     if not checks.cuda_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 2
+    # Every run sweeps from an empty autotune cache, in a directory of its own.
+    cache_dir = tempfile.mkdtemp(prefix="qa_autotune_")
+    os.environ["QUANTUM_ATTN_CACHE_DIR"] = cache_dir
+    autotune._CACHE = None
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -4065,6 +4603,10 @@ def main() -> int:
         cfg = llama.llama3_8b()
         phase_engine_burst(llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda"))
         return 0
+    if "--serve-order-only" in sys.argv[1:]:
+        phase_serve_order(llama.init_params(torch.Generator("cuda").manual_seed(0),
+                                            llama.llama3_8b(), "cuda"))
+        return 0
     if "--quant-prefill-only" in sys.argv[1:]:
         params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
         for label, quant_fn in (("serve_int8", quantized.quantize_params),
@@ -4076,6 +4618,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         return 0
     k1 = phase_k1(gen)
+    bq = phase_block_quant(gen)
+    k1.update(phase_k1_block(gen))
+    phase_autotune(gen)
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
     k23 = phase_k23(gen)
@@ -4094,7 +4639,9 @@ def main() -> int:
     spec = phase_speculative(params)
     phase_serve_d256()
     phase_d96()
+    per_block = phase_serve_per_block(params)
     train = phase_train(params)
+    phase_train_per_block(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4128,7 +4675,13 @@ def main() -> int:
         {"name": "paged_decode", "route": "cuda", "source": K10_SOURCE,
          "replaces": K10_REPLACES, "launches": paged["k10"], "launches_verify": spec["k10_verify"],
          "launches_window": mistral["k10"], **k10, **window["k10"]},
+        {"name": "block_quant", "route": "cuda", "source": BLOCK_QUANT_SOURCE,
+         "replaces": BLOCK_QUANT_REPLACES, "launches": per_block["block_quant"], **bq},
     ]
+    log("autotune cache " + json.dumps(autotune._load_cache(), sort_keys=True))
+    log("autotune counters " + json.dumps({
+        "sweeps": autotune.sweeps, "timed": autotune.timed, "hits": autotune.hits,
+        "misses_in_capture": autotune.misses_in_capture}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0 or k.get("launches_verify", 1) <= 0
             or k.get("launches_window", 1) <= 0]
     if idle:

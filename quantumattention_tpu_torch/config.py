@@ -6,8 +6,8 @@ context manager with the JAX package's semantics (config.py:185-223).
 
 Only the flags this package reads are here.  The TPU-only knobs
 (``vmem_limit_mb``, ``softmax_bf16``, ``interpret``, ``fp8_dot`` and the
-``enable_int8_*`` MXU gates) have no meaning on the GPU, and the paging
-and autotune knobs arrive with their ROADMAP slices.
+``enable_int8_*`` MXU gates) have no meaning on the GPU, nor has
+``kernel.autotune_in_jit`` (a JAX tracing knob: ``autotune.py``).
 """
 
 from __future__ import annotations
@@ -35,9 +35,19 @@ class _Namespace:
         return f"_Namespace({vars(self)})"
 
 
-#: Kernel tuning knobs.  The kernels use fixed tiles; the block-size knobs
-#: come back with the autotune slice (ROADMAP queue 1, item 10).
+#: Kernel tuning knobs.
 kernel = _Namespace(
+    # Per-block quantization blocks (``scaling_method="per-block"``): rows
+    # of Q and of K that share one scale.  None: JAX's heuristic (1024 /
+    # 2048 rows below D = 256, 512 / 1024 from 256, capped at the length
+    # rounded up to 128).  They set the quantization granularity only, not
+    # K1's tiles (ops/flash.py).
+    block_q=None,
+    block_kv=None,
+    # The timed autotuner (autotune.py): the "auto" path sweep and K1's
+    # tile configuration.  On by default, as in JAX; a sweep runs once per
+    # shape class, its winner cached on disk.
+    autotune=_env_bool("QUANTUM_ATTN_AUTOTUNE", True),
     # Use the blockwise backward kernels K2/K3 (ops/flash_bwd.py); False
     # falls back to the O(S^2) oracle-recompute VJP (JAX kernel.pallas_bwd).
     cuda_bwd=_env_bool("QUANTUM_ATTN_CUDA_BWD", True),

@@ -14,8 +14,16 @@ float path of ``fp8_attention`` through a straight-through Function
 exact bf16 attention at the float inputs.  Pre-quantized inputs are
 forward-only, as in JAX.  ``window = (left, right)`` (sliding windows) runs
 through every entry point, the kernels' and the fallback's, with JAX's
-validation (dispatch.py:103-104).  ``"per-block"`` and ``"auto"`` scaling
-raise ``NotImplementedError`` (ROADMAP queue 1, items 6c and 10).
+validation (dispatch.py:103-104).
+
+``scaling_method="per-block"`` quantizes float Q and K per block of rows
+(``flash_attention(fused_block_quant=True)``: the quantizer kernel, then
+K1), with the same straight-through backward.  ``"auto"`` picks, once per
+shape class, the fastest of bf16 K1 (``"none"``), head-wise e4m3,
+per-block e4m3 and SDPA (``"sdpa"``) by a timed sweep whose winner the
+autotuner caches on disk (``autotune.py``; JAX dispatch.py:365-454).  With
+``config.kernel.autotune`` off, on CPU tensors or while a graph is captured,
+a miss takes ``"per-block"`` untimed.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from . import config
+from . import autotune, config
 from .ops import quant
 from .ops.autodiff import attention_with_vjp, exact_attention_bwd, needs_grad
 from .ops.flash import flash_attention
@@ -193,8 +201,9 @@ def _quantize_for(t, scaling_method: str):
 class _Fp8Attention(torch.autograd.Function):
     """Quantize-in-graph fp8 forward with a straight-through backward.
 
-    The forward quantizes q and k to e4m3 and runs K1, saving only the
-    float (q, k, v).  The backward recomputes the bf16 forward with its
+    The forward quantizes q and k to e4m3 (head-wise, token-wise, or per
+    block on the quantizer kernel) and runs K1, saving only the float
+    (q, k, v).  The backward recomputes the bf16 forward with its
     residuals (K1) and runs K2/K3: the gradient of exact attention at the
     float inputs, the standard STE treatment of the quantization casts."""
 
@@ -212,6 +221,11 @@ class _Fp8Attention(torch.autograd.Function):
 
 
 def _fp8_forward(query, key, value, scaling_method, is_causal, scale, window=None):
+    if scaling_method == "per-block":
+        # Per-(batch, head, block) e4m3 scales computed by the quantizer
+        # kernel (BASELINE config 2; JAX quantizes inside its kernel).
+        return flash_attention(query, key, value, fused_block_quant=True, is_causal=is_causal,
+                               sm_scale=scale, window=window)
     q8, scale_q = _quantize_for(query, scaling_method)
     k8, scale_k = _quantize_for(key, scaling_method)
     return flash_attention(
@@ -229,20 +243,38 @@ def fp8_attention(
     """FP8 fused attention dispatch.
 
     Float Q/K are quantized here to e4m3 at ``scaling_method`` granularity
-    (default head-wise), with straight-through gradients; pre-quantized
-    inputs come with their scales and are forward-only.
+    (default head-wise; "token-wise"; "per-block", per block of rows on the
+    card; "auto", the tuned fastest path), with straight-through gradients;
+    pre-quantized inputs come with their scales and are forward-only.
     """
     if scaling_method is None:
         scaling_method = "head-wise"
-    if scaling_method in ("per-block", "auto"):
-        raise NotImplementedError(
-            f"scaling_method={scaling_method!r} is not ported yet "
-            "(ROADMAP queue 1, items 6c and 10)"
-        )
-    if scaling_method not in ("head-wise", "token-wise"):
+    if scaling_method not in ("head-wise", "token-wise", "per-block", "auto"):
         raise ValueError(f"unknown scaling_method: {scaling_method!r}")
     if (scale_q is None) != (scale_k is None):
         raise ValueError("scale_q and scale_k must be provided together")
+
+    if scaling_method == "auto":
+        if scale_q is not None:
+            raise ValueError(
+                "scaling_method='auto' tunes the quantization path; "
+                "do not pass scale_q/scale_k"
+            )
+        if checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
+            raise ValueError("scaling_method='auto' expects float q/k")
+        scaling_method = _tuned_path(query, key, value, is_causal, scale, window)
+        if scaling_method == "none":
+            return attention(
+                query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
+            )
+        if scaling_method == "sdpa":
+            return sdpa_fallback(
+                query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
+            )
+
+    if scaling_method == "per-block" and scale_q is not None:
+        raise ValueError("per-block scaling quantizes in-kernel; "
+                         "do not pass scale_q/scale_k")
 
     if scale_q is None and not checks.is_8bit_dtype(query.dtype):
         supported, reason = can_use_attention(
@@ -267,6 +299,74 @@ def fp8_attention(
         query, key, value, scale_q=scale_q, scale_k=scale_k,
         is_causal=is_causal, sm_scale=scale, window=window,
     )
+
+
+#: The "auto" path's candidates, in JAX's order (dispatch.py:438).
+AUTO_PATHS = ("none", "head-wise", "per-block", "sdpa")
+
+
+def _tuned_path(query, key, value, is_causal, scale, window) -> str:
+    """The "auto" path for this shape class (JAX dispatch.py:365-410): the
+    cached winner, else a timed sweep where one is allowed
+    (``autotune.sweep_allowed``), else ``"per-block"`` untimed."""
+    batch, hq, q_len, head_dim = query.shape
+    hkv, kv_len = key.shape[1], key.shape[2]
+    pkey = autotune.shape_key("path", batch, hq, hkv, q_len, kv_len, head_dim, is_causal,
+                              query.dtype, query.device)
+    if window is not None:
+        pkey += f"|w{window[0]}_{window[1]}"
+    hit = autotune.lookup_value(pkey)
+    if isinstance(hit, str):
+        return hit
+    default = "per-block"
+    if not autotune.sweep_allowed(query.device):
+        return default
+    return _sweep_paths(query, key, value, is_causal, scale, window, pkey)
+
+
+def sdpa_prune_reason(query, key) -> Optional[str]:
+    """Why the "sdpa" candidate is left out of a sweep, or None: its fp32
+    (B, Hq, Sq, Skv) logits above a quarter of the card's free memory (an
+    out-of-memory error inside a sweep leaves the allocator fragmented)."""
+    b, hq, sq, _ = query.shape
+    logits = 4 * b * hq * sq * key.shape[2]
+    free = torch.cuda.mem_get_info(query.device)[0]
+    if logits > free / 4:
+        return f"fp32 logits {logits} B > a quarter of the free {free} B"
+    return None
+
+
+def _sweep_paths(query, key, value, is_causal, scale, window, pkey) -> str:
+    """Time each path on these inputs (forward only) and cache the fastest
+    (JAX dispatch.py:413-454).  Each kernel path tunes its K1 tile
+    configuration first (``autotune.tuning``).  Unlike JAX's sweep, a
+    kernel path that raises fails the call and records nothing: skipping it
+    could crown ``"sdpa"`` and cache plain PyTorch for the shape class.
+    Only ``"sdpa"`` itself is skipped, and only when it runs out of memory."""
+
+    def runner(name):
+        if name == "none":
+            return lambda: flash_attention(query, key, value, is_causal=is_causal,
+                                           sm_scale=scale, window=window)
+        if name == "sdpa":
+            return lambda: sdpa_reference(query, key, value, is_causal=is_causal, scale=scale,
+                                          window=window, out_dtype=value.dtype)
+        return lambda: _fp8_forward(query, key, value, name, is_causal, scale, window)
+
+    pruned = sdpa_prune_reason(query, key)
+    paths = [p for p in AUTO_PATHS if not (p == "sdpa" and pruned)]
+    with torch.no_grad(), autotune.tuning():
+        best = autotune.tune(pkey, paths, runner, query.device, skippable=_sdpa_out_of_memory)
+    if pruned:
+        autotune.last_sweeps.setdefault(pkey, {})["sdpa"] = f"pruned: {pruned}"
+    return best
+
+
+def _sdpa_out_of_memory(path: str, error: Exception) -> bool:
+    if path == "sdpa" and isinstance(error, torch.cuda.OutOfMemoryError):
+        torch.cuda.empty_cache()
+        return True
+    return False
 
 
 def sdpa_fallback(

@@ -8,7 +8,9 @@ The ``*_with_fallback`` variants run the fused kernel when
 ``can_use_attention`` accepts the inputs and the PyTorch SDPA reference
 otherwise.  Float inputs are differentiable (dispatch.py: the backward
 kernels K2/K3, straight-through for the fp8 quantization); pre-quantized
-inputs are forward-only.  ``window = (left, right)`` is a sliding window:
+inputs are forward-only.  ``scaling_method`` takes "head-wise",
+"token-wise", "per-block" and "auto" (``fp8_attn_func``).
+``window = (left, right)`` is a sliding window:
 query position i sees the keys at [i - left, i + right] (``None`` an
 unbounded side; with ``is_causal`` a right extent other than 0 or None is
 refused with JAX's reason), on the kernels and the fallback alike.  The
@@ -78,8 +80,13 @@ def fp8_attn_func(
     scale_q: Any = None, scale_k: Any = None,
     scaling_method: Optional[str] = None, window=None,
 ):
-    """FP8 fused attention, head-wise scales by default; ``scaling_method``
-    "head-wise" or "token-wise"."""
+    """FP8 fused attention, head-wise scales by default.
+
+    ``scaling_method``: "head-wise" (default), "token-wise", "per-block"
+    (float Q and K quantized per block of rows: the quantizer kernel, then
+    K1; JAX's in-kernel quantization), or "auto" (the fastest of bf16,
+    head-wise, per-block and SDPA for the shape class, timed once and
+    cached on disk: ``autotune.py``)."""
     return dispatch.fp8_attention(
         query, key, value, attn_mask, dropout_p, is_causal,
         scale=scale, scale_q=scale_q, scale_k=scale_k,

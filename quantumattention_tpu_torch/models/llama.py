@@ -53,8 +53,10 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     #: "fp8" routes attention through fp8_attn_func_with_fallback (dynamic
-    #: quantization at ``scaling_method``), "bf16" through
-    #: attn_func_with_fallback, "sdpa" forces the reference path.
+    #: quantization at ``scaling_method``: "head-wise", "token-wise",
+    #: "per-block" or "auto"), "bf16" through attn_func_with_fallback,
+    #: "sdpa" forces the reference path.  Chunked prefill runs bf16 K1
+    #: except under "per-block" and "auto" (``backends.chunk_per_block``).
     attention_impl: str = "fp8"
     scaling_method: str = "head-wise"
     #: Sliding window (HF's ``sliding_window``): each query sees the last

@@ -24,17 +24,44 @@ enter rounded to bf16, and the kernel stores the fp32 output unrounded.
 8-bit Q/K whose rows are not a multiple of 16 bytes (D % 16 == 8) go to the
 kernel zero-padded to D + 8 columns (:func:`pad_8bit_columns`: a TMA tensor
 map's row stride is a multiple of 16 bytes), and the output is cut back.
-Not yet (ROADMAP queue 1, item 6 c-e): segment ids, ``block_mask``,
-``fused_block_quant`` and int8 V with ``scale_v``.
+
+Per-block scaling (``fused_block_quant=True``, JAX's in-kernel dynamic
+quantization, flash.py:227-369): float Q and K get one e4m3 scale per
+(batch, head, block of ``block_q`` / ``block_kv`` rows counted from row 0),
+``quant.quantize_block_wise``'s formula, and the scores are (q8 . k8^T) *
+s_q * s_k * sm_scale * log2 e.  On the card the quantizer kernel
+(``quant.block_quant``, ``csrc/block_quant.cu``) runs on Q and on K, then K1
+in its token-wise mode over the expanded row scales
+(``flash_attention.block_quant_launches`` counts the quantizer's launches).
+The block sizes come from the arguments, then ``config.kernel.block_q`` /
+``block_kv``, then JAX's heuristic (:func:`heuristic_blocks`).  Unlike JAX,
+they set the quantization granularity only, never K1's tiles, and the
+autotuner never changes them: a per-block result depends on the shape and
+the config, not on a tuning cache.
+
+K1's tiles: at widths 64 and 128 two tile configurations exist
+(``autotune.K1_TILES``; the default 192 Q rows a CTA, and 128 rows over KV
+tiles of 128).  A call takes the one the autotuner's cache names for its
+shape class (JAX's ``flash``, ``flash-q2``, ``flash-q3`` and
+``flash-block`` kinds), else the default.  A miss runs a timed sweep only in
+per-block calls and inside ``autotune.tuning()`` (the ``"auto"`` path's
+sweep), with ``config.kernel.autotune`` on and no graph being captured, so
+every other path keeps the default configuration until a sweep has named
+another.  The configurations sum the online softmax over different KV tiles
+and so differ in the last bits; each is bitwise repeatable.
+Not yet (ROADMAP queue 1, item 6 d-e): segment ids, ``block_mask`` and
+int8 V with ``scale_v``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from .. import autotune, config
 from ..utils import checks, shapes
 from . import _native, quant
 from .sdpa import DEFAULT_MASK_VALUE, position_keep, sdpa_reference
@@ -47,7 +74,6 @@ _NOT_YET = {
     "q_segment_ids": "segment ids",
     "kv_segment_ids": "segment ids",
     "block_mask": "block-sparse masks",
-    "fused_block_quant": "per-block in-kernel quantization",
     "scale_v": "int8 V with per-channel scale_v",
 }
 
@@ -62,6 +88,36 @@ def _scaling(scale_q, scale_k) -> str:
     if scale_q.ndim == 3:
         return "token"
     raise ValueError(f"bad scale rank: {scale_q.ndim}")
+
+
+def heuristic_blocks(q_len: int, kv_len: int, head_dim: int) -> tuple:
+    """JAX's default (block_q, block_kv) (flash.py:71-89): (1024, 2048)
+    below D = 256, (512, 1024) from 256, each capped at the length rounded
+    up to 128.  Here the per-block quantization's granularity."""
+    bq, bkv = (512, 1024) if head_dim >= 256 else (1024, 2048)
+    return min(bq, shapes.round_up(q_len, 128)), min(bkv, shapes.round_up(kv_len, 128))
+
+
+def block_sizes(q_len: int, kv_len: int, head_dim: int, block_q=None, block_kv=None) -> tuple:
+    """Per-block quantization blocks: the arguments, then
+    ``config.kernel.block_q`` / ``block_kv``, then :func:`heuristic_blocks`."""
+    bq = block_q or config.kernel.block_q
+    bkv = block_kv or config.kernel.block_kv
+    h_bq, h_bkv = heuristic_blocks(q_len, kv_len, head_dim)
+    bq, bkv = int(bq or h_bq), int(bkv or h_bkv)
+    if bq < 1 or bkv < 1:
+        raise ValueError(f"block sizes must be >= 1, got ({bq}, {bkv})")
+    return bq, bkv
+
+
+def _block_operands(q, k, block_q, block_kv):
+    """Per-block e4m3 codes of q and k with their (B, H, S) row scales: the
+    plain version's inputs in per-block mode."""
+    bq, bkv = block_sizes(q.shape[2], k.shape[2], q.shape[-1], block_q, block_kv)
+    q8, sq = quant.quantize_block_wise(q, bq)
+    k8, sk = quant.quantize_block_wise(k, bkv)
+    return (q8, k8, quant.expand_block_scales(sq, bq, q.shape[2]),
+            quant.expand_block_scales(sk, bkv, k.shape[2]))
 
 
 def out_dtype_for(v_dtype) -> torch.dtype:
@@ -99,10 +155,14 @@ def keep_mask(sq, skv, is_causal, window, q_offset, kv_offset, device):
 def flash_attention_plain(
     q, k, v, scale_q=None, scale_k=None, is_causal=False, sm_scale=None,
     return_residuals=False, q_offset: int = 0, window=None, kv_offset: int = 0,
+    fused_block_quant=False, block_q=None, block_kv=None,
 ):
     """K1's plain version: dequantize, then the fp32 oracle, with zeros in
     the rows that see no key.  With ``return_residuals`` also (m, l) from
-    the fp32 logits."""
+    the fp32 logits.  ``fused_block_quant``: q and k quantized per block
+    first (:func:`quant.quantize_block_wise`)."""
+    if fused_block_quant:
+        q, k, scale_q, scale_k = _block_operands(q, k, block_q, block_kv)
     keep = keep_mask(q.shape[2], k.shape[2], is_causal, window, q_offset, kv_offset, q.device)
     out = sdpa_reference(
         q, k, v, attn_mask=keep, scale=sm_scale, scale_q=scale_q, scale_k=scale_k,
@@ -117,9 +177,12 @@ def flash_attention_plain(
 
 
 def masked_scores(q, k, is_causal, sm_scale, scale_q=None, scale_k=None, q_offset: int = 0,
-                  window=None, kv_offset: int = 0):
+                  window=None, kv_offset: int = 0, fused_block_quant=False, block_q=None,
+                  block_kv=None):
     """(B, Hq, Sq, Skv) fp32 scores in K1's exp2 domain (times
     sm_scale * log2 e), masked entries at MASK_VALUE."""
+    if fused_block_quant:
+        q, k, scale_q, scale_k = _block_operands(q, k, block_q, block_kv)
     qf = q.float() if scale_q is None else quant.dequantize(q, scale_q)
     kf = k.float() if scale_k is None else quant.dequantize(k, scale_k)
     kf = kf.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
@@ -164,6 +227,9 @@ def flash_attention(
     window=None,
     q_offset=None,
     kv_offset=None,
+    fused_block_quant: bool = False,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
     **not_yet,
 ):
     """Fused attention forward over (B, H, S, D) tensors.
@@ -185,6 +251,11 @@ def flash_attention(
     the keys at positions <= q_offset + i, so Sq may be shorter than Skv
     (chunked prefill), and K may start past position 0 (a prefix cut to
     the window).  A query row that sees no key gives zeros.
+    ``fused_block_quant``: float q and k are quantized to e4m3 per block of
+    ``block_q`` / ``block_kv`` rows (:func:`block_sizes`; blocks count
+    from row 0 whatever the offsets), no scales passed.  ``block_q`` and
+    ``block_kv`` set that granularity only: K1's tiles are its own
+    (module docstring).
     """
     for name, val in not_yet.items():
         if name not in _NOT_YET:
@@ -199,6 +270,12 @@ def flash_attention(
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError("num_q_heads must be divisible by num_kv_heads")
     scaling = _scaling(scale_q, scale_k)
+    if fused_block_quant:
+        if scaling != "none":
+            raise ValueError("fused_block_quant quantizes in-kernel; do not pass scales")
+        if checks.is_8bit_dtype(q.dtype) or checks.is_8bit_dtype(k.dtype):
+            raise ValueError("fused_block_quant expects float q/k")
+        block_q, block_kv = block_sizes(q.shape[2], k.shape[2], q.shape[-1], block_q, block_kv)
     if q.dtype == torch.int8 and scaling == "none":
         raise ValueError("int8 q/k require scales")
     if v.dtype == torch.int8:
@@ -214,18 +291,27 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, scale_q, scale_k, is_causal, sm_scale, return_residuals, q_offset, window,
-            kv_offset,
+            kv_offset, fused_block_quant, block_q, block_kv,
         )
     out_dtype = out_dtype_for(v.dtype)
     d = q.shape[-1]
     shapes.check_kernel_head_dim("K1", d)
-    q, k, v = pad_8bit_columns(*(to_16bit(t) for t in (q, k, v)))
-    res = _flash_fwd_cuda(
-        dense(q), dense(k), dense(v),
+    tile_key = _tile_key(q, k, scale_q, fused_block_quant, is_causal, window)
+    if fused_block_quant:
+        q, _, scale_q = quant.block_quant(q, block_q)
+        k, _, scale_k = quant.block_quant(k, block_kv)
+        flash_attention.block_quant_launches += 2
+        scaling = "token"
+        v = _pad_columns(to_16bit(v), q.shape[-1])
+    else:
+        q, k, v = pad_8bit_columns(*(to_16bit(t) for t in (q, k, v)))
+    run = functools.partial(
+        _flash_fwd_cuda, dense(q), dense(k), dense(v),
         None if scale_q is None else scale_q.float().contiguous(),
         None if scale_k is None else scale_k.float().contiguous(),
         scaling, is_causal, sm_scale, return_residuals, q_offset, out_dtype, window, kv_offset,
     )
+    res = run(tiles=_k1_tiles(tile_key, q, k, fused_block_quant, run))
     if q.shape[-1] == d:
         return res
     out = (res[0] if return_residuals else res)[..., :d].contiguous()
@@ -240,12 +326,54 @@ def pad_8bit_columns(q, k, v):
     d = q.shape[-1]
     if not checks.is_8bit_dtype(q.dtype) or d % 16 == 0:
         return q, k, v
-    padded = []
-    for t in (q, k, v):
-        p = torch.zeros(t.shape[:-1] + (shapes.round_up(d, 16),), dtype=t.dtype, device=t.device)
-        p[..., :d] = t
-        padded.append(p)
-    return tuple(padded)
+    return tuple(_pad_columns(t, shapes.round_up(d, 16)) for t in (q, k, v))
+
+
+def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns up to ``width`` (itself when it has them)."""
+    if t.shape[-1] == width:
+        return t
+    p = torch.zeros(t.shape[:-1] + (width,), dtype=t.dtype, device=t.device)
+    p[..., :t.shape[-1]] = t
+    return p
+
+
+def _tile_key(q, k, scale_q, fused_block_quant: bool, is_causal: bool, window):
+    """The autotuner's key of K1's tile configuration for this call (JAX's
+    kinds, flash.py:606-621), or None where only one configuration exists
+    or autotune is off."""
+    d = q.shape[-1]
+    if not config.kernel.autotune or len(autotune.K1_TILES[shapes.kernel_width(d)]) == 1:
+        return None
+    if fused_block_quant:
+        kind = "flash-block"
+    elif scale_q is not None:
+        kind = f"flash-q{scale_q.ndim}"
+    else:
+        kind = "flash"
+    if window is not None:
+        kind += f"-w{window[0]}_{window[1]}"
+    (b, hq, sq, _), (_, hkv, skv, _) = q.shape, k.shape
+    return autotune.shape_key(kind, b, hq, hkv, sq, skv, d, is_causal, q.dtype, q.device)
+
+
+def _k1_tiles(key, q, k, fused_block_quant: bool, run) -> int:
+    """K1's tile configuration for a call whose key is ``key`` (q and k as
+    the kernel takes them; ``run(tiles=i)`` launches it): the cached winner,
+    else a sweep where one is asked for (per-block calls, and any call
+    inside ``autotune.tuning()``) and allowed, else the default, 0."""
+    if key is None:
+        return 0
+    configs = autotune.K1_TILES[shapes.kernel_width(q.shape[-1])]
+    hit = autotune.lookup(key)
+    if hit in configs:
+        return configs.index(hit)
+    if not (fused_block_quant or autotune.tuning_requested()) or not autotune.sweep_allowed(q.device):
+        return 0
+    cands = autotune.prune_candidates(q.shape[2], k.shape[2], q.shape[-1], q.element_size())
+    best = autotune.tune(key, cands, lambda c: functools.partial(run, tiles=configs.index(c)),
+                         q.device)
+    return configs.index(tuple(best))
 
 
 def to_16bit(t: torch.Tensor) -> torch.Tensor:
@@ -261,14 +389,17 @@ def dense(t: torch.Tensor) -> torch.Tensor:
 
 flash_attention.launches = 0
 flash_attention.window_launches = 0
+flash_attention.block_quant_launches = 0
 
 _SCALING_CODES = {"none": 0, "head": 1, "token": 2}
 
 
 def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, return_residuals,
-                    q_offset, out_dtype, window=None, kv_offset=0):
+                    q_offset, out_dtype, window=None, kv_offset=0, tiles=0):
     """Check what the kernel takes, launch it on the current stream; the
-    output in ``out_dtype`` (v's before fp32 was rounded to bf16)."""
+    output in ``out_dtype`` (v's before fp32 was rounded to bf16).
+    ``tiles``: the tile configuration, an index into
+    ``autotune.K1_TILES[width]``."""
     checks.require_hopper(q.device)
     tensors = [q, k, v] + [t for t in (scale_q, scale_k) if t is not None]
     for t in tensors:
@@ -298,6 +429,8 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         raise ValueError("token-wise scales must be (B, Hq, Sq) and (B, Hkv, Skv)")
     if v.dtype == torch.int8:
         raise ValueError("K1 takes a float or e4m3 V")
+    if not 0 <= tiles < len(autotune.K1_TILES[shapes.kernel_width(d)]):
+        raise ValueError(f"K1 has no tile configuration {tiles} at head_dim {d}")
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     m = l = None
     if return_residuals:
@@ -315,7 +448,7 @@ def _flash_fwd_cuda(q, k, v, scale_q, scale_k, scaling, is_causal, sm_scale, ret
         _native.F32_OUT_CODE if out_dtype == torch.float32 else _native.dtype_code(out_dtype),
         _SCALING_CODES[scaling], int(bool(is_causal)),
         float(sm_scale * LOG2E), q_offset, kv_offset, left, right,
-        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(), tiles,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(err, "qa_flash_fwd")

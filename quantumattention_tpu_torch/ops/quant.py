@@ -13,6 +13,11 @@ rounds half-to-even (``torch.round``, like ``jnp.round``) before the cast.
 Granularities:
   * head-wise:  reduce over [-2, -1]  -> scale shape (B, H)
   * token-wise: reduce over [-1]      -> scale shape (B, H, S)
+  * block-wise: blocks of ``block_rows`` rows from row 0 of (B, H, S, D)
+    -> scale shape (B, H, ceil(S / block_rows)), by the formula of the JAX
+    kernel's tile quantizer (flash.py:227-238), not the one above: no
+    clamp, a floor of 1e-12, and ``x * (1 / s)`` (:func:`quantize_block_wise`).
+    :func:`block_quant` is its kernel's wrapper (``csrc/block_quant.cu``).
 
 int4 (quant.py:76-136): values in [-7, 7] (qmax 7) in an int8 container,
 packed two a byte in the split-halves layout along an axis of even extent
@@ -27,6 +32,9 @@ from __future__ import annotations
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from ..utils import checks, shapes
+from . import _native
 
 #: Max representable magnitude of float8_e4m3fn.
 FP8_E4M3_MAX = 448.0
@@ -140,3 +148,81 @@ def dequantize(
     while scale.ndim < t_q.ndim:
         scale = scale[..., None]
     return t_q.to(dtype) * scale
+
+
+#: The block scale's floor (flash.py:233): 1e-12, not SCALE_EPS.
+BLOCK_SCALE_FLOOR = 1e-12
+
+
+def quantize_block_wise(x: torch.Tensor, block_rows: int):
+    """(B, H, S, D) float -> (e4m3 codes (B, H, S, D), fp32 scales
+    (B, H, ceil(S / block_rows))), one scale per block of ``block_rows``
+    rows counted from row 0 (rows past S count as zeros).  The JAX kernel's
+    ``_quantize_tile`` exactly: ``s = max(amax(|x|) / 448, 1e-12)`` in fp32,
+    then ``e4m3(x * (1 / s))``, one reciprocal, one product, one
+    round-to-nearest cast (a value just above 448 rounds to 448)."""
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    b, h, s, d = x.shape
+    nb = shapes.cdiv(s, block_rows)
+    xf = x.float()
+    absx = torch.nn.functional.pad(xf.abs(), (0, 0, 0, nb * block_rows - s))
+    amax = absx.reshape(b, h, nb, block_rows * d).amax(dim=-1)
+    # A tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which is not the IEEE quotient.
+    scale = torch.clamp(amax / amax.new_full((), FP8_E4M3_MAX), min=BLOCK_SCALE_FLOOR)
+    inv = expand_block_scales(torch.reciprocal(scale), block_rows, s)
+    return (xf * inv[..., None]).to(torch.float8_e4m3fn), scale
+
+
+def expand_block_scales(scales: torch.Tensor, block_rows: int, length: int) -> torch.Tensor:
+    """(B, H, nb) block scales -> (B, H, length) row scales."""
+    return scales.repeat_interleave(block_rows, dim=-1)[..., :length]
+
+
+def block_quant(x: torch.Tensor, block_rows: int):
+    """The per-block quantizer's wrapper (``csrc/block_quant.cu``): (B, H,
+    S, D) bf16, fp16 or fp32 -> (e4m3 codes (B, H, S, W), block scales (B,
+    H, ceil(S / block_rows)), row scales (B, H, S)), with W = D rounded up to
+    16 (zero columns: K1's row width for 8-bit Q/K).  Equal to
+    :func:`quantize_block_wise` bit for bit.  A CPU tensor runs that plain
+    version; a CUDA tensor the kernel, or raises.  ``block_quant.launches``
+    counts the kernel's launches (an amax pass and a cast pass each)."""
+    if x.ndim != 4:
+        raise ValueError(f"block_quant takes (B, H, S, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"block_quant takes bf16, fp16 or fp32, got {x.dtype}")
+    block_rows = int(block_rows)
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    b, h, s, d = x.shape
+    width = shapes.round_up(d, 16)
+    if x.device.type == "cpu":
+        codes, scales = quantize_block_wise(x, block_rows)
+        if width != d:
+            codes = torch.nn.functional.pad(codes.view(torch.uint8), (0, width - d)).view(codes.dtype)
+        return codes, scales, expand_block_scales(scales, block_rows, s)
+    checks.require_hopper(x.device)
+    if d % 8 or b * h > 65535:
+        raise ValueError(f"block_quant takes D a multiple of 8 and B * H <= 65535, got {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    nb = shapes.cdiv(s, block_rows)
+    codes = torch.empty((b, h, s, width), dtype=torch.float8_e4m3fn, device=x.device)
+    scales = torch.empty((b, h, nb), dtype=torch.float32, device=x.device)
+    rows = torch.empty((b, h, s), dtype=torch.float32, device=x.device)
+    lib = _native.library()
+    partial = torch.empty(max(1, lib.qa_block_quant_partials(b * h, s, block_rows)),
+                          dtype=torch.float32, device=x.device)
+    code = _native.F32_OUT_CODE if x.dtype == torch.float32 else _native.dtype_code(x.dtype)
+    err = lib.qa_block_quant(
+        x.data_ptr(), partial.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows.data_ptr(),
+        b * h, s, d, width, code, block_rows, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _native.check(err, "qa_block_quant")
+    block_quant.launches += 1
+    return codes, scales, rows
+
+
+block_quant.launches = 0

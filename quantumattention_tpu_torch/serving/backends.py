@@ -104,13 +104,25 @@ def prefix_start(off: int, window) -> int:
     return 0 if window is None else max(0, off - window[0])
 
 
-def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int, window=None) -> torch.Tensor:
+def chunk_per_block(cfg) -> bool:
+    """Whether chunked prefill quantizes Q and K per block: a config whose
+    fp8 attention is "per-block", or "auto", whose untuned default that is
+    (a chunk's offsets lie outside the entry points the "auto" sweep
+    times).  JAX's chunks always run bf16 K1, as the port's do for the
+    other scaling methods."""
+    return cfg.attention_impl == "fp8" and cfg.scaling_method in ("per-block", "auto")
+
+
+def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int, window=None,
+                         per_block: bool = False) -> torch.Tensor:
     """Attention of a prefill chunk over the slot's cached rows before
     ``off`` and itself (``_chunk_prefix_attend``, backends.py:66-108): the
     prefix rows from ``start = prefix_start(off, window)`` on (``prefix(start)``
     -> (k, v), (1, Hkv, off - start, D) bf16, dequantized per element) are
     concatenated with the chunk's K/V, then K1 runs causal with ``q_offset =
-    off``, ``kv_offset = start`` and the window."""
+    off``, ``kv_offset = start`` and the window.  ``per_block``: Q and the
+    gathered K quantized per block first (``fused_block_quant``; the blocks
+    count from the gathered K's row 0)."""
     start = prefix_start(off, window)
     if off > start:
         k_pre, v_pre = prefix(start)
@@ -119,7 +131,7 @@ def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int, window=None) -> torc
     else:
         start = off
     return flash_attention(q, k_new, v_new, is_causal=True, q_offset=off, kv_offset=start,
-                           window=window)
+                           window=window, fused_block_quant=per_block)
 
 
 def _dequantize_rows(values: torch.Tensor, scales, int4_axis: Optional[int] = None) -> torch.Tensor:
@@ -320,7 +332,8 @@ class SlotsBackend:
                     for vals, sc in ((c.k, c.k_scale), (c.v, c.v_scale))
                 )
 
-            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window_of(self.cfg))
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window_of(self.cfg),
+                                        chunk_per_block(self.cfg))
 
         logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
         ids, offs, nval = self._tensor([slot]), self._tensor([off]), self._tensor([tc])
@@ -647,7 +660,8 @@ class PagedBackend:
                     for vals, sc in ((lp.k, lp.k_scale), (lp.v, lp.v_scale))
                 )
 
-            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window)
+            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window,
+                                        chunk_per_block(self.cfg))
 
         logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
         n_pg = -(-tc // ps)

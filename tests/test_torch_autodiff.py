@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import quantumattention_tpu as qj
+from quantumattention_tpu import config as jconfig
 import quantumattention_tpu_torch as qt
 from quantumattention_tpu.ops.autodiff import attention_with_vjp as j_vjp
 from quantumattention_tpu.ops.quant import quantize_head_wise as jquant
@@ -87,17 +88,21 @@ def test_cuda_bwd_flag_matches_oracle_vjp(causal):
     _assert_grads(g_kernel, g_oracle, EXACT_BAR)
 
 
-@pytest.mark.parametrize("scaling_method", ["head-wise", "token-wise"])
+@pytest.mark.parametrize("scaling_method", ["head-wise", "token-wise", "per-block"])
 def test_fp8_ste_grads_match_jax(scaling_method):
+    """JAX's per-block runs its e4m3 container (``attention.fp8_dot``), the
+    port's only one."""
     tt, jj = _qkv(11, 4, 2, 128)
     tg = _torch_grads(
         lambda q, k, v: qt.fp8_attn_func(q, k, v, is_causal=True, scaling_method=scaling_method),
         tt,
     )
-    jg = _jax_grads(
-        lambda q, k, v: qj.fp8_attn_func(q, k, v, is_causal=True, scaling_method=scaling_method),
-        jj,
-    )
+    with jconfig.patch({"attention.fp8_dot": True} if scaling_method == "per-block" else {}):
+        jg = _jax_grads(
+            lambda q, k, v: qj.fp8_attn_func(q, k, v, is_causal=True,
+                                             scaling_method=scaling_method),
+            jj,
+        )
     _assert_grads(tg, jg, STE_BAR)
 
 

@@ -1587,3 +1587,170 @@ def test_window_engine_on_card(cuda, backend):
             assert wrapper.window_launches - dec == cfg.num_layers * eng.stats["decode_steps"]
         outs[dev] = [r.output[0] for r in reqs]
     assert outs["cpu"] == outs["cuda"]
+
+
+# Per-block quantization (the quantizer kernel, csrc/block_quant.cu), K1's
+# second tile configuration (csrc/flash_fwd_q2.cu) and the autotuner.
+
+
+@pytest.fixture
+def tmp_cache(tmp_path, monkeypatch):
+    from quantumattention_tpu_torch import autotune
+
+    monkeypatch.setenv("QUANTUM_ATTN_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(autotune, "_CACHE", None)
+    return autotune
+
+
+BLOCK_QUANT_CASES = [  # (B, H, S, D, block rows, dtype)
+    (1, 32, 1536, 128, 1024, torch.bfloat16),
+    (2, 4, 200, 96, 128, torch.bfloat16),
+    (1, 8, 77, 64, 50, torch.float16),
+    (1, 2, 3000, 256, 2048, torch.float32),
+    (2, 3, 513, 72, 64, torch.bfloat16),
+    (1, 1, 1, 512, 512, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_QUANT_CASES, ids=lambda c: "x".join(map(str, c[:5])) + str(c[5])[-4:])
+def test_block_quant_kernel_bitwise(cuda, case):
+    """Codes, block scales and row scales equal the plain version's, bit
+    for bit, on the same card tensor (an outlier row in the first block)."""
+    b, h, s, d, rows, dtype = case
+    x = _randn((b, h, s, d), 7, torch.float32, cuda) * 3
+    x[:, :, 0] *= 40
+    x = x.to(dtype)
+    before = quant.block_quant.launches
+    codes, scales, row_scales = quant.block_quant(x, rows)
+    assert quant.block_quant.launches == before + 1
+    want_codes, want_scales = quant.quantize_block_wise(x, rows)
+    torch.cuda.synchronize()
+    width = -(-d // 16) * 16
+    assert codes.shape == (b, h, s, width)
+    assert torch.equal(codes[..., :d].view(torch.uint8), want_codes.view(torch.uint8))
+    assert not codes[..., d:].view(torch.uint8).any()
+    assert torch.equal(scales, want_scales)
+    assert torch.equal(row_scales, quant.expand_block_scales(want_scales, rows, s))
+
+
+PER_BLOCK_CASES = [  # (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_offset, blocks)
+    (1, 8, 2, 300, 300, 128, True, None, 0, 0, (128, 128)),
+    (1, 4, 4, 200, 200, 64, False, None, 0, 0, None),
+    (2, 4, 1, 257, 257, 96, True, (64, 0), 0, 0, (64, 200)),
+    (1, 4, 2, 100, 250, 128, True, None, 150, 0, (1024, 2048)),
+    (1, 4, 2, 64, 180, 72, True, (100, 0), 300, 180, (128, 128)),
+]
+
+
+@pytest.mark.parametrize("tiles", [0, 1])
+@pytest.mark.parametrize("case", PER_BLOCK_CASES, ids=lambda c: "x".join(map(str, c[:7])))
+def test_flash_per_block_kernel_matches_plain(cuda, tmp_cache, case, tiles):
+    """The quantizer kernel then K1 (token-wise over the row scales) at
+    each tile configuration (forced through the autotuner's cache) against
+    the plain version, and bitwise repeatable."""
+    from quantumattention_tpu_torch.ops import flash as flash_mod
+
+    b, hq, hkv, sq, skv, d, causal, window, q_off, kv_off, blocks = case
+    q = _randn((b, hq, sq, d), 1, torch.bfloat16, cuda)
+    k = _randn((b, hkv, skv, d), 2, torch.bfloat16, cuda)
+    v = _randn((b, hkv, skv, d), 3, torch.bfloat16, cuda)
+    kw = dict(is_causal=causal, q_offset=q_off, kv_offset=kv_off)
+    if blocks:
+        kw.update(block_q=blocks[0], block_kv=blocks[1])
+    window = flash_mod.kernel_window(window, causal)
+    key = flash_mod._tile_key(q, k, None, True, causal, window)
+    tmp_cache.record(key, *tmp_cache.K1_TILES[flash_mod.shapes.kernel_width(d)][tiles])
+    before, bq_before = flash_attention.launches, flash_attention.block_quant_launches
+    out = flash_attention(q, k, v, fused_block_quant=True, window=window, **kw)
+    again = flash_attention(q, k, v, fused_block_quant=True, window=window, **kw)
+    assert flash_attention.launches == before + 2
+    assert flash_attention.block_quant_launches == bq_before + 4
+    plain = flash_attention_plain(q, k, v, fused_block_quant=True, window=window, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp16", "e4m3-head", "e4m3-token", "int8-head", "e4m3-v"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_second_tile_config_matches_plain(cuda, tmp_cache, shape, mode):
+    """K1's tile configuration 1 (two consumer warpgroups, KV tiles of 128
+    rows) at widths 64 and 128 for every Q/K type, against the plain
+    version, and bitwise repeatable."""
+    from quantumattention_tpu_torch.ops import flash as flash_mod
+
+    b, hq, hkv, sq, skv, d, causal = shape
+    fdt = torch.float16 if mode == "fp16" else torch.bfloat16
+    q = _randn((b, hq, sq, d), 4, fdt, cuda)
+    k = _randn((b, hkv, skv, d), 5, fdt, cuda)
+    v = _randn((b, hkv, skv, d), 6, fdt, cuda)
+    scales = {}
+    if mode == "e4m3-v":
+        v = v.to(torch.float8_e4m3fn)
+    elif mode not in ("bf16", "fp16"):
+        qdt = torch.float8_e4m3fn if mode.startswith("e4m3") else torch.int8
+        fn = quant.quantize_head_wise if mode.endswith("head") else quant.quantize_token_wise
+        (q, sq_), (k, sk_) = fn(q, qdt), fn(k, qdt)
+        scales = {"scale_q": sq_, "scale_k": sk_}
+    key = flash_mod._tile_key(q, k, scales.get("scale_q"), False, causal, None)
+    tmp_cache.record(key, 128, 128)
+    out = flash_attention(q, k, v, is_causal=causal, **scales)
+    again = flash_attention(q, k, v, is_causal=causal, **scales)
+    plain = flash_attention_plain(q, k, v, is_causal=causal, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+
+
+def test_k1_smem_mirror(cuda):
+    """``autotune.k1_smem_bytes`` (the Python fit model) equals each
+    instantiation's ``Cfg::kSmem``."""
+    from quantumattention_tpu_torch import autotune
+    from quantumattention_tpu_torch.ops import _native
+
+    lib = _native.library()
+    for width, configs in autotune.K1_TILES.items():
+        for code, es in ((0, 2), (1, 2), (2, 1), (3, 1)):
+            for tiles in (0, 1, 2):
+                got = lib.qa_flash_fwd_smem(width, code, tiles)
+                if tiles < len(configs):
+                    assert got == autotune.k1_smem_bytes(*configs[tiles], width, es), (width, code, tiles)
+                    assert autotune.smem_fits(*configs[tiles], width, es)
+                else:
+                    assert got == 0
+
+
+def test_autotune_capture_guard_and_cache_hit(cuda, tmp_cache):
+    """Under graph capture a per-block call and an "auto" call sweep
+    nothing and take the defaults; eagerly the first call of a shape class
+    sweeps, the second times nothing."""
+    autotune = tmp_cache
+    q = _randn((1, 8, 256, 128), 1, torch.bfloat16, cuda)
+    k = _randn((1, 2, 256, 128), 2, torch.bfloat16, cuda)
+    v = _randn((1, 2, 256, 128), 3, torch.bfloat16, cuda)
+    flash_attention(q, k, v, fused_block_quant=True, is_causal=True)  # build, warm up
+    q2 = _randn((1, 8, 320, 128), 4, torch.bfloat16, cuda)
+    k2 = _randn((1, 2, 320, 128), 5, torch.bfloat16, cuda)
+    v2 = _randn((1, 2, 320, 128), 6, torch.bfloat16, cuda)
+    sweeps, misses = autotune.sweeps, autotune.misses_in_capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        out = flash_attention(q2, k2, v2, fused_block_quant=True, is_causal=True)
+        auto = qt.fp8_attn_func(q2, k2, v2, is_causal=True, scaling_method="auto")
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    # The per-block call's tiles, the "auto" path, and its per-block call's tiles.
+    assert autotune.sweeps == sweeps and autotune.misses_in_capture == misses + 3
+    assert torch.equal(out, auto)
+    assert not [key for key in autotune._load_cache() if "sq320" in key]  # nothing recorded
+    eager = qt.fp8_attn_func(q2, k2, v2, is_causal=True, scaling_method="auto")
+    assert autotune.sweeps > sweeps and autotune.timed > 0
+    timed = autotune.timed
+    again = qt.fp8_attn_func(q2, k2, v2, is_causal=True, scaling_method="auto")
+    torch.cuda.synchronize()
+    assert autotune.timed == timed and torch.equal(eager, again)
+    assert any("|path|" in key for key in autotune._load_cache())

@@ -212,12 +212,15 @@ def test_config_gates_and_fallback_counter():
 
 
 def test_not_yet_ported_raise():
-    """Per-block scaling still raises.  Windows and ``kv_offset``, refused
-    here before they were ported, now run and match the JAX package
-    (more cases in tests/test_torch_window.py)."""
+    """Per-block scaling, windows and ``kv_offset``, each refused here
+    before it was ported, now run and match the JAX package (more cases in
+    tests/test_torch_block_quant.py and tests/test_torch_window.py).  JAX's
+    per-block runs its e4m3 container (``attention.fp8_dot``), the port's
+    only one."""
     (tq_, tk, tv), (jq_, jk, jv) = _qkv(4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qt.fp8_attn_func(tq_, tk, tv, scaling_method="per-block")
+    with jconfig.patch({"interpret": True, "attention.fp8_dot": True}):
+        _close(qj.fp8_attn_func(jq_, jk, jv, is_causal=True, scaling_method="per-block"),
+               qt.fp8_attn_func(tq_, tk, tv, is_causal=True, scaling_method="per-block"))
     with jconfig.patch({"interpret": True}):
         _close(qj.attn_func(jq_, jk, jv, window=(8, 0)), qt.attn_func(tq_, tk, tv, window=(8, 0)))
     _close(jflash(jq_, jk, jv, is_causal=True, q_offset=jnp.int32(5), kv_offset=jnp.int32(3),

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from quantumattention_tpu import config as jconfig
 from quantumattention_tpu.models import llama as jl
 from quantumattention_tpu.serving.backends import SlotsBackend as JSlots
 from quantumattention_tpu_torch.models import convert
@@ -75,6 +76,25 @@ def test_forward_prefill_matches_jax(jax_params, impl):
     _close(tlog, jlog, LOGIT_REL)
     np.testing.assert_array_equal(_f32(tkv[0][0]), _f32(jkv[0][0]))
     np.testing.assert_array_equal(_f32(tkv[0][1]), _f32(jkv[0][1]))
+    for (tk, tv), (jk, jv) in zip(tkv[1:], jkv[1:]):
+        _close(tk, jk, KV_REL)
+        _close(tv, jv, KV_REL)
+
+
+def test_forward_prefill_per_block_matches_jax(jax_params):
+    """``scaling_method="per-block"`` through the model's prefill against
+    JAX's, whose per-block runs its e4m3 container (``attention.fp8_dot``),
+    the port's only one."""
+    tcfg, jcfg = tl.tiny(scaling_method="per-block"), jl.tiny(scaling_method="per-block")
+    tp = _torch_params(jax_params, tcfg)
+    toks, last = _tokens()
+    with jconfig.patch({"attention.fp8_dot": True}):
+        jlog, jkv = jl.forward_prefill(jax_params, jnp.asarray(toks), jcfg,
+                                       last_pos=jnp.asarray(last))
+    tlog, tkv = tl.forward_prefill(
+        tp, torch.from_numpy(toks).long(), tcfg, last_pos=torch.from_numpy(last).long()
+    )
+    _close(tlog, jlog, LOGIT_REL)
     for (tk, tv), (jk, jv) in zip(tkv[1:], jkv[1:]):
         _close(tk, jk, KV_REL)
         _close(tv, jv, KV_REL)
