@@ -187,6 +187,28 @@ one step against the unfused step) and ``mistral_train`` (one SGD step of
 against the SDPA path's). The kernels line's ``launches_window`` counts
 each of K1, K2, K3, K4, K9 and K10 on these paths; none may be 0.
 
+K1's modes (after the autotuner, ``phase_k1_modes``): at the JAX
+package's sparse benchmark (B = 4, H = 16, S = 8192, D = 128, bf16)
+through ``attn_func``, dense non-causal, the block masks "documents"
+(1024-token documents, density 1/8), "local+global" (8 causal granules, 2
+global columns) and "random" (density 0.25, the diagonal kept), and the
+documents as causal segment ids over seeded ragged lengths of 300-2000
+tokens; int8 V (channel-wise) under int8 and e4m3 head-wise Q/K at B = 16,
+H = 16, S = 8192, D = 128, causal.  Each ``k1_modes`` line: K1's device
+time by graph replay and launches a call, the bound from the (query, key)
+pairs the mask leaves, the density, one batch row and two heads against
+the fp32 oracle (RMSE < 1e-2) and the plain version (1/32), and beside it
+SDPA's memory-efficient back end with the expanded mask, flex_attention
+with the same blocks where it compiles, or SDPA over the dequantized V;
+then a graph-captured block-mask call against the eager one, bit for bit,
+and rows that see no key (``k1_modes_zero_rows``).  The documents mask
+must take under half the dense time.  The kernels line's K1 entry gains
+``launches_segments``, ``launches_block_mask`` and ``launches_int8_v``
+(one eager call of each case, counts reset just before) and ``modes``;
+none of the three may be 0.  ``--k1-modes-only`` runs only this phase;
+``--k1-dense-only`` prints only K1's ptxas lines and its dense times at
+the timed shape (``k1_dense``), also over an earlier tree of the port.
+
 Per-block scaling and the autotuner (after K1): the quantizer kernel
 against its plain version bit for bit at the timed and protocol shapes
 with its bytes bound (``block_quant``); K1 per-block against its plain
@@ -507,6 +529,16 @@ K1_BLOCK_CASES = ((1536, 1536, 128, True, None, 0, 0), (1536, 1536, 128, True, (
                   *((512, 512, d, True, None, 0, 0) for d in (72, 96, 320, 512)))
 #: The shapes the autotune lines sweep: (B, Hq, Hkv, S, D).
 AUTOTUNE_SHAPES = ((1, 32, 8, 1536, 128), (16, 16, 16, 8192, 64), (16, 16, 16, 8192, 128))
+#: K1's modes (phase_k1_modes): the JAX package's sparse benchmark
+#: (benchmarks/sparse_bench.py:68-124: B = 4, H = 16, S = 8192, D = 128,
+#: bf16; documents of 1024 tokens, 8 local causal granules and 2 global
+#: columns, a random mask at density 0.25), segment ids over seeded ragged
+#: documents of 300-2000 tokens, and int8 V at the protocol's causal D = 128
+#: cell; one batch row and two heads are held against the oracle and the
+#: plain version.
+K1_MODES = {"B": 4, "H": 16, "S": 8192, "D": 128, "doc": 1024, "local": 8, "global": 2,
+            "density": 0.25, "doc_min": 300, "doc_max": 2000}
+K1_INT8_V = {"B": 16, "H": 16, "S": 8192, "D": 128}
 
 
 def log(msg: str) -> None:
@@ -1437,6 +1469,9 @@ def _reset_counts() -> None:
     paged_decode_attention.launches = 0
     dispatch.sdpa_fallback.calls = 0
     quant.block_quant.launches = 0
+    flash_attention.segment_launches = 0
+    flash_attention.block_mask_launches = 0
+    flash_attention.int8_v_launches = 0
 
 
 def _counts() -> dict:
@@ -1450,6 +1485,9 @@ def _counts() -> dict:
             "k9_window": megastep.fused_decode_layer.window_launches,
             "k10_window": paged_decode_attention.window_launches,
             "block_quant": quant.block_quant.launches,
+            "k1_segments": flash_attention.segment_launches,
+            "k1_block_mask": flash_attention.block_mask_launches,
+            "k1_int8_v": flash_attention.int8_v_launches,
             "sdpa_fallback": dispatch.sdpa_fallback.calls}
 
 
@@ -4361,6 +4399,281 @@ def phase_k1_block(gen) -> dict:
             "per_block_k1_ms": rec["k1_ms"], "per_block_plain_ms": rec["plain_ms"]}
 
 
+def document_mask(n: int, doc_granules: int) -> np.ndarray:
+    """Packed-document block-diagonal granule mask (sparse_bench.py:51-57)."""
+    bm = np.zeros((n, n), bool)
+    for s in range(0, n, doc_granules):
+        bm[s:s + doc_granules, s:s + doc_granules] = True
+    return bm
+
+
+def local_global_mask(n: int, local: int, n_global: int) -> np.ndarray:
+    """Causal sliding window of granules plus global columns (sparse_bench.py:60-65)."""
+    r = np.arange(n)
+    bm = (r[:, None] >= r[None, :]) & (r[:, None] - r[None, :] < local)
+    bm[:, :n_global] = True
+    return bm
+
+
+def random_mask(n: int, density: float) -> np.ndarray:
+    """The sparse benchmark's random mask, the diagonal kept (sparse_bench.py:110-112)."""
+    bm = np.random.RandomState(0).rand(n, n) < density
+    bm[np.arange(n), np.arange(n)] = True
+    return bm
+
+
+def document_ids(rng, b: int, s: int, lo: int, hi: int) -> torch.Tensor:
+    """(b, s) int32 segment ids of seeded documents of lo..hi tokens summing to s."""
+    rows = []
+    for _ in range(b):
+        lens, left = [], s
+        while left > hi:
+            n = int(rng.randint(lo, min(hi, left - lo) + 1))
+            lens.append(n)
+            left -= n
+        lens.append(left)
+        rows.append(np.repeat(np.arange(len(lens)), lens))
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+def _flex_ms(q, k, v, mask_mod, b) -> "tuple[float | None, str | None]":
+    """``torch.compile``d ``flex_attention`` with the BlockMask of
+    ``mask_mod`` (128 x 128 blocks): a yardstick, used nowhere in the port.
+    (None, reason) where it does not compile or run here."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+        s = q.shape[2]
+        block = create_block_mask(mask_mod, b, None, s, s, device="cuda", BLOCK_SIZE=128)
+        flex = torch.compile(flex_attention, dynamic=False)
+        t0 = time.perf_counter()
+        flex(q, k, v, block_mask=block)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ms = time_ms(lambda: flex(q, k, v, block_mask=block), iters=5, warmup=1)
+        log(f"k1_modes flex compile_s={compile_s}")
+        return ms, None
+    except Exception as e:  # noqa: BLE001 - the yardstick is optional; the kernel is not
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160] if str(e) else ''}"
+
+
+def _efficient_sdpa_ms(q, k, v, keep) -> "tuple[float | None, str | None]":
+    """SDPA's memory-efficient back end with the expanded boolean mask."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = keep if keep.ndim == 4 else keep[None, None]
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), iters=3, warmup=1), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:160]
+
+
+def _k1_mode_case(label: str, call, cut_args, cut_kw, keep, qk_kind: str, nbytes: int,
+                  library) -> dict:
+    """One mode case: ``call()`` (the entry point on the full tensors) timed
+    by graph replay with its launch count, one batch row and two heads
+    (``cut_args`` / ``cut_kw``, the plain version's arguments) against the
+    fp32 oracle (RMSE < 1e-2) and the plain version (1/32), the bound from
+    the (query, key) pairs ``keep`` leaves a head (times the heads), and
+    the library calls ``library`` (name -> (ms, refusal))."""
+    before = flash_attention.launches
+    out = call()
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - before
+    q, k, v = cut_args
+    plain = flash_attention_plain(*cut_args, **cut_kw)
+    oracle_kw = {key: t for key, t in cut_kw.items()
+                 if key in ("scale_q", "scale_k", "is_causal")}
+    v_f = quant.dequantize(v, cut_kw["scale_v"], axis=-2) if "scale_v" in cut_kw else v
+    mask = flash_mod.keep_mask(q.shape[2], k.shape[2], cut_kw.get("is_causal", False), None, 0, 0,
+                               "cuda", cut_kw.get("q_segment_ids"), cut_kw.get("kv_segment_ids"),
+                               cut_kw.get("block_mask"))
+    oracle = sdpa_reference(q, k, v_f, attn_mask=mask, out_dtype=torch.float32,
+                            **{key: t for key, t in oracle_kw.items() if key != "is_causal"})
+    b, hq, s, d = out.shape
+    cut = out[:q.shape[0], :q.shape[1]]
+    pairs = int(keep.sum()) * hq * (b if keep.ndim == 2 else 1)
+    rec = {"case": label, "B": b, "H": hq, "S": s, "D": d, "launches": launches,
+           "density": pairs / (b * hq * s * s), "pairs": pairs,
+           "max_abs_vs_plain": max_abs(cut, plain), "rmse_vs_oracle": rmse(cut, oracle),
+           "ms": graph_ms(call, reps=4, iters=5)}
+    del plain, oracle, mask
+    rec.update(bound(nbytes, {qk_kind: 2 * pairs * d, "bf16": 2 * pairs * d}) if qk_kind != "bf16"
+               else bound(nbytes, {"bf16": 4 * pairs * d}))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["active_tflops"] = 4 * pairs * d / rec["ms"] / 1e9
+    for name, (ms, why) in library.items():
+        rec[f"{name}_ms"] = ms
+        if why:
+            rec[f"{name}_refused"] = why
+    log("k1_modes " + json.dumps(rec))
+    if (launches != 1 or not bool(torch.isfinite(out).all())
+            or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL or not rec["rmse_vs_oracle"] < RMSE_BAR):
+        raise RuntimeError(f"K1 disagrees in mode {label}: {rec}")
+    return rec
+
+
+def _k1_modes_zero_rows(gen) -> None:
+    """Rows whose segment matches no key and granule rows with no active
+    granule come out as exact zeros; the other rows match the plain version."""
+    q, k, v = _randn((2, 8, 2048, 128), gen), _randn((2, 2, 2048, 128), gen), _randn((2, 2, 2048, 128), gen)
+    ids = torch.zeros((2, 2048), dtype=torch.int32, device="cuda")
+    ids[:, 1024:] = 1
+    q_ids = ids.clone()
+    q_ids[:, 100:300] = 5  # matches no key
+    bm = torch.ones((16, 16), dtype=torch.bool, device="cuda")
+    bm[3] = False  # rows 384-511 see no key
+    cases = {"segments": ({"q_segment_ids": q_ids, "kv_segment_ids": ids}, slice(100, 300)),
+             "block_mask": ({"block_mask": bm}, slice(384, 512))}
+    for name, (kw, dead) in cases.items():
+        for causal in (True, False):
+            out = dispatch.attention(q, k, v, is_causal=causal, **kw)
+            plain = flash_attention_plain(q, k, v, is_causal=causal, **kw)
+            torch.cuda.synchronize()
+            rec = {"case": name, "causal": causal, "dead_rows_zero": not bool(out[:, :, dead].any()),
+                   "max_abs_vs_plain": max_abs(out, plain)}
+            log("k1_modes_zero_rows " + json.dumps(rec))
+            if not rec["dead_rows_zero"] or rec["max_abs_vs_plain"] > KERNEL_VS_PLAIN_ATOL:
+                raise RuntimeError(f"K1's rows that see no key are not zeros: {rec}")
+            del out, plain
+
+
+def phase_k1_modes(gen) -> dict:
+    """K1's modes at the JAX package's sparse benchmark (K1_MODES) through
+    ``attn_func``: dense non-causal, the block masks "documents",
+    "local+global" and "random", the documents again as causal segment
+    ids over ragged lengths; int8 V at K1_INT8_V through ``flash_attention``
+    (int8 head-wise Q/K, and e4m3 head-wise Q/K). Each case's device time
+    by graph replay beside its bound and the library calls (SDPA's
+    memory-efficient back end with the expanded mask, flex_attention where
+    it compiles, SDPA over the dequantized V); a graph-captured block-mask
+    call against the eager one, bit for bit; rows that see no key.  The
+    launch counts of one eager call of each case (counts reset just before,
+    read just after) are the kernels line's ``launches_segments``,
+    ``launches_block_mask`` and ``launches_int8_v``."""
+    from quantumattention_tpu_torch import attn_func
+
+    for row in _ptxas("flash_fwd_modes_kernel", ("W", "code")):
+        log("k1_modes_ptxas " + json.dumps(row))
+    b, h, s, d = (K1_MODES[key] for key in ("B", "H", "S", "D"))
+    n = s // flash_mod.MASK_GRANULE
+    q, k, v = (_randn((b, h, s, d), gen) for _ in range(3))
+    masks = {"documents": document_mask(n, K1_MODES["doc"] // flash_mod.MASK_GRANULE),
+             "local+global": local_global_mask(n, K1_MODES["local"], K1_MODES["global"]),
+             "random": random_mask(n, K1_MODES["density"])}
+    masks = {name: torch.from_numpy(bm).cuda() for name, bm in masks.items()}
+    ids = document_ids(np.random.RandomState(1), b, s, K1_MODES["doc_min"], K1_MODES["doc_max"]).cuda()
+    v8, sv = quant.quantize_channel_wise(v, torch.int8)
+    bi, hi, s8, d8 = (K1_INT8_V[key] for key in ("B", "H", "S", "D"))
+    qi, ki, vi = (_randn((bi, hi, s8, d8), gen) for _ in range(3))
+    vi8, svi = quant.quantize_channel_wise(vi, torch.int8)
+    int8_qk = [quant.quantize_head_wise(t, torch.int8) for t in (qi, ki)]
+    e4m3_qk = [quant.quantize_head_wise(t, torch.float8_e4m3fn) for t in (qi, ki)]
+    int8_kw = lambda qk: {"scale_q": qk[0][1], "scale_k": qk[1][1], "scale_v": svi}  # noqa: E731
+    # The path a user calls, once each with the counts at 0: K1's launches in its modes.
+    _reset_counts()
+    for bm in masks.values():
+        attn_func(q, k, v, block_mask=bm)
+    attn_func(q, k, v, is_causal=True, q_segment_ids=ids, kv_segment_ids=ids)
+    for qk in (int8_qk, e4m3_qk):
+        flash_attention(qk[0][0], qk[1][0], vi8, is_causal=True, **int8_kw(qk))
+    torch.cuda.synchronize()
+    counts = _counts()
+    log("k1_modes launches " + json.dumps(counts))
+    cut = lambda t: t[:1, :2]  # noqa: E731
+    bf16_bytes = 4 * b * h * s * d * 2
+    recs = {}
+    ones = torch.ones((s, s), dtype=torch.bool, device="cuda")
+    recs["dense"] = _k1_mode_case(
+        "dense", functools.partial(attn_func, q, k, v), (cut(q), cut(k), cut(v)), {}, ones, "bf16",
+        bf16_bytes, {"sdpa_flash": _sdpa_ms(q, k, v, False)})
+    del ones
+    for name, bm in masks.items():
+        keep = flash_mod.granule_keep(bm, s, s)
+        library = {"sdpa_efficient_mask": _efficient_sdpa_ms(q, k, v, keep)}
+        grid = bm
+        library["flex"] = _flex_ms(q, k, v, lambda bb, hh, qi_, ki_: grid[qi_ // 128, ki_ // 128], None)
+        recs[name] = _k1_mode_case(
+            name, functools.partial(attn_func, q, k, v, block_mask=bm), (cut(q), cut(k), cut(v)),
+            {"block_mask": bm}, keep, "bf16", bf16_bytes + bm.numel(), library)
+        rows, cols = autotune.K1_TILES[shapes.kernel_width(d)][0]
+        recs[name]["table_ms"] = graph_ms(functools.partial(
+            flash_mod.block_table, bm, s, s, rows, cols, False, None), reps=4, iters=5)
+        log("k1_modes table " + json.dumps({"case": name, "ms": recs[name]["table_ms"]}))
+        del keep
+        torch.cuda.empty_cache()
+    keep = flash_mod.keep_mask(s, s, True, None, 0, 0, "cuda", ids, ids)
+    library = {"sdpa_efficient_mask": _efficient_sdpa_ms(q, k, v, keep),
+               "flex": _flex_ms(q, k, v, lambda bb, hh, qi_, ki_: (ids[bb, qi_] == ids[bb, ki_]) & (qi_ >= ki_), b)}
+    recs["segments"] = _k1_mode_case(
+        "segments", functools.partial(attn_func, q, k, v, is_causal=True, q_segment_ids=ids,
+                                      kv_segment_ids=ids),
+        (cut(q), cut(k), cut(v)), {"is_causal": True, "q_segment_ids": ids[:1], "kv_segment_ids": ids[:1]},
+        keep, "bf16", bf16_bytes + ids.numel() * 8, library)
+    del keep
+    equal = _graph_equal(functools.partial(attn_func, q, k, v, block_mask=masks["documents"]))
+    log("k1_modes graph_replay_equal " + json.dumps({"case": "documents", "equal": equal}))
+    if not equal:
+        raise RuntimeError("a graph-captured block-mask call differs from the eager call")
+    torch.cuda.empty_cache()
+    causal = torch.tril(torch.ones((s8, s8), dtype=torch.bool, device="cuda"))
+    vi_deq = quant.dequantize(vi8, svi, axis=-2).to(torch.bfloat16)
+    for name, qk in (("int8_v_int8_qk", int8_qk), ("int8_v_e4m3_qk", e4m3_qk)):
+        kw = int8_kw(qk)
+        cut_kw = {"is_causal": True, **{key: cut(t) for key, t in kw.items()}}
+        nbytes = bi * hi * s8 * d8 * (1 + 1 + 1 + 2) + 4 * (2 * bi * hi + bi * hi * d8)
+        recs[name] = _k1_mode_case(
+            name, functools.partial(flash_attention, qk[0][0], qk[1][0], vi8, is_causal=True, **kw),
+            (cut(qk[0][0]), cut(qk[1][0]), cut(vi8)), cut_kw, causal, "fp8", nbytes,
+            {"sdpa_flash_dequantized_v": _sdpa_ms(qi, ki, vi_deq, True)})
+    del causal, vi_deq
+    _k1_modes_zero_rows(gen)
+    del q, k, v, v8, sv, qi, ki, vi, vi8, int8_qk, e4m3_qk
+    torch.cuda.empty_cache()
+    doc, dense = recs["documents"]["ms"], recs["dense"]["ms"]
+    log("k1_modes summary " + json.dumps({"documents_over_dense": doc / dense,
+                                          "active_tflops": {k_: r["active_tflops"] for k_, r in recs.items()}}))
+    if not doc < dense / 2:
+        raise RuntimeError(f"the documents mask (density 1/8) takes {doc} ms against dense {dense}")
+    return {"launches_segments": counts["k1_segments"], "launches_block_mask": counts["k1_block_mask"],
+            "launches_int8_v": counts["k1_int8_v"],
+            "modes": {name: {key: r[key] for key in ("ms", "bound_ms", "bound_by", "density",
+                                                     "max_abs_vs_plain", "rmse_vs_oracle")}
+                      | {key: r[key] for key in r if key.endswith("_ms") and key not in ("ms", "bound_ms")}
+                      for name, r in recs.items()}}
+
+
+def _sdpa_ms(q, k, v, causal: bool) -> "tuple[float | None, str | None]":
+    """bf16 SDPA's flash back end (a yardstick)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), iters=3, warmup=1), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:160]
+
+
+def phase_k1_dense_ab(gen) -> None:
+    """Dense K1 at PERF.md's timed shape (B = 1, 32/8 heads, S = 1536,
+    D = 128, causal, e4m3 head-wise, and bf16) by graph replay, with the
+    ptxas registers and spills of each K1 instantiation: the numbers an
+    earlier tree of the port is compared on (``--k1-dense-only``)."""
+    for row in _ptxas("flash_fwd_kernel", ("W", "code", "tiles")):
+        log("k1_ptxas " + json.dumps(row))
+    for row in _ptxas("flash_fwd_modes_kernel", ("W", "code")):
+        log("k1_modes_ptxas " + json.dumps(row))
+    for mode in ("head", "bf16"):
+        args, scales, _ = _k1_inputs(1, 1536, mode, 128, gen)
+        fn = functools.partial(flash_attention, *args, is_causal=True, **scales)
+        rec = {"mode": mode, "ms": [graph_ms(fn) for _ in range(5)]}
+        rec["median_ms"] = sorted(rec["ms"])[2]
+        log("k1_dense " + json.dumps(rec))
+        del args, scales, fn
+
+
 def phase_autotune(gen) -> None:
     """The autotuner on the card: for K1 at AUTOTUNE_SHAPES each tile
     configuration's time and the winner (per-block, bf16 and head-wise
@@ -4607,6 +4920,12 @@ def _main() -> int:
         phase_serve_order(llama.init_params(torch.Generator("cuda").manual_seed(0),
                                             llama.llama3_8b(), "cuda"))
         return 0
+    if "--k1-dense-only" in sys.argv[1:]:
+        phase_k1_dense_ab(gen)
+        return 0
+    if "--k1-modes-only" in sys.argv[1:]:
+        phase_k1_modes(gen)
+        return 0
     if "--quant-prefill-only" in sys.argv[1:]:
         params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
         for label, quant_fn in (("serve_int8", quantized.quantize_params),
@@ -4621,6 +4940,7 @@ def _main() -> int:
     bq = phase_block_quant(gen)
     k1.update(phase_k1_block(gen))
     phase_autotune(gen)
+    k1.update(phase_k1_modes(gen))
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
     k23 = phase_k23(gen)
@@ -4682,8 +5002,9 @@ def _main() -> int:
     log("autotune counters " + json.dumps({
         "sweeps": autotune.sweeps, "timed": autotune.timed, "hits": autotune.hits,
         "misses_in_capture": autotune.misses_in_capture}))
-    idle = [k["name"] for k in kernels if k["launches"] <= 0 or k.get("launches_verify", 1) <= 0
-            or k.get("launches_window", 1) <= 0]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0 or any(
+        k.get(key, 1) <= 0 for key in ("launches_verify", "launches_window", "launches_segments",
+                                       "launches_block_mask", "launches_int8_v"))]
     if idle:
         raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

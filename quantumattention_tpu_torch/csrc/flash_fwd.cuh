@@ -20,6 +20,18 @@
 // here as the token-wise mode over the row scales of the pre-pass
 // block_quant.cu: S = (q8 . k8^T) * (s_q * score_scale) * s_k, the JAX
 // function up to the order of that fp32 product, at any block size.
+// Three modes ride on runtime pointers, null when off (flash.py:163-177,
+// :413-450, :501-515): segment ids (a key is kept when its id equals the
+// query's), a block-sparse bitmap of 128 x 128 granules (kGranule) walked
+// through a per-Q-block list of the KV tiles that hold an active granule
+// (ops/flash.block_table, built on the device), and an int8 V with
+// per-channel scales (B, Hkv, D) applied to the output's columns. A call
+// with any of them runs flash_fwd_modes_kernel (flash_fwd_modes.cu), the
+// same body compiled with the modes in; every other call runs
+// flash_fwd_kernel, compiled without them. One kernel for both cost dense
+// calls 7% on the H100 (fp8 head-wise at B = 1, 32/8 heads, S = 1536,
+// D = 128: 0.0575 against 0.0538 ms), ptxas spilling under the 128
+// registers of 512 threads.
 //
 // What bounds it on the H100: operations. Q.K^T runs at the tensor cores'
 // fp8 (or int8) peak of 1979 TFLOP/s when Q and K are 8-bit, P.V at bf16's
@@ -52,9 +64,22 @@
 //    of P.V, whose B is the V tile read MN-major through the transpose bit;
 //  - an e4m3 V (fp8 wgmma takes K-major B only) is widened to bf16 in
 //    shared memory by the producer warpgroup, in the same swizzled layout;
-//  - token-wise column scales come into shared memory with their tile, by
-//    plain loads of the producer warpgroup (a (B * H, Skv) fp32 row is not
-//    16-byte aligned for a bulk copy);
+//  - token-wise column scales, and the KV segment ids, come into shared
+//    memory with their tile, by plain loads of the producer warpgroup (a
+//    (B * H, Skv) fp32 row is not 16-byte aligned for a bulk copy); each
+//    consumer thread keeps its two rows' q ids in registers, and a tile
+//    with segment ids always takes the masked arm of the scores;
+//  - a block mask: the producer and the consumers walk the CTA's entries of
+//    the tile list in place of its KV range, so tiles with no active
+//    granule are neither loaded nor computed. A consumer's 64 Q rows and a
+//    KV tile (32, 64 or 128 keys) lie inside one granule, so the bitmap
+//    is one bit per (consumer, tile): a consumer whose bit is off leaves
+//    its accumulator as it is (it still waits and arrives on the
+//    barriers), and no element mask is needed;
+//  - an int8 V is widened to bf16 in shared memory like an e4m3 V (its
+//    codes are exact in bf16), P stays bf16, and the epilogue multiplies
+//    each output column by its scale. JAX rounds P to round(127 p) int8
+//    there for the TPU's 8-bit matrix unit; the port keeps P in bf16;
 //  - head dims: any multiple of 8 up to 512, as the JAX package takes. The
 //    kernel is instantiated at widths 64, 128, 256 and 512 (qa::kernel_width
 //    rounds D up). The tensor maps' inner extent is D itself and the boxes
@@ -88,6 +113,8 @@ namespace qa {
 namespace k1 {
 
 constexpr int kStages = 2;
+// The block mask's granule, in rows and keys (JAX's MASK_GRANULE).
+constexpr int kGranule = 128;
 
 // Tile sizes and the shared-memory layout for the instantiated width W, the
 // element code QK of Q and K, and the tile configuration V: 0 the default,
@@ -132,9 +159,14 @@ struct Cfg {
   static constexpr int kVOff = kKOff + kStages * kKBytes;
   static constexpr int kScaleOff = kVOff + kStages * kVBytes;
   static constexpr int kBarOff = kScaleOff + kStages * kBN * 4;
-  static constexpr int kSmem = kBarOff + (1 + 3 * kStages) * 8 + 1024;  // + alignment slack
+  static constexpr int kSegOff = kBarOff + (1 + 3 * kStages) * 8;  // KV segment ids (modes only)
+  static constexpr int kSmem = kSegOff + 1024;                      // + alignment slack
+  static constexpr int kSmemModes = kSmem + kStages * kBN * 4;
   static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 && kVBytes % 1024 == 0, "1024-byte tiles");
-  static_assert(kSmem <= 232448, "shared memory of one CTA");
+  static_assert(kSmemModes <= 232448, "shared memory of one CTA");
+  // A consumer's 64 rows and a KV tile lie inside one granule: the block
+  // mask is one bit per (consumer, tile).
+  static_assert(kGranule % 64 == 0 && kGranule % kBN == 0, "granule");
 };
 
 // Accumulator type of Q.K^T.
@@ -178,16 +210,36 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
   qa::fence_regs(o);
 }
 
+// Eight e4m3 or int8 codes (`code`) to eight bf16 in a uint4 (both exact).
+__device__ __forceinline__ uint4 widen8_bf16(uint2 u, int code) {
+  const unsigned char* c = reinterpret_cast<const unsigned char*>(&u);
+  float f[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (code == qa::kE4M3) {
+      __nv_fp8_e4m3 x;
+      x.__x = c[e];
+      f[e] = static_cast<float>(x);
+    } else {
+      f[e] = static_cast<float>(static_cast<signed char>(c[e]));
+    }
+  }
+  return make_uint4(qa::pack_bf16(f[0], f[1]), qa::pack_bf16(f[2], f[3]), qa::pack_bf16(f[4], f[5]),
+                    qa::pack_bf16(f[6], f[7]));
+}
+
 // This thread's scores of one tile in the exp2 domain: times the row scale
 // (and the token-wise column scale `cs`, or none), masked entries at
 // MASK_VALUE when kMask; returns each row's maximum over the thread's
 // columns. Column cl of the tile is kept when cl < valid and
 // row - left <= c0 + cl <= row + up, c0 = kv_offset + n0 - q_offset (up 0
-// under the causal mask, else the window's right extent).
+// under the causal mask, else the window's right extent), and, with the
+// tile's KV segment ids `ks`, when ks[cl] is the row's id (qs0, qs1).
 template <int BN, bool kMask>
-__device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs, float rs0,
-                                            float rs1, int t, int valid, int c0, int up, int left,
-                                            int row0, int row1, float& mx0, float& mx1) {
+__device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs, const int* ks,
+                                            int qs0, int qs1, float rs0, float rs1, int t,
+                                            int valid, int c0, int up, int left, int row0,
+                                            int row1, float& mx0, float& mx1) {
   mx0 = qa::kMaskValue;
   mx1 = qa::kMaskValue;
 #pragma unroll
@@ -200,8 +252,9 @@ __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs,
       if (kMask) {
         const int c = c0 + cl;
         const bool in = cl < valid;
-        x0 = in && c <= row0 + up && c >= row0 - left ? x0 : qa::kMaskValue;
-        x1 = in && c <= row1 + up && c >= row1 - left ? x1 : qa::kMaskValue;
+        const int kid = ks != nullptr ? ks[cl] : 0;
+        x0 = in && c <= row0 + up && c >= row0 - left && kid == qs0 ? x0 : qa::kMaskValue;
+        x1 = in && c <= row1 + up && c >= row1 - left && kid == qs1 ? x1 : qa::kMaskValue;
       }
       s[4 * j + e] = x0;
       s[4 * j + 2 + e] = x1;
@@ -218,16 +271,32 @@ __device__ __forceinline__ void fold_scores(float (&s)[BN / 2], const float* cs,
 // each row's final running max and softmax sum in the exp2 domain of the
 // folded scores (flash.py:586-588). D <= W is the tensors' head dim.
 // left / right: the window's extents, 1 << 30 for an unbounded side (right
-// unbounded under the causal mask).
-template <int W, int QK, int V>
-__global__ void __launch_bounds__(Cfg<W, QK, V>::kThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, const unsigned char* __restrict__ v8,
-                 const float* __restrict__ scale_q, const float* __restrict__ scale_k,
-                 void* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int D, int pv_f16,
-                 int out_code, int scaling, int causal, float score_scale, int q_offset,
-                 int kv_offset, int left, int right, float* __restrict__ m_out,
-                 float* __restrict__ l_out) {
+// unbounded under the causal mask). v8_code: v8's element code, kE4M3 or
+// kI8; scale_v (B, Hkv, D) fp32, the int8 V's per-channel scales, else
+// null. q_seg / kv_seg: (B, Sq) / (B, Skv) int32 segment ids, both or
+// neither. tile_count / tile_list (gridDim.z, list_stride) int32: the
+// block mask's tile list of each Q block (its first tile_count[mb]
+// entries, ascending), with granules (ceil(Sq / 128), granule_cols) uint8,
+// the bitmap; all three or none.
+// The kernel's body; kModes compiles the three modes in. Without it the
+// body is the dense kernel's code alone: each mode test folds away.
+#define QA_K1_PARAMS                                                                           \
+  const unsigned char *__restrict__ v8, const float *__restrict__ scale_q,                     \
+      const float *__restrict__ scale_k, void *__restrict__ out, int Hq, int Hkv, int Sq,       \
+      int Skv, int D, int pv_f16, int out_code, int scaling, int causal, float score_scale,     \
+      int q_offset, int kv_offset, int left, int right, float *__restrict__ m_out,              \
+      float *__restrict__ l_out, int v8_code, const float *__restrict__ scale_v,               \
+      const int *__restrict__ q_seg, const int *__restrict__ kv_seg,                           \
+      const int *__restrict__ tile_count, const int *__restrict__ tile_list, int list_stride,  \
+      const unsigned char *__restrict__ granules, int granule_cols
+#define QA_K1_ARGS                                                                             \
+  v8, scale_q, scale_k, out, Hq, Hkv, Sq, Skv, D, pv_f16, out_code, scaling, causal,            \
+      score_scale, q_offset, kv_offset, left, right, m_out, l_out, v8_code, scale_v, q_seg,     \
+      kv_seg, tile_count, tile_list, list_stride, granules, granule_cols
+
+template <int W, int QK, int V, bool kModes>
+__device__ __forceinline__ void flash_fwd_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                               const CUtensorMap& tm_v, QA_K1_PARAMS) {
   using C = Cfg<W, QK, V>;
   constexpr int kBN = C::kBN;
   constexpr int kOD = C::kOD;
@@ -237,6 +306,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   unsigned char* Ks = smem + C::kKOff;
   unsigned char* Vs = smem + C::kVOff;
   float* col_scale = reinterpret_cast<float*>(smem + C::kScaleOff);
+  int* seg_s = reinterpret_cast<int*>(smem + C::kSegOff);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + kStages;
@@ -256,7 +326,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int kv_begin = max(0, q_offset + q0 - left - kv_offset);
   const int kv_end = min(Skv, max(0, q_offset + q0 + C::kBM + up - kv_offset));
   const int tile0 = kv_begin / kBN;
-  const int ntiles = max(0, (kv_end + kBN - 1) / kBN - tile0);
+  // Under a block mask the CTA walks its Q block's tile list instead.
+  const int* list =
+      kModes && tile_list != nullptr ? tile_list + static_cast<size_t>(mb) * list_stride : nullptr;
+  const int ntiles = list != nullptr ? tile_count[mb] : max(0, (kv_end + kBN - 1) / kBN - tile0);
 
   if (threadIdx.x == 0) {
     qa::mbar_init(full_q, 1);
@@ -290,7 +363,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages;
-      const int n0 = (tile0 + i) * kBN;
+      const int n0 = (list != nullptr ? list[i] : tile0 + i) * kBN;
       qa::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
       if (tid == 0) {
         qa::mbar_expect_tx(&full_k[s], C::kKBytes);
@@ -313,22 +386,58 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           col_scale[s * kBN + r] = n0 + r < Skv ? ks_row[n0 + r] : 0.f;
         }
       }
+      if (kModes && kv_seg != nullptr) {
+        const int* seg_row = kv_seg + static_cast<size_t>(b) * Skv;
+#pragma unroll 1
+        for (int r = tid; r < kBN; r += 128) {
+          seg_s[s * kBN + r] = n0 + r < Skv ? seg_row[n0 + r] : -1;
+        }
+      }
       qa::mbar_arrive(&full_k[s]);
       if (v8 != nullptr) {
-        // e4m3 V rows to bf16, 8 columns a step, into the swizzled layout
+        // e4m3 or int8 V rows to bf16, 8 columns a step, into the swizzled layout
         // a 128-byte-swizzled TMA box would have; rows past Skv and
         // columns past D are zeros.
         const unsigned char* v_head = v8 + static_cast<size_t>(bh_k) * Skv * D;
         unsigned char* vt = Vs + s * C::kVBytes;
+        if constexpr (kModes) {
+          // Four loads in flight before their conversion: one at a time,
+          // the loads' latency bounds the producer (an int8 V took 1.8x as
+          // long). The dense kernel keeps its loop: the grouped one, though
+          // it never runs there without an e4m3 V, cost dense calls 5%
+          // through ptxas's register allocation on the H100.
+          constexpr int kChunks = kBN * (kOD / 8), kGroup = 4;
+          static_assert(kChunks % (128 * kGroup) == 0, "whole groups of chunks");
 #pragma unroll 1
-        for (int idx = tid; idx < kBN * (kOD / 8); idx += 128) {
-          const int r = idx / (kOD / 8), c8 = idx % (kOD / 8);
-          const int col = col0 + c8 * 8;
-          uint4 x = make_uint4(0u, 0u, 0u, 0u);
-          if (n0 + r < Skv && col < D) {
-            x = qa::load8_bf16(v_head, qa::kE4M3, static_cast<size_t>(n0 + r) * D + col);
+          for (int base = tid; base < kChunks; base += 128 * kGroup) {
+            uint2 raw[kGroup];
+#pragma unroll
+            for (int u = 0; u < kGroup; ++u) {
+              const int idx = base + u * 128;
+              const int r = idx / (kOD / 8), col = col0 + idx % (kOD / 8) * 8;
+              raw[u] = n0 + r < Skv && col < D
+                           ? *reinterpret_cast<const uint2*>(v_head + static_cast<size_t>(n0 + r) * D + col)
+                           : make_uint2(0u, 0u);
+            }
+#pragma unroll
+            for (int u = 0; u < kGroup; ++u) {
+              const int idx = base + u * 128;
+              const int r = idx / (kOD / 8), c8 = idx % (kOD / 8);
+              *reinterpret_cast<uint4*>(vt + (c8 / 8) * kBN * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16) =
+                  widen8_bf16(raw[u], v8_code);
+            }
           }
-          *reinterpret_cast<uint4*>(vt + (c8 / 8) * kBN * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16) = x;
+        } else {
+#pragma unroll 1
+          for (int idx = tid; idx < kBN * (kOD / 8); idx += 128) {
+            const int r = idx / (kOD / 8), c8 = idx % (kOD / 8);
+            const int col = col0 + c8 * 8;
+            uint4 x = make_uint4(0u, 0u, 0u, 0u);
+            if (n0 + r < Skv && col < D) {
+              x = qa::load8_bf16(v_head, qa::kE4M3, static_cast<size_t>(n0 + r) * D + col);
+            }
+            *reinterpret_cast<uint4*>(vt + (c8 / 8) * kBN * 128 + r * 128 + ((c8 % 8) ^ (r % 8)) * 16) = x;
+          }
         }
         qa::fence_proxy_async();
       }
@@ -356,6 +465,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // Warpgroup-uniform tile classes: this warpgroup's rows sit at global
     // positions p_lo .. p_hi, a tile's columns at kv_offset + n0 ...
     const bool active = r_base < Sq;
+    // This thread's rows' segment ids, and the granule row of the
+    // warpgroup's 64 rows (valid where active).
+    int qs0 = 0, qs1 = 0;
+    if (kModes && q_seg != nullptr) {
+      const int* qs_row = q_seg + static_cast<size_t>(b) * Sq;
+      qs0 = row0 < Sq ? qs_row[row0] : -1;
+      qs1 = row1 < Sq ? qs_row[row1] : -1;
+    }
+    const unsigned char* grow = kModes && granules != nullptr
+                                    ? granules + static_cast<size_t>(r_base / kGranule) * granule_cols
+                                    : nullptr;
     const int p_lo = q_offset + r_base;
     const int p_hi = q_offset + min(r_base + 63, Sq - 1);
     const uint32_t q_addr = qa::smem_addr(Qs + cw * 64 * C::kRowBytes);
@@ -369,10 +489,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages;
       const uint32_t ph = (i / kStages) & 1;
-      const int n0 = (tile0 + i) * kBN;
+      const int n0 = (list != nullptr ? list[i] : tile0 + i) * kBN;
       const int c_lo = kv_offset + n0, c_hi = c_lo + kBN - 1;
-      const bool skip = !active || c_lo > p_hi + up || c_hi < p_lo - left;
-      const bool unmasked = c_hi <= p_lo + up && c_lo >= p_hi - left && n0 + kBN <= Skv;
+      const bool skip = !active || c_lo > p_hi + up || c_hi < p_lo - left ||
+                        (grow != nullptr && grow[n0 / kGranule] == 0);
+      const bool unmasked = !(kModes && kv_seg != nullptr) && c_hi <= p_lo + up &&
+                            c_lo >= p_hi - left && n0 + kBN <= Skv;
       qa::mbar_wait(&full_k[s], ph);
       if (!skip) {
         float sc[kBN / 2];
@@ -387,10 +509,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const float* cs = scaling == 2 ? col_scale + s * kBN : nullptr;
         float mx0, mx1;
         if (unmasked) {
-          fold_scores<kBN, false>(sc, cs, rs0, rs1, t, 0, 0, 0, 0, 0, 0, mx0, mx1);
+          fold_scores<kBN, false>(sc, cs, nullptr, 0, 0, rs0, rs1, t, 0, 0, 0, 0, 0, 0, mx0, mx1);
         } else {
-          fold_scores<kBN, true>(sc, cs, rs0, rs1, t, Skv - n0, c_lo - q_offset, up, left, row0,
-                                 row1, mx0, mx1);
+          fold_scores<kBN, true>(sc, cs, kModes && kv_seg != nullptr ? seg_s + s * kBN : nullptr,
+                                 qs0, qs1, rs0, rs1, t, Skv - n0, c_lo - q_offset, up, left,
+                                 row0, row1, mx0, mx1);
         }
 #pragma unroll
         for (int off = 1; off < 4; off <<= 1) {
@@ -443,8 +566,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       qa::mbar_arrive(&empty[s]);
     }
 
-    // Epilogue: full row sums, normalise, store; padded Q rows and columns
-    // past D are never stored, and the residuals by the first split only.
+    // Epilogue: full row sums, normalise (times the column's scale for an
+    // int8 V), store; padded Q rows and columns past D are never stored,
+    // and the residuals by the first split only.
     // A row that saw no key (no tile ran, or every score it met was
     // masked: its running max is at most half MASK_VALUE) stores zeros.
 #pragma unroll
@@ -469,12 +593,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int j = 0; j < kOD / 8; ++j) {
       const int c = col0 + j * 8 + t * 2;
       if (c >= D) continue;
+      float sv0 = 1.f, sv1 = 1.f;
+      if (kModes && scale_v != nullptr) {
+        sv0 = scale_v[static_cast<size_t>(bh_k) * D + c];
+        sv1 = scale_v[static_cast<size_t>(bh_k) * D + c + 1];
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = half ? row1 : row0;
         if (row >= Sq) continue;
         const float inv = half ? inv1 : inv0;
-        const float x0 = o[4 * j + 2 * half] * inv, x1 = o[4 * j + 2 * half + 1] * inv;
+        float x0 = o[4 * j + 2 * half] * inv, x1 = o[4 * j + 2 * half + 1] * inv;
+        if constexpr (kModes) {
+          x0 *= sv0;
+          x1 *= sv1;
+        }
         const size_t idx = (rb + row) * D + c;
         if (out_code == qa::kF32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(x0, x1);
@@ -489,6 +622,26 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// K1 without the modes (their pointers are null).
+template <int W, int QK, int V>
+__global__ void __launch_bounds__(Cfg<W, QK, V>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, QA_K1_PARAMS) {
+  flash_fwd_body<W, QK, V, false>(tm_q, tm_k, tm_v, QA_K1_ARGS);
+}
+
+// K1 with its modes, in tile configuration 0 only (flash_fwd_modes.cu).
+template <int W, int QK>
+__global__ void __launch_bounds__(Cfg<W, QK, 0>::kThreads, 1)
+flash_fwd_modes_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, QA_K1_PARAMS) {
+  flash_fwd_body<W, QK, 0, true>(tm_q, tm_k, tm_v, QA_K1_ARGS);
+}
+
+#undef QA_K1_PARAMS
+#undef QA_K1_ARGS
+
 // The arguments of one launch.
 struct Args {
   const void *q, *k, *v;
@@ -498,12 +651,29 @@ struct Args {
   float score_scale;
   int q_offset, kv_offset, left, right;
   float *m_out, *l_out;
+  const float* scale_v;                 // int8 V's (B, Hkv, D) scales, or null
+  const int *q_seg, *kv_seg;            // segment ids, or null
+  const int *tile_count, *tile_list;    // the block mask's tile lists, or null
+  int list_stride;
+  const unsigned char* granules;        // the block mask's bitmap, or null
+  int granule_cols;
   cudaStream_t stream;
 };
 
-template <int W, int QK, int V>
+// The kernel a launch takes; only that one is instantiated.
+template <int W, int QK, int V, bool kModes>
+constexpr auto k1_kernel() {
+  if constexpr (kModes) {
+    return &flash_fwd_modes_kernel<W, QK>;
+  } else {
+    return &flash_fwd_kernel<W, QK, V>;
+  }
+}
+
+template <int W, int QK, int V, bool kModes = false>
 int launch(const Args& a) {
   using C = Cfg<W, QK, V>;
+  static_assert(!kModes || V == 0, "the modes run in configuration 0");
   CUtensorMap tm_q, tm_k, tm_v = {};
   cudaError_t err =
       qa::encode_tensor_map(&tm_q, a.q, QK, a.D, a.Sq, a.B * a.Hq, C::kSpanElems, 64, C::kSpan);
@@ -511,33 +681,36 @@ int launch(const Args& a) {
     err = qa::encode_tensor_map(&tm_k, a.k, QK, a.D, a.Skv, a.B * a.Hkv, C::kSpanElems, C::kBN,
                                 C::kSpan);
   }
-  const bool v_e4m3 = a.v_code == qa::kE4M3;
-  if (err == cudaSuccess && !v_e4m3) {
+  const bool v8 = a.v_code == qa::kE4M3 || a.v_code == qa::kI8;  // widened by the producer
+  if (err == cudaSuccess && !v8) {
     err = qa::encode_tensor_map(&tm_v, a.v, a.v_code, a.D, a.Skv, a.B * a.Hkv, 64, C::kBN, 128);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_fwd_kernel<W, QK, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::kSmem);
+  const auto kernel = k1_kernel<W, QK, V, kModes>();
+  const int smem = kModes ? C::kSmemModes : C::kSmem;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.Hq * C::kSplits, a.B, (a.Sq + C::kBM - 1) / C::kBM);
-  flash_fwd_kernel<W, QK, V><<<grid, C::kThreads, C::kSmem, a.stream>>>(
-      tm_q, tm_k, tm_v, v_e4m3 ? static_cast<const unsigned char*>(a.v) : nullptr, a.sq, a.sk,
+  kernel<<<grid, C::kThreads, smem, a.stream>>>(
+      tm_q, tm_k, tm_v, v8 ? static_cast<const unsigned char*>(a.v) : nullptr, a.sq, a.sk,
       a.out, a.Hq, a.Hkv, a.Sq, a.Skv, a.D, a.v_code == qa::kF16, a.out_code, a.scaling, a.causal,
-      a.score_scale, a.q_offset, a.kv_offset, a.left, a.right, a.m_out, a.l_out);
+      a.score_scale, a.q_offset, a.kv_offset, a.left, a.right, a.m_out, a.l_out, a.v_code,
+      a.scale_v, a.q_seg, a.kv_seg, a.tile_count, a.tile_list, a.list_stride, a.granules,
+      a.granule_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int V>
+template <int W, int V, bool kModes = false>
 int launch_w(int qk_code, const Args& a) {
   switch (qk_code) {
     case qa::kBF16:
-      return launch<W, qa::kBF16, V>(a);
+      return launch<W, qa::kBF16, V, kModes>(a);
     case qa::kF16:
-      return launch<W, qa::kF16, V>(a);
+      return launch<W, qa::kF16, V, kModes>(a);
     case qa::kE4M3:
-      return launch<W, qa::kE4M3, V>(a);
+      return launch<W, qa::kE4M3, V, kModes>(a);
     default:
-      return launch<W, qa::kI8, V>(a);
+      return launch<W, qa::kI8, V, kModes>(a);
   }
 }
 
@@ -559,6 +732,8 @@ int smem_w(int qk_code) {
 // its shared-memory bytes (0 where it does not exist).
 int launch_q2(int W, int qk_code, const Args& a);
 int smem_q2(int W, int qk_code);
+// The modes kernel at width W (flash_fwd_modes.cu).
+int launch_modes(int W, int qk_code, const Args& a);
 
 }  // namespace k1
 }  // namespace qa

@@ -175,17 +175,30 @@ def can_use_attention(
 def attention(
     query, key, value, attn_mask=None, dropout_p: float = 0.0,
     is_causal: bool = False, *, scale: Optional[float] = None, window=None,
+    q_segment_ids=None, kv_segment_ids=None, block_mask=None,
 ):
     """bf16/fp16 fused attention dispatch; raises ``ValueError`` with the
-    aggregated reason when the fused kernel cannot serve the inputs."""
+    aggregated reason when the fused kernel cannot serve the inputs.
+    Segment ids and ``block_mask`` go to the raw kernel, forward-only (JAX
+    dispatch.py:224-238): with inputs that require grad they raise rather
+    than return an output cut from the graph."""
     supported, reason = can_use_attention(
         query, key, value, attn_mask, dropout_p, is_causal, scale=scale, window=window
     )
     if not supported:
         raise ValueError(f"attention is not supported for the input: {reason}")
-    if checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
+    masks = q_segment_ids is not None or kv_segment_ids is not None or block_mask is not None
+    if masks and needs_grad(query, key, value):
+        raise ValueError(
+            "attention with segment ids or a block mask is forward-only: "
+            "its inputs must not require grad"
+        )
+    if masks or checks.is_8bit_dtype(query.dtype) or checks.is_8bit_dtype(key.dtype):
         # Pre-quantized operands are not differentiable: the raw kernel.
-        return flash_attention(query, key, value, is_causal=is_causal, sm_scale=scale, window=window)
+        return flash_attention(
+            query, key, value, is_causal=is_causal, sm_scale=scale, window=window,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, block_mask=block_mask,
+        )
     return attention_with_vjp(query, key, value, is_causal=is_causal, sm_scale=scale, window=window)
 
 

@@ -13,9 +13,11 @@ inputs are forward-only.  ``scaling_method`` takes "head-wise",
 ``window = (left, right)`` is a sliding window:
 query position i sees the keys at [i - left, i + right] (``None`` an
 unbounded side; with ``is_causal`` a right extent other than 0 or None is
-refused with JAX's reason), on the kernels and the fallback alike.  The
-segment-id and block-mask arguments of ``attn_func`` raise
-``NotImplementedError`` until they are ported (ROADMAP queue 1, item 6d).
+refused with JAX's reason), on the kernels and the fallback alike.
+``attn_func`` also takes segment ids (packed documents) and ``block_mask``,
+a (ceil(Sq/128), ceil(Skv/128)) bitmap of 128 x 128 granules
+(splash-style block sparsity), forward-only, through K1 (ops/flash.py).
+``attn_func_with_fallback`` keeps JAX's signature, which has neither.
 """
 
 from __future__ import annotations
@@ -42,15 +44,16 @@ def attn_func(
     window=None, q_segment_ids=None, kv_segment_ids=None, block_mask=None,
 ):
     """Fused bf16/fp16 attention; raises ``ValueError`` when the fused
-    kernel cannot serve the inputs."""
-    if q_segment_ids is not None or kv_segment_ids is not None or block_mask is not None:
-        raise NotImplementedError(
-            "segment ids and block masks are not ported yet "
-            "(ROADMAP queue 1, item 6d)"
-        )
+    kernel cannot serve the inputs.  ``q_segment_ids`` (B, Sq) and
+    ``kv_segment_ids`` (B, Skv): a query sees only the keys of its segment;
+    ``block_mask``: a (ceil(Sq/128), ceil(Skv/128)) bool or integer bitmap,
+    a query seeing the keys of its row's active 128 x 128 granules.  With
+    either the call is forward-only (inputs that require grad raise), and
+    rows that see no key give zeros."""
     return dispatch.attention(
         query, key, value, attn_mask, dropout_p, is_causal,
-        scale=scale, window=window,
+        scale=scale, window=window, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, block_mask=block_mask,
     )
 
 

@@ -42,9 +42,11 @@ _SIGNATURES = {
     # q, k, v, scale_q, scale_k, out, B, Hq, Hkv, Sq, Skv, D,
     # q_code, k_code, v_code, out_code, scaling, causal, score_scale,
     # q_offset, kv_offset, window left, window right (1 << 30: unbounded),
-    # m_out, l_out, tiles (the tile configuration), stream
+    # m_out, l_out, tiles (the tile configuration), scale_v, q_seg, kv_seg,
+    # tile_count, tile_list, list_stride, granules, granule_cols, stream
     "qa_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _I, _P],
+                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _I,
+                     _P, _P, _P, _P, _P, _I, _P, _I, _P],
     # W, QK code, tiles -> K1's shared-memory bytes (0: no such configuration)
     "qa_flash_fwd_smem": [_I, _I, _I],
     # x, partial, codes, block_scale, row_scale, BH, S, D, W, code,

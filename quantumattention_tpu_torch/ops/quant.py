@@ -13,6 +13,7 @@ rounds half-to-even (``torch.round``, like ``jnp.round``) before the cast.
 Granularities:
   * head-wise:  reduce over [-2, -1]  -> scale shape (B, H)
   * token-wise: reduce over [-1]      -> scale shape (B, H, S)
+  * channel-wise: reduce over [-2]    -> scale shape (B, H, D) (V's, int8)
   * block-wise: blocks of ``block_rows`` rows from row 0 of (B, H, S, D)
     -> scale shape (B, H, ceil(S / block_rows)), by the formula of the JAX
     kernel's tile quantizer (flash.py:227-238), not the one above: no
@@ -139,12 +140,23 @@ def quantize_token_wise(t: torch.Tensor, qdtype=torch.float8_e4m3fn):
     return _dynamic_quantize(t, (-1,), _qmax(qdtype), qdtype)
 
 
+def quantize_channel_wise(t: torch.Tensor, qdtype=torch.int8):
+    """(B, H, S, D) -> values + (B, H, D) scales, reduced over the
+    sequence: V's scale for an 8-bit P.V (quant.py:150-160), which factors
+    out of the sum over keys into one multiply of the output's columns."""
+    return _dynamic_quantize(t, (-2,), _qmax(qdtype), qdtype)
+
+
 def dequantize(
-    t_q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32
+    t_q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32, axis: int = None
 ) -> torch.Tensor:
     """Inverse transform: the scale shape is a leading prefix of the
-    tensor shape, and trailing axes are appended."""
+    tensor shape, and trailing axes are appended.  Scales whose reduced
+    axis is interior (channel-wise (B, H, D)) name it in ``axis`` (-2
+    there), where the scale is expanded."""
     scale = scale.to(dtype)
+    if axis is not None:
+        scale = scale.unsqueeze(axis)
     while scale.ndim < t_q.ndim:
         scale = scale[..., None]
     return t_q.to(dtype) * scale

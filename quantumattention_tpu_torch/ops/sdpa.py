@@ -55,6 +55,16 @@ def position_keep(
     return keep
 
 
+def segment_keep(q_segment_ids, kv_segment_ids) -> Optional[torch.Tensor]:
+    """(B, 1, Sq, Skv) bool of the keys of each query's segment, or None
+    when neither is given (JAX sdpa.py:114-118); raises when only one is."""
+    if q_segment_ids is None and kv_segment_ids is None:
+        return None
+    if q_segment_ids is None or kv_segment_ids is None:
+        raise ValueError("both q/kv segment ids must be provided")
+    return (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])[:, None]
+
+
 def sdpa_reference(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -67,6 +77,8 @@ def sdpa_reference(
     scale_q: Optional[torch.Tensor] = None,
     scale_k: Optional[torch.Tensor] = None,
     window: Optional[tuple] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     compute_dtype=torch.float32,
     out_dtype=None,
@@ -78,7 +90,9 @@ def sdpa_reference(
     ``scale_q``/``scale_k`` dequantize pre-quantized inputs first.
     ``window`` is ``(left, right)``: query i sees key j when
     ``i - left <= j <= i + right``, ``None`` an unbounded side (JAX
-    sdpa.py:59-110).  ``dropout_p > 0`` draws its keep mask from
+    sdpa.py:59-110).  ``q_segment_ids`` (B, Sq) and ``kv_segment_ids``
+    (B, Skv), both or neither, keep the keys of each query's segment
+    (packed documents).  ``dropout_p > 0`` draws its keep mask from
     ``generator``.
     """
     if out_dtype is None:
@@ -101,6 +115,9 @@ def sdpa_reference(
     sm_scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
     logits = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
     keep = position_keep(q_len, kv_len, is_causal, window, device=q.device)
+    seg = segment_keep(q_segment_ids, kv_segment_ids)
+    if seg is not None:
+        keep = seg if keep is None else keep & seg
     if keep is not None:
         logits = logits.masked_fill(~keep, DEFAULT_MASK_VALUE)
     if attn_mask is not None:

@@ -41,6 +41,7 @@ import torch
 import quantumattention_tpu_torch as qt
 
 from quantumattention_tpu_torch.models import llama
+from quantumattention_tpu_torch.ops import flash as flash_mod
 from quantumattention_tpu_torch.ops import quant
 from quantumattention_tpu_torch.ops.decode import decode_attention, decode_attention_plain
 from quantumattention_tpu_torch.ops.flash import flash_attention, flash_attention_plain, to_16bit
@@ -1754,3 +1755,178 @@ def test_autotune_capture_guard_and_cache_hit(cuda, tmp_cache):
     torch.cuda.synchronize()
     assert autotune.timed == timed and torch.equal(eager, again)
     assert any("|path|" in key for key in autotune._load_cache())
+
+
+# ---------------------------------------------------------------------------
+# K1's modes: segment ids, block masks, int8 V
+# ---------------------------------------------------------------------------
+
+K1_MODES = ["segments", "block_mask", "int8_v"]
+
+
+def _k1_mode_args(mode, b, sq, skv, v, seed=0):
+    """The keyword arguments of ``mode`` for (b, sq, skv), with v as the
+    call takes it (int8 codes for "int8_v"), and the counter it bumps."""
+    g = torch.Generator().manual_seed(seed)
+    dev = v.device
+    if mode == "segments":
+        # Sorted ids with a gap: kv ids skip 2, so rows of segment 2 see no key.
+        q_ids = torch.sort(torch.randint(0, 4, (b, sq), generator=g), dim=1).values
+        kv_ids = torch.sort(torch.randint(0, 4, (b, skv), generator=g), dim=1).values
+        kv_ids[kv_ids == 2] = 3
+        return v, {"q_segment_ids": q_ids.to(dev), "kv_segment_ids": kv_ids.to(dev)}, "segment_launches"
+    if mode == "block_mask":
+        bm = torch.rand((-(-sq // 128), -(-skv // 128)), generator=g) < 0.6
+        bm[0] = False  # the first granule row sees no key
+        if bm.shape[0] > 1:
+            bm[1, 0] = True
+        return v, {"block_mask": bm.to(dev)}, "block_mask_launches"
+    v8, sv = quant.quantize_channel_wise(v.float(), torch.int8)
+    return v8, {"scale_v": sv}, "int8_v_launches"
+
+
+def _k1_mode_check(cuda, mode, b, hq, hkv, sq, skv, d, causal, window=None, scaling="none",
+                   residuals=False, seed=41):
+    q = _randn((b, hq, sq, d), seed, torch.bfloat16, cuda)
+    k = _randn((b, hkv, skv, d), seed + 1, torch.bfloat16, cuda)
+    v = _randn((b, hkv, skv, d), seed + 2, torch.bfloat16, cuda)
+    v, kw, counter = _k1_mode_args(mode, b, sq, skv, v, seed)
+    scales = {}
+    if scaling in ("e4m3-head", "int8-token"):
+        qdt = torch.float8_e4m3fn if scaling.startswith("e4m3") else torch.int8
+        fn = quant.quantize_head_wise if scaling.endswith("head") else quant.quantize_token_wise
+        (q, sq_), (k, sk_) = fn(q, qdt), fn(k, qdt)
+        scales = {"scale_q": sq_, "scale_k": sk_}
+    elif scaling == "per-block":
+        scales = {"fused_block_quant": True}
+    before = (flash_attention.launches, getattr(flash_attention, counter))
+    res = flash_attention(q, k, v, is_causal=causal, window=window, return_residuals=residuals,
+                          **scales, **kw)
+    assert (flash_attention.launches, getattr(flash_attention, counter)) == (before[0] + 1,
+                                                                             before[1] + 1)
+    plain = flash_attention_plain(q, k, v, is_causal=causal, window=window,
+                                  return_residuals=residuals, **scales, **kw)
+    torch.cuda.synchronize()
+    out, pout = (res[0], plain[0]) if residuals else (res, plain)
+    assert out.dtype == pout.dtype and out.shape == pout.shape
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - pout.float()).abs().max()) <= ATOL
+    keep = flash_mod.keep_mask(sq, skv, causal, window, 0, 0, cuda, kw.get("q_segment_ids"),
+                               kw.get("kv_segment_ids"), kw.get("block_mask"))
+    if keep is not None:
+        rows = keep.any(-1).expand(b, hq, sq)
+        assert not bool(out[~rows].any())  # rows that see no key: exact zeros
+    if residuals:
+        seen = rows if keep is not None else torch.ones((b, hq, sq), dtype=torch.bool, device=cuda)
+        fp8 = scaling in ("e4m3-head", "per-block")
+        m_bar, l_bar = (FP8_RESIDUAL_M_ATOL, FP8_RESIDUAL_L_RTOL) if fp8 else (1e-3, 1e-3)
+        (m, l), (pm, pl) = res[1], plain[1]
+        assert float((m - pm)[seen].abs().max()) <= m_bar
+        assert float(((l - pl).abs() / pl)[seen].max()) <= l_bar
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 512])
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_k1_modes_match_plain(cuda, mode, d, causal):
+    """Each mode at every width against the plain version (1/32), rows that
+    see no key exact zeros, one launch counted on the mode's counter."""
+    _k1_mode_check(cuda, mode, 2, 4, 2, 300, 333, d, causal)
+
+
+K1_MODE_COMBOS = {  # name: (B, Hq, Hkv, Sq, Skv, D, causal, window, scaling, residuals)
+    "window": (1, 4, 2, 400, 400, 128, True, (150, 0), "none", False),
+    "window2": (1, 4, 2, 300, 350, 64, False, (100, 60), "none", False),
+    "gqa8": (1, 8, 1, 257, 257, 128, True, None, "none", False),
+    "e4m3_head": (2, 4, 2, 300, 300, 128, True, None, "e4m3-head", False),
+    "int8_token": (1, 4, 4, 200, 260, 64, False, None, "int8-token", False),
+    "per_block": (1, 4, 2, 384, 384, 128, True, None, "per-block", False),
+    "residuals": (1, 4, 2, 300, 300, 128, True, None, "none", True),
+    "residuals_d256": (1, 2, 2, 200, 200, 256, False, None, "none", True),
+}
+
+
+@pytest.mark.parametrize("combo", sorted(K1_MODE_COMBOS))
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_k1_modes_combine(cuda, mode, combo):
+    """Each mode with windows, GQA, head-wise / token-wise / per-block
+    scaling and the residuals, against the plain version."""
+    _k1_mode_check(cuda, mode, *K1_MODE_COMBOS[combo])
+
+
+def test_k1_modes_combine_with_each_other(cuda):
+    q = _randn((2, 4, 300, 128), 51, torch.bfloat16, cuda)
+    k = _randn((2, 2, 300, 128), 52, torch.bfloat16, cuda)
+    v = _randn((2, 2, 300, 128), 53, torch.bfloat16, cuda)
+    v8, kw, _ = _k1_mode_args("int8_v", 2, 300, 300, v)
+    _, seg, _ = _k1_mode_args("segments", 2, 300, 300, v)
+    _, bm, _ = _k1_mode_args("block_mask", 2, 300, 300, v)
+    kw.update(seg, **bm)
+    out = flash_attention(q, k, v8, is_causal=True, **kw)
+    plain = flash_attention_plain(q, k, v8, is_causal=True, **kw)
+    torch.cuda.synchronize()
+    assert float((out.float() - plain.float()).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_k1_modes_refuse_tile_configuration_1(cuda, mode, monkeypatch):
+    q = _randn((1, 2, 256, 128), 61, torch.bfloat16, cuda)
+    v, kw, _ = _k1_mode_args(mode, 1, 256, 256, q)
+    monkeypatch.setattr(flash_mod, "_k1_tiles", lambda *a, **k: 1)
+    with pytest.raises(ValueError, match="tile configuration 1"):
+        flash_attention(q, q, v, **kw)
+
+
+def test_k1_block_mask_graph_replay_is_eager(cuda):
+    """A graph-captured call with the mask on the card (the tile list built
+    inside the graph) gives the eager call's bits, and follows a new mask
+    copied into the same tensor."""
+    q = _randn((1, 8, 1000, 128), 71, torch.bfloat16, cuda)
+    k = _randn((1, 2, 1000, 128), 72, torch.bfloat16, cuda)
+    v = _randn((1, 2, 1000, 128), 73, torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(74)
+    masks = [(torch.rand((8, 8), generator=g) < 0.4).to(cuda) for _ in range(2)]
+    bm = masks[0].clone()
+    call = lambda: flash_attention(q, k, v, is_causal=True, block_mask=bm)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for mask in masks:
+        bm.copy_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, flash_attention(q, k, v, is_causal=True, block_mask=mask))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_k1_trivial_masks_are_the_dense_call(cuda, monkeypatch, causal, d):
+    """An all-ones block mask and segment ids that are all equal visit the
+    same tiles in the same order and mask nothing: the dense call's bits."""
+    monkeypatch.setattr(flash_mod, "_k1_tiles", lambda *a, **k: 0)
+    q = _randn((2, 4, 333, d), 81, torch.bfloat16, cuda)
+    k = _randn((2, 2, 333, d), 82, torch.bfloat16, cuda)
+    v = _randn((2, 2, 333, d), 83, torch.bfloat16, cuda)
+    dense = flash_attention(q, k, v, is_causal=causal)
+    ones = flash_attention(q, k, v, is_causal=causal,
+                           block_mask=torch.ones((3, 3), dtype=torch.bool, device=cuda))
+    ids = torch.full((2, 333), 7, dtype=torch.int32, device=cuda)
+    same = flash_attention(q, k, v, is_causal=causal, q_segment_ids=ids, kv_segment_ids=ids)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, ones) and torch.equal(dense, same)
+
+
+def test_k1_block_table_on_card_is_the_cpu_one(cuda):
+    g = torch.Generator().manual_seed(91)
+    bm = torch.rand((20, 17), generator=g) < 0.3
+    for (rows, cols) in {c[0] for c in flash_mod.autotune.K1_TILES.values()}:
+        for causal, window in ((True, None), (False, (500, 300)), (True, (700, 0))):
+            want = flash_mod.block_table(bm, 2500, 2100, rows, cols, causal, window)
+            got = flash_mod.block_table(bm.to(cuda), 2500, 2100, rows, cols, causal, window)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
