@@ -265,9 +265,9 @@ import numpy as np
 import torch
 
 from quantumattention_tpu_torch import autotune, config, dispatch
-from quantumattention_tpu_torch.models import llama, quantized
+from quantumattention_tpu_torch.models import hf, llama, moe, quantized
 from quantumattention_tpu_torch.ops import _native, megastep, qmlp, qmm, quant
-from quantumattention_tpu_torch.ops.autodiff import exact_attention_bwd
+from quantumattention_tpu_torch.ops.autodiff import attention_with_vjp, exact_attention_bwd
 from quantumattention_tpu_torch.ops.decode import (
     KINDS,
     ROWS_PER_TILE,
@@ -540,6 +540,18 @@ K1_MODES = {"B": 4, "H": 16, "S": 8192, "D": 128, "doc": 1024, "local": 8, "glob
             "density": 0.25, "doc_min": 300, "doc_max": 2000}
 K1_INT8_V = {"B": 16, "H": 16, "S": 8192, "D": 128}
 
+#: Mixtral-8x7B (``phase_mixtral``): the slots point (the engine phase's
+#: prompts, then graph bursts of 16), the paged point (LOWBIT_PAGED's
+#: shape), one MoE layer at decode rows (4 tokens: capacity 8) and prefill
+#: rows (1500 tokens: capacity 472), training, and the checkpoint
+#: directory (full width, one layer).
+MIXTRAL_SERVE = {"slots": 4, "max_len": 2048, "burst": 16}
+MIXTRAL_PAGED = dict(LOWBIT_PAGED)
+MIXTRAL_LAYER_TOKENS = (4, 1500)
+MIXTRAL_TRAIN = {"layers": 2, "positions": 1024, "steps": 2}
+MIXTRAL_HF = {"layers": 1, "prompts": (40, 300), "new": 8}
+#: Seeds of each fuzz draw (tests/torch_fuzz_draws.py) in ``phase_fuzz``.
+FUZZ_SEEDS = 4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1452,26 +1464,39 @@ def _k23_protocol(gen) -> None:
     torch.cuda.empty_cache()
 
 
+#: Every launch count the smoke reads, as (wrapper, attribute).
+_COUNTERS = (
+    (flash_attention, "launches"), (flash_attention, "window_launches"),
+    (flash_attention, "segment_launches"), (flash_attention, "block_mask_launches"),
+    (flash_attention, "int8_v_launches"),
+    (decode_attention, "launches"), (decode_attention, "verify_launches"),
+    (decode_attention, "window_launches"),
+    (paged_decode_attention, "launches"), (paged_decode_attention, "verify_launches"),
+    (paged_decode_attention, "window_launches"),
+    (megastep.fused_decode_layer, "launches"), (megastep.fused_decode_layer, "window_launches"),
+    (qmm.quantized_matmul, "launches"), (qmm.quantized_matmul, "splitk_launches"),
+    (qmm.quantized_matmul4, "launches"), (qmlp.fused_layer_tail, "launches"),
+    (dispatch.sdpa_fallback, "calls"), (quant.block_quant, "launches"),
+)
+
+
 def _reset_counts() -> None:
-    flash_attention.launches = 0
-    flash_attention.window_launches = 0
-    decode_attention.launches = 0
-    decode_attention.verify_launches = 0
-    decode_attention.window_launches = 0
-    paged_decode_attention.verify_launches = 0
-    paged_decode_attention.window_launches = 0
-    megastep.fused_decode_layer.window_launches = 0
-    qmm.quantized_matmul.launches = 0
-    qmm.quantized_matmul.splitk_launches = 0
-    qmm.quantized_matmul4.launches = 0
-    qmlp.fused_layer_tail.launches = 0
-    megastep.fused_decode_layer.launches = 0
-    paged_decode_attention.launches = 0
-    dispatch.sdpa_fallback.calls = 0
-    quant.block_quant.launches = 0
-    flash_attention.segment_launches = 0
-    flash_attention.block_mask_launches = 0
-    flash_attention.int8_v_launches = 0
+    for obj, attr in _COUNTERS:
+        setattr(obj, attr, 0)
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """A check's own runs inside a counted window: every launch count (and
+    ``qmm.route_launches``) is as it was before the block."""
+    saved = [getattr(obj, attr) for obj, attr in _COUNTERS]
+    routes = dict(qmm.route_launches)
+    try:
+        yield
+    finally:
+        for (obj, attr), v in zip(_COUNTERS, saved):
+            setattr(obj, attr, v)
+        qmm.route_launches.update(routes)
 
 
 def _counts() -> dict:
@@ -2769,7 +2794,7 @@ def _mega_vs_unfused(backend, tree, cfg, seed: int, prompt: int = SERVE64["promp
     return float(rel.max())
 
 
-def _burst_vs_eager(backend, tree, seed: int) -> None:
+def _burst_vs_eager(backend, tree, seed: int, label: str = "serve_int8_64") -> None:
     """From one cache state, a graph-captured burst of BURST_CHECK_STEPS
     greedy steps and as many eager per-step K9 calls give equal tokens
     (the kernels are deterministic)."""
@@ -2784,7 +2809,7 @@ def _burst_vs_eager(backend, tree, seed: int) -> None:
                            np.full(slots, -1, np.int32), None, BURST_CHECK_STEPS,
                            SamplingParams(), False)
     if backend.stats["graph_replays"] - replays != BURST_CHECK_STEPS:
-        raise RuntimeError("serve_int8_64: the checked burst did not run from its captured graph")
+        raise RuntimeError(f"{label}: the checked burst did not run from its captured graph")
     for cache, n in zip(backend.caches, saved):
         cache.lengths.copy_(n)
     steps = []
@@ -2792,9 +2817,9 @@ def _burst_vs_eager(backend, tree, seed: int) -> None:
         cur = backend.decode(tree, cur, ones).argmax(-1).cpu().numpy()
         steps.append(cur)
     equal = bool((packed[0] == np.stack(steps)).all())
-    log(f"serve_int8_64 graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={slots} tokens_equal={equal}")
+    log(f"{label} graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={slots} tokens_equal={equal}")
     if not equal:
-        raise RuntimeError("serve_int8_64: the graph-captured burst's tokens differ from eager steps")
+        raise RuntimeError(f"{label}: the graph-captured burst's tokens differ from eager steps")
 
 
 def _later_bursts_ms(calls) -> float | None:
@@ -3193,18 +3218,23 @@ def _paged_k10_vs_plain(label: str, backend, tree, cfg, width: int, seed: int) -
     cur = rng.integers(0, cfg.vocab_size, len(slots))
     mask = np.ones(len(slots), bool)
 
+    # An MoE model's kernel step takes the plain step's expert choices
+    # (``_moe_routing``; a dense model has none to record).
+    routing = []
     kernel = backends.paged_decode_attention
     backends.paged_decode_attention = plain_k10_call
     try:
         before = paged_decode_attention.launches
-        ref = backend.decode(tree, cur, mask)
+        with _moe_routing(routing):
+            ref = backend.decode(tree, cur, mask)
         if paged_decode_attention.launches != before:
             raise RuntimeError(f"{label}: the plain step launched K10")
     finally:
         backends.paged_decode_attention = kernel
     backend.alloc.lengths[:] = saved
     before = paged_decode_attention.launches
-    got = backend.decode(tree, cur, mask)
+    with _moe_routing(routing, replay=True):
+        got = backend.decode(tree, cur, mask)
     torch.cuda.synchronize()
     k10 = paged_decode_attention.launches - before
     rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
@@ -3302,14 +3332,23 @@ def _serve_paged(label: str, tree, shape: dict, cache_dtype, kv_int4: bool, plai
             if same_path and off > 0 and off + tc == len(req.prompt):
                 # The same chunk through K1's plain version first, over the
                 # same quantized prefix (its own page writes are rewritten
-                # by the kernel's run below).
-                kernel = backends.flash_attention
-                backends.flash_attention = flash_attention_plain
-                try:
-                    plain_logits[rnd, req.id % shape["slots"]] = orig["prefill_chunk"](
-                        params_, tokens, req, off, tc)[0, tc - 1].clone()
-                finally:
-                    backends.flash_attention = kernel
+                # by the kernel's run below).  An MoE model's plain run
+                # takes the expert choices of a kernel run of the chunk
+                # (``_moe_routing``).  Neither run is the main path's, so
+                # both stay out of the round's counts.
+                routing = []
+                with _uncounted():
+                    if cfg.num_experts:
+                        with _moe_routing(routing):
+                            orig["prefill_chunk"](params_, tokens, req, off, tc)
+                    kernel = backends.flash_attention
+                    backends.flash_attention = flash_attention_plain
+                    try:
+                        with _moe_routing(routing, replay=True) if cfg.num_experts else contextlib.nullcontext():
+                            plain_logits[rnd, req.id % shape["slots"]] = orig["prefill_chunk"](
+                                params_, tokens, req, off, tc)[0, tc - 1].clone()
+                    finally:
+                        backends.flash_attention = kernel
             torch.cuda.synchronize()
             before = flash_attention.launches
             t = time.perf_counter()
@@ -4228,6 +4267,475 @@ def phase_mistral() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Mixtral-8x7B (MoE) and Hugging Face checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _tests_module(name: str):
+    """A helper module of tests/ by path (the fuzz draws and the checkpoint
+    writer are shared with the tests)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _moe_layer_check(tree, cfg, gen) -> dict:
+    """Layer 0's MoE FFN of the int8 tree at full width, at decode rows (4
+    tokens: capacity 8) and prefill rows (1500 tokens: capacity 472): each
+    expert product through K5/K6 (one launch an expert, 3 x E a layer)
+    against the plain einsum over the dequantized stacks in fp32, within
+    QUANT_KERNEL_REL of its largest value; the three products' device time
+    by graph replay beside their bound and the plain einsum's time."""
+    layer = tree["layers"][0]["moe"]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    recs = []
+    for n in MIXTRAL_LAYER_TOKENS:
+        x = _randn((n, cfg.hidden_size), gen)
+        logits = torch.matmul(x.float(), layer["w_router"])
+        gates, experts = moe.router_topk(logits, k)
+        cap = moe.expert_capacity(n, e, k, cfg.capacity_factor)
+        dispatch_t, _ = moe.make_dispatch_combine(gates, experts, e, cap)
+        x_e = torch.einsum("nec,nh->ech", dispatch_t.to(x.dtype), x).contiguous()
+
+        def products():
+            gate = quantized.matmul(x_e, layer["w_gate"])
+            up = quantized.matmul(x_e, layer["w_up"])
+            act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+            return gate, up, act, quantized.matmul(act, layer["w_down"])
+
+        def plain(inp, w):
+            return torch.matmul(inp.float(), w["q"].float() * w["s"])
+
+        before = (dict(qmm.route_launches), qmm.quantized_matmul.launches, qmm.quantized_matmul.splitk_launches)
+        gate, up, act, down = products()
+        torch.cuda.synchronize()
+        rec = {"tokens": n, "capacity": cap, "wgmma_launches": qmm.route_launches["wgmma"] - before[0]["wgmma"],
+               "k5_launches": qmm.quantized_matmul.launches - before[1],
+               "k6_launches": qmm.quantized_matmul.splitk_launches - before[2]}
+        for name, got, inp, w in (("w_gate", gate, x_e, layer["w_gate"]), ("w_up", up, x_e, layer["w_up"]),
+                                  ("w_down", down, act, layer["w_down"])):
+            rec[f"{name}_rel_vs_plain"] = max_rel(got, plain(inp, w))
+        with config.patch({"kernel.qmm": False}):
+            rec["plain_ms"] = time_ms(products, iters=3, warmup=1)
+        rec["ms"] = graph_ms(products, reps=2, iters=5)
+        nbytes = sum(_weight_bytes(layer[name]) for name in ("w_gate", "w_up", "w_down"))
+        nbytes += 2 * (2 * x_e.numel() + 2 * act.numel() + down.numel())
+        rec.update(bound(nbytes, {"bf16": 2.0 * 3 * e * cap * cfg.hidden_size * cfg.intermediate_size}))
+        with config.patch({"kernel.qmm": False}):
+            ref = moe.moe_ffn(layer, x, num_experts_per_tok=k, capacity_factor=cfg.capacity_factor)
+        got = moe.moe_ffn(layer, x, num_experts_per_tok=k, capacity_factor=cfg.capacity_factor)
+        rec["moe_ffn_rel_fro_vs_plain"] = rel_fro(got, ref)
+        recs.append(rec)
+        log("mixtral_moe_layer " + json.dumps(rec))
+        if rec["wgmma_launches"] != 3 * e or rec["k5_launches"] + rec["k6_launches"] != 3 * e:
+            raise RuntimeError(f"mixtral_moe_layer: {rec['wgmma_launches']} launches for 3 x {e} products")
+        if not all(rec[f"{w}_rel_vs_plain"] <= QUANT_KERNEL_REL for w in ("w_gate", "w_up", "w_down")):
+            raise RuntimeError(f"mixtral_moe_layer: expert products off the plain einsum: {rec}")
+        del x_e, gate, up, act, down, ref, got
+        torch.cuda.empty_cache()
+    return {"decode": recs[0], "prefill": recs[-1]}
+
+
+@contextlib.contextmanager
+def _moe_routing(recorded: list, replay: bool = False):
+    """Record each MoE layer's expert choices in order (``recorded`` gets
+    each ``router_topk``'s experts), or replay them: a run then takes the
+    recorded experts, its gates the softmax of its own logits at them, so
+    capacity and drops follow the recorded run.  A random-weight MoE's
+    routing is chaotic: a rounding difference flips a near-tied choice and
+    shifts every later token's place in an expert's queue (PERF.md §6,
+    Mixtral), so a comparison of numerics holds the choices fixed.
+    ``_moe_routing.flips`` counts the tokens whose own choices in the
+    replaying run differ, of ``_moe_routing.choices``."""
+    orig = moe.router_topk
+    it = iter(list(recorded))
+
+    def recording(logits, k):
+        gates, experts = orig(logits, k)
+        recorded.append(experts)
+        return gates, experts
+
+    def replaying(logits, k):
+        experts = next(it)
+        own = orig(logits, k)[1]
+        _moe_routing.flips += int((own.sort(-1).values != experts.sort(-1).values).any(-1).sum())
+        _moe_routing.choices += experts.shape[0]
+        return torch.softmax(logits.gather(-1, experts.long()), dim=-1), experts
+
+    moe.router_topk = replaying if replay else recording
+    try:
+        yield
+    finally:
+        moe.router_topk = orig
+
+
+_moe_routing.flips = 0
+_moe_routing.choices = 0
+
+
+def _prefill_vs_plain_k1(label: str, params, cfg, prefills) -> float:
+    """Each served prefill batch again through the kernels (recording the
+    expert choices; bit for bit the served logits), then through K1's plain
+    version and the plain weight products with those choices
+    (``_moe_routing``): every row's last-position logits within
+    PREFILL_REL_BOUND of the served ones.  Logs how many of the plain
+    run's own choices differ.  Returns the worst relative error."""
+    worst = 0.0
+    for tokens, last_pos, logits in prefills:
+        routing = []
+        last = torch.tensor(last_pos, device="cuda")
+        with _moe_routing(routing):
+            again, _ = llama.forward_prefill(params, tokens, cfg, last_pos=last)
+        repeat = bool(torch.equal(again, logits))
+        del again
+        kernel = dispatch.flash_attention
+        dispatch.flash_attention = flash_attention_plain
+        _moe_routing.flips = _moe_routing.choices = 0
+        try:
+            before = _counts()
+            with config.patch({"kernel.qmm": False}), _moe_routing(routing, replay=True):
+                ref, _ = llama.forward_prefill(params, tokens, cfg, last_pos=last)
+            after = _counts()
+        finally:
+            dispatch.flash_attention = kernel
+        if any(after[key] != before[key] for key in ("k1", "k5", "k6")):
+            raise RuntimeError(f"{label}: the plain prefill launched a kernel: {before} -> {after}")
+        for i, pos in enumerate(last_pos):
+            rel = rel_fro(logits[i], ref[i])
+            log(f"{label} prefill rows={tuple(tokens.shape)} len={pos + 1} rel_err_vs_plain_k1={rel} "
+                f"argmax_agree={bool(logits[i].argmax() == ref[i].argmax())} kernel_repeat_bitwise={repeat} "
+                f"plain_own_choices_differing={_moe_routing.flips}/{_moe_routing.choices}")
+            if not bool(torch.isfinite(logits[i]).all()) or not repeat:
+                raise RuntimeError(f"{label}: prefill logits not finite or not repeatable")
+            worst = max(worst, rel)
+        del ref
+    log(f"{label} prefill worst_rel_err_vs_plain_k1={worst} bound={PREFILL_REL_BOUND}")
+    if not worst < PREFILL_REL_BOUND:
+        raise RuntimeError(f"{label}: prefill logits off the plain run by {worst}")
+    return worst
+
+
+def _mixtral_step_checks(label: str, eng, tree, cfg) -> None:
+    """On the served engine's backend: 4 slots prefilled, one decode step
+    through K4 and K5/K6 against the same step through their plain versions
+    with the kernel step's expert choices (``_moe_routing``; lengths
+    restored between: the step rewrites the same rows), within
+    DECODE_K8_REL_BOUND a slot; then a graph-captured burst against eager
+    steps, token for token."""
+    backend = eng._backend
+    L, e = cfg.num_layers, cfg.num_experts
+    rng = np.random.default_rng(31)
+    lens = [100, 37, 128, 64]
+    tokens = torch.zeros((4, 128), dtype=torch.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+    slots = [0, 1, 2, 3]
+    backend.prefill_and_write(eng._prefill_fn, tree, tokens.cuda(), [n - 1 for n in lens], slots, lens, 128)
+    saved = [cache.lengths.clone() for cache in backend.caches]
+    cur = rng.integers(0, cfg.vocab_size, 4)
+    mask = np.ones(4, bool)
+    routing = []
+    before = _counts()
+    with _moe_routing(routing):
+        got = backend.decode(tree, cur, mask, slots)
+    torch.cuda.synchronize()
+    ran = {key: _counts()[key] - before[key] for key in ("k4", "k5", "k6", "k8", "k9")}
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    kernel = backends.decode_attention
+    backends.decode_attention = plain_k4_call
+    _moe_routing.flips = _moe_routing.choices = 0
+    try:
+        before = _counts()
+        with config.patch({"kernel.qmm": False}), _moe_routing(routing, replay=True):
+            ref = backend.decode(tree, cur, mask, slots)
+        after = _counts()
+    finally:
+        backends.decode_attention = kernel
+    if any(after[key] != before[key] for key in ("k4", "k5", "k6")):
+        raise RuntimeError(f"{label}: the plain step launched a kernel: {before} -> {after}")
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    rel = torch.linalg.vector_norm(got - ref, dim=-1) / torch.linalg.vector_norm(ref, dim=-1)
+    agree = (got.argmax(-1) == ref.argmax(-1)).tolist()
+    log(f"{label} step_vs_plain launches={json.dumps(ran)} rel_err={rel.tolist()} argmax_agree={agree} "
+        f"plain_own_choices_differing={_moe_routing.flips}/{_moe_routing.choices} bound={DECODE_K8_REL_BOUND}")
+    # A step: K4 a layer; wq, wk, wv, wo and 3 x E expert products a layer
+    # and the LM head through K5/K6; neither K8 nor K9 (MoE runs unfused).
+    if ran["k4"] != L or ran["k5"] + ran["k6"] != L * (4 + 3 * e) + 1 or ran["k8"] or ran["k9"]:
+        raise RuntimeError(f"{label}: a decode step launched {ran}")
+    if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
+        raise RuntimeError(f"{label}: the step is off its plain step by {rel.tolist()}")
+    _burst_vs_eager(backend, tree, seed=32, label=label)
+    for slot in slots:
+        backend.release(slot)
+
+
+def phase_serve_mixtral(tree, cfg) -> dict:
+    """Mixtral-8x7B's int8 tree on the slots backend: 4 slots of 2048 rows,
+    an int8 cache, 6 greedy requests (prompts of 57 to 1500 tokens, 16-32
+    new tokens), a step at a time, then the same in graph bursts of 16.
+    Checks: K1 every layer of every prefill, K4 every layer of every step,
+    every expert product through K5/K6, neither K8 nor K9 nor SDPA; each
+    prefill batch's logits against the same batch through K1's plain
+    version and the plain products; the burst run's tokens equal to the
+    step-at-a-time run's; then the step checks (``_mixtral_step_checks``).
+    Logs ms a decode step and prefill tok/s beside the weight-read bound."""
+    L, e = cfg.num_layers, cfg.num_experts
+    eng = Engine(tree, cfg, num_slots=MIXTRAL_SERVE["slots"], max_len=MIXTRAL_SERVE["max_len"],
+                 cache_dtype=torch.int8, device="cuda")
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    new = [int(rng.integers(16, 33)) for _ in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+    run = _timed_engine(eng)
+    launches, stats = run["launches"], run["stats"]
+    # A step reads every leaf but the embedding table (a row a slot); dense
+    # dispatch runs all experts, so every expert stack is read whole.
+    step_bytes = _weight_bytes(tree) - _weight_bytes(tree["embed"])
+    rec = {"stats": stats, "launches": launches, "wall_s": run["wall_s"],
+           "prefill_tok_s": stats["prefill_tokens"] / run["prefill_s"], "prefill_ms": run["prefill_ms"],
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "decode_tok_s": (stats["generated_tokens"] - len(reqs)) / run["decode_s"],
+           "weight_bytes_per_step": step_bytes, "weight_read_bound_ms": 1e3 * step_bytes / HBM_BYTES_S,
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+    log("serve_mixtral " + json.dumps(rec))
+    for r in reqs:
+        if not r.done or len(r.output) != r.max_new_tokens:
+            raise RuntimeError(f"serve_mixtral: request {r.id} ended with {len(r.output)} tokens")
+    products = L * 3 * e * (stats["prefill_forwards"] + stats["decode_steps"])
+    if (launches["k1"] < L * stats["prefill_forwards"] or launches["k4"] < L * stats["decode_steps"]
+            or launches["k5"] + launches["k6"] < products or launches["k8"] or launches["k9"]
+            or launches["sdpa_fallback"]):
+        raise RuntimeError(f"serve_mixtral: launches {launches} for {stats}")
+    _prefill_vs_plain_k1("serve_mixtral", tree, cfg, run["prefills"])
+    run["prefills"].clear()
+    eager = [list(r.output) for r in reqs]
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+    burst = _timed_engine(eng, burst=MIXTRAL_SERVE["burst"])
+    burst["prefills"].clear()
+    brec = {"launches": burst["launches"], "backend": dict(eng._backend.stats),
+            "burst_ms_per_step": burst["burst_ms_per_step"],
+            "weight_read_bound_ms": 1e3 * step_bytes / HBM_BYTES_S,
+            "tokens_equal_eager": [list(r.output) for r in reqs] == eager}
+    log("serve_mixtral_burst " + json.dumps(brec))
+    if not brec["tokens_equal_eager"]:
+        raise RuntimeError("serve_mixtral: the burst run's tokens differ from the eager run's")
+    _mixtral_step_checks("serve_mixtral", eng, tree, cfg)
+    total = {key: launches[key] + burst["launches"][key] for key in launches}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_mixtral_paged(tree, cfg) -> dict:
+    """The same tree on the paged backend (``_serve_paged`` at
+    MIXTRAL_PAGED: 4 slots, pages of 128, chunks of 256, prompts sharing a
+    prefix, cold then hot, bursts through K10, chunked K1 with q_offset);
+    each round's final chunk is held against the same chunk through K1's
+    plain version (the same rows, so the same expert capacity)."""
+    total = _serve_paged("serve_mixtral_paged", tree, MIXTRAL_PAGED, torch.int8, False,
+                         plain_flags={"kernel.qmm": False}, cfg=cfg)
+    if total["k10"] <= 0 or total["k1"] <= 0 or total["k5"] + total["k6"] <= 0:
+        raise RuntimeError(f"serve_mixtral_paged: launches {total}")
+    return total
+
+
+def phase_mixtral_train() -> dict:
+    """``mixtral_8x7b(num_layers=2)`` at full width, seeded bf16 weights,
+    batch 1 over 1024 positions, 2 SGD steps through the fp8 path (K1-K3):
+    finite losses, the first within LOSS_REL_BOUND of the SDPA path's, and
+    in every layer, every expert of each stack (gate, up, down) and its
+    router column moved."""
+    cfg = llama.mixtral_8x7b(num_layers=MIXTRAL_TRAIN["layers"])
+    params = llama.init_params(torch.Generator("cuda").manual_seed(33), cfg, "cuda")
+    rng = np.random.default_rng(33)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, MIXTRAL_TRAIN["positions"] + 1))).cuda()
+    with torch.no_grad():
+        plain_loss = float(llama.loss_fn(params, tokens, dataclasses.replace(cfg, attention_impl="sdpa")))
+    before = [{name: layer["moe"][name].clone() for name in ("w_router", "w_gate", "w_up", "w_down")}
+              for layer in params["layers"]]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    steps = []
+    for i in range(MIXTRAL_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = llama.train_step(params, tokens, cfg)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        steps.append({"step": i, "loss": loss, "ms": 1e3 * sec, "tok_s": MIXTRAL_TRAIN["positions"] / sec})
+    launches = _train_counts()
+    # Per expert: the share of its entries that changed (the router's
+    # expert e is its column e, a stack's is its slice [e]).
+    moved = [{name: (layer["moe"][name] != old[name]).movedim(-1 if name == "w_router" else 0, 0)
+              .flatten(1).float().mean(1).tolist() for name in old}
+             for layer, old in zip(params["layers"], before)]
+    rec = {"layers": cfg.num_layers, "positions": MIXTRAL_TRAIN["positions"], "steps": steps,
+           "plain_loss": plain_loss, "first_loss_rel_err": abs(steps[0]["loss"] - plain_loss) / abs(plain_loss),
+           "moved_fraction": moved, "launches": launches, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+    log("mixtral_train " + json.dumps(rec))
+    L, n = cfg.num_layers, MIXTRAL_TRAIN["steps"]
+    if not all(np.isfinite(s["loss"]) for s in steps) or not rec["first_loss_rel_err"] < LOSS_REL_BOUND:
+        raise RuntimeError(f"mixtral_train: losses {steps} vs plain {plain_loss}")
+    if (launches["k1"] < 2 * L * n or launches["k2"] < L * n or launches["k3"] < L * n
+            or launches["sdpa_fallback"]):
+        raise RuntimeError(f"mixtral_train: launches {launches}")
+    if not all(v > 0 for layer in moved for per_expert in layer.values() for v in per_expert):
+        raise RuntimeError(f"mixtral_train: a weight did not move: {moved}")
+    del params, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_from_hf() -> dict:
+    """A Mixtral checkpoint directory at full width and one layer, written
+    from seeded tensors by tests/torch_hf_checkpoint.py (``config.json`` as
+    ``MixtralConfig`` spells it, one ``model.safetensors`` in transformers'
+    key names) in a temporary
+    directory, loaded by ``Engine.from_hf(quantize_weights=True)`` on the
+    card: the tree equals ``hf.params_from_hf`` over the same tensors in
+    memory bit for bit, and the full-precision tree quantized after the
+    fact, and the engine serves 2 requests."""
+    ckpt = _tests_module("torch_hf_checkpoint")
+    cfg = llama.mixtral_8x7b(num_layers=MIXTRAL_HF["layers"])
+    sd = ckpt.mixtral_hf_state_dict(cfg, torch.Generator("cuda").manual_seed(34))
+    root = tempfile.mkdtemp(prefix="qa_mixtral_hf_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.write_mixtral_checkpoint(root, cfg, sd)
+        write_s = time.perf_counter() - t0
+        file_gb = os.path.getsize(os.path.join(root, "model.safetensors")) / 1e9
+        t0 = time.perf_counter()
+        eng = Engine.from_hf(root, quantize_weights=True, num_slots=2, max_len=512, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = hf.params_from_hf(sd, eng.cfg, quantize=True, device="cuda")
+        pairs = list(ckpt.tree_pairs(eng.params, ref))
+        equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+        del ref, pairs
+        # Streamed: equal to the full-precision tree quantized after the fact.
+        after = quantized.quantize_params(hf.params_from_hf(sd, eng.cfg, device="cuda"))
+        streamed = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in ckpt.tree_pairs(eng.params, after))
+        leaves = sum(1 for _ in ckpt.tree_pairs(eng.params, after))
+        del after
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(35)
+        reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=MIXTRAL_HF["new"])
+                for n in MIXTRAL_HF["prompts"]]
+        run = _timed_engine(eng)
+        run["prefills"].clear()
+        rec = {"layers": cfg.num_layers, "file_GB": file_gb, "write_s": write_s, "load_s": load_s,
+               "leaves": leaves, "tree_equal_in_memory": equal, "tree_equal_quantized_after": streamed,
+               "config_equal": eng.cfg == cfg,
+               "outputs": [len(r.output) for r in reqs], "launches": run["launches"]}
+        log("from_hf " + json.dumps(rec))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not (equal and streamed and rec["config_equal"]):
+        raise RuntimeError(f"from_hf: the loaded tree or config differs: {rec}")
+    if any(not r.done or len(r.output) != MIXTRAL_HF["new"] for r in reqs):
+        raise RuntimeError(f"from_hf: requests ended with {rec['outputs']}")
+    if run["launches"]["k1"] <= 0 or run["launches"]["k4"] <= 0:
+        raise RuntimeError(f"from_hf: launches {run['launches']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_mixtral() -> dict:
+    """Mixtral-8x7B at full width and depth (``llama.mixtral_8x7b()``,
+    seeded random weights, nothing downloaded): the int8 tree drawn and
+    quantized matrix by matrix on the card (int8 attention projections and
+    expert stacks, fp32 routers), one MoE layer's checks, ``serve_mixtral``
+    and ``serve_mixtral_paged`` on it; then ``mixtral_train`` and
+    ``from_hf``.  Returns each kernel's launches on these paths."""
+    cfg = llama.mixtral_8x7b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree = quantized.init_quantized_params(torch.Generator("cuda").manual_seed(30), cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"mixtral init_quantized_params_s={time.perf_counter() - t0:.3f} "
+        f"weights_GB={_weight_bytes(tree) / 1e9:.3f} allocated_GB={torch.cuda.memory_allocated() / 1e9:.3f}")
+    _moe_layer_check(tree, cfg, torch.Generator("cuda").manual_seed(36))
+    slots = phase_serve_mixtral(tree, cfg)
+    paged = phase_serve_mixtral_paged(tree, cfg)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_mixtral_train()
+    from_hf = phase_from_hf()
+    runs = (slots, paged, from_hf)
+    return {"k1": sum(r["k1"] for r in runs) + train["k1"], "k2": train["k2"], "k3": train["k3"],
+            "k4": slots["k4"] + from_hf["k4"], "k5": sum(r["k5"] for r in runs),
+            "k6": sum(r["k6"] for r in runs), "k10": paged["k10"]}
+
+
+def phase_fuzz() -> None:
+    """The CPU fuzz's seeded configurations (tests/torch_fuzz_draws.py) on
+    the card, FUZZ_SEEDS of each: K1 (with its modes) against its plain
+    version on the same inputs (the wrapper on CPU copies) within the
+    RMSE bar; the backward (K1, K2, K3 through ``attention_with_vjp``, bf16)
+    against the plain backward within GRAD_BAR; K4 over int8, int4 and bf16
+    caches within the decode bars."""
+    draws = _tests_module("torch_fuzz_draws")
+    for seed in range(FUZZ_SEEDS):
+        c = draws.forward_case(seed)
+        q, k, v, kw = draws.forward_inputs(c, "cuda")
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, is_causal=c["is_causal"], window=c["window"], **kw)
+        launched = flash_attention.launches - before
+        cq, ck, cv, ckw = draws.to_cpu((q, k, v, kw))
+        plain = flash_attention(cq, ck, cv, is_causal=c["is_causal"], window=c["window"], **ckw)
+        rec = {key: c[key] for key in ("seed", "hq", "hkv", "sq", "skv", "d", "dtype", "is_causal", "window",
+                                       "mode")}
+        rec.update(launches=launched, rmse_vs_plain=rmse(out.cpu(), plain), bar=RMSE_BAR)
+        log("fuzz k1 " + json.dumps(rec))
+        if launched != 1 or not rec["rmse_vs_plain"] < RMSE_BAR:
+            raise RuntimeError(f"fuzz k1: {rec}")
+    for seed in range(FUZZ_SEEDS):
+        c = draws.backward_case(seed)
+        g = torch.Generator("cuda").manual_seed(1000 + seed)
+        shapes_ = [(1, c["hq"], c["sq"], c["d"]), (1, c["hkv"], c["sq"], c["d"]), (1, c["hkv"], c["sq"], c["d"])]
+        inputs = [_randn(s, g) for s in shapes_]
+        before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        grads = []
+        for dev_inputs in (inputs, draws.to_cpu(inputs)):
+            leaves = [t.clone().requires_grad_(True) for t in dev_inputs]
+            out = attention_with_vjp(*leaves, is_causal=c["is_causal"])
+            grads.append(torch.autograd.grad((out.float() ** 2).sum(), leaves))
+        rec = {**c, "launches": [flash_bwd_dq.launches - before[0], flash_bwd_dkv.launches - before[1]],
+               "bar": GRAD_BAR}
+        for name, a, b in zip(("dq", "dk", "dv"), *grads):
+            rec[f"{name}_rel_vs_plain"] = max_rel(a.cpu(), b)
+        log("fuzz k23 " + json.dumps(rec))
+        if rec["launches"] != [1, 1] or not all(rec[f"{n}_rel_vs_plain"] < GRAD_BAR for n in ("dq", "dk", "dv")):
+            raise RuntimeError(f"fuzz k23: {rec}")
+    for seed in range(FUZZ_SEEDS):
+        c = draws.decode_case(seed)
+        q, kc, vc, lengths, kw = draws.decode_inputs(c, "cuda")
+        before = decode_attention.launches
+        out = decode_attention(q, kc, vc, lengths, **kw)
+        launched = decode_attention.launches - before
+        plain = decode_attention(*draws.to_cpu((q, kc, vc, lengths)), **draws.to_cpu(kw))
+        rec = {**c, "launches": launched, **decode_vs_plain(out.cpu(), plain, c["lens"])}
+        log("fuzz k4 " + json.dumps(rec))
+        if launched != 1 or not decode_close(rec):
+            raise RuntimeError(f"fuzz k4: {rec}")
+
+
+# ---------------------------------------------------------------------------
 # Per-block quantization (the quantizer kernel and K1's per-block mode), K1's
 # tile configurations and the autotuner
 # ---------------------------------------------------------------------------
@@ -4926,6 +5434,10 @@ def _main() -> int:
     if "--k1-modes-only" in sys.argv[1:]:
         phase_k1_modes(gen)
         return 0
+    if "--mixtral-only" in sys.argv[1:]:
+        phase_fuzz()
+        log("mixtral launches " + json.dumps(phase_mixtral()))
+        return 0
     if "--quant-prefill-only" in sys.argv[1:]:
         params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
         for label, quant_fn in (("serve_int8", quantized.quantize_params),
@@ -4944,6 +5456,7 @@ def _main() -> int:
     k4 = phase_k4(gen)
     phase_k1_residuals(gen)
     k23 = phase_k23(gen)
+    phase_fuzz()
     k567 = phase_qmm(gen)
     k8 = phase_k8(gen)
     k9 = phase_k9(gen)
@@ -4966,25 +5479,26 @@ def _main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mistral = phase_mistral()
+    mixtral = phase_mixtral()
     k23["dq"]["library_ms"] = k23["dkv"]["library_ms"] = phase_sdpa_backward(gen)
     phase_split(gen)  # last: the profiler stays out of every other phase's timings
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], "launches_window": mistral["k1"],
-         **k1, **window["k1"]},
+         "launches_moe": mixtral["k1"], **k1, **window["k1"]},
         {"name": "decode", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches["k4"], "launches_verify": spec["k4_verify"],
-         "launches_window": mistral["k4"], **k4, **window["k4"]},
+         "launches_window": mistral["k4"], "launches_moe": mixtral["k4"], **k4, **window["k4"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": K23_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2"], "launches_window": mistral["k2"],
-         **k23["dq"], **window["dq"]},
+         "launches_moe": mixtral["k2"], **k23["dq"], **window["dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
          "replaces": K3_REPLACES, "launches": train["k3"], "launches_window": mistral["k3"],
-         **k23["dkv"], **window["dkv"]},
+         "launches_moe": mixtral["k3"], **k23["dkv"], **window["dkv"]},
         {"name": "qmm", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K5_REPLACES,
-         "launches": q8["k5"] + q4["k5"], **k567["k5"]},
+         "launches": q8["k5"] + q4["k5"], "launches_moe": mixtral["k5"], **k567["k5"]},
         {"name": "qmm_splitk", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K6_REPLACES,
-         "launches": q8["k6"] + q4["k6"], **k567["k6"]},
+         "launches": q8["k6"] + q4["k6"], "launches_moe": mixtral["k6"], **k567["k6"]},
         {"name": "qmm4", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K7_REPLACES,
          "launches": q4["k7"], **k567["k7"]},
         {"name": "layer_tail", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
@@ -4994,7 +5508,7 @@ def _main() -> int:
          **k9, **window["k9"]},
         {"name": "paged_decode", "route": "cuda", "source": K10_SOURCE,
          "replaces": K10_REPLACES, "launches": paged["k10"], "launches_verify": spec["k10_verify"],
-         "launches_window": mistral["k10"], **k10, **window["k10"]},
+         "launches_window": mistral["k10"], "launches_moe": mixtral["k10"], **k10, **window["k10"]},
         {"name": "block_quant", "route": "cuda", "source": BLOCK_QUANT_SOURCE,
          "replaces": BLOCK_QUANT_REPLACES, "launches": per_block["block_quant"], **bq},
     ]
@@ -5004,7 +5518,7 @@ def _main() -> int:
         "misses_in_capture": autotune.misses_in_capture}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0 or any(
         k.get(key, 1) <= 0 for key in ("launches_verify", "launches_window", "launches_segments",
-                                       "launches_block_mask", "launches_int8_v"))]
+                                       "launches_block_mask", "launches_int8_v", "launches_moe"))]
     if idle:
         raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

@@ -11,13 +11,15 @@ Layout assumed: the Llama tree of the JAX package — ``embed`` (V, E),
 ``final_norm`` (E,) fp32, optional ``lm_head`` (E, V), and a ``layers``
 list whose dicts hold ``attn_norm``/``mlp_norm`` (E,) fp32, the
 projections ``wq``/``wk``/``wv``/``wo``/``w_gate``/``w_up``/``w_down`` or
-their fused ``w_qkv``/``w_gate_up``, and optional ``bq``/``bk``/``bv``.
-Any projection (and the embedding) may be a quantized dict, int8
-``{"q", "s"}`` or int4 ``{"q4", "s"}``.  Both packages store weights (in,
-out), so no transposes happen; bfloat16 arrays (ml_dtypes) are
-reinterpreted bit for bit.  MoE trees are refused.  ``params_to_numpy`` is
-the inverse, so a test can hold this package's gradients and updated
-parameters against the JAX tree.
+their fused ``w_qkv``/``w_gate_up``, and optional ``bq``/``bk``/``bv``;
+an MoE layer holds a ``moe`` subtree in place of the MLP projections
+(``w_router`` (E, experts) fp32 and the 3-D expert stacks
+``w_gate``/``w_up``/``w_down``).  Any projection (and the embedding, and
+each expert stack) may be a quantized dict, int8 ``{"q", "s"}`` or int4
+``{"q4", "s"}``.  Both packages store weights (in, out), so no transposes
+happen; bfloat16 arrays (ml_dtypes) are reinterpreted bit for bit.
+``params_to_numpy`` is the inverse, so a test can hold this package's
+gradients and updated parameters against the JAX tree.
 """
 
 from __future__ import annotations
@@ -53,8 +55,6 @@ def params_from_numpy(tree: Any, cfg: LlamaConfig, device=None) -> Params:
     """Numpy leaves of a JAX Llama tree -> torch tensors on ``device`` (the
     CUDA card unless it says otherwise)."""
     device = checks.default_device(device)
-    if any("moe" in layer for layer in tree["layers"]):
-        raise NotImplementedError("MoE trees are not ported yet (ROADMAP queue 1, item 18)")
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(
             f"tree has {len(tree['layers'])} layers, config {cfg.num_layers}"

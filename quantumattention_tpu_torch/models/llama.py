@@ -21,7 +21,10 @@ layer's QKV, and ``forward_decode`` takes the lean T=1 decode path
 (llama.py:573-637 of the JAX package).  ``LlamaConfig.window`` is a
 sliding window in HF's convention (``window = w``: each query sees w keys,
 itself included, the left extent w - 1; JAX llama.py:283-299), as Mistral
-has it (:func:`mistral_7b`).  Not yet: MoE FFNs (ROADMAP queue 1, item 18).
+has it (:func:`mistral_7b`).  ``LlamaConfig.num_experts`` > 0 replaces
+every MLP with a Mixtral-style MoE FFN (``models/moe.moe_ffn``, :func:`
+mixtral_8x7b`); such a layer always takes the unfused path, as in JAX (the
+lean decode, K8 and K9 refuse MoE).
 """
 
 from __future__ import annotations
@@ -64,16 +67,16 @@ class LlamaConfig:
     window: Optional[int] = None
     tie_embeddings: bool = False
     qkv_bias: bool = False
-    #: Mixture-of-Experts FFN: not ported yet, must stay 0.
+    #: Mixture-of-Experts FFN (Mixtral style): 0 = dense SwiGLU; > 0
+    #: replaces every MLP with ``models/moe.moe_ffn`` over this many
+    #: experts (top-``num_experts_per_tok`` routing, capacity dropping).
     num_experts: int = 0
+    num_experts_per_tok: int = 2
+    capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1 keys or None, got {self.window}")
-        if self.num_experts:
-            raise NotImplementedError(
-                "MoE models are not ported yet (ROADMAP queue 1, item 18)"
-            )
 
     @property
     def q_dim(self) -> int:
@@ -120,6 +123,27 @@ def mistral_7b(**overrides) -> LlamaConfig:
     )
 
 
+def mixtral_8x7b(**overrides) -> LlamaConfig:
+    """Mixtral-8x7B's published shapes (``mistralai/Mixtral-8x7B-v0.1``):
+    the Mistral block with 8 SwiGLU experts a layer, top-2 routing, and no
+    sliding window."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_q_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=1000000.0,
+            num_experts=8,
+            num_experts_per_tok=2,
+        ),
+        **overrides,
+    )
+
+
 def tiny(**overrides) -> LlamaConfig:
     """Small config for tests (the JAX package's ``tiny``)."""
     return dataclasses.replace(
@@ -150,7 +174,9 @@ def init_params(
     cfg.dtype, drawn from ``generator`` on ``device`` (the generator's
     device by default).  One fp32 matrix is live at a time.
     ``transform(name, w)`` replaces each matrix as soon as it is drawn
-    (``quantized.init_quantized_params`` quantizes it there)."""
+    (``quantized.init_quantized_params`` quantizes it there); an MoE
+    layer's expert stacks come as ``"moe.w_gate"`` etc.  (the router,
+    fp32, is not transformed)."""
     device = torch.device(device if device is not None else generator.device)
 
     def dense(shape, name):
@@ -184,10 +210,21 @@ def init_params(
             wv=dense((cfg.hidden_size, cfg.kv_dim), "wv"),
             wo=dense((cfg.q_dim, cfg.hidden_size), "wo"),
             mlp_norm=ones(cfg.hidden_size),
-            w_gate=dense((cfg.hidden_size, cfg.intermediate_size), "w_gate"),
-            w_up=dense((cfg.hidden_size, cfg.intermediate_size), "w_up"),
-            w_down=dense((cfg.intermediate_size, cfg.hidden_size), "w_down"),
         )
+        if cfg.num_experts > 0:
+            from . import moe
+
+            layer["moe"] = moe.init_moe_params(
+                generator, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                dtype=cfg.dtype, device=device,
+                transform=None if transform is None else lambda n, w: transform("moe." + n, w),
+            )
+        else:
+            layer.update(
+                w_gate=dense((cfg.hidden_size, cfg.intermediate_size), "w_gate"),
+                w_up=dense((cfg.hidden_size, cfg.intermediate_size), "w_up"),
+                w_down=dense((cfg.intermediate_size, cfg.hidden_size), "w_down"),
+            )
         params["layers"].append(layer)
     return params
 
@@ -315,6 +352,13 @@ def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None):
 
 def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts > 0:
+        from . import moe
+
+        # Capacity counts every row of x: padding rows of a prefill and the
+        # idle slots of a decode step included, as in the JAX engine.
+        return x + moe.moe_ffn(layer["moe"], h, num_experts_per_tok=cfg.num_experts_per_tok,
+                               capacity_factor=cfg.capacity_factor)
     if "w_gate_up" in layer:
         gate, up = quantized.matmul(h, layer["w_gate_up"]).chunk(2, dim=-1)
     else:
@@ -504,10 +548,11 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
 
 def leaves(tree: Params) -> List[torch.Tensor]:
     """The tensors of a parameter tree, in a fixed order (top-level keys,
-    then each layer's)."""
+    then each layer's, an MoE subtree's in its own order)."""
     out = [v for k, v in tree.items() if k != "layers"]
     for layer in tree["layers"]:
-        out.extend(layer.values())
+        for k, v in layer.items():
+            out.extend(v.values() if k == "moe" else (v,))
     return out
 
 
@@ -515,7 +560,10 @@ def tree_like(tree: Params, values: List[Any]) -> Params:
     """A tree of ``tree``'s structure holding ``values`` in ``leaves`` order."""
     it = iter(values)
     out = {k: next(it) for k in tree if k != "layers"}
-    out["layers"] = [{k: next(it) for k in layer} for layer in tree["layers"]]
+    out["layers"] = [
+        {k: {m: next(it) for m in v} if k == "moe" else next(it) for k, v in layer.items()}
+        for layer in tree["layers"]
+    ]
     return out
 
 

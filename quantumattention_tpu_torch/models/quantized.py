@@ -15,9 +15,15 @@ the kernels do not take raises.  The JAX package's size gate
 and is not carried over.  The embedding lookup and the tied head over a
 quantized table stay plain PyTorch, as the JAX package leaves them to XLA.
 
+MoE expert stacks ((E, in, out), ``models/moe``) quantize to int8 with
+per-expert, per-column scales (E, 1, out), under int4 too, and the router
+stays fp32, as in JAX.  On the card a quantized stack's product runs K5/K6
+once per expert over its 2-D slice (JAX keeps stacks on its einsum path
+only because its TPU kernel takes 2-D weights); bf16 stacks stay one
+batched ``torch.matmul``, as JAX computes them outside any Pallas kernel.
+
 Inference only: int8/int4 leaves are not differentiable, so
-``llama.loss_and_grads`` refuses a quantized tree.  MoE expert stacks are
-not ported (ROADMAP queue 1, item 18).
+``llama.loss_and_grads`` refuses a quantized tree.
 """
 
 from __future__ import annotations
@@ -110,11 +116,15 @@ def matmul(x: torch.Tensor, w: Any, *, use_kernel: bool | None = None) -> torch.
     wrappers (on the CPU their plain versions); False keeps the plain
     composition."""
     if not (is_quantized(w) or is_quantized4(w)):
-        return torch.matmul(x, w)
+        return _promoted_matmul(x, w)
     key = "q4" if is_quantized4(w) else "q"
     q, s = w[key], w["s"]
     if use_kernel is None:
         use_kernel = checks.kernel_route(config.kernel.qmm, x.device)
+    if use_kernel and q.ndim == 3 and key == "q":
+        y = _expert_matmul(x, q, s)
+        if y is not None:
+            return y
     if use_kernel and q.ndim == 2:
         x2 = x.reshape(-1, x.shape[-1])
         gate = qmm.supported4 if key == "q4" else qmm.supported
@@ -129,6 +139,28 @@ def matmul(x: torch.Tensor, w: Any, *, use_kernel: bool | None = None) -> torch.
     return (y.float() * s).to(x.dtype)
 
 
+def _promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the operands' promoted dtype, as JAX's products promote
+    (bf16 activations against an fp32 tree loaded by ``models/hf``)."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return torch.matmul(a, b)
+
+
+def _expert_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor):
+    """x (E, C, in) times an int8 expert stack q (E, in, out), s (E, 1, out):
+    one K5/K6 product per expert over its 2-D slice.  On the card a shape
+    the kernel does not take raises in the wrapper; on the CPU (kernel
+    route "force") it returns None, and the plain composition runs."""
+    if x.ndim != 3 or x.shape[0] != q.shape[0]:
+        raise ValueError(f"expert stack {tuple(q.shape)} needs x (E, C, in), got {tuple(x.shape)}")
+    x = x.contiguous()
+    if not x.is_cuda and not all(qmm.supported(x[e], q[e]) for e in range(q.shape[0])):
+        return None
+    return torch.stack([qmm.quantized_matmul(x[e], q[e], s[e]) for e in range(q.shape[0])])
+
+
 def embed_lookup(embed: Any, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Token embedding lookup over a full or row-quantized table."""
     if not is_quantized(embed):
@@ -140,7 +172,7 @@ def tied_head_matmul(x: torch.Tensor, embed: Any) -> torch.Tensor:
     """logits = x @ embed.T for a full or row-quantized embedding table
     (fp32 for a quantized one, as in JAX)."""
     if not is_quantized(embed):
-        return torch.matmul(x, embed.t())
+        return _promoted_matmul(x, embed.t())
     y = torch.matmul(x, embed["q"].to(x.dtype).t())
     return y.float() * embed["s"][:, 0]
 
@@ -155,10 +187,11 @@ def init_quantized_params(
     from . import llama
 
     dense = _quantize_matrix4 if int4 else quantize_matrix
-    quantizers = {"embed": quantize_embed, "lm_head": quantize_matrix}
+    # The LM head and the MoE expert stacks stay int8 under int4, as in JAX.
+    quantizers = {"embed": quantize_embed, "lm_head": quantize_matrix, "moe": quantize_matrix}
     return llama.init_params(
         generator, cfg, device,
-        transform=lambda name, w: quantizers.get(name, dense)(w),
+        transform=lambda name, w: quantizers.get(name.split(".")[0], dense)(w),
     )
 
 
@@ -179,7 +212,8 @@ def fuse_projections(params: Params) -> Params:
     [w_gate|w_up] -> ``w_gate_up`` (quantized.py:347-383): one product
     and one weight stream instead of three and two, with the same
     numerics (each output channel's contraction is unchanged).  Biases
-    stay separate."""
+    and MoE subtrees stay as they are (a layer whose FFN is ``"moe"`` has
+    no ``w_gate``/``w_up`` to fuse)."""
 
     def _q(w: Any) -> bool:
         return is_quantized(w) or is_quantized4(w)
@@ -211,6 +245,13 @@ def _quantize_tree(params: Params, dense) -> Params:
         for k in _MATRIX_KEYS:
             if k in out and not (is_quantized(out[k]) or is_quantized4(out[k])):
                 out[k] = dense(out[k])
+        if "moe" in out:
+            # Expert stacks int8 whatever ``dense`` is; the router stays fp32.
+            moe = dict(out["moe"])
+            for k in ("w_gate", "w_up", "w_down"):
+                if not is_quantized(moe[k]):
+                    moe[k] = quantize_matrix(moe[k])
+            out["moe"] = moe
         return out
 
     out: Params = {
@@ -225,12 +266,12 @@ def _quantize_tree(params: Params, dense) -> Params:
 
 def quantize_params(params: Params) -> Params:
     """Quantize every projection of a full-precision tree to int8 (embed
-    per row; norms and biases untouched)."""
+    per row; norms, biases and MoE routers untouched)."""
     return _quantize_tree(params, quantize_matrix)
 
 
 def quantize_params_int4(params: Params) -> Params:
     """Quantize the decoder projections to group-wise int4 (int8 where the
-    input dim is not a multiple of 256); the embedding stays per-row int8
-    and the LM head int8, as in JAX (quantized.py:386-417)."""
+    input dim is not a multiple of 256); the embedding stays per-row int8,
+    the LM head and MoE expert stacks int8, as in JAX (quantized.py:386-417)."""
     return _quantize_tree(params, _quantize_matrix4)

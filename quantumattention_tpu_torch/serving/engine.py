@@ -43,9 +43,14 @@ ones by ``speculative.speculative_accept``; one host fetch a round; both
 backends roll back to what was accepted.  Under a draft the engine runs no
 decode bursts: a round already yields several tokens a dispatch.
 
-Not ported (each raises ``NotImplementedError``): tensor-parallel meshes
-(ROADMAP queue 1, item 19) and ``from_hf`` (it needs checkpoint files the
-repository does not hold).
+``Engine.from_hf`` serves a Hugging Face checkpoint directory
+(``models/hf``).  A Mixtral-style MoE model computes expert capacity over
+every row the step feeds its FFN, as the JAX engine does: a prefill's
+padded width, a chunk's full width, every slot at decode, idle ones
+included.
+
+Not ported (raises ``NotImplementedError``): tensor-parallel meshes
+(ROADMAP queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -234,11 +239,37 @@ class Engine:
         return self._backend.alloc
 
     @classmethod
-    def from_hf(cls, checkpoint_path: str, **engine_kwargs):
-        raise NotImplementedError(
-            "loading Hugging Face checkpoints is not ported yet "
-            "(ROADMAP queue 1, item 14)"
+    def from_hf(
+        cls,
+        checkpoint_path: str,
+        *,
+        dtype=None,
+        quantize_weights=False,
+        fuse_projections: bool = False,
+        **engine_kwargs,
+    ):
+        """Engine over a Hugging Face checkpoint directory (``config.json``
+        and safetensors; ``models/hf.load_hf_checkpoint``), loaded on
+        ``engine_kwargs["device"]`` (the card unless it says otherwise).
+        ``quantize_weights`` True or "int8" stores the projections int8
+        per output channel (w8a16), "int4" the decoder projections
+        group-wise w4a16, each quantized as it is read.
+        ``fuse_projections`` (quantized weights only) fuses [wq|wk|wv] and
+        [w_gate|w_up] (``models/quantized.fuse_projections``)."""
+        from ..models import hf, quantized
+
+        if fuse_projections and not quantize_weights:
+            raise ValueError(
+                "fuse_projections requires quantize_weights=True "
+                "(fusion operates on the w8a16 tree)"
+            )
+        params, cfg = hf.load_hf_checkpoint(
+            checkpoint_path, dtype=dtype, quantize_weights=quantize_weights,
+            device=engine_kwargs.get("device"),
         )
+        if fuse_projections:
+            params = quantized.fuse_projections(params)
+        return cls(params, cfg, **engine_kwargs)
 
     # ------------------------------------------------------------------
     # Public API

@@ -1930,3 +1930,208 @@ def test_k1_block_table_on_card_is_the_cpu_one(cuda):
             want = flash_mod.block_table(bm, 2500, 2100, rows, cols, causal, window)
             got = flash_mod.block_table(bm.to(cuda), 2500, 2100, rows, cols, causal, window)
             assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The attention fuzz (tests/torch_fuzz_draws.py) on the card: K1 (with its
+# modes), K2/K3 and K4 against their plain versions on the same inputs
+# (the wrappers on CPU copies run the plain versions)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_fuzz_flash_kernel_matches_plain(cuda, seed):
+    import torch_fuzz_draws as draws
+
+    c = draws.forward_case(seed)
+    q, k, v, kw = draws.forward_inputs(c, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, is_causal=c["is_causal"], window=c["window"], **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 1
+    cq, ck, cv, ckw = draws.to_cpu((q, k, v, kw))
+    plain = flash_attention(cq, ck, cv, is_causal=c["is_causal"], window=c["window"], **ckw)
+    err = float(((out.cpu().float() - plain.float()) ** 2).mean().sqrt())
+    assert err < RMSE_BAR, f"{c}: rmse={err}"
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fuzz_flash_backward_matches_plain(cuda, seed):
+    import torch_fuzz_draws as draws
+    from quantumattention_tpu_torch.ops.autodiff import attention_with_vjp
+
+    c = draws.backward_case(seed)
+    inputs = [_randn(s, 1000 + seed + i, torch.bfloat16, cuda) for i, s in enumerate(
+        [(1, c["hq"], c["sq"], c["d"]), (1, c["hkv"], c["sq"], c["d"]), (1, c["hkv"], c["sq"], c["d"])])]
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    grads = []
+    for dev_inputs in (inputs, draws.to_cpu(inputs)):
+        leaves = [t.clone().requires_grad_(True) for t in dev_inputs]
+        out = attention_with_vjp(*leaves, is_causal=c["is_causal"])
+        grads.append(torch.autograd.grad((out.float() ** 2).sum(), leaves))
+    assert (flash_bwd_dq.launches - before[0], flash_bwd_dkv.launches - before[1]) == (1, 1)
+    for name, a, b in zip("qkv", *grads):
+        err = float((a.cpu().float() - b.float()).abs().max() / b.float().abs().max())
+        assert err < GRAD_BAR, f"{c} d{name}: {err}"
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fuzz_decode_kernel_matches_plain(cuda, seed):
+    import torch_fuzz_draws as draws
+
+    c = draws.decode_case(seed)
+    q, kc, vc, lengths, kw = draws.decode_inputs(c, cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, lengths, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - before == 1
+    plain = decode_attention(*draws.to_cpu((q, kc, vc, lengths)), **draws.to_cpu(kw))
+    _assert_decode_close(out.cpu(), plain, lengths.cpu())
+
+
+# ---------------------------------------------------------------------------
+# MoE (models/moe.py) and Hugging Face checkpoints on the card
+# ---------------------------------------------------------------------------
+
+
+_EXPERT_STACKS = {}
+
+
+def _expert_stacks(dev):
+    """Mixtral's expert stacks of one layer: 8 experts, 4096 -> 14336 (up)
+    and 14336 -> 4096 (down), int8 with per-expert column scales; drawn
+    once."""
+    from quantumattention_tpu_torch.models import quantized
+
+    if not _EXPERT_STACKS:
+        g = torch.Generator(device=dev).manual_seed(95)
+        for name, (k, n) in (("up", (4096, 14336)), ("down", (14336, 4096))):
+            _EXPERT_STACKS[name] = quantized.quantize_matrix(torch.randn((8, k, n), generator=g, device=dev) / k ** 0.5)
+    return _EXPERT_STACKS
+
+
+@pytest.mark.parametrize("direction", ["up", "down"])
+@pytest.mark.parametrize("c_rows", [8, 24, 472])
+def test_expert_products_run_k5_per_expert(cuda, direction, c_rows):
+    """A 3-D int8 stack's product: one K5/K6 launch an expert on the
+    register-A wgmma kernel (never a product over dequantized codes), each
+    expert's rows within 2^-6 of the fp32 einsum over the dequantized
+    stack, and a graph replay bitwise equal to the eager call."""
+    from quantumattention_tpu_torch.models import quantized
+    from quantumattention_tpu_torch.ops import qmm
+
+    w = _expert_stacks(cuda)[direction]
+    x = _randn((8, c_rows, w["q"].shape[1]), 96 + c_rows, torch.bfloat16, cuda)
+    routes = dict(qmm.route_launches)
+    counts = qmm.quantized_matmul.launches + qmm.quantized_matmul.splitk_launches
+    call = lambda: quantized.matmul(x, w)  # noqa: E731
+    out = call()
+    torch.cuda.synchronize()
+    assert qmm.route_launches["wgmma"] - routes["wgmma"] == 8
+    assert qmm.quantized_matmul.launches + qmm.quantized_matmul.splitk_launches - counts == 8
+    ref = torch.matmul(x.float(), w["q"].float() * w["s"])
+    for e in range(8):
+        _close_rel(out[e], ref[e].to(torch.bfloat16))
+    assert torch.equal(_graph_call(call), out)
+
+
+def _moe_tree(dev, experts=4):
+    from quantumattention_tpu_torch.models import quantized
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                            num_q_heads=8, num_kv_heads=2, head_dim=128, num_experts=experts)
+    tree = quantized.fuse_projections(quantized.init_quantized_params(torch.Generator().manual_seed(2), cfg))
+    return cfg, _tree_on(tree, dev)
+
+
+def test_moe_layer_launches_3e_products(cuda):
+    from quantumattention_tpu_torch.models import moe
+    from quantumattention_tpu_torch.ops import qmm
+
+    cfg, tree = _moe_tree(cuda, experts=8)
+    layer = tree["layers"][0]["moe"]
+    x = _randn((3, 50, cfg.hidden_size), 97, torch.bfloat16, cuda)
+    before = qmm.route_launches["wgmma"]
+    y = moe.moe_ffn(layer, x, num_experts_per_tok=2, capacity_factor=1.25)
+    torch.cuda.synchronize()
+    assert qmm.route_launches["wgmma"] - before == 3 * cfg.num_experts
+    with qt.config.patch({"kernel.qmm": False}):
+        ref = moe.moe_ffn(layer, x, num_experts_per_tok=2, capacity_factor=1.25)
+    assert float((y.float() - ref.float()).norm() / ref.float().norm()) < 2e-2
+
+
+def test_moe_decode_step_graph_equals_eager(cuda):
+    """A captured burst of an int8 MoE tree (the unfused step: neither K8
+    nor K9 takes MoE) gives the tokens of eager steps from the same state,
+    and one captured step's logits equal the eager step's bit for bit."""
+    from quantumattention_tpu_torch.ops import megastep, qmlp
+    from quantumattention_tpu_torch.serving.sampling import SamplingParams
+
+    cfg, params = _moe_tree(cuda)
+    lengths = [3, 0, 17, 40] + [9] * 12
+    toks = np.arange(16) * 5 % cfg.vocab_size
+    ones = np.ones(16, bool)
+    be = _filled_backend(cfg, cuda, lengths)
+    assert be.route(params) == "unfused"
+    k8, k9 = qmlp.fused_layer_tail.launches, megastep.fused_decode_layer.launches
+    a = be.burst(params, toks, ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32), None, 6,
+                 SamplingParams(), False)
+    assert be.stats["graph_captures"] == 1 and be.stats["graph_replays"] == 5
+    assert (qmlp.fused_layer_tail.launches, megastep.fused_decode_layer.launches) == (k8, k9)
+    ref = _filled_backend(cfg, cuda, lengths)
+    cur, steps = toks, []
+    for _ in range(6):
+        cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
+        steps.append(cur)
+    np.testing.assert_array_equal(a[0], np.stack(steps))
+    one = _filled_backend(cfg, cuda, lengths)
+    saved = [c.lengths.clone() for c in one.caches]
+    tokens = torch.as_tensor(toks, device=cuda)
+    active = torch.ones(16, dtype=torch.bool, device=cuda)
+
+    def restore():
+        for c, n in zip(one.caches, saved):
+            c.lengths.copy_(n)
+
+    with torch.no_grad():
+        eager = one._step(params, tokens, active)
+        restore()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            one._step(params, tokens, active)  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = one._step(params, tokens, active)
+        restore()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("mode", [True, "int4"], ids=["int8", "int4"])
+def test_from_hf_on_card(cuda, tmp_path, mode):
+    """A Mixtral checkpoint directory (tests/torch_hf_checkpoint.py) loads with
+    Engine.from_hf on the card, quantized as it is read: equal to
+    params_from_hf over the same tensors in memory bit for bit (int4: the
+    attention projections w4a16, the expert stacks int8), and serves."""
+    import torch_hf_checkpoint as ckpt
+
+    from quantumattention_tpu_torch.models import hf, quantized
+
+    cfg = llama.mixtral_8x7b(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                             num_q_heads=8, num_kv_heads=2, num_experts=4)
+    sd = ckpt.mixtral_hf_state_dict(cfg, torch.Generator(device=cuda).manual_seed(98), device=cuda)
+    ckpt.write_mixtral_checkpoint(str(tmp_path), cfg, sd)
+    eng = Engine.from_hf(str(tmp_path), quantize_weights=mode, num_slots=2, max_len=256, device=cuda)
+    assert eng.cfg == cfg and eng.device.type == "cuda"
+    ref = hf.params_from_hf(sd, cfg, quantize=mode, device=cuda)
+    for a, b in ckpt.tree_pairs(eng.params, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    layer = eng.params["layers"][0]
+    assert quantized.is_quantized4(layer["wq"]) == (mode == "int4") and quantized.is_quantized(layer["moe"]["w_up"])
+    reqs = [eng.submit([3, 7, 11, 19], max_new_tokens=5), eng.submit(list(range(1, 200)), max_new_tokens=4)]
+    eng.run_to_completion()
+    assert [len(r.output) for r in reqs] == [5, 4]

@@ -140,16 +140,18 @@ def test_forward_decode_matches_jax(jax_params, impl):
 
 
 def test_not_ported_configs_raise(jax_params):
-    """MoE configs still raise.  A window, refused here before it was
-    ported, now builds and its prefill logits match JAX's (more in
-    tests/test_torch_window.py)."""
+    """A window and MoE, refused here before they were ported, now build:
+    the window's prefill logits match JAX's (more in
+    tests/test_torch_window.py), and an MoE config carries JAX's routing
+    defaults (more in tests/test_torch_moe.py)."""
     jcfg, tcfg = jl.tiny(window=16), tl.tiny(window=16)
     tokens = np.random.default_rng(1).integers(0, 256, (1, 40)).astype(np.int32)
     want = np.asarray(jl.forward(jax_params, jnp.asarray(tokens), jcfg), np.float32)
     got = tl.forward(_torch_params(jax_params, tcfg), torch.from_numpy(tokens).long(), tcfg)
     assert np.linalg.norm(got.numpy() - want) / np.linalg.norm(want) < LOGIT_REL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.tiny(num_experts=4)
+    moe_cfg = tl.tiny(num_experts=4)
+    assert (moe_cfg.num_experts_per_tok, moe_cfg.capacity_factor) == (2, 1.25)
+    assert "moe" in tl.init_params(torch.Generator().manual_seed(0), moe_cfg)["layers"][0]
     # Quantized trees serve; what the JAX package still refuses is training
     # one: int8 leaves are not differentiable (models/quantized.py:17-19).
     tp = tl.init_params(torch.Generator().manual_seed(0), tl.tiny())
