@@ -224,6 +224,23 @@ served with "head-wise", "per-block" and "auto" (``serve_*_summary``,
 ``serve_mistral_per_block`` among the Mistral paths.  Each run sweeps from
 an empty cache in a temporary directory and prints it at the end.
 
+The parallel layer (after Mixtral, ``phase_parallel``): the unsharded
+references here, then four ranks spawned on the one card over gloo (NCCL
+refuses two ranks on one device), each holding only its shards: ring
+attention at the original protocol's D = 128 causal cell (B = 16, H = 16,
+S = 8192, sp = 4) in bf16, fp8 head-wise and fp8 token-wise, and at
+Llama-3-8B's heads (32/8, B = 1, S = 8192) with the window (4095, 0);
+Ulysses at the protocol cell; head-parallel fp8 at 32/8 heads; a 4-stage
+pipeline of Llama-3-8B layers over 4 microbatches of 2048 rows;
+Mixtral-8x7B layer 0's int8 experts at ep = 4; Llama-3-8B served at tp = 4
+through ``Engine(mesh=)`` (the bf16 tree, the same in chunks of 512, the
+unfused int8 tree).  One ``parallel`` line holds each case's error
+against unsharded K1 or one card, the bytes staged through host memory
+and the tp = 4 times beside one card's (four ranks sharing one card over
+gloo: no scaling figure); the kernels line's ``launches_parallel`` counts
+K1, K4, K5 and K6 over the ranks, none may be 0.  ``--parallel-only``
+runs only this phase.
+
 ``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
 timing (``engine_burst``, phase 9), and ``--quant-prefill-only`` only the
 quantized prefill timing (``quant_prefill``, phase 10), also over an
@@ -298,6 +315,13 @@ from quantumattention_tpu_torch.ops.flash_bwd import (
     row_delta,
 )
 from quantumattention_tpu_torch.ops.sdpa import sdpa_reference
+from quantumattention_tpu_torch.parallel import mesh as mesh_lib
+from quantumattention_tpu_torch.parallel import multihost
+from quantumattention_tpu_torch.parallel.ep import expert_parallel_ffn
+from quantumattention_tpu_torch.parallel.pp import pipeline_apply
+from quantumattention_tpu_torch.parallel.ring import ring_attention
+from quantumattention_tpu_torch.parallel.tp import head_parallel_attention
+from quantumattention_tpu_torch.parallel.ulysses import ulysses_attention
 from quantumattention_tpu_torch.serving import backends
 from quantumattention_tpu_torch.serving.engine import Engine
 from quantumattention_tpu_torch.utils import checks, profiling, shapes
@@ -5396,6 +5420,388 @@ def phase_serve_mistral_per_block(tree, cfg) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer: four ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+#: The mesh phase's world: four ranks on the one card (NCCL refuses two
+#: ranks on one device, so the group is gloo and every collective is staged
+#: through host memory); each rank reports within ``timeout_s``.
+PAR = {"world": 4, "timeout_s": 900}
+#: Attention cases, all causal: (function, inputs, scaling, window).  The
+#: inputs are the original protocol's D = 128 cell (bench.py:1-5: B = 16,
+#: H = 16, S = 8192) or Llama-3-8B's heads (32/8) at B = 1, S = 8192.
+PAR_ATTN = {
+    "ring_bf16": ("ring", "protocol", None, None),
+    "ring_fp8_head": ("ring", "protocol", "head", None),
+    "ring_fp8_token": ("ring", "protocol", "token", None),
+    "ring_window": ("ring", "llama", None, (4095, 0)),
+    "ulysses_bf16": ("ulysses", "protocol", None, None),
+    "head_parallel_fp8": ("head", "llama", "head", None),
+}
+PAR_SHAPES = {"protocol": (16, 16, 16, 8192, 128), "llama": (1, 32, 8, 8192, 128)}
+#: Pipeline: 4 stages of one Llama-3-8B decoder layer each (bf16, K1
+#: causal), 4 microbatches of (1, 2048) rows.
+PAR_PP = {"stages": 4, "micro": 4, "rows": 2048}
+#: Experts: Mixtral-8x7B layer 0's int8 MoE FFN, 2 experts a rank, over
+#: (4, 512, 4096) rows at a capacity factor of 4 (nothing drops).
+PAR_EP = {"shape": (4, 512, 4096), "capacity_factor": 4.0}
+#: Serving: Llama-3-8B at tp = 4 on the engine phase's shape; once more
+#: with chunked prefill.  The decode step check's prompt lengths.
+PAR_SERVE = {"slots": 4, "max_len": 2048, "new": 17, "burst": 8, "chunk": 512}
+PAR_STEP_LENS = (100, 37, 128, 64)
+PAR_LABEL = "four ranks sharing one card over gloo, no scaling figure"
+
+
+def _par_qkv(group: str):
+    """The same draws in the parent and in every rank."""
+    b, hq, hkv, s, d = PAR_SHAPES[group]
+    gen = torch.Generator("cuda").manual_seed(17 if group == "protocol" else 18)
+    return _randn((b, hq, s, d), gen), _randn((b, hkv, s, d), gen), _randn((b, hkv, s, d), gen)
+
+
+def _par_operands(qkv, scaling):
+    q, k, v = qkv
+    if scaling is None:
+        return (q, k, v), {}
+    fn = quant.quantize_head_wise if scaling == "head" else quant.quantize_token_wise
+    (q8, sq), (k8, sk) = (fn(t, torch.float8_e4m3fn) for t in (q, k))
+    return (q8, k8, v), {"scale_q": sq, "scale_k": sk}
+
+
+def _par_attention_refs() -> dict:
+    """Unsharded K1 on each case's inputs, and the fp32 oracle on one
+    batch entry and two query heads (with their KV head)."""
+    refs = {}
+    for group in PAR_SHAPES:
+        qkv = _par_qkv(group)
+        group_kv = 1 if PAR_SHAPES[group][2] < PAR_SHAPES[group][1] else 2
+        for name, (_, g, scaling, window) in PAR_ATTN.items():
+            if g != group:
+                continue
+            args, scales = _par_operands(qkv, scaling)
+            ref = flash_attention(*args, is_causal=True, window=window, **scales)
+            cut = [args[0][:1, :2]] + [a[:1, :group_kv] for a in args[1:]]
+            cut_scales = {"scale_q": scales["scale_q"][:1, :2], "scale_k": scales["scale_k"][:1, :group_kv]} if scales else {}
+            oracle = sdpa_reference(*cut, is_causal=True, window=window, out_dtype=torch.float32, **cut_scales)
+            refs[name] = (ref, oracle)
+        del qkv
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _pp_setup():
+    cfg = llama.llama3_8b(num_layers=PAR_PP["stages"], vocab_size=128, attention_impl="bf16")
+    gen = torch.Generator("cuda").manual_seed(19)
+    layers = llama.init_params(gen, cfg, "cuda")["layers"]
+    stacked = {key: torch.stack([layer[key] for layer in layers]) for key in layers[0]}
+    x = _randn((PAR_PP["micro"], 1, PAR_PP["rows"], cfg.hidden_size), gen)
+    cos, sin = llama.rope_table(torch.arange(PAR_PP["rows"], device="cuda"), cfg.head_dim, cfg.rope_theta)
+
+    def stage(p, a):  # one decoder layer, K1 causal
+        attn, _, _ = llama._layer_attention(cfg, 0, p, a, cos, sin,
+                                            lambda _i, q, k, v: flash_attention(q, k, v, is_causal=True))
+        return llama._layer_tail(cfg, p, a, attn)[0]
+
+    return stage, stacked, x
+
+
+def _ep_setup():
+    cfg = llama.mixtral_8x7b(num_layers=1)
+    gen = torch.Generator("cuda").manual_seed(20)
+    layer = quantized.init_quantized_params(gen, cfg, device="cuda")["layers"][0]
+    return cfg, layer["moe"], _randn(PAR_EP["shape"], gen)
+
+
+def _par_local_tree(cfg, mesh, int8: bool):
+    """This rank's Megatron slices of Llama-3-8B's seed-0 tree, each matrix
+    drawn (and quantized) whole, then cut: one whole matrix is live at a
+    time, never the tree."""
+    specs = mesh_lib.llama_param_specs(cfg)
+    leaf_specs = {**specs["layers"][0], "embed": specs["embed"], "lm_head": specs["lm_head"]}
+
+    def local(name, w):
+        if int8:
+            w = quantized.quantize_embed(w) if name == "embed" else quantized.quantize_matrix(w)
+        if isinstance(w, dict):
+            return mesh_lib.shard_params(w, mesh, mesh_lib.quantized_specs(w, leaf_specs[name]))
+        return mesh_lib.shard_tensor(w, mesh, leaf_specs[name])
+
+    return llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda", transform=local)
+
+
+def _par_serve(tree, cfg, mesh=None, chunk=None) -> dict:
+    """The engine phase's prompts on 4 slots, 17 greedy tokens each, bursts
+    of 8, on one card or over ``mesh``: each prefill's last-row logits and
+    ms, decode ms a step (bursts that captured a graph left out), the
+    tokens, then one decode step's logits after a fresh prefill of 4
+    prompts."""
+    eng = Engine(tree, cfg, num_slots=PAR_SERVE["slots"], max_len=PAR_SERVE["max_len"],
+                 cache_dtype=torch.int8, prefill_chunk=chunk, mesh=mesh, device="cuda")
+    backend = eng._backend
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=PAR_SERVE["new"])
+            for n in SERVE_PROMPTS]
+    logits, t = [], {"prefill": 0.0, "decode": 0.0, "decode_n": 0}
+
+    def timed(owner, name, key, steps=None):
+        fn = getattr(owner, name)
+
+        def run(*a):
+            captures = backend.stats["graph_captures"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            if steps is None:
+                t[key] += time.perf_counter() - t0
+                logits.append(out.float().cpu().numpy())
+            elif backend.stats["graph_captures"] == captures:
+                t[key] += time.perf_counter() - t0
+                t["decode_n"] += steps(a)
+            return out
+
+        setattr(owner, name, run)
+
+    timed(backend, "prefill_and_write", "prefill")
+    timed(eng, "_prefill_one_chunk", "prefill")
+    timed(backend, "decode", "decode", lambda a: 1)
+    timed(backend, "burst", "decode", lambda a: a[6])
+    eng.run_to_completion(decode_burst=PAR_SERVE["burst"])
+    for owner, name in ((backend, "prefill_and_write"), (eng, "_prefill_one_chunk"),
+                        (backend, "decode"), (backend, "burst")):
+        delattr(owner, name)
+    for r in reqs:
+        if not r.done or len(r.output) != PAR_SERVE["new"]:
+            raise RuntimeError(f"parallel serve: request {r.id} ended with {len(r.output)} tokens")
+    rng = np.random.default_rng(1)
+    tokens = torch.zeros((4, 128), dtype=torch.int64)
+    for i, n in enumerate(PAR_STEP_LENS):
+        tokens[i, :n] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+    slots = [0, 1, 2, 3]
+    backend.prefill_and_write(eng._prefill_fn, eng.params, tokens.cuda(), [n - 1 for n in PAR_STEP_LENS],
+                              slots, list(PAR_STEP_LENS), 128)
+    step = backend.decode(eng.params, rng.integers(0, cfg.vocab_size, 4), np.ones(4, bool), slots)
+    rec = {"prefill": logits, "step": step.float().cpu().numpy(), "outputs": [r.output for r in reqs],
+           "prefill_tok_s": eng.stats["prefill_tokens"] / t["prefill"],
+           "decode_ms_per_step": 1e3 * t["decode"] / max(1, t["decode_n"]),
+           "stats": dict(eng.stats)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _par_serve_runs(cfg, mesh=None) -> dict:
+    """The bf16 tree, the same tree with chunked prefill, then the unfused
+    int8 tree: whole on one card (``mesh`` None), or this rank's slices."""
+    if mesh is None:
+        tree = llama.init_params(torch.Generator("cuda").manual_seed(0), cfg, "cuda")
+    else:
+        tree = _par_local_tree(cfg, mesh, int8=False)
+    runs = {"bf16": _par_serve(tree, cfg, mesh), "bf16_chunked": _par_serve(tree, cfg, mesh, PAR_SERVE["chunk"])}
+    if mesh is None:
+        tree = quantized.quantize_params(tree)
+    else:
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        tree = _par_local_tree(cfg, mesh, int8=True)
+    runs["int8"] = _par_serve(tree, cfg, mesh)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _parallel_rank(rank: int, world: int, store: str, out_dir: str, results) -> None:
+    """One rank of the mesh phase: the attention cases, the pipeline, the
+    experts and tensor-parallel serving, every kernel on the card; big
+    outputs to ``out_dir``, the rest (errors, launch counts, staged bytes,
+    serving records) to ``results``."""
+    import traceback
+
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores, shared
+        backend_name = multihost.initialize_distributed(f"file://{store}", world, rank)
+        _reset_counts()
+        mesh_lib.staged_bytes = 0
+        meshes = {a: mesh_lib.make_mesh((world,), (a,)) for a in ("sp", "tp", "pp", "ep")}
+        rec = {"rank": rank, "backend": backend_name, "attention_wall_ms": {}}
+        for group in PAR_SHAPES:
+            qkv = _par_qkv(group)
+            for name, (fn, g, scaling, window) in PAR_ATTN.items():
+                if g != group:
+                    continue
+                args, scales = _par_operands(qkv, scaling)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if fn == "head":
+                    out = head_parallel_attention(*args, mesh=meshes["tp"], is_causal=True, window=window, **scales)
+                else:
+                    seq = lambda t: mesh_lib.shard(t, meshes["sp"], "sp", 2)  # noqa: E731
+                    local = {key: seq(s) if s.ndim == 3 else s for key, s in scales.items()}
+                    call = ring_attention if fn == "ring" else ulysses_attention
+                    out = call(*(seq(a) for a in args), mesh=meshes["sp"], is_causal=True, window=window, **local)
+                torch.cuda.synchronize()
+                rec["attention_wall_ms"][name] = 1e3 * (time.perf_counter() - t0)
+                torch.save(out.cpu(), os.path.join(out_dir, f"{name}_{rank}.pt"))
+                del out, args, scales
+            del qkv
+            torch.cuda.empty_cache()
+        stage, stacked, x = _pp_setup()
+        out = pipeline_apply(stage, stacked, x, mesh=meshes["pp"])
+        if rank == 0:
+            torch.save(out.cpu(), os.path.join(out_dir, "pipeline.pt"))
+        rec["pipeline_sum"] = float(out.float().sum())
+        del stage, stacked, x, out
+        cfg, moe_params, x = _ep_setup()
+        y = expert_parallel_ffn(moe_params, x, mesh=meshes["ep"], num_experts_per_tok=cfg.num_experts_per_tok,
+                                capacity_factor=PAR_EP["capacity_factor"])
+        torch.save(y.cpu(), os.path.join(out_dir, f"experts_{rank}.pt"))
+        del moe_params, x, y
+        torch.cuda.empty_cache()
+        rec["serve"] = _par_serve_runs(llama.llama3_8b(), meshes["tp"])
+        torch.cuda.synchronize()
+        rec["launches"] = _counts()
+        rec["staged_bytes"] = mesh_lib.staged_bytes
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        results.put(rec)
+        torch.distributed.destroy_process_group()
+    except Exception:  # noqa: BLE001 — the rank's boundary: the parent raises it
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def _spawn_world(out_dir: str) -> list:
+    """Run ``_parallel_rank`` in PAR["world"] spawned processes (a ``file://``
+    store); every process is stopped before this returns."""
+    import queue as queue_lib
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_parallel_rank, args=(r, PAR["world"], store, out_dir, results), daemon=True)
+             for r in range(PAR["world"])]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR["timeout_s"]
+    recs = []
+    try:
+        while len(recs) < len(procs):
+            try:
+                rec = results.get(timeout=5.0)
+            except queue_lib.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    raise RuntimeError(f"parallel: {len(recs)} of {len(procs)} ranks reported "
+                                       f"(exit codes {[p.exitcode for p in procs]})")
+                continue
+            if "error" in rec:
+                raise RuntimeError(f"parallel: rank {rec['rank']} failed:\n{rec['error']}")
+            recs.append(rec)
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return sorted(recs, key=lambda r: r["rank"])
+
+
+def _rel_rows(a, b) -> float:
+    """The largest row's ||a - b|| / ||b||."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)).max())
+
+
+def phase_parallel() -> dict:
+    """The parallel layer on the card: the unsharded references here, then
+    a world of four ranks sharing the card over gloo (``_parallel_rank``).
+    Checks: every attention case within 1/32 of unsharded K1 and under the
+    RMSE bar of the fp32 oracle on one batch entry and two heads, finite;
+    the pipeline within 1e-2 RMSE of the stages applied in sequence, the
+    same on every rank; the experts within 2^-6 max-relative of the
+    single-card ``moe_ffn``; serving: every rank the same tokens, each
+    prefill's logits within 10% and a decode step within 5% of the
+    single-card engine's; K1, K4, K5 and K6 launched on the mesh path.
+    Returns the launches summed over the ranks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _native.library()  # built here, loaded by every rank
+    t_start = time.perf_counter()
+    with _uncounted():
+        refs = _par_attention_refs()
+        stage, stacked, x = _pp_setup()
+        pp_ref = torch.stack([functools.reduce(lambda a, i: stage({k: w[i] for k, w in stacked.items()}, a),
+                                               range(PAR_PP["stages"]), x[m]) for m in range(PAR_PP["micro"])])
+        del stage, stacked, x
+        cfg_ep, moe_params, x = _ep_setup()
+        ep_ref = moe.moe_ffn(moe_params, x, num_experts_per_tok=cfg_ep.num_experts_per_tok,
+                             capacity_factor=PAR_EP["capacity_factor"])
+        del moe_params, x
+        torch.cuda.empty_cache()
+        single = _par_serve_runs(llama.llama3_8b())
+    ref_s = time.perf_counter() - t_start
+    out_dir = tempfile.mkdtemp(prefix="qa_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_world(out_dir)
+        world_s = time.perf_counter() - t0
+        rec = {"backend": ranks[0]["backend"], "world": PAR["world"], "label": PAR_LABEL,
+               "staged_bytes": sum(r["staged_bytes"] for r in ranks),
+               "peak_GB_per_rank": [r["peak_GB"] for r in ranks], "refs_s": ref_s, "world_s": world_s}
+        for name, (fn, _, _, _) in PAR_ATTN.items():
+            out = torch.cat([torch.load(os.path.join(out_dir, f"{name}_{r}.pt")) for r in range(PAR["world"])],
+                            dim=1 if fn == "head" else 2).cuda()
+            ref, oracle = refs[name]
+            case = {"max_abs_vs_k1": max_abs(out, ref), "rmse_vs_oracle": rmse(out[:1, :2], oracle),
+                    "finite": bool(torch.isfinite(out).all()),
+                    "wall_ms": [r["attention_wall_ms"][name] for r in ranks]}
+            rec[name] = case
+            if not (case["finite"] and case["max_abs_vs_k1"] <= KERNEL_VS_PLAIN_ATOL
+                    and case["rmse_vs_oracle"] < RMSE_BAR):
+                raise RuntimeError(f"parallel {name} disagrees: {case}")
+            del out
+        pp = torch.load(os.path.join(out_dir, "pipeline.pt")).cuda()
+        rec["pipeline"] = {"rmse_vs_sequential": rmse(pp, pp_ref), "sums": [r["pipeline_sum"] for r in ranks]}
+        if not rec["pipeline"]["rmse_vs_sequential"] < RMSE_BAR or len(set(rec["pipeline"]["sums"])) != 1:
+            raise RuntimeError(f"parallel pipeline disagrees: {rec['pipeline']}")
+        ep = torch.cat([torch.load(os.path.join(out_dir, f"experts_{r}.pt")) for r in range(PAR["world"])]).cuda()
+        rec["experts"] = {"max_rel_vs_single": max_rel(ep, ep_ref)}
+        if not rec["experts"]["max_rel_vs_single"] <= QUANT_KERNEL_REL:
+            raise RuntimeError(f"parallel experts disagree: {rec['experts']}")
+        for run, one in single.items():
+            tp = [r["serve"][run] for r in ranks]
+            if any(t["outputs"] != tp[0]["outputs"] for t in tp):
+                raise RuntimeError(f"parallel serve {run}: the ranks emitted different tokens")
+            if len(tp[0]["prefill"]) != len(one["prefill"]):
+                raise RuntimeError(f"parallel serve {run}: {len(tp[0]['prefill'])} prefills, "
+                                   f"{len(one['prefill'])} on one card")
+            served = {
+                "prefill_rel": max(_rel_rows(a, b) for a, b in zip(tp[0]["prefill"], one["prefill"])),
+                "step_rel": _rel_rows(tp[0]["step"], one["step"]),
+                "first_tokens_equal": [a[0] == b[0] for a, b in zip(tp[0]["outputs"], one["outputs"])],
+                "tp4_prefill_tok_s": tp[0]["prefill_tok_s"], "single_prefill_tok_s": one["prefill_tok_s"],
+                "tp4_decode_ms_per_step": tp[0]["decode_ms_per_step"],
+                "single_decode_ms_per_step": one["decode_ms_per_step"],
+                "prefill_forwards": tp[0]["stats"]["prefill_forwards"],
+            }
+            rec[f"serve_{run}"] = served
+            if not (served["prefill_rel"] <= PREFILL_REL_BOUND and served["step_rel"] <= DECODE_K8_REL_BOUND):
+                raise RuntimeError(f"parallel serve {run} disagrees with one card: {served}")
+        launches = {key: sum(r["launches"][key] for r in ranks) for key in ("k1", "k4", "k5", "k6")}
+        rec["launches"] = launches
+        log("parallel " + json.dumps(rec))
+        idle = [key for key, n in launches.items() if n <= 0]
+        if idle:
+            raise RuntimeError(f"parallel: kernels the mesh path never launched: {idle}")
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not checks.cuda_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -5437,6 +5843,9 @@ def _main() -> int:
     if "--mixtral-only" in sys.argv[1:]:
         phase_fuzz()
         log("mixtral launches " + json.dumps(phase_mixtral()))
+        return 0
+    if "--parallel-only" in sys.argv[1:]:
+        log("parallel launches " + json.dumps(phase_parallel()))
         return 0
     if "--quant-prefill-only" in sys.argv[1:]:
         params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
@@ -5480,15 +5889,17 @@ def _main() -> int:
     torch.cuda.empty_cache()
     mistral = phase_mistral()
     mixtral = phase_mixtral()
+    par = phase_parallel()
     k23["dq"]["library_ms"] = k23["dkv"]["library_ms"] = phase_sdpa_backward(gen)
     phase_split(gen)  # last: the profiler stays out of every other phase's timings
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], "launches_window": mistral["k1"],
-         "launches_moe": mixtral["k1"], **k1, **window["k1"]},
+         "launches_moe": mixtral["k1"], "launches_parallel": par["k1"], **k1, **window["k1"]},
         {"name": "decode", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches["k4"], "launches_verify": spec["k4_verify"],
-         "launches_window": mistral["k4"], "launches_moe": mixtral["k4"], **k4, **window["k4"]},
+         "launches_window": mistral["k4"], "launches_moe": mixtral["k4"], "launches_parallel": par["k4"],
+         **k4, **window["k4"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": K23_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2"], "launches_window": mistral["k2"],
          "launches_moe": mixtral["k2"], **k23["dq"], **window["dq"]},
@@ -5496,9 +5907,11 @@ def _main() -> int:
          "replaces": K3_REPLACES, "launches": train["k3"], "launches_window": mistral["k3"],
          "launches_moe": mixtral["k3"], **k23["dkv"], **window["dkv"]},
         {"name": "qmm", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K5_REPLACES,
-         "launches": q8["k5"] + q4["k5"], "launches_moe": mixtral["k5"], **k567["k5"]},
+         "launches": q8["k5"] + q4["k5"], "launches_moe": mixtral["k5"], "launches_parallel": par["k5"],
+         **k567["k5"]},
         {"name": "qmm_splitk", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K6_REPLACES,
-         "launches": q8["k6"] + q4["k6"], "launches_moe": mixtral["k6"], **k567["k6"]},
+         "launches": q8["k6"] + q4["k6"], "launches_moe": mixtral["k6"], "launches_parallel": par["k6"],
+         **k567["k6"]},
         {"name": "qmm4", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K7_REPLACES,
          "launches": q4["k7"], **k567["k7"]},
         {"name": "layer_tail", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
@@ -5518,7 +5931,8 @@ def _main() -> int:
         "misses_in_capture": autotune.misses_in_capture}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0 or any(
         k.get(key, 1) <= 0 for key in ("launches_verify", "launches_window", "launches_segments",
-                                       "launches_block_mask", "launches_int8_v", "launches_moe"))]
+                                       "launches_block_mask", "launches_int8_v", "launches_moe",
+                                       "launches_parallel"))]
     if idle:
         raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))

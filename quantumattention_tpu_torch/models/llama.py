@@ -25,6 +25,15 @@ has it (:func:`mistral_7b`).  ``LlamaConfig.num_experts`` > 0 replaces
 every MLP with a Mixtral-style MoE FFN (``models/moe.moe_ffn``, :func:`
 mixtral_8x7b`); such a layer always takes the unfused path, as in JAX (the
 lean decode, K8 and K9 refuse MoE).
+
+Tensor parallelism (``tp``, a ``parallel/mesh.Axis``; ``serving/tp.py``):
+each rank holds its Megatron slices of the tree (``parallel/mesh.
+param_specs_for``) and runs the same code on its local heads and columns
+(:func:`local_config`); the collectives GSPMD inserts in JAX are written
+out: one all-reduce after each row-split product (wo, w_down, an MoE FFN
+over column-split experts), a vocab-parallel embedding lookup (rows outside
+the rank's slice masked, then an all-reduce), and a column-parallel LM head
+whose logits are all-gathered.  Without ``tp`` nothing changes.
 """
 
 from __future__ import annotations
@@ -264,6 +273,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def local_config(cfg: LlamaConfig, n: int) -> LlamaConfig:
+    """The shapes one rank of an ``n``-way tensor-parallel split computes:
+    its Q and KV heads and its intermediate columns."""
+    return dataclasses.replace(
+        cfg, num_q_heads=cfg.num_q_heads // n, num_kv_heads=cfg.num_kv_heads // n,
+        intermediate_size=cfg.intermediate_size // n,
+    )
+
+
 def window_of(cfg: LlamaConfig) -> Optional[Tuple[int, int]]:
     """The attention window of a config: ``(window - 1, 0)`` (HF's
     ``sliding_window = w`` sees w keys including itself), or None."""
@@ -326,9 +344,11 @@ def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=None):
     return out, k, v
 
 
-def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None):
+def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None, tp=None):
     """Output projection + residual + MLP.  Returns (new x, the next
-    layer's bias-free QKV or None).
+    layer's bias-free QKV or None).  Under ``tp`` the row-split products'
+    partial sums are all-reduced (a fused tree, which K8 needs, cannot be
+    sharded).
 
     On a fused quantized tree at <= 256 rows this is one call of kernel
     K8 (ops/qmlp.fused_layer_tail), which also emits ``next_layer``'s
@@ -346,26 +366,31 @@ def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None):
         )
         y, qkv = res if fold else (res, None)
         return y.reshape(*lead, -1), None if qkv is None else qkv.reshape(*lead, -1)
-    x = x + quantized.matmul(attn_out, layer["wo"])
-    return mlp_block(cfg, layer, x), None
+    x = x + _reduce(quantized.matmul(attn_out, layer["wo"]), tp)
+    return mlp_block(cfg, layer, x, tp), None
 
 
-def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """Sum a row-split product's partial sums over the tensor-parallel axis."""
+    return y if tp is None else tp.all_reduce(y)
+
+
+def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     if cfg.num_experts > 0:
         from . import moe
 
         # Capacity counts every row of x: padding rows of a prefill and the
         # idle slots of a decode step included, as in the JAX engine.
-        return x + moe.moe_ffn(layer["moe"], h, num_experts_per_tok=cfg.num_experts_per_tok,
-                               capacity_factor=cfg.capacity_factor)
+        return x + _reduce(moe.moe_ffn(layer["moe"], h, num_experts_per_tok=cfg.num_experts_per_tok,
+                                       capacity_factor=cfg.capacity_factor), tp)
     if "w_gate_up" in layer:
         gate, up = quantized.matmul(h, layer["w_gate_up"]).chunk(2, dim=-1)
     else:
         gate = quantized.matmul(h, layer["w_gate"])
         up = quantized.matmul(h, layer["w_up"])
     act = F.silu(gate.float()).to(x.dtype) * up
-    return x + quantized.matmul(act, layer["w_down"])
+    return x + _reduce(quantized.matmul(act, layer["w_down"]), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -373,29 +398,41 @@ def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_pos=None):
+def _embed(params, tokens, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """Token embedding lookup; under ``tp`` vocab-parallel: each rank looks
+    up the tokens inside its slice of the table, zeros elsewhere, and the
+    rows are all-reduced."""
+    table = params["embed"]
+    if tp is None:
+        return quantized.embed_lookup(table, tokens, cfg.dtype)
+    rows = (table["q"] if quantized.is_quantized(table) else table).shape[0]
+    local = tokens - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = quantized.embed_lookup(table, torch.where(inside, local, 0), cfg.dtype)
+    return tp.all_reduce(torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)))
+
+
+def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_pos=None, tp=None):
     """embed -> [attention, MLP] x L -> norm -> head.  With ``last_pos``
-    ((B,) int) the head runs only at that position of each row."""
+    ((B,) int) the head runs only at that position of each row.  Under
+    ``tp`` the layers run on this rank's heads and columns and the logits
+    come back whole; ``attend_fn`` gets the local heads."""
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
+    x = _embed(params, tokens, cfg, tp)
+    lcfg = cfg if tp is None else local_config(cfg, tp.size)
     kv = []
     layers = params["layers"]
     qkv_pre = None
     for idx, layer in enumerate(layers):
-        attn_out, k, v = _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre)
+        attn_out, k, v = _layer_attention(lcfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre)
         if collect_kv:
             kv.append((k, v))
         nxt = layers[idx + 1] if idx + 1 < len(layers) else None
-        x, qkv_pre = _layer_tail(cfg, layer, x, attn_out, next_layer=nxt)
+        x, qkv_pre = _layer_tail(lcfg, layer, x, attn_out, next_layer=nxt, tp=tp)
     if last_pos is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_pos.to(x.device)][:, None, :]
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if cfg.tie_embeddings:
-        logits = quantized.tied_head_matmul(x, params["embed"])
-    else:
-        logits = quantized.matmul(x, params["lm_head"])
-    logits = logits.float()
+    logits = decode_head(params, x, cfg, tp)
     return (logits, kv) if collect_kv else logits
 
 
@@ -437,7 +474,7 @@ def forward_prefill(
 @torch.no_grad()
 def forward_chunk(
     params: Params, tokens: torch.Tensor, positions: torch.Tensor,
-    cfg: LlamaConfig, attend_fn: Callable,
+    cfg: LlamaConfig, attend_fn: Callable, tp=None,
 ) -> torch.Tensor:
     """Chunked forward of a (B, T) token chunk at ``positions``: (T,), one
     chunk's positions for every row, or (B, T), each row's own (speculative
@@ -447,8 +484,8 @@ def forward_chunk(
     (the serving backends: attention over the cached prefix and the chunk,
     K1 with ``q_offset`` = the chunk's start; or K4's / K10's multi-query
     mode over the cache with the chunk appended).  Returns (B, T, vocab)
-    fp32 logits."""
-    return _decoder(params, tokens, positions, cfg, attend_fn)
+    fp32 logits.  ``tp``: the tensor-parallel axis (module docstring)."""
+    return _decoder(params, tokens, positions, cfg, attend_fn, tp=tp)
 
 
 def _lean_decode_supported(cfg: LlamaConfig, params: Params) -> bool:
@@ -481,18 +518,25 @@ def decode_qkv(cfg: LlamaConfig, qkv: torch.Tensor, cos: torch.Tensor, sin: torc
     return qk[:, :hq], qk[:, hq:], v
 
 
-def decode_head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Final RMSNorm and LM head of a (B, E) decode activation -> fp32 logits."""
+def decode_head(params: Params, x: torch.Tensor, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """Final RMSNorm and LM head of (..., E) activations -> fp32 logits.
+    Under ``tp`` the head is column-parallel (this rank's vocabulary
+    slice, any padding columns cut off) and the logits are all-gathered."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_embeddings:
-        return quantized.tied_head_matmul(x, params["embed"]).float()
-    return quantized.matmul(x, params["lm_head"]).float()
+        logits = quantized.tied_head_matmul(x, params["embed"]).float()
+    else:
+        logits = quantized.matmul(x, params["lm_head"]).float()
+    if tp is None:
+        return logits
+    return tp.all_gather(logits[..., : cfg.vocab_size // tp.size], dim=-1)
 
 
 def _forward_decode_lean(params, tokens, positions, cfg: LlamaConfig, attend_fn):
     """Decode forward specialized to T == 1: activations stay (B, E), RoPE
     runs once over the packed [q|k] block (:func:`decode_qkv`), and each
-    layer tail hands the next layer its QKV."""
+    layer tail hands the next layer its QKV.  It needs a fused ``w_qkv``,
+    which a tensor-parallel split refuses, so it takes no ``tp``."""
     batch = tokens.shape[0]
     cos, sin = decode_rope_tables(positions, cfg)
     x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
@@ -513,7 +557,7 @@ def _forward_decode_lean(params, tokens, positions, cfg: LlamaConfig, attend_fn)
 @torch.no_grad()
 def forward_decode(
     params: Params, tokens: torch.Tensor, positions: torch.Tensor,
-    cfg: LlamaConfig, attend_fn: Callable,
+    cfg: LlamaConfig, attend_fn: Callable, tp=None,
 ):
     """One-token decode forward.
 
@@ -521,16 +565,17 @@ def forward_decode(
     pre-append cache lengths); ``attend_fn(layer_idx, q, k_new, v_new)``
     takes (B, H, D) post-RoPE tensors and returns (B, Hq, D).
     Returns (B, vocab) fp32 logits.  A fused-projection tree takes the
-    lean decode path, as in JAX (llama.py:659-660).
+    lean decode path, as in JAX (llama.py:659-660).  ``tp``: the
+    tensor-parallel axis (module docstring).
     """
-    if _lean_decode_supported(cfg, params):
+    if tp is None and _lean_decode_supported(cfg, params):
         return _forward_decode_lean(params, tokens, positions, cfg, attend_fn)
 
     def attend_t1(idx, q, k, v):
         out = attend_fn(idx, q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :])
         return out[:, :, None, :]
 
-    logits = _decoder(params, tokens[:, None], positions[:, None], cfg, attend_t1)
+    logits = _decoder(params, tokens[:, None], positions[:, None], cfg, attend_t1, tp=tp)
     return logits[:, 0, :]
 
 

@@ -46,7 +46,16 @@ there, K9 stays a T = 1 kernel); ``rollback`` sets the slots' lengths back
 to what was accepted (rows past a length are garbage by contract and the
 next write overwrites them).
 
-Not ported: tensor-parallel meshes (ROADMAP queue 1, item 19), the paged
+Tensor-parallel serving (``SlotsBackend(mesh=, tp_axis=)``,
+``serving/tp.py``): every rank runs the same schedule over its Megatron
+slices of the tree and caches of its own KV heads; decode attention is
+``tp.decode_attention_tp`` (K4 on the local heads), a prefill chunk
+``tp.chunk_attention_tp`` (K1 on them).  A burst under a mesh runs its
+steps in a loop: a gloo collective cannot be captured in a CUDA graph.
+Rank 0's sampled tokens are broadcast each step, so the ranks never
+drift apart on a near-tie.
+
+Not ported: the paged
 burst's side buffers
 (``_burst_impl_side``, ``_flush_side_pages``: a TPU workaround; the port
 writes pages in place every step).  Buffer donation is not ported either:
@@ -56,6 +65,7 @@ place.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -67,8 +77,10 @@ from ..ops import megastep, qmlp, qmm, quant
 from ..ops.decode import decode_attention
 from ..ops.flash import flash_attention
 from ..ops.paged import paged_decode_attention
+from ..parallel import mesh as mesh_lib
 from ..utils import checks
 from . import kv_cache as kvc
+from . import tp as tp_lib
 from . import paged_cache as pgc
 from .sampling import SamplingParams, sample, sample_with_logprob
 
@@ -134,6 +146,21 @@ def _chunk_prefix_attend(q, k_new, v_new, prefix, off: int, window=None,
                            window=window, fused_block_quant=per_block)
 
 
+def slot_prefix(cache: kvc.KVCache, slot: int, off: int, kv_int4: bool = False):
+    """``prefix(start)`` of :func:`_chunk_prefix_attend` over a slot cache:
+    the slot's rows [start, off) of K and V, dequantized to bf16."""
+
+    def prefix(start):
+        return tuple(
+            _dequantize_rows(vals[slot : slot + 1, :, start:off],
+                             None if sc is None else sc[slot : slot + 1, :, start:off],
+                             -1 if kv_int4 else None)
+            for vals, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale))
+        )
+
+    return prefix
+
+
 def _dequantize_rows(values: torch.Tensor, scales, int4_axis: Optional[int] = None) -> torch.Tensor:
     """Cached rows (..., D) and their token scales (...) -> bf16.  A packed
     int4 container is unpacked first along ``int4_axis`` (backends.py:86-88,
@@ -181,6 +208,10 @@ class _Burst:
             nxt, lp = sample_with_logprob(logits, self.sp, self.generator)
         else:
             nxt, lp = sample(logits, self.sp, self.generator), None
+        tp = self.backend.tp
+        if tp is not None:
+            nxt = tp.broadcast(nxt)
+            lp = None if lp is None else tp.broadcast(lp)
         emitted = self.active.clone()
         nxt = torch.where(self.active, nxt.to(torch.int64), self.tokens)
         self.remaining.sub_(self.active.to(torch.int32))
@@ -221,14 +252,15 @@ def _run_burst(backend, key, params, tokens, active, remaining, eos_ids, generat
     budgets; returns the packed (2 or 3, n_steps, B) trace, fetched once.
     On a CUDA device the step is captured once per ``key`` as a graph (the
     first burst's first step runs eagerly: the warm-up) and replayed; on
-    the CPU it runs in a loop."""
+    the CPU, and under a tensor-parallel mesh (a gloo collective cannot be
+    captured), it runs in a loop."""
     state = backend._bursts.get(key)
     if state is None or state.capacity < n_steps:
         state = _Burst(backend, params, sp, want_lp, generator, n_steps)
         backend._bursts[key] = state
     state.load(tokens, active, remaining, eos_ids)
     n = n_steps
-    if backend.device.type == "cuda":
+    if backend.device.type == "cuda" and backend.tp is None:
         if state.graph is None:
             state.step()  # warm-up, and this burst's first step
             n -= 1
@@ -250,16 +282,21 @@ class SlotsBackend:
 
     def __init__(
         self, cfg: llama.LlamaConfig, *, num_slots: int, max_len: int,
-        cache_dtype=torch.int8, kv_int4: bool = False, device=None,
+        cache_dtype=torch.int8, kv_int4: bool = False, device=None, mesh=None,
+        tp_axis: str = "tp",
     ) -> None:
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
         self.kv_int4 = kv_int4
         self.device = checks.default_device(device)
+        #: Tensor-parallel serving: the mesh's ``tp`` axis; the caches hold
+        #: this rank's KV heads.
+        self.tp = None if mesh is None else mesh_lib.axis(mesh, tp_axis)
+        n = 1 if self.tp is None else self.tp.size
         self.caches = [
             kvc.init_cache(
-                num_slots, cfg.num_kv_heads, max_len, cfg.head_dim,
+                num_slots, cfg.num_kv_heads // n, max_len, cfg.head_dim,
                 cache_dtype, int4=kv_int4, device=self.device,
             )
             for _ in range(cfg.num_layers)
@@ -319,23 +356,20 @@ class SlotsBackend:
         slot = req.slot
         positions = off + torch.arange(tokens.shape[1], dtype=torch.int32, device=self.device)
         recorded = {}
+        window, per_block = window_of(self.cfg), chunk_per_block(self.cfg)
 
         def attend(idx, q, k_new, v_new):
             recorded[idx] = (k_new, v_new)
             c = self.caches[idx]
-
-            def prefix(start):
-                return tuple(
-                    _dequantize_rows(vals[slot : slot + 1, :, start:off],
-                                     None if sc is None else sc[slot : slot + 1, :, start:off],
-                                     -1 if self.kv_int4 else None)
-                    for vals, sc in ((c.k, c.k_scale), (c.v, c.v_scale))
+            if self.tp is not None:
+                return tp_lib.chunk_attention_tp(
+                    q, k_new, v_new, c, slot, off, mesh=self.tp.mesh, axis=self.tp.name,
+                    window=window, kv_int4=self.kv_int4, per_block=per_block,
                 )
+            return _chunk_prefix_attend(q, k_new, v_new, slot_prefix(c, slot, off, self.kv_int4),
+                                        off, window, per_block)
 
-            return _chunk_prefix_attend(q, k_new, v_new, prefix, off, window_of(self.cfg),
-                                        chunk_per_block(self.cfg))
-
-        logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend)
+        logits = llama.forward_chunk(params, tokens, positions, self.cfg, attend, tp=self.tp)
         ids, offs, nval = self._tensor([slot]), self._tensor([off]), self._tensor([tc])
         for idx, cache in enumerate(self.caches):
             k, v = recorded[idx]
@@ -347,7 +381,8 @@ class SlotsBackend:
     def route(self, params) -> str:
         """"mega" when the fused decode layer (K9) takes the step, else
         "unfused"."""
-        if megastep.megastep_supported(self.cfg, params, self.caches[0], self.num_slots):
+        if megastep.megastep_supported(self.cfg, params, self.caches[0], self.num_slots,
+                                       mesh=None if self.tp is None else self.tp.mesh):
             return "mega"
         return "unfused"
 
@@ -362,18 +397,23 @@ class SlotsBackend:
         offsets = positions.to(torch.int64)
         nval = active.to(torch.int32)
 
+        attention = decode_attention
+        if self.tp is not None:
+            attention = functools.partial(tp_lib.decode_attention_tp, mesh=self.tp.mesh,
+                                          axis=self.tp.name)
+
         def attend(idx, q, k_new, v_new):
             cache = kvc.append(
                 self.caches[idx], self._slot_ids, k_new[:, :, None, :].float(),
                 v_new[:, :, None, :].float(), offsets, nval,
             )
-            return decode_attention(
+            return attention(
                 q.to(torch.bfloat16).contiguous(), cache.k, cache.v,
                 cache.lengths, k_scale=cache.k_scale, v_scale=cache.v_scale,
                 window=window_of(self.cfg),
             )
 
-        return llama.forward_decode(params, tokens, positions, self.cfg, attend)
+        return llama.forward_decode(params, tokens, positions, self.cfg, attend, tp=self.tp)
 
     def _step_mega(self, params, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """The fused route (``_decode_step_mega_impl``, backends.py:292-362):
@@ -439,6 +479,11 @@ class SlotsBackend:
         multi-query mode over the post-append lengths.  Inactive slots are
         neither written nor grown.  Returns (num_slots, T, vocab) fp32
         logits."""
+        if self.tp is not None:
+            raise ValueError(
+                "speculative decoding is a single-chip path (the "
+                "multi-query verification kernel is not head-sharded)"
+            )
         tokens = _device_tokens(cand, self.device)
         t_width = tokens.shape[1]
         pos = torch.as_tensor(np.asarray(positions), dtype=torch.int32, device=self.device)
@@ -494,6 +539,7 @@ class PagedBackend:
     """
 
     name = "paged"
+    tp = None  # tensor-parallel serving takes the slots backend only
 
     def __init__(
         self, cfg: llama.LlamaConfig, *, num_slots: int, max_len: int,

@@ -49,8 +49,20 @@ every row the step feeds its FFN, as the JAX engine does: a prefill's
 padded width, a chunk's full width, every slot at decode, idle ones
 included.
 
-Not ported (raises ``NotImplementedError``): tensor-parallel meshes
-(ROADMAP queue 1, item 19).
+Tensor-parallel serving (``mesh``, ``tp_axis``; engine.py:105-121,
+:236-241): every rank builds the same engine over the same requests
+(SPMD).  The parameters are sharded to the rank's Megatron slices
+(``serving/tp.shard_serving_params``; a tree that already holds them is
+kept), the slots backend keeps the rank's KV heads, and the forwards run
+the kernels on the local heads with the collectives of ``models/llama``'s
+``tp``.  Rank 0 samples and broadcasts the tokens, one small collective a
+step.  The paged backend and a draft are refused, as in JAX.  JAX's mesh
+engine also turns its weight kernels off (engine.py:354-366: GSPMD cannot
+partition a ``pallas_call``); each rank here runs K5-K7 on its own
+shards, so that is not ported.
+
+Not ported (raises ``NotImplementedError``): ``decode_block_kv`` (ROADMAP
+queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -64,8 +76,10 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..parallel import mesh as mesh_lib
 from ..utils import checks
 from ..utils.shapes import round_up
+from . import tp as tp_lib
 from .backends import PagedBackend, SlotsBackend
 from .sampling import SamplingParams, categorical, filtered_probs, sample, sample_with_logprob
 from .speculative import speculative_accept
@@ -92,12 +106,10 @@ class Request:
 
 
 _NOT_PORTED = {
-    "mesh": "tensor-parallel serving (ROADMAP queue 1, item 19)",
-    "tp_axis": "tensor-parallel serving (ROADMAP queue 1, item 19)",
     "decode_block_kv": "decode block tuning (ROADMAP queue 1, item 10)",
 }
 #: The JAX engine's defaults of those arguments: passing them changes nothing.
-_DEFAULTS = {"tp_axis": "tp", "decode_block_kv": 2048}
+_DEFAULTS = {"decode_block_kv": 2048}
 
 
 class Engine:
@@ -122,6 +134,8 @@ class Engine:
         draft: Optional[tuple] = None,
         spec_tokens: int = 4,
         device=None,
+        mesh=None,
+        tp_axis: str = "tp",
         **not_ported,
     ) -> None:
         for name, value in not_ported.items():
@@ -131,6 +145,22 @@ class Engine:
                 raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not ported yet")
         if cache_backend not in ("slots", "paged"):
             raise ValueError(f"unknown cache_backend: {cache_backend!r}")
+        if mesh is not None:
+            if cache_backend != "slots":
+                raise ValueError("mesh serving requires the slots backend")
+            if draft is not None:
+                raise ValueError(
+                    "speculative decoding is a single-chip path (the "
+                    "multi-query verification kernel is not head-sharded)"
+                )
+            n = mesh_lib.axis_size(mesh, tp_axis)
+            if cfg.num_kv_heads % n or cfg.num_q_heads % n:
+                raise ValueError(
+                    f"num_q_heads ({cfg.num_q_heads}) and num_kv_heads "
+                    f"({cfg.num_kv_heads}) must be divisible by the "
+                    f"'{tp_axis}' axis size ({n})"
+                )
+            params = tp_lib.shard_serving_params(params, cfg, mesh, tp_axis)
         if kv_int4 and not checks.is_8bit_dtype(cache_dtype):
             raise ValueError("kv_int4 requires an 8-bit cache_dtype")
         if prefill_chunk is not None and max_len % prefill_chunk != 0:
@@ -186,6 +216,7 @@ class Engine:
             self._backend = SlotsBackend(
                 cfg, num_slots=num_slots, max_len=max_len,
                 cache_dtype=cache_dtype, kv_int4=kv_int4, device=self.device,
+                mesh=mesh, tp_axis=tp_axis,
             )
         else:
             self._backend = PagedBackend(
@@ -225,6 +256,9 @@ class Engine:
         }
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill_fn = functools.partial(llama.forward_prefill, cfg=cfg)
+        if mesh is not None:
+            self._prefill_fn = functools.partial(tp_lib.forward_prefill_tp, cfg=cfg, mesh=mesh,
+                                                 axis=tp_axis)
 
     @property
     def caches(self):
@@ -702,9 +736,12 @@ class Engine:
             else:
                 t = sample(rows, sp, gen)
             toks.append(t)
-        toks_h = torch.cat(toks).cpu().numpy()
-        lps_h = torch.cat(lps).cpu().numpy() if want_lp else None
-        return toks_h, lps_h
+        toks, lps = torch.cat(toks), torch.cat(lps) if want_lp else None
+        tp = self._backend.tp
+        if tp is not None:  # rank 0's draws, so the ranks cannot drift apart
+            toks = tp.broadcast(toks)
+            lps = None if lps is None else tp.broadcast(lps)
+        return toks.cpu().numpy(), None if lps is None else lps.cpu().numpy()
 
     def _emit(self, req: Request, tok: int, lp: Optional[float] = None) -> bool:
         """Record a sampled token; returns True when the request finished."""

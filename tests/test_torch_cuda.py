@@ -2135,3 +2135,47 @@ def test_from_hf_on_card(cuda, tmp_path, mode):
     reqs = [eng.submit([3, 7, 11, 19], max_new_tokens=5), eng.submit(list(range(1, 200)), max_new_tokens=4)]
     eng.run_to_completion()
     assert [len(r.output) for r in reqs] == [5, 4]
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer on the card: two gloo ranks sharing cuda:0
+# (tests/torch_dist_worker.py's "cuda" suite; one card gives correctness,
+# no scaling figure)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_world(tmp_path_factory):
+    if not checks.cuda_available() or not checks.is_hopper(0):
+        pytest.skip("needs a Hopper CUDA device")
+    from torch_dist_worker import World
+
+    w = World(2, tmp_path_factory.mktemp("card_world"),
+              {"ring_fp8_token_wise_card": {}, "tp_decode_card": {}}, timeout_s=300.0)
+    yield w
+    w.close()
+
+
+def test_ring_fp8_token_wise_on_two_ranks(cuda, card_world):
+    """Ring attention over e4m3 token-wise shards on two ranks: K1 runs on
+    the card (one launch a shard at or below each rank's diagonal, 3 in
+    all), within 1/32 of one unsharded K1 call and under the RMSE bar of
+    the fp32 oracle on the same codes."""
+    res = card_world.case("ring_fp8_token_wise_card")
+    assert all(r["device"].startswith("cuda") for r in res)
+    assert [int(r["launches"]) for r in res] == [1, 2]
+    out = torch.cat([r["out"] for r in res], dim=2).float()
+    whole = res[0]["whole"].float()
+    assert float((out - whole).abs().max()) <= ATOL
+    r0 = res[0]
+    ref = sdpa_reference(r0["q8"], r0["k8"], r0["v"], is_causal=True, scale_q=r0["sq"], scale_k=r0["sk"])
+    assert float((out - ref.float()).pow(2).mean().sqrt()) < RMSE_BAR
+
+
+def test_tp_decode_on_two_ranks(cuda, card_world):
+    """K4 on each rank's 16/4 heads of an int8 cache (0/57/900/2047 rows)
+    equals one unsharded K4 call within the decode bars."""
+    res = card_world.case("tp_decode_card")
+    assert all(int(r["launches"]) == 1 for r in res)
+    out = torch.cat([r["out"] for r in res], dim=1)
+    _assert_decode_close(out, res[0]["whole"], res[0]["lens"])

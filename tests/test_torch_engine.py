@@ -144,8 +144,10 @@ def test_engine_rejects_what_is_not_ported(params):
     assert Engine(params, CFG, num_slots=1, max_len=64, kv_int4=True).caches[0].k.shape[-1] == CFG.head_dim // 2
     with pytest.raises(ValueError, match="8-bit cache_dtype"):
         Engine(params, CFG, num_slots=1, max_len=64, cache_dtype=torch.bfloat16, kv_int4=True)
+    # Tensor-parallel meshes are ported (tests/test_torch_tp_serving.py);
+    # the decode block of the TPU's kernel is not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(params, CFG, mesh=object())
+        Engine(params, CFG, decode_block_kv=1024)
     # Speculative decoding is ported (tests/test_torch_speculative.py): the
     # draft that used to be refused now serves.
     spec = Engine(params, CFG, num_slots=1, max_len=64, draft=(params, CFG), spec_tokens=2)
