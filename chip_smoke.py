@@ -241,6 +241,29 @@ gloo: no scaling figure); the kernels line's ``launches_parallel`` counts
 K1, K4, K5 and K6 over the ranks, none may be 0.  ``--parallel-only``
 runs only this phase.
 
+Training under a mesh (after the parallel layer, ``phase_parallel_train``):
+one card's two SGD steps of each case on a batch of 2 x 1024 positions
+(its step-1 gradients of the checked leaves and expert choices kept on the
+host, then freed), then four ranks spawned on the card over gloo on a
+(dp 2, tp 2) mesh, each holding its shards and its row, running
+``llama.train_step(mesh=)`` twice: Llama-3-70B's widths
+(``llama3_70b()``) cut to 2 layers in bf16, and Mixtral-8x7B's cut to 1
+layer in fp8 head-wise (step 1 replaying one card's expert choices for the
+rank's rows).  Checks: the step-1 loss within 1e-2 relative of one card's,
+the same on every rank; the gradients ``train_step`` applies at step 1 of
+layer 0's and the last layer's wq, wo and w_down (MoE: the experts'
+w_down and the router), attn_norm, final_norm, the LM head and the
+embedding rows of the batch's tokens, put back together from the shards,
+within TRAIN_GRAD_BOUND relative Frobenius of one card's; dp replicas'
+gradients and every replicated leaf (norms, routers) the same bytes on all
+ranks; each rank's own expert choices equal across tp; K1, K2 and K3
+launched on every rank, no SDPA fallback.  The ``parallel_train`` line
+holds ms a step (step 2), tok/s, staged bytes, peak GB a rank and the
+phase's wall beside one card's (four ranks sharing one card over gloo: no
+scaling figure); the kernels line's ``launches_parallel`` of K1 adds this
+phase's launches and K2's and K3's are this phase's.
+``--parallel-train-only`` runs only this phase.
+
 ``python3 chip_smoke.py --engine-burst-only`` runs only the engine's burst
 timing (``engine_burst``, phase 9), and ``--quant-prefill-only`` only the
 quantized prefill timing (``quant_prefill``, phase 10), also over an
@@ -4365,7 +4388,7 @@ def _moe_layer_check(tree, cfg, gen) -> dict:
 
 
 @contextlib.contextmanager
-def _moe_routing(recorded: list, replay: bool = False):
+def _moe_routing(recorded: list, replay: bool = False, own_choices: list = None):
     """Record each MoE layer's expert choices in order (``recorded`` gets
     each ``router_topk``'s experts), or replay them: a run then takes the
     recorded experts, its gates the softmax of its own logits at them, so
@@ -4374,7 +4397,8 @@ def _moe_routing(recorded: list, replay: bool = False):
     shifts every later token's place in an expert's queue (PERF.md §6,
     Mixtral), so a comparison of numerics holds the choices fixed.
     ``_moe_routing.flips`` counts the tokens whose own choices in the
-    replaying run differ, of ``_moe_routing.choices``."""
+    replaying run differ, of ``_moe_routing.choices``; ``own_choices``,
+    where given, gets the replaying run's own choices."""
     orig = moe.router_topk
     it = iter(list(recorded))
 
@@ -4386,6 +4410,8 @@ def _moe_routing(recorded: list, replay: bool = False):
     def replaying(logits, k):
         experts = next(it)
         own = orig(logits, k)[1]
+        if own_choices is not None:
+            own_choices.append(own)
         _moe_routing.flips += int((own.sort(-1).values != experts.sort(-1).values).any(-1).sum())
         _moe_routing.choices += experts.shape[0]
         return torch.softmax(logits.gather(-1, experts.long()), dim=-1), experts
@@ -5672,9 +5698,10 @@ def _parallel_rank(rank: int, world: int, store: str, out_dir: str, results) -> 
         results.put({"rank": rank, "error": traceback.format_exc()})
 
 
-def _spawn_world(out_dir: str) -> list:
-    """Run ``_parallel_rank`` in PAR["world"] spawned processes (a ``file://``
-    store); every process is stopped before this returns."""
+def _spawn_world(out_dir: str, target=None, timeout_s: float = PAR["timeout_s"]) -> list:
+    """Run ``target`` (``_parallel_rank`` by default) in PAR["world"]
+    spawned processes (a ``file://`` store); every process is stopped
+    before this returns."""
     import queue as queue_lib
 
     import torch.multiprocessing as mp
@@ -5682,11 +5709,12 @@ def _spawn_world(out_dir: str) -> list:
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = os.path.join(out_dir, "store")
-    procs = [ctx.Process(target=_parallel_rank, args=(r, PAR["world"], store, out_dir, results), daemon=True)
+    procs = [ctx.Process(target=target or _parallel_rank, args=(r, PAR["world"], store, out_dir, results),
+                         daemon=True)
              for r in range(PAR["world"])]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + PAR["timeout_s"]
+    deadline = time.monotonic() + timeout_s
     recs = []
     try:
         while len(recs) < len(procs):
@@ -5802,6 +5830,301 @@ def phase_parallel() -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Training under a (dp, tp) mesh: four ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+#: Each case at published widths, seeded bf16 weights, the depth cut (the
+#: only cut), over a batch of 2 rows x 1024 positions (one row a dp rank of
+#: the (dp 2, tp 2) mesh ``dryrun_multichip`` builds at four devices,
+#: __graft_entry__.py:32-73); two SGD steps, the first checked, the second
+#: timed.  The gradients of the checked leaves are the ones ``train_step``
+#: applies (taken from its ``loss_and_grads``), held to TRAIN_GRAD_BOUND of
+#: the attention path against one card's.
+PAR_TRAIN = {
+    "llama3_70b": {"layers": 2, "impl": "bf16", "seed": 41},
+    "mixtral_8x7b": {"layers": 1, "impl": "fp8", "seed": 42},
+}
+PAR_TRAIN_MESH = (2, 2)
+PAR_TRAIN_ROWS = 2
+PAR_TRAIN_POSITIONS = 1024
+PAR_TRAIN_TIMEOUT_S = 600
+
+
+def _par_train_cfg(name: str):
+    """The case's preset (``llama.<name>``) at its depth and attention path."""
+    case = PAR_TRAIN[name]
+    kw = {"attention_impl": "bf16"} if case["impl"] == "bf16" else {}
+    return getattr(llama, name)(num_layers=case["layers"], **kw)
+
+
+def _par_train_tokens(name: str, cfg) -> torch.Tensor:
+    rng = np.random.default_rng(PAR_TRAIN[name]["seed"])
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (PAR_TRAIN_ROWS, PAR_TRAIN_POSITIONS + 1)))
+
+
+def _par_train_checked(grads, cfg, tokens: torch.Tensor, vocab_lo: int = 0) -> dict:
+    """The gradient leaves the phase compares: layer 0's and the last
+    layer's wq, wo and w_down (an MoE layer's expert w_down and router),
+    layer 0's attn_norm, final_norm, the LM head, and the embedding rows of
+    the batch's input tokens that fall in this table's slice (rows
+    ``vocab_lo`` on), in ascending token order."""
+    out = {}
+    for i in sorted({0, cfg.num_layers - 1}):
+        layer = grads["layers"][i]
+        out[f"layers.{i}.wq"], out[f"layers.{i}.wo"] = layer["wq"], layer["wo"]
+        if cfg.num_experts:
+            out[f"layers.{i}.moe.w_down"] = layer["moe"]["w_down"]
+            out[f"layers.{i}.moe.w_router"] = layer["moe"]["w_router"]
+        else:
+            out[f"layers.{i}.w_down"] = layer["w_down"]
+    out["layers.0.attn_norm"], out["final_norm"], out["lm_head"] = (
+        grads["layers"][0]["attn_norm"], grads["final_norm"], grads["lm_head"])
+    rows = torch.unique(tokens[:, :-1]).to(grads["embed"].device) - vocab_lo
+    rows = rows[(rows >= 0) & (rows < grads["embed"].shape[0])]
+    out["embed_rows"] = grads["embed"][rows]
+    return out
+
+
+@contextlib.contextmanager
+def _train_step_grads(keep, kept: list):
+    """Inside the block, every ``llama.loss_and_grads`` call (the one
+    ``train_step`` makes) appends ``keep(grads)`` copied to host memory to
+    ``kept``, before the update runs."""
+    orig = llama.loss_and_grads
+
+    def capturing(*a, **kw):
+        loss, grads = orig(*a, **kw)
+        kept.append({name: t.detach().cpu() for name, t in keep(grads).items()})
+        return loss, grads
+
+    llama.loss_and_grads = capturing
+    try:
+        yield kept
+    finally:
+        llama.loss_and_grads = orig
+
+
+def _replicated_leaves(params) -> dict:
+    """The leaves the mesh replicates (every norm, final_norm, every router;
+    all fp32), as numpy arrays."""
+    out = {"final_norm": params["final_norm"]}
+    for i, layer in enumerate(params["layers"]):
+        out[f"layers.{i}.attn_norm"] = layer["attn_norm"]
+        out[f"layers.{i}.mlp_norm"] = layer["mlp_norm"]
+        if "moe" in layer:
+            out[f"layers.{i}.moe.w_router"] = layer["moe"]["w_router"]
+    return {k: t.cpu().numpy() for k, t in out.items()}
+
+
+def _timed_step(params, tokens, cfg, mesh=None):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, loss = llama.train_step(params, tokens, cfg, mesh=mesh)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    return params, loss, 1e3 * (time.perf_counter() - t0)
+
+
+def _par_train_single(name: str) -> dict:
+    """One card's two steps on the whole batch, the first's checked
+    gradients and expert choices kept on the host; everything on the card
+    freed after."""
+    cfg = _par_train_cfg(name)
+    tokens = _par_train_tokens(name, cfg)
+    params = llama.init_params(torch.Generator("cuda").manual_seed(PAR_TRAIN[name]["seed"]), cfg, "cuda")
+    kept, routing = [], []
+    with _train_step_grads(lambda g: _par_train_checked(g, cfg, tokens), kept), _moe_routing(routing):
+        params, loss1, ms1 = _timed_step(params, tokens.cuda(), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, loss2, ms2 = _timed_step(params, tokens.cuda(), cfg)
+    rec = {"grads": kept[0], "losses": [loss1, loss2], "step_ms": ms2,
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9, "routing": [e.cpu() for e in routing]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _par_train_local_tree(cfg, mesh, seed: int):
+    """This rank's shards of the case's seeded tree: each matrix drawn whole
+    (the draws of one card's ``init_params``), then cut."""
+    specs = mesh_lib.llama_param_specs(cfg)
+    layer_specs = specs["layers"][0]
+
+    def spec(name):
+        if name.startswith("moe."):
+            return layer_specs["moe"][name[4:]]
+        return specs[name] if name in specs else layer_specs[name]
+
+    return llama.init_params(torch.Generator("cuda").manual_seed(seed), cfg, "cuda",
+                             transform=lambda name, w: mesh_lib.shard_tensor(w, mesh, spec(name)))
+
+
+def _par_train_rank_case(name: str, mesh, out_dir: str) -> dict:
+    """One case on this rank: step 1 through ``train_step(mesh=)`` with its
+    gradients kept (an MoE layer replaying one card's expert choices for
+    this rank's rows, ``_moe_routing``), step 2 timed.  Ranks at dp 0 save
+    their checked gradient shards for the parent; every rank reports its
+    replicated leaves, the hashes of its checked gradients and its own
+    expert choices."""
+    import hashlib
+
+    cfg = _par_train_cfg(name)
+    dp, tp = mesh_lib.axis_rank(mesh, "dp"), mesh_lib.axis_rank(mesh, "tp")
+    tree = _par_train_local_tree(cfg, mesh, PAR_TRAIN[name]["seed"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = _par_train_tokens(name, cfg)
+    local_tokens = tokens[dp:dp + 1].cuda()
+    vocab_lo = tp * cfg.vocab_size // mesh_lib.axis_size(mesh, "tp")
+    torch.cuda.reset_peak_memory_stats()
+    mesh_lib.staged_bytes = 0
+    rows = slice(dp * PAR_TRAIN_POSITIONS, (dp + 1) * PAR_TRAIN_POSITIONS)
+    routing = [e[rows].cuda() for e in torch.load(os.path.join(out_dir, f"{name}_routing.pt"))]
+    kept, experts = [], []
+    _moe_routing.flips = _moe_routing.choices = 0
+    with _train_step_grads(lambda g: _par_train_checked(g, cfg, tokens, vocab_lo), kept), \
+            _moe_routing(routing, replay=bool(routing), own_choices=experts):
+        tree, loss1, ms1 = _timed_step(tree, local_tokens, cfg, mesh)
+    replicated_1 = _replicated_leaves(tree)
+    staged_1 = mesh_lib.staged_bytes
+    tree, loss2, ms2 = _timed_step(tree, local_tokens, cfg, mesh)
+    rec = {"losses": [loss1, loss2], "step_ms": ms2, "first_step_ms": ms1,
+           "staged_bytes_per_step": [staged_1, mesh_lib.staged_bytes - staged_1],
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "replicated": [replicated_1, _replicated_leaves(tree)],
+           "grad_sha1": {k: hashlib.sha1(t.contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+                         for k, t in kept[0].items() if k != "embed_rows"},
+           "experts": [e.cpu().numpy() for e in experts], "flips": _moe_routing.flips,
+           "choices": _moe_routing.choices}
+    if dp == 0:
+        torch.save(kept[0], os.path.join(out_dir, f"{name}_grads_{tp}.pt"))
+    del tree, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _parallel_train_rank(rank: int, world: int, store: str, out_dir: str, results) -> None:
+    """One rank of the mesh training phase: every case of PAR_TRAIN on a
+    (dp 2, tp 2) mesh, K1, K2 and K3 on this rank's heads."""
+    import traceback
+
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores, shared
+        backend_name = multihost.initialize_distributed(f"file://{store}", world, rank)
+        mesh = mesh_lib.make_mesh(PAR_TRAIN_MESH, ("dp", "tp"))
+        rec = {"rank": rank, "backend": backend_name, "dp": mesh_lib.axis_rank(mesh, "dp"),
+               "tp": mesh_lib.axis_rank(mesh, "tp")}
+        _reset_train_counts()
+        for name in PAR_TRAIN:
+            rec[name] = _par_train_rank_case(name, mesh, out_dir)
+        rec["launches"] = _train_counts()
+        results.put(rec)
+        torch.distributed.destroy_process_group()
+    except Exception:  # noqa: BLE001 — the rank's boundary: the parent raises it
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def _par_train_case_checks(name: str, ranks: list, single: dict, out_dir: str) -> dict:
+    """One case's checks against one card: the loss, the checked gradients
+    put back together from the dp-0 ranks' shards, dp replicas' gradients
+    equal, replicated leaves equal on all ranks, expert choices equal
+    across tp."""
+    cfg = _par_train_cfg(name)
+    impl = PAR_TRAIN[name]["impl"]
+    specs = mesh_lib.llama_param_specs(cfg)
+    n_tp = PAR_TRAIN_MESH[1]
+    shards = [torch.load(os.path.join(out_dir, f"{name}_grads_{t}.pt")) for t in range(n_tp)]
+    errs = {}
+    for key, ref in single["grads"].items():
+        if key == "embed_rows":
+            dim = 0
+        else:
+            node = specs
+            for part in key.split("."):
+                node = node[int(part)] if isinstance(node, list) else node[part]
+            dims = [d for d, ax in enumerate(node) if ax is not None]
+            dim = dims[0] if dims else None
+        whole = shards[0][key] if dim is None else torch.cat([s[key] for s in shards], dim=dim)
+        errs[key] = rel_fro(whole.cuda(), ref.cuda())
+    del shards
+    mine = [r[name] for r in ranks]
+    loss_rel = abs(mine[0]["losses"][0] - single["losses"][0]) / abs(single["losses"][0])
+    replicas_equal = all(
+        r[name]["grad_sha1"] == q[name]["grad_sha1"] for r in ranks for q in ranks if r["tp"] == q["tp"])
+    replicated_equal = all(
+        np.array_equal(a, b) for m in mine for i in range(2)
+        for a, b in zip(m["replicated"][i].values(), mine[0]["replicated"][i].values()))
+    experts_equal = all(
+        len(r[name]["experts"]) == len(q[name]["experts"])
+        and all(np.array_equal(a, b) for a, b in zip(r[name]["experts"], q[name]["experts"]))
+        for r in ranks for q in ranks if r["dp"] == q["dp"])
+    rec = {"layers": cfg.num_layers, "impl": impl, "hidden": cfg.hidden_size, "heads": cfg.num_q_heads,
+           "kv_heads": cfg.num_kv_heads, "experts": cfg.num_experts, "rows": PAR_TRAIN_ROWS,
+           "positions": PAR_TRAIN_POSITIONS, "cut": f"num_layers {cfg.num_layers}",
+           "losses": mine[0]["losses"], "single_losses": single["losses"], "loss_rel": loss_rel,
+           "grad_rel_fro": errs, "bound": TRAIN_GRAD_BOUND[impl],
+           "losses_equal_on_ranks": all(m["losses"] == mine[0]["losses"] for m in mine),
+           "replicated_equal": replicated_equal, "dp_replica_grads_equal": replicas_equal,
+           "experts_equal_across_tp": experts_equal,
+           "routing_flips_vs_single": [m["flips"] for m in mine], "routed_tokens": [m["choices"] for m in mine],
+           "step_ms": max(m["step_ms"] for m in mine), "single_step_ms": single["step_ms"],
+           "tok_s": PAR_TRAIN_ROWS * PAR_TRAIN_POSITIONS / (1e-3 * max(m["step_ms"] for m in mine)),
+           "single_tok_s": PAR_TRAIN_ROWS * PAR_TRAIN_POSITIONS / (1e-3 * single["step_ms"]),
+           "first_step_ms": max(m["first_step_ms"] for m in mine),
+           "staged_bytes_per_step": [sum(m["staged_bytes_per_step"][i] for m in mine) for i in range(2)],
+           "peak_GB_per_rank": [m["peak_GB"] for m in mine], "single_peak_GB": single["peak_GB"]}
+    if not (loss_rel < 1e-2 and all(np.isfinite(m["losses"]).all() for m in mine)
+            and rec["losses_equal_on_ranks"]):
+        raise RuntimeError(f"parallel_train {name}: losses off: {rec}")
+    if not all(e < TRAIN_GRAD_BOUND[impl] for e in errs.values()):
+        raise RuntimeError(f"parallel_train {name}: gradients off one card's: {errs}")
+    if not (replicated_equal and replicas_equal and experts_equal):
+        raise RuntimeError(f"parallel_train {name}: ranks disagree: {rec}")
+    if cfg.num_experts and not all(m["experts"] for m in mine):
+        raise RuntimeError(f"parallel_train {name}: no expert choices recorded")
+    return rec
+
+
+def phase_parallel_train() -> dict:
+    """Training under a (dp 2, tp 2) mesh on four ranks sharing the card
+    over gloo (``llama.train_step(mesh=)``): Llama-3-70B's widths at 2
+    layers in bf16 and Mixtral-8x7B's at 1 layer in fp8 head-wise, each
+    beside one card's step on the same batch through the same kernels
+    (computed and freed before the ranks start).  Returns K1, K2 and K3's
+    launches summed over the ranks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _native.library()  # built here, loaded by every rank
+    t_start = time.perf_counter()
+    single = {name: _par_train_single(name) for name in PAR_TRAIN}
+    ref_s = time.perf_counter() - t_start
+    out_dir = tempfile.mkdtemp(prefix="qa_parallel_train_")
+    try:
+        for name, one in single.items():
+            torch.save(one["routing"], os.path.join(out_dir, f"{name}_routing.pt"))
+        t0 = time.perf_counter()
+        ranks = _spawn_world(out_dir, _parallel_train_rank, PAR_TRAIN_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        rec = {"backend": ranks[0]["backend"], "world": PAR["world"], "mesh": PAR_TRAIN_MESH,
+               "label": PAR_LABEL, "refs_s": ref_s, "world_s": world_s}
+        for name in PAR_TRAIN:
+            rec[name] = _par_train_case_checks(name, ranks, single[name], out_dir)
+        launches = {key: sum(r["launches"][key] for r in ranks) for key in ("k1", "k2", "k3", "sdpa_fallback")}
+        rec["launches"] = launches
+        rec["launches_per_rank"] = [{key: r["launches"][key] for key in ("k1", "k2", "k3")} for r in ranks]
+        rec["wall_s"] = time.perf_counter() - t_start
+        log("parallel_train " + json.dumps(rec))
+        if launches["sdpa_fallback"] or any(n <= 0 for r in rec["launches_per_rank"] for n in r.values()):
+            raise RuntimeError(f"parallel_train: a rank skipped a kernel or fell back: {rec['launches_per_rank']}, "
+                               f"{launches['sdpa_fallback']} SDPA fallbacks")
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not checks.cuda_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -5847,6 +6170,9 @@ def _main() -> int:
     if "--parallel-only" in sys.argv[1:]:
         log("parallel launches " + json.dumps(phase_parallel()))
         return 0
+    if "--parallel-train-only" in sys.argv[1:]:
+        log("parallel_train launches " + json.dumps(phase_parallel_train()))
+        return 0
     if "--quant-prefill-only" in sys.argv[1:]:
         params = llama.init_params(torch.Generator("cuda").manual_seed(0), llama.llama3_8b(), "cuda")
         for label, quant_fn in (("serve_int8", quantized.quantize_params),
@@ -5890,22 +6216,23 @@ def _main() -> int:
     mistral = phase_mistral()
     mixtral = phase_mixtral()
     par = phase_parallel()
+    ptrain = phase_parallel_train()
     k23["dq"]["library_ms"] = k23["dkv"]["library_ms"] = phase_sdpa_backward(gen)
     phase_split(gen)  # last: the profiler stays out of every other phase's timings
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["k1"], "launches_window": mistral["k1"],
-         "launches_moe": mixtral["k1"], "launches_parallel": par["k1"], **k1, **window["k1"]},
+         "launches_moe": mixtral["k1"], "launches_parallel": par["k1"] + ptrain["k1"], **k1, **window["k1"]},
         {"name": "decode", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches["k4"], "launches_verify": spec["k4_verify"],
          "launches_window": mistral["k4"], "launches_moe": mixtral["k4"], "launches_parallel": par["k4"],
          **k4, **window["k4"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": K23_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2"], "launches_window": mistral["k2"],
-         "launches_moe": mixtral["k2"], **k23["dq"], **window["dq"]},
+         "launches_moe": mixtral["k2"], "launches_parallel": ptrain["k2"], **k23["dq"], **window["dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": K23_SOURCE,
          "replaces": K3_REPLACES, "launches": train["k3"], "launches_window": mistral["k3"],
-         "launches_moe": mixtral["k3"], **k23["dkv"], **window["dkv"]},
+         "launches_moe": mixtral["k3"], "launches_parallel": ptrain["k3"], **k23["dkv"], **window["dkv"]},
         {"name": "qmm", "route": "cuda", "source": QGEMM_SOURCE, "replaces": K5_REPLACES,
          "launches": q8["k5"] + q4["k5"], "launches_moe": mixtral["k5"], "launches_parallel": par["k5"],
          **k567["k5"]},

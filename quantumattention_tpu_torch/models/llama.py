@@ -34,6 +34,17 @@ out: one all-reduce after each row-split product (wo, w_down, an MoE FFN
 over column-split experts), a vocab-parallel embedding lookup (rows outside
 the rank's slice masked, then an all-reduce), and a column-parallel LM head
 whose logits are all-gathered.  Without ``tp`` nothing changes.
+
+Training under a mesh (``mesh=`` on :func:`forward`, :func:`loss_fn`,
+:func:`loss_and_grads` and :func:`train_step`; axes ("dp", "tp"), JAX's
+``train_step`` jitted over a GSPMD mesh): each rank holds its shards and
+its rows of the batch.  The collectives above are Megatron's autograd
+pairs (``parallel/mesh.Axis``): the all-reduces ("g") pass the gradient
+through, the gathered head hands each rank its slice of it, and an "f" op
+(identity forward, all-reduce backward) sits at the input of every
+column-parallel product, so partial input gradients are summed over tp.
+The loss is the whole batch's mean and every gradient is summed over dp,
+so one step equals the single-device step on the whole batch.
 """
 
 from __future__ import annotations
@@ -113,6 +124,23 @@ def llama3_8b(**overrides) -> LlamaConfig:
     )
 
 
+def llama3_70b(**overrides) -> LlamaConfig:
+    """Llama-3-70B's published shapes (``meta-llama/Meta-Llama-3-70B``)."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=128256,
+            hidden_size=8192,
+            intermediate_size=28672,
+            num_layers=80,
+            num_q_heads=64,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=500000.0,
+        ),
+        **overrides,
+    )
+
+
 def mistral_7b(**overrides) -> LlamaConfig:
     """Mistral-7B's published shapes (``mistralai/Mistral-7B-v0.1``): the
     Llama block with a 4096-token sliding window."""
@@ -127,6 +155,25 @@ def mistral_7b(**overrides) -> LlamaConfig:
             head_dim=128,
             rope_theta=10000.0,
             window=4096,
+        ),
+        **overrides,
+    )
+
+
+def qwen2_7b(**overrides) -> LlamaConfig:
+    """Qwen2-7B's published shapes (``Qwen/Qwen2-7B``): the Llama block with
+    biases on the Q, K and V projections."""
+    return dataclasses.replace(
+        LlamaConfig(
+            vocab_size=152064,
+            hidden_size=3584,
+            intermediate_size=18944,
+            num_layers=28,
+            num_q_heads=28,
+            num_kv_heads=4,
+            head_dim=128,
+            rope_theta=1000000.0,
+            qkv_bias=True,
         ),
         **overrides,
     )
@@ -324,16 +371,18 @@ def _qkv_proj(cfg: LlamaConfig, layer: Params, h: torch.Tensor):
     return q, k, v
 
 
-def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=None):
+def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=None, tp=None):
     """norm -> QKV -> RoPE -> ``attend_fn(idx, q, k, v)`` on (B, H, T, D).
     Returns (attn_out (B, T, q_dim) before wo, post-RoPE k, v).  ``qkv``:
     this layer's bias-free fused QKV projection, already computed by the
-    previous layer's tail kernel (norm and product are skipped)."""
+    previous layer's tail kernel (norm and product are skipped).  Under
+    ``tp`` the normed input passes the "f" op (:func:`_column_input`)."""
     batch, t, _ = x.shape
     if qkv is not None:
         q, k, v = _split_qkv(cfg, layer, qkv)
     else:
-        q, k, v = _qkv_proj(cfg, layer, rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps))
+        h = _column_input(rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps), tp)
+        q, k, v = _qkv_proj(cfg, layer, h)
     q = q.reshape(batch, t, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
     k = k.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
@@ -344,11 +393,19 @@ def _layer_attention(cfg, idx, layer, x, cos, sin, attend_fn, qkv=None):
     return out, k, v
 
 
-def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None, tp=None):
+def attention_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, cos: torch.Tensor,
+                    sin: torch.Tensor) -> torch.Tensor:
+    """Self-attention sublayer over (B, S, E) activations (the fused
+    kernel, causal) plus the residual."""
+    attn_out, _, _ = _layer_attention(cfg, 0, layer, x, cos, sin, _fused_attend(cfg))
+    return x + quantized.matmul(attn_out, layer["wo"])
+
+
+def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None, tp=None, dp=None):
     """Output projection + residual + MLP.  Returns (new x, the next
     layer's bias-free QKV or None).  Under ``tp`` the row-split products'
     partial sums are all-reduced (a fused tree, which K8 needs, cannot be
-    sharded).
+    sharded); ``dp`` reaches an MoE FFN (:func:`mlp_block`).
 
     On a fused quantized tree at <= 256 rows this is one call of kernel
     K8 (ops/qmlp.fused_layer_tail), which also emits ``next_layer``'s
@@ -367,23 +424,39 @@ def _layer_tail(cfg: LlamaConfig, layer: Params, x, attn_out, next_layer=None, t
         y, qkv = res if fold else (res, None)
         return y.reshape(*lead, -1), None if qkv is None else qkv.reshape(*lead, -1)
     x = x + _reduce(quantized.matmul(attn_out, layer["wo"]), tp)
-    return mlp_block(cfg, layer, x, tp), None
+    return mlp_block(cfg, layer, x, tp, dp), None
 
 
 def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
-    """Sum a row-split product's partial sums over the tensor-parallel axis."""
+    """Sum a row-split product's partial sums over the tensor-parallel axis
+    (Megatron's "g": the gradient passes through)."""
     return y if tp is None else tp.all_reduce(y)
 
 
-def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
-    h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+def _column_input(h: torch.Tensor, tp) -> torch.Tensor:
+    """The input of column-parallel products (Megatron's "f": ``h`` itself;
+    its gradient, a partial sum on each rank, is summed over the axis)."""
+    return h if tp is None else tp.copy(h)
+
+
+def mlp_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, tp=None, dp=None) -> torch.Tensor:
+    """norm -> SwiGLU or MoE FFN -> residual.  Under ``tp`` the normed input
+    passes the "f" op and the row-split product's sums are all-reduced.
+    An MoE FFN under ``tp`` also passes its replicated router through "f"
+    (the combine weights it feeds multiply partial expert outputs, so each
+    rank's router gradient is a partial sum), and under ``dp`` (training
+    on a mesh) claims capacity over the whole batch (``moe.moe_ffn``)."""
+    h = _column_input(rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps), tp)
     if cfg.num_experts > 0:
         from . import moe
 
+        experts = layer["moe"]
+        if tp is not None:
+            experts = {**experts, "w_router": tp.copy(experts["w_router"])}
         # Capacity counts every row of x: padding rows of a prefill and the
         # idle slots of a decode step included, as in the JAX engine.
-        return x + _reduce(moe.moe_ffn(layer["moe"], h, num_experts_per_tok=cfg.num_experts_per_tok,
-                                       capacity_factor=cfg.capacity_factor), tp)
+        return x + _reduce(moe.moe_ffn(experts, h, num_experts_per_tok=cfg.num_experts_per_tok,
+                                       capacity_factor=cfg.capacity_factor, dp=dp), tp)
     if "w_gate_up" in layer:
         gate, up = quantized.matmul(h, layer["w_gate_up"]).chunk(2, dim=-1)
     else:
@@ -412,11 +485,13 @@ def _embed(params, tokens, cfg: LlamaConfig, tp=None) -> torch.Tensor:
     return tp.all_reduce(torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)))
 
 
-def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_pos=None, tp=None):
+def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_pos=None, tp=None,
+             dp=None):
     """embed -> [attention, MLP] x L -> norm -> head.  With ``last_pos``
     ((B,) int) the head runs only at that position of each row.  Under
     ``tp`` the layers run on this rank's heads and columns and the logits
-    come back whole; ``attend_fn`` gets the local heads."""
+    come back whole; ``attend_fn`` gets the local heads.  ``dp``: the
+    data-parallel axis of a training mesh (MoE capacity, :func:`mlp_block`)."""
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = _embed(params, tokens, cfg, tp)
     lcfg = cfg if tp is None else local_config(cfg, tp.size)
@@ -424,11 +499,11 @@ def _decoder(params, tokens, positions, cfg, attend_fn, collect_kv=False, last_p
     layers = params["layers"]
     qkv_pre = None
     for idx, layer in enumerate(layers):
-        attn_out, k, v = _layer_attention(lcfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre)
+        attn_out, k, v = _layer_attention(lcfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre, tp=tp)
         if collect_kv:
             kv.append((k, v))
         nxt = layers[idx + 1] if idx + 1 < len(layers) else None
-        x, qkv_pre = _layer_tail(lcfg, layer, x, attn_out, next_layer=nxt, tp=tp)
+        x, qkv_pre = _layer_tail(lcfg, layer, x, attn_out, next_layer=nxt, tp=tp, dp=dp)
     if last_pos is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_pos.to(x.device)][:, None, :]
@@ -444,11 +519,42 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, positions=None):
-    """(B, S) int tokens -> (B, S, vocab) fp32 logits (differentiable)."""
+def mesh_axes(params: Params, cfg: LlamaConfig, mesh):
+    """The (dp, tp) axes of a training mesh as ``parallel/mesh.Axis``, each
+    None where the mesh has size 1 along it (or no mesh is given).  Checks
+    that the config splits over tp and that ``params`` holds this rank's
+    shards."""
+    if mesh is None:
+        return None, None
+    from ..parallel import mesh as mesh_lib
+
+    dp, tp = mesh_lib.axis(mesh, "dp"), mesh_lib.axis(mesh, "tp")
+    n = tp.size
+    for name in ("num_q_heads", "num_kv_heads", "intermediate_size", "vocab_size"):
+        if getattr(cfg, name) % n:
+            raise ValueError(f"{name} ({getattr(cfg, name)}) must be divisible by the 'tp' "
+                             f"axis size ({n})")
+    wq = params["layers"][0].get("wq") if params["layers"] else None
+    if isinstance(wq, torch.Tensor) and wq.shape[-1] != cfg.q_dim // n:
+        raise ValueError(
+            f"params hold {wq.shape[-1]} query columns a layer, this rank's shard has "
+            f"{cfg.q_dim // n}: pass parallel/mesh.shard_params(params, mesh, "
+            "llama_param_specs(cfg))")
+    return (dp if dp.size > 1 else None), (tp if n > 1 else None)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, positions=None, mesh=None):
+    """(B, S) int tokens -> (B, S, vocab) fp32 logits (differentiable).
+
+    ``mesh``: a mesh with axes ("dp", "tp") (``parallel/mesh.make_mesh``);
+    ``params`` is then this rank's shards (``parallel/mesh.shard_params``
+    under ``llama_param_specs(cfg)``), ``tokens`` its rows of the batch
+    (``parallel/mesh.batch_spec``), and the logits those rows' whole
+    vocabulary."""
+    dp, tp = mesh_axes(params, cfg, mesh)
     if positions is None:
         positions = _positions(tokens)
-    return _decoder(params, tokens, positions, cfg, _fused_attend(cfg))
+    return _decoder(params, tokens, positions, cfg, _fused_attend(cfg), tp=tp, dp=dp)
 
 
 @torch.no_grad()
@@ -522,7 +628,7 @@ def decode_head(params: Params, x: torch.Tensor, cfg: LlamaConfig, tp=None) -> t
     """Final RMSNorm and LM head of (..., E) activations -> fp32 logits.
     Under ``tp`` the head is column-parallel (this rank's vocabulary
     slice, any padding columns cut off) and the logits are all-gathered."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    x = _column_input(rms_norm(x, params["final_norm"], cfg.rms_norm_eps), tp)
     if cfg.tie_embeddings:
         logits = quantized.tied_head_matmul(x, params["embed"]).float()
     else:
@@ -584,11 +690,16 @@ def forward_decode(
 # ---------------------------------------------------------------------------
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Next-token cross-entropy over (B, S) tokens, on fp32 logits."""
-    logits = forward(params, tokens[:, :-1], cfg)
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy over (B, S) tokens, on fp32 logits.  Under
+    a ``mesh`` (:func:`forward`) the mean over the whole batch: each dp
+    rank's mean over its rows, averaged over dp (JAX llama.py:672-678 under
+    GSPMD); its gradient on a rank is that rank's share."""
+    logits = forward(params, tokens[:, :-1], cfg, mesh=mesh)
     targets = tokens[:, 1:].long()
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+    dp, _ = mesh_axes(params, cfg, mesh)
+    return loss if dp is None else dp.all_reduce(loss) / dp.size
 
 
 def leaves(tree: Params) -> List[torch.Tensor]:
@@ -612,11 +723,18 @@ def tree_like(tree: Params, values: List[Any]) -> Params:
     return out
 
 
-def loss_and_grads(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
+def loss_and_grads(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *, mesh=None):
     """(loss, grads): ``jax.value_and_grad(loss_fn)``; grads is a tree of
     params' structure (None for a leaf the loss does not reach).  A
     quantized tree raises: its int8/int4 leaves are not differentiable
-    (quantized.py:17-19 of the JAX package)."""
+    (quantized.py:17-19 of the JAX package).
+
+    Under a ``mesh`` (:func:`forward`) the loss is the whole batch's and
+    grads this rank's shards of the whole batch's gradient: each leaf's
+    share is summed over dp (``parallel/mesh.all_reduce_``: leaf by leaf,
+    in fp32, in pieces of at most 256 MB).  Partial sums over tp are
+    summed inside the backward by the "f" ops (:func:`_column_input`), so
+    a leaf replicated over the mesh gets the same bytes on every rank."""
     flat = leaves(params)
     if any(quantized.is_quantized(p) or quantized.is_quantized4(p) for p in flat):
         raise TypeError(
@@ -627,22 +745,32 @@ def loss_and_grads(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
     try:
         for p in flat:
             p.requires_grad_(True)
-        loss = loss_fn(params, tokens, cfg)
+        loss = loss_fn(params, tokens, cfg, mesh=mesh)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     finally:
         for p, flag in zip(flat, flags):
             p.requires_grad_(flag)
+    dp, _ = mesh_axes(params, cfg, mesh)
+    if dp is not None:
+        from ..parallel import mesh as mesh_lib
+
+        mesh_lib.all_reduce_(grads, mesh, "dp")
     return loss.detach(), tree_like(params, list(grads))
 
 
-def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, lr: float = 1e-3):
+def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, lr: float = 1e-3, *,
+               mesh=None):
     """One SGD step; returns (new_params, loss).  The update is computed in
     fp32 and cast back to each parameter's dtype, as in the JAX package
     (llama.py:681-693), but written into ``params`` in place, so the new
-    parameters are ``params`` itself and an 8B model needs no second copy."""
-    loss, grads = loss_and_grads(params, tokens, cfg)
+    parameters are ``params`` itself and an 8B model needs no second copy.
+    Under a ``mesh`` (:func:`forward`) each rank updates its own shards
+    with the whole batch's gradient (:func:`loss_and_grads`)."""
+    loss, grads = loss_and_grads(params, tokens, cfg, mesh=mesh)
     with torch.no_grad():
         for p, g in zip(leaves(params), leaves(grads)):
             if g is not None:
-                p.copy_(p.float() - lr * g.float())
+                # p - lr * g in fp32 with one fp32 temporary a leaf: the
+                # same roundings as p.float() - lr * g.float().
+                p.copy_(g.to(torch.float32, copy=True).mul_(lr).neg_().add_(p))
     return params, loss

@@ -62,18 +62,23 @@ def expert_capacity(num_tokens: int, num_experts: int, num_experts_per_tok: int,
 
 
 def make_dispatch_combine(gates: torch.Tensor, experts: torch.Tensor, num_experts: int,
-                          capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                          capacity: int, offsets: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense dispatch and combine tensors (GShard §3.1).
 
     A (choice, token) assignment takes the next free slot of its expert in
     slot-major order, so all tokens' first choices claim capacity before
     any second choice (the Switch priority rule); past ``capacity`` it is
-    dropped.  Returns dispatch (N, E, C) bf16 0/1 and combine (N, E, C)
-    fp32, dispatch weighted by the gate."""
+    dropped.  ``offsets`` (k, E): slots of each expert taken ahead of this
+    batch's assignments of each choice by other ranks' tokens
+    (:func:`queue_offsets`).  Returns dispatch (N, E, C) bf16 0/1 and
+    combine (N, E, C) fp32, dispatch weighted by the gate."""
     n, k = gates.shape
     onehot_km = _one_hot(experts, num_experts).transpose(0, 1)  # (k, N, E)
     flat = onehot_km.reshape(k * n, num_experts)
     pos_flat = torch.cumsum(flat, dim=0) - flat  # exclusive cumsum
+    if offsets is not None:
+        pos_flat = pos_flat + offsets[:, None, :].expand(k, n, num_experts).reshape(k * n, num_experts)
     kept_flat = flat * (pos_flat < capacity)
     pos = pos_flat.reshape(k, n, num_experts)
     kept = kept_flat.reshape(k, n, num_experts)
@@ -81,6 +86,22 @@ def make_dispatch_combine(gates: torch.Tensor, experts: torch.Tensor, num_expert
     dispatch = torch.einsum("kne,knc->nec", kept, pos_onehot)
     combine = torch.einsum("kne,knc,kn->nec", kept, pos_onehot, gates.t().float())
     return dispatch.to(torch.bfloat16), combine
+
+
+def queue_offsets(experts: torch.Tensor, num_experts: int, dp) -> torch.Tensor:
+    """Each expert's slots claimed before this rank's assignments of each
+    choice, when the batch is split by rows over the data-parallel axis
+    ``dp`` (a ``parallel/mesh.Axis``; rank r holds the r-th block of rows):
+    the whole batch's queue is choice-major, then rank, then token, so
+    choice j here follows every rank's earlier choices and the lower ranks'
+    choice j.  Returns (k, E) fp32 counts, less the earlier choices this
+    rank's own cumsum already counts."""
+    counts = _one_hot(experts, num_experts).sum(dim=0)  # (k, E)
+    every = dp.all_gather(counts[None], dim=0)  # (ranks, k, E)
+    total = every.sum(dim=0)
+    earlier_choices = torch.cumsum(total, dim=0) - total
+    own_earlier = torch.cumsum(counts, dim=0) - counts
+    return earlier_choices - own_earlier + every[: dp.rank].sum(dim=0)
 
 
 def load_balancing_loss(router_probs: torch.Tensor, experts: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -138,14 +159,19 @@ def expert_ffn(moe: Params, x_e: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(
     moe: Params, x: torch.Tensor, *, num_experts_per_tok: int, capacity_factor: float = 1.25,
-    expert_fn=None, return_aux: bool = False,
+    expert_fn=None, return_aux: bool = False, dp=None,
 ):
     """Sparse MoE feed-forward over (..., H) activations.
 
     Capacity is computed over every row of ``x``, in its flattened order.
     ``expert_fn(moe, x_e)`` computes the experts on the dispatched (E, C, H)
     batch (default :func:`expert_ffn`).  With ``return_aux`` also returns
-    the load-balancing loss and the router z-loss."""
+    the load-balancing loss and the router z-loss.  ``dp``: the
+    data-parallel axis when ``x`` is this rank's block of a batch split
+    by rows (training on a mesh): capacity and each token's place in an
+    expert's queue are then the whole batch's (:func:`queue_offsets`), as
+    GSPMD computes them in JAX, and the expert batch has the whole batch's
+    capacity, the slots of other ranks' tokens left zero."""
     orig_shape = x.shape
     xt = x.reshape(-1, x.shape[-1])
     n = xt.shape[0]
@@ -153,8 +179,10 @@ def moe_ffn(
 
     router_logits = torch.matmul(xt.float(), moe["w_router"])
     gates, experts = router_topk(router_logits, num_experts_per_tok)
-    cap = expert_capacity(n, e, num_experts_per_tok, capacity_factor)
-    dispatch, combine = make_dispatch_combine(gates, experts, e, cap)
+    ranks = 1 if dp is None else dp.size
+    cap = expert_capacity(n * ranks, e, num_experts_per_tok, capacity_factor)
+    offsets = None if dp is None else queue_offsets(experts, e, dp)
+    dispatch, combine = make_dispatch_combine(gates, experts, e, cap, offsets)
 
     x_e = torch.einsum("nec,nh->ech", dispatch.to(x.dtype), xt).contiguous()
     y_e = (expert_fn or expert_ffn)(moe, x_e)

@@ -24,6 +24,14 @@ card) run on host memory: a CUDA tensor is copied to the host and back,
 and :data:`staged_bytes` counts those copies.  Over NCCL the collective
 runs on the device.  Sums run in fp32 whatever the tensor's dtype; every
 other collective moves raw bytes, so any dtype (fp8 included) travels.
+
+The model's collectives go through :class:`Axis`, whose methods are
+autograd Functions, Megatron's pairs (GSPMD inserts them in JAX): the sum
+("g") passes its gradient through, the gather hands each rank its slice of
+the gradient, and :meth:`Axis.copy` ("f") is the identity whose gradient
+is summed.  Their forwards are the plain collectives above, so serving
+under ``torch.no_grad`` computes the same bytes.  :func:`all_reduce_`
+sums a training step's gradients over dp in place.
 """
 
 from __future__ import annotations
@@ -135,10 +143,20 @@ class Axis:
         return axis_rank(self.mesh, self.name)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce(x, self.mesh, self.name)
+        """Megatron's "g": the sum over the axis; the gradient passes
+        through unchanged."""
+        return _AllReduce.apply(x, self.mesh, self.name)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return all_gather(x, self.mesh, self.name, dim)
+        """Every rank's ``x`` concatenated along ``dim``; the gradient is
+        this rank's slice of the incoming one."""
+        return _AllGather.apply(x, self.mesh, self.name, dim)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's "f": ``x`` itself (a view); the gradient is summed
+        over the axis.  It goes at the input of a column-parallel product,
+        whose rank computes only a partial gradient of that input."""
+        return _Copy.apply(x, self.mesh, self.name)
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         return broadcast(x, self.mesh, self.name, src)
@@ -205,6 +223,58 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     dist.all_gather(parts, flat, group=group)
     out = torch.cat([_from_bytes(p, x.dtype, x.shape) for p in parts], dim=dim)
     return _to_device(out, x.device) if staged else out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.width = dim, x.shape[dim]
+        ctx.start = axis_rank(mesh, axis) * ctx.width
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.width), None, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+#: The most elements one collective of :func:`all_reduce_` moves (256 MB
+#: of fp32): a large tensor is summed piece by piece, so neither the card
+#: nor host memory ever holds a second fp32 copy of all of it.
+BUCKET_ELEMENTS = 64 * 2**20
+
+
+def all_reduce_(tensors: Sequence[Optional[torch.Tensor]], mesh, axis: str) -> None:
+    """Sum each tensor over ``axis`` in place (None entries skipped), one
+    tensor at a time and each in pieces of at most :data:`BUCKET_ELEMENTS`,
+    in fp32 as :func:`all_reduce`."""
+    for t in tensors:
+        if t is None:
+            continue
+        flat = t.view(-1)
+        for start in range(0, flat.numel(), BUCKET_ELEMENTS):
+            piece = flat[start : start + BUCKET_ELEMENTS]
+            piece.copy_(all_reduce(piece, mesh, axis))
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:

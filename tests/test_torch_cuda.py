@@ -2151,7 +2151,7 @@ def card_world(tmp_path_factory):
     from torch_dist_worker import World
 
     w = World(2, tmp_path_factory.mktemp("card_world"),
-              {"ring_fp8_token_wise_card": {}, "tp_decode_card": {}}, timeout_s=300.0)
+              {"ring_fp8_token_wise_card": {}, "tp_decode_card": {}, "tp_train_card": {}}, timeout_s=300.0)
     yield w
     w.close()
 
@@ -2179,3 +2179,45 @@ def test_tp_decode_on_two_ranks(cuda, card_world):
     assert all(int(r["launches"]) == 1 for r in res)
     out = torch.cat([r["out"] for r in res], dim=1)
     _assert_decode_close(out, res[0]["whole"], res[0]["lens"])
+
+
+def test_tp_train_step_on_two_ranks(cuda, card_world):
+    """One ``train_step(mesh=)`` of ``tiny`` on a (dp 1, tp 2) mesh: K1, K2
+    and K3 launched on each rank's heads; the loss within 1e-2 relative,
+    every gradient leaf (the shards put back together) and the SGD step of
+    every leaf within 5e-2 relative Frobenius of one card's step through
+    the same kernels (tests/test_torch_train.py's bars); the replicated
+    leaves the same bytes on both ranks."""
+    from quantumattention_tpu_torch.parallel import mesh as qmesh
+
+    res = sorted(card_world.case("tp_train_card"), key=lambda r: r["tp"])
+    assert all(r["device"].startswith("cuda") and min(r["launches"]) > 0 for r in res)
+    r0 = res[0]
+    for key in ("loss", "step_loss"):
+        assert abs(r0[key] - r0["one_loss"]) <= 1e-2 * abs(r0["one_loss"]) and res[1][key] == r0[key]
+    specs = qmesh.llama_param_specs(llama.tiny())
+
+    def pairs(tree, whole, spec, path=""):
+        if isinstance(tree, dict):
+            for k in tree:
+                yield from pairs(tree[k], whole[k], spec[k], f"{path}{k}.")
+        elif isinstance(tree, list):
+            for i, (t, w, s) in enumerate(zip(tree, whole, spec)):
+                yield from pairs(t, w, s, f"{path}{i}.")
+        else:
+            yield path[:-1], tree, whole, spec
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    for key, one_key in (("grads", "one_grads"), ("new", "one_new")):
+        for path, t0, want, spec in pairs(res[0][key], res[0][one_key], specs):
+            t1 = next(t for p, t, _, _ in pairs(res[1][key], res[1][one_key], specs) if p == path)
+            dims = [d for d, ax in enumerate(spec) if ax is not None]
+            if not dims:
+                assert torch.equal(t0, t1), path
+            got = torch.cat([t0, t1], dim=dims[0]) if dims else t0
+            if key == "new":
+                old = dict((p, w) for p, _, w, _ in pairs(res[0]["new"], res[0]["old"], specs))[path]
+                got, want = got.float() - old.float(), want.float() - old.float()
+            assert rel(got, want) < 5e-2, (key, path, rel(got, want))

@@ -1,6 +1,7 @@
 """One rank of the parity tests of the parallel layer
-(tests/test_torch_parallel*.py, tests/test_torch_tp_serving.py, and two
-card tests in tests/test_torch_cuda.py).
+(tests/test_torch_parallel*.py, tests/test_torch_tp_serving.py,
+tests/test_torch_tp_train.py, and three card tests in
+tests/test_torch_cuda.py).
 
     python torch_dist_worker.py <init> <rank> <world> <store> <inputs.pt> <out_dir>
 
@@ -445,6 +446,179 @@ def int4_tree(inp):
             "misaligned": error_of(lambda: tp_lib.shard_serving_params(misaligned, bad, m))["error"]}
 
 
+# ---------------------------------------------------------------------------
+# Training under a (dp, tp) mesh (tests/test_torch_tp_train.py)
+# ---------------------------------------------------------------------------
+
+
+def train_mesh(shape, device_type="cpu"):
+    """The ("dp", "tp") mesh of ``shape``, built once a world."""
+    cache = train_mesh.__dict__.setdefault("cache", {})
+    if (shape, device_type) not in cache:
+        cache[shape, device_type] = qmesh.make_mesh(shape, ("dp", "tp"), device_type)
+    return cache[shape, device_type]
+
+
+class recording_experts:
+    """Every ``moe.router_topk`` call's experts inside the block, in order."""
+
+    def __init__(self):
+        from quantumattention_tpu_torch.models import moe
+
+        self.moe, self.experts, self.kept = moe, [], []
+
+    def __enter__(self):
+        self.topk, self.dispatch = self.moe.router_topk, self.moe.make_dispatch_combine
+
+        def topk(logits, k):
+            gates, experts = self.topk(logits, k)
+            self.experts.append(experts.clone())
+            return gates, experts
+
+        def dispatch(*a, **kw):
+            out = self.dispatch(*a, **kw)
+            self.kept.append(float(out[0].float().sum()))
+            return out
+
+        self.moe.router_topk, self.moe.make_dispatch_combine = topk, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk, self.moe.make_dispatch_combine = self.topk, self.dispatch
+
+
+def train_config(inp):
+    kw = dict(inp["cfg"])
+    if "dtype" in kw:
+        kw["dtype"] = getattr(torch, kw["dtype"])
+    return llama.tiny(**kw)
+
+
+def _train(inp, shape):
+    """This rank's loss and gradients (``loss_and_grads(mesh=)``), then one
+    ``train_step(mesh=)`` on its shards of the test's tree and its rows of
+    the test's tokens."""
+    cfg, m = train_config(inp), train_mesh(shape)
+    local = qmesh.shard_params(_tree(inp), m, qmesh.llama_param_specs(cfg))
+    tokens = qmesh.shard(inp["tokens"], m, "dp", 0)
+    with recording_experts() as rec:
+        loss, grads = llama.loss_and_grads(local, tokens, cfg, mesh=m)
+        new, step_loss = llama.train_step(local, tokens, cfg, lr=inp["lr"], mesh=m)
+    return {"loss": loss, "step_loss": step_loss, "grads": grads, "new": new,
+            "dp": qmesh.axis_rank(m, "dp"), "tp": qmesh.axis_rank(m, "tp"),
+            "experts": rec.experts, "kept": rec.kept,
+            "requires_grad": [p.requires_grad for p in llama.leaves(new)]}
+
+
+@case
+def train_bf16_2x2(inp):
+    return _train(inp, (2, 2))
+
+
+@case
+def train_bf16_1x4(inp):
+    return _train(inp, (1, 4))
+
+
+@case
+def train_bf16_4x1(inp):
+    return _train(inp, (4, 1))
+
+
+@case
+def train_fp8_2x2(inp):
+    return _train(inp, (2, 2))
+
+
+@case
+def train_moe_2x2(inp):
+    return _train(inp, (2, 2))
+
+
+@case
+def train_moe_drops_4x1(inp):
+    return _train(inp, (4, 1))
+
+
+@case
+def train_qkv_bias_2x2(inp):
+    return _train(inp, (2, 2))
+
+
+@case
+def train_tied_2x2(inp):
+    return _train(inp, (2, 2))
+
+
+@case
+def train_rejects(inp):
+    m, tokens = train_mesh((1, 4)), inp["tokens"]
+
+    def step(cfg, params=None, mesh=m):
+        if params is None:
+            params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        return error_of(lambda: llama.train_step(params, tokens, cfg, mesh=mesh))["error"]
+
+    tiny = llama.tiny(attention_impl="bf16")
+    whole = llama.init_params(torch.Generator().manual_seed(0), tiny, "cpu")
+    return {
+        "num_q_heads": step(llama.tiny(num_q_heads=6, num_kv_heads=2)),
+        "num_kv_heads": step(llama.tiny(num_kv_heads=2)),
+        "intermediate_size": step(llama.tiny(intermediate_size=250)),
+        "vocab_size": step(llama.tiny(vocab_size=254)),
+        "whole_tree": step(tiny, whole),
+        "quantized": step(tiny, tp_lib.shard_serving_params(quantized.quantize_params(whole), tiny, m)),
+        "no_dp_axis": step(tiny, whole, qmesh.make_mesh((4,), ("tp",), "cpu")),
+    }
+
+
+@case
+def train_buckets(inp):
+    """The dp gradient sum in whole leaves, then in pieces of 1,000
+    elements, over the same step."""
+    cfg, m = train_config(inp), train_mesh((2, 2))
+    local = qmesh.shard_params(_tree(inp), m, qmesh.llama_param_specs(cfg))
+    tokens = qmesh.shard(inp["tokens"], m, "dp", 0)
+    with counting(qmesh, "all_reduce") as whole_calls:
+        _, whole = llama.loss_and_grads(local, tokens, cfg, mesh=m)
+    saved, qmesh.BUCKET_ELEMENTS = qmesh.BUCKET_ELEMENTS, 1000
+    try:
+        with counting(qmesh, "all_reduce") as piece_calls:
+            _, pieces = llama.loss_and_grads(local, tokens, cfg, mesh=m)
+    finally:
+        qmesh.BUCKET_ELEMENTS = saved
+    pairs = list(zip(llama.leaves(whole), llama.leaves(pieces)))
+    return {"equal": all(torch.equal(a, b) for a, b in pairs), "calls_whole": whole_calls.calls,
+            "calls_pieces": piece_calls.calls}
+
+
+@case
+def autograd_collectives(inp):
+    """Each ``Axis`` method's forward and backward over tp = 4, and its
+    forward under ``torch.no_grad`` beside the plain collective."""
+    m = train_mesh((1, 4))
+    tp, r = qmesh.axis(m, "tp"), qmesh.axis_rank(m, "tp")
+    x = inp["x"].clone().requires_grad_(True)
+    total = tp.all_reduce(x)
+    total.backward(torch.full_like(total, 3.0))
+    out = {"rank": r, "x": inp["x"], "sum": total.detach(), "sum_grad": x.grad.clone()}
+    mine = (inp["x"] * (r + 1)).requires_grad_(True)
+    gathered = tp.all_gather(mine, dim=1)
+    gathered.backward(torch.arange(12, dtype=torch.float32).reshape(1, 12, 1).expand_as(gathered))
+    out.update(gathered=gathered.detach(), gather_grad=mine.grad.clone())
+    x.grad = None
+    copied = tp.copy(x)
+    copied.backward(torch.full_like(copied, float(r + 1)))
+    out.update(copy_equal=torch.equal(copied, x), copy_shares_storage=copied.data_ptr() == x.data_ptr(),
+               copy_grad=x.grad.clone())
+    with torch.no_grad():
+        pairs = [(tp.all_reduce(x), qmesh.all_reduce(x, m, "tp")),
+                 (tp.all_gather(x, 1), qmesh.all_gather(x, m, "tp", 1)), (tp.copy(x), x)]
+    out.update(no_grad_equal=all(torch.equal(a, b) for a, b in pairs),
+               no_grad_graph=any(a.grad_fn is not None for a, _ in pairs))
+    return out
+
+
 class World:
     """The ranks of one suite, started together as processes of their own;
     their results are read when a test first asks.  Every wait is bounded:
@@ -548,6 +722,34 @@ def tp_decode_card(inp):
     whole = decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs)
     return {"out": out.cpu(), "whole": whole.cpu(), "launches": torch.tensor(launched),
             "lens": lens.cpu()}
+
+
+@case
+def tp_train_card(inp):
+    """One SGD step of ``tiny`` (bf16 attention: K1, K2, K3) on a (dp 1,
+    tp 2) mesh of two ranks sharing cuda:0, beside one card's step on the
+    whole tree and batch through the same kernels."""
+    from quantumattention_tpu_torch.ops.flash import flash_attention
+    from quantumattention_tpu_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+
+    m = train_mesh((1, 2), "cuda")
+    cfg = llama.tiny(attention_impl="bf16")
+    whole = llama.init_params(torch.Generator("cuda").manual_seed(7), cfg, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(8)).cuda()
+    copy = llama.tree_like(whole, [p.clone() for p in llama.leaves(whole)])  # shards share replicated leaves
+    local = qmesh.shard_params(copy, m, qmesh.llama_param_specs(cfg))
+    cpu = lambda tree: llama.tree_like(tree, [t.to("cpu", copy=True) for t in llama.leaves(tree)])  # noqa: E731
+    old = cpu(whole)
+    one_loss, one_grads = llama.loss_and_grads(whole, tokens, cfg)
+    whole, _ = llama.train_step(whole, tokens, cfg, lr=100.0)
+    counters = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
+    before = [fn.launches for fn in counters]
+    loss, grads = llama.loss_and_grads(local, tokens, cfg, mesh=m)
+    local, step_loss = llama.train_step(local, tokens, cfg, lr=100.0, mesh=m)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    return {"loss": float(loss), "step_loss": float(step_loss), "one_loss": float(one_loss),
+            "grads": cpu(grads), "new": cpu(local), "one_grads": cpu(one_grads), "one_new": cpu(whole),
+            "old": old, "launches": launched, "tp": qmesh.axis_rank(m, "tp"), "device": str(tokens.device)}
 
 
 def main() -> None:
