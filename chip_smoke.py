@@ -2969,8 +2969,8 @@ def phase_serve_int8_64(params) -> dict:
     if launches["sdpa_fallback"]:
         raise RuntimeError("serve_int8_64: the main path fell back to SDPA")
     bs = backend.stats
-    if bs["bursts"] < 1 or bs["host_fetches"] != bs["bursts"]:
-        raise RuntimeError(f"serve_int8_64: not one host fetch a burst: {bs}")
+    if bs["bursts"] < 1 or bs["graph_replays"] < bs["bursts"]:
+        raise RuntimeError(f"serve_int8_64: no burst, or one that replayed no graph: {bs}")
 
     plain_cfg = llama.llama3_8b(attention_impl="sdpa")
     worst = 0.0
@@ -3482,8 +3482,8 @@ def _serve_paged(label: str, tree, shape: dict, cache_dtype, kv_int4: bool, plai
             raise RuntimeError(f"{label} {rnd}: chunk offsets {rec['chunk_offsets']}")
         if launches["sdpa_fallback"]:
             raise RuntimeError(f"{label}: the main path fell back to SDPA")
-        if bstats["bursts"] < 1 or bstats["host_fetches"] != bstats["bursts"]:
-            raise RuntimeError(f"{label} {rnd}: not one host fetch a burst: {bstats}")
+        if bstats["bursts"] < 1 or bstats["graph_replays"] < bstats["bursts"]:
+            raise RuntimeError(f"{label} {rnd}: no burst, or one that replayed no graph: {bstats}")
 
     # Hot logits against cold, cold against a plain whole-prompt run of the
     # same tree (SDPA attention, the plain weight products); low-bit pages:

@@ -79,6 +79,7 @@ from ..ops.flash import flash_attention
 from ..ops.paged import paged_decode_attention
 from ..parallel import mesh as mesh_lib
 from ..utils import checks
+from ..utils.profiling import span
 from . import kv_cache as kvc
 from . import tp as tp_lib
 from . import paged_cache as pgc
@@ -226,18 +227,19 @@ class _Burst:
     def capture(self) -> None:
         """Record one step as a CUDA graph.  The capture launches nothing,
         so the counters it moved are restored and credited per replay."""
-        counters = _launch_counters()
-        before = [getattr(fn, attr) for fn, attr in counters]
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
-            self.step()
-        self.graph_launches = [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)]
-        for (fn, attr), b in zip(counters, before):
-            setattr(fn, attr, b)
-        self.graph = graph
-        self.backend.stats["graph_captures"] += 1
+        with span("backend.capture"):
+            counters = _launch_counters()
+            before = [getattr(fn, attr) for fn, attr in counters]
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph):
+                self.step()
+            self.graph_launches = [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)]
+            for (fn, attr), b in zip(counters, before):
+                setattr(fn, attr, b)
+            self.graph = graph
+            self.backend.stats["graph_captures"] += 1
 
     def replay(self) -> None:
         self.graph.replay()
@@ -265,14 +267,15 @@ def _run_burst(backend, key, params, tokens, active, remaining, eos_ids, generat
             state.step()  # warm-up, and this burst's first step
             n -= 1
             state.capture()
-        for _ in range(n):
-            state.replay()
+        with span("backend.replay"):
+            for _ in range(n):
+                state.replay()
     else:
         for _ in range(n):
             state.step()
     backend.stats["bursts"] += 1
-    backend.stats["host_fetches"] += 1
-    return state.trace[:, :n_steps].cpu().numpy()
+    with span("backend.fetch"):
+        return state.trace[:, :n_steps].cpu().numpy()
 
 
 class SlotsBackend:
@@ -303,7 +306,7 @@ class SlotsBackend:
         ]
         self._slot_ids = torch.arange(num_slots, dtype=torch.int64, device=self.device)
         self._bursts = {}
-        self.stats = {"bursts": 0, "host_fetches": 0, "graph_captures": 0, "graph_replays": 0}
+        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0}
 
     # -- admission (slot rows are pre-sized to max_len) -----------------------
 
@@ -572,7 +575,7 @@ class PagedBackend:
         self._tables = torch.zeros((num_slots, pages_per_seq), dtype=torch.int32, device=self.device)
         self._positions = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
         self._bursts = {}
-        self.stats = {"bursts": 0, "host_fetches": 0, "graph_captures": 0, "graph_replays": 0}
+        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0}
 
     # -- admission -------------------------------------------------------------
 

@@ -61,6 +61,40 @@ engine also turns its weight kernels off (engine.py:354-366: GSPMD cannot
 partition a ``pallas_call``); each rank here runs K5-K7 on its own
 shards, so that is not ported.
 
+Timings (``Engine.timings``; the host's ``time.perf_counter``, summed over
+the engine's life; ``stats`` keeps the JAX engine's counts alone) break an
+operator's time to first token down.  Each request records
+``submitted_at``, ``prefill_started_at`` (when the first forward carrying
+its prompt began: its group's forward, or its first chunk) and
+``first_token_at`` (when that token reached the host).  Its time to first
+token is its wait in the queue plus its own prefill forward.
+
+- ``queue_wait_s``: prefill_started_at - submitted_at, summed over the
+  ``queued_requests`` whose prefill began.
+- ``queue_wait_decode_s``: the part of those waits spent in eager decode
+  steps (the engine is serial, so a running total read at submission and
+  at prefill start gives it exactly).
+- ``eager_steps``, ``eager_step_s``: the single decode steps, which run
+  after each prefill forward while requests wait or prefill, from entry
+  until their tokens are on the host; ``eager_step_enqueue_s`` the part
+  before the fetch began (the step's launches and its sampling's).
+- ``prefill_s``, ``burst_s``: the prefill forwards and the decode bursts,
+  each to its host fetch (a chunk that yields no token, to its return).
+
+They cost a few clock reads a step, a forward and a request.
+
+Spans (``utils/profiling.span``: ``record_function`` ranges while a
+profiler records, else one check each): ``engine.admit``; ``engine.prefill``
+(one forward through its first tokens' emission; the requests it carries
+share one ``prefill_started_at``); ``engine.decode`` (one eager step
+through emission);
+``engine.burst`` (one burst through its emission); inside those
+``engine.sample`` (sampling and the host fetch) and ``engine.emit`` (the
+tokens' records and ``on_token`` callbacks); and, inside a burst, the
+backend's ``backend.capture``, ``backend.replay`` (the burst's graph
+replays, one range) and ``backend.fetch``.  Nothing is marked per layer or
+per replay.
+
 Not ported (raises ``NotImplementedError``): ``decode_block_kv`` (ROADMAP
 queue 1, item 10).
 """
@@ -70,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -78,6 +113,7 @@ import torch
 from ..models import llama
 from ..parallel import mesh as mesh_lib
 from ..utils import checks
+from ..utils.profiling import span
 from ..utils.shapes import round_up
 from . import tp as tp_lib
 from .backends import PagedBackend, SlotsBackend
@@ -103,6 +139,11 @@ class Request:
     done: bool = False
     #: Number of prompt tokens already prefilled.
     prefill_pos: int = 0
+    #: Host clock (``time.perf_counter``) at submission, when the first
+    #: forward carrying the prompt began, when the first token reached the host.
+    submitted_at: Optional[float] = None
+    prefill_started_at: Optional[float] = None
+    first_token_at: Optional[float] = None
 
 
 _NOT_PORTED = {
@@ -254,6 +295,16 @@ class Engine:
             "prefix_hits": 0,
             "prefix_tokens_reused": 0,
         }
+        #: Host time of the engine's life (the module docstring).
+        self.timings: Dict[str, float] = {
+            "queue_wait_s": 0.0, "queued_requests": 0, "queue_wait_decode_s": 0.0,
+            "eager_steps": 0, "eager_step_s": 0.0, "eager_step_enqueue_s": 0.0,
+            "prefill_s": 0.0, "burst_s": 0.0,
+        }
+        # Per waiting request: eager_step_s at its submission.
+        self._eager_s_at_submit: Dict[int, float] = {}
+        # When _sample_rows' last host fetch began.
+        self._fetch_began = 0.0
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill_fn = functools.partial(llama.forward_prefill, cfg=cfg)
         if mesh is not None:
@@ -332,6 +383,8 @@ class Engine:
             logprobs=logprobs,
         )
         self._backend.check_submit(self._reservation_tokens(req))
+        req.submitted_at = time.perf_counter()
+        self._eager_s_at_submit[req.id] = self.timings["eager_step_s"]
         self.waiting.append(req)
         return req
 
@@ -402,6 +455,7 @@ class Engine:
             return
         if req in self.waiting:
             self.waiting.remove(req)
+            self._eager_s_at_submit.pop(req.id, None)
             req.done = True
             self.finished.append(req)
             return
@@ -431,20 +485,33 @@ class Engine:
         footprint (the head of the queue blocks admission until it fits).
         A prefix hit sets the request's ``prefill_pos`` to the matched,
         page-aligned token count."""
-        while self.waiting and self.free_slots:
-            req = self.waiting[0]
-            slot = self.free_slots[0]
-            matched = self._backend.try_admit(req, slot, self._reservation_tokens(req))
-            if matched is None:
-                break
-            self.waiting.pop(0)
-            self.free_slots.pop(0)
-            req.slot = slot
-            if matched:
-                req.prefill_pos = matched
-                self.stats["prefix_hits"] += 1
-                self.stats["prefix_tokens_reused"] += matched
-            self.prefilling.append(req)
+        with span("engine.admit"):
+            while self.waiting and self.free_slots:
+                req = self.waiting[0]
+                slot = self.free_slots[0]
+                matched = self._backend.try_admit(req, slot, self._reservation_tokens(req))
+                if matched is None:
+                    break
+                self.waiting.pop(0)
+                self.free_slots.pop(0)
+                req.slot = slot
+                if matched:
+                    req.prefill_pos = matched
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_tokens_reused"] += matched
+                self.prefilling.append(req)
+
+    def _prefill_started(self, reqs: Sequence[Request], now: float) -> None:
+        """Charge each request's wait in the queue, once: from its
+        submission to ``now``, the start of the first forward carrying its
+        prompt."""
+        t = self.timings
+        for r in reqs:
+            if r.prefill_started_at is None:
+                r.prefill_started_at = now
+                t["queue_wait_s"] += now - r.submitted_at
+                t["queue_wait_decode_s"] += t["eager_step_s"] - self._eager_s_at_submit.pop(r.id)
+                t["queued_requests"] += 1
 
     def _register_prefix(self, req: Request) -> None:
         if self.prefix_cache:
@@ -475,43 +542,57 @@ class Engine:
         cap = min(32, max(1, 4096 // width), len(group))
         reqs = group[: 1 << (cap.bit_length() - 1)]
 
-        tokens = np.zeros((len(reqs), width), np.int64)
-        for i, r in enumerate(reqs):
-            tokens[i, : len(r.prompt)] = r.prompt
-        logits = self._backend.prefill_and_write(
-            self._prefill_fn, self.params,
-            torch.from_numpy(tokens).to(self.device),
-            [len(r.prompt) - 1 for r in reqs], [r.slot for r in reqs],
-            [len(r.prompt) for r in reqs], width,
-        )
-        self.stats["prefill_forwards"] += 1
-        toks, lps = self._sample_rows(logits, reqs)
-        finished: List[Request] = []
-        for i, r in enumerate(reqs):
-            self.prefilling.remove(r)
-            self._register_prefix(r)
-            r.prefill_pos = len(r.prompt)
-            self.stats["prefill_tokens"] += len(r.prompt)
-            if self._emit(r, int(toks[i]), lp=None if lps is None else float(lps[i])):
-                finished.append(r)
-            else:
-                self.active[r.slot] = r
+        with span("engine.prefill"):
+            t0 = time.perf_counter()
+            self._prefill_started(reqs, t0)
+            tokens = np.zeros((len(reqs), width), np.int64)
+            for i, r in enumerate(reqs):
+                tokens[i, : len(r.prompt)] = r.prompt
+            logits = self._backend.prefill_and_write(
+                self._prefill_fn, self.params,
+                torch.from_numpy(tokens).to(self.device),
+                [len(r.prompt) - 1 for r in reqs], [r.slot for r in reqs],
+                [len(r.prompt) for r in reqs], width,
+            )
+            self.stats["prefill_forwards"] += 1
+            toks, lps = self._sample_rows(logits, reqs)
+            now = time.perf_counter()
+            self.timings["prefill_s"] += now - t0
+            finished: List[Request] = []
+            with span("engine.emit"):
+                for i, r in enumerate(reqs):
+                    self.prefilling.remove(r)
+                    self._register_prefix(r)
+                    r.prefill_pos = len(r.prompt)
+                    r.first_token_at = now
+                    self.stats["prefill_tokens"] += len(r.prompt)
+                    if self._emit(r, int(toks[i]), lp=None if lps is None else float(lps[i])):
+                        finished.append(r)
+                    else:
+                        self.active[r.slot] = r
         return finished
 
     def _prefill_advance(self, req: Request) -> List[Request]:
         """One chunk of a chunked request (engine.py:638-656); when its
         prompt is all in the cache, publish its pages to the prefix cache,
         sample its first token and move it to the decode set."""
-        logits_last = self._prefill_one_chunk(req)
-        if req.prefill_pos < len(req.prompt):
-            return []  # more chunks to go; decode still runs this step
-        self.prefilling.remove(req)
-        self._register_prefix(req)
-        toks, lps = self._sample_rows(logits_last, [req])
-        if self._emit(req, int(toks[0]), lp=None if lps is None else float(lps[0])):
-            return [req]  # max_new_tokens == 1
-        self.active[req.slot] = req
-        return []
+        with span("engine.prefill"):
+            t0 = time.perf_counter()
+            self._prefill_started([req], t0)
+            logits_last = self._prefill_one_chunk(req)
+            if req.prefill_pos < len(req.prompt):
+                self.timings["prefill_s"] += time.perf_counter() - t0
+                return []  # more chunks to go; decode still runs this step
+            self.prefilling.remove(req)
+            self._register_prefix(req)
+            toks, lps = self._sample_rows(logits_last, [req])
+            req.first_token_at = now = time.perf_counter()
+            self.timings["prefill_s"] += now - t0
+            with span("engine.emit"):
+                if self._emit(req, int(toks[0]), lp=None if lps is None else float(lps[0])):
+                    return [req]  # max_new_tokens == 1
+            self.active[req.slot] = req
+            return []
 
     def _prefill_one_chunk(self, req: Request) -> torch.Tensor:
         """Run one prefill chunk of ``req`` (engine.py:658-673); returns the
@@ -539,37 +620,47 @@ class Engine:
         return mask
 
     def _decode(self) -> List[Request]:
-        self.stats["decode_steps"] += 1
-        if self.draft_params is not None:
-            # A step advances the target's cache only: a slot it touches
-            # has a stale draft cache, which its next round prefills again.
-            for slot in self.active:
-                self._draft_prefilled.discard(slot)
-        logits = self._backend.decode(
-            self.params, self.last_token, self._active_mask(), list(self.active)
-        )
-        items = list(self.active.items())
-        rows = [slot for slot, _ in items]
-        toks, lps = self._sample_rows(logits[rows], [req for _, req in items])
-        finished: List[Request] = []
-        for i, (_, req) in enumerate(items):
-            if self._emit(req, int(toks[i]), lp=None if lps is None else float(lps[i])):
-                finished.append(req)
+        with span("engine.decode"):
+            t0 = time.perf_counter()
+            self.stats["decode_steps"] += 1
+            if self.draft_params is not None:
+                # A step advances the target's cache only: a slot it touches
+                # has a stale draft cache, which its next round prefills again.
+                for slot in self.active:
+                    self._draft_prefilled.discard(slot)
+            logits = self._backend.decode(
+                self.params, self.last_token, self._active_mask(), list(self.active)
+            )
+            items = list(self.active.items())
+            rows = [slot for slot, _ in items]
+            toks, lps = self._sample_rows(logits[rows], [req for _, req in items])
+            t = self.timings
+            t["eager_steps"] += 1
+            t["eager_step_s"] += time.perf_counter() - t0
+            t["eager_step_enqueue_s"] += self._fetch_began - t0
+            finished: List[Request] = []
+            with span("engine.emit"):
+                for i, (_, req) in enumerate(items):
+                    if self._emit(req, int(toks[i]), lp=None if lps is None else float(lps[i])):
+                        finished.append(req)
         return finished
 
     def _decode_burst(self, n: int) -> List[Request]:
-        sp = next(iter(self.active.values())).sampling
-        want_lp = any(r.logprobs for r in self.active.values())
-        eos = np.full((self.num_slots,), -1, np.int32)
-        remaining = np.zeros((self.num_slots,), np.int32)
-        for slot, req in self.active.items():
-            eos[slot] = -1 if req.eos_id is None else req.eos_id
-            remaining[slot] = req.max_new_tokens - len(req.output)
-        packed = self._backend.burst(
-            self.params, self.last_token, self._active_mask(), remaining, eos,
-            self._generator, n, sp, want_lp,
-        )
-        return self._parse_burst_trace(packed, want_lp, n)
+        with span("engine.burst"):
+            t0 = time.perf_counter()
+            sp = next(iter(self.active.values())).sampling
+            want_lp = any(r.logprobs for r in self.active.values())
+            eos = np.full((self.num_slots,), -1, np.int32)
+            remaining = np.zeros((self.num_slots,), np.int32)
+            for slot, req in self.active.items():
+                eos[slot] = -1 if req.eos_id is None else req.eos_id
+                remaining[slot] = req.max_new_tokens - len(req.output)
+            packed = self._backend.burst(
+                self.params, self.last_token, self._active_mask(), remaining, eos,
+                self._generator, n, sp, want_lp,
+            )
+            self.timings["burst_s"] += time.perf_counter() - t0
+            return self._parse_burst_trace(packed, want_lp, n)
 
     def _parse_burst_trace(self, packed, want_lp: bool, n: int):
         if want_lp:
@@ -582,15 +673,16 @@ class Engine:
         finished: List[Request] = []
         # Per-slot emit loops over the burst trace (n * num_slots Python
         # iterations would scale the host gap between bursts with the slots).
-        for slot, req in list(self.active.items()):
-            col = emits[:, slot]
-            if not col.any():
-                continue
-            for t in np.flatnonzero(col):
-                lp = float(lps[t, slot]) if lps is not None else None
-                if self._emit(req, int(toks[t, slot]), lp=lp):
-                    finished.append(req)
-                    break
+        with span("engine.emit"):
+            for slot, req in list(self.active.items()):
+                col = emits[:, slot]
+                if not col.any():
+                    continue
+                for t in np.flatnonzero(col):
+                    lp = float(lps[t, slot]) if lps is not None else None
+                    if self._emit(req, int(toks[t, slot]), lp=lp):
+                        finished.append(req)
+                        break
         return finished
 
     # ------------------------------------------------------------------
@@ -721,27 +813,30 @@ class Engine:
     def _sample_rows(self, logits: torch.Tensor, reqs: List[Request]):
         """Sample row i of ``logits`` for reqs[i]: one op when all share
         their sampling params, else one per request.  Returns host arrays
-        (tokens, logprobs or None)."""
-        want_lp = any(r.logprobs for r in reqs)
-        if len({r.sampling for r in reqs}) == 1:
-            parts = [(logits, reqs[0].sampling)]
-        else:
-            parts = [(logits[i : i + 1], r.sampling) for i, r in enumerate(reqs)]
-        toks, lps = [], []
-        for rows, sp in parts:
-            gen = self._generator if sp.temperature > 0.0 else None
-            if want_lp:
-                t, lp = sample_with_logprob(rows, sp, gen)
-                lps.append(lp)
+        (tokens, logprobs or None); ``_fetch_began`` is when their fetch
+        began."""
+        with span("engine.sample"):
+            want_lp = any(r.logprobs for r in reqs)
+            if len({r.sampling for r in reqs}) == 1:
+                parts = [(logits, reqs[0].sampling)]
             else:
-                t = sample(rows, sp, gen)
-            toks.append(t)
-        toks, lps = torch.cat(toks), torch.cat(lps) if want_lp else None
-        tp = self._backend.tp
-        if tp is not None:  # rank 0's draws, so the ranks cannot drift apart
-            toks = tp.broadcast(toks)
-            lps = None if lps is None else tp.broadcast(lps)
-        return toks.cpu().numpy(), None if lps is None else lps.cpu().numpy()
+                parts = [(logits[i : i + 1], r.sampling) for i, r in enumerate(reqs)]
+            toks, lps = [], []
+            for rows, sp in parts:
+                gen = self._generator if sp.temperature > 0.0 else None
+                if want_lp:
+                    t, lp = sample_with_logprob(rows, sp, gen)
+                    lps.append(lp)
+                else:
+                    t = sample(rows, sp, gen)
+                toks.append(t)
+            toks, lps = torch.cat(toks), torch.cat(lps) if want_lp else None
+            tp = self._backend.tp
+            if tp is not None:  # rank 0's draws, so the ranks cannot drift apart
+                toks = tp.broadcast(toks)
+                lps = None if lps is None else tp.broadcast(lps)
+            self._fetch_began = time.perf_counter()
+            return toks.cpu().numpy(), None if lps is None else lps.cpu().numpy()
 
     def _emit(self, req: Request, tok: int, lp: Optional[float] = None) -> bool:
         """Record a sampled token; returns True when the request finished."""

@@ -6,7 +6,8 @@ around a run of calls, :func:`chain_bench` replays one CUDA graph of many
 calls between events, so the host's per-call work (Python checks, ctypes,
 allocation) stays out.  On the CPU both take ``time.perf_counter`` around a
 plain loop, which measures PyTorch's CPU kernels and never stands for a
-device time.  :func:`trace` records a ``torch.profiler`` trace.
+device time.  :func:`trace` records a ``torch.profiler`` trace, and
+:func:`span` marks a stretch of the program's host work in it.
 
 Not ported: ``chain_bench``'s ``perturb`` argument, which folds a carry into
 one input so that XLA cannot hoist a loop-invariant call out of its scan;
@@ -18,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Iterator, Optional, Sequence, Union
+from typing import Callable, ContextManager, Iterator, Optional, Sequence, Union
 
 import torch
 
@@ -38,6 +39,23 @@ def trace(log_dir: str = "build/profile") -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """A named range of host time for a profiler's trace: while a
+    ``torch.profiler`` records (:func:`trace`, or any other profiler), a
+    ``record_function`` range, which lands in the same Chrome trace as the
+    card's kernels, on their clock; otherwise one shared no-op context, so
+    that a span costs one check when nothing records (an unguarded
+    ``record_function`` costs microseconds even then).  No argument string:
+    the Chrome trace drops it (torch 2.11 and 2.13, with or without
+    ``record_shapes``)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _median(times: Sequence[float]) -> float:

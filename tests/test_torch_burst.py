@@ -108,7 +108,7 @@ def test_burst_equals_per_step_decode(trees, route):
             nxt = ref_be.decode(ttree, cur, active).argmax(-1).numpy()
             cur = np.where(active, nxt, cur)
             steps.append(cur)
-    assert packed.shape == (2, n, SLOTS) and be.stats["host_fetches"] == 1
+    assert packed.shape == (2, n, SLOTS) and be.stats["bursts"] == 1
     np.testing.assert_array_equal(packed[0], np.stack(steps))
     np.testing.assert_array_equal(packed[1], np.tile(active.astype(np.int32), (n, 1)))
     for a, b in zip(be.caches, ref_be.caches):
@@ -191,7 +191,9 @@ def test_engine_burst_matches_per_step_engine(trees):
         assert b.done and b.output == a.output
         np.testing.assert_allclose(b.logprob_output, a.logprob_output, rtol=0, atol=1e-6)
     assert eng.stats == ref_eng.stats and eng._backend.stats["bursts"] >= 2
-    assert eng._backend.stats["host_fetches"] == eng._backend.stats["bursts"]
+    # A group of two prompts, then the third, each with an eager step;
+    # then bursts of 4 and 2 steps and a last eager step.
+    assert eng._backend.stats["bursts"] == 2 and eng.timings["eager_steps"] == 3
     eos = ref[1].output[4]
     _, stopped = serve(4, eos=eos)
     assert stopped[1].output == ref[1].output[: ref[1].output.index(eos) + 1]

@@ -1201,7 +1201,7 @@ def test_graph_burst_equals_eager_steps(cuda, megastep_flag):
         b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
                      None, 4, SamplingParams(), False)
         assert counter.launches - before == cfg.num_layers * 10
-        assert be.stats == {"bursts": 2, "host_fetches": 2, "graph_captures": 1, "graph_replays": 9}
+        assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9}
         ref = _filled_backend(cfg, cuda, lengths)
         cur, steps = toks, []
         for _ in range(10):
@@ -1226,6 +1226,36 @@ def test_sampled_graph_burst_on_card(cuda):
     for r in reqs:
         assert len(r.output) == len(r.logprob_output) == 9
         assert all(np.isfinite(v) and v <= 1e-6 for v in r.logprob_output)
+
+
+def test_burst_spans_on_card(cuda, tmp_path):
+    """Under the profiler, a burst on the card writes its graph's capture,
+    its replays (one range a burst) and its fetch inside ``engine.burst``;
+    the kernels share the ranges' clock."""
+    import json
+
+    cfg, params = _burst_model(cuda)
+    eng = Engine(params, cfg, num_slots=16, max_len=64)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        reqs = [eng.submit([1, 2, 3], max_new_tokens=9) for _ in range(3)]
+        eng.run_to_completion(decode_burst=4)
+    assert all(r.done and len(r.output) == 9 for r in reqs)
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    with open(tmp_path / "t.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith(("engine.", "backend."))]
+    names = [s[2] for s in spans]
+    bursts = [s for s in spans if s[2] == "engine.burst"]
+    assert names.count("backend.capture") == eng._backend.stats["graph_captures"] == 1
+    assert names.count("backend.replay") == names.count("backend.fetch") == len(bursts)
+    assert len(bursts) == eng._backend.stats["bursts"] >= 2
+    for t0, t1, name in spans:
+        if name.startswith("backend."):
+            assert any(b0 <= t0 and t1 <= b1 for b0, b1, _ in bursts), name
+    kernels = [float(e["ts"]) for e in events if e.get("cat") == "kernel"]
+    assert kernels and min(kernels) >= min(s[0] for s in spans) - 1e6
 
 
 def test_engine_burst_on_card_matches_cpu(cuda):
@@ -1360,7 +1390,7 @@ def test_paged_graph_burst_equals_eager_steps(cuda):
     b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
                  None, 4, SamplingParams(), False)
     assert paged_decode_attention.launches - before == cfg.num_layers * 10
-    assert be.stats == {"bursts": 2, "host_fetches": 2, "graph_captures": 1, "graph_replays": 9}
+    assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9}
     np.testing.assert_array_equal(be.host_lengths(), np.asarray(lengths) + 10)
     ref = _filled_paged_backend(cfg, cuda, lengths)
     cur, steps = toks, []
