@@ -761,6 +761,22 @@ def plain_k10_call(q, k, v, lengths, table, *, k_scale_pages, v_scale_pages, pag
                                         window_left=window_left_of(window, "paged_decode_attention"))
 
 
+@contextlib.contextmanager
+def _uncaptured():
+    """The backends' decode steps and bursts uncaptured inside (``_graphs``
+    false): once a step's key is captured, ``decode`` replays its graph,
+    which runs none of the Python a plain reference switches (a swapped
+    module attribute, a routing hook).  The kernel side of a comparison
+    keeps ``decode``, so its replay is what is checked, except where a
+    routing hook must run in it."""
+    graphs = backends._graphs
+    backends._graphs = lambda backend: False
+    try:
+        yield
+    finally:
+        backends._graphs = graphs
+
+
 def _randn(shape, gen, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
@@ -1825,7 +1841,7 @@ def _decode_vs_unfused(label: str, eng, tree, seed: int) -> float:
     saved = [cache.lengths.clone() for cache in backend.caches]
     cur = rng.integers(0, cfg.vocab_size, 4)
     mask = np.ones(4, bool)
-    with config.patch({"kernel.qmlp": False}):
+    with config.patch({"kernel.qmlp": False}), _uncaptured():
         before = qmlp.fused_layer_tail.launches
         ref = backend.decode(tree, cur, mask, slots)
         if qmlp.fused_layer_tail.launches != before:
@@ -1873,7 +1889,8 @@ def _slots_k4_vs_plain(label: str, eng, tree, seed: int, cfg=None, lens=(100, 37
     backends.decode_attention = plain_k4_call
     try:
         before = decode_attention.launches
-        ref = backend.decode(tree, cur, mask, slots)
+        with _uncaptured():
+            ref = backend.decode(tree, cur, mask, slots)
         if decode_attention.launches != before:
             raise RuntimeError(f"{label}: the plain step launched K4")
     finally:
@@ -2004,7 +2021,8 @@ def _verify_vs_steps(label: str, eng, params, cand, positions, active, vlogits) 
         set_lengths(positions[slots] + t)
         setattr(backends, attr, plain)
         try:
-            step = backend.decode(params, cand[:, t], active)
+            with _uncaptured():
+                step = backend.decode(params, cand[:, t], active)
         finally:
             setattr(backends, attr, kernel)
         ref = vlogits[slots, t]
@@ -2817,7 +2835,7 @@ def _mega_vs_unfused(backend, tree, cfg, seed: int, prompt: int = SERVE64["promp
     saved = [cache.lengths.clone() for cache in backend.caches]
     cur = rng.integers(0, cfg.vocab_size, len(slots))
     mask = np.ones(len(slots), bool)
-    with config.patch({"kernel.megastep": False}):
+    with config.patch({"kernel.megastep": False}), _uncaptured():
         before = (megastep.fused_decode_layer.launches, qmlp.fused_layer_tail.launches)
         ref = backend.decode(tree, cur, mask)
         if megastep.fused_decode_layer.launches != before[0] or qmlp.fused_layer_tail.launches == before[1]:
@@ -2860,9 +2878,10 @@ def _burst_vs_eager(backend, tree, seed: int, label: str = "serve_int8_64") -> N
     for cache, n in zip(backend.caches, saved):
         cache.lengths.copy_(n)
     steps = []
-    for _ in range(BURST_CHECK_STEPS):
-        cur = backend.decode(tree, cur, ones).argmax(-1).cpu().numpy()
-        steps.append(cur)
+    with _uncaptured():
+        for _ in range(BURST_CHECK_STEPS):
+            cur = backend.decode(tree, cur, ones).argmax(-1).cpu().numpy()
+            steps.append(cur)
     equal = bool((packed[0] == np.stack(steps)).all())
     log(f"{label} graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={slots} tokens_equal={equal}")
     if not equal:
@@ -3272,7 +3291,7 @@ def _paged_k10_vs_plain(label: str, backend, tree, cfg, width: int, seed: int) -
     backends.paged_decode_attention = plain_k10_call
     try:
         before = paged_decode_attention.launches
-        with _moe_routing(routing):
+        with _moe_routing(routing), _uncaptured():
             ref = backend.decode(tree, cur, mask)
         if paged_decode_attention.launches != before:
             raise RuntimeError(f"{label}: the plain step launched K10")
@@ -3280,7 +3299,7 @@ def _paged_k10_vs_plain(label: str, backend, tree, cfg, width: int, seed: int) -
         backends.paged_decode_attention = kernel
     backend.alloc.lengths[:] = saved
     before = paged_decode_attention.launches
-    with _moe_routing(routing, replay=True):
+    with _moe_routing(routing, replay=True), _uncaptured() if routing else contextlib.nullcontext():
         got = backend.decode(tree, cur, mask)
     torch.cuda.synchronize()
     k10 = paged_decode_attention.launches - before
@@ -3302,9 +3321,10 @@ def _paged_k10_vs_plain(label: str, backend, tree, cfg, width: int, seed: int) -
         raise RuntimeError(f"{label}: the checked burst did not run from its captured graph")
     backend.alloc.lengths[:] = saved
     steps = []
-    for _ in range(BURST_CHECK_STEPS):
-        cur = backend.decode(tree, cur, mask).argmax(-1).cpu().numpy()
-        steps.append(cur)
+    with _uncaptured():
+        for _ in range(BURST_CHECK_STEPS):
+            cur = backend.decode(tree, cur, mask).argmax(-1).cpu().numpy()
+            steps.append(cur)
     equal = bool((packed[0] == np.stack(steps)).all())
     log(f"{label} graph_burst_vs_eager steps={BURST_CHECK_STEPS} slots={len(slots)} "
         f"tokens_equal={equal}")
@@ -4474,8 +4494,9 @@ def _mixtral_step_checks(label: str, eng, tree, cfg) -> None:
     through K4 and K5/K6 against the same step through their plain versions
     with the kernel step's expert choices (``_moe_routing``; lengths
     restored between: the step rewrites the same rows), within
-    DECODE_K8_REL_BOUND a slot; then a graph-captured burst against eager
-    steps, token for token."""
+    DECODE_K8_REL_BOUND a slot; the served step (its graph) against the
+    uncaptured kernel step, bit for bit; then a graph-captured burst
+    against eager steps, token for token."""
     backend = eng._backend
     L, e = cfg.num_layers, cfg.num_experts
     rng = np.random.default_rng(31)
@@ -4490,7 +4511,7 @@ def _mixtral_step_checks(label: str, eng, tree, cfg) -> None:
     mask = np.ones(4, bool)
     routing = []
     before = _counts()
-    with _moe_routing(routing):
+    with _moe_routing(routing), _uncaptured():
         got = backend.decode(tree, cur, mask, slots)
     torch.cuda.synchronize()
     ran = {key: _counts()[key] - before[key] for key in ("k4", "k5", "k6", "k8", "k9")}
@@ -4501,7 +4522,7 @@ def _mixtral_step_checks(label: str, eng, tree, cfg) -> None:
     _moe_routing.flips = _moe_routing.choices = 0
     try:
         before = _counts()
-        with config.patch({"kernel.qmm": False}), _moe_routing(routing, replay=True):
+        with config.patch({"kernel.qmm": False}), _moe_routing(routing, replay=True), _uncaptured():
             ref = backend.decode(tree, cur, mask, slots)
         after = _counts()
     finally:
@@ -4520,6 +4541,20 @@ def _mixtral_step_checks(label: str, eng, tree, cfg) -> None:
         raise RuntimeError(f"{label}: a decode step launched {ran}")
     if not bool(torch.isfinite(got).all()) or not float(rel.max()) < DECODE_K8_REL_BOUND:
         raise RuntimeError(f"{label}: the step is off its plain step by {rel.tolist()}")
+    # The kernel step ran uncaptured for its routing hook: the served
+    # ``decode`` (its step graph, once captured) from the same state gives
+    # its logits bit for bit and launches what it launched.
+    before, replays = _counts(), backend.stats["step_replays"]
+    again = backend.decode(tree, cur, mask, slots)
+    torch.cuda.synchronize()
+    again_ran = {key: _counts()[key] - before[key] for key in ran}
+    for cache, n in zip(backend.caches, saved):
+        cache.lengths.copy_(n)
+    equal = bool(torch.equal(again, got))
+    log(f"{label} step_graph_vs_uncaptured replayed={backend.stats['step_replays'] - replays} "
+        f"logits_equal={equal} launches={json.dumps(again_ran)}")
+    if not equal or again_ran != ran:
+        raise RuntimeError(f"{label}: the served step differs from the uncaptured one: {again_ran}")
     _burst_vs_eager(backend, tree, seed=32, label=label)
     for slot in slots:
         backend.release(slot)

@@ -106,6 +106,13 @@ def set(dotted: str, value: Any) -> None:  # noqa: A001 - mirrors config API
     setattr(obj, leaf, value)
 
 
+def snapshot() -> tuple:
+    """Every flag's current value, as a hashable key: work that froze the
+    flags it read (a captured CUDA graph) is keyed by it."""
+    return tuple((name, tuple(sorted(vars(ns).items())))
+                 for name, ns in (("kernel", kernel), ("attention", attention)))
+
+
 @contextlib.contextmanager
 def patch(changes: Dict[str, Any] | None = None, **kw: Any) -> Iterator[None]:
     """Temporarily override config values by dotted key."""

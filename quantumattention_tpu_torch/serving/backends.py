@@ -29,6 +29,27 @@ function runs n times in a Python loop.  The cache is appended to in place
 every step, so the JAX burst's side buffers and once-per-burst flush
 (``_burst_impl_mega``, a TPU workaround) are not ported.
 
+The single decode step (``decode``, which the engine runs after each
+prefill forward while requests wait or prefill, and a draft runs in its
+speculative rounds) is replayed from a graph the same way: its host tokens
+and active mask are copied into static device buffers, and the step of
+each (params, route, flags) is captured over them; a key's first call runs
+eagerly (the warm-up), its second captures and replays, every later call
+replays.  The logits come back as a copy of the graph's output, so no
+later call overwrites them.  Sampling stays with the caller.  Both graphs
+of a backend allocate from one memory pool (``_Graph``).  On the CPU and
+under a mesh both run eagerly, as bursts do.
+
+A graph replays the kernels its capture chose.  The ``config`` flags
+(``config.snapshot``) are part of every graph's key, burst's and step's,
+so a changed flag gets a graph of its own; a module function swapped after
+a capture (a test's plain version) is not seen, and needs the uncaptured
+step (``backend._step``, or ``_graphs`` false).
+
+``stats`` counts ``bursts``, the burst graph's ``graph_captures`` and
+``graph_replays`` (one a burst step), and the single step's
+``step_captures`` and ``step_replays`` (one a ``decode`` call).
+
 A prefill chunk (``prefill_chunk``, both backends) attends over the
 slot's cached prefix, dequantized to bf16, and the chunk itself through K1
 with ``q_offset`` = the chunk's start (``_chunk_prefix_attend``,
@@ -66,11 +87,13 @@ place.
 from __future__ import annotations
 
 import functools
+import gc
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import config
 from ..models import llama, quantized
 from ..models.llama import window_of
 from ..ops import megastep, qmlp, qmm, quant
@@ -104,11 +127,13 @@ def _launch_counters():
     ]
 
 
-def _device_tokens(tokens, device) -> torch.Tensor:
-    """Token ids (host array or device tensor) as an int64 device tensor."""
-    if isinstance(tokens, torch.Tensor):
-        return tokens.to(device=device, dtype=torch.int64)
-    return torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device)
+def _as_tensor(values, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """Host values (an array or a list) or a tensor as a ``dtype`` tensor on
+    ``device`` (None: a tensor's own device, host values' host): the one
+    conversion of the backends' step inputs."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(values), dtype=dtype, device=device)
 
 
 def prefix_start(off: int, window) -> int:
@@ -174,10 +199,77 @@ def _dequantize_rows(values: torch.Tensor, scales, int4_axis: Optional[int] = No
     return x.to(torch.bfloat16)
 
 
+def _graphs(backend) -> bool:
+    """Whether the backend replays its steps from CUDA graphs: on a CUDA
+    device without a mesh (a gloo collective cannot be captured)."""
+    return backend.device.type == "cuda" and backend.tp is None
+
+
+def _load(buf: torch.Tensor, values) -> None:
+    """Host values (or a device tensor) into a static device buffer, in place."""
+    buf.copy_(_as_tensor(values, buf.dtype))
+
+
+class _Graph:
+    """One function captured as a CUDA graph and replayed, counted in the
+    backend's ``stats[f"{name}_captures"]`` and ``stats[f"{name}_replays"]``.
+
+    Every graph of a backend allocates from one memory pool.  That is safe
+    because the graphs replay one at a time on one stream and none keeps an
+    output in the pool across another's replay: a burst writes only buffers
+    made before its capture, and the single step's logits are copied out
+    right after each replay."""
+
+    def __init__(self, backend, name: str, generator: Optional[torch.Generator] = None) -> None:
+        self.backend, self.name, self.generator = backend, name, generator
+        self.graph = None
+        self.launches = None
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def capture(self, fn):
+        """Record ``fn()``; returns what it returned (the graph's static
+        outputs).  The capture launches nothing, so the kernel launch
+        counters it moved are restored and credited per replay."""
+        with span("backend.capture"):
+            counters = _launch_counters()
+            before = [getattr(f, attr) for f, attr in counters]
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            if self.backend._graph_pool is None:
+                self.backend._graph_pool = torch.cuda.graph_pool_handle()
+            # No cyclic collection inside the capture: a dead backend's graphs
+            # (a backend and its graphs form a cycle) destroyed there would
+            # invalidate it.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.backend._graph_pool):
+                    out = fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.launches = [getattr(f, attr) - b for (f, attr), b in zip(counters, before)]
+            for (f, attr), b in zip(counters, before):
+                setattr(f, attr, b)
+            self.graph = graph
+            self.backend.stats[self.name + "_captures"] += 1
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for (f, attr), n in zip(_launch_counters(), self.launches):
+            setattr(f, attr, getattr(f, attr) + n)
+        self.backend.stats[self.name + "_replays"] += 1
+
+
 class _Burst:
     """Device state of the bursts of one key: the step's inputs (tokens,
     active, remaining, EOS ids), a step counter, the (rows, capacity, B)
-    trace, and on a CUDA device the step captured as a graph."""
+    trace, and the step's graph."""
 
     def __init__(self, backend, params, sp: SamplingParams, want_lp: bool,
                  generator: Optional[torch.Generator], capacity: int) -> None:
@@ -193,13 +285,12 @@ class _Burst:
         # Token ids round-trip exactly through float32 (vocab < 2^24).
         dtype = torch.float32 if want_lp else torch.int32
         self.trace = torch.zeros((3 if want_lp else 2, capacity, b), dtype=dtype, device=dev)
-        self.graph = None
-        self.graph_launches = None
+        self.graph = _Graph(backend, "graph", self.generator)
 
     def load(self, tokens, active, remaining, eos_ids) -> None:
         for buf, host in ((self.tokens, tokens), (self.active, active),
                           (self.remaining, remaining), (self.eos, eos_ids)):
-            buf.copy_(torch.as_tensor(np.asarray(host)).to(buf.dtype))
+            _load(buf, host)
         self.t.zero_()
 
     def step(self) -> None:
@@ -224,29 +315,6 @@ class _Burst:
         self.trace.index_copy_(1, self.t, torch.stack(rows)[:, None, :])
         self.t.add_(1)
 
-    def capture(self) -> None:
-        """Record one step as a CUDA graph.  The capture launches nothing,
-        so the counters it moved are restored and credited per replay."""
-        with span("backend.capture"):
-            counters = _launch_counters()
-            before = [getattr(fn, attr) for fn, attr in counters]
-            graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph):
-                self.step()
-            self.graph_launches = [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)]
-            for (fn, attr), b in zip(counters, before):
-                setattr(fn, attr, b)
-            self.graph = graph
-            self.backend.stats["graph_captures"] += 1
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for (fn, attr), n in zip(_launch_counters(), self.graph_launches):
-            setattr(fn, attr, getattr(fn, attr) + n)
-        self.backend.stats["graph_replays"] += 1
-
 
 def _run_burst(backend, key, params, tokens, active, remaining, eos_ids, generator,
                n_steps: int, sp: SamplingParams, want_lp: bool) -> np.ndarray:
@@ -254,28 +322,74 @@ def _run_burst(backend, key, params, tokens, active, remaining, eos_ids, generat
     budgets; returns the packed (2 or 3, n_steps, B) trace, fetched once.
     On a CUDA device the step is captured once per ``key`` as a graph (the
     first burst's first step runs eagerly: the warm-up) and replayed; on
-    the CPU, and under a tensor-parallel mesh (a gloo collective cannot be
-    captured), it runs in a loop."""
+    the CPU, and under a tensor-parallel mesh, it runs in a loop."""
     state = backend._bursts.get(key)
     if state is None or state.capacity < n_steps:
         state = _Burst(backend, params, sp, want_lp, generator, n_steps)
         backend._bursts[key] = state
     state.load(tokens, active, remaining, eos_ids)
     n = n_steps
-    if backend.device.type == "cuda" and backend.tp is None:
-        if state.graph is None:
+    if _graphs(backend):
+        if not state.graph.captured:
             state.step()  # warm-up, and this burst's first step
             n -= 1
-            state.capture()
+            state.graph.capture(state.step)
         with span("backend.replay"):
             for _ in range(n):
-                state.replay()
+                state.graph.replay()
     else:
         for _ in range(n):
             state.step()
     backend.stats["bursts"] += 1
     with span("backend.fetch"):
         return state.trace[:, :n_steps].cpu().numpy()
+
+
+class _Step:
+    """Device state of the single decode step of one key: the params tree
+    (held, so that the key's id names it while the graph reads it), static
+    token and active buffers, the step's graph and its (B, vocab) logits,
+    the graph's output."""
+
+    def __init__(self, backend, params) -> None:
+        dev, b = backend.device, backend.num_slots
+        self.params = params
+        self.tokens = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.graph = _Graph(backend, "step")
+        self.logits = None
+
+
+def _run_step(backend, params, tokens, active_mask) -> torch.Tensor:
+    """One ``backend._step`` over all slots from host inputs (``tokens``
+    may be a device tensor); returns (B, vocab) fp32 logits that no later
+    call overwrites.  On a CUDA device without a mesh the step is keyed by
+    (params, route, the config flags), as bursts are without their
+    sampling: a key's first call runs eagerly over its static buffers (the
+    warm-up), its second captures the step as a graph over them and
+    replays it, and every later call replays.  On the CPU and under a mesh
+    the step runs eagerly."""
+    dev = backend.device
+    if not _graphs(backend):
+        return backend._step(params, _as_tensor(tokens, torch.int64, dev),
+                             _as_tensor(active_mask, torch.bool, dev))
+    key = (id(params), backend.route(params), config.snapshot())
+    state = backend._steps.get(key)
+    first = state is None
+    if first:
+        state = backend._steps[key] = _Step(backend, params)
+    _load(state.tokens, tokens)
+    _load(state.active, active_mask)
+
+    def step():
+        return backend._step(params, state.tokens, state.active)
+
+    if first:
+        return step()  # the warm-up
+    if not state.graph.captured:
+        state.logits = state.graph.capture(step)
+    state.graph.replay()
+    return state.logits.clone()
 
 
 class SlotsBackend:
@@ -306,7 +420,10 @@ class SlotsBackend:
         ]
         self._slot_ids = torch.arange(num_slots, dtype=torch.int64, device=self.device)
         self._bursts = {}
-        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0}
+        self._steps = {}
+        self._graph_pool = None
+        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0,
+                      "step_captures": 0, "step_replays": 0}
 
     # -- admission (slot rows are pre-sized to max_len) -----------------------
 
@@ -452,11 +569,9 @@ class SlotsBackend:
     @torch.no_grad()
     def decode(self, params, tokens, active_mask, active_slots=None) -> torch.Tensor:
         """One decode step over all slots (host inputs; ``tokens`` may be a
-        device tensor, as a draft's proposals are).  Returns (num_slots,
-        vocab) fp32 logits."""
-        tokens = _device_tokens(tokens, self.device)
-        active = torch.as_tensor(np.asarray(active_mask), device=self.device).to(torch.bool)
-        return self._step(params, tokens, active)
+        device tensor, as a draft's proposals are), replayed from a graph on
+        the card (``_run_step``).  Returns (num_slots, vocab) fp32 logits."""
+        return _run_step(self, params, tokens, active_mask)
 
     @torch.no_grad()
     def burst(
@@ -467,7 +582,7 @@ class SlotsBackend:
         (tokens, emitted mask[, logprobs]) of shape (2 or 3, n_steps, B),
         fetched once.  A slot's next token replaces its current one only
         while it is active; it stops on its EOS id or its budget."""
-        key = (id(params), sp, want_lp, self.route(params))
+        key = (id(params), sp, want_lp, self.route(params), config.snapshot())
         return _run_burst(self, key, params, tokens, active, remaining, eos_ids, generator,
                           n_steps, sp, want_lp)
 
@@ -487,7 +602,7 @@ class SlotsBackend:
                 "speculative decoding is a single-chip path (the "
                 "multi-query verification kernel is not head-sharded)"
             )
-        tokens = _device_tokens(cand, self.device)
+        tokens = _as_tensor(cand, torch.int64, self.device)
         t_width = tokens.shape[1]
         pos = torch.as_tensor(np.asarray(positions), dtype=torch.int32, device=self.device)
         ids = self._tensor(np.flatnonzero(np.asarray(active_mask, bool)))
@@ -575,7 +690,10 @@ class PagedBackend:
         self._tables = torch.zeros((num_slots, pages_per_seq), dtype=torch.int32, device=self.device)
         self._positions = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
         self._bursts = {}
-        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0}
+        self._steps = {}
+        self._graph_pool = None
+        self.stats = {"bursts": 0, "graph_captures": 0, "graph_replays": 0,
+                      "step_captures": 0, "step_replays": 0}
 
     # -- admission -------------------------------------------------------------
 
@@ -766,16 +884,15 @@ class PagedBackend:
 
     @torch.no_grad()
     def decode(self, params, tokens, active_mask, active_slots=None) -> torch.Tensor:
-        """One decode step over all slots (host inputs).  Returns
-        (num_slots, vocab) fp32 logits."""
+        """One decode step over all slots (host inputs), replayed from a
+        graph on the card (``_run_step``) over the tables refreshed from the
+        host allocator.  Returns (num_slots, vocab) fp32 logits."""
         mask = np.asarray(active_mask, bool)
         for slot in np.flatnonzero(mask):
             # Admission reserved the full footprint: a guard, no growth.
             self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + 1, self.page_size)
         self._load_tables()
-        tokens = _device_tokens(tokens, self.device)
-        active = torch.as_tensor(mask, device=self.device)
-        logits = self._step(params, tokens, active)
+        logits = _run_step(self, params, tokens, mask)
         self.alloc.lengths[mask] += 1
         return logits
 
@@ -791,7 +908,7 @@ class PagedBackend:
         for slot in np.flatnonzero(mask):
             self.alloc.allocate(int(slot), int(self.alloc.lengths[slot]) + n_steps, self.page_size)
         self._load_tables()
-        key = (id(params), sp, want_lp, self.route(params))
+        key = (id(params), sp, want_lp, self.route(params), config.snapshot())
         packed = _run_burst(self, key, params, tokens, active, remaining, eos_ids, generator,
                             n_steps, sp, want_lp)
         emits = packed[1] != 0.0 if want_lp else packed[1].astype(bool)
@@ -809,7 +926,7 @@ class PagedBackend:
         inactive lanes write the trash page.  The host lengths stay as they
         were until ``rollback``.  Returns (num_slots, T, vocab) fp32
         logits."""
-        tokens = _device_tokens(cand, self.device)
+        tokens = _as_tensor(cand, torch.int64, self.device)
         t_width = tokens.shape[1]
         mask = np.asarray(active_mask, bool)
         for slot in np.flatnonzero(mask):

@@ -90,10 +90,18 @@ share one ``prefill_started_at``); ``engine.decode`` (one eager step
 through emission);
 ``engine.burst`` (one burst through its emission); inside those
 ``engine.sample`` (sampling and the host fetch) and ``engine.emit`` (the
-tokens' records and ``on_token`` callbacks); and, inside a burst, the
+tokens' records and ``on_token`` callbacks); inside a burst, the
 backend's ``backend.capture``, ``backend.replay`` (the burst's graph
-replays, one range) and ``backend.fetch``.  Nothing is marked per layer or
-per replay.
+replays, one range) and ``backend.fetch``; inside an eager step, the
+backend's ``backend.capture`` when it captures the single step's graph.
+Nothing is marked per layer or per replay.
+
+The backend's counters (``_backend.stats``, ``serving/backends``):
+``bursts``; ``graph_captures`` and ``graph_replays``, the burst graph's,
+one replay a burst step; ``step_captures`` and ``step_replays``, the
+single step's graph, one replay an eager step on the card but a key's
+first (``decode_steps`` less ``graph_replays`` counts the eager steps).
+"Eager" names the steps outside bursts, replayed or not.
 
 Not ported (raises ``NotImplementedError``): ``decode_block_kv`` (ROADMAP
 queue 1, item 10).

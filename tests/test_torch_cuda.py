@@ -1178,11 +1178,27 @@ def _filled_backend(cfg, dev, lengths):
     return be
 
 
+def _uncaptured_steps(be, params, toks, n):
+    """n greedy steps of the backend's own ``_step``, never captured (the
+    paged tables loaded once; the step advances the device positions),
+    every slot active; each step's tokens as host arrays."""
+    if hasattr(be, "_load_tables"):
+        be._load_tables()
+    cur = torch.as_tensor(np.asarray(toks), dtype=torch.int64, device=be.device)
+    active = torch.ones(be.num_slots, dtype=torch.bool, device=be.device)
+    steps = []
+    with torch.no_grad():
+        for _ in range(n):
+            cur = be._step(params, cur, active).argmax(-1)
+            steps.append(cur.cpu().numpy())
+    return steps
+
+
 @pytest.mark.parametrize("megastep_flag", [True, False], ids=["k9", "lean_k8"])
 def test_graph_burst_equals_eager_steps(cuda, megastep_flag):
     """A burst captured as a CUDA graph (one eager step, then replays of the
-    captured step; a second burst replays only) gives the tokens of eager
-    per-step decode calls from the same state: the kernels are
+    captured step; a second burst replays only) gives the tokens of the
+    uncaptured step run from the same state: the kernels are
     deterministic.  Each replay credits the kernels it launches."""
     from quantumattention_tpu_torch.ops import megastep, qmlp
     from quantumattention_tpu_torch.serving.sampling import SamplingParams
@@ -1201,12 +1217,10 @@ def test_graph_burst_equals_eager_steps(cuda, megastep_flag):
         b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
                      None, 4, SamplingParams(), False)
         assert counter.launches - before == cfg.num_layers * 10
-        assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9}
+        assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9,
+                            "step_captures": 0, "step_replays": 0}
         ref = _filled_backend(cfg, cuda, lengths)
-        cur, steps = toks, []
-        for _ in range(10):
-            cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
-            steps.append(cur)
+        steps = _uncaptured_steps(ref, params, toks, 10)
     np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), np.stack(steps))
     for x, y in zip(be.caches, ref.caches):
         assert torch.equal(x.lengths, y.lengths) and torch.equal(x.k, y.k)
@@ -1231,6 +1245,7 @@ def test_sampled_graph_burst_on_card(cuda):
 def test_burst_spans_on_card(cuda, tmp_path):
     """Under the profiler, a burst on the card writes its graph's capture,
     its replays (one range a burst) and its fetch inside ``engine.burst``;
+    the single step's graph writes its capture inside ``engine.decode``;
     the kernels share the ranges' clock."""
     import json
 
@@ -1248,12 +1263,20 @@ def test_burst_spans_on_card(cuda, tmp_path):
              if e.get("cat") == "user_annotation" and e["name"].startswith(("engine.", "backend."))]
     names = [s[2] for s in spans]
     bursts = [s for s in spans if s[2] == "engine.burst"]
-    assert names.count("backend.capture") == eng._backend.stats["graph_captures"] == 1
+    steps = [s for s in spans if s[2] == "engine.decode"]
+    bstats = eng._backend.stats
+    assert bstats["graph_captures"] == bstats["step_captures"] == 1
+    assert names.count("backend.capture") == bstats["graph_captures"] + bstats["step_captures"]
     assert names.count("backend.replay") == names.count("backend.fetch") == len(bursts)
-    assert len(bursts) == eng._backend.stats["bursts"] >= 2
+    assert len(bursts) == bstats["bursts"] >= 2
+    in_steps = 0
     for t0, t1, name in spans:
         if name.startswith("backend."):
-            assert any(b0 <= t0 and t1 <= b1 for b0, b1, _ in bursts), name
+            in_step = any(b0 <= t0 and t1 <= b1 for b0, b1, _ in steps)
+            in_steps += in_step
+            assert any(b0 <= t0 and t1 <= b1 for b0, b1, _ in bursts) or (
+                in_step and name == "backend.capture"), name
+    assert in_steps == bstats["step_captures"]
     kernels = [float(e["ts"]) for e in events if e.get("cat") == "kernel"]
     assert kernels and min(kernels) >= min(s[0] for s in spans) - 1e6
 
@@ -1374,8 +1397,8 @@ def _filled_paged_backend(cfg, dev, lengths):
 
 def test_paged_graph_burst_equals_eager_steps(cuda):
     """A paged burst captured as a CUDA graph (K10 over the persistent page
-    table and positions) gives the tokens of eager per-step decode calls
-    from the same state; replays credit K10's launches."""
+    table and positions) gives the tokens of the uncaptured step run from
+    the same state; replays credit K10's launches."""
     from quantumattention_tpu_torch.ops.paged import paged_decode_attention
     from quantumattention_tpu_torch.serving.sampling import SamplingParams
 
@@ -1390,13 +1413,11 @@ def test_paged_graph_burst_equals_eager_steps(cuda):
     b = be.burst(params, a[0][-1], ones, np.full(16, 20, np.int32), np.full(16, -1, np.int32),
                  None, 4, SamplingParams(), False)
     assert paged_decode_attention.launches - before == cfg.num_layers * 10
-    assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9}
+    assert be.stats == {"bursts": 2, "graph_captures": 1, "graph_replays": 9,
+                        "step_captures": 0, "step_replays": 0}
     np.testing.assert_array_equal(be.host_lengths(), np.asarray(lengths) + 10)
     ref = _filled_paged_backend(cfg, cuda, lengths)
-    cur, steps = toks, []
-    for _ in range(10):
-        cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
-        steps.append(cur)
+    steps = _uncaptured_steps(ref, params, toks, 10)
     np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), np.stack(steps))
     for x, y in zip(be.pages, ref.pages):
         assert torch.equal(x.k, y.k) and torch.equal(x.v_scale, y.v_scale)
@@ -2092,8 +2113,9 @@ def test_moe_layer_launches_3e_products(cuda):
 
 def test_moe_decode_step_graph_equals_eager(cuda):
     """A captured burst of an int8 MoE tree (the unfused step: neither K8
-    nor K9 takes MoE) gives the tokens of eager steps from the same state,
-    and one captured step's logits equal the eager step's bit for bit."""
+    nor K9 takes MoE) gives the tokens of the uncaptured step from the same
+    state, and one captured step's logits equal the eager step's bit for
+    bit."""
     from quantumattention_tpu_torch.ops import megastep, qmlp
     from quantumattention_tpu_torch.serving.sampling import SamplingParams
 
@@ -2109,10 +2131,7 @@ def test_moe_decode_step_graph_equals_eager(cuda):
     assert be.stats["graph_captures"] == 1 and be.stats["graph_replays"] == 5
     assert (qmlp.fused_layer_tail.launches, megastep.fused_decode_layer.launches) == (k8, k9)
     ref = _filled_backend(cfg, cuda, lengths)
-    cur, steps = toks, []
-    for _ in range(6):
-        cur = ref.decode(params, cur, ones).argmax(-1).cpu().numpy()
-        steps.append(cur)
+    steps = _uncaptured_steps(ref, params, toks, 6)
     np.testing.assert_array_equal(a[0], np.stack(steps))
     one = _filled_backend(cfg, cuda, lengths)
     saved = [c.lengths.clone() for c in one.caches]
@@ -2139,6 +2158,143 @@ def test_moe_decode_step_graph_equals_eager(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+def _draft_model(dev):
+    """``_spec_model``'s draft: a 1-layer bf16 tree at head dim 64."""
+    _, _, dparams, dcfg = _spec_model(dev)
+    return dcfg, dparams
+
+
+#: The single step's graph on each route: backend, tree, and the route
+#: taken.  "draft" feeds each call the previous call's argmax as a device
+#: tensor, gamma + 1 = 5 calls in a row, as a speculative round's draft does.
+STEP_GRAPH_CASES = {
+    "k9": (_filled_backend, _burst_model, True, "mega"),
+    "int8_unfused": (_filled_backend, _burst_model, False, "unfused"),
+    "moe": (_filled_backend, _moe_tree, True, "unfused"),
+    "paged": (_filled_paged_backend, _burst_model, True, "paged"),
+    "draft": (_filled_backend, _draft_model, True, "unfused"),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_GRAPH_CASES))
+def test_step_graph_replays_equal_uncaptured_steps(cuda, case):
+    """``decode`` on the card, n calls: the first eager, the second captures
+    the step and replays it, the rest replay (``step_captures`` 1,
+    ``step_replays`` n - 1, the burst counters untouched).  Each call's
+    logits equal the uncaptured ``_step``'s from the same state and tokens
+    bit for bit, and stay so through the later calls (a copy, not the
+    graph's buffer); the launch counters move as for n uncaptured steps; the
+    caches end equal, and the paged host lengths advance every call."""
+    from quantumattention_tpu_torch.serving.backends import _launch_counters
+
+    make, model, megastep_flag, route = STEP_GRAPH_CASES[case]
+    lengths = [3, 0, 17, 40] + [9] * 12
+    n = 5
+    with qt.config.patch({"kernel.megastep": megastep_flag}):
+        cfg, params = model(cuda)
+        be, ref = make(cfg, cuda, lengths), make(cfg, cuda, lengths)
+        assert be.route(params) == route
+        counters = _launch_counters()
+
+        def launched():
+            return [getattr(fn, attr) for fn, attr in counters]
+
+        ones = np.ones(16, bool)
+        cur = np.arange(16) * 5 % cfg.vocab_size
+        if case == "draft":
+            cur = torch.as_tensor(cur, device=cuda)
+        rows, outs, snaps = [], [], []
+        before = launched()
+        for _ in range(n):
+            rows.append(cur)
+            outs.append(be.decode(params, cur, ones))
+            snaps.append(outs[-1].clone())
+            cur = outs[-1].argmax(-1)
+            if case != "draft":
+                cur = cur.cpu().numpy()
+        moved = [b - a for a, b in zip(before, launched())]
+        if hasattr(ref, "_load_tables"):
+            ref._load_tables()
+        active = torch.ones(16, dtype=torch.bool, device=cuda)
+        before = launched()
+        with torch.no_grad():
+            want = [ref._step(params, torch.as_tensor(r, dtype=torch.int64, device=cuda), active)
+                    for r in rows]
+        assert moved == [b - a for a, b in zip(before, launched())] and any(moved)
+    torch.cuda.synchronize()
+    assert be.stats == {"bursts": 0, "graph_captures": 0, "graph_replays": 0,
+                        "step_captures": 1, "step_replays": n - 1}
+    for i, (got, snap, exp) in enumerate(zip(outs, snaps, want)):
+        assert torch.equal(got, snap) and torch.equal(got, exp), i
+    if case == "paged":
+        np.testing.assert_array_equal(be.host_lengths(), np.asarray(lengths) + n)
+        for x, y in zip(be.pages, ref.pages):
+            assert torch.equal(x.k, y.k) and torch.equal(x.v, y.v) and torch.equal(x.k_scale, y.k_scale)
+    else:
+        for x, y in zip(be.caches, ref.caches):
+            assert torch.equal(x.lengths, y.lengths) and torch.equal(x.k, y.k) and torch.equal(x.v, y.v)
+
+
+def test_step_graph_follows_a_flag_change(cuda):
+    """After a step graph of the unfused int8 route is captured with K8
+    (``kernel.qmlp`` on), a call with the flag off runs the step without K8
+    (a graph of its own, first eager) and gives the uncaptured step's
+    logits under that flag bit for bit; back on, the first graph replays."""
+    from quantumattention_tpu_torch.ops import qmlp
+
+    lengths = [3, 0, 17, 40] + [9] * 12
+    ones = np.ones(16, bool)
+    active = torch.ones(16, dtype=torch.bool, device=cuda)
+    with qt.config.patch({"kernel.megastep": False}):
+        cfg, params = _burst_model(cuda)
+        be, ref = _filled_backend(cfg, cuda, lengths), _filled_backend(cfg, cuda, lengths)
+        cur = np.arange(16) * 5 % cfg.vocab_size
+        got, want, k8 = [], [], []
+        for flag in (True, True, False, False, True):
+            with qt.config.patch({"kernel.qmlp": flag}), torch.no_grad():
+                before = qmlp.fused_layer_tail.launches
+                got.append(be.decode(params, cur, ones))
+                k8.append(qmlp.fused_layer_tail.launches - before)
+                want.append(ref._step(params, torch.as_tensor(cur, dtype=torch.int64, device=cuda), active))
+            cur = want[-1].argmax(-1).cpu().numpy()
+    torch.cuda.synchronize()
+    assert k8 == [cfg.num_layers, cfg.num_layers, 0, 0, cfg.num_layers]
+    assert be.stats["step_captures"] == 2 and be.stats["step_replays"] == 3
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+
+
+def test_engine_step_graph_on_card_matches_cpu(cuda, monkeypatch):
+    """Two slots and five prompts: eager steps run between the prefill
+    forwards, replayed from the step's graph on the card.  The card engine
+    gives the CPU engine's first tokens and counters, and every token of
+    the same card engine with its graphs off (``_graphs`` false, the
+    uncaptured steps)."""
+    from quantumattention_tpu_torch.serving import backends
+
+    cfg, params = _burst_model("cpu")
+    prompts = [[3, 17, 42, 99, 7], [5, 9, 23, 51], list(range(1, 40)), [8, 8, 2], list(range(60, 90))]
+
+    def serve(dev):
+        flags = {"kernel.megastep": "force", "kernel.qmlp": "force", "kernel.qmm": "force"} if dev == "cpu" else {}
+        with qt.config.patch(flags):
+            eng = Engine(_tree_on(params, dev), cfg, num_slots=2, max_len=64)
+            reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            eng.run_to_completion(decode_burst=4)
+        assert all(r.done and len(r.output) == 8 for r in reqs)
+        return eng, [r.output for r in reqs]
+
+    cpu, cpu_out = serve("cpu")
+    card, card_out = serve("cuda")
+    bs = card._backend.stats
+    assert card.timings["eager_steps"] == cpu.timings["eager_steps"] > len(prompts)
+    assert bs["step_captures"] == 1 and bs["step_replays"] == card.timings["eager_steps"] - 1
+    assert [o[0] for o in card_out] == [o[0] for o in cpu_out] and card.stats == cpu.stats
+    monkeypatch.setattr(backends, "_graphs", lambda backend: False)
+    plain, plain_out = serve("cuda")
+    assert plain._backend.stats["step_replays"] == 0 and card_out == plain_out
 
 
 @pytest.mark.parametrize("mode", [True, "int4"], ids=["int8", "int4"])

@@ -187,4 +187,5 @@ def test_stats_keep_the_jax_engines_keys(params):
     eng, _ = _serve(params)
     assert set(eng.stats) == set(je.stats)
     assert not set(eng.timings) & set(eng.stats)
-    assert set(eng._backend.stats) == {"bursts", "graph_captures", "graph_replays"}
+    assert set(eng._backend.stats) == {"bursts", "graph_captures", "graph_replays", "step_captures",
+                                       "step_replays"}
