@@ -4,12 +4,12 @@
 
 For each seed, at the cell's own size and load: the engine serves one wave
 of the cell's traffic, the same sample of finished requests as a run is
-drawn, and the float32 reference reads (a) the widest gap of the served
-tokens below its best and their mean gap, the program's readings, and
-(b) at each of those
-positions the gap of the token that the reference computed with every
-product's matrix rounded to int4 puts first, the control: the nearest
-precision below the configuration's int8 weights.  ``--witness`` adds the
+drawn, and the configuration family's float32 reference reads (a) the
+widest gap of the served tokens below its best and their mean gap, the
+program's readings, and (b) at each of those positions the gap of the
+token that the reference computed with every product's matrix rounded to
+int4 puts first, the control: the nearest precision below the
+configuration's int8 weights.  ``--witness`` adds the
 same reference computed in bfloat16, which shows how far rounding alone
 moves the served tokens.  One JSON line a seed.
 The benchmark's own runs never run this.
@@ -32,11 +32,10 @@ def readings(workload: str, seed: int, device="cuda", cell=None, witness=False) 
 
     from perfbench import spec
     from perfbench.drivers import serve
-    from perfbench.reference import llama as ref
     from perfbench.traffic import load as load_traffic
 
     cell = cell or spec.load_cell(workload)
-    cfg = spec.llama_config(cell["model"])
+    cfg = spec.program_config(cell["model"])
     eng = serve.build_engine(cell, cfg, seed, torch.device(device))
     gen = load_traffic(cell["traffic"], cfg.vocab_size, seed)
     records = serve.run_wave(eng, gen.wave(0), cell["engine"]["decode_burst"])
@@ -45,7 +44,7 @@ def readings(workload: str, seed: int, device="cuda", cell=None, witness=False) 
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    variants = {"ref": lambda w: w, "int4": ref.int4_roundtrip}
+    variants = {"ref": lambda w: w, "int4": spec.family(cell["model"]).reference.int4_roundtrip}
     if witness:
         variants["bf16"] = (lambda w: w, torch.bfloat16)
     gaps = serve.reference_gaps(cell["model"], seed, sample, torch.device(device), variants=variants)

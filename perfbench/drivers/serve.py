@@ -2,10 +2,10 @@
 public calls, ``submit(..., on_token=)`` and ``run_to_completion(
 decode_burst=)``, by a closed loop of waves (``traffic/<kind>.py``).
 
-Set-up: weights drawn from the seed on the card (``perfbench/weights``),
-the program's own preparation of them (``fuse_projections`` for the fused
-format), the engine, then one warm-up wave of the cell's traffic cut short
-(``warm_up_wave``), so that the prefill shapes, kernels, library handles
+Set-up: weights drawn from the seed on the card by the configuration's
+family (``perfbench/families/``), the program's own preparation of them
+(``fuse_projections`` for the fused format), the engine, then one warm-up
+wave of the cell's traffic cut short (``warm_up_wave``), so that the prefill shapes, kernels, library handles
 and burst graph the window meets exist before it opens (a graph captured
 inside the window is reported on standard error).
 
@@ -13,33 +13,37 @@ The window runs waves until ``--seconds`` have passed, the last one to its
 end: it lasts from the first wave's submission to the last one's finish.
 Each request records its submission, the host time of each ``on_token``
 call and its token count.  Traced runs profile the window's second wave
-with the harness's spans around the engine's calls into its backend.
+with the harness's spans around the engine's calls into its backend: the
+whole wave, or where the cell gives ``traced_steps`` [a, b], the stretch
+from the call that begins at its a-th decode step to the one that begins
+at its b-th (a wave longer than a trace should hold).
 
 After the window: the peak memory, then the program's state is freed and
 a sample of the finished requests drawn from the seed, the longest among
-them, is run through the float32 reference with its served tokens; the
-widest gap by which a served token's logit lies below the reference's best
-decides ``correct`` with every request's completeness.
+them, is run through the family's float32 reference with its served
+tokens; the widest gap by which a served token's logit lies below the
+reference's best decides ``correct`` with every request's completeness.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import sys
 import time
 import types
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from perfbench import spec
 from perfbench import trace as trace_lib
-from perfbench import weights
-from perfbench.reference import llama as ref
 from perfbench.traffic import load as load_traffic
 
 PREFILL, DECODE, BURST = "prefill step", "eager decode step", "burst"
+TRACED_WAVE = 1  # the window's wave that a traced run profiles: its second
 DECODE_SPANS = (DECODE, BURST)
 PREFILL_SPANS = (PREFILL,)
 
@@ -51,7 +55,7 @@ def build_engine(cell: Dict, cfg, seed: int, device):
     fmt = cell["weights"]
     if fmt not in ("int8", "int8-fused"):
         raise ValueError(f"unknown serving weight format {fmt!r}")
-    tree = weights.int8_tree(cfg, seed, device)
+    tree = spec.family(cell["model"]).int8_tree(cfg, seed, device)
     if fmt == "int8-fused":
         tree = quantized.fuse_projections(tree)
     e = cell["engine"]
@@ -79,12 +83,15 @@ class Request:
         self.n += 1
 
 
-def warm_up_wave(wave, burst: int):
-    """The wave with each request's tokens cut to what warms every shape
-    the window meets: its prompts whole (the same prefill forwards), one
-    eager decode step after each forward (at most one a request), then a
-    first burst of the full ``burst`` steps, which captures the burst graph
-    at the size every later burst replays within."""
+def warm_up_wave(wave, burst: int, slots: Optional[int] = None):
+    """The wave's first ``slots`` requests (a wave that queues past the
+    slots meets no shape its first slots-full does not) with each request's
+    tokens cut to what warms every shape the window meets: its prompts whole
+    (the same prefill forwards), one eager decode step after each forward
+    (at most one a request), then a first burst of the full ``burst`` steps,
+    which captures the burst graph at the size every later burst replays
+    within."""
+    wave = wave[:slots]
     cap = len(wave) + burst + 1
     return [(p, min(n, cap)) for p, n in wave]
 
@@ -100,27 +107,49 @@ def run_wave(eng, wave, burst: int) -> List[Request]:
 
 
 class Recorder:
-    """Spans and work records of the engine's calls into its backend
-    during a traced wave (installed on the backend instance, removed
-    after)."""
+    """The profiler, with spans and work records of the engine's calls into
+    its backend, over a traced wave (installed on the backend instance,
+    removed after): the whole wave, or given ``steps`` (a, b), from before
+    the first call that begins at the wave's a-th decode step or later to
+    before the first that begins at its b-th or later."""
 
     NAMES = ("prefill_and_write", "decode", "burst")
 
-    def __init__(self, eng) -> None:
+    def __init__(self, eng, steps: Optional[Sequence[int]] = None) -> None:
         self.eng, self.backend = eng, eng._backend
         self.calls: List[Dict] = []
         self._orig = {}
+        self.steps = steps
+        self.step = 0  # decode steps of the wave before the current call
+        self.on = steps is None
+        self.trace_path = None
+        self._profile = contextlib.ExitStack()
+
+    def _stretch(self) -> None:
+        if self.steps is None:
+            return
+        if self.trace_path is None and self.step >= self.steps[0]:
+            self.trace_path = self._profile.enter_context(trace_lib.profiled(True))
+            self.on = True
+        if self.on and self.step >= self.steps[1]:
+            self._profile.close()
+            self.on = False
 
     def _lengths(self) -> Dict[int, int]:
         """Each active slot's cache length once this step has appended."""
         return {slot: len(r.prompt) + len(r.output) for slot, r in self.eng.active.items()}
 
     def __enter__(self):
+        if self.on:
+            self.trace_path = self._profile.enter_context(trace_lib.profiled(True))
         b = self.backend
         self._orig = {n: getattr(b, n) for n in self.NAMES}
         cuda = b.device.type == "cuda"
 
         def prefill(*args):
+            self._stretch()
+            if not self.on:
+                return self._orig["prefill_and_write"](*args)
             with torch.profiler.record_function(PREFILL):
                 t = time.perf_counter()
                 out = self._orig["prefill_and_write"](*args)
@@ -131,6 +160,10 @@ class Recorder:
             return out
 
         def decode(*args):
+            self._stretch()
+            self.step += 1
+            if not self.on:
+                return self._orig["decode"](*args)
             steps = [list(self._lengths().values())]
             with torch.profiler.record_function(DECODE):
                 out = self._orig["decode"](*args)
@@ -138,7 +171,11 @@ class Recorder:
             return out
 
         def burst(*args):
+            self._stretch()
             remaining, n = args[3], args[6]
+            self.step += n
+            if not self.on:
+                return self._orig["burst"](*args)
             lengths = self._lengths()
             steps = [[n0 + j for s, n0 in lengths.items() if j < remaining[s]] for j in range(n)]
             with torch.profiler.record_function(BURST):
@@ -153,6 +190,7 @@ class Recorder:
     def __exit__(self, *exc):
         for n, fn in self._orig.items():
             setattr(self.backend, n, fn)
+        self._profile.close()
         return False
 
 
@@ -162,15 +200,6 @@ def _counters(eng) -> Dict[str, int]:
 
 def percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
-
-
-def hf_sizes(model: Dict):
-    """The sizes ``perfbench/weights`` draws by, from the published keys
-    alone (the reference's side takes nothing of the program's config)."""
-    s = ref.shape_of(model["config"])
-    return types.SimpleNamespace(
-        hidden_size=s.hidden, intermediate_size=s.inter, num_layers=s.layers, num_q_heads=s.q_heads,
-        num_kv_heads=s.kv_heads, head_dim=s.head_dim, vocab_size=s.vocab, num_experts=s.experts)
 
 
 def sample_requests(records: List[Request], k: int, seed: int) -> List[Request]:
@@ -191,13 +220,14 @@ def reference_gaps(model: Dict, seed: int, sample: List[Request], device, varian
     for "ref" how far each served token's logit lies below the reference's
     best; for any other variant, the reference's gap of the token that
     variant puts first."""
-    sizes = hf_sizes(model)
-    shape = ref.shape_of(model["config"])
+    fam = spec.family(model)
+    ref = fam.reference
+    sizes = fam.sizes(model)
     seqs = [list(r.prompt) + list(r.req.output[:-1]) for r in sample]
     pos = [range(len(r.prompt) - 1, len(r.prompt) + len(r.req.output) - 1) for r in sample]
     logits = ref.logits_at(
-        shape, seqs, pos, weights.int8_top(sizes, seed, device),
-        lambda i: weights.int8_layer(sizes, i, seed, device), variants=variants)
+        ref.shape_of(model["config"]), seqs, pos, fam.int8_top(sizes, seed, device),
+        lambda i: fam.int8_layer(sizes, i, seed, device), variants=variants)
     out = {"ref": [ref.served_gaps(lg, r.req.output) for lg, r in zip(logits["ref"], sample)]}
     for name, per_seq in logits.items():
         if name != "ref":
@@ -209,7 +239,7 @@ def gap_readings(gaps: torch.Tensor) -> Dict[str, float]:
     """The numbers a cell may compare: the widest gap of a served token
     below the reference's best, and the mean gap over the served tokens
     (steady where rounding alone flips a token now and then, as near-tied
-    expert choices do in a random Mixtral)."""
+    expert choices do in a random MoE model)."""
     if not gaps.numel():
         return {"gap_max": float("inf"), "gap_mean": float("inf")}
     return {"gap_max": float(gaps.max()), "gap_mean": float(gaps.mean())}
@@ -228,7 +258,7 @@ def run(cell: Dict, cfg, seed: int, seconds: float, traced: bool, t_process: flo
     gen = load_traffic(cell["traffic"], cfg.vocab_size, seed)
     burst = cell["engine"]["decode_burst"]
     t = time.perf_counter()
-    run_wave(eng, warm_up_wave(gen.wave(-1), burst), burst)
+    run_wave(eng, warm_up_wave(gen.wave(-1), burst, cell["engine"]["num_slots"]), burst)
     if cuda:
         torch.cuda.synchronize()
     phases["warm_up"] = time.perf_counter() - t
@@ -244,14 +274,17 @@ def run(cell: Dict, cfg, seed: int, seconds: float, traced: bool, t_process: flo
     wave_s = []
     while True:
         t_wave = time.perf_counter()
-        if traced and index == 1:
-            with trace_lib.profiled(True) as trace_path, Recorder(eng) as rec:
+        if traced and index == TRACED_WAVE:
+            with Recorder(eng, cell.get("traced_steps")) as rec:
                 records += run_wave(eng, gen.wave(index), burst)
+            trace_path = rec.trace_path
+            if trace_path is None:
+                raise ValueError(f"traced_steps {cell['traced_steps']} begin past the wave's {rec.step} decode steps")
         else:
             records += run_wave(eng, gen.wave(index), burst)
         wave_s.append(time.perf_counter() - t_wave)
         index += 1
-        if time.perf_counter() - t0 >= seconds and (index >= 2 or not traced):
+        if time.perf_counter() - t0 >= seconds and (index > TRACED_WAVE or not traced):
             break
     window_s = time.perf_counter() - t0
     counters = {k: v - before[k] for k, v in _counters(eng).items()}
@@ -278,8 +311,8 @@ def run(cell: Dict, cfg, seed: int, seconds: float, traced: bool, t_process: flo
         os.unlink(trace_path)
         print(f"trace: {size / 1e6:.0f} MB, {tr.events} events, {len(tr.ops)} device ops, read in "
               f"{time.perf_counter() - t_parse:.1f} s", file=sys.stderr)
-        ctx = types.SimpleNamespace(cfg=cfg, cell=cell, counters=counters, calls=rec.calls, trace=tr,
-                                    DECODE_SPANS=DECODE_SPANS, PREFILL_SPANS=PREFILL_SPANS)
+        ctx = types.SimpleNamespace(cfg=cfg, cell=cell, wave=TRACED_WAVE, counters=counters, calls=rec.calls,
+                                    trace=tr, DECODE_SPANS=DECODE_SPANS, PREFILL_SPANS=PREFILL_SPANS)
 
     incomplete = [r for r in records if not r.req.done or len(r.req.output) != r.new or r.n != r.new]
     sample = sample_requests(records, cell["check"]["sample_requests"], seed)

@@ -217,8 +217,6 @@ def measure(cell: Dict, cfg, seed: int, seconds: float, t_process: float, traced
     ``--trace 1`` runs are, or not) with each wave's timings and, traced,
     the program's spans read beside it; ``e2e`` and ``harness`` hold the
     harness's own readings of the same run."""
-    import torch
-
     from perfbench import run as run_lib
     from perfbench import spec
     from perfbench.drivers import serve
@@ -228,10 +226,9 @@ def measure(cell: Dict, cfg, seed: int, seconds: float, t_process: float, traced
 
     def timed_wave(eng, wave, burst):
         before = dict(getattr(eng, "timings", {}))
-        on = torch._C._autograd._profiler_enabled()
         out = run_wave(eng, wave, burst)
         after = getattr(eng, "timings", {})
-        waves.append({"traced": on, "timings": {k: v - before[k] for k, v in after.items()}})
+        waves.append({"timings": {k: v - before[k] for k, v in after.items()}})
         return out
 
     def traced_trace(path, labels):
@@ -245,6 +242,8 @@ def measure(cell: Dict, cfg, seed: int, seconds: float, t_process: float, traced
     finally:
         serve.run_wave, trace_lib.Trace = run_wave, make_trace
     window = waves[1:]  # the first wave warms up
+    for i, w in enumerate(window):
+        w["traced"] = traced and i == out["ctx"].wave
     timings = summed(w["timings"] for w in window)
     res = {"workload": cell["name"], "seed": seed, "traced": traced, "correct": out["correct"],
            "e2e": out["e2e"], "waves": len(window), "timings": timings,
@@ -293,7 +292,7 @@ def main(argv=None) -> int:
         print(f"error: {args.workload} needs a CUDA card", file=sys.stderr)
         return 2
     t = time.perf_counter()
-    res = measure(cell, spec.llama_config(cell["model"]), args.seed, args.seconds, t_process,
+    res = measure(cell, spec.program_config(cell["model"]), args.seed, args.seconds, t_process,
                   traced=bool(args.trace))
     res["device"] = torch.cuda.get_device_name(0)
     res["measure_s"] = time.perf_counter() - t

@@ -90,7 +90,7 @@ def execute(workload: str, seed: int, seconds: float, traced: bool, t_process: f
 
     bench = bench or spec.benchmark()
     cell = cell or spec.load_cell(workload)
-    cfg = spec.llama_config(cell["model"])
+    cfg = spec.program_config(cell["model"])
     driver = importlib.import_module(f"perfbench.drivers.{cell['driver']}")
     out = driver.run(cell, cfg, seed, seconds, traced, t_process, device=device)
     e2e, layer = cell_metrics(bench, workload)

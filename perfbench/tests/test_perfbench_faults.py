@@ -10,8 +10,8 @@ from perfbench import run
 from perfbench.tests import tiny
 
 
-def _run(moe=False):
-    cell = tiny.cell(moe)
+def _run(moe=False, queue=False):
+    cell = tiny.cell(moe, queue=queue)
     with tiny.kernels_forced():
         return run.execute(cell["name"], 4242, 0.3, False, 0.0, device="cpu", bench=tiny.BENCH, cell=cell)
 
@@ -47,3 +47,20 @@ def test_unchanged_state_fails(monkeypatch, moe):
     monkeypatch.setattr(backends.kvc, "append", lambda cache, *a, **k: cache)
     res = _run(moe)
     assert res["correct"] is False
+
+
+def test_backlog_faults_fail(monkeypatch):
+    """The same faults in a wave four times the slots, whose steps while
+    requests wait are single steps."""
+    from quantumattention_tpu_torch.serving import backends, engine
+
+    assert _run(queue=True)["correct"] is True
+    with monkeypatch.context() as m:
+        m.setattr(backends.kvc, "append_quantized_token", lambda cache, *a, **k: cache)
+        m.setattr(backends.kvc, "append", lambda cache, *a, **k: cache)
+        assert _run(queue=True)["correct"] is False
+    for mod in (engine, backends):
+        sample = mod.sample
+        monkeypatch.setattr(mod, "sample", lambda logits, *a, _s=sample, **k: (_s(logits, *a, **k) + 1) % logits.shape[-1])
+    res = _run(queue=True)
+    assert res["correct"] is False and res["checks"]["gap_max"]["value"] > res["checks"]["gap_max"]["limit"]

@@ -100,7 +100,7 @@ def test_a_program_without_spans_or_timings_reads_nothing(tmp_path):
 
 
 def _ctx(tr):
-    cfg = spec.llama_config(tiny.model())
+    cfg = spec.program_config(tiny.model())
     calls = [{"kind": "prefill", "host_s": 0.2, "prompt_lens": [60, 60]},
              {"kind": "decode", "steps": [[61, 61]]},
              {"kind": "burst", "host_s": 0.1, "steps": [[62, 62], [63, 63]]}]
@@ -142,9 +142,9 @@ def test_the_script_starts_and_wants_a_card():
 def test_tiny_run_reads_timings_and_spans():
     cell = tiny.cell()
     with tiny.kernels_forced():
-        res = ps.measure(cell, spec.llama_config(cell["model"]), 2**31 + 77, 0.5, 0.0, device="cpu",
+        res = ps.measure(cell, spec.program_config(cell["model"]), 2**31 + 77, 0.5, 0.0, device="cpu",
                          bench=tiny.BENCH)
-        untraced = ps.measure(cell, spec.llama_config(cell["model"]), 2**31 + 78, 0.2, 0.0, traced=False,
+        untraced = ps.measure(cell, spec.program_config(cell["model"]), 2**31 + 78, 0.2, 0.0, traced=False,
                               device="cpu", bench=tiny.BENCH)
     assert untraced["correct"] is True and "idle_s" not in untraced
     assert set(untraced["readings"]) == {"queue_wait_ms", "queue_wait_decode_pct", "eager_step_ms"}

@@ -8,8 +8,8 @@ import dataclasses
 import pytest
 import torch
 
-from perfbench import spec, weights
-from perfbench.drivers.serve import hf_sizes
+from perfbench import spec
+from perfbench.families import llama as family
 from perfbench.reference import llama as ref
 from perfbench.tests import tiny
 
@@ -19,16 +19,16 @@ def test_reference_matches_port_in_float32(moe):
     from quantumattention_tpu_torch.models import llama
 
     model = tiny.model(moe)
-    cfg = dataclasses.replace(spec.llama_config(model), dtype=torch.float32, attention_impl="sdpa")
+    cfg = dataclasses.replace(spec.program_config(model), dtype=torch.float32, attention_impl="sdpa")
     seed = 2**31 + 5
-    tree = weights.int8_tree(cfg, seed, "cpu")
+    tree = family.int8_tree(cfg, seed, "cpu")
     g = torch.Generator().manual_seed(0)
     seqs = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (80, 37)]
     want = [llama.forward(tree, torch.tensor([s]), cfg)[0] for s in seqs]
-    sizes = hf_sizes(model)
+    sizes = family.sizes(model)
     got = ref.logits_at(ref.shape_of(model["config"]), seqs, [range(len(s)) for s in seqs],
-                        weights.int8_top(sizes, seed, "cpu"),
-                        lambda i: weights.int8_layer(sizes, i, seed, "cpu"))["ref"]
+                        family.int8_top(sizes, seed, "cpu"),
+                        lambda i: family.int8_layer(sizes, i, seed, "cpu"))["ref"]
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
@@ -38,9 +38,9 @@ def test_window_matters():
     """The reference's window is live at this size: without it the logits
     past the window move."""
     model = tiny.model()
-    sizes = hf_sizes(model)
+    sizes = family.sizes(model)
     seq = list(range(3, 83))
-    args = dict(top=weights.int8_top(sizes, 1, "cpu"), layer_fn=lambda i: weights.int8_layer(sizes, i, 1, "cpu"))
+    args = dict(top=family.int8_top(sizes, 1, "cpu"), layer_fn=lambda i: family.int8_layer(sizes, i, 1, "cpu"))
     shape = ref.shape_of(model["config"])
     a = ref.logits_at(shape, [seq], [range(80)], **args)["ref"][0]
     b = ref.logits_at(dataclasses.replace(shape, window=None), [seq], [range(80)], **args)["ref"][0]

@@ -36,3 +36,30 @@ def test_line(moe, traced):
         assert all(m["value"] == "not measured" for m in metrics.values())
     for check in line["checks"].values():
         assert set(check) == {"value", "limit"}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_backlog_line(traced):
+    """A wave four times the slots: every request ends, and a traced run
+    records only the calls of its ``traced_steps`` stretch."""
+    from perfbench import spec
+    from perfbench.drivers import serve
+
+    cell = tiny.cell(queue=True)
+    cfg = spec.program_config(cell["model"])
+    with tiny.kernels_forced():
+        out = serve.run(cell, cfg, 2**31 + 98, 0.2, traced, 0.0, device="cpu")
+    assert out["correct"] is True and out["failed"] == 0
+    assert out["attempted"] == cell["traffic"]["requests_per_wave"] * (2 if traced else 1)
+    if traced:
+        a, b = cell["traced_steps"]
+        calls = out["ctx"].calls
+        steps = sum(len(c["steps"]) for c in calls if c["kind"] != "prefill")
+        burst = cell["engine"]["decode_burst"]
+        assert b - a <= steps < b - a + burst
+        assert {c["kind"] for c in calls} == {"prefill", "decode", "burst"}
+        assert out["ctx"].trace.window_s > 0
+        # The host-timed readers of both phases find calls in the stretch
+        # (the device-timed ones find no kernels off the card).
+        assert run.reader("prefill_mfu").read(out["ctx"]) > 0
+        assert run.reader("decode_mfu").read(out["ctx"]) > 0

@@ -37,7 +37,7 @@ def test_cpu_engine_reads_zero():
     ``drivers/serve.py`` takes them, carry ``step_replays`` at 0 beside
     eager steps."""
     cell = tiny.cell()
-    cfg = spec.llama_config(cell["model"])
+    cfg = spec.program_config(cell["model"])
     with tiny.kernels_forced():
         eng = serve.build_engine(cell, cfg, 2**31 + 7, torch.device("cpu"))
         gen = load_traffic(cell["traffic"], cfg.vocab_size, 2**31 + 7)

@@ -35,7 +35,9 @@ def test_cell_traffic_fits_its_engine(path):
     cell = json.loads(path.read_text())
     eng = cell["engine"]
     wave = load(cell["traffic"], 32000, 3).wave(0)
-    assert len(wave) == cell["traffic"]["requests_per_wave"] <= eng["num_slots"]
+    # A wave may queue past the slots (a backlog), but in whole rounds of them.
+    assert len(wave) == cell["traffic"]["requests_per_wave"]
+    assert len(wave) <= eng["num_slots"] or len(wave) % eng["num_slots"] == 0
     assert max(len(p) + n for p, n in wave) <= eng["max_len"]
     assert cell["check"]["min_compared_tokens"] <= cell["check"]["sample_requests"] * cell["traffic"]["new_tokens"]
 
@@ -50,3 +52,11 @@ def test_warm_up_wave_keeps_prompts_and_one_full_burst():
     # of the 64 prefill forwards, and a full burst of 64 steps is left
     assert all(n - 1 - 64 >= 64 for _, n in warm) and all(n < 1000 for _, n in warm)
     assert warm_up_wave([([1, 2], 5)], 64) == [([1, 2], 5)]
+
+
+def test_warm_up_wave_of_a_backlog_is_its_first_slots():
+    from perfbench.drivers.serve import warm_up_wave
+
+    wave = load({**PARAMS, "requests_per_wave": 256}, 32000, 9).wave(-1)
+    assert warm_up_wave(wave, 64, 64) == warm_up_wave(wave[:64], 64)
+    assert warm_up_wave(wave[:64], 64, 64) == warm_up_wave(wave[:64], 64)

@@ -1,6 +1,7 @@
 """A tiny configuration and cells of the benchmark's shapes, for CPU tests:
 K9's head dim of 128 and slots in sixteens, a window shorter than the
-prompts; a Mixtral-style variant with 4 experts, top-2, dropless."""
+prompts; a Mixtral-style variant with 4 experts, top-2, dropless; a
+backlog of four times the slots, traced over a stretch of its steps."""
 
 import copy
 
@@ -29,15 +30,15 @@ BENCH = {
                    (("output_tok_s", "tokens/s"), ("ttft_p95_ms", "ms"), ("tpot_p95_ms", "ms"), ("setup_s", "s"))],
     "per_layer": [
         {"name": "burst_step_pct", "unit": "%", "source": "program_counter", "moves": "output_tok_s",
-         "workloads": ["tiny.waves", "tiny-moe.waves"]},
+         "workloads": ["tiny.waves", "tiny-moe.waves", "tiny-queue.waves"]},
         {"name": "decode_mfu", "unit": "%", "source": "host_clock", "moves": "output_tok_s",
-         "workloads": ["tiny.waves", "tiny-moe.waves"]},
+         "workloads": ["tiny.waves", "tiny-moe.waves", "tiny-queue.waves"]},
         {"name": "k9_roofline", "unit": "%", "source": "device_trace", "moves": "output_tok_s",
-         "workloads": ["tiny.waves"]},
+         "workloads": ["tiny.waves", "tiny-queue.waves"]},
         {"name": "qmm_decode_roofline", "unit": "%", "source": "device_trace", "moves": "output_tok_s",
          "workloads": ["tiny-moe.waves"]},
         {"name": "idle_pct.decode", "unit": "%", "source": "device_trace", "moves": "output_tok_s",
-         "workloads": ["tiny.waves", "tiny-moe.waves"]},
+         "workloads": ["tiny.waves", "tiny-moe.waves", "tiny-queue.waves"]},
     ],
 }
 
@@ -50,9 +51,17 @@ def model(moe: bool = False):
     return m
 
 
-def cell(moe: bool = False):
+def cell(moe: bool = False, queue: bool = False):
     c = copy.deepcopy(CELL)
     c["model"] = model(moe)
+    if queue:
+        # 64 requests into 16 slots: four rounds of one prefill forward and
+        # 11 decode steps, single steps while requests wait, bursts in the
+        # last.  The traced stretch holds a round's last single steps, the
+        # last round's forward and its first burst.
+        c["name"] = "tiny-queue.waves"
+        c["traffic"]["requests_per_wave"] = 4 * c["engine"]["num_slots"]
+        c["traced_steps"] = [30, 36]
     if moe:
         # Rounding flips near-tied expert choices here as in Mixtral, so the
         # MoE cell compares the mean gap, as the Mixtral cell does.
